@@ -1,0 +1,52 @@
+"""GAN config dataclasses (the GAN part of the reference's configs/base.py)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+from ..core.tdc import DeconvDims
+
+__all__ = ["DeconvSpec", "ConvSpec", "GANConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class DeconvSpec:
+    c_in: int
+    c_out: int
+    dims: DeconvDims
+    norm: str = "batch"  # batch | none
+    act: str = "relu"
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvSpec:
+    c_in: int
+    c_out: int
+    kernel: int
+    stride: int
+    norm: str = "batch"
+    act: str = "leaky_relu"
+
+
+@dataclasses.dataclass(frozen=True)
+class GANConfig:
+    arch_id: str
+    kind: Literal["gan"] = "gan"
+    z_dim: int = 100
+    seed_hw: int = 4  # spatial size after the stem projection
+    stem_ch: int = 1024
+    encoder: tuple[ConvSpec, ...] = ()  # image-to-image models (DiscoGAN, GP-GAN)
+    deconvs: tuple[DeconvSpec, ...] = ()
+    img_ch: int = 3
+    img_hw: int = 64
+    # generator deconv impl: "cuda_chained" (the CUDA engine for CUDA tensors,
+    # its plain version for CPU tensors) or "chained_ref" (the plain version
+    # everywhere).  The reference's names are accepted and mapped by
+    # models.gan.serve_impl.
+    deconv_impl: str = "ref"
+    conv_impl: str = "lax"  # the discriminator's (a later slice)
+    disc_channels: tuple[int, ...] = (64, 128, 256, 512)
+
+    @property
+    def n_deconv(self) -> int:
+        return len(self.deconvs)

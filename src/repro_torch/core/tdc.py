@@ -1,0 +1,122 @@
+"""TDC: Transforming-Deconv-to-Conv conversion (the paper's Fig. 2b).
+
+Deconvolution semantics (PyTorch ConvTranspose2d convention, per axis):
+
+    out[S*i + k - P] += x[i] * w[k]
+    H_O = S * (H_I - 1) + K_D - 2*P + OP
+
+Grouping output positions by residue rho = (o + P) mod S gives, with
+j = (o + P) // S, a stride-1 convolution of x with the ragged sub-kernel
+g_rho[t] = w[rho + S*t]; the output is the depth-to-space interleave
+out[S*j + rho - P] = out_rho[j].  Sub-kernels are stored flipped and padded
+to r taps at the high end, so each sub-problem is a plain cross-correlation
+and the zero taps sit at positions fixed by (K_D, S) alone: the structural
+sparsity the Winograd G-transform inherits (Cases 1/2/3 of Fig. 6).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from .winograd import get_transform
+
+__all__ = ["DeconvDims", "SubFilterPlan", "plan", "decompose_weights"]
+
+
+@dataclasses.dataclass(frozen=True)
+class DeconvDims:
+    """Static geometry of one deconv layer."""
+
+    kernel: int  # K_D (square)
+    stride: int  # S
+    padding: int  # P (symmetric)
+    output_padding: int = 0  # OP
+
+    @property
+    def kc(self) -> int:
+        """K_Cmax = ceil(K_D / S): the padded sub-kernel width."""
+        return -(-self.kernel // self.stride)
+
+    def out_size(self, in_size: int) -> int:
+        return self.stride * (in_size - 1) + self.kernel - 2 * self.padding + self.output_padding
+
+    def j_extent(self, in_size: int) -> int:
+        """Number of sub-conv output positions needed to cover the output."""
+        h_o = self.out_size(in_size)
+        return (h_o - 1 + self.padding) // self.stride + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class SubFilterPlan:
+    """Structural description of the S^2 sub-filters for (K_D, S, r)."""
+
+    dims: DeconvDims
+    r: int  # Winograd filter size the sub-kernels are padded to
+    taps_1d: tuple[tuple[int, ...], ...]  # per rho: flipped tap presence (len r)
+    nnz_winograd: np.ndarray  # (S, S) nonzero count of each transformed sub-filter
+    masks_winograd: np.ndarray  # (S, S, n, n) bool structural nonzero masks
+    case: np.ndarray  # (S, S) int: 1, 2, 3 per the paper's Fig. 6 (0 = other)
+
+    @property
+    def c_total(self) -> int:
+        """The paper's C(K_C): multiplies per m x m output tile across the
+        S^2 sub-filters.  C(3) = 49, C(2) = 36 for S = 2."""
+        return int(self.nnz_winograd.sum())
+
+
+def _tap_presence_1d(dims: DeconvDims, rho: int, r: int) -> np.ndarray:
+    """Flipped and padded tap-existence vector (length r) for residue rho."""
+    kc = dims.kc
+    kcr = math.ceil((dims.kernel - rho) / dims.stride)  # ragged tap count
+    g = np.zeros(kc)
+    g[:kcr] = 1.0
+    out = np.zeros(r)
+    out[:kc] = g[::-1]
+    return out
+
+
+def plan(dims: DeconvDims, m: int = 2, r: int = 3) -> SubFilterPlan:
+    """Structural sparsity plan for (K_D, S) under F(m, r)."""
+    if dims.kc > r:
+        raise ValueError(
+            f"K_C={dims.kc} > r={r}: kernel {dims.kernel} stride {dims.stride} "
+            f"not expressible in F({m},{r}); use a larger r."
+        )
+    tf = get_transform(m, r)
+    S, n = dims.stride, tf.n
+    masks = np.zeros((S, S, n, n), bool)
+    nnz = np.zeros((S, S), int)
+    case = np.zeros((S, S), int)
+    pres = [_tap_presence_1d(dims, rho, r) for rho in range(S)]
+    m1d = [tf.filter_mask1d(p) for p in pres]
+    for ry in range(S):
+        for rx in range(S):
+            masks[ry, rx] = np.outer(m1d[ry], m1d[rx])
+            nnz[ry, rx] = int(masks[ry, rx].sum())
+            zeros = n * n - nnz[ry, rx]
+            if zeros == 0:
+                case[ry, rx] = 1
+            elif zeros == n:
+                case[ry, rx] = 2
+            elif zeros == 2 * n - 1:
+                case[ry, rx] = 3
+    taps = tuple(tuple(int(v) for v in p) for p in pres)
+    return SubFilterPlan(dims, r, taps, nnz, masks, case)
+
+
+def decompose_weights(w: torch.Tensor, dims: DeconvDims, r: int = 3) -> torch.Tensor:
+    """Split deconv weights (K_D, K_D, N, M) into S^2 correlation-ready
+    sub-kernels, flipped and zero-padded to (S, S, r, r, N, M)."""
+    K, S, kc = dims.kernel, dims.stride, dims.kc
+    if w.shape[0] != K or w.shape[1] != K:
+        raise ValueError(f"weight spatial dims {tuple(w.shape[:2])} != K_D={K}")
+    out = w.new_zeros((S, S, r, r, w.shape[2], w.shape[3]))
+    for ry in range(S):
+        for rx in range(S):
+            for ty in range(math.ceil((K - ry) / S)):
+                for tx in range(math.ceil((K - rx) / S)):
+                    out[ry, rx, kc - 1 - ty, kc - 1 - tx] = w[ry + S * ty, rx + S * tx]
+    return out
