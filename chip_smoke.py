@@ -9,7 +9,8 @@ Phases, each printing one JSON line:
   kernel  the fused Winograd-DeConv kernel against its plain PyTorch version
           at the four DCGAN layer shapes (batch 8) and a K4S2, a K3S1 and a
           K2S3 shape, each also checked against conv_transpose2d plus the same
-          epilogue; kernel, plain and library times (CUDA events, median).
+          epilogue; kernel, plain and library device times (profiler) and
+          wall times of back-to-back calls (CUDA events).
   serve   DCGAN at its published widths through GanServeEngine (random
           weights from a seed): requests of 1, 3 and 8 images, then a run of
           more; checks the images against the plain-version generator, and
@@ -57,22 +58,42 @@ def peaks_for(name: str):
     return "SXM", PEAKS["SXM"]
 
 
-def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median of per-call CUDA-event times (ms), after a warm-up."""
+def wall_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """CUDA-event time of ``reps`` back-to-back calls, per call (ms): what a
+    caller waits, host overhead included where the host is the slower side."""
     import torch
 
     for _ in range(warmup):
         fn()
-    times = []
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3, name: str | None = None) -> float:
+    """Device time per call (ms) from the profiler: the summed duration of
+    the GPU work ``fn`` launches (only kernels whose name contains ``name``,
+    if given).  Fails when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages() if name is None or name in e.key)
+    if total <= 0:
+        fail(f"the profiler recorded no device time{'' if name is None else ' for ' + name}")
+    return total / reps / 1e3
 
 
 def cells_to_image(c, out_hw, padding):
@@ -136,9 +157,11 @@ def kernel_phase(torch, peaks):
         if not lib_err <= lib_tol:
             fail(f"kernel vs conv_transpose2d at {name}: max|err| {lib_err:.3e} > {lib_tol:.3e}")
 
-        ms = time_ms(lambda: run("cuda"))
-        plain_ms = time_ms(lambda: run("ref"), reps=20)
-        library_ms = time_ms(library, reps=20)
+        ms = device_ms(lambda: run("cuda"), name="fused_epi_kernel")
+        plain_ms = device_ms(lambda: run("ref"))
+        library_ms = device_ms(library)
+        walls = dict(ms_wall=wall_ms(lambda: run("cuda")), plain_ms_wall=wall_ms(lambda: run("ref"), reps=10),
+                     library_ms_wall=wall_ms(library, reps=10))
 
         pos_idx, sub_slices, _, _ = ops.packed_layout(dims)
         C = len(pos_idx)
@@ -154,7 +177,7 @@ def kernel_phase(torch, peaks):
         row = dict(name=name, B=B, H_in=H, N=N, M=M, C=C, T=T,
                    out_mode="cells" if emit_cells else "nhwc", activation=act,
                    max_abs_err=err, tol=tol, library_max_abs_err=lib_err,
-                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms, **walls,
                    bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
                    bytes=n_bytes, ops=n_ops,
                    achieved_tflops=n_ops / (ms * 1e-3) / 1e12)
@@ -217,16 +240,20 @@ def serve_phase(torch, card):
     rates = {}
     for b in (1, 8):
         z = zs[-1][:1].repeat(b, 1)
-        gen_ms = time_ms(lambda: eng.generate(z), reps=30)
-        plain_ms = time_ms(lambda: G.generator_apply(eng.params, ref_cfg, z), reps=10)
+        gen_ms = wall_ms(lambda: eng.generate(z))
+        dev_ms = device_ms(lambda: eng.generate(z), reps=10)
+        kern_ms = device_ms(lambda: eng.generate(z), reps=10, name="fused_epi_kernel")
+        plain_ms = wall_ms(lambda: G.generator_apply(eng.params, ref_cfg, z), reps=10)
         lat = []
         for _ in range(20):
             t = time.perf_counter()
             eng.submit(z).result()
             torch.cuda.synchronize()
             lat.append(1e3 * (time.perf_counter() - t))
-        rates[b] = dict(generate_ms=gen_ms, images_per_s=1e3 * b / gen_ms, plain_generate_ms=plain_ms,
-                        request_latency_ms_p50=statistics.median(lat), request_latency_ms_max=max(lat))
+        rates[b] = dict(generate_ms=gen_ms, images_per_s=1e3 * b / gen_ms, device_ms=dev_ms,
+                        fused_kernel_ms=kern_ms, device_idle_share=max(0.0, 1.0 - dev_ms / gen_ms),
+                        plain_generate_ms=plain_ms, request_latency_ms_p50=statistics.median(lat),
+                        request_latency_ms_max=max(lat))
         emit({"phase": "serve_rate", "batch": b, **rates[b], "card": card})
     return launches, rates
 

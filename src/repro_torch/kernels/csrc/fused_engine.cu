@@ -27,22 +27,27 @@
 // What the design does about it:
 //   * one block per (T-tile of BT tiles, sub-filter s, M-tile of BM
 //     channels).  A block only touches the packed positions of its own
-//     sub-filter (at most n^2 = 16), so each thread keeps one fp32
-//     accumulator per (position, tile, channel) of its TT x TM micro tile in
-//     registers for the whole N loop, and folds the inverse transform once
-//     at the end: no (C, T, M) scratch, no per-chunk fold.  Splitting by
+//     sub-filter (at most n^2 = 16).  Its threads form G = 8 position groups;
+//     group g keeps, in registers for the whole N loop, the products of
+//     positions g and g + 8 for a 4-tile x 4-channel micro tile, fed by one
+//     float4 of xw and one float4 of weights per input channel (16 FMAs per
+//     two shared loads).  After the N loop the products meet in shared memory
+//     and the sparse inverse transform, the epilogue and the interleaved store
+//     run once: no (C, T, M) scratch in device memory.  Splitting by
 //     sub-filter also gives S^2 times more blocks when T is small (batch 1);
+//   * the N loop is a two-stage cp.async pipeline: while chunk c computes,
+//     chunk c+1's raw 4x4 cell windows and weight slice are in flight to
+//     shared memory, without passing through registers.  The B-transform then
+//     runs shared-to-shared, so no global-load latency sits between two
+//     chunks (the first version, with synchronous loads, spent most of its
+//     time waiting on them);
 //   * blocks with the same (s, M-tile) and neighbouring T-tiles are adjacent
 //     in launch order, so they stream the same weight slice together and the
 //     L2 serves the rereads: device-memory weight traffic stays near one pass;
-//   * per N chunk the block stages the 16 transformed positions of its tiles
-//     and its sub-filter's weight slice in shared memory; the inner product
-//     reads 4 channels of xw per float4 and TM output channels per vector
-//     load, with broadcast across the threads of a warp that share a tile;
 //   * a structurally empty sub-filter (K_D < S) runs no products and writes
 //     act(bias), as the reference does.
-// wgmma, TMA pipelines and bf16 are later work; this version is plain CUDA
-// cores, right first.
+// wgmma (3xTF32 for fp32 accuracy), TMA and bf16 are later work; this version
+// runs on the fp32 CUDA cores.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,25 +55,6 @@
 namespace {
 
 constexpr int kMaxPos = 16;  // n*n: the most packed positions one sub-filter has
-
-template <int TM>
-struct Row;
-template <>
-struct Row<1> {
-  __device__ static void load(const float* p, float* v) { v[0] = p[0]; }
-};
-template <>
-struct Row<2> {
-  __device__ static void load(const float* p, float* v) {
-    float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x;
-    v[1] = t.y;
-  }
-};
-
-__device__ __forceinline__ float lane4(const float4& v, int i) {
-  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
-}
 
 __device__ __forceinline__ float activate(float v, int act) {
   switch (act) {
@@ -79,33 +65,59 @@ __device__ __forceinline__ float activate(float v, int act) {
   }
 }
 
-template <int NT_T, int NT_M, int TT, int TM, int BN>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool pred, int bytes_vec) {
+  // global -> shared copy that does not pass through registers; pred false
+  // zero-fills the destination without reading src
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (bytes_vec == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(pred ? 16 : 0));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(pred ? 4 : 0));
+  }
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// Block geometry: G warp-uniform position groups x (NT_T x NT_M) threads;
+// group g owns the positions k = g, g + G, ... of the block's sub-filter,
+// and each thread a TT-tile x TM-channel micro tile.
+template <int G, int NT_T, int NT_M, int BN>
 struct Cfg {
-  static constexpr int kThreads = NT_T * NT_M;
+  static constexpr int PG = kMaxPos / G;  // positions per group
+  static constexpr int TT = 4, TM = 4;  // micro tiles are float4 x float4
+  static constexpr int kThreads = G * NT_T * NT_M;
   static constexpr int BT = NT_T * TT;  // tiles per block
   static constexpr int BM = NT_M * TM;  // output channels per block
-  static constexpr int XLD = BN + 4;    // xw row stride: float4-aligned, skewed banks
-  static constexpr int kXwFloats = kMaxPos * BT * XLD;
-  static constexpr int kWwFloats = kMaxPos * BN * BM;
-  static constexpr size_t kSmemBytes =
-      sizeof(float) * (kXwFloats + kWwFloats + kMaxPos * 4) + sizeof(int) * kMaxPos;
+  static constexpr int XT = BT + 4;     // xw row stride: float4-aligned, skewed banks
+  static constexpr int kZ = BT * 16 * BN;           // raw 4x4 windows, one stage
+  static constexpr int kW = kMaxPos * BN * BM;      // weight slice, one stage
+  static constexpr int kXw = kMaxPos * BN * XT;     // transformed tiles
+  static constexpr int kStage = 2 * (kZ + kW) + kXw;
+  static constexpr int kRed = kMaxPos * BT * BM;    // per-position products, reuses the space
+  static constexpr int kBig = kStage > kRed ? kStage : kRed;
+  static constexpr size_t kSmemBytes = sizeof(float) * (kBig + kMaxPos * 4) + sizeof(int) * (kMaxPos + BT);
 };
 
-template <int NT_T, int NT_M, int TT, int TM, int BN>
-__global__ void __launch_bounds__(NT_T * NT_M)
+template <int G, int NT_T, int NT_M, int BN, int VZ, int VW>
+__global__ void __launch_bounds__(G * NT_T * NT_M)
 fused_epi_kernel(const float* __restrict__ cells, const float* __restrict__ ww,
                  const float* __restrict__ inv, const int* __restrict__ pos,
                  const int* __restrict__ sub_off, const float* __restrict__ scale,
                  const float* __restrict__ bias, float* __restrict__ out, int B, int Gy,
                  int Gx, int N, int M, int S, int ty, int tx, int P, int out_h, int out_w,
                  int out_mode, int act) {
-  using K = Cfg<NT_T, NT_M, TT, TM, BN>;
-  constexpr int BT = K::BT, BM = K::BM, XLD = K::XLD;
+  using K = Cfg<G, NT_T, NT_M, BN>;
+  constexpr int PG = K::PG;
+  constexpr int BT = K::BT, BM = K::BM, XT = K::XT, NT = K::kThreads, TT = K::TT, TM = K::TM;
   extern __shared__ float4 smem4[];
-  float* xw_s = reinterpret_cast<float*>(smem4);  // [16][BT][XLD]
-  float* ww_s = xw_s + K::kXwFloats;              // [16][BN][BM]
-  float* inv_s = ww_s + K::kWwFloats;             // [16][4]
+  float* z_s = reinterpret_cast<float*>(smem4);  // 2 x [BT][16][BN]
+  float* ww_s = z_s + 2 * K::kZ;                 // 2 x [16][BN][BM]
+  float* xw_s = ww_s + 2 * K::kW;                // [16][BN][XT]
+  float* red_s = z_s;                            // [16][BT][BM] after the N loop
+  float* inv_s = z_s + K::kBig;                  // [16][4]
   int* pos_s = reinterpret_cast<int*>(inv_s + kMaxPos * 4);
+  int* tile_s = pos_s + kMaxPos;                 // [BT] first cell of each tile, -1 past T
 
   const int s = blockIdx.y;
   const int t0 = blockIdx.x * BT;
@@ -113,147 +125,187 @@ fused_epi_kernel(const float* __restrict__ cells, const float* __restrict__ ww,
   const int lo = sub_off[s];
   const int cnt = sub_off[s + 1] - lo;
   const int tid = threadIdx.x;
-  const int tt = tid / NT_M, tm = tid % NT_M;
+  const int g = tid / (NT_T * NT_M);  // position group, uniform per warp
+  const int rem = tid % (NT_T * NT_M);
+  const int tt = rem / NT_M, tm = rem % NT_M;
   const int T = B * ty * tx;
   const int tpi = ty * tx;
 
   if (tid < kMaxPos * 4) inv_s[tid] = (tid / 4 < cnt) ? inv[(lo + tid / 4) * 4 + tid % 4] : 0.0f;
   if (tid < kMaxPos) pos_s[tid] = tid < cnt ? pos[lo + tid] : 0;
-
-  float d[kMaxPos][TT][TM];
-#pragma unroll
-  for (int k = 0; k < kMaxPos; ++k)
-#pragma unroll
-    for (int i = 0; i < TT; ++i)
-#pragma unroll
-      for (int j = 0; j < TM; ++j) d[k][i][j] = 0.0f;
+  for (int tl = tid; tl < BT; tl += NT) {
+    const int t = t0 + tl;
+    const int b = t / tpi, rm = t - b * tpi, jy = rm / tx, jx = rm - jy * tx;
+    tile_s[tl] = t < T ? (b * Gy + jy) * Gx + jx : -1;
+  }
   __syncthreads();
 
-  int xoff[kMaxPos];
+  // one pipeline stage, asynchronously: the raw 4x4 cell window of every
+  // tile (the line buffer) and this sub-filter's weight slice
+  // ww[lo+k, n0:n0+BN, m0:m0+BM]; ragged edges are zero-filled
+  auto stage = [&](int buf, int n0) {
+    constexpr int kZv = BT * 16 * BN / VZ;
+    static_assert(kZv % NT == 0, "staging must divide evenly");
+    float* zd = z_s + buf * K::kZ;
 #pragma unroll
-  for (int k = 0; k < kMaxPos; ++k) xoff[k] = pos_s[k] * BT * XLD + tt * TT * XLD;
-
-  for (int n0 = 0; cnt > 0 && n0 < N; n0 += BN) {
-    // --- pre-PE: stitch each tile's 4x4 window from its 2x2 cells and form
-    // B^T Z B for F(2,3): B^T = [[1,0,-1,0],[0,1,1,0],[0,-1,1,0],[0,1,0,-1]].
-    for (int idx = tid; idx < BT * BN; idx += K::kThreads) {
-      const int nl = idx % BN, tl = idx / BN;
-      const int t = t0 + tl, n = n0 + nl;
-      float z[4][4];
-      if (t < T && n < N) {
-        const int b = t / tpi, rem = t - b * tpi;
-        const int jy = rem / tx, jx = rem - jy * tx;
+    for (int r = 0; r < kZv / NT; ++r) {
+      const int e = tid + r * NT;
+      const int nl = (e % (BN / VZ)) * VZ, zi = (e / (BN / VZ)) % 16, tl = e / (16 * BN / VZ);
+      const int base = tile_s[tl], n = n0 + nl;
+      const int a = zi / 4, c = zi % 4;  // window row / column
+      const bool ok = base >= 0 && n < N;
+      const size_t off = ((size_t)(base + (a / 2) * Gx + c / 2) * 4 + (a % 2) * 2 + c % 2) * N + n;
+      cp_async(zd + (tl * 16 + zi) * BN + nl, ok ? cells + off : cells, ok, 4 * VZ);
+    }
+    constexpr int kWv = kMaxPos * BN * BM / VW;
+    static_assert(kWv % NT == 0, "staging must divide evenly");
+    float* wd = ww_s + buf * K::kW;
 #pragma unroll
-        for (int dy = 0; dy < 2; ++dy)
-#pragma unroll
-          for (int dx = 0; dx < 2; ++dx) {
-            const size_t cell = ((size_t)b * Gy + jy + dy) * Gx + jx + dx;
-#pragma unroll
-            for (int p = 0; p < 2; ++p)
-#pragma unroll
-              for (int q = 0; q < 2; ++q)
-                z[2 * dy + p][2 * dx + q] = __ldg(cells + (cell * 4 + p * 2 + q) * N + n);
-          }
-      } else {
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) z[a][c] = 0.0f;
+    for (int r = 0; r < kWv / NT; ++r) {
+      const int e = tid + r * NT;
+      const int mm = (e % (BM / VW)) * VW, nl = (e / (BM / VW)) % BN, k = e / (BM / VW * BN);
+      const int n = n0 + nl, mc = m0 + mm;
+      if (k < cnt) {
+        const bool ok = n < N && mc < M;
+        const float* src = ok ? ww + ((size_t)(lo + k) * N + n) * M + mc : ww;
+        cp_async(wd + (k * BN + nl) * BM + mm, src, ok, 4 * VW);
       }
-      float r[4][4];
+    }
+    cp_async_commit();
+  };
+
+  // pre-PE: B^T Z B for F(2,3), B^T = [[1,0,-1,0],[0,1,1,0],[0,-1,1,0],[0,1,0,-1]],
+  // adds only, from the staged windows into xw_s[pos][n][tile]
+  auto transform = [&](int buf) {
+    static_assert((BT * BN) % NT == 0, "transform must divide evenly");
+    const float* zb = z_s + buf * K::kZ;
+#pragma unroll
+    for (int r = 0; r < BT * BN / NT; ++r) {
+      const int idx = tid + r * NT;
+      const int nl = idx % BN, tl = idx / BN;
+      float z[4][4];
+#pragma unroll
+      for (int zi = 0; zi < 16; ++zi) z[zi / 4][zi % 4] = zb[(tl * 16 + zi) * BN + nl];
+      float r4[4][4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        r[0][c] = z[0][c] - z[2][c];
-        r[1][c] = z[1][c] + z[2][c];
-        r[2][c] = z[2][c] - z[1][c];
-        r[3][c] = z[1][c] - z[3][c];
+        r4[0][c] = z[0][c] - z[2][c];
+        r4[1][c] = z[1][c] + z[2][c];
+        r4[2][c] = z[2][c] - z[1][c];
+        r4[3][c] = z[1][c] - z[3][c];
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        float* dst = xw_s + (u * 4) * BT * XLD + tl * XLD + nl;
-        dst[0 * BT * XLD] = r[u][0] - r[u][2];
-        dst[1 * BT * XLD] = r[u][1] + r[u][2];
-        dst[2 * BT * XLD] = r[u][2] - r[u][1];
-        dst[3 * BT * XLD] = r[u][1] - r[u][3];
+        float* dst = xw_s + ((u * 4) * BN + nl) * XT + tl;
+        dst[0 * BN * XT] = r4[u][0] - r4[u][2];
+        dst[1 * BN * XT] = r4[u][1] + r4[u][2];
+        dst[2 * BN * XT] = r4[u][2] - r4[u][1];
+        dst[3 * BN * XT] = r4[u][1] - r4[u][3];
       }
     }
-    // --- this sub-filter's packed weight slice ww[lo+k, n0:n0+BN, m0:m0+BM]
-    for (int idx = tid; idx < cnt * BN * BM; idx += K::kThreads) {
-      const int mm = idx % BM, nl = (idx / BM) % BN, k = idx / (BM * BN);
-      const int n = n0 + nl, mc = m0 + mm;
-      ww_s[idx] = (n < N && mc < M) ? __ldg(ww + ((size_t)(lo + k) * N + n) * M + mc) : 0.0f;
-    }
+  };
+
+  float d[PG][TT][TM];
+#pragma unroll
+  for (int kk = 0; kk < PG; ++kk)
+#pragma unroll
+    for (int i = 0; i < TT; ++i)
+#pragma unroll
+      for (int j = 0; j < TM; ++j) d[kk][i][j] = 0.0f;
+
+  int xoff[PG];
+#pragma unroll
+  for (int kk = 0; kk < PG; ++kk) xoff[kk] = pos_s[kk * G + g] * BN * XT + tt * TT;
+
+  const int n_chunks = cnt > 0 ? (N + BN - 1) / BN : 0;
+  if (n_chunks > 0) stage(0, 0);
+  if (n_chunks > 1) stage(1, BN);
+  for (int c = 0; c < n_chunks; ++c) {
+    const int buf = c & 1;
+    if (c + 1 < n_chunks) cp_async_wait<1>(); else cp_async_wait<0>();
+    __syncthreads();
+    transform(buf);
     __syncthreads();
 
-    // --- com-PE: per-position products, accumulated over the whole N loop
-#pragma unroll 1
-    for (int nq = 0; nq < BN; nq += 4) {
+    // com-PE: each thread's positions, accumulated over the whole N loop
+    const float* wbuf = ww_s + buf * K::kW + tm * TM;
 #pragma unroll
-      for (int k = 0; k < kMaxPos; ++k) {
-        if (k < cnt) {
-          float4 xa[TT];
+    for (int kk = 0; kk < PG; ++kk) {
+      const int k = kk * G + g;
+      if (k < cnt) {
+        const float* xp = xw_s + xoff[kk];
+        const float* wp = wbuf + k * BN * BM;
+#pragma unroll
+        for (int n = 0; n < BN; ++n) {
+          const float4 xa = *reinterpret_cast<const float4*>(xp + n * XT);
+          const float4 wa = *reinterpret_cast<const float4*>(wp + n * BM);
+          const float xv[4] = {xa.x, xa.y, xa.z, xa.w};
+          const float wv[4] = {wa.x, wa.y, wa.z, wa.w};
 #pragma unroll
           for (int i = 0; i < TT; ++i)
-            xa[i] = *reinterpret_cast<const float4*>(xw_s + xoff[k] + i * XLD + nq);
 #pragma unroll
-          for (int nn = 0; nn < 4; ++nn) {
-            float wv[TM];
-            Row<TM>::load(ww_s + (k * BN + nq + nn) * BM + tm * TM, wv);
-#pragma unroll
-            for (int i = 0; i < TT; ++i)
-#pragma unroll
-              for (int j = 0; j < TM; ++j) d[k][i][j] = fmaf(lane4(xa[i], nn), wv[j], d[k][i][j]);
-          }
+            for (int j = 0; j < TM; ++j) d[kk][i][j] = fmaf(xv[i], wv[j], d[kk][i][j]);
         }
       }
     }
     __syncthreads();
+    if (c + 2 < n_chunks) stage(buf, (c + 2) * BN);
   }
 
-  // --- post-PE: sparse inverse transform, epilogue, depth-to-space store
+  // post-PE: gather every position's products in shared memory, then the
+  // sparse inverse transform, epilogue and depth-to-space store
+#pragma unroll
+  for (int kk = 0; kk < PG; ++kk) {
+    const int k = kk * G + g;
+    if (k < cnt) {
+#pragma unroll
+      for (int i = 0; i < TT; ++i)
+        *reinterpret_cast<float4*>(red_s + (k * BT + tt * TT + i) * BM + tm * TM) =
+            make_float4(d[kk][i][0], d[kk][i][1], d[kk][i][2], d[kk][i][3]);
+    }
+  }
+  __syncthreads();
+
   const int ry = s / S, rx = s % S;
+  for (int idx = tid; idx < BT * BM; idx += NT) {
+    const int ml = idx % BM, tl = idx / BM;
+    const int t = t0 + tl, mc = m0 + ml;
+    if (t >= T || mc >= M) continue;
+    const int b = t / tpi, rm = t - b * tpi;
+    const int jy = rm / tx, jx = rm - jy * tx;
+    const float sc = scale ? scale[mc] : 1.0f;
+    const float bi = bias ? bias[mc] : 0.0f;
+    float y[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int k = 0; k < cnt; ++k) {
+      const float v = red_s[(k * BT + tl) * BM + ml];
 #pragma unroll
-  for (int i = 0; i < TT; ++i) {
-    const int t = t0 + tt * TT + i;
-    if (t >= T) continue;
-    const int b = t / tpi, rem = t - b * tpi;
-    const int jy = rem / tx, jx = rem - jy * tx;
+      for (int a = 0; a < 4; ++a) y[a] = fmaf(inv_s[k * 4 + a], v, y[a]);
+    }
 #pragma unroll
-    for (int j = 0; j < TM; ++j) {
-      const int mc = m0 + tm * TM + j;
-      if (mc >= M) continue;
-      const float sc = scale ? scale[mc] : 1.0f;
-      const float bi = bias ? bias[mc] : 0.0f;
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        float y = 0.0f;
-#pragma unroll
-        for (int k = 0; k < kMaxPos; ++k)
-          if (k < cnt) y = fmaf(inv_s[k * 4 + a], d[k][i][j], y);
-        const float v = activate(y * sc + bi, act);
-        const int row = 2 * S * jy + S * (a / 2) + ry;
-        const int col = 2 * S * jx + S * (a % 2) + rx;
-        if (out_mode == 0) {
-          const int orow = row - P, ocol = col - P;
-          if (orow >= 0 && orow < out_h && ocol >= 0 && ocol < out_w)
-            out[(((size_t)b * out_h + orow) * out_w + ocol) * M + mc] = v;
-        } else {
-          const bool inside = row >= P && row < P + out_h && col >= P && col < P + out_w;
-          const size_t cell = ((size_t)b * (ty * S) + row / 2) * (tx * S) + col / 2;
-          out[(cell * 4 + (row % 2) * 2 + col % 2) * M + mc] = inside ? v : 0.0f;
-        }
+    for (int a = 0; a < 4; ++a) {
+      const float v = activate(y[a] * sc + bi, act);
+      const int row = 2 * S * jy + S * (a / 2) + ry;
+      const int col = 2 * S * jx + S * (a % 2) + rx;
+      if (out_mode == 0) {
+        const int orow = row - P, ocol = col - P;
+        if (orow >= 0 && orow < out_h && ocol >= 0 && ocol < out_w)
+          out[(((size_t)b * out_h + orow) * out_w + ocol) * M + mc] = v;
+      } else {
+        const bool inside = row >= P && row < P + out_h && col >= P && col < P + out_w;
+        const size_t cell = ((size_t)b * (ty * S) + row / 2) * (tx * S) + col / 2;
+        out[(cell * 4 + (row % 2) * 2 + col % 2) * M + mc] = inside ? v : 0.0f;
       }
     }
   }
 }
 
-template <int NT_T, int NT_M, int TT, int TM, int BN>
+template <int G, int NT_T, int NT_M, int BN, int VZ, int VW>
 int launch(const float* cells, const float* ww, const float* inv, const int* pos,
            const int* sub_off, const float* scale, const float* bias, float* out, int B,
            int Gy, int Gx, int N, int M, int S, int ty, int tx, int P, int out_h, int out_w,
            int out_mode, int act, cudaStream_t stream) {
-  using K = Cfg<NT_T, NT_M, TT, TM, BN>;
-  auto kernel = fused_epi_kernel<NT_T, NT_M, TT, TM, BN>;
+  using K = Cfg<G, NT_T, NT_M, BN>;
+  auto kernel = fused_epi_kernel<G, NT_T, NT_M, BN, VZ, VW>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)K::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
@@ -276,9 +328,16 @@ extern "C" int fused_engine_epi_f32(const float* cells, const float* ww, const f
                                     int N, int M, int S, int ty, int tx, int P, int out_h,
                                     int out_w, int out_mode, int act, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (M >= 32)
-    return launch<16, 16, 2, 2, 16>(cells, ww, inv, pos, sub_off, scale, bias, out, B, Gy, Gx,
-                                     N, M, S, ty, tx, P, out_h, out_w, out_mode, act, st);
-  return launch<32, 4, 2, 1, 8>(cells, ww, inv, pos, sub_off, scale, bias, out, B, Gy, Gx, N,
-                                M, S, ty, tx, P, out_h, out_w, out_mode, act, st);
+#define FE_ARGS cells, ww, inv, pos, sub_off, scale, bias, out, B, Gy, Gx, N, M, S, ty, tx, P, \
+                out_h, out_w, out_mode, act, st
+  // 16-byte copies where N (and M) allow, 4-byte copies otherwise
+  const bool vz = N % 4 == 0, vw = M % 4 == 0;
+  if (M >= 32) {  // 32 tiles x 32 channels per block, 8 position groups, 512 threads
+    if (vz && vw) return launch<8, 8, 8, 16, 4, 4>(FE_ARGS);
+    return launch<8, 8, 8, 16, 1, 1>(FE_ARGS);
+  }
+  // few output channels (the RGB layer): 64 tiles x 4 channels, 128 threads
+  if (vz) return launch<8, 16, 1, 8, 4, 1>(FE_ARGS);
+  return launch<8, 16, 1, 8, 1, 1>(FE_ARGS);
+#undef FE_ARGS
 }
