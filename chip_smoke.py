@@ -107,7 +107,7 @@ def kernel_phase(torch, peaks):
     import torch.nn.functional as F
 
     from repro_torch.core.tdc import DeconvDims
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import engine, ops
     from repro_torch.kernels.ref import epilogue_apply_ref
 
     K5, K4, K3, K2S3 = DeconvDims(5, 2, 2, 1), DeconvDims(4, 2, 1, 0), DeconvDims(3, 1, 1, 0), DeconvDims(2, 3, 0, 0)
@@ -166,6 +166,7 @@ def kernel_phase(torch, peaks):
         pos_idx, sub_slices, _, _ = ops.packed_layout(dims)
         C = len(pos_idx)
         ty = -(-dims.j_extent(H) // 2)
+        splits = engine._plan(B, ty, ty, N, M, dims.stride, torch.cuda.current_device())[0]
         T = B * ty * ty
         n_bytes = 4 * (cells.numel() + packed.ww.numel() + packed.inv.numel() + got.numel()
                        + (2 * M if affine else 0))
@@ -174,7 +175,7 @@ def kernel_phase(torch, peaks):
         # epilogue (affine + activation per output value)
         n_ops = 2 * T * C * N * M + 32 * T * N + 8 * T * C * M + 3 * got.numel()
         t_bytes, t_ops = 1e3 * n_bytes / bytes_peak, 1e3 * n_ops / flops_peak
-        row = dict(name=name, B=B, H_in=H, N=N, M=M, C=C, T=T,
+        row = dict(name=name, B=B, H_in=H, N=N, M=M, C=C, T=T, n_splits=splits,
                    out_mode="cells" if emit_cells else "nhwc", activation=act,
                    max_abs_err=err, tol=tol, library_max_abs_err=lib_err,
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms, **walls,

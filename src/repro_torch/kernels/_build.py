@@ -30,7 +30,8 @@ _p = ctypes.c_void_p
 _i = ctypes.c_int
 # name -> argtypes of each C entry point
 _SIGNATURES = {
-    "fused_engine_epi_f32": [_p] * 8 + [_i] * 13 + [_p],
+    "fused_engine_plan": [_i] * 7 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2,
+    "fused_engine_epi_f32": [_p] * 8 + [_i] * 14 + [_p] * 3,
 }
 
 # what the last build printed (ptxas register / spill report), for the smoke log

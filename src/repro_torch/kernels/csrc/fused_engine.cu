@@ -41,6 +41,12 @@
 //     runs shared-to-shared, so no global-load latency sits between two
 //     chunks (the first version, with synchronous loads, spent most of its
 //     time waiting on them);
+//   * when the grid would leave SMs idle or end in a short last wave (batch 1,
+//     or DCGAN's first layer, whose 192 blocks make 1.45 waves of one block
+//     per SM), the N loop is split over 2-8 blocks; each writes its products
+//     to a scratch buffer and the last to arrive sums them in split order, so
+//     the result does not depend on arrival order.  fused_engine_plan picks
+//     the split from the card's occupancy;
 //   * blocks with the same (s, M-tile) and neighbouring T-tiles are adjacent
 //     in launch order, so they stream the same weight slice together and the
 //     L2 serves the rereads: device-memory weight traffic stays near one pass;
@@ -99,14 +105,15 @@ struct Cfg {
   static constexpr size_t kSmemBytes = sizeof(float) * (kBig + kMaxPos * 4) + sizeof(int) * (kMaxPos + BT);
 };
 
-template <int G, int NT_T, int NT_M, int BN, int VZ, int VW>
+template <int G, int NT_T, int NT_M, int BN, int VW, bool SPLIT>
 __global__ void __launch_bounds__(G * NT_T * NT_M)
 fused_epi_kernel(const float* __restrict__ cells, const float* __restrict__ ww,
                  const float* __restrict__ inv, const int* __restrict__ pos,
                  const int* __restrict__ sub_off, const float* __restrict__ scale,
                  const float* __restrict__ bias, float* __restrict__ out, int B, int Gy,
                  int Gx, int N, int M, int S, int ty, int tx, int P, int out_h, int out_w,
-                 int out_mode, int act) {
+                 int out_mode, int act, int splits, float* __restrict__ partial,
+                 int* __restrict__ counters) {
   using K = Cfg<G, NT_T, NT_M, BN>;
   constexpr int PG = K::PG;
   constexpr int BT = K::BT, BM = K::BM, XT = K::XT, NT = K::kThreads, TT = K::TT, TM = K::TM;
@@ -121,7 +128,9 @@ fused_epi_kernel(const float* __restrict__ cells, const float* __restrict__ ww,
 
   const int s = blockIdx.y;
   const int t0 = blockIdx.x * BT;
-  const int m0 = blockIdx.z * BM;
+  if (!SPLIT) splits = 1;  // compiled out of the unsplit variant
+  const int mt = blockIdx.z / splits, ks = blockIdx.z % splits;  // M-tile, N split
+  const int m0 = mt * BM;
   const int lo = sub_off[s];
   const int cnt = sub_off[s + 1] - lo;
   const int tid = threadIdx.x;
@@ -144,18 +153,18 @@ fused_epi_kernel(const float* __restrict__ cells, const float* __restrict__ ww,
   // tile (the line buffer) and this sub-filter's weight slice
   // ww[lo+k, n0:n0+BN, m0:m0+BM]; ragged edges are zero-filled
   auto stage = [&](int buf, int n0) {
-    constexpr int kZv = BT * 16 * BN / VZ;
+    constexpr int kZv = BT * 16 * BN / 4;  // 16-byte copies: N % 4 == 0
     static_assert(kZv % NT == 0, "staging must divide evenly");
     float* zd = z_s + buf * K::kZ;
 #pragma unroll
     for (int r = 0; r < kZv / NT; ++r) {
       const int e = tid + r * NT;
-      const int nl = (e % (BN / VZ)) * VZ, zi = (e / (BN / VZ)) % 16, tl = e / (16 * BN / VZ);
+      const int nl = (e % (BN / 4)) * 4, zi = (e / (BN / 4)) % 16, tl = e / (4 * BN);
       const int base = tile_s[tl], n = n0 + nl;
       const int a = zi / 4, c = zi % 4;  // window row / column
       const bool ok = base >= 0 && n < N;
       const size_t off = ((size_t)(base + (a / 2) * Gx + c / 2) * 4 + (a % 2) * 2 + c % 2) * N + n;
-      cp_async(zd + (tl * 16 + zi) * BN + nl, ok ? cells + off : cells, ok, 4 * VZ);
+      cp_async(zd + (tl * 16 + zi) * BN + nl, ok ? cells + off : cells, ok, 16);
     }
     constexpr int kWv = kMaxPos * BN * BM / VW;
     static_assert(kWv % NT == 0, "staging must divide evenly");
@@ -217,9 +226,12 @@ fused_epi_kernel(const float* __restrict__ cells, const float* __restrict__ ww,
 #pragma unroll
   for (int kk = 0; kk < PG; ++kk) xoff[kk] = pos_s[kk * G + g] * BN * XT + tt * TT;
 
-  const int n_chunks = cnt > 0 ? (N + BN - 1) / BN : 0;
-  if (n_chunks > 0) stage(0, 0);
-  if (n_chunks > 1) stage(1, BN);
+  // this block's share of the N loop: chunks [c_lo, c_lo + n_chunks)
+  const int all_chunks = (N + BN - 1) / BN;
+  const int c_lo = ks * all_chunks / splits;
+  const int n_chunks = cnt > 0 ? (ks + 1) * all_chunks / splits - c_lo : 0;
+  if (n_chunks > 0) stage(0, c_lo * BN);
+  if (n_chunks > 1) stage(1, (c_lo + 1) * BN);
   for (int c = 0; c < n_chunks; ++c) {
     const int buf = c & 1;
     if (c + 1 < n_chunks) cp_async_wait<1>(); else cp_async_wait<0>();
@@ -249,7 +261,7 @@ fused_epi_kernel(const float* __restrict__ cells, const float* __restrict__ ww,
       }
     }
     __syncthreads();
-    if (c + 2 < n_chunks) stage(buf, (c + 2) * BN);
+    if (c + 2 < n_chunks) stage(buf, (c_lo + c + 2) * BN);
   }
 
   // post-PE: gather every position's products in shared memory, then the
@@ -265,6 +277,36 @@ fused_epi_kernel(const float* __restrict__ cells, const float* __restrict__ ww,
     }
   }
   __syncthreads();
+
+  if (SPLIT) {
+    // split N: every block of the group writes its products; the last one
+    // to arrive sums them in split order (deterministic) and runs the
+    // epilogue, the others leave
+    __shared__ int last;
+    const size_t grp = ((size_t)blockIdx.x * gridDim.y + s) * (gridDim.z / splits) + mt;
+    const int nred = cnt * BT * BM;  // a multiple of 4
+    float* mine = partial + (grp * splits + ks) * K::kRed;
+    for (int e = tid * 4; e < nred; e += NT * 4)
+      __stcg(reinterpret_cast<float4*>(mine + e), *reinterpret_cast<const float4*>(red_s + e));
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(counters + grp, 1) == splits - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    for (int e = tid * 4; e < nred; e += NT * 4) {
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int j = 0; j < splits; ++j) {
+        const float4 v = __ldcg(reinterpret_cast<const float4*>(partial + (grp * splits + j) * K::kRed + e));
+        acc.x += v.x;
+        acc.y += v.y;
+        acc.z += v.z;
+        acc.w += v.w;
+      }
+      *reinterpret_cast<float4*>(red_s + e) = acc;
+    }
+    __syncthreads();
+  }
 
   const int ry = s / S, rx = s % S;
   for (int idx = tid; idx < BT * BM; idx += NT) {
@@ -299,45 +341,85 @@ fused_epi_kernel(const float* __restrict__ cells, const float* __restrict__ ww,
   }
 }
 
-template <int G, int NT_T, int NT_M, int BN, int VZ, int VW>
-int launch(const float* cells, const float* ww, const float* inv, const int* pos,
-           const int* sub_off, const float* scale, const float* bias, float* out, int B,
-           int Gy, int Gx, int N, int M, int S, int ty, int tx, int P, int out_h, int out_w,
-           int out_mode, int act, cudaStream_t stream) {
+template <int G_, int NT_T_, int NT_M_, int BN_, int VW_>
+struct Conf {
+  static constexpr int G = G_, NT_T = NT_T_, NT_M = NT_M_, BN = BN_, VW = VW_;
   using K = Cfg<G, NT_T, NT_M, BN>;
-  auto kernel = fused_epi_kernel<G, NT_T, NT_M, BN, VZ, VW>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)K::kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  const int T = B * ty * tx;
-  dim3 grid((T + K::BT - 1) / K::BT, S * S, (M + K::BM - 1) / K::BM);
-  kernel<<<grid, K::kThreads, K::kSmemBytes, stream>>>(cells, ww, inv, pos, sub_off, scale,
-                                                       bias, out, B, Gy, Gx, N, M, S, ty, tx,
-                                                       P, out_h, out_w, out_mode, act);
-  return (int)cudaGetLastError();
+};
+#define FE_KERNEL(C, SPLIT) fused_epi_kernel<C::G, C::NT_T, C::NT_M, C::BN, C::VW, SPLIT>
+
+// The block configuration for M, handed to f as a Conf.  (N % 4 == 0 is the
+// caller's to check: cell windows move in 16-byte copies.)
+template <class F>
+int with_conf(int M, F&& f) {
+  // 32 tiles x 32 channels per block, 8 position groups, 512 threads;
+  // weights in 16-byte copies
+  if (M >= 32 && M % 4 == 0) return f(Conf<8, 8, 8, 16, 4>{});
+  // few (or ragged) output channels, as the RGB layer: 64 tiles x 4
+  // channels per block, 128 threads, weights in 4-byte copies
+  return f(Conf<8, 16, 1, 8, 1>{});
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  Every pointer is a device pointer;
-// scale and bias may be null.  out_mode: 0 = nhwc, 1 = cells.  act: 0 none,
-// 1 relu, 2 leaky_relu, 3 tanh.  Returns cudaGetLastError() of the launch.
+// Plain C entry points (bound with ctypes).  Every pointer is a device pointer.
+
+// How many ways to split the N loop, and the scratch it needs: the split
+// count minimises the waves of blocks over the card's resident block slots,
+// times the work per block (1/k), times a 25% cost per extra split for the
+// partials' round trip and the shorter pipelines; at least 4 chunks per
+// split.  scratch_floats / counters are 0 when
+// the split count is 1.
+extern "C" int fused_engine_plan(int B, int ty, int tx, int N, int M, int S, int device,
+                                 int* splits, long long* scratch_floats, long long* counters) {
+  return with_conf(M, [&](auto conf) {
+    using C = decltype(conf);
+    using K = typename C::K;
+    cudaError_t err = cudaFuncSetAttribute(FE_KERNEL(C, false), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)K::kSmemBytes);
+    int occ = 0, sms = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, FE_KERNEL(C, false), K::kThreads, K::kSmemBytes);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+    const long long slots = occ > 0 ? (long long)occ * sms : 1;
+    const long long groups = (long long)((B * ty * tx + K::BT - 1) / K::BT) * S * S * ((M + K::BM - 1) / K::BM);
+    const int chunks = (N + C::BN - 1) / C::BN;
+    int best = 1;
+    double best_cost = (double)((groups + slots - 1) / slots);
+    for (int k = 2; k <= 8 && chunks / k >= 4; ++k) {
+      const double cost = (double)((groups * k + slots - 1) / slots) / k * (1.0 + 0.25 * (k - 1));
+      if (cost < best_cost - 1e-9) best = k, best_cost = cost;
+    }
+    *splits = best;
+    *scratch_floats = best > 1 ? groups * best * K::kRed : 0;
+    *counters = best > 1 ? groups : 0;
+    return 0;
+  });
+}
+
+// One launch.  scale and bias may be null.  out_mode: 0 = nhwc, 1 = cells.
+// act: 0 none, 1 relu, 2 leaky_relu, 3 tanh.  splits, partial and counters
+// come from fused_engine_plan (counters zeroed).  Returns cudaGetLastError().
 extern "C" int fused_engine_epi_f32(const float* cells, const float* ww, const float* inv,
                                     const int* pos, const int* sub_off, const float* scale,
                                     const float* bias, float* out, int B, int Gy, int Gx,
                                     int N, int M, int S, int ty, int tx, int P, int out_h,
-                                    int out_w, int out_mode, int act, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-#define FE_ARGS cells, ww, inv, pos, sub_off, scale, bias, out, B, Gy, Gx, N, M, S, ty, tx, P, \
-                out_h, out_w, out_mode, act, st
-  // 16-byte copies where N (and M) allow, 4-byte copies otherwise
-  const bool vz = N % 4 == 0, vw = M % 4 == 0;
-  if (M >= 32) {  // 32 tiles x 32 channels per block, 8 position groups, 512 threads
-    if (vz && vw) return launch<8, 8, 8, 16, 4, 4>(FE_ARGS);
-    return launch<8, 8, 8, 16, 1, 1>(FE_ARGS);
-  }
-  // few output channels (the RGB layer): 64 tiles x 4 channels, 128 threads
-  if (vz) return launch<8, 16, 1, 8, 4, 1>(FE_ARGS);
-  return launch<8, 16, 1, 8, 1, 1>(FE_ARGS);
-#undef FE_ARGS
+                                    int out_w, int out_mode, int act, int splits, float* partial,
+                                    int* counters, void* stream) {
+  return with_conf(M, [&](auto conf) {
+    using C = decltype(conf);
+    using K = typename C::K;
+    // the unsplit variant carries no split code at all
+    auto kernel = splits > 1 ? FE_KERNEL(C, true) : FE_KERNEL(C, false);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)K::kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    const int T = B * ty * tx;
+    dim3 grid((T + K::BT - 1) / K::BT, S * S, ((M + K::BM - 1) / K::BM) * splits);
+    kernel<<<grid, K::kThreads, K::kSmemBytes, reinterpret_cast<cudaStream_t>(stream)>>>(
+        cells, ww, inv, pos, sub_off, scale, bias, out, B, Gy, Gx, N, M, S, ty, tx, P, out_h,
+        out_w, out_mode, act, splits, partial, counters);
+    return (int)cudaGetLastError();
+  });
 }

@@ -15,22 +15,14 @@ import functools
 
 import torch
 
+from ..core.winograd import get_transform
 from . import ref as _ref
 from .ref import EPILOGUE_ACTIVATIONS, LEAKY_SLOPE
 
-__all__ = ["LEAKY_SLOPE", "EPILOGUE_ACTIVATIONS", "fused_engine", "fused_engine_plain", "BT_F23"]
-
-# B^T of F(2, 3): the kernel hard-codes this adder network
-BT_F23 = ((1.0, 0.0, -1.0, 0.0), (0.0, 1.0, 1.0, 0.0), (0.0, -1.0, 1.0, 0.0), (0.0, 1.0, 0.0, -1.0))
+__all__ = ["LEAKY_SLOPE", "EPILOGUE_ACTIVATIONS", "fused_engine", "fused_engine_plain"]
 
 _OUT_MODES = {"nhwc": 0, "cells": 1}
 _ACT_CODES = {a: i for i, a in enumerate(EPILOGUE_ACTIVATIONS)}
-
-
-def _out_shape(B, M, *, m, ty, tx, out_mode, stride, out_h, out_w):
-    if out_mode == "nhwc":
-        return (B, out_h, out_w, M)
-    return (B, ty * stride, tx * stride, m * m, M)
 
 
 def fused_engine_plain(
@@ -54,9 +46,9 @@ def fused_engine_plain(
     out_w: int,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on any device: the reference's
-    ``fused_epilogue_engine_ref`` (F(2,3) B^T), cropped in nhwc mode."""
+    ``fused_epilogue_engine_ref``, cropped in nhwc mode."""
     y = _ref.fused_epilogue_engine_ref(
-        cells, ww_packed, inv_packed, BT_F23 if n == 4 and m == 2 else _bt(m, n), scale, bias,
+        cells, ww_packed, inv_packed, _bt(m, n), scale, bias,
         pos_idx=pos_idx, sub_slices=sub_slices, m=m, n=n, ty=ty, tx=tx, m2=m * m,
         out_mode=out_mode, activation=activation, stride=stride, padding=padding,
         out_h=out_h, out_w=out_w,
@@ -67,10 +59,8 @@ def fused_engine_plain(
 
 
 def _bt(m: int, n: int):
-    from ..core.winograd import get_transform
-
-    tf = get_transform(m, n - m + 1)
-    return tuple(tuple(float(v) for v in row) for row in tf.BT)
+    """B^T of F(m, n - m + 1) as nested tuples."""
+    return tuple(tuple(float(v) for v in row) for row in get_transform(m, n - m + 1).BT)
 
 
 @functools.lru_cache(maxsize=64)
@@ -80,6 +70,22 @@ def _layout_tensors(pos_idx: tuple[int, ...], sub_slices: tuple[tuple[int, int],
     offs = [lo for lo, _ in sub_slices] + [sub_slices[-1][1]]
     pos = torch.tensor(pos_idx if pos_idx else (0,), dtype=torch.int32, device=device)
     return pos, torch.tensor(offs, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(B: int, ty: int, tx: int, N: int, M: int, S: int, device_index: int):
+    """(splits, scratch floats, counters) the kernel's N-loop split needs for
+    this shape on this card, from the library's own block configuration."""
+    import ctypes
+
+    from ._build import load_library
+
+    splits, floats, counters = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong()
+    err = load_library().fused_engine_plan(B, ty, tx, N, M, S, device_index, ctypes.byref(splits),
+                                           ctypes.byref(floats), ctypes.byref(counters))
+    if err != 0:
+        raise RuntimeError(f"fused_engine plan failed: cudaError {err}")
+    return splits.value, floats.value, counters.value
 
 
 def _check_vec(name, v, M, device):
@@ -159,8 +165,9 @@ def fused_engine(
         raise ValueError(f"cells ({Gy}, {Gx}) do not cover {ty}x{tx} tiles plus the halo")
     if min(B, N, M, ty, tx, out_h, out_w) <= 0:
         raise ValueError("empty problem")
-    out_shape = _out_shape(B, M, m=m, ty=ty, tx=tx, out_mode=out_mode, stride=S,
-                           out_h=out_h, out_w=out_w)
+    if N % 4:
+        raise ValueError(f"the CUDA kernel moves cell windows in 16-byte copies: N={N} must be a multiple of 4")
+    out_shape = (B, out_h, out_w, M) if out_mode == "nhwc" else (B, ty * S, tx * S, m * m, M)
     n_out = 1
     for d in out_shape:
         n_out *= d
@@ -173,13 +180,19 @@ def fused_engine(
 
     lib = load_library()
     pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
+    splits, n_scratch, n_counters = _plan(B, ty, tx, N, M, S, dev.index)
+    # the N-loop split's partial products and arrival counters (zeroed)
+    partial = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
+    counters = torch.zeros(n_counters, dtype=torch.int32, device=dev) if n_counters else None
     out = torch.empty(out_shape, dtype=torch.float32, device=dev)
     err = lib.fused_engine_epi_f32(
         cells.data_ptr(), ww_packed.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(),
         offs.data_ptr(), None if scale is None else scale.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         B, Gy, Gx, N, M, S, ty, tx, padding, out_h, out_w,
-        _OUT_MODES[out_mode], _ACT_CODES[activation],
+        _OUT_MODES[out_mode], _ACT_CODES[activation], splits,
+        None if partial is None else partial.data_ptr(),
+        None if counters is None else counters.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

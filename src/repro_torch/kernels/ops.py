@@ -36,10 +36,7 @@ __all__ = [
     "cells_to_next",
     "winograd_deconv2d_cells",
     "winograd_deconv2d_packed",
-    "BACKENDS",
 ]
-
-BACKENDS = ("cuda", "ref")
 
 
 @functools.lru_cache(maxsize=None)
@@ -229,7 +226,7 @@ def winograd_deconv2d_cells(
         return _engine.fused_engine(cells, packed.ww, packed.inv, **kw)
     if backend == "ref":
         return _engine.fused_engine_plain(cells, packed.ww, packed.inv, **kw)
-    raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+    raise ValueError(f"backend {backend!r} is not 'cuda' or 'ref'")
 
 
 def winograd_deconv2d_packed(

@@ -30,14 +30,10 @@ from ..models import gan as G
 __all__ = ["GanRequest", "GanFuture", "GanServeEngine"]
 
 
-def _now_ms() -> float:
-    return time.monotonic() * 1e3
-
-
 @dataclasses.dataclass
 class GanRequest:
     """One request: a batch of latents (or images for image-to-image
-    models) served together, with its arch and timestamps (ms, monotonic)."""
+    models) served together, and its outcome."""
 
     rid: int
     z: torch.Tensor
@@ -46,12 +42,6 @@ class GanRequest:
     done: bool = False
     failed: bool = False
     error: Optional[BaseException] = None
-    t_submit: Optional[float] = None
-    t_admit: Optional[float] = None
-    t_dispatch: Optional[float] = None
-    t_done: Optional[float] = None
-    event: threading.Event = dataclasses.field(default_factory=threading.Event, repr=False,
-                                               compare=False)
 
     @property
     def size(self) -> int:
@@ -80,9 +70,6 @@ class GanFuture:
         if req.failed:
             raise req.error
         return req.out
-
-    def exception(self) -> Optional[BaseException]:
-        return self.request.error if self.request.failed else None
 
 
 class _Resident:
@@ -181,17 +168,13 @@ class GanServeEngine:
         return self._run_bucketed(res, z.to(self.device, torch.float32))
 
     # ------------------------------------------------------- admission core
-    def _admit_pending(self) -> int:
+    def _admit_pending(self) -> None:
         """Move submitted requests into the row pool, strict FIFO: stop at
         the first one that does not fit."""
-        n = 0
         while self._pending and self.rows_used + self._pending[0].size <= self.batch:
             req = self._pending.popleft()
-            req.t_admit = _now_ms()
             self.active.append(req)
             self.rows_used += req.size
-            n += 1
-        return n
 
     def _dispatch(self) -> list[GanRequest]:
         """Serve every admitted request: snapshot and free the rows under the
@@ -202,25 +185,21 @@ class GanServeEngine:
             if not batch_reqs:
                 return []
             self.dispatch_log.append(tuple(r.rid for r in batch_reqs))
-        t = _now_ms()
         by_arch: dict[str, list[GanRequest]] = {}
         for r in batch_reqs:
-            r.t_dispatch = t
             by_arch.setdefault(r.arch, []).append(r)
         for arch, reqs in by_arch.items():
             try:
                 imgs = self._run_bucketed(self.archs[arch], torch.cat([r.z for r in reqs]))
             except Exception as e:  # resolve, never strand, the requests aboard
                 for r in reqs:
-                    r.failed, r.error, r.t_done = True, e, _now_ms()
-                    r.event.set()
+                    r.failed, r.error = True, e
                 continue
-            row, t_done = 0, _now_ms()
+            row = 0
             for r in reqs:
                 r.out = imgs[row : row + r.size]
                 row += r.size
-                r.done, r.t_done = True, t_done
-                r.event.set()
+                r.done = True
         return batch_reqs
 
     # -------------------------------------------------------- futures API
@@ -230,8 +209,7 @@ class GanServeEngine:
         arch_r = self._resolve_arch(arch)
         if int(z.shape[0]) > self.batch:
             raise ValueError(f"request batch {int(z.shape[0])} > engine max bucket {self.batch}")
-        req = GanRequest(rid=next(self._rid), z=z.to(self.device, torch.float32), arch=arch_r,
-                         t_submit=_now_ms())
+        req = GanRequest(rid=next(self._rid), z=z.to(self.device, torch.float32), arch=arch_r)
         with self._lock:
             self._pending.append(req)
             self._admit_pending()
