@@ -30,7 +30,7 @@ Params = dict[str, Any]
 
 __all__ = [
     "IMPLS", "uses_chained", "serve_impl", "generator_init", "prepack_generator",
-    "generator_apply",
+    "fold_eval_bn", "generator_apply",
 ]
 
 # chained impl -> winograd_deconv2d_cells kwargs
@@ -104,8 +104,18 @@ def _bn_eval_affine(bn: Params, eps: float = 1e-5):
     return a.contiguous(), b.contiguous()
 
 
+def fold_eval_bn(p: Params, cfg: GANConfig) -> dict[str, tuple[torch.Tensor, torch.Tensor]]:
+    """Every eval-mode batchnorm of the stem and the deconv trunk folded into
+    its per-channel (scale, bias).  A server folds once per resident and
+    passes the result to ``generator_apply``, which otherwise folds per call."""
+    names = (["stem_bn"] if cfg.z_dim else []) + [
+        f"deconv{i}_bn" for i, d in enumerate(cfg.deconvs) if d.norm == "batch"
+    ]
+    return {name: _bn_eval_affine(p[name]) for name in names}
+
+
 def _chained_deconv_trunk(
-    p: Params, cfg: GANConfig, h: torch.Tensor, *, training: bool = False
+    p: Params, cfg: GANConfig, h: torch.Tensor, folded, *, training: bool = False
 ) -> tuple[torch.Tensor, Params]:
     """The deconv trunk as one engine-domain pipeline (eval mode): one
     fused-engine call per layer.  Returns (image, bn_stats)."""
@@ -123,7 +133,7 @@ def _chained_deconv_trunk(
         scale = bias = None
         if d.norm == "batch":
             bn = p[f"deconv{i}_bn"]
-            scale, bias = _bn_eval_affine(bn)
+            scale, bias = folded[f"deconv{i}_bn"]
             new_stats[f"deconv{i}_bn"] = {"mean": bn["mean"], "var": bn["var"]}
         if nxt is not None and kops.chain_aligned(d.dims, nxt):
             emitted = kops.winograd_deconv2d_cells(
@@ -142,24 +152,27 @@ def _chained_deconv_trunk(
 
 
 def generator_apply(
-    p: Params, cfg: GANConfig, inp: torch.Tensor, *, training: bool = False
+    p: Params, cfg: GANConfig, inp: torch.Tensor, *, training: bool = False, folded=None
 ) -> tuple[torch.Tensor, Params]:
     """inp: (B, z_dim) latents or (B, H, W, 3) images (image-to-image).
     Returns (NHWC image, bn_stats), eval mode only.  The stem is a plain
-    matrix product; the deconv trunk is ``_chained_deconv_trunk``."""
+    matrix product; the deconv trunk is ``_chained_deconv_trunk``.
+    ``folded`` is ``fold_eval_bn(p, cfg)``, computed here when not given."""
     if training:
         raise NotImplementedError(_TRAINING_LATER)
     if not uses_chained(cfg.deconv_impl):
         raise ValueError(
             f"deconv_impl {cfg.deconv_impl!r} is not one of {IMPLS}; map it with serve_impl"
         )
+    if folded is None:
+        folded = fold_eval_bn(p, cfg)
     new_stats: Params = {}
     if cfg.z_dim:
         h = L.linear(p["stem"], inp)
         h = h.reshape(inp.shape[0], cfg.seed_hw, cfg.seed_hw, cfg.stem_ch)
-        h, s = L.batchnorm(p["stem_bn"], h)
-        new_stats["stem_bn"] = s
-        h = torch.relu(h)
+        a, b = folded["stem_bn"]
+        h = torch.relu(torch.addcmul(b, h, a))  # eval-mode BN, folded
+        new_stats["stem_bn"] = {"mean": p["stem_bn"]["mean"], "var": p["stem_bn"]["var"]}
     else:
         h = inp
         for i, e in enumerate(cfg.encoder):
@@ -168,5 +181,5 @@ def generator_apply(
                 h, s = L.batchnorm(p[f"enc{i}_bn"], h)
                 new_stats[f"enc{i}_bn"] = s
             h = L.ACTIVATIONS[e.act](h)
-    img, trunk_stats = _chained_deconv_trunk(p, cfg, h)
+    img, trunk_stats = _chained_deconv_trunk(p, cfg, h, folded)
     return img, {**new_stats, **trunk_stats}

@@ -74,7 +74,7 @@ class GanFuture:
 
 class _Resident:
     """One arch resident on the device: its serving config, packed weights,
-    per-bucket counts and its generate."""
+    folded batchnorm, per-bucket counts and its generate."""
 
     def __init__(self, arch: str, gen_params, cfg: GANConfig, device: torch.device):
         self.arch = arch
@@ -82,13 +82,14 @@ class _Resident:
         params = {k: {kk: v.to(device, torch.float32).contiguous() for kk, v in d.items()}
                   for k, d in gen_params.items()}
         self.params = G.prepack_generator(params, self.cfg)
+        self.folded = G.fold_eval_bn(self.params, self.cfg)  # once, not per request
         self.bucket_counts: dict[int, int] = {}
         self.served = 0
         self.generates = 0
 
     def generate(self, z: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            img, _ = G.generator_apply(self.params, self.cfg, z)
+            img, _ = G.generator_apply(self.params, self.cfg, z, folded=self.folded)
         self.generates += 1
         return img
 

@@ -75,9 +75,10 @@ def test_generator_matches_jax_chained_ref(arch):
     got, stats = TG.generator_apply(tp, tcfg, torch.from_numpy(inp))
     assert got.shape == (inp.shape[0], 64, 64, 3)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    # the cuda impl on CPU tensors takes the plain version: equal, bit for bit
+    # the cuda impl on CPU tensors takes the plain version: equal, bit for bit,
+    # as is a call with the batchnorm folded beforehand (as a server does)
     got_cuda, _ = TG.generator_apply(tp, dataclasses.replace(tcfg, deconv_impl="cuda_chained"),
-                                     torch.from_numpy(inp))
+                                     torch.from_numpy(inp), folded=TG.fold_eval_bn(tp, tcfg))
     assert torch.equal(got_cuda, got)
     assert all(k.endswith("_bn") for k in stats)
 
