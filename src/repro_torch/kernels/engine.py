@@ -88,10 +88,48 @@ def _plan(B: int, ty: int, tx: int, N: int, M: int, S: int, device_index: int):
     return splits.value, floats.value, counters.value
 
 
+@functools.lru_cache(maxsize=256)
+def _geometry(cells_shape, ww_shape, inv_shape, pos_idx, sub_slices, m, n, ty, tx, out_mode,
+              stride, out_h, out_w) -> tuple[int, ...]:
+    """Checks what the kernel takes of a layer's geometry (raising
+    ValueError otherwise) and returns the output shape; cached per geometry."""
+    if (m, n) != (2, 4):
+        raise ValueError(f"the CUDA kernel implements F(2,3) only (m=2, n=4), got m={m}, n={n}")
+    if len(cells_shape) != 5 or cells_shape[3] != m * m:
+        raise ValueError(f"cells must be (B, Gy, Gx, {m * m}, N), got {cells_shape}")
+    B, Gy, Gx, _, N = cells_shape
+    C, Nw, M = ww_shape
+    S = stride
+    if Nw != N:
+        raise ValueError(f"cells carry {N} channels, packed weights {Nw}")
+    if inv_shape != (C, m * m) or len(pos_idx) != C:
+        raise ValueError(f"inv {inv_shape} / pos_idx ({len(pos_idx)}) != C={C}")
+    if len(sub_slices) != S * S:
+        raise ValueError(f"{len(sub_slices)} sub-filters for stride {S} (the deconv corner has S^2)")
+    if any(sub_slices[i][1] != sub_slices[i + 1][0] for i in range(S * S - 1)) or \
+            sub_slices[0][0] != 0 or sub_slices[-1][1] != C:
+        raise ValueError(f"sub_slices {sub_slices} must tile [0, C) in order")
+    if any(hi - lo > n * n for lo, hi in sub_slices):
+        raise ValueError(f"a sub-filter holds more than {n * n} positions")
+    if Gy < ty + 1 or Gx < tx + 1:
+        raise ValueError(f"cells ({Gy}, {Gx}) do not cover {ty}x{tx} tiles plus the halo")
+    if min(B, N, M, ty, tx, out_h, out_w) <= 0:
+        raise ValueError("empty problem")
+    if N % 4:
+        raise ValueError(f"the CUDA kernel moves cell windows in 16-byte copies: N={N} must be a multiple of 4")
+    out_shape = (B, out_h, out_w, M) if out_mode == "nhwc" else (B, ty * S, tx * S, m * m, M)
+    n_out = 1
+    for d in out_shape:
+        n_out *= d
+    if max(B * Gy * Gx * m * m * N, C * N * M, n_out) >= 2**31 or B * ty * tx >= 2**31:
+        raise ValueError("problem too large for the kernel's 32-bit tile indices")
+    return out_shape
+
+
 def _check_vec(name, v, M, device):
     if v is None:
         return None
-    if v.device != device or v.dtype != torch.float32 or v.shape != (M,) or not v.is_contiguous():
+    if v.device != device or v.dtype is not torch.float32 or v.shape != (M,) or not v.is_contiguous():
         raise ValueError(f"{name} must be a contiguous fp32 ({M},) tensor on {device}, got "
                          f"{tuple(v.shape)} {v.dtype} on {v.device}")
     return v
@@ -123,56 +161,31 @@ def fused_engine(
     cells mode with pixels outside the crop window zeroed.  CPU tensors take
     the plain version; CUDA tensors launch the kernel, which takes F(2,3)
     only, fp32, contiguous inputs."""
-    kw = dict(
-        pos_idx=pos_idx, sub_slices=sub_slices, m=m, n=n, ty=ty, tx=tx, out_mode=out_mode,
-        activation=activation, scale=scale, bias=bias, stride=stride, padding=padding,
-        out_h=out_h, out_w=out_w,
-    )
     if out_mode not in _OUT_MODES:
         raise ValueError(f"out_mode {out_mode!r} not in {tuple(_OUT_MODES)}")
     if activation not in _ACT_CODES:
         raise ValueError(f"unsupported epilogue activation {activation!r}")
     if cells.device.type == "cpu":
-        return fused_engine_plain(cells, ww_packed, inv_packed, **kw)
+        return fused_engine_plain(
+            cells, ww_packed, inv_packed, pos_idx=pos_idx, sub_slices=sub_slices, m=m, n=n,
+            ty=ty, tx=tx, out_mode=out_mode, activation=activation, scale=scale, bias=bias,
+            stride=stride, padding=padding, out_h=out_h, out_w=out_w,
+        )
     if cells.device.type != "cuda":
         raise ValueError(f"fused_engine runs on cpu or cuda tensors, got {cells.device}")
 
     # --- what the kernel takes
-    if (m, n) != (2, 4):
-        raise ValueError(f"the CUDA kernel implements F(2,3) only (m=2, n=4), got m={m}, n={n}")
     dev = cells.device
     for name, t in (("cells", cells), ("ww_packed", ww_packed), ("inv_packed", inv_packed)):
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+        if t.device != dev or t.dtype is not torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous fp32 tensor on {dev}, got "
                              f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
-    if cells.dim() != 5 or cells.shape[3] != m * m:
-        raise ValueError(f"cells must be (B, Gy, Gx, {m * m}, N), got {tuple(cells.shape)}")
+    out_shape = _geometry(tuple(cells.shape), tuple(ww_packed.shape), tuple(inv_packed.shape),
+                          tuple(pos_idx), tuple(sub_slices), m, n, ty, tx, out_mode, stride,
+                          out_h, out_w)
     B, Gy, Gx, _, N = cells.shape
-    C, Nw, M = ww_packed.shape
+    M = ww_packed.shape[2]
     S = stride
-    if Nw != N:
-        raise ValueError(f"cells carry {N} channels, packed weights {Nw}")
-    if inv_packed.shape != (C, m * m) or len(pos_idx) != C:
-        raise ValueError(f"inv {tuple(inv_packed.shape)} / pos_idx ({len(pos_idx)}) != C={C}")
-    if len(sub_slices) != S * S:
-        raise ValueError(f"{len(sub_slices)} sub-filters for stride {S} (the deconv corner has S^2)")
-    if any(sub_slices[i][1] != sub_slices[i + 1][0] for i in range(S * S - 1)) or \
-            sub_slices[0][0] != 0 or sub_slices[-1][1] != C:
-        raise ValueError(f"sub_slices {sub_slices} must tile [0, C) in order")
-    if any(hi - lo > n * n for lo, hi in sub_slices):
-        raise ValueError(f"a sub-filter holds more than {n * n} positions")
-    if Gy < ty + 1 or Gx < tx + 1:
-        raise ValueError(f"cells ({Gy}, {Gx}) do not cover {ty}x{tx} tiles plus the halo")
-    if min(B, N, M, ty, tx, out_h, out_w) <= 0:
-        raise ValueError("empty problem")
-    if N % 4:
-        raise ValueError(f"the CUDA kernel moves cell windows in 16-byte copies: N={N} must be a multiple of 4")
-    out_shape = (B, out_h, out_w, M) if out_mode == "nhwc" else (B, ty * S, tx * S, m * m, M)
-    n_out = 1
-    for d in out_shape:
-        n_out *= d
-    if max(cells.numel(), ww_packed.numel(), n_out) >= 2**31 or B * ty * tx >= 2**31:
-        raise ValueError("problem too large for the kernel's 32-bit tile indices")
     scale = _check_vec("scale", scale, M, dev)
     bias = _check_vec("bias", bias, M, dev)
 
