@@ -9,8 +9,8 @@ Phases, each printing one JSON line:
   kernel  the fused Winograd-DeConv kernel against its plain PyTorch version
           at the four DCGAN layer shapes (batch 8) and a K4S2, a K3S1 and a
           K2S3 shape, each also checked against conv_transpose2d plus the same
-          epilogue; kernel, plain and library device times (profiler) and
-          wall times of back-to-back calls (CUDA events).
+          epilogue; kernel, plain and library device times (profiler, mean
+          of 20 calls) and wall times (CUDA events, median of >= 20 calls).
   serve   DCGAN at its published widths through GanServeEngine (random
           weights from a seed): requests of 1, 3 and 8 images, then a run of
           more; checks the images against the plain-version generator, and
@@ -74,6 +74,25 @@ def wall_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def event_median_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """Median over ``reps`` single calls of the CUDA-event time around one
+    call (ms), after a warm-up: one isolated call, host overhead included."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
 
 
 def device_ms(fn, reps: int = 20, warmup: int = 3, name: str | None = None) -> float:
@@ -160,8 +179,9 @@ def kernel_phase(torch, peaks):
         ms = device_ms(lambda: run("cuda"), name="fused_epi_kernel")
         plain_ms = device_ms(lambda: run("ref"))
         library_ms = device_ms(library)
-        walls = dict(ms_wall=wall_ms(lambda: run("cuda")), plain_ms_wall=wall_ms(lambda: run("ref"), reps=10),
-                     library_ms_wall=wall_ms(library, reps=10))
+        walls = dict(ms_wall=event_median_ms(lambda: run("cuda")),
+                     plain_ms_wall=event_median_ms(lambda: run("ref"), reps=20),
+                     library_ms_wall=event_median_ms(library, reps=20))
 
         pos_idx, sub_slices, _, _ = ops.packed_layout(dims)
         C = len(pos_idx)
@@ -238,7 +258,6 @@ def serve_phase(torch, card):
           "setup_s": setup_s, "card": card})
 
     # --- throughput and latency (after the counted run)
-    rates = {}
     for b in (1, 8):
         z = zs[-1][:1].repeat(b, 1)
         gen_ms = wall_ms(lambda: eng.generate(z))
@@ -251,12 +270,12 @@ def serve_phase(torch, card):
             eng.submit(z).result()
             torch.cuda.synchronize()
             lat.append(1e3 * (time.perf_counter() - t))
-        rates[b] = dict(generate_ms=gen_ms, images_per_s=1e3 * b / gen_ms, device_ms=dev_ms,
-                        fused_kernel_ms=kern_ms, device_idle_share=max(0.0, 1.0 - dev_ms / gen_ms),
-                        plain_generate_ms=plain_ms, request_latency_ms_p50=statistics.median(lat),
-                        request_latency_ms_max=max(lat))
-        emit({"phase": "serve_rate", "batch": b, **rates[b], "card": card})
-    return launches, rates
+        rate = dict(generate_ms=gen_ms, images_per_s=1e3 * b / gen_ms, device_ms=dev_ms,
+                    fused_kernel_ms=kern_ms, device_idle_share=max(0.0, 1.0 - dev_ms / gen_ms),
+                    plain_generate_ms=plain_ms, request_latency_ms_p50=statistics.median(lat),
+                    request_latency_ms_max=max(lat))
+        emit({"phase": "serve_rate", "batch": b, **rate, "card": card})
+    return launches
 
 
 def main() -> int:
@@ -292,7 +311,7 @@ def main() -> int:
           "library": str(_build.library_path().relative_to(ROOT))})
 
     rows = kernel_phase(torch, peaks)
-    launches, rates = serve_phase(torch, smi)
+    launches = serve_phase(torch, smi)
 
     main_rows = [r for r in rows if r["name"].startswith("dcgan.")]
     tot = {k: sum(r[k] for r in main_rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
