@@ -45,8 +45,9 @@
 //     or DCGAN's first layer, whose 192 blocks make 1.45 waves of one block
 //     per SM), the N loop is split over 2-8 blocks; each writes its products
 //     to a scratch buffer and the last to arrive sums them in split order, so
-//     the result does not depend on arrival order.  fused_engine_plan picks
-//     the split from the card's occupancy;
+//     the result does not depend on arrival order, and resets the group's
+//     arrival counter to 0.  fused_engine_plan picks the split from the
+//     card's occupancy;
 //   * blocks with the same (s, M-tile) and neighbouring T-tiles are adjacent
 //     in launch order, so they stream the same weight slice together and the
 //     L2 serves the rereads: device-memory weight traffic stays near one pass;
@@ -290,7 +291,12 @@ fused_epi_kernel(const float* __restrict__ cells, const float* __restrict__ ww,
       __stcg(reinterpret_cast<float4*>(mine + e), *reinterpret_cast<const float4*>(red_s + e));
     __threadfence();
     __syncthreads();
-    if (tid == 0) last = atomicAdd(counters + grp, 1) == splits - 1;
+    if (tid == 0) {
+      last = atomicAdd(counters + grp, 1) == splits - 1;
+      // every block of the group has arrived: leave the counter at 0 for
+      // the next launch, so the caller zeroes the buffer only once
+      if (last) counters[grp] = 0;
+    }
     __syncthreads();
     if (!last) return;
     __threadfence();
@@ -369,14 +375,20 @@ int with_conf(int M, F&& f) {
 // times the work per block (1/k), times a 25% cost per extra split for the
 // partials' round trip and the shorter pipelines; at least 4 chunks per
 // split.  scratch_floats / counters are 0 when
-// the split count is 1.
+// the split count is 1.  It also raises the block configuration's
+// shared-memory limit on the current device, which a launch needs: call it
+// for M on that device before the first launch.
 extern "C" int fused_engine_plan(int B, int ty, int tx, int N, int M, int S, int device,
                                  int* splits, long long* scratch_floats, long long* counters) {
   return with_conf(M, [&](auto conf) {
     using C = decltype(conf);
     using K = typename C::K;
+    // both variants' shared-memory limit, here and not at every launch
     cudaError_t err = cudaFuncSetAttribute(FE_KERNEL(C, false), cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)K::kSmemBytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(FE_KERNEL(C, true), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)K::kSmemBytes);
     int occ = 0, sms = 0;
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, FE_KERNEL(C, false), K::kThreads, K::kSmemBytes);
@@ -400,7 +412,8 @@ extern "C" int fused_engine_plan(int B, int ty, int tx, int N, int M, int S, int
 
 // One launch.  scale and bias may be null.  out_mode: 0 = nhwc, 1 = cells.
 // act: 0 none, 1 relu, 2 leaky_relu, 3 tanh.  splits, partial and counters
-// come from fused_engine_plan (counters zeroed).  Returns cudaGetLastError().
+// come from fused_engine_plan; the counters are zero on entry and the
+// kernel leaves them zero.  Returns cudaGetLastError().
 extern "C" int fused_engine_epi_f32(const float* cells, const float* ww, const float* inv,
                                     const int* pos, const int* sub_off, const float* scale,
                                     const float* bias, float* out, int B, int Gy, int Gx,
@@ -412,9 +425,6 @@ extern "C" int fused_engine_epi_f32(const float* cells, const float* ww, const f
     using K = typename C::K;
     // the unsplit variant carries no split code at all
     auto kernel = splits > 1 ? FE_KERNEL(C, true) : FE_KERNEL(C, false);
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)K::kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
     const int T = B * ty * tx;
     dim3 grid((T + K::BT - 1) / K::BT, S * S, ((M + K::BM - 1) / K::BM) * splits);
     kernel<<<grid, K::kThreads, K::kSmemBytes, reinterpret_cast<cudaStream_t>(stream)>>>(

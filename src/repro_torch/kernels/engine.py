@@ -75,55 +75,28 @@ def _layout_tensors(pos_idx: tuple[int, ...], sub_slices: tuple[tuple[int, int],
 @functools.lru_cache(maxsize=256)
 def _plan(B: int, ty: int, tx: int, N: int, M: int, S: int, device_index: int):
     """(splits, scratch floats, counters) the kernel's N-loop split needs for
-    this shape on this card, from the library's own block configuration."""
+    this shape on this card, from the library's own block configuration.
+    The library also raises the kernel's shared-memory limit here, once per
+    block configuration and device, which every launch needs."""
     import ctypes
 
     from ._build import load_library
 
     splits, floats, counters = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong()
-    err = load_library().fused_engine_plan(B, ty, tx, N, M, S, device_index, ctypes.byref(splits),
-                                           ctypes.byref(floats), ctypes.byref(counters))
+    with torch.cuda.device(device_index):
+        err = load_library().fused_engine_plan(B, ty, tx, N, M, S, device_index, ctypes.byref(splits),
+                                               ctypes.byref(floats), ctypes.byref(counters))
     if err != 0:
         raise RuntimeError(f"fused_engine plan failed: cudaError {err}")
     return splits.value, floats.value, counters.value
 
 
-@functools.lru_cache(maxsize=256)
-def _geometry(cells_shape, ww_shape, inv_shape, pos_idx, sub_slices, m, n, ty, tx, out_mode,
-              stride, out_h, out_w) -> tuple[int, ...]:
-    """Checks what the kernel takes of a layer's geometry (raising
-    ValueError otherwise) and returns the output shape; cached per geometry."""
-    if (m, n) != (2, 4):
-        raise ValueError(f"the CUDA kernel implements F(2,3) only (m=2, n=4), got m={m}, n={n}")
-    if len(cells_shape) != 5 or cells_shape[3] != m * m:
-        raise ValueError(f"cells must be (B, Gy, Gx, {m * m}, N), got {cells_shape}")
-    B, Gy, Gx, _, N = cells_shape
-    C, Nw, M = ww_shape
-    S = stride
-    if Nw != N:
-        raise ValueError(f"cells carry {N} channels, packed weights {Nw}")
-    if inv_shape != (C, m * m) or len(pos_idx) != C:
-        raise ValueError(f"inv {inv_shape} / pos_idx ({len(pos_idx)}) != C={C}")
-    if len(sub_slices) != S * S:
-        raise ValueError(f"{len(sub_slices)} sub-filters for stride {S} (the deconv corner has S^2)")
-    if any(sub_slices[i][1] != sub_slices[i + 1][0] for i in range(S * S - 1)) or \
-            sub_slices[0][0] != 0 or sub_slices[-1][1] != C:
-        raise ValueError(f"sub_slices {sub_slices} must tile [0, C) in order")
-    if any(hi - lo > n * n for lo, hi in sub_slices):
-        raise ValueError(f"a sub-filter holds more than {n * n} positions")
-    if Gy < ty + 1 or Gx < tx + 1:
-        raise ValueError(f"cells ({Gy}, {Gx}) do not cover {ty}x{tx} tiles plus the halo")
-    if min(B, N, M, ty, tx, out_h, out_w) <= 0:
-        raise ValueError("empty problem")
-    if N % 4:
-        raise ValueError(f"the CUDA kernel moves cell windows in 16-byte copies: N={N} must be a multiple of 4")
-    out_shape = (B, out_h, out_w, M) if out_mode == "nhwc" else (B, ty * S, tx * S, m * m, M)
-    n_out = 1
-    for d in out_shape:
-        n_out *= d
-    if max(B * Gy * Gx * m * m * N, C * N * M, n_out) >= 2**31 or B * ty * tx >= 2**31:
-        raise ValueError("problem too large for the kernel's 32-bit tile indices")
-    return out_shape
+@functools.lru_cache(maxsize=None)  # a few hundred ints per (shape, stream); never freed under a launch
+def _split_counters(n: int, device_index: int, stream: int) -> torch.Tensor:
+    """The N-loop split's arrival counters, zeroed once: the kernel leaves
+    them at 0.  One buffer per stream, since launches on one stream run in
+    order and never share it at the same time."""
+    return torch.zeros(n, dtype=torch.int32, device=torch.device("cuda", device_index))
 
 
 def _check_vec(name, v, M, device):
@@ -175,17 +148,41 @@ def fused_engine(
         raise ValueError(f"fused_engine runs on cpu or cuda tensors, got {cells.device}")
 
     # --- what the kernel takes
+    if (m, n) != (2, 4):
+        raise ValueError(f"the CUDA kernel implements F(2,3) only (m=2, n=4), got m={m}, n={n}")
     dev = cells.device
     for name, t in (("cells", cells), ("ww_packed", ww_packed), ("inv_packed", inv_packed)):
         if t.device != dev or t.dtype is not torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous fp32 tensor on {dev}, got "
                              f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
-    out_shape = _geometry(tuple(cells.shape), tuple(ww_packed.shape), tuple(inv_packed.shape),
-                          tuple(pos_idx), tuple(sub_slices), m, n, ty, tx, out_mode, stride,
-                          out_h, out_w)
+    if cells.dim() != 5 or cells.shape[3] != m * m:
+        raise ValueError(f"cells must be (B, Gy, Gx, {m * m}, N), got {tuple(cells.shape)}")
     B, Gy, Gx, _, N = cells.shape
-    M = ww_packed.shape[2]
+    C, Nw, M = ww_packed.shape
     S = stride
+    if Nw != N:
+        raise ValueError(f"cells carry {N} channels, packed weights {Nw}")
+    if inv_packed.shape != (C, m * m) or len(pos_idx) != C:
+        raise ValueError(f"inv {tuple(inv_packed.shape)} / pos_idx ({len(pos_idx)}) != C={C}")
+    if len(sub_slices) != S * S:
+        raise ValueError(f"{len(sub_slices)} sub-filters for stride {S} (the deconv corner has S^2)")
+    if any(sub_slices[i][1] != sub_slices[i + 1][0] for i in range(S * S - 1)) or \
+            sub_slices[0][0] != 0 or sub_slices[-1][1] != C:
+        raise ValueError(f"sub_slices {sub_slices} must tile [0, C) in order")
+    if any(hi - lo > n * n for lo, hi in sub_slices):
+        raise ValueError(f"a sub-filter holds more than {n * n} positions")
+    if Gy < ty + 1 or Gx < tx + 1:
+        raise ValueError(f"cells ({Gy}, {Gx}) do not cover {ty}x{tx} tiles plus the halo")
+    if min(B, N, M, ty, tx, out_h, out_w) <= 0:
+        raise ValueError("empty problem")
+    if N % 4:
+        raise ValueError(f"the CUDA kernel moves cell windows in 16-byte copies: N={N} must be a multiple of 4")
+    out_shape = (B, out_h, out_w, M) if out_mode == "nhwc" else (B, ty * S, tx * S, m * m, M)
+    n_out = 1
+    for d in out_shape:
+        n_out *= d
+    if max(cells.numel(), ww_packed.numel(), n_out) >= 2**31 or B * ty * tx >= 2**31:
+        raise ValueError("problem too large for the kernel's 32-bit tile indices")
     scale = _check_vec("scale", scale, M, dev)
     bias = _check_vec("bias", bias, M, dev)
 
@@ -194,9 +191,10 @@ def fused_engine(
     lib = load_library()
     pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
     splits, n_scratch, n_counters = _plan(B, ty, tx, N, M, S, dev.index)
-    # the N-loop split's partial products and arrival counters (zeroed)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the N-loop split's partial products and arrival counters
     partial = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
-    counters = torch.zeros(n_counters, dtype=torch.int32, device=dev) if n_counters else None
+    counters = _split_counters(n_counters, dev.index, stream) if n_counters else None
     out = torch.empty(out_shape, dtype=torch.float32, device=dev)
     err = lib.fused_engine_epi_f32(
         cells.data_ptr(), ww_packed.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(),
@@ -206,7 +204,7 @@ def fused_engine(
         _OUT_MODES[out_mode], _ACT_CODES[activation], splits,
         None if partial is None else partial.data_ptr(),
         None if counters is None else counters.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_engine kernel launch failed: cudaError {err}")

@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``src/repro_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, and the kernel wrapper
+``chip_smoke.py`` or the port's ``tools/``) imports JAX or the JAX package, and the kernel wrapper
 takes its plain version only for CPU tensors."""
 import re
 from pathlib import Path
@@ -16,7 +16,8 @@ FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$
 
 
 def _port_files():
-    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "tools").glob("*.py")))
 
 
 def test_port_imports_no_jax_and_no_reference_package():
