@@ -95,11 +95,12 @@ def event_median_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def profiled_ms(fn, reps: int = 10, warmup: int = 3, name: str = "") -> tuple[float, float, float]:
+def profiled_ms(fn, reps: int = 10, warmup: int = 3, name: str = ""):
     """One profiled run of ``reps`` back-to-back calls: (wall ms per call from
     CUDA events around the run, device ms per call from the profiler, device
-    ms per call of the kernels whose name contains ``name``).  The device
-    time is taken inside the wall time it is compared with."""
+    ms per call of the kernels whose name contains ``name``, device ms per
+    call of each kernel by name).  The device time is taken inside the wall
+    time it is compared with."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -119,7 +120,8 @@ def profiled_ms(fn, reps: int = 10, warmup: int = 3, name: str = "") -> tuple[fl
     named = sum(e.device_time_total for e in evs if name and name in e.key)
     if total <= 0 or (name and named <= 0):
         fail(f"the profiler recorded no device time{' for ' + name if name else ''}")
-    return a.elapsed_time(b) / reps, total / reps / 1e3, named / reps / 1e3
+    by_kernel = {e.key: e.device_time_total / reps / 1e3 for e in evs if e.device_time_total > 0}
+    return a.elapsed_time(b) / reps, total / reps / 1e3, named / reps / 1e3, by_kernel
 
 
 def cells_to_image(c, out_hw, padding):
@@ -185,7 +187,7 @@ def kernel_phase(torch, peaks):
 
         ms = profiled_ms(lambda: run("cuda"), reps=20, name="fused_epi_kernel")[2]
         plain_ms = profiled_ms(lambda: run("ref"), reps=20)[1]
-        library_ms = profiled_ms(library, reps=20)[1]
+        _, library_ms, _, library_kernels = profiled_ms(library, reps=20)
         walls = dict(ms_wall=event_median_ms(lambda: run("cuda")),
                      plain_ms_wall=event_median_ms(lambda: run("ref"), reps=20),
                      library_ms_wall=event_median_ms(library, reps=20))
@@ -205,7 +207,7 @@ def kernel_phase(torch, peaks):
         row = dict(name=name, B=B, H_in=H, N=N, M=M, C=C, T=T, n_splits=splits,
                    out_mode="cells" if emit_cells else "nhwc", activation=act,
                    max_abs_err=err, tol=tol, library_max_abs_err=lib_err,
-                   ms=ms, plain_ms=plain_ms, library_ms=library_ms, **walls,
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms, library_kernels=library_kernels, **walls,
                    bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
                    bytes=n_bytes, ops=n_ops,
                    achieved_tflops=n_ops / (ms * 1e-3) / 1e12)
@@ -279,7 +281,7 @@ def serve_phase(torch, card):
     for b in (1, 8):
         z = zs[-1][:1].repeat(b, 1)
         gen_ms = wall_ms(lambda: eng.generate(z))
-        prof_ms, dev_ms, kern_ms = profiled_ms(lambda: eng.generate(z), name="fused_epi_kernel")
+        prof_ms, dev_ms, kern_ms, _ = profiled_ms(lambda: eng.generate(z), name="fused_epi_kernel")
         idle = 1.0 - dev_ms / prof_ms
         if idle < 0.0:
             fail(f"device time {dev_ms:.4f} ms exceeds the wall time {prof_ms:.4f} ms it was taken in")
