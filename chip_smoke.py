@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases kernel,kernel_bwd,serve,train]
 
 Phases, each printing one JSON line:
   env     torch / CUDA versions, the card's name and power limit; TF32 off.
@@ -11,12 +11,27 @@ Phases, each printing one JSON line:
           K2S3 shape, each also checked against conv_transpose2d plus the same
           epilogue; kernel, plain and library device times (profiler, mean
           of 20 calls) and wall times (CUDA events, median of >= 20 calls).
+  kernel_bwd
+          the two backward kernels (fused_engine_bwd.cu) against their plain
+          versions at the four DCGAN layer shapes at the training batch 128
+          and the K4S2, K3S1 and K2S3 shapes above; device, one-call and
+          plain times, the bound, and as a yardstick aten's
+          convolution_backward of the layer's conv_transpose2d (input grad
+          for bwd_x, raw-weight grad for bwd_w).  Also the forward kernel at
+          the four training shapes (batch 128).
   serve   DCGAN at its published widths through GanServeEngine (random
           weights from a seed): requests of 1, 3 and 8 images, then a run of
           more; checks the images against the plain-version generator, and
           that the kernel ran exactly 4 times per generate; images/s.
-  kernels one summary line per kernel (launches on the serving path, error,
-          times, the least time the card could take).
+  train   DCGAN at its published widths, batch 128: 3 steps of make_gan_step
+          with the generator on the CUDA kernels (cuda_chained, discriminator
+          lax) and the same 3 steps on the plain versions (chained_ref) from
+          the same params and batches; checks metrics, parameters, the
+          non-finite flag and 4/4/4 launches of the three kernels per step,
+          with none of the backward ones in the discriminator's gradient
+          pull; step ms, device ms, idle share, images/s, peak memory.
+  kernels one summary line per kernel (launches on the serving and training
+          paths, error, times, the least time the card could take).
 Then the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Any failed check raises and exits non-zero
 without that line; without a CUDA device, or without the package beside
@@ -34,6 +49,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SOURCE = "src/repro_torch/kernels/csrc/fused_engine.cu"
 REPLACES = "src/repro/kernels/engine.py:817"  # fused_engine's epilogue pallas_call
+SOURCE_BWD = "src/repro_torch/kernels/csrc/fused_engine_bwd.cu"
+REPLACES_BWD_X = "src/repro/kernels/engine.py:1291"  # fused_engine_bwd_x's pallas_call
+REPLACES_BWD_W = "src/repro/kernels/engine.py:1427"  # fused_engine_bwd_w's pallas_call
+PHASES = ("kernel", "kernel_bwd", "serve", "train")
+TRAIN_BATCH = 128  # the DCGAN paper's mini-batch
 
 # (fp32 FLOP/s outside the tensor cores, HBM bytes/s) from NVIDIA's data sheets
 PEAKS = {
@@ -95,40 +115,40 @@ def event_median_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def profiled_ms(fn, reps: int = 10, warmup: int = 3, name: str = ""):
+def profiled_ms(fn, reps: int = 10, warmup: int = 3, name: str = "", what: str = ""):
     """One profiled run of ``reps`` back-to-back calls: (wall ms per call from
     CUDA events around the run, device ms per call from the profiler, device
     ms per call of the kernels whose name contains ``name``, device ms per
     call of each kernel by name).  The device time is taken inside the wall
-    time it is compared with."""
+    time it is compared with.  A session that records no device time (or
+    none for ``name``) is run again, up to three sessions in all, and then
+    fails: the tracer has been seen to drop a whole session's events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-    evs = prof.key_averages()
-    total = sum(e.device_time_total for e in evs)
-    named = sum(e.device_time_total for e in evs if name and name in e.key)
-    if total <= 0 or (name and named <= 0):
-        fail(f"the profiler recorded no device time{' for ' + name if name else ''}")
+    for attempt in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            torch.cuda.synchronize()
+        evs = prof.key_averages()
+        total = sum(e.device_time_total for e in evs)
+        named = sum(e.device_time_total for e in evs if name and name in e.key)
+        if total > 0 and (named > 0 or not name):
+            break
+        emit({"note": f"profiler session {attempt + 1} recorded no device time",
+              "for": what or name or "(all kernels)"})
+    else:
+        fail(f"the profiler recorded no device time for {what or name or 'any kernel'} in 3 sessions")
     by_kernel = {e.key: e.device_time_total / reps / 1e3 for e in evs if e.device_time_total > 0}
     return a.elapsed_time(b) / reps, total / reps / 1e3, named / reps / 1e3, by_kernel
-
-
-def cells_to_image(c, out_hw, padding):
-    """(B, R, Cc, 4, M) emitted cells -> the cropped NHWC image."""
-    B, R, Cc, _, M = c.shape
-    img = c.reshape(B, R, Cc, 2, 2, M).permute(0, 1, 3, 2, 4, 5).reshape(B, R * 2, Cc * 2, M)
-    return img[:, padding : padding + out_hw[0], padding : padding + out_hw[1]]
 
 
 def kernel_phase(torch, peaks):
@@ -137,6 +157,7 @@ def kernel_phase(torch, peaks):
     from repro_torch.core.tdc import DeconvDims
     from repro_torch.kernels import engine, ops
     from repro_torch.kernels.ref import epilogue_apply_ref
+    from repro_torch.models.gan import _cells_to_image
 
     K5, K4, K3, K2S3 = DeconvDims(5, 2, 2, 1), DeconvDims(4, 2, 1, 0), DeconvDims(3, 1, 1, 0), DeconvDims(2, 3, 0, 0)
     # name, dims, B, H, N, M, emit_cells, activation, affine
@@ -179,7 +200,7 @@ def kernel_phase(torch, peaks):
             return epilogue_apply_ref(y.permute(0, 2, 3, 1), scale, bias, act)
 
         lib_img = library()
-        got_img = cells_to_image(got, (HO, HO), dims.padding) if emit_cells else got
+        got_img = _cells_to_image(got, (HO, HO), dims.padding) if emit_cells else got
         lib_err = (got_img - lib_img).abs().max().item()
         lib_tol = 1e-4 * lib_img.abs().max().item() + 1e-5
         if not lib_err <= lib_tol:
@@ -300,8 +321,286 @@ def serve_phase(torch, card):
     return launches
 
 
-def main() -> int:
+def _dcgan_train_shapes():
+    """(name, dims, B, H, N, M, gy, emit_cells, act) of DCGAN's four deconv
+    layers in a training step at batch 128; gy is the height of the cells
+    the layer reads (the stem image's cells, then the previous layer's
+    emitted cells, passed through)."""
+    from repro_torch.core.tdc import DeconvDims
+
+    K5 = DeconvDims(5, 2, 2, 1)
+    B, rows, gy = TRAIN_BATCH, [], None
+    for i, (H, N, M) in enumerate([(4, 1024, 512), (8, 512, 256), (16, 256, 128), (32, 128, 3)]):
+        ty = -(-K5.j_extent(H) // 2)
+        gy = ty + 1 if gy is None else gy
+        last = i == 3
+        rows.append((f"dcgan.deconv{i}", K5, B, H, N, M, gy, not last, "tanh" if last else "none"))
+        gy = 2 * ty  # this layer's emitted cells: (B, ty*S, tx*S, 4, M)
+    return rows
+
+
+def kernel_bwd_phase(torch, peaks):
+    from repro_torch.core.tdc import DeconvDims
+    from repro_torch.kernels import engine, ops
+
+    K4, K3, K2S3 = DeconvDims(4, 2, 1, 0), DeconvDims(3, 1, 1, 0), DeconvDims(2, 3, 0, 0)
+    shapes = _dcgan_train_shapes() + [
+        ("k4s2", K4, 8, 8, 256, 128, None, True, "leaky_relu"),
+        ("k3s1", K3, 8, 32, 64, 3, None, False, "tanh"),
+        ("k2s3", K2S3, 2, 8, 32, 16, None, False, "relu"),
+    ]
+    flops_peak, bytes_peak = peaks
+    rows = []
+    for i, (name, dims, B, H, N, M, gy, emit_cells, act) in enumerate(shapes):
+        g = torch.Generator(device="cuda").manual_seed(200 + i)
+        S, P = dims.stride, dims.padding
+        pos_idx, sub_slices, _, _ = ops.packed_layout(dims)
+        C = len(pos_idx)
+        ty = -(-dims.j_extent(H) // 2)
+        gy = gy if gy is not None else ty + 1
+        x = torch.randn((B, H, H, N), generator=g, device="cuda")
+        w = 0.02 * torch.randn((dims.kernel, dims.kernel, N, M), generator=g, device="cuda")
+        packed = ops.prepack(w, dims)
+        cells = ops.cells_from_image(x, dims)
+        if cells.shape[1] < gy:  # the pass-through cells of a chained layer are larger
+            cells = torch.nn.functional.pad(cells, (0, 0, 0, 0, 0, gy - cells.shape[2], 0, gy - cells.shape[1]))
+        cells = cells.contiguous()
+        gs = torch.randn((B, ty, ty, S * S * 4, M), generator=g, device="cuda")
+        geo = dict(pos_idx=pos_idx, sub_slices=sub_slices, m=2, n=4, ty=ty, tx=ty, stride=S)
+        run_x = lambda: engine.fused_engine_bwd_x(gs, packed.ww, packed.inv, gy=gy, gx=gy, **geo)  # noqa: E731
+        run_w = lambda: engine.fused_engine_bwd_w(cells, gs, packed.inv, **geo)  # noqa: E731
+        plain_x = lambda: engine.fused_engine_bwd_x_plain(gs, packed.ww, packed.inv, gy=gy, gx=gy, **geo)  # noqa: E731
+        plain_w = lambda: engine.fused_engine_bwd_w_plain(cells, gs, packed.inv, **geo)  # noqa: E731
+        errs = {}
+        for key, run, plain in (("x", run_x, plain_x), ("w", run_w, plain_w)):
+            got = run()
+            torch.cuda.synchronize()
+            want = plain()
+            if tuple(got.shape) != tuple(want.shape):
+                fail(f"bwd_{key} at {name}: shape {tuple(got.shape)} != plain {tuple(want.shape)}")
+            err = (got - want).abs().max().item()
+            tol = 1e-4 * want.abs().max().item() + 1e-5
+            if not err <= tol:
+                fail(f"bwd_{key} kernel vs plain at {name}: max|err| {err:.3e} > {tol:.3e}")
+            errs[key] = (err, tol)
+
+        # the yardstick: aten's backward of this layer's conv_transpose2d
+        HO = dims.out_size(H)
+        xc = x.permute(0, 3, 1, 2).contiguous()
+        wt = w.permute(2, 3, 0, 1).contiguous()
+        go = torch.randn((B, M, HO, HO), generator=g, device="cuda")
+        conv_bwd = lambda mask: torch.ops.aten.convolution_backward(  # noqa: E731
+            go, xc, wt, None, [S, S], [P, P], [1, 1], True, [dims.output_padding] * 2, 1, mask)
+
+        T = B * ty * ty
+        # products, the gw fold (4 multiply-adds per packed position), the
+        # B-transform or its transpose (32 adds per tile and channel), and
+        # for bwd_x the overlap sum (3 adds per cell value)
+        common_ops = 2 * T * C * N * M + 8 * T * C * M + 32 * T * N
+        dcells_n = B * gy * gy * 4 * N
+        work = {
+            "x": (4 * (gs.numel() + packed.ww.numel() + packed.inv.numel() + dcells_n), common_ops + 3 * dcells_n),
+            "w": (4 * (cells.numel() + gs.numel() + packed.inv.numel() + C * N * M), common_ops),
+        }
+        for key, run, plain, kname, mask in (
+                ("x", run_x, plain_x, "bwd_x_kernel", [True, False, False]),
+                ("w", run_w, plain_w, "bwd_w_kernel", [False, True, False])):
+            n_bytes, n_ops = work[key]
+            t_bytes, t_ops = 1e3 * n_bytes / bytes_peak, 1e3 * n_ops / flops_peak
+            ms = profiled_ms(run, reps=20, name=kname)[2]
+            plain_ms = profiled_ms(plain, reps=5, warmup=1, what=f"plain bwd_{key} at {name}")[1]
+            library_ms = profiled_ms(lambda: conv_bwd(mask), reps=20, what=f"convolution_backward at {name}")[1]
+            row = dict(kernel=f"fused_engine_bwd_{key}", name=name, B=B, H_in=H, N=N, M=M, C=C, T=T, gy=gy,
+                       max_abs_err=errs[key][0], tol=errs[key][1], ms=ms,
+                       ms_wall=event_median_ms(run, reps=20), plain_ms=plain_ms,
+                       plain_ms_wall=event_median_ms(plain, reps=5, warmup=1),
+                       library_ms=library_ms, library_ms_wall=event_median_ms(lambda: conv_bwd(mask), reps=20),
+                       library_note=("aten convolution_backward, input grad" if key == "x" else
+                                     "aten convolution_backward, raw-weight grad (not the packed one)"),
+                       bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       bytes=n_bytes, ops=n_ops, achieved_tflops=n_ops / (ms * 1e-3) / 1e12)
+            if key == "x":
+                row["plan"] = engine._bwd_x_plan(B, gy, gy, ty, ty, M, torch.cuda.current_device())
+            else:
+                row["splits"] = engine._bwd_w_plan(B, ty, ty, N, M, S, torch.cuda.current_device())[0]
+            emit({"phase": "kernel_bwd", **row})
+            rows.append(row)
+
+        if name.startswith("dcgan."):  # the forward kernel at this training shape
+            run_f = lambda: ops.winograd_deconv2d_cells(  # noqa: E731
+                cells, packed, dims, (H, H), epilogue=act, emit_cells=emit_cells)
+            plain_f = lambda: ops.winograd_deconv2d_cells(  # noqa: E731
+                cells, packed, dims, (H, H), epilogue=act, emit_cells=emit_cells, backend="ref")
+            got, want = run_f(), plain_f()
+            err = (got - want).abs().max().item()
+            tol = 1e-4 * want.abs().max().item() + 1e-5
+            if not err <= tol:
+                fail(f"forward kernel vs plain at {name} (batch {B}): max|err| {err:.3e} > {tol:.3e}")
+            n_bytes = 4 * (cells.numel() + packed.ww.numel() + packed.inv.numel() + got.numel())
+            n_ops = 2 * T * C * N * M + 32 * T * N + 8 * T * C * M + 3 * got.numel()
+            t_bytes, t_ops = 1e3 * n_bytes / bytes_peak, 1e3 * n_ops / flops_peak
+            xc_ = x.permute(0, 3, 1, 2).contiguous()
+            lib_f = lambda: torch.nn.functional.conv_transpose2d(  # noqa: E731
+                xc_, wt, stride=S, padding=P, output_padding=dims.output_padding)
+            ms = profiled_ms(run_f, reps=20, name="fused_epi_kernel")[2]
+            row = dict(kernel="fused_engine_epi", name=name + ".train", B=B, H_in=H, N=N, M=M, C=C, T=T,
+                       max_abs_err=err, tol=tol, ms=ms, ms_wall=event_median_ms(run_f, reps=20),
+                       plain_ms=profiled_ms(plain_f, reps=5, warmup=1, what=f"plain forward at {name}")[1],
+                       library_ms=profiled_ms(lib_f, reps=20, what=f"conv_transpose2d at {name}")[1],
+                       library_note="conv_transpose2d without the epilogue",
+                       bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       bytes=n_bytes, ops=n_ops, achieved_tflops=n_ops / (ms * 1e-3) / 1e12)
+            emit({"phase": "kernel_bwd", **row})
+            rows.append(row)
+        del x, w, packed, cells, gs, go, xc
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _train_params(torch, cfg, seed):
+    """Generator and discriminator params from ``seed`` with non-trivial
+    batchnorm statistics and affines."""
+    from repro_torch.models import gan as G
+
+    gp = G.generator_init(cfg, seed=seed, device="cuda")
+    dp = G.discriminator_init(cfg, seed=seed + 1, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    for tree in (gp, dp):
+        for k, bn in tree.items():
+            if k.endswith("_bn"):
+                c = bn["mean"].shape[0]
+                bn["mean"] = 0.1 * torch.randn((c,), generator=g, device="cuda")
+                bn["var"] = 0.5 + torch.rand((c,), generator=g, device="cuda")
+                bn["scale"] = 1.0 + 0.2 * torch.randn((c,), generator=g, device="cuda")
+                bn["bias"] = 0.1 * torch.randn((c,), generator=g, device="cuda")
+    return gp, dp
+
+
+def train_phase(torch, card):
+    import dataclasses
+
+    from repro_torch import data as D
+    from repro_torch.configs import DCGAN
+    from repro_torch.kernels import engine
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import StepSettings, make_gan_step
+    from repro_torch.train import trainer as T
+    from repro_torch.tree import tree_leaves
+
+    kernels = (engine.fused_engine, engine.fused_engine_bwd_x, engine.fused_engine_bwd_w)
+    counts = lambda: tuple(k.launches for k in kernels)  # noqa: E731
+    cfg = dataclasses.replace(DCGAN, deconv_impl="cuda_chained", conv_impl="lax")
+    settings = StepSettings()
+    B, steps = TRAIN_BATCH, 3
+    t0 = time.perf_counter()
+    gp0, dp0 = _train_params(torch, cfg, seed=0)
+    batches = [(D.latent_batch(0, s, B, cfg.z_dim, device="cuda"), D.gan_batch(0, s, B, cfg.img_hw, device="cuda"))
+               for s in range(steps)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # record the backward kernels' launches around each gradient pull of the step
+    pulls = []
+    real_grads = T._grads
+
+    def recording_grads(loss, tree, *, retain_graph):
+        before = counts()
+        out = real_grads(loss, tree, retain_graph=retain_graph)
+        torch.cuda.synchronize()
+        pulls.append(tuple(a - b for a, b in zip(counts(), before)))
+        return out
+
+    def run(impl):
+        step = make_gan_step(cfg, settings=dataclasses.replace(settings, deconv_impl=impl))
+        gp, dp = gp0, dp0
+        g_opt, d_opt = adamw_init(gp), adamw_init(dp)
+        per_step, metrics = [], []
+        for z, real in batches:
+            before = counts()
+            gp, dp, g_opt, d_opt, m = step(gp, dp, g_opt, d_opt, z, real)
+            torch.cuda.synchronize()
+            per_step.append(tuple(a - b for a, b in zip(counts(), before)))
+            metrics.append({k: float(v) for k, v in m.items()})
+        return gp, dp, per_step, metrics
+
+    # --- the main path: counts at 0 just before, read just after
+    for k in kernels:
+        k.launches = 0
+    T._grads = recording_grads
+    try:
+        gp_k, dp_k, per_step, m_k = run("cuda_chained")
+    finally:
+        T._grads = real_grads
+    launches = counts()
+    if any(ps != (4, 4, 4) for ps in per_step):
+        fail(f"kernel launches per train step (fwd, bwd_x, bwd_w) {per_step}, want (4, 4, 4) each")
+    g_pulls, d_pulls = pulls[0::2], pulls[1::2]
+    if any(p[1:] != (4, 4) or p[0] for p in g_pulls) or any(p != (0, 0, 0) for p in d_pulls):
+        fail(f"launches per gradient pull: G {g_pulls}, D {d_pulls}; want (0, 4, 4) and (0, 0, 0)")
+    gp_r, dp_r, _, m_r = run("chained_ref")
+
+    worst = {}
+    for s, (a, b) in enumerate(zip(m_k, m_r)):
+        if a["nonfinite"] or b["nonfinite"]:
+            fail(f"step {s}: non-finite metrics {a} / {b}")
+        for key in ("g_loss", "d_loss", "g_grad_norm", "d_grad_norm"):
+            rel = abs(a[key] - b[key]) / max(abs(b[key]), 1e-12)
+            worst[key] = max(worst.get(key, 0.0), rel)
+            if not rel <= 1e-3:
+                fail(f"step {s} {key}: kernels {a[key]!r} vs plain {b[key]!r} (rel {rel:.2e} > 1e-3)")
+    bound = 6 * settings.lr
+    param_err = max((x - y).abs().max().item() for tree_a, tree_b in ((gp_k, gp_r), (dp_k, dp_r))
+                    for x, y in zip(tree_leaves(tree_a), tree_leaves(tree_b)))
+    if not param_err <= bound:
+        fail(f"parameters after {steps} steps differ by {param_err:.3e} > 6*lr = {bound:.1e}")
+    emit({"phase": "train", "arch": "dcgan", "batch": B, "steps": steps, "deconv_impl": "cuda_chained",
+          "conv_impl": "lax", "launches_per_step": per_step, "launches_per_pull": {"G": g_pulls, "D": d_pulls},
+          "metrics": m_k, "metrics_plain": m_r, "max_rel_err_metrics": worst,
+          "max_abs_err_params": param_err, "param_bound": bound, "setup_s": setup_s, "card": card})
+
+    # --- speed (after the counted run)
+    step = make_gan_step(cfg, settings=settings)
+    state = [gp_k, dp_k, adamw_init(gp_k), adamw_init(dp_k)]
+    z, real = batches[0]
+
+    def one():
+        state[:] = step(*state, z, real)[:4]
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = wall_ms(one, reps=5, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    prof_ms, dev_ms, _, by_kernel = profiled_ms(one, reps=5, warmup=1)
+    idle = 1.0 - dev_ms / prof_ms
+    if idle < 0.0:
+        fail(f"device time {dev_ms:.4f} ms exceeds the wall time {prof_ms:.4f} ms it was taken in")
+    ours = {k: v for k, v in by_kernel.items() if "fused_epi_kernel" in k or "bwd_x_kernel" in k
+            or "bwd_w_kernel" in k}
+    plain_step = make_gan_step(cfg, settings=dataclasses.replace(settings, deconv_impl="chained_ref"))
+    pstate = [gp_k, dp_k, adamw_init(gp_k), adamw_init(dp_k)]
+
+    def one_plain():
+        pstate[:] = plain_step(*pstate, z, real)[:4]
+
+    plain_step_ms = wall_ms(one_plain, reps=3, warmup=1)
+    emit({"phase": "train_rate", "batch": B, "step_ms": step_ms, "images_per_s": 1e3 * B / step_ms,
+          "profiled_step_ms": prof_ms, "device_ms": dev_ms, "device_idle_share": idle,
+          "engine_kernels_ms": sum(ours.values()), "engine_kernels": ours,
+          "top_kernels": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]),
+          "plain_step_ms": plain_step_ms, "max_memory_allocated": peak, "card": card})
+    return dict(zip(("fwd", "bwd_x", "bwd_w"), launches))
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {PHASES} (default: all)")
+    phases = ap.parse_args(argv).phases.split(",")
+    if not set(phases) <= set(PHASES):
+        ap.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -332,22 +631,39 @@ def main() -> int:
           "nvcc_seconds": _build.last_build_log.get("seconds"), "ptxas": ptxas,
           "library": str(_build.library_path().relative_to(ROOT))})
 
-    rows = kernel_phase(torch, peaks)
-    launches = serve_phase(torch, smi)
+    rows = kernel_phase(torch, peaks) if "kernel" in phases else []
+    bwd_rows = kernel_bwd_phase(torch, peaks) if "kernel_bwd" in phases else []
+    serve_launches = serve_phase(torch, smi) if "serve" in phases else 0
+    train_launches = train_phase(torch, smi) if "train" in phases else {}
 
-    main_rows = [r for r in rows if r["name"].startswith("dcgan.")]
-    tot = {k: sum(r[k] for r in main_rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    emit({"kernels": [{
-        "name": "fused_engine_epi", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-        "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
-        # one DCGAN generate at batch 8: the four layer shapes summed
-        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-        "bound_by": "bytes" if sum(1e3 * r["bytes"] / peaks[1] for r in main_rows)
-        >= sum(1e3 * r["ops"] / peaks[0] for r in main_rows) else "operations",
-        "library_ms": tot["library_ms"],
-        "shapes": [{k: r[k] for k in ("name", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                                      "max_abs_err")} for r in rows],
-    }]})
+    def summary(krows, bound_key="bound_ms"):
+        """Sums over the DCGAN layer rows (one generate, or one train step)."""
+        main_rows = [r for r in krows if r["name"].startswith("dcgan.")]
+        tot = {k: sum(r[k] for r in main_rows) for k in ("ms", "plain_ms", "library_ms", bound_key)}
+        by_bytes = sum(1e3 * r["bytes"] / peaks[1] for r in main_rows)
+        by_ops = sum(1e3 * r["ops"] / peaks[0] for r in main_rows)
+        return dict(ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot[bound_key],
+                    bound_by="bytes" if by_bytes >= by_ops else "operations", library_ms=tot["library_ms"],
+                    max_abs_err=max((r["max_abs_err"] for r in krows), default=None),
+                    shapes=[{k: r[k] for k in ("name", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                               "max_abs_err")} for r in krows])
+
+    fwd_train = [r for r in bwd_rows if r["kernel"] == "fused_engine_epi"]
+    line = [{"name": "fused_engine_epi", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+             "launches": serve_launches + train_launches.get("fwd", 0),
+             "launches_by_path": {"serve": serve_launches, "train": train_launches.get("fwd", 0)},
+             # ms ... library_ms: one DCGAN generate at batch 8, the four layer shapes summed
+             **summary(rows)}]
+    if fwd_train:
+        line[0]["train_step_batch128"] = {k: v for k, v in summary(fwd_train).items() if k != "shapes"}
+    for key, replaces in (("x", REPLACES_BWD_X), ("w", REPLACES_BWD_W)):
+        krows = [r for r in bwd_rows if r["kernel"] == f"fused_engine_bwd_{key}"]
+        line.append({"name": f"fused_engine_bwd_{key}", "route": "cuda", "source": SOURCE_BWD,
+                     "replaces": replaces, "launches": train_launches.get(f"bwd_{key}", 0),
+                     "launches_by_path": {"serve": 0, "train": train_launches.get(f"bwd_{key}", 0)},
+                     # ms ... library_ms: one DCGAN train step at batch 128, the four layer shapes summed
+                     **summary(krows)})
+    emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0

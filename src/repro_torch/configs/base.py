@@ -44,7 +44,10 @@ class GANConfig:
     # everywhere).  The reference's names are accepted and mapped by
     # models.gan.serve_impl.
     deconv_impl: str = "ref"
-    conv_impl: str = "lax"  # the discriminator's (a later slice)
+    # discriminator conv impl: "lax" (PyTorch's own convolution, as the
+    # reference leaves it to XLA) is supported; the Winograd conv impls are
+    # a later slice
+    conv_impl: str = "lax"
     disc_channels: tuple[int, ...] = (64, 128, 256, 512)
 
     @property

@@ -8,7 +8,12 @@ import torch
 
 from .configs.base import GANConfig
 
-__all__ = ["generator_params_from_numpy"]
+__all__ = ["generator_params_from_numpy", "discriminator_params_from_numpy"]
+
+
+def _to_torch(tree, device):
+    return {key: {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device) for k, v in leaves.items()}
+            for key, leaves in tree.items()}
 
 
 def generator_params_from_numpy(tree, cfg: GANConfig, device="cuda"):
@@ -29,13 +34,38 @@ def generator_params_from_numpy(tree, cfg: GANConfig, device="cuda"):
             want.add(f"deconv{i}_bn")
     if set(tree) != want:
         raise ValueError(f"param keys {sorted(tree)} != {sorted(want)} for {cfg.arch_id}")
-    out = {}
-    for key, leaves in tree.items():
-        out[key] = {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device) for k, v in leaves.items()}
+    out = _to_torch(tree, device)
     for i, d in enumerate(cfg.deconvs):
         wd = out[f"deconv{i}"]
         if "w" in wd and tuple(wd["w"].shape) != (d.dims.kernel, d.dims.kernel, d.c_in, d.c_out):
             raise ValueError(f"deconv{i} raw weights {tuple(wd['w'].shape)} do not match {d}")
         if "ww" in wd and tuple(wd["ww"].shape[1:]) != (d.c_in, d.c_out):
             raise ValueError(f"deconv{i} packed weights {tuple(wd['ww'].shape)} do not match {d}")
+    return out
+
+
+def discriminator_params_from_numpy(tree, cfg: GANConfig, device="cuda"):
+    """A discriminator param tree of numpy arrays in the reference's layout
+    (``conv{i}: {"w", "b"}`` raw K4 weights, ``conv{i}_bn`` after every conv
+    but the first, ``head``) -> the same tree of fp32 tensors on
+    ``device``.  Keys and shapes are checked against ``cfg``."""
+    from .models.gan import DISC_KERNEL, disc_channels
+
+    chans = [cfg.img_ch, *disc_channels(cfg)]
+    want = {"head"} | {f"conv{i}" for i in range(len(chans) - 1)} | {
+        f"conv{i}_bn" for i in range(1, len(chans) - 1)}
+    if set(tree) != want:
+        raise ValueError(f"param keys {sorted(tree)} != {sorted(want)} for {cfg.arch_id}'s discriminator")
+    out = _to_torch(tree, device)
+    for i in range(len(chans) - 1):
+        wd = out[f"conv{i}"]
+        if set(wd) != {"w", "b"}:
+            raise ValueError(f"conv{i} holds {sorted(wd)}; the port's discriminator takes raw {{'w', 'b'}}")
+        if tuple(wd["w"].shape) != (DISC_KERNEL, DISC_KERNEL, chans[i], chans[i + 1]) or \
+                tuple(wd["b"].shape) != (chans[i + 1],):
+            raise ValueError(f"conv{i} shapes {tuple(wd['w'].shape)} / {tuple(wd['b'].shape)} do not match "
+                             f"{chans[i]} -> {chans[i + 1]}")
+    final_hw = cfg.img_hw // 2 ** (len(chans) - 1)
+    if tuple(out["head"]["w"].shape) != (final_hw**2 * chans[-1], 1):
+        raise ValueError(f"head weights {tuple(out['head']['w'].shape)} do not match {cfg.arch_id}")
     return out

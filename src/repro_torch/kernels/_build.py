@@ -2,7 +2,8 @@
 
 The shared library goes to ``build/repro_torch/`` at the root of the
 checkout, named by a hash of the sources and flags, and is built on first
-use.  A missing ``nvcc`` or a failed build raises; nothing falls back.
+use: one ``nvcc`` per source, all started together, then one link.  A
+missing ``nvcc`` or a failed build raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -20,10 +21,10 @@ __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "library_path", "load
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("fused_engine.cu",)
+SOURCES = ("fused_engine.cu", "fused_engine_bwd.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _p = ctypes.c_void_p
@@ -32,6 +33,10 @@ _i = ctypes.c_int
 _SIGNATURES = {
     "fused_engine_plan": [_i] * 7 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2,
     "fused_engine_epi_f32": [_p] * 8 + [_i] * 14 + [_p] * 3,
+    "fused_engine_bwd_x_plan": [_i] * 6 + [ctypes.POINTER(_i)] * 3,
+    "fused_engine_bwd_x_f32": [_p] * 6 + [_i] * 11 + [_p],
+    "fused_engine_bwd_w_plan": [_i] * 7 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2,
+    "fused_engine_bwd_w_f32": [_p] * 6 + [_i] * 9 + [_p] * 3,
 }
 
 # what the last build printed (ptxas register / spill report), for the smoke log
@@ -65,16 +70,25 @@ def library_path() -> Path:
 def _build(out: Path) -> None:
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    tmpdir = Path(tempfile.mkdtemp(dir=out.parent))
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    last_build_log.update(seconds=time.perf_counter() - t0, log=proc.stdout + proc.stderr)
+    try:
+        objs = [tmpdir / (Path(s).stem + ".o") for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        for s, p, log in zip(SOURCES, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s} ({p.returncode}):\n{log}")
+        tmp = tmpdir / out.name
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    last_build_log.update(seconds=time.perf_counter() - t0, log="".join(logs))
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,5 +1,6 @@
-"""The epilogue-fused Winograd engine: wrapper of the CUDA kernel
-``csrc/fused_engine.cu`` and its plain PyTorch version.
+"""The epilogue-fused Winograd engine and its backward: wrappers of the
+CUDA kernels ``csrc/fused_engine.cu`` and ``csrc/fused_engine_bwd.cu`` and
+their plain PyTorch versions.
 
 ``fused_engine`` takes the padded cell layout of one deconv layer and the
 packed (C, N, M) weights and returns either the cropped NHWC image
@@ -8,6 +9,12 @@ packed (C, N, M) weights and returns either the cropped NHWC image
 applied.  On a CUDA tensor it launches the kernel (or raises); on a CPU
 tensor it runs ``fused_engine_plain``.  ``fused_engine.launches`` counts
 kernel launches and nothing else.
+
+``fused_engine_bwd_x`` and ``fused_engine_bwd_w`` are the two cotangents of
+the engine's pre-epilogue products, from the cotangent ``g`` in the
+(B, ty, tx, S*S*m*m, M) scratch layout: dL/dcells (B, gy, gx, m*m, N) and
+dL/dww (C, N, M).  They follow the same contract and keep their own
+``.launches``.
 """
 from __future__ import annotations
 
@@ -19,7 +26,10 @@ from ..core.winograd import get_transform
 from . import ref as _ref
 from .ref import EPILOGUE_ACTIVATIONS, LEAKY_SLOPE
 
-__all__ = ["LEAKY_SLOPE", "EPILOGUE_ACTIVATIONS", "fused_engine", "fused_engine_plain"]
+__all__ = [
+    "LEAKY_SLOPE", "EPILOGUE_ACTIVATIONS", "fused_engine", "fused_engine_plain",
+    "fused_engine_bwd_x", "fused_engine_bwd_x_plain", "fused_engine_bwd_w", "fused_engine_bwd_w_plain",
+]
 
 _OUT_MODES = {"nhwc": 0, "cells": 1}
 _ACT_CODES = {a: i for i, a in enumerate(EPILOGUE_ACTIVATIONS)}
@@ -213,3 +223,227 @@ def fused_engine(
 
 
 fused_engine.launches = 0
+
+
+# ------------------------------------------------------------- backward
+def fused_engine_bwd_x_plain(
+    g: torch.Tensor,
+    ww_packed: torch.Tensor,
+    inv_packed: torch.Tensor,
+    *,
+    pos_idx: tuple[int, ...],
+    sub_slices: tuple[tuple[int, int], ...],
+    m: int,
+    n: int,
+    ty: int,
+    tx: int,
+    gy: int,
+    gx: int,
+    stride: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of the bwd_x kernel, on any device: the
+    reference's ``fused_pre_engine_bwd_x_ref``."""
+    return _ref.fused_pre_engine_bwd_x_ref(
+        g, ww_packed, inv_packed, _bt(m, n), pos_idx=pos_idx, sub_slices=sub_slices,
+        m=m, n=n, ty=ty, tx=tx, gy=gy, gx=gx, m2=m * m,
+    )
+
+
+def fused_engine_bwd_w_plain(
+    cells: torch.Tensor,
+    g: torch.Tensor,
+    inv_packed: torch.Tensor,
+    *,
+    pos_idx: tuple[int, ...],
+    sub_slices: tuple[tuple[int, int], ...],
+    m: int,
+    n: int,
+    ty: int,
+    tx: int,
+    stride: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of the bwd_w kernel, on any device: the
+    reference's ``fused_pre_engine_bwd_w_ref``."""
+    return _ref.fused_pre_engine_bwd_w_ref(
+        cells, g, inv_packed, _bt(m, n), pos_idx=pos_idx, sub_slices=sub_slices,
+        m=m, n=n, ty=ty, tx=tx, m2=m * m,
+    )
+
+
+def _check_bwd(name: str, g: torch.Tensor, others, *, pos_idx, sub_slices, m, n, ty, tx, stride):
+    """The checks both backward kernels share; returns (B, M, C).  Raises on
+    a wrong device, dtype, contiguity or geometry: nothing falls back."""
+    dev = g.device
+    for nm, t in (("g", g), *others):
+        if t.device != dev or t.dtype is not torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{nm} must be a contiguous fp32 tensor on {dev}, got "
+                             f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+    if (m, n) != (2, 4):
+        raise ValueError(f"the CUDA kernels implement F(2,3) only (m=2, n=4), got m={m}, n={n}")
+    S = stride
+    if not 1 <= S <= 4:
+        raise ValueError(f"stride {S} outside the kernels' 1..4")
+    if g.dim() != 5 or tuple(g.shape[1:4]) != (ty, tx, S * S * m * m):
+        raise ValueError(f"g must be (B, {ty}, {tx}, {S * S * m * m}, M), got {tuple(g.shape)}")
+    C = len(pos_idx)
+    if len(sub_slices) != S * S or sub_slices[0][0] != 0 or sub_slices[-1][1] != C or \
+            any(sub_slices[i][1] != sub_slices[i + 1][0] for i in range(S * S - 1)):
+        raise ValueError(f"sub_slices {sub_slices} must be S^2 = {S * S} slices tiling [0, {C}) in order")
+    if any(hi - lo > n * n for lo, hi in sub_slices):
+        raise ValueError(f"a sub-filter holds more than {n * n} positions")
+    B, M = g.shape[0], g.shape[4]
+    if min(B, M, ty, tx) <= 0:
+        raise ValueError("empty problem")
+    return B, M, C
+
+
+def fused_engine_bwd_x(
+    g: torch.Tensor,  # (B, ty, tx, S*S*m*m, M) cotangent of the engine's products
+    ww_packed: torch.Tensor,  # (C, N, M)
+    inv_packed: torch.Tensor,  # (C, m*m) fp32
+    *,
+    pos_idx: tuple[int, ...],
+    sub_slices: tuple[tuple[int, int], ...],
+    m: int,
+    n: int,
+    ty: int,
+    tx: int,
+    gy: int,
+    gx: int,
+    stride: int,
+) -> torch.Tensor:
+    """dL/dcells (B, gy, gx, m*m, N) of the fused engine at the deconv
+    corner: the exact shape of the forward's cells input, zero in rows and
+    columns the forward never reads.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel (F(2,3), fp32, contiguous inputs)."""
+    kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m=m, n=n, ty=ty, tx=tx, stride=stride)
+    if g.device.type == "cpu":
+        return fused_engine_bwd_x_plain(g, ww_packed, inv_packed, gy=gy, gx=gx, **kw)
+    if g.device.type != "cuda":
+        raise ValueError(f"fused_engine_bwd_x runs on cpu or cuda tensors, got {g.device}")
+    B, M, C = _check_bwd("g", g, (("ww_packed", ww_packed), ("inv_packed", inv_packed)), **kw)
+    if ww_packed.dim() != 3 or ww_packed.shape[0] != C or ww_packed.shape[2] != M:
+        raise ValueError(f"ww_packed must be ({C}, N, {M}), got {tuple(ww_packed.shape)}")
+    if inv_packed.shape != (C, m * m):
+        raise ValueError(f"inv_packed must be ({C}, {m * m}), got {tuple(inv_packed.shape)}")
+    N = ww_packed.shape[1]
+    if gy < ty + 1 or gx < tx + 1:
+        raise ValueError(f"cells ({gy}, {gx}) do not cover {ty}x{tx} tiles plus the halo")
+    out_shape = (B, gy, gx, m * m, N)
+    if max(g.numel(), ww_packed.numel(), B * gy * gx * m * m * N) >= 2**31:
+        raise ValueError("problem too large for the kernel's 32-bit indices")
+
+    from ._build import load_library
+
+    dev = g.device
+    lib = load_library()
+    pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
+    R, W, TC = _bwd_x_plan(B, gy, gx, ty, tx, M, dev.index)
+    out = torch.empty(out_shape, dtype=torch.float32, device=dev)
+    err = lib.fused_engine_bwd_x_f32(
+        g.data_ptr(), ww_packed.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), offs.data_ptr(),
+        out.data_ptr(), B, gy, gx, N, M, stride, ty, tx, R, W, TC,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_engine_bwd_x kernel launch failed: cudaError {err}")
+    fused_engine_bwd_x.launches += 1
+    return out
+
+
+fused_engine_bwd_x.launches = 0
+
+
+def fused_engine_bwd_w(
+    cells: torch.Tensor,  # (B, Gy, Gx, m*m, N) the forward's cells input
+    g: torch.Tensor,  # (B, ty, tx, S*S*m*m, M)
+    inv_packed: torch.Tensor,  # (C, m*m) fp32
+    *,
+    pos_idx: tuple[int, ...],
+    sub_slices: tuple[tuple[int, int], ...],
+    m: int,
+    n: int,
+    ty: int,
+    tx: int,
+    stride: int,
+) -> torch.Tensor:
+    """dL/dww (C, N, M) of the fused engine at the deconv corner, xw
+    recomputed from the cells.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (F(2,3), fp32, contiguous, N % 4 == 0)."""
+    kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m=m, n=n, ty=ty, tx=tx, stride=stride)
+    if g.device.type == "cpu":
+        return fused_engine_bwd_w_plain(cells, g, inv_packed, **kw)
+    if g.device.type != "cuda":
+        raise ValueError(f"fused_engine_bwd_w runs on cpu or cuda tensors, got {g.device}")
+    B, M, C = _check_bwd("g", g, (("cells", cells), ("inv_packed", inv_packed)), **kw)
+    if cells.dim() != 5 or cells.shape[0] != B or cells.shape[3] != m * m:
+        raise ValueError(f"cells must be ({B}, Gy, Gx, {m * m}, N), got {tuple(cells.shape)}")
+    if inv_packed.shape != (C, m * m):
+        raise ValueError(f"inv_packed must be ({C}, {m * m}), got {tuple(inv_packed.shape)}")
+    _, Gy, Gx, _, N = cells.shape
+    if Gy < ty + 1 or Gx < tx + 1:
+        raise ValueError(f"cells ({Gy}, {Gx}) do not cover {ty}x{tx} tiles plus the halo")
+    if N % 4:
+        raise ValueError(f"the CUDA kernel moves cell windows in 16-byte copies: N={N} must be a multiple of 4")
+    if max(cells.numel(), g.numel(), C * N * M) >= 2**31 or B * ty * tx >= 2**31:
+        raise ValueError("problem too large for the kernel's 32-bit indices")
+
+    from ._build import load_library
+
+    dev = g.device
+    lib = load_library()
+    pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
+    splits, n_scratch, n_counters = _bwd_w_plan(B, ty, tx, N, M, stride, dev.index)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    partial = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
+    counters = _split_counters(n_counters, dev.index, stream) if n_counters else None
+    out = torch.empty((C, N, M), dtype=torch.float32, device=dev)
+    err = lib.fused_engine_bwd_w_f32(
+        cells.data_ptr(), g.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), offs.data_ptr(),
+        out.data_ptr(), B, Gy, Gx, N, M, stride, ty, tx, splits,
+        None if partial is None else partial.data_ptr(),
+        None if counters is None else counters.data_ptr(),
+        stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_engine_bwd_w kernel launch failed: cudaError {err}")
+    fused_engine_bwd_w.launches += 1
+    return out
+
+
+fused_engine_bwd_w.launches = 0
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_x_plan(B: int, gy: int, gx: int, ty: int, tx: int, M: int, device_index: int):
+    """(R, W, TC) of the bwd_x kernel's block geometry for this shape: R
+    cell rows by W cell columns per block, TC tile columns per slot row.
+    The library raises the kernel's shared-memory limit here, once."""
+    import ctypes
+
+    from ._build import load_library
+
+    out = [ctypes.c_int() for _ in range(3)]
+    with torch.cuda.device(device_index):
+        err = load_library().fused_engine_bwd_x_plan(B, gy, gx, ty, tx, M, *map(ctypes.byref, out))
+    if err != 0:
+        raise RuntimeError(f"fused_engine_bwd_x plan failed: cudaError {err}")
+    return tuple(v.value for v in out)
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_w_plan(B: int, ty: int, tx: int, N: int, M: int, S: int, device_index: int):
+    """(splits, scratch floats, counters) of the bwd_w kernel's T-loop split
+    for this shape on this card; the library raises the kernel's
+    shared-memory limit here, once."""
+    import ctypes
+
+    from ._build import load_library
+
+    splits, floats, counters = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong()
+    with torch.cuda.device(device_index):
+        err = load_library().fused_engine_bwd_w_plan(B, ty, tx, N, M, S, device_index, ctypes.byref(splits),
+                                                     ctypes.byref(floats), ctypes.byref(counters))
+    if err != 0:
+        raise RuntimeError(f"fused_engine_bwd_w plan failed: cudaError {err}")
+    return splits.value, floats.value, counters.value

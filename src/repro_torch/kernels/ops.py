@@ -6,10 +6,12 @@ once, giving packed (C, N, M) weights; ``cells_from_image`` and
 from an NHWC image or from the previous layer's emitted cells.
 
 Entry half: ``winograd_deconv2d_cells`` (cells in) and
-``winograd_deconv2d_packed`` (NHWC in) run the epilogue-fused engine,
-forward only.  ``backend="cuda"`` takes the CUDA kernel for CUDA tensors
-and its plain version for CPU tensors; ``backend="ref"`` takes the plain
-version on any device.
+``winograd_deconv2d_packed`` (NHWC in) run the epilogue-fused engine.
+``backend="cuda"`` takes the CUDA kernel for CUDA tensors and its plain
+version for CPU tensors; where a gradient is wanted it runs through
+``FusedEpilogueFn``, whose backward is the two backward kernels (or their
+plain versions).  ``backend="ref"`` takes the plain version on any device
+and leaves the gradient to autograd.
 """
 from __future__ import annotations
 
@@ -34,6 +36,8 @@ __all__ = [
     "cells_from_image",
     "chain_aligned",
     "cells_to_next",
+    "cells_window_mask",
+    "FusedEpilogueFn",
     "winograd_deconv2d_cells",
     "winograd_deconv2d_packed",
 ]
@@ -194,6 +198,104 @@ def cells_to_next(
     return arr[:, start : start + gy2, start : start + gx2].contiguous()
 
 
+def cells_window_mask(rows: int, cols: int, m: int, padding: int, out_h: int, out_w: int,
+                      device=None) -> torch.Tensor:
+    """(rows, cols, m*m, 1) fp32 crop-window mask of an emitted cell layout:
+    cell (rr, cc) intra (pp, qq) holds pixel (m*rr + pp, m*cc + qq), valid in
+    [padding, padding + out_h) x [padding, padding + out_w)."""
+    r_io = torch.arange(rows, device=device)[:, None, None, None]
+    c_io = torch.arange(cols, device=device)[None, :, None, None]
+    a_io = torch.arange(m * m, device=device)[None, None, :, None]
+    row_px = m * r_io + a_io // m
+    col_px = m * c_io + a_io % m
+    return ((row_px >= padding) & (row_px < padding + out_h)
+            & (col_px >= padding) & (col_px < padding + out_w)).float()
+
+
+def _epilogue_cotangent(g_img, y_img, scale, bias, activation: str, M: int):
+    """Activation-cotangent prologue: from the output cotangent and the saved
+    post-activation output (both fp32 images), the pre-affine cotangent and
+    the scale and bias cotangents.  Returns (g_aff, dscale, dbias)."""
+    if activation == "relu":
+        dact, pre = (y_img > 0).float(), y_img
+    elif activation == "leaky_relu":
+        dact = torch.where(y_img >= 0, 1.0, _engine.LEAKY_SLOPE)
+        pre = torch.where(y_img >= 0, y_img, y_img / _engine.LEAKY_SLOPE)
+    elif activation == "tanh":
+        dact = 1.0 - y_img * y_img
+        pre = torch.atanh(torch.clamp(y_img, -1.0 + 1e-6, 1.0 - 1e-6))
+    else:
+        dact, pre = None, y_img
+    dpre = g_img if dact is None else g_img * dact
+    dev = g_img.device
+    sc = torch.ones((M,), device=dev) if scale is None else scale.float()
+    bi = torch.zeros((M,), device=dev) if bias is None else bias.float()
+    dbias = dpre.sum(dim=(0, 1, 2))
+    # raw engine output v = (pre - bias) / scale; where act' = 0 its value is
+    # irrelevant (dpre = 0).  A zero scale channel loses v entirely: its
+    # dscale is 0, not a NaN that would poison the optimizer's global norm
+    sc_safe = torch.where(sc == 0, 1.0, sc)
+    v = torch.where(sc == 0, 0.0, (pre - bi) / sc_safe)
+    dscale = (dpre * v).sum(dim=(0, 1, 2))
+    return dpre * sc, dscale, dbias
+
+
+class FusedEpilogueFn(torch.autograd.Function):
+    """The epilogue-fused engine with its gradient.  Forward: the engine
+    (kernel or plain version, by device), saving the post-activation
+    output.  Backward: the activation-cotangent prologue in plain PyTorch,
+    the inverse interleave to the (B, ty, tx, S*S*m*m, M) scratch layout,
+    then ``fused_engine_bwd_x`` (dcells) and ``fused_engine_bwd_w`` (dww).
+    Returns the gradients of (cells, ww, inv, scale, bias)."""
+
+    @staticmethod
+    def forward(ctx, cells, ww, inv, scale, bias, kw):
+        y = _engine.fused_engine(cells, ww, inv, scale=scale, bias=bias, **kw)
+        ctx.kw = kw
+        ctx.save_for_backward(cells, ww, inv, scale, bias, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        cells, ww, inv, scale, bias, y = ctx.saved_tensors
+        kw = ctx.kw
+        m, S, ty, tx = kw["m"], kw["stride"], kw["ty"], kw["tx"]
+        P, oh, ow = kw["padding"], kw["out_h"], kw["out_w"]
+        B, M, ms = cells.shape[0], ww.shape[2], m * S
+        g = grad.float()
+        if kw["out_mode"] == "cells":
+            def uncell(c):  # emitted cells -> padded-interleave coordinates
+                return c.reshape(B, ty * S, tx * S, m, m, M).permute(0, 1, 3, 2, 4, 5).reshape(
+                    B, ty * ms, tx * ms, M)
+
+            # the forward zeroed everything outside the crop window, so the
+            # cotangent there must not flow back
+            mask = cells_window_mask(ty * S, tx * S, m, P, oh, ow, device=g.device)
+            g_img, y_img = uncell(g * mask), uncell(y)
+        else:  # the kernel's nhwc output is already cropped: pad back at offset P
+            g_img = g.new_zeros((B, ty * ms, tx * ms, M))
+            g_img[:, P : P + oh, P : P + ow] = g
+            y_img = g.new_zeros((B, ty * ms, tx * ms, M))
+            y_img[:, P : P + oh, P : P + ow] = y
+        if kw["activation"] == "none" and scale is None and bias is None:
+            g_aff, dscale, dbias = g_img, None, None
+        else:
+            g_aff, dscale, dbias = _epilogue_cotangent(g_img, y_img, scale, bias, kw["activation"], M)
+        # inverse interleave: back to the (B, ty, tx, S2*m2, M) scratch layout
+        g_scr = g_aff.reshape(B, ty, m, S, tx, m, S, M).permute(0, 1, 4, 3, 6, 2, 5, 7).reshape(
+            B, ty, tx, S * S * m * m, M).contiguous()
+        geo = dict(pos_idx=kw["pos_idx"], sub_slices=kw["sub_slices"], m=m, n=kw["n"], ty=ty, tx=tx,
+                   stride=S)
+        dcells = dww = None
+        if ctx.needs_input_grad[0]:
+            dcells = _engine.fused_engine_bwd_x(g_scr, ww, inv, gy=cells.shape[1], gx=cells.shape[2], **geo)
+        if ctx.needs_input_grad[1]:
+            dww = _engine.fused_engine_bwd_w(cells, g_scr, inv, **geo)
+        ds = dscale if scale is not None and ctx.needs_input_grad[3] else None
+        db = dbias if bias is not None and ctx.needs_input_grad[4] else None
+        return dcells, dww, None, ds, db, None
+
+
 def winograd_deconv2d_cells(
     cells: torch.Tensor,  # (B, Gy, Gx, m*m, N) this layer's input cell layout
     packed: PackedDeconv,
@@ -223,6 +325,10 @@ def winograd_deconv2d_cells(
         out_h=dims.out_size(H), out_w=dims.out_size(W),
     )
     if backend == "cuda":
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (cells, packed.ww, scale, bias)):
+            kw = {k: v for k, v in kw.items() if k not in ("scale", "bias")}
+            return FusedEpilogueFn.apply(cells.contiguous(), packed.ww, packed.inv, scale, bias, kw)
         return _engine.fused_engine(cells, packed.ww, packed.inv, **kw)
     if backend == "ref":
         return _engine.fused_engine_plain(cells, packed.ww, packed.inv, **kw)

@@ -3,7 +3,9 @@
 Each function mirrors its counterpart in the reference package's
 ``kernels/ref.py`` argument for argument and runs on any device.  The
 fused-engine wrapper takes ``fused_epilogue_engine_ref`` for CPU tensors,
-and ``chip_smoke.py`` holds the CUDA kernel against it on the card.
+and ``chip_smoke.py`` holds the CUDA kernel against it on the card.  The
+backward oracles (``*_bwd_*_ref``) are the plain versions of the two
+backward kernels in the same way.
 """
 from __future__ import annotations
 
@@ -17,6 +19,10 @@ __all__ = [
     "epilogue_apply_ref",
     "interleave_tiles_ref",
     "fused_epilogue_engine_ref",
+    "engine_bwd_x_ref",
+    "engine_bwd_w_ref",
+    "fused_pre_engine_bwd_x_ref",
+    "fused_pre_engine_bwd_w_ref",
 ]
 
 LEAKY_SLOPE = 0.2  # must match models.layers.leaky_relu
@@ -153,3 +159,117 @@ def fused_epilogue_engine_ref(
     img = torch.where(rmask[None, :, None, None] & cmask[None, None, :, None], img, 0.0)
     out = img.reshape(B, ty * stride, m, tx * stride, m, M).permute(0, 1, 3, 2, 4, 5)
     return out.reshape(B, ty * stride, tx * stride, m * m, M).to(cells.dtype)
+
+
+# ------------------------------------------------------------- backward
+# Oracles for the backward engines.  Both cotangents of the forward engine
+# are packed Winograd-domain contractions:
+#   gw[p,t,m]  = sum_a inv[p,a] * g[t, s(p)*m2+a, m]
+#   dxw[t,j,n] = sum_{p: pos_p=j} sum_m gw[p,t,m] * ww[p,n,m]
+#   dww[p,n,m] = sum_t xw[t,pos_p,n] * gw[p,t,m]
+
+
+def _gw_ref(g, inv_packed, sub_slices, m2):
+    """Inverse-transform-weighted cotangent (C, T, M) fp32."""
+    parts = []
+    for s, (lo, hi) in enumerate(sub_slices):
+        if hi == lo:
+            continue
+        parts.append(torch.einsum("ca,tam->ctm", inv_packed[lo:hi].float(),
+                                  g[:, s * m2 : (s + 1) * m2, :].float()))
+    return torch.cat(parts, dim=0)
+
+
+def engine_bwd_x_ref(
+    g: torch.Tensor,  # (T, S2*m2, M)
+    ww_packed: torch.Tensor,  # (C, N, M)
+    inv_packed: torch.Tensor,  # (C, m2) fp32
+    *,
+    pos_idx: tuple[int, ...],
+    sub_slices: tuple[tuple[int, int], ...],
+    m2: int,
+    n2: int,
+) -> torch.Tensor:
+    """Oracle for the input-tile cotangent: returns (T, n2, N)."""
+    T = g.shape[0]
+    N = ww_packed.shape[1]
+    gw = _gw_ref(g, inv_packed, sub_slices, m2)  # (C, T, M)
+    d = torch.einsum("ctm,cnm->tcn", gw, ww_packed.float())  # (T, C, N)
+    dxw = g.new_zeros((T, n2, N), dtype=torch.float32)
+    pos = torch.as_tensor(pos_idx, dtype=torch.long, device=g.device)
+    dxw.index_add_(1, pos, d)  # repeated positions accumulate
+    return dxw.to(g.dtype)
+
+
+def engine_bwd_w_ref(
+    xw: torch.Tensor,  # (T, n2, N)
+    g: torch.Tensor,  # (T, S2*m2, M)
+    inv_packed: torch.Tensor,  # (C, m2) fp32
+    *,
+    pos_idx: tuple[int, ...],
+    sub_slices: tuple[tuple[int, int], ...],
+    m2: int,
+) -> torch.Tensor:
+    """Oracle for the packed-weight cotangent: returns (C, N, M)."""
+    gw = _gw_ref(g, inv_packed, sub_slices, m2)  # (C, T, M)
+    pos = torch.as_tensor(pos_idx, dtype=torch.long, device=xw.device)
+    xg = xw[:, pos, :].float()  # (T, C, N)
+    return torch.einsum("tcn,ctm->cnm", xg, gw).to(g.dtype)
+
+
+def fused_pre_engine_bwd_x_ref(
+    g: torch.Tensor,  # (B, ty, tx, S2*m2, M)
+    ww_packed: torch.Tensor,
+    inv_packed: torch.Tensor,
+    bt_mat,
+    *,
+    pos_idx: tuple[int, ...],
+    sub_slices: tuple[tuple[int, int], ...],
+    m: int,
+    n: int,
+    ty: int,
+    tx: int,
+    gy: int,
+    gx: int,
+    m2: int,
+) -> torch.Tensor:
+    """Oracle for the fused engine's cell-layout input cotangent
+    (B, gy, gx, m*m, N): the VJP of the (linear-in-cells) reference forward,
+    evaluated at zero primal.  Rows and columns the forward never reads get
+    zero."""
+    cells0 = g.new_zeros((g.shape[0], gy, gx, m * m, ww_packed.shape[1]))
+    _, vjp = torch.func.vjp(
+        lambda c: fused_pre_engine_ref(
+            c, ww_packed, inv_packed, bt_mat,
+            pos_idx=pos_idx, sub_slices=sub_slices, m=m, n=n, ty=ty, tx=tx, m2=m2,
+        ),
+        cells0,
+    )
+    return vjp(g)[0]
+
+
+def fused_pre_engine_bwd_w_ref(
+    cells: torch.Tensor,  # (B, Gy, Gx, m*m, N)
+    g: torch.Tensor,  # (B, ty, tx, S2*m2, M)
+    inv_packed: torch.Tensor,
+    bt_mat,
+    *,
+    pos_idx: tuple[int, ...],
+    sub_slices: tuple[tuple[int, int], ...],
+    m: int,
+    n: int,
+    ty: int,
+    tx: int,
+    m2: int,
+) -> torch.Tensor:
+    """Oracle for the fused engine's packed-weight cotangent (C, N, M): the
+    VJP of the (linear-in-weights) reference forward at zero primal."""
+    ww0 = g.new_zeros((len(pos_idx), cells.shape[-1], g.shape[-1]))
+    _, vjp = torch.func.vjp(
+        lambda w: fused_pre_engine_ref(
+            cells, w, inv_packed, bt_mat,
+            pos_idx=pos_idx, sub_slices=sub_slices, m=m, n=n, ty=ty, tx=tx, m2=m2,
+        ),
+        ww0,
+    )
+    return vjp(g)[0]

@@ -1,11 +1,13 @@
-"""GAN generator on the Winograd DeConv engine (eval mode).
+"""GAN generator on the Winograd DeConv engine, and the discriminator.
 
 The generator's deconv trunk runs as one cell-to-cell pipeline: every layer
-is one call of the epilogue-fused engine, with eval-mode batchnorm folded
-into a per-channel scale and bias and the activation applied in the
-engine's finalize.  Where the cell layouts line up (``ops.chain_aligned``)
-a layer emits the next layer's cells directly; otherwise it emits NHWC
-pixels and the next layer re-lays them out.
+is one call of the epilogue-fused engine.  In eval mode batchnorm is folded
+into a per-channel scale and bias and the activation is applied in the
+engine's finalize; in training mode a batchnorm layer's engine emits its
+raw cells and ``_bn_act_cells`` takes the batch statistics and applies BN
+and the activation on the cell tensor.  Where the cell layouts line up
+(``ops.chain_aligned``) a layer emits the next layer's cells directly;
+otherwise it emits NHWC pixels and the next layer re-lays them out.
 
 Impl names (``cfg.deconv_impl``):
   * ``"cuda_chained"``: the CUDA engine for CUDA tensors, its plain version
@@ -13,7 +15,9 @@ Impl names (``cfg.deconv_impl``):
   * ``"chained_ref"``: the plain version on every device.
 ``serve_impl`` maps the reference's impl names (``ref``, ``prepacked_ref``,
 ``pallas*``, ...) onto ``"cuda_chained"``; they all compute this function.
-Training mode is not in this slice.
+
+The discriminator runs ``conv_impl="lax"``: PyTorch's own convolution, as
+the reference leaves it to XLA.  Its Winograd conv impls are a later slice.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ Params = dict[str, Any]
 
 __all__ = [
     "IMPLS", "uses_chained", "serve_impl", "generator_init", "prepack_generator",
-    "fold_eval_bn", "generator_apply",
+    "fold_eval_bn", "generator_apply", "DISC_CHANNELS", "disc_channels", "discriminator_init",
+    "discriminator_apply", "merge_bn_stats",
 ]
 
 # chained impl -> winograd_deconv2d_cells kwargs
@@ -39,11 +44,6 @@ _CHAINED_KW: dict[str, dict] = {
     "chained_ref": dict(backend="ref"),
 }
 IMPLS = tuple(_CHAINED_KW)
-
-_TRAINING_LATER = (
-    "training mode (batch-stat BN and the backward kernels) comes with the "
-    "training slice of the port; this slice serves eval mode only"
-)
 
 
 def uses_chained(impl: str) -> bool:
@@ -114,13 +114,59 @@ def fold_eval_bn(p: Params, cfg: GANConfig) -> dict[str, tuple[torch.Tensor, tor
     return {name: _bn_eval_affine(p[name]) for name in names}
 
 
+def _cells_to_image(c: torch.Tensor, out_hw: tuple[int, int], padding: int = 0) -> torch.Tensor:
+    """Emitted cell layout (B, R, Cc, m*m, M) -> the cropped NHWC image."""
+    B, R, Cc, m2, M = c.shape
+    m = int(round(m2**0.5))
+    img = c.reshape(B, R, Cc, m, m, M).permute(0, 1, 3, 2, 4, 5).reshape(B, R * m, Cc * m, M)
+    return img[:, padding : padding + out_hw[0], padding : padding + out_hw[1]]
+
+
+def _bn_act_cells(
+    bn: Params,
+    emitted: torch.Tensor,  # raw emit_cells output (B, R, Cc, m*m, M)
+    out_hw: tuple[int, int],
+    *,
+    act: str,
+    padding: int = 0,
+    momentum: float = 0.9,
+    eps: float = 1e-5,
+):
+    """Training-mode batchnorm + activation on the emitted cell tensor.  The
+    cells are a relayout of the layer's output pixels with everything
+    outside the crop window zero, so the batch statistics are plain sums
+    over the tensor divided by the window's pixel count; the crop mask
+    re-zeroes the outside after the affine and the activation, so the next
+    engine call takes the result directly.  Returns (cells, new_stats)."""
+    M = bn["scale"].shape[0]
+    c = emitted[..., :M].float()
+    B, R, Cc, m2, _ = c.shape
+    m = int(round(m2**0.5))
+    count = B * out_hw[0] * out_hw[1]
+    mean = c.sum(dim=(0, 1, 2, 3)) / count
+    ex2 = (c * c).sum(dim=(0, 1, 2, 3)) / count
+    # one-pass E[x^2] - mean^2 can dip below 0 under fp32 cancellation
+    var = torch.clamp_min(ex2 - mean * mean, 0.0)
+    y = (c - mean) * torch.rsqrt(var + eps)
+    y = y * bn["scale"].float() + bn["bias"].float()
+    y = L.ACTIVATIONS[act](y)
+    mask = kops.cells_window_mask(R, Cc, m, padding, out_hw[0], out_hw[1], device=c.device)
+    new = {
+        "mean": momentum * bn["mean"] + (1 - momentum) * mean,
+        "var": momentum * bn["var"] + (1 - momentum) * var,
+    }
+    return (y * mask).to(emitted.dtype), new
+
+
 def _chained_deconv_trunk(
     p: Params, cfg: GANConfig, h: torch.Tensor, folded, *, training: bool = False
 ) -> tuple[torch.Tensor, Params]:
-    """The deconv trunk as one engine-domain pipeline (eval mode): one
-    fused-engine call per layer.  Returns (image, bn_stats)."""
-    if training:
-        raise NotImplementedError(_TRAINING_LATER)
+    """The deconv trunk as one engine-domain pipeline: one fused-engine call
+    per layer.  Eval mode (and BN-free layers in either mode) applies the
+    folded BN and the activation in the engine's finalize; training-mode BN
+    layers emit raw cells and run ``_bn_act_cells`` (misaligned hops: NHWC
+    out, ``layers.batchnorm``, then a cells re-layout).  Returns (image,
+    bn_stats)."""
     kw = _CHAINED_KW[cfg.deconv_impl]
     new_stats: Params = {}
     hw = (h.shape[1], h.shape[2])
@@ -128,25 +174,41 @@ def _chained_deconv_trunk(
     img = None
     for i, d in enumerate(cfg.deconvs):
         packed = _packed_of(p[f"deconv{i}"], d.dims)
+        has_bn = d.norm == "batch"
         nxt = cfg.deconvs[i + 1].dims if i + 1 < len(cfg.deconvs) else None
         out_hw = (d.dims.out_size(hw[0]), d.dims.out_size(hw[1]))
-        scale = bias = None
-        if d.norm == "batch":
+        aligned = nxt is not None and kops.chain_aligned(d.dims, nxt)
+        if training and has_bn:
             bn = p[f"deconv{i}_bn"]
-            scale, bias = folded[f"deconv{i}_bn"]
-            new_stats[f"deconv{i}_bn"] = {"mean": bn["mean"], "var": bn["var"]}
-        if nxt is not None and kops.chain_aligned(d.dims, nxt):
-            emitted = kops.winograd_deconv2d_cells(
-                cells, packed, d.dims, hw, epilogue=d.act, scale=scale, bias=bias,
-                emit_cells=True, **kw,
-            )
-            cells = kops.cells_to_next(emitted, d.dims, nxt, out_hw)
-        else:  # last layer, or a misaligned hop: NHWC pixels out
-            img = kops.winograd_deconv2d_cells(
-                cells, packed, d.dims, hw, epilogue=d.act, scale=scale, bias=bias, **kw,
-            )
-            if nxt is not None:
-                cells = kops.cells_from_image(img, nxt)
+            if aligned:
+                emitted = kops.winograd_deconv2d_cells(cells, packed, d.dims, hw, emit_cells=True, **kw)
+                y_cells, stats = _bn_act_cells(bn, emitted, out_hw, act=d.act, padding=d.dims.padding)
+                cells = kops.cells_to_next(y_cells, d.dims, nxt, out_hw)
+            else:  # misaligned hop (or BN on the last layer): NHWC fallback
+                img = kops.winograd_deconv2d_cells(cells, packed, d.dims, hw, **kw)
+                img, stats = L.batchnorm(bn, img, training=True)
+                img = L.ACTIVATIONS[d.act](img)
+                if nxt is not None:
+                    cells = kops.cells_from_image(img, nxt)
+            new_stats[f"deconv{i}_bn"] = stats
+        else:
+            scale = bias = None
+            if has_bn:
+                bn = p[f"deconv{i}_bn"]
+                scale, bias = folded[f"deconv{i}_bn"]
+                new_stats[f"deconv{i}_bn"] = {"mean": bn["mean"], "var": bn["var"]}
+            if aligned:
+                emitted = kops.winograd_deconv2d_cells(
+                    cells, packed, d.dims, hw, epilogue=d.act, scale=scale, bias=bias,
+                    emit_cells=True, **kw,
+                )
+                cells = kops.cells_to_next(emitted, d.dims, nxt, out_hw)
+            else:  # last layer, or a misaligned hop: NHWC pixels out
+                img = kops.winograd_deconv2d_cells(
+                    cells, packed, d.dims, hw, epilogue=d.act, scale=scale, bias=bias, **kw,
+                )
+                if nxt is not None:
+                    cells = kops.cells_from_image(img, nxt)
         hw = out_hw
     return img, new_stats
 
@@ -155,31 +217,91 @@ def generator_apply(
     p: Params, cfg: GANConfig, inp: torch.Tensor, *, training: bool = False, folded=None
 ) -> tuple[torch.Tensor, Params]:
     """inp: (B, z_dim) latents or (B, H, W, 3) images (image-to-image).
-    Returns (NHWC image, bn_stats), eval mode only.  The stem is a plain
-    matrix product; the deconv trunk is ``_chained_deconv_trunk``.
-    ``folded`` is ``fold_eval_bn(p, cfg)``, computed here when not given."""
-    if training:
-        raise NotImplementedError(_TRAINING_LATER)
+    Returns (NHWC image, bn_stats).  The stem is a plain matrix product; the
+    deconv trunk is ``_chained_deconv_trunk``.  Eval mode (the default,
+    for serving) folds BN into affines: ``folded`` is ``fold_eval_bn(p,
+    cfg)``, computed here when not given.  Training mode normalises by batch
+    statistics and returns the moved running statistics."""
     if not uses_chained(cfg.deconv_impl):
         raise ValueError(
             f"deconv_impl {cfg.deconv_impl!r} is not one of {IMPLS}; map it with serve_impl"
         )
-    if folded is None:
+    if folded is None and not training:
         folded = fold_eval_bn(p, cfg)
     new_stats: Params = {}
     if cfg.z_dim:
         h = L.linear(p["stem"], inp)
         h = h.reshape(inp.shape[0], cfg.seed_hw, cfg.seed_hw, cfg.stem_ch)
-        a, b = folded["stem_bn"]
-        h = torch.relu(torch.addcmul(b, h, a))  # eval-mode BN, folded
-        new_stats["stem_bn"] = {"mean": p["stem_bn"]["mean"], "var": p["stem_bn"]["var"]}
+        if training:
+            h, new_stats["stem_bn"] = L.batchnorm(p["stem_bn"], h, training=True)
+            h = torch.relu(h)
+        else:
+            a, b = folded["stem_bn"]
+            h = torch.relu(torch.addcmul(b, h, a))  # eval-mode BN, folded
+            new_stats["stem_bn"] = {"mean": p["stem_bn"]["mean"], "var": p["stem_bn"]["var"]}
     else:
         h = inp
         for i, e in enumerate(cfg.encoder):
             h = L.conv2d(p[f"enc{i}"], h, stride=e.stride)
             if e.norm == "batch":
-                h, s = L.batchnorm(p[f"enc{i}_bn"], h)
+                h, s = L.batchnorm(p[f"enc{i}_bn"], h, training=training)
                 new_stats[f"enc{i}_bn"] = s
             h = L.ACTIVATIONS[e.act](h)
-    img, trunk_stats = _chained_deconv_trunk(p, cfg, h, folded)
+    img, trunk_stats = _chained_deconv_trunk(p, cfg, h, folded, training=training)
     return img, {**new_stats, **trunk_stats}
+
+
+# ------------------------------------------------------------ discriminator
+DISC_CHANNELS: tuple[int, ...] = (64, 128, 256, 512)
+DISC_KERNEL, DISC_STRIDE = 4, 2
+_CONV_LATER = "the discriminator's Winograd conv impls come with a later slice of the port; use conv_impl='lax'"
+
+
+def disc_channels(cfg: GANConfig) -> tuple[int, ...]:
+    """Trunk widths of the discriminator for this config."""
+    return tuple(getattr(cfg, "disc_channels", DISC_CHANNELS))
+
+
+def discriminator_init(cfg: GANConfig, *, seed: int = 0, device="cuda", dtype=torch.float32) -> Params:
+    """Random discriminator params from ``seed``, drawn on ``device``: K4S2
+    convs ``conv{i}`` {w (4, 4, C_in, C_out), b}, batchnorm after every conv
+    but the first, and a linear ``head`` to one logit."""
+    if cfg.conv_impl != "lax":
+        raise NotImplementedError(_CONV_LATER)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    chans = [cfg.img_ch, *disc_channels(cfg)]
+    p: Params = {}
+    for i in range(len(chans) - 1):
+        p[f"conv{i}"] = L.conv2d_init(gen, DISC_KERNEL, chans[i], chans[i + 1], dtype)
+        if i > 0:
+            p[f"conv{i}_bn"] = L.batchnorm_init(chans[i + 1], device, dtype)
+    final_hw = cfg.img_hw // 2 ** (len(chans) - 1)
+    p["head"] = L.linear_init(gen, final_hw**2 * chans[-1], 1, dtype)
+    return p
+
+
+def discriminator_apply(
+    p: Params, cfg: GANConfig, img: torch.Tensor, *, training: bool = True
+) -> tuple[torch.Tensor, Params]:
+    """img (B, H, W, C) NHWC -> (logits (B, 1), bn_stats), ``conv_impl="lax"``:
+    conv, batchnorm (batch statistics in training mode), leaky_relu per
+    layer, then the linear head."""
+    if cfg.conv_impl != "lax":
+        raise NotImplementedError(_CONV_LATER)
+    h, new_stats = img, {}
+    i = 0
+    while f"conv{i}" in p:
+        h = L.conv2d(p[f"conv{i}"], h, stride=DISC_STRIDE)
+        if f"conv{i}_bn" in p:
+            h, new_stats[f"conv{i}_bn"] = L.batchnorm(p[f"conv{i}_bn"], h, training=training)
+        h = L.leaky_relu(h)
+        i += 1
+    return L.linear(p["head"], h.reshape(h.shape[0], -1)), new_stats
+
+
+def merge_bn_stats(params: Params, stats: Params) -> Params:
+    """Fold updated running BN stats back into the param tree."""
+    out = dict(params)
+    for k, s in stats.items():
+        out[k] = {**params[k], **s}
+    return out

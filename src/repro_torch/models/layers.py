@@ -56,15 +56,25 @@ def batchnorm_init(c, device, dtype=torch.float32):
     }
 
 
-def batchnorm(p, x, *, training: bool = False, eps=1e-5):
-    """NHWC batch norm with running statistics.  Returns (y, stats)."""
+def batchnorm(p, x, *, training: bool = False, momentum=0.9, eps=1e-5):
+    """NHWC batch norm.  Returns (y, new_stats): training mode normalises by
+    the batch's mean and population variance and moves the running
+    statistics by ``momentum``; eval mode uses the running statistics."""
     if training:
-        raise NotImplementedError(
-            "training-mode batchnorm comes with the training slice of the port"
-        )
-    y = (x.float() - p["mean"]) * torch.rsqrt(p["var"] + eps)
+        xf = x.float()
+        axes = tuple(range(x.dim() - 1))
+        mu = xf.mean(dim=axes)
+        var = xf.var(dim=axes, unbiased=False)
+        new = {
+            "mean": momentum * p["mean"] + (1 - momentum) * mu,
+            "var": momentum * p["var"] + (1 - momentum) * var,
+        }
+    else:
+        mu, var = p["mean"], p["var"]
+        new = {"mean": p["mean"], "var": p["var"]}
+    y = (x.float() - mu) * torch.rsqrt(var + eps)
     y = y * p["scale"].float() + p["bias"].float()
-    return y.to(x.dtype), {"mean": p["mean"], "var": p["var"]}
+    return y.to(x.dtype), new
 
 
 # ------------------------------------------------------------------ conv

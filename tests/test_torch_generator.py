@@ -105,8 +105,11 @@ def test_serve_impl_and_training_mode():
     cfg = tzoo.tiny_dcgan("cuda_chained")
     p = TG.generator_init(cfg, seed=0, device="cpu")
     assert "ww" in p["deconv0"]
-    with pytest.raises(NotImplementedError, match="training slice"):
-        TG.generator_apply(p, cfg, torch.zeros(1, cfg.z_dim), training=True)
+    # training mode runs: batch statistics, moved running statistics
+    img, stats = TG.generator_apply(p, cfg, torch.randn(2, cfg.z_dim), training=True)
+    assert img.shape == (2, 64, 64, 3) and torch.isfinite(img).all()
+    assert set(stats) == {"stem_bn", "deconv0_bn", "deconv1_bn", "deconv2_bn"}
+    assert not torch.equal(stats["deconv0_bn"]["mean"], p["deconv0_bn"]["mean"])
     with pytest.raises(ValueError):
         TG.generator_apply(p, tzoo.tiny_dcgan("ref"), torch.zeros(1, cfg.z_dim))
 

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` (nor
-``chip_smoke.py`` or the port's ``tools/``) imports JAX or the JAX package, and the kernel wrapper
-takes its plain version only for CPU tensors."""
+``chip_smoke.py`` or the port's ``tools/``) imports JAX or the JAX package, every CUDA source
+is in the build, and the kernel wrappers take their plain versions only for CPU tensors."""
 import re
 from pathlib import Path
 
@@ -23,6 +23,10 @@ def _port_files():
 def test_port_imports_no_jax_and_no_reference_package():
     files = _port_files()
     assert len(files) > 10
+    # the training slice's subpackages are among the files checked
+    pkg = ROOT / "src" / "repro_torch"
+    for sub in ("optim", "data", "train", "kernels", "models"):
+        assert any(f.parent == pkg / sub for f in files), sub
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
     assert not bad, bad
@@ -70,3 +74,29 @@ def test_cuda_request_without_a_card_raises():
         ops.winograd_deconv2d_cells(meta, ops.PackedDeconv(packed.ww.to("meta"), packed.inv.to("meta")),
                                     dims, (4, 4))
     assert E.fused_engine.launches == before
+
+
+def test_every_cuda_source_is_built_and_imports_nothing_of_the_reference():
+    from repro_torch.kernels import _build
+
+    sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    assert sources == sorted(_build.SOURCES) and "fused_engine_bwd.cu" in sources
+    for name in sources:
+        # a plain C interface bound with ctypes: the CUDA runtime and nothing of PyTorch
+        includes = set(re.findall(r"^#include\s+(\S+)", (_build.CSRC / name).read_text(), re.M))
+        assert includes <= {"<cuda_runtime.h>", "<stdint.h>"}, (name, includes)
+    for fn in ("fused_engine_bwd_x_f32", "fused_engine_bwd_w_f32", "fused_engine_bwd_x_plan",
+               "fused_engine_bwd_w_plan", "fused_engine_epi_f32", "fused_engine_plan"):
+        assert fn in _build._SIGNATURES
+
+
+def test_bwd_wrappers_take_the_plain_versions_on_cpu_without_counting():
+    cells, packed, dims = _case()
+    pos, subs, inv, _ = ops.packed_layout(dims)
+    g = torch.randn((1, 3, 3, 16, 2))
+    geo = dict(pos_idx=pos, sub_slices=subs, m=2, n=4, ty=3, tx=3, stride=2)
+    before = (E.fused_engine_bwd_x.launches, E.fused_engine_bwd_w.launches)
+    dx = E.fused_engine_bwd_x(g, packed.ww, packed.inv, gy=cells.shape[1], gx=cells.shape[2], **geo)
+    dw = E.fused_engine_bwd_w(cells, g, packed.inv, **geo)
+    assert dx.shape == cells.shape and dw.shape == packed.ww.shape
+    assert (E.fused_engine_bwd_x.launches, E.fused_engine_bwd_w.launches) == before
