@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernel,kernel_bwd,serve,train]
+    python3 chip_smoke.py [--phases kernel,kernel_bwd,kernel_conv,serve,train,train_chained]
 
 Phases, each printing one JSON line:
   env     torch / CUDA versions, the card's name and power limit; TF32 off.
-  build   nvcc builds src/repro_torch/kernels/csrc/fused_engine.cu (sm_90a).
+  build   nvcc builds the kernels in src/repro_torch/kernels/csrc/ (sm_90a):
+          fused_engine.cu, fused_engine_bwd.cu, conv_engine.cu.
   kernel  the fused Winograd-DeConv kernel against its plain PyTorch version
           at the four DCGAN layer shapes (batch 8) and a K4S2, a K3S1 and a
           K2S3 shape, each also checked against conv_transpose2d plus the same
@@ -19,6 +20,13 @@ Phases, each printing one JSON line:
           convolution_backward of the layer's conv_transpose2d (input grad
           for bwd_x, raw-weight grad for bwd_w).  Also the forward kernel at
           the four training shapes (batch 128).
+  kernel_conv
+          the three conv-corner kernels (conv_engine.cu: forward, bwd_x,
+          bwd_w) against their plain versions at the DCGAN discriminator's
+          four layers at batch 128 and an odd-extent K4S2, a K3S2 and a K3S1
+          shape; device, one-call and plain times, the bound, and as
+          yardsticks F.conv2d plus the epilogue and aten's
+          convolution_backward (input grad, raw-weight grad).
   serve   DCGAN at its published widths through GanServeEngine (random
           weights from a seed): requests of 1, 3 and 8 images, then a run of
           more; checks the images against the plain-version generator, and
@@ -27,11 +35,22 @@ Phases, each printing one JSON line:
           with the generator on the CUDA kernels (cuda_chained, discriminator
           lax) and the same 3 steps on the plain versions (chained_ref) from
           the same params and batches; checks metrics, parameters, the
-          non-finite flag and 4/4/4 launches of the three kernels per step,
+          non-finite flag, the step-1 gradients (each run's AdamW first
+          moment) and 4/4/4 launches of the three kernels per step,
           with none of the backward ones in the discriminator's gradient
-          pull; step ms, device ms, idle share, images/s, peak memory.
+          pull; step ms, device ms, idle share, images/s, peak memory; the
+          profile must show cuDNN convolutions (the check's own control).
+  train_chained
+          the same with the discriminator on the conv kernels too
+          (conv_impl="cuda_chained") against chained_ref on both nets:
+          launches per step (4/4/4 and 8/11/12) and per pull, the conv
+          launches by layer, no F.conv2d call, and no cuDNN or aten
+          convolution kernel in the profile.
   kernels one summary line per kernel (launches on the serving and training
-          paths, error, times, the least time the card could take).
+          paths, error, times, the least time the card could take; for the
+          conv corner, the per-layer times weighted by the launches by layer
+          that train_chained counted, and each kernel's device ms in that
+          step's profile).
 Then the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Any failed check raises and exits non-zero
 without that line; without a CUDA device, or without the package beside
@@ -52,7 +71,8 @@ REPLACES = "src/repro/kernels/engine.py:817"  # fused_engine's epilogue pallas_c
 SOURCE_BWD = "src/repro_torch/kernels/csrc/fused_engine_bwd.cu"
 REPLACES_BWD_X = "src/repro/kernels/engine.py:1291"  # fused_engine_bwd_x's pallas_call
 REPLACES_BWD_W = "src/repro/kernels/engine.py:1427"  # fused_engine_bwd_w's pallas_call
-PHASES = ("kernel", "kernel_bwd", "serve", "train")
+SOURCE_CONV = "src/repro_torch/kernels/csrc/conv_engine.cu"  # the three at the conv corner
+PHASES = ("kernel", "kernel_bwd", "kernel_conv", "serve", "train", "train_chained")
 TRAIN_BATCH = 128  # the DCGAN paper's mini-batch
 
 # (fp32 FLOP/s outside the tensor cores, HBM bytes/s) from NVIDIA's data sheets
@@ -76,6 +96,33 @@ def peaks_for(name: str):
         if key in name:
             return key, val
     return "SXM", PEAKS["SXM"]
+
+
+def fold_adds(inv, groups, backward: bool = False) -> int:
+    """Least adds per tile and output channel that the inverse transform
+    needs, F(2,3): ``inv`` (C, 4) holds 0 or +-1, so each term is one add.
+    Forward, per group of packed positions that share an output tile (a
+    sub-filter; at the conv corner all C): the smaller of the direct sum
+    through ``inv`` and A^T Y A on the 4x4 sum (24 adds; positions that
+    share a Winograd position sum in the contraction's own chain).
+    Backward, gw from g: the smaller of the direct rows and A g A^T (12
+    adds, then fanned out)."""
+    import numpy as np
+
+    nz = np.asarray(inv) != 0
+    total = 0
+    for lo, hi in groups:
+        terms = nz[lo:hi].sum(axis=1 if backward else 0)
+        total += min(int(np.maximum(terms - 1, 0).sum()), 12 if backward else 24)
+    return total
+
+
+def overlap_adds(B: int, phases: int, N: int, ty: int, tx: int) -> int:
+    """Adds of bwd_x's overlap sum: a cell's m x m values of each phase and
+    channel gather one piece from each of the (up to 2 x 2) tiles whose
+    4 x 4 windows cover it; ty*tx tiles give 4*ty*tx pieces to
+    (ty+1)*(tx+1) cells."""
+    return B * phases * 4 * N * max(0, 4 * ty * tx - (ty + 1) * (tx + 1))
 
 
 def wall_ms(fn, reps: int = 30, warmup: int = 3) -> float:
@@ -221,9 +268,10 @@ def kernel_phase(torch, peaks):
         n_bytes = 4 * (cells.numel() + packed.ww.numel() + packed.inv.numel() + got.numel()
                        + (2 * M if affine else 0))
         # com-PE products, the pre-PE adder network (32 adds per tile and
-        # channel), the post-PE fold (4 multiply-adds per position) and the
+        # channel), the post-PE inverse transform (fold_adds) and the
         # epilogue (affine + activation per output value)
-        n_ops = 2 * T * C * N * M + 32 * T * N + 8 * T * C * M + 3 * got.numel()
+        n_ops = (2 * T * C * N * M + 32 * T * N + T * M * fold_adds(packed.inv.cpu(), sub_slices)
+                 + 3 * got.numel())
         t_bytes, t_ops = 1e3 * n_bytes / bytes_peak, 1e3 * n_ops / flops_peak
         row = dict(name=name, B=B, H_in=H, N=N, M=M, C=C, T=T, n_splits=splits,
                    out_mode="cells" if emit_cells else "nhwc", activation=act,
@@ -393,13 +441,13 @@ def kernel_bwd_phase(torch, peaks):
             go, xc, wt, None, [S, S], [P, P], [1, 1], True, [dims.output_padding] * 2, 1, mask)
 
         T = B * ty * ty
-        # products, the gw fold (4 multiply-adds per packed position), the
-        # B-transform or its transpose (32 adds per tile and channel), and
-        # for bwd_x the overlap sum (3 adds per cell value)
-        common_ops = 2 * T * C * N * M + 8 * T * C * M + 32 * T * N
+        # products, gw from g (fold_adds), the B-transform or its transpose
+        # (32 adds per tile and channel), and for bwd_x the overlap sum
+        common_ops = 2 * T * C * N * M + T * M * fold_adds(packed.inv.cpu(), sub_slices, True) + 32 * T * N
         dcells_n = B * gy * gy * 4 * N
         work = {
-            "x": (4 * (gs.numel() + packed.ww.numel() + packed.inv.numel() + dcells_n), common_ops + 3 * dcells_n),
+            "x": (4 * (gs.numel() + packed.ww.numel() + packed.inv.numel() + dcells_n),
+                  common_ops + overlap_adds(B, 1, N, ty, ty)),
             "w": (4 * (cells.numel() + gs.numel() + packed.inv.numel() + C * N * M), common_ops),
         }
         for key, run, plain, kname, mask in (
@@ -437,7 +485,8 @@ def kernel_bwd_phase(torch, peaks):
             if not err <= tol:
                 fail(f"forward kernel vs plain at {name} (batch {B}): max|err| {err:.3e} > {tol:.3e}")
             n_bytes = 4 * (cells.numel() + packed.ww.numel() + packed.inv.numel() + got.numel())
-            n_ops = 2 * T * C * N * M + 32 * T * N + 8 * T * C * M + 3 * got.numel()
+            n_ops = (2 * T * C * N * M + 32 * T * N + T * M * fold_adds(packed.inv.cpu(), sub_slices)
+                     + 3 * got.numel())
             t_bytes, t_ops = 1e3 * n_bytes / bytes_peak, 1e3 * n_ops / flops_peak
             xc_ = x.permute(0, 3, 1, 2).contiguous()
             lib_f = lambda: torch.nn.functional.conv_transpose2d(  # noqa: E731
@@ -453,6 +502,154 @@ def kernel_bwd_phase(torch, peaks):
             emit({"phase": "kernel_bwd", **row})
             rows.append(row)
         del x, w, packed, cells, gs, go, xc
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _dcgan_disc_shapes():
+    """(name, K, S, B, H, W, N, M, emit_cells, act, affine) of DCGAN's four
+    discriminator layers in a training step at batch 128 (conv0: bias and
+    leaky_relu fused; conv1-3: bias fused, BN on the emitted cells)."""
+    rows, H = [], 64
+    for i, (N, M) in enumerate([(3, 64), (64, 128), (128, 256), (256, 512)]):
+        rows.append((f"dcgan.conv{i}", 4, 2, TRAIN_BATCH, H, H, N, M, True,
+                     "leaky_relu" if i == 0 else "none", False))
+        H //= 2
+    return rows
+
+
+def _library_convs(names) -> list:
+    """The names among ``names`` of cuDNN or aten convolution kernels."""
+    pats = ("cudnn", "conv2d", "convolution", "implicit_gemm", "implicit_convolve", "dgrad", "wgrad", "fprop")
+    return [k for k in names if any(p in k.lower() for p in pats)]
+
+
+def kernel_conv_phase(torch, peaks):
+    """The three conv-corner kernels against their plain versions at the
+    DCGAN discriminator's training shapes and at an odd-extent K4S2, a K3S2
+    and a K3S1 shape; device, one-call and plain ms, the bound, and the
+    library yardsticks (conv2d plus the epilogue; aten convolution_backward
+    for the input and for the raw weights)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import conv_same_dims
+    from repro_torch.kernels import engine, ops
+    from repro_torch.kernels.ref import epilogue_apply_ref
+
+    shapes = _dcgan_disc_shapes() + [
+        ("k4s2_odd", 4, 2, 8, 15, 13, 32, 48, False, "tanh", True),
+        ("k3s2", 3, 2, 8, 16, 16, 36, 20, True, "relu", True),
+        ("k3s1", 3, 1, 4, 16, 16, 3, 3, False, "leaky_relu", False),
+    ]
+    flops_peak, bytes_peak = peaks
+    dev = torch.cuda.current_device()
+    rows = []
+    for i, (name, K, S, B, H, W, N, M, emit_cells, act, affine) in enumerate(shapes):
+        gen = torch.Generator(device="cuda").manual_seed(300 + i)
+        cd = conv_same_dims(K, S, H)
+        if conv_same_dims(K, S, W) != cd:
+            fail(f"{name}: one ConvDims must serve both extents")
+        x = torch.randn((B, H, W, N), generator=gen, device="cuda")
+        w = (0.5 / (K * N**0.5)) * torch.randn((K, K, N, M), generator=gen, device="cuda")
+        b = 0.1 * torch.randn((M,), generator=gen, device="cuda")
+        scale = (1.0 + 0.1 * torch.randn((M,), generator=gen, device="cuda")) if affine else None
+        packed = ops.prepack_conv(w, cd)
+        cells = ops.conv_cells_from_image(x, cd)
+        pos_idx = ops.conv_packed_layout(cd)[0]
+        C = len(pos_idx)
+        HO, WO = cd.out_size(H), cd.out_size(W)
+        ty, tx = -(-HO // 2), -(-WO // 2)
+        gy, gx = cells.shape[1], cells.shape[2]
+        geo = dict(pos_idx=pos_idx, m=2, n=4, ty=ty, tx=tx, s2=S * S)
+        fkw = dict(epilogue=act, scale=scale, bias=b, emit_cells=emit_cells)
+        gs = torch.randn((B, ty, tx, 4, M), generator=gen, device="cuda")
+        runs = {
+            "fwd": (lambda: ops.winograd_conv2d_cells(cells, packed, cd, (H, W), **fkw),
+                    lambda: ops.winograd_conv2d_cells(cells, packed, cd, (H, W), backend="ref", **fkw)),
+            "bwd_x": (lambda: engine.conv_fused_engine_bwd_x(gs, packed.ww, packed.inv, gy=gy, gx=gx, **geo),
+                      lambda: engine.conv_fused_engine_bwd_x_plain(gs, packed.ww, packed.inv, gy=gy, gx=gx, **geo)),
+            "bwd_w": (lambda: engine.conv_fused_engine_bwd_w(cells, gs, packed.inv, **geo),
+                      lambda: engine.conv_fused_engine_bwd_w_plain(cells, gs, packed.inv, **geo)),
+        }
+        errs = {}
+        for key, (run, plain) in runs.items():
+            got = run()
+            torch.cuda.synchronize()
+            want = plain()
+            if tuple(got.shape) != tuple(want.shape):
+                fail(f"conv {key} at {name}: shape {tuple(got.shape)} != plain {tuple(want.shape)}")
+            err = (got - want).abs().max().item()
+            tol = 1e-4 * want.abs().max().item() + 1e-5
+            if not err <= tol:
+                fail(f"conv {key} kernel vs plain at {name}: max|err| {err:.3e} > {tol:.3e}")
+            errs[key] = (err, tol, got.numel())
+
+        # the yardsticks, which the port never calls: cuDNN through F.conv2d
+        # on the SAME-padded NCHW image, aten's convolution_backward
+        xc = x.permute(0, 3, 1, 2).contiguous()
+        pads = (cd.padding, cd.pad_hi, cd.padding, cd.pad_hi)
+        xp = F.pad(xc, pads)
+        wt = w.permute(3, 2, 0, 1).contiguous()
+        go = torch.randn((B, M, HO, WO), generator=gen, device="cuda")
+
+        def lib_fwd():
+            y = F.conv2d(xp, wt, stride=S).permute(0, 2, 3, 1)
+            return epilogue_apply_ref(y, scale, b, act)
+
+        got_img = runs["fwd"][0]()
+        if emit_cells:
+            got_img = got_img.reshape(B, ty, tx, 2, 2, M).permute(0, 1, 3, 2, 4, 5).reshape(
+                B, 2 * ty, 2 * tx, M)[:, :HO, :WO]
+        lib_img = lib_fwd()
+        lib_err = (got_img - lib_img).abs().max().item()
+        if not lib_err <= 1e-4 * lib_img.abs().max().item() + 1e-5:
+            fail(f"conv kernel vs F.conv2d at {name}: max|err| {lib_err:.3e}")
+        conv_bwd = lambda mask: torch.ops.aten.convolution_backward(  # noqa: E731
+            go, xp, wt, None, [S, S], [0, 0], [1, 1], False, [0, 0], 1, mask)
+        libs = {"fwd": (lib_fwd, "F.conv2d (cuDNN) + epilogue"),
+                "bwd_x": (lambda: conv_bwd([True, False, False]), "aten convolution_backward, input grad"),
+                "bwd_w": (lambda: conv_bwd([False, True, False]),
+                          "aten convolution_backward, raw-weight grad (not the packed one)")}
+
+        T = B * ty * tx
+        # products, the B-transforms or their transposes (32 adds per tile,
+        # phase and channel), the inverse transform or gw (fold_adds over
+        # one group of all C positions), the epilogue (3 per output) or the
+        # overlap sum
+        prod = 2 * T * C * N * M + 32 * T * S * S * N
+        inv_np = packed.inv.cpu()
+        fold, gw = T * M * fold_adds(inv_np, [(0, C)]), T * M * fold_adds(inv_np, [(0, C)], True)
+        dcells_n = B * gy * gx * S * S * 4 * N
+        work = {
+            "fwd": (4 * (cells.numel() + packed.ww.numel() + packed.inv.numel() + errs["fwd"][2]
+                         + M * (2 if affine else 1)), prod + fold + 3 * errs["fwd"][2]),
+            "bwd_x": (4 * (gs.numel() + packed.ww.numel() + packed.inv.numel() + dcells_n),
+                      prod + gw + overlap_adds(B, S * S, N, ty, tx)),
+            "bwd_w": (4 * (cells.numel() + gs.numel() + packed.inv.numel() + C * N * M), prod + gw),
+        }
+        knames = {"fwd": "conv_fwd_kernel", "bwd_x": "conv_bwd_x_kernel", "bwd_w": "conv_bwd_w_kernel"}
+        for key, (run, plain) in runs.items():
+            n_bytes, n_ops = work[key]
+            t_bytes, t_ops = 1e3 * n_bytes / bytes_peak, 1e3 * n_ops / flops_peak
+            lib, lib_note = libs[key]
+            ms = profiled_ms(run, reps=20, name=knames[key])[2]
+            row = dict(kernel=f"conv_engine_{key}", name=name, B=B, H_in=H, W_in=W, N=N, M=M, C=C, T=T,
+                       out_mode="cells" if emit_cells else "nhwc", activation=act,
+                       max_abs_err=errs[key][0], tol=errs[key][1], ms=ms, ms_wall=event_median_ms(run, reps=20),
+                       plain_ms=profiled_ms(plain, reps=5, warmup=1, what=f"plain conv {key} at {name}")[1],
+                       library_ms=profiled_ms(lib, reps=20, what=f"library conv {key} at {name}")[1],
+                       library_note=lib_note, bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=n_bytes, ops=n_ops,
+                       achieved_tflops=n_ops / (ms * 1e-3) / 1e12)
+            if key == "fwd":
+                row["library_max_abs_err"] = lib_err
+            elif key == "bwd_x":
+                row["plan"] = engine._conv_bwd_x_plan(B, gy, gx, ty, tx, N, M, dev)
+            else:
+                row["splits"] = engine._conv_bwd_w_plan(B, ty, tx, N, M, S * S, dev)[0]
+            emit({"phase": "kernel_conv", **row})
+            rows.append(row)
+        del x, w, packed, cells, gs, go, xc, xp
         torch.cuda.empty_cache()
     return rows
 
@@ -476,20 +673,88 @@ def _train_params(torch, cfg, seed):
     return gp, dp
 
 
-def train_phase(torch, card):
+def check_first_moments(first_k, first_r) -> float:
+    """Step-1 gradients of both nets, as each run's AdamW took them (the first
+    moment after one step from zero is (1 - b1) * g): per leaf within 1e-3 of
+    the leaf's largest value, a bias right before a batch-statistics BN
+    (exact gradient zero, fp32 noise in both) within 1e-5 of the net's
+    largest.  Returns the worst error as a share of its tolerance."""
+    worst = 0.0
+    for net, mk, mr in zip(("G", "D"), first_k, first_r):
+        top = max(float(v.abs().max()) for leaf in mr.values() for v in leaf.values())
+        for k, leaf in mr.items():
+            for kk, want in leaf.items():
+                exact_zero = kk == "b" and f"{k}_bn" in mr
+                tol = 1e-5 * top if exact_zero else 1e-3 * float(want.abs().max())
+                err = float((mk[k][kk] - want).abs().max())
+                if not err <= tol:
+                    fail(f"step-1 AdamW first moment of {net}.{k}.{kk}: kernels vs plain {err:.3e} > {tol:.3e}")
+                worst = max(worst, err / tol if tol > 0 else 0.0)
+    return worst
+
+
+def train_phase(torch, card, conv_impl="lax"):
+    """3 DCGAN train steps at batch 128 with the generator on the kernels and
+    the discriminator on ``conv_impl`` ("lax": cuDNN; "cuda_chained": the conv
+    kernels) against the same 3 on the plain versions; launch counts per
+    step and per gradient pull; then step time, idle share, peak memory and
+    a check on the convolution kernels the step runs."""
     import dataclasses
+
+    import torch.nn.functional as F
 
     from repro_torch import data as D
     from repro_torch.configs import DCGAN
     from repro_torch.kernels import engine
+    from repro_torch.models import gan as G
     from repro_torch.optim import adamw_init
     from repro_torch.train import StepSettings, make_gan_step
     from repro_torch.train import trainer as T
     from repro_torch.tree import tree_leaves
 
-    kernels = (engine.fused_engine, engine.fused_engine_bwd_x, engine.fused_engine_bwd_w)
+    chained = conv_impl != "lax"
+    tag = "train_chained" if chained else "train"
+    kernels = [engine.fused_engine, engine.fused_engine_bwd_x, engine.fused_engine_bwd_w]
+    names = ["fwd", "bwd_x", "bwd_w"]
+    want_step, want_g, want_d = (4, 4, 4), (0, 4, 4), (0, 0, 0)
+    cfg = dataclasses.replace(DCGAN, deconv_impl="cuda_chained", conv_impl=conv_impl)
+    # the conv wrappers' launches by discriminator layer, told apart by the
+    # channels of their first argument (cells: N; bwd_x's g: M)
+    conv_wrappers = {}
+    if chained:
+        kernels += [engine.conv_fused_engine, engine.conv_fused_engine_bwd_x, engine.conv_fused_engine_bwd_w]
+        names += ["conv_fwd", "conv_bwd_x", "conv_bwd_w"]
+        want_step = (4, 4, 4, 8, 11, 12)
+        want_g, want_d = (0, 4, 4, 0, 4, 4), (0, 0, 0, 0, 7, 8)
+        chans_in, chans_out = (cfg.img_ch, *G.disc_channels(cfg)[:-1]), G.disc_channels(cfg)
+        conv_wrappers = {"conv_fused_engine": ("fwd", chans_in), "conv_fused_engine_bwd_x": ("bwd_x", chans_out),
+                         "conv_fused_engine_bwd_w": ("bwd_w", chans_in)}
+    per_layer = {key: [0] * len(chans) for key, chans in conv_wrappers.values()}
     counts = lambda: tuple(k.launches for k in kernels)  # noqa: E731
-    cfg = dataclasses.replace(DCGAN, deconv_impl="cuda_chained", conv_impl="lax")
+
+    class ByLayer:
+        """Stands in for a conv wrapper in ``engine`` during the counted run.
+        The wrapper counts its launch through its module-level name, so
+        ``launches`` passes through to the real function's count."""
+
+        def __init__(self, key, chans, fn):
+            self.key, self.chans, self.fn = key, chans, fn
+
+        @property
+        def launches(self):
+            return self.fn.launches
+
+        @launches.setter
+        def launches(self, value):
+            self.fn.launches = value
+
+        def __call__(self, *a, **k):
+            before = self.fn.launches
+            out = self.fn(*a, **k)
+            per_layer[self.key][self.chans.index(a[0].shape[-1])] += self.fn.launches - before
+            return out
+
+    plain = dict(deconv_impl="chained_ref", conv_impl="chained_ref" if chained else "lax")
     settings = StepSettings()
     B, steps = TRAIN_BATCH, 3
     t0 = time.perf_counter()
@@ -499,9 +764,10 @@ def train_phase(torch, card):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    # record the backward kernels' launches around each gradient pull of the step
-    pulls = []
-    real_grads = T._grads
+    # record the kernels' launches around each gradient pull of the step,
+    # and every F.conv2d call
+    pulls, conv2d_calls = [], [0]
+    real_grads, real_conv2d = T._grads, F.conv2d
 
     def recording_grads(loss, tree, *, retain_graph):
         before = counts()
@@ -510,34 +776,53 @@ def train_phase(torch, card):
         pulls.append(tuple(a - b for a, b in zip(counts(), before)))
         return out
 
-    def run(impl):
-        step = make_gan_step(cfg, settings=dataclasses.replace(settings, deconv_impl=impl))
+    def counting_conv2d(*a, **k):
+        conv2d_calls[0] += 1
+        return real_conv2d(*a, **k)
+
+    def run(**impls):
+        step = make_gan_step(cfg, settings=dataclasses.replace(settings, **impls))
         gp, dp = gp0, dp0
         g_opt, d_opt = adamw_init(gp), adamw_init(dp)
-        per_step, metrics = [], []
+        per_step, metrics, first = [], [], None
         for z, real in batches:
             before = counts()
             gp, dp, g_opt, d_opt, m = step(gp, dp, g_opt, d_opt, z, real)
             torch.cuda.synchronize()
             per_step.append(tuple(a - b for a, b in zip(counts(), before)))
             metrics.append({k: float(v) for k, v in m.items()})
-        return gp, dp, per_step, metrics
+            first = first or (g_opt.m, d_opt.m)
+        return gp, dp, per_step, metrics, first
 
     # --- the main path: counts at 0 just before, read just after
     for k in kernels:
         k.launches = 0
-    T._grads = recording_grads
+    real_conv = {name: getattr(engine, name) for name in conv_wrappers}
+    T._grads, F.conv2d = recording_grads, counting_conv2d
+    for name, (key, chans) in conv_wrappers.items():
+        setattr(engine, name, ByLayer(key, chans, real_conv[name]))
     try:
-        gp_k, dp_k, per_step, m_k = run("cuda_chained")
+        gp_k, dp_k, per_step, m_k, first_k = run(deconv_impl="cuda_chained", conv_impl=conv_impl)
     finally:
-        T._grads = real_grads
+        T._grads, F.conv2d = real_grads, real_conv2d
+        for name, fn in real_conv.items():
+            setattr(engine, name, fn)
     launches = counts()
-    if any(ps != (4, 4, 4) for ps in per_step):
-        fail(f"kernel launches per train step (fwd, bwd_x, bwd_w) {per_step}, want (4, 4, 4) each")
+    for key, n in per_layer.items():
+        if sum(n) != dict(zip(names, launches))["conv_" + key]:
+            fail(f"conv {key} launches by layer {n} do not add up to {launches}")
+    if any(ps != want_step for ps in per_step):
+        fail(f"kernel launches per train step ({', '.join(names)}) {per_step}, want {want_step} each")
     g_pulls, d_pulls = pulls[0::2], pulls[1::2]
-    if any(p[1:] != (4, 4) or p[0] for p in g_pulls) or any(p != (0, 0, 0) for p in d_pulls):
-        fail(f"launches per gradient pull: G {g_pulls}, D {d_pulls}; want (0, 4, 4) and (0, 0, 0)")
-    gp_r, dp_r, _, m_r = run("chained_ref")
+    if any(p != want_g for p in g_pulls) or any(p != want_d for p in d_pulls):
+        fail(f"launches per gradient pull: G {g_pulls}, D {d_pulls}; want {want_g} and {want_d}")
+    if chained and conv2d_calls[0]:
+        fail(f"the chained step called F.conv2d {conv2d_calls[0]} times")
+    if not chained and conv2d_calls[0] != 8 * steps:
+        fail(f"the lax step called F.conv2d {conv2d_calls[0]} times, want 8 per step")
+    gp_r, dp_r, _, m_r, first_r = run(**plain)
+    moment_share = check_first_moments(first_k, first_r)
+    del first_k, first_r  # not held into the peak-memory reading below
 
     worst = {}
     for s, (a, b) in enumerate(zip(m_k, m_r)):
@@ -549,13 +834,18 @@ def train_phase(torch, card):
             if not rel <= 1e-3:
                 fail(f"step {s} {key}: kernels {a[key]!r} vs plain {b[key]!r} (rel {rel:.2e} > 1e-3)")
     bound = 6 * settings.lr
-    param_err = max((x - y).abs().max().item() for tree_a, tree_b in ((gp_k, gp_r), (dp_k, dp_r))
-                    for x, y in zip(tree_leaves(tree_a), tree_leaves(tree_b)))
+    leaves_k = tree_leaves(gp_k) + tree_leaves(dp_k)
+    if not all(bool(torch.isfinite(x).all()) for x in leaves_k):
+        fail("non-finite parameters after the kernel steps")
+    param_err = max((x - y).abs().max().item() for x, y in zip(leaves_k, tree_leaves(gp_r) + tree_leaves(dp_r)))
     if not param_err <= bound:
         fail(f"parameters after {steps} steps differ by {param_err:.3e} > 6*lr = {bound:.1e}")
-    emit({"phase": "train", "arch": "dcgan", "batch": B, "steps": steps, "deconv_impl": "cuda_chained",
-          "conv_impl": "lax", "launches_per_step": per_step, "launches_per_pull": {"G": g_pulls, "D": d_pulls},
-          "metrics": m_k, "metrics_plain": m_r, "max_rel_err_metrics": worst,
+    emit({"phase": tag, "arch": "dcgan", "batch": B, "steps": steps, "deconv_impl": "cuda_chained",
+          "conv_impl": conv_impl, "kernels": names, "launches_per_step": per_step,
+          "launches_per_pull": {"G": g_pulls, "D": d_pulls}, "f_conv2d_calls": conv2d_calls[0],
+          "conv_launches_per_step_by_layer": {k: [v / steps for v in n] for k, n in per_layer.items()},
+          "step1_first_moment_err_share_of_tol": moment_share,
+          "metrics": m_k, "metrics_plain": m_r, "plain_impls": plain, "max_rel_err_metrics": worst,
           "max_abs_err_params": param_err, "param_bound": bound, "setup_s": setup_s, "card": card})
 
     # --- speed (after the counted run)
@@ -573,21 +863,28 @@ def train_phase(torch, card):
     idle = 1.0 - dev_ms / prof_ms
     if idle < 0.0:
         fail(f"device time {dev_ms:.4f} ms exceeds the wall time {prof_ms:.4f} ms it was taken in")
-    ours = {k: v for k, v in by_kernel.items() if "fused_epi_kernel" in k or "bwd_x_kernel" in k
-            or "bwd_w_kernel" in k}
-    plain_step = make_gan_step(cfg, settings=dataclasses.replace(settings, deconv_impl="chained_ref"))
+    library_convs = _library_convs(by_kernel)
+    if chained and library_convs:
+        fail(f"cuDNN or aten convolution kernels in the chained step's profile: {library_convs}")
+    if not chained and not library_convs:  # the check's own control: the lax step does run cuDNN
+        fail(f"no convolution kernel found in the lax step's profile: {sorted(by_kernel)[:20]}")
+    ours = {k: v for k, v in by_kernel.items() if any(n in k for n in (
+        "fused_epi_kernel", "bwd_x_kernel", "bwd_w_kernel", "conv_fwd_kernel"))}
+    plain_step = make_gan_step(cfg, settings=dataclasses.replace(settings, **plain))
     pstate = [gp_k, dp_k, adamw_init(gp_k), adamw_init(dp_k)]
 
     def one_plain():
         pstate[:] = plain_step(*pstate, z, real)[:4]
 
     plain_step_ms = wall_ms(one_plain, reps=3, warmup=1)
-    emit({"phase": "train_rate", "batch": B, "step_ms": step_ms, "images_per_s": 1e3 * B / step_ms,
+    emit({"phase": tag + "_rate", "batch": B, "step_ms": step_ms, "images_per_s": 1e3 * B / step_ms,
           "profiled_step_ms": prof_ms, "device_ms": dev_ms, "device_idle_share": idle,
           "engine_kernels_ms": sum(ours.values()), "engine_kernels": ours,
+          "library_conv_kernels_ms": {k: by_kernel[k] for k in library_convs},
           "top_kernels": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]),
           "plain_step_ms": plain_step_ms, "max_memory_allocated": peak, "card": card})
-    return dict(zip(("fwd", "bwd_x", "bwd_w"), launches))
+    return dict(launches=dict(zip(names, launches)), per_layer={k: [v / steps for v in n] for k, n in per_layer.items()},
+                step_kernels=by_kernel)
 
 
 def main(argv=None) -> int:
@@ -633,36 +930,64 @@ def main(argv=None) -> int:
 
     rows = kernel_phase(torch, peaks) if "kernel" in phases else []
     bwd_rows = kernel_bwd_phase(torch, peaks) if "kernel_bwd" in phases else []
+    conv_rows = kernel_conv_phase(torch, peaks) if "kernel_conv" in phases else []
     serve_launches = serve_phase(torch, smi) if "serve" in phases else 0
-    train_launches = train_phase(torch, smi) if "train" in phases else {}
+    train = train_phase(torch, smi) if "train" in phases else {}
+    chained = train_phase(torch, smi, "cuda_chained") if "train_chained" in phases else {}
+    train_launches, chained_launches = train.get("launches", {}), chained.get("launches", {})
 
-    def summary(krows, bound_key="bound_ms"):
-        """Sums over the DCGAN layer rows (one generate, or one train step)."""
+    def step_device_ms(kname):
+        """Device ms per step of ``kname``'s instantiations in the chained
+        step's profile (None without that phase)."""
+        if not chained:
+            return None
+        return sum(v for k, v in chained["step_kernels"].items() if f"::{kname}<" in k)
+
+    def summary(krows, weights=None):
+        """Sums over the DCGAN layer rows (one generate, or one train step),
+        layer i counted ``weights[i]`` times (once each by default)."""
         main_rows = [r for r in krows if r["name"].startswith("dcgan.")]
-        tot = {k: sum(r[k] for r in main_rows) for k in ("ms", "plain_ms", "library_ms", bound_key)}
-        by_bytes = sum(1e3 * r["bytes"] / peaks[1] for r in main_rows)
-        by_ops = sum(1e3 * r["ops"] / peaks[0] for r in main_rows)
-        return dict(ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot[bound_key],
+        wts = weights or (1,) * len(main_rows)
+        tot = {k: sum(w * r[k] for w, r in zip(wts, main_rows)) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        by_bytes = sum(w * 1e3 * r["bytes"] / peaks[1] for w, r in zip(wts, main_rows))
+        by_ops = sum(w * 1e3 * r["ops"] / peaks[0] for w, r in zip(wts, main_rows))
+        return dict(ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
                     bound_by="bytes" if by_bytes >= by_ops else "operations", library_ms=tot["library_ms"],
                     max_abs_err=max((r["max_abs_err"] for r in krows), default=None),
                     shapes=[{k: r[k] for k in ("name", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                                                "max_abs_err")} for r in krows])
 
+    def by_path(key):
+        paths = {"serve": serve_launches if key == "fwd" else 0, "train": train_launches.get(key, 0),
+                 "train_chained": chained_launches.get(key, 0)}
+        return dict(launches=sum(paths.values()), launches_by_path=paths)
+
     fwd_train = [r for r in bwd_rows if r["kernel"] == "fused_engine_epi"]
     line = [{"name": "fused_engine_epi", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-             "launches": serve_launches + train_launches.get("fwd", 0),
-             "launches_by_path": {"serve": serve_launches, "train": train_launches.get("fwd", 0)},
+             "corner": "deconv", **by_path("fwd"),
              # ms ... library_ms: one DCGAN generate at batch 8, the four layer shapes summed
-             **summary(rows)}]
+             **summary(rows), "step_profile_ms": step_device_ms("fused_epi_kernel")}]
     if fwd_train:
         line[0]["train_step_batch128"] = {k: v for k, v in summary(fwd_train).items() if k != "shapes"}
     for key, replaces in (("x", REPLACES_BWD_X), ("w", REPLACES_BWD_W)):
         krows = [r for r in bwd_rows if r["kernel"] == f"fused_engine_bwd_{key}"]
         line.append({"name": f"fused_engine_bwd_{key}", "route": "cuda", "source": SOURCE_BWD,
-                     "replaces": replaces, "launches": train_launches.get(f"bwd_{key}", 0),
-                     "launches_by_path": {"serve": 0, "train": train_launches.get(f"bwd_{key}", 0)},
+                     "replaces": replaces, "corner": "deconv", **by_path(f"bwd_{key}"),
                      # ms ... library_ms: one DCGAN train step at batch 128, the four layer shapes summed
-                     **summary(krows)})
+                     **summary(krows), "step_profile_ms": step_device_ms(f"bwd_{key}_kernel")})
+    for key, replaces in (("fwd", REPLACES), ("bwd_x", REPLACES_BWD_X), ("bwd_w", REPLACES_BWD_W)):
+        krows = [r for r in conv_rows if r["kernel"] == f"conv_engine_{key}"]
+        paths = {"serve": 0, "train": 0, "train_chained": chained_launches.get(f"conv_{key}", 0)}
+        weights = chained["per_layer"][key] if chained else None
+        line.append({"name": f"conv_engine_{key}", "route": "cuda", "source": SOURCE_CONV,
+                     "replaces": replaces + " (conv corner, via src/repro/kernels/winograd_deconv.py)",
+                     "corner": "conv", "launches": sum(paths.values()), "launches_by_path": paths,
+                     # ms ... library_ms: one DCGAN train step at batch 128, each discriminator layer
+                     # counted as often as the train_chained run launched it per step (per_pass: once
+                     # each, when that phase did not run)
+                     **summary(krows, weights), "launches_per_step_by_layer": weights,
+                     "step_profile_ms": step_device_ms(f"conv_{key}_kernel"),
+                     "per_pass": {k: v for k, v in summary(krows).items() if k != "shapes"}})
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

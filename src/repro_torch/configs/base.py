@@ -45,8 +45,9 @@ class GANConfig:
     # models.gan.serve_impl.
     deconv_impl: str = "ref"
     # discriminator conv impl: "lax" (PyTorch's own convolution, as the
-    # reference leaves it to XLA) is supported; the Winograd conv impls are
-    # a later slice
+    # reference leaves it to XLA), or "cuda_chained" / "chained_ref" (the
+    # Winograd conv engine: its CUDA kernels for CUDA tensors, or its plain
+    # version everywhere)
     conv_impl: str = "lax"
     disc_channels: tuple[int, ...] = (64, 128, 256, 512)
 

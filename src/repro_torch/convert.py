@@ -46,10 +46,12 @@ def generator_params_from_numpy(tree, cfg: GANConfig, device="cuda"):
 
 def discriminator_params_from_numpy(tree, cfg: GANConfig, device="cuda"):
     """A discriminator param tree of numpy arrays in the reference's layout
-    (``conv{i}: {"w", "b"}`` raw K4 weights, ``conv{i}_bn`` after every conv
-    but the first, ``head``) -> the same tree of fp32 tensors on
-    ``device``.  Keys and shapes are checked against ``cfg``."""
-    from .models.gan import DISC_KERNEL, disc_channels
+    (``conv{i}: {"w", "b"}`` raw K4 weights or ``{"ww", "b"}`` packed ones,
+    ``conv{i}_bn`` after every conv but the first, ``head``) -> the same
+    tree of fp32 tensors on ``device``.  Keys and shapes are checked against
+    ``cfg``; packed ``ww`` against the layer's ``conv_packed_layout``."""
+    from .kernels.ops import conv_packed_layout
+    from .models.gan import DISC_KERNEL, disc_channels, disc_conv_dims
 
     chans = [cfg.img_ch, *disc_channels(cfg)]
     want = {"head"} | {f"conv{i}" for i in range(len(chans) - 1)} | {
@@ -57,14 +59,19 @@ def discriminator_params_from_numpy(tree, cfg: GANConfig, device="cuda"):
     if set(tree) != want:
         raise ValueError(f"param keys {sorted(tree)} != {sorted(want)} for {cfg.arch_id}'s discriminator")
     out = _to_torch(tree, device)
-    for i in range(len(chans) - 1):
+    for i, cd in enumerate(disc_conv_dims(cfg)):
         wd = out[f"conv{i}"]
-        if set(wd) != {"w", "b"}:
-            raise ValueError(f"conv{i} holds {sorted(wd)}; the port's discriminator takes raw {{'w', 'b'}}")
-        if tuple(wd["w"].shape) != (DISC_KERNEL, DISC_KERNEL, chans[i], chans[i + 1]) or \
-                tuple(wd["b"].shape) != (chans[i + 1],):
-            raise ValueError(f"conv{i} shapes {tuple(wd['w'].shape)} / {tuple(wd['b'].shape)} do not match "
-                             f"{chans[i]} -> {chans[i + 1]}")
+        if set(wd) == {"w", "b"}:
+            want = (DISC_KERNEL, DISC_KERNEL, chans[i], chans[i + 1])
+        elif set(wd) == {"ww", "b"}:
+            want = (len(conv_packed_layout(cd)[0]), chans[i], chans[i + 1])
+        else:
+            raise ValueError(f"conv{i} holds {sorted(wd)}; the port's discriminator takes {{'w', 'b'}} or "
+                             f"{{'ww', 'b'}}")
+        got = tuple(wd["w" if "w" in wd else "ww"].shape)
+        if got != want or tuple(wd["b"].shape) != (chans[i + 1],):
+            raise ValueError(f"conv{i} shapes {got} / {tuple(wd['b'].shape)} do not match {want} / "
+                             f"({chans[i + 1]},)")
     final_hw = cfg.img_hw // 2 ** (len(chans) - 1)
     if tuple(out["head"]["w"].shape) != (final_hw**2 * chans[-1], 1):
         raise ValueError(f"head weights {tuple(out['head']['w'].shape)} do not match {cfg.arch_id}")

@@ -12,6 +12,14 @@ out[S*j + rho - P] = out_rho[j].  Sub-kernels are stored flipped and padded
 to r taps at the high end, so each sub-problem is a plain cross-correlation
 and the zero taps sit at positions fixed by (K_D, S) alone: the structural
 sparsity the Winograd G-transform inherits (Cases 1/2/3 of Fig. 6).
+
+The strided conv (the discriminator) is the mirror image: with the input
+de-interleaved into phases x_phi[j] = x[S*j + phi], phi(rho) = (rho - P)
+mod S, the conv is the SUM over tap residues rho of unit-stride
+cross-correlations of one phase with the sub-kernel g_rho[t] = w[rho + S*t],
+shifted by d_rho = floor((rho - P) / S).  Padding every phase left by
+L = ceil(P / S) cells aligns all sub-problems on one r-tap window, and the
+taps outside it are structural zeros fixed by (K, S, P) alone.
 """
 from __future__ import annotations
 
@@ -23,7 +31,10 @@ import torch
 
 from .winograd import get_transform
 
-__all__ = ["DeconvDims", "SubFilterPlan", "plan", "decompose_weights"]
+__all__ = [
+    "DeconvDims", "SubFilterPlan", "plan", "decompose_weights",
+    "ConvDims", "conv_same_dims", "ConvSubFilterPlan", "conv_plan", "decompose_conv_weights",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,4 +130,106 @@ def decompose_weights(w: torch.Tensor, dims: DeconvDims, r: int = 3) -> torch.Te
             for ty in range(math.ceil((K - ry) / S)):
                 for tx in range(math.ceil((K - rx) / S)):
                     out[ry, rx, kc - 1 - ty, kc - 1 - tx] = w[ry + S * ty, rx + S * tx]
+    return out
+
+
+# ------------------------------------------------------------------ conv
+@dataclasses.dataclass(frozen=True)
+class ConvDims:
+    """Static geometry of one strided conv layer (cross-correlation, no
+    kernel flip)."""
+
+    kernel: int  # K (square)
+    stride: int  # S
+    padding: int  # P_lo (top/left pad)
+    pad_hi: int = 0  # bottom/right pad (only affects the output extent)
+
+    def out_size(self, in_size: int) -> int:
+        return (in_size + self.padding + self.pad_hi - self.kernel) // self.stride + 1
+
+    @property
+    def phase_pad(self) -> int:
+        """L: the common left pad (in phase-image cells) aligning all phases."""
+        return -(-self.padding // self.stride)
+
+    def phase_of(self, rho: int) -> int:
+        """The input phase that tap residue rho reads."""
+        return (rho - self.padding) % self.stride
+
+    def shift_of(self, rho: int) -> int:
+        """d_rho: the constant sub-conv shift of tap residue rho."""
+        return (rho - self.padding - self.phase_of(rho)) // self.stride
+
+
+def conv_same_dims(kernel: int, stride: int, in_size: int) -> ConvDims:
+    """ConvDims of "SAME" padding for this input extent (the discriminator's
+    convention): H_O = ceil(H / S), the low side taking the smaller half."""
+    out = -(-in_size // stride)
+    total = max((out - 1) * stride + kernel - in_size, 0)
+    return ConvDims(kernel, stride, total // 2, total - total // 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvSubFilterPlan:
+    """Structural description of the S^2 phase sub-filters for (K, S, P, r)."""
+
+    dims: ConvDims
+    r: int
+    taps_1d: tuple[tuple[int, ...], ...]  # per rho: tap presence (len r)
+    nnz_winograd: np.ndarray  # (S, S) nonzero count of each transformed sub-filter
+    masks_winograd: np.ndarray  # (S, S, n, n) bool structural nonzero masks
+
+    @property
+    def c_total(self) -> int:
+        """Multiplies per m x m output tile over the S^2 phase sub-filters:
+        36 for K4S2 (of 64 dense), 16 for K3S1."""
+        return int(self.nnz_winograd.sum())
+
+
+def _conv_tap_presence_1d(dims: ConvDims, rho: int, r: int) -> np.ndarray:
+    """Tap-existence vector (length r) of residue rho's aligned sub-kernel."""
+    kcr = math.ceil((dims.kernel - rho) / dims.stride)
+    lo = dims.shift_of(rho) + dims.phase_pad
+    if lo + kcr > r:
+        raise ValueError(
+            f"conv sub-kernel [{lo}, {lo + kcr}) exceeds r={r}: kernel {dims.kernel} stride "
+            f"{dims.stride} pad {dims.padding} not expressible in F(m,{r}); use a larger r."
+        )
+    out = np.zeros(r)
+    out[lo : lo + kcr] = 1.0
+    return out
+
+
+def conv_plan(dims: ConvDims, m: int = 2, r: int = 3) -> ConvSubFilterPlan:
+    """Structural sparsity plan for a stride-S conv under F(m, r): the
+    deconv plan's |G|-mask rule applied to the phase sub-kernels' taps."""
+    tf = get_transform(m, r)
+    S = dims.stride
+    pres = [_conv_tap_presence_1d(dims, rho, r) for rho in range(S)]
+    m1d = [tf.filter_mask1d(p) for p in pres]
+    masks = np.zeros((S, S, tf.n, tf.n), bool)
+    nnz = np.zeros((S, S), int)
+    for ry in range(S):
+        for rx in range(S):
+            masks[ry, rx] = np.outer(m1d[ry], m1d[rx])
+            nnz[ry, rx] = int(masks[ry, rx].sum())
+    taps = tuple(tuple(int(v) for v in p) for p in pres)
+    return ConvSubFilterPlan(dims, r, taps, nnz, masks)
+
+
+def decompose_conv_weights(w: torch.Tensor, dims: ConvDims, r: int = 3) -> torch.Tensor:
+    """Split conv weights (K, K, N, M) into the S^2 aligned unit-stride
+    sub-kernels, zero-padded to (S, S, r, r, N, M).  No flip: the sub-convs
+    are cross-correlations."""
+    K, S, L = dims.kernel, dims.stride, dims.phase_pad
+    if w.shape[0] != K or w.shape[1] != K:
+        raise ValueError(f"weight spatial dims {tuple(w.shape[:2])} != K={K}")
+    out = w.new_zeros((S, S, r, r, w.shape[2], w.shape[3]))
+    for ry in range(S):
+        uy0 = dims.shift_of(ry) + L
+        for rx in range(S):
+            ux0 = dims.shift_of(rx) + L
+            for ty in range(math.ceil((K - ry) / S)):
+                for tx in range(math.ceil((K - rx) / S)):
+                    out[ry, rx, uy0 + ty, ux0 + tx] = w[ry + S * ty, rx + S * tx]
     return out

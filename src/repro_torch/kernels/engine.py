@@ -1,6 +1,6 @@
 """The epilogue-fused Winograd engine and its backward: wrappers of the
-CUDA kernels ``csrc/fused_engine.cu`` and ``csrc/fused_engine_bwd.cu`` and
-their plain PyTorch versions.
+CUDA kernels ``csrc/fused_engine.cu``, ``csrc/fused_engine_bwd.cu`` and
+``csrc/conv_engine.cu`` and their plain PyTorch versions.
 
 ``fused_engine`` takes the padded cell layout of one deconv layer and the
 packed (C, N, M) weights and returns either the cropped NHWC image
@@ -15,6 +15,11 @@ the engine's pre-epilogue products, from the cotangent ``g`` in the
 (B, ty, tx, S*S*m*m, M) scratch layout: dL/dcells (B, gy, gx, m*m, N) and
 dL/dww (C, N, M).  They follow the same contract and keep their own
 ``.launches``.
+
+``conv_fused_engine`` and ``conv_fused_engine_bwd_x`` / ``_bwd_w`` are the
+same three at the engine's strided-conv corner (S^2 input phases in
+phase-major cells (B, Gy, Gx, S^2*m*m, N), one sub-filter over all C packed
+positions, stride 1, no padding), with the same contract.
 """
 from __future__ import annotations
 
@@ -29,6 +34,8 @@ from .ref import EPILOGUE_ACTIVATIONS, LEAKY_SLOPE
 __all__ = [
     "LEAKY_SLOPE", "EPILOGUE_ACTIVATIONS", "fused_engine", "fused_engine_plain",
     "fused_engine_bwd_x", "fused_engine_bwd_x_plain", "fused_engine_bwd_w", "fused_engine_bwd_w_plain",
+    "conv_fused_engine", "conv_fused_engine_plain", "conv_fused_engine_bwd_x", "conv_fused_engine_bwd_x_plain",
+    "conv_fused_engine_bwd_w", "conv_fused_engine_bwd_w_plain",
 ]
 
 _OUT_MODES = {"nhwc": 0, "cells": 1}
@@ -446,4 +453,336 @@ def _bwd_w_plan(B: int, ty: int, tx: int, N: int, M: int, S: int, device_index: 
                                                      ctypes.byref(floats), ctypes.byref(counters))
     if err != 0:
         raise RuntimeError(f"fused_engine_bwd_w plan failed: cudaError {err}")
+    return splits.value, floats.value, counters.value
+
+
+# ------------------------------------------------------------- conv corner
+def conv_fused_engine_plain(
+    cells: torch.Tensor,
+    ww_packed: torch.Tensor,
+    inv_packed: torch.Tensor,
+    *,
+    pos_idx: tuple[int, ...],
+    m: int,
+    n: int,
+    ty: int,
+    tx: int,
+    s2: int,
+    out_mode: str,
+    activation: str = "none",
+    scale: torch.Tensor | None = None,
+    bias: torch.Tensor | None = None,
+    out_h: int,
+    out_w: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of the conv kernel, on any device: the
+    reference's ``conv_engine_ref``, cropped in nhwc mode."""
+    y = _ref.conv_engine_ref(
+        cells, ww_packed, inv_packed, _bt(m, n), scale, bias, pos_idx=pos_idx, m=m, n=n, ty=ty, tx=tx,
+        s2=s2, out_mode=out_mode, activation=activation, out_h=out_h, out_w=out_w,
+    )
+    return y[:, :out_h, :out_w, :].contiguous() if out_mode == "nhwc" else y
+
+
+def conv_fused_engine_bwd_x_plain(
+    g: torch.Tensor,
+    ww_packed: torch.Tensor,
+    inv_packed: torch.Tensor,
+    *,
+    pos_idx: tuple[int, ...],
+    m: int,
+    n: int,
+    ty: int,
+    tx: int,
+    gy: int,
+    gx: int,
+    s2: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of the conv bwd_x kernel, on any device: the
+    VJP of ``conv_pre_engine_ref`` in the cells."""
+    return _ref.conv_engine_bwd_x_ref(g, ww_packed, inv_packed, _bt(m, n), pos_idx=pos_idx, m=m, n=n,
+                                      ty=ty, tx=tx, gy=gy, gx=gx, s2=s2)
+
+
+def conv_fused_engine_bwd_w_plain(
+    cells: torch.Tensor,
+    g: torch.Tensor,
+    inv_packed: torch.Tensor,
+    *,
+    pos_idx: tuple[int, ...],
+    m: int,
+    n: int,
+    ty: int,
+    tx: int,
+    s2: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of the conv bwd_w kernel, on any device: the
+    VJP of ``conv_pre_engine_ref`` in the packed weights."""
+    return _ref.conv_engine_bwd_w_ref(cells, g, inv_packed, _bt(m, n), pos_idx=pos_idx, m=m, n=n,
+                                      ty=ty, tx=tx, s2=s2)
+
+
+@functools.lru_cache(maxsize=64)
+def _conv_layout_tensors(pos_idx: tuple[int, ...], s2: int, device: str):
+    """Packed positions and each phase's first packed position as small
+    int32 device tensors, built once per layer geometry and device.  The
+    kernels take positions grouped by phase, at most n^2 = 16 distinct ones
+    per phase."""
+    phase = [p // 16 for p in pos_idx]
+    if not 1 <= s2 <= 16 or phase != sorted(phase) or any(not 0 <= q < s2 for q in phase) \
+            or len(set(pos_idx)) != len(pos_idx):
+        raise ValueError(f"pos_idx {pos_idx} is not grouped by phase into {s2} phases of distinct positions")
+    off = [sum(q < s for q in phase) for s in range(s2 + 1)]
+    return (torch.tensor(pos_idx, dtype=torch.int32, device=device),
+            torch.tensor(off, dtype=torch.int32, device=device))
+
+
+def _check_conv(tensors, *, m, n, ty, tx):
+    """Checks every conv-corner kernel shares: device, dtype, contiguity,
+    F(2,3).  Raises: nothing falls back."""
+    dev = tensors[0][1].device
+    for name, t in tensors:
+        if t.device != dev or t.dtype is not torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous fp32 tensor on {dev}, got "
+                             f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+    if (m, n) != (2, 4):
+        raise ValueError(f"the CUDA kernels implement F(2,3) only (m=2, n=4), got m={m}, n={n}")
+    if min(ty, tx) <= 0:
+        raise ValueError("empty problem")
+    return dev
+
+
+def _check_conv_cells(cells, B, ty, tx, s2, N=None):
+    if cells.dim() != 5 or cells.shape[0] != B or cells.shape[3] != s2 * 4 or (N is not None and cells.shape[4] != N):
+        raise ValueError(f"cells must be ({B}, Gy, Gx, {s2 * 4}, {'N' if N is None else N}), "
+                         f"got {tuple(cells.shape)}")
+    if cells.shape[1] < ty + 1 or cells.shape[2] < tx + 1:
+        raise ValueError(f"cells {tuple(cells.shape[1:3])} do not cover {ty}x{tx} tiles plus the halo")
+
+
+def conv_fused_engine(
+    cells: torch.Tensor,  # (B, Gy, Gx, s2*m*m, N) phase-major cell layout
+    ww_packed: torch.Tensor,  # (C, N, M)
+    inv_packed: torch.Tensor,  # (C, m*m) fp32
+    *,
+    pos_idx: tuple[int, ...],  # packed position -> s2*n^2 phase-major position
+    m: int,
+    n: int,
+    ty: int,
+    tx: int,
+    s2: int,
+    out_mode: str,  # "nhwc" | "cells"
+    activation: str = "none",
+    scale: torch.Tensor | None = None,
+    bias: torch.Tensor | None = None,
+    out_h: int,
+    out_w: int,
+) -> torch.Tensor:
+    """Epilogue-fused engine at the conv corner: returns (B, out_h, out_w, M)
+    in nhwc mode, or (B, ty, tx, m*m, M) in cells mode with pixels outside
+    [0, out_h) x [0, out_w) zeroed.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel (F(2,3), fp32, contiguous inputs)."""
+    if out_mode not in _OUT_MODES:
+        raise ValueError(f"out_mode {out_mode!r} not in {tuple(_OUT_MODES)}")
+    if activation not in _ACT_CODES:
+        raise ValueError(f"unsupported epilogue activation {activation!r}")
+    kw = dict(pos_idx=pos_idx, m=m, n=n, ty=ty, tx=tx, s2=s2)
+    if cells.device.type == "cpu":
+        return conv_fused_engine_plain(cells, ww_packed, inv_packed, out_mode=out_mode, activation=activation,
+                                       scale=scale, bias=bias, out_h=out_h, out_w=out_w, **kw)
+    if cells.device.type != "cuda":
+        raise ValueError(f"conv_fused_engine runs on cpu or cuda tensors, got {cells.device}")
+    dev = _check_conv((("cells", cells), ("ww_packed", ww_packed), ("inv_packed", inv_packed)), m=m, n=n, ty=ty, tx=tx)
+    C = len(pos_idx)
+    if ww_packed.dim() != 3 or ww_packed.shape[0] != C or inv_packed.shape != (C, m * m):
+        raise ValueError(f"ww_packed {tuple(ww_packed.shape)} / inv_packed {tuple(inv_packed.shape)} do not "
+                         f"hold C={C} positions")
+    _, N, M = ww_packed.shape
+    B = cells.shape[0]
+    _check_conv_cells(cells, B, ty, tx, s2, N)
+    if not (0 < out_h <= 2 * ty and 0 < out_w <= 2 * tx) or min(B, N, M) <= 0:
+        raise ValueError(f"out ({out_h}, {out_w}) outside the {ty}x{tx} tiles, or an empty problem")
+    out_shape = (B, out_h, out_w, M) if out_mode == "nhwc" else (B, ty, tx, m * m, M)
+    if max(cells.numel(), ww_packed.numel(), B * ty * tx * 4 * M) >= 2**31:
+        raise ValueError("problem too large for the kernel's 32-bit indices")
+    scale = _check_vec("scale", scale, M, dev)
+    bias = _check_vec("bias", bias, M, dev)
+    pos, off = _conv_layout_tensors(tuple(pos_idx), s2, str(dev))
+
+    from ._build import load_library
+
+    lib = load_library()
+    _conv_fwd_plan(N, M, dev.index)
+    out = torch.empty(out_shape, dtype=torch.float32, device=dev)
+    err = lib.conv_engine_fwd_f32(
+        cells.data_ptr(), ww_packed.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), off.data_ptr(),
+        None if scale is None else scale.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
+        B, cells.shape[1], cells.shape[2], N, M, s2, ty, tx, out_h, out_w,
+        _OUT_MODES[out_mode], _ACT_CODES[activation], torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"conv_fused_engine kernel launch failed: cudaError {err}")
+    conv_fused_engine.launches += 1
+    return out
+
+
+conv_fused_engine.launches = 0
+
+
+def conv_fused_engine_bwd_x(
+    g: torch.Tensor,  # (B, ty, tx, m*m, M) cotangent of the engine's products
+    ww_packed: torch.Tensor,  # (C, N, M)
+    inv_packed: torch.Tensor,  # (C, m*m) fp32
+    *,
+    pos_idx: tuple[int, ...],
+    m: int,
+    n: int,
+    ty: int,
+    tx: int,
+    gy: int,
+    gx: int,
+    s2: int,
+) -> torch.Tensor:
+    """dL/dcells (B, gy, gx, s2*m*m, N) of the conv engine's products, zero
+    in rows and columns the forward never reads.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    kw = dict(pos_idx=pos_idx, m=m, n=n, ty=ty, tx=tx, s2=s2)
+    if g.device.type == "cpu":
+        return conv_fused_engine_bwd_x_plain(g, ww_packed, inv_packed, gy=gy, gx=gx, **kw)
+    if g.device.type != "cuda":
+        raise ValueError(f"conv_fused_engine_bwd_x runs on cpu or cuda tensors, got {g.device}")
+    dev = _check_conv((("g", g), ("ww_packed", ww_packed), ("inv_packed", inv_packed)), m=m, n=n, ty=ty, tx=tx)
+    C = len(pos_idx)
+    if ww_packed.dim() != 3 or ww_packed.shape[0] != C or inv_packed.shape != (C, m * m):
+        raise ValueError(f"ww_packed {tuple(ww_packed.shape)} / inv_packed {tuple(inv_packed.shape)} do not "
+                         f"hold C={C} positions")
+    _, N, M = ww_packed.shape
+    if g.dim() != 5 or tuple(g.shape[1:]) != (ty, tx, m * m, M):
+        raise ValueError(f"g must be (B, {ty}, {tx}, {m * m}, {M}), got {tuple(g.shape)}")
+    B = g.shape[0]
+    if gy < ty + 1 or gx < tx + 1 or min(B, N, M) <= 0:
+        raise ValueError(f"cells ({gy}, {gx}) do not cover {ty}x{tx} tiles plus the halo, or an empty problem")
+    if max(g.numel(), ww_packed.numel(), B * gy * gx * s2 * 4 * N) >= 2**31:
+        raise ValueError("problem too large for the kernel's 32-bit indices")
+    pos, off = _conv_layout_tensors(tuple(pos_idx), s2, str(dev))
+
+    from ._build import load_library
+
+    lib = load_library()
+    R, W, TC = _conv_bwd_x_plan(B, gy, gx, ty, tx, N, M, dev.index)
+    out = torch.empty((B, gy, gx, s2 * m * m, N), dtype=torch.float32, device=dev)
+    err = lib.conv_engine_bwd_x_f32(
+        g.data_ptr(), ww_packed.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), off.data_ptr(),
+        out.data_ptr(), B, gy, gx, N, M, s2, ty, tx, R, W, TC, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"conv_fused_engine_bwd_x kernel launch failed: cudaError {err}")
+    conv_fused_engine_bwd_x.launches += 1
+    return out
+
+
+conv_fused_engine_bwd_x.launches = 0
+
+
+def conv_fused_engine_bwd_w(
+    cells: torch.Tensor,  # (B, Gy, Gx, s2*m*m, N) the forward's cells input
+    g: torch.Tensor,  # (B, ty, tx, m*m, M)
+    inv_packed: torch.Tensor,  # (C, m*m) fp32
+    *,
+    pos_idx: tuple[int, ...],
+    m: int,
+    n: int,
+    ty: int,
+    tx: int,
+    s2: int,
+) -> torch.Tensor:
+    """dL/dww (C, N, M) of the conv engine's products, xw recomputed from
+    the cells.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
+    kw = dict(pos_idx=pos_idx, m=m, n=n, ty=ty, tx=tx, s2=s2)
+    if g.device.type == "cpu":
+        return conv_fused_engine_bwd_w_plain(cells, g, inv_packed, **kw)
+    if g.device.type != "cuda":
+        raise ValueError(f"conv_fused_engine_bwd_w runs on cpu or cuda tensors, got {g.device}")
+    dev = _check_conv((("g", g), ("cells", cells), ("inv_packed", inv_packed)), m=m, n=n, ty=ty, tx=tx)
+    C = len(pos_idx)
+    if inv_packed.shape != (C, m * m):
+        raise ValueError(f"inv_packed must be ({C}, {m * m}), got {tuple(inv_packed.shape)}")
+    if g.dim() != 5 or tuple(g.shape[1:4]) != (ty, tx, m * m):
+        raise ValueError(f"g must be (B, {ty}, {tx}, {m * m}, M), got {tuple(g.shape)}")
+    B, M = g.shape[0], g.shape[4]
+    _check_conv_cells(cells, B, ty, tx, s2)
+    N = cells.shape[4]
+    if min(B, N, M) <= 0:
+        raise ValueError("empty problem")
+    if max(cells.numel(), g.numel(), C * N * M) >= 2**31:
+        raise ValueError("problem too large for the kernel's 32-bit indices")
+    pos, off = _conv_layout_tensors(tuple(pos_idx), s2, str(dev))
+
+    from ._build import load_library
+
+    lib = load_library()
+    splits, n_scratch, n_counters = _conv_bwd_w_plan(B, ty, tx, N, M, s2, dev.index)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    partial = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
+    counters = _split_counters(n_counters, dev.index, stream) if n_counters else None
+    out = torch.empty((C, N, M), dtype=torch.float32, device=dev)
+    err = lib.conv_engine_bwd_w_f32(
+        cells.data_ptr(), g.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), off.data_ptr(), out.data_ptr(),
+        B, cells.shape[1], cells.shape[2], N, M, s2, ty, tx, splits,
+        None if partial is None else partial.data_ptr(), None if counters is None else counters.data_ptr(),
+        stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"conv_fused_engine_bwd_w kernel launch failed: cudaError {err}")
+    conv_fused_engine_bwd_w.launches += 1
+    return out
+
+
+conv_fused_engine_bwd_w.launches = 0
+
+
+@functools.lru_cache(maxsize=64)
+def _conv_fwd_plan(N: int, M: int, device_index: int) -> None:
+    """Raise the conv forward kernel's shared-memory limit for (N, M)'s block
+    configuration, once per device."""
+    from ._build import load_library
+
+    with torch.cuda.device(device_index):
+        err = load_library().conv_engine_fwd_plan(N, M)
+    if err != 0:
+        raise RuntimeError(f"conv_fused_engine plan failed: cudaError {err}")
+
+
+@functools.lru_cache(maxsize=256)
+def _conv_bwd_x_plan(B: int, gy: int, gx: int, ty: int, tx: int, N: int, M: int, device_index: int):
+    """(R, W, TC) of the conv bwd_x kernel's block geometry for this shape;
+    the library raises the kernel's shared-memory limit here, once."""
+    import ctypes
+
+    from ._build import load_library
+
+    out = [ctypes.c_int() for _ in range(3)]
+    with torch.cuda.device(device_index):
+        err = load_library().conv_engine_bwd_x_plan(B, gy, gx, ty, tx, N, M, *map(ctypes.byref, out))
+    if err != 0:
+        raise RuntimeError(f"conv_fused_engine_bwd_x plan failed: cudaError {err}")
+    return tuple(v.value for v in out)
+
+
+@functools.lru_cache(maxsize=256)
+def _conv_bwd_w_plan(B: int, ty: int, tx: int, N: int, M: int, s2: int, device_index: int):
+    """(splits, scratch floats, counters) of the conv bwd_w kernel's T-loop
+    split for this shape on this card; the library raises the kernel's
+    shared-memory limit here, once."""
+    import ctypes
+
+    from ._build import load_library
+
+    splits, floats, counters = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong()
+    with torch.cuda.device(device_index):
+        err = load_library().conv_engine_bwd_w_plan(B, ty, tx, N, M, s2, device_index, ctypes.byref(splits),
+                                                    ctypes.byref(floats), ctypes.byref(counters))
+    if err != 0:
+        raise RuntimeError(f"conv_fused_engine_bwd_w plan failed: cudaError {err}")
     return splits.value, floats.value, counters.value

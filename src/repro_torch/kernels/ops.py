@@ -7,6 +7,13 @@ from an NHWC image or from the previous layer's emitted cells.
 
 Entry half: ``winograd_deconv2d_cells`` (cells in) and
 ``winograd_deconv2d_packed`` (NHWC in) run the epilogue-fused engine.
+
+The strided conv (the discriminator) mirrors both halves at the engine's
+conv corner: ``conv_packed_layout`` / ``prepack_conv`` pack the phase
+sub-filters' structural nonzeros into (C, N, M), ``conv_cells_from_image``
+and ``conv_cells_to_next`` build the phase-major (B, Gy, Gx, S^2*m*m, N)
+cells, and ``winograd_conv2d_cells`` / ``winograd_conv2d_packed`` run the
+conv engine, through ``ConvEpilogueFn`` where a gradient is wanted.
 ``backend="cuda"`` takes the CUDA kernel for CUDA tensors and its plain
 version for CPU tensors; where a gradient is wanted it runs through
 ``FusedEpilogueFn``, whose backward is the two backward kernels (or their
@@ -22,9 +29,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.tdc import DeconvDims, plan
+from ..core.tdc import ConvDims, DeconvDims, conv_plan, plan
 from ..core.winograd import get_transform
-from ..core.winograd_deconv import transform_weights
+from ..core.winograd_deconv import transform_conv_weights, transform_weights
 from . import engine as _engine
 
 __all__ = [
@@ -40,6 +47,17 @@ __all__ = [
     "FusedEpilogueFn",
     "winograd_deconv2d_cells",
     "winograd_deconv2d_packed",
+    "conv_packed_layout",
+    "pack_conv_weights",
+    "PackedConv",
+    "conv_packed_inv",
+    "prepack_conv",
+    "conv_cells_from_image",
+    "conv_chain_aligned",
+    "conv_cells_to_next",
+    "ConvEpilogueFn",
+    "winograd_conv2d_cells",
+    "winograd_conv2d_packed",
 ]
 
 
@@ -240,13 +258,59 @@ def _epilogue_cotangent(g_img, y_img, scale, bias, activation: str, M: int):
     return dpre * sc, dscale, dbias
 
 
+def _epilogue_fn_backward(ctx, grad, S: int, P: int, bwd_x, bwd_w, geo: dict):
+    """The backward both epilogue Functions share.  The output's pixels
+    form a (ty*m*S, tx*m*S) image whose crop window starts at offset ``P``
+    (S = stride, P = padding at the deconv corner; S = 1, P = 0 at the conv
+    corner): cells mode masks the cotangent to that window and uncells it,
+    nhwc mode pads the cropped cotangent back at offset P.  Then the
+    activation-cotangent prologue, the inverse interleave to the (B, ty,
+    tx, S*S*m*m, M) scratch layout, and ``bwd_x`` (dcells) and ``bwd_w``
+    (dww), each only where a gradient is asked for.  Returns the gradients
+    of (cells, ww, inv, scale, bias, kw)."""
+    cells, ww, inv, scale, bias, y = ctx.saved_tensors
+    kw = ctx.kw
+    m, ty, tx, oh, ow = kw["m"], kw["ty"], kw["tx"], kw["out_h"], kw["out_w"]
+    B, M, ms = cells.shape[0], ww.shape[2], m * S
+    g = grad.float()
+    if kw["out_mode"] == "cells":
+        def uncell(c):  # emitted cells -> padded-interleave coordinates
+            return c.reshape(B, ty * S, tx * S, m, m, M).permute(0, 1, 3, 2, 4, 5).reshape(
+                B, ty * ms, tx * ms, M)
+
+        # the forward zeroed everything outside the crop window, so the
+        # cotangent there must not flow back
+        mask = cells_window_mask(ty * S, tx * S, m, P, oh, ow, device=g.device)
+        g_img, y_img = uncell(g * mask), uncell(y)
+    else:  # the kernel's nhwc output is already cropped: pad back at offset P
+        g_img = g.new_zeros((B, ty * ms, tx * ms, M))
+        g_img[:, P : P + oh, P : P + ow] = g
+        y_img = g.new_zeros((B, ty * ms, tx * ms, M))
+        y_img[:, P : P + oh, P : P + ow] = y
+    if kw["activation"] == "none" and scale is None and bias is None:
+        g_aff, dscale, dbias = g_img, None, None
+    else:
+        g_aff, dscale, dbias = _epilogue_cotangent(g_img, y_img, scale, bias, kw["activation"], M)
+    # inverse interleave: back to the (B, ty, tx, S2*m2, M) scratch layout
+    g_scr = g_aff.reshape(B, ty, m, S, tx, m, S, M).permute(0, 1, 4, 3, 6, 2, 5, 7).reshape(
+        B, ty, tx, S * S * m * m, M).contiguous()
+    dcells = dww = None
+    if ctx.needs_input_grad[0]:
+        dcells = bwd_x(g_scr, ww, inv, gy=cells.shape[1], gx=cells.shape[2], **geo)
+    if ctx.needs_input_grad[1]:
+        dww = bwd_w(cells, g_scr, inv, **geo)
+    ds = dscale if scale is not None and ctx.needs_input_grad[3] else None
+    db = dbias if bias is not None and ctx.needs_input_grad[4] else None
+    return dcells, dww, None, ds, db, None
+
+
 class FusedEpilogueFn(torch.autograd.Function):
     """The epilogue-fused engine with its gradient.  Forward: the engine
     (kernel or plain version, by device), saving the post-activation
-    output.  Backward: the activation-cotangent prologue in plain PyTorch,
-    the inverse interleave to the (B, ty, tx, S*S*m*m, M) scratch layout,
-    then ``fused_engine_bwd_x`` (dcells) and ``fused_engine_bwd_w`` (dww).
-    Returns the gradients of (cells, ww, inv, scale, bias)."""
+    output.  Backward (``_epilogue_fn_backward``): the activation-cotangent
+    prologue in plain PyTorch, the inverse interleave to the scratch
+    layout, then ``fused_engine_bwd_x`` (dcells) and ``fused_engine_bwd_w``
+    (dww).  Returns the gradients of (cells, ww, inv, scale, bias)."""
 
     @staticmethod
     def forward(ctx, cells, ww, inv, scale, bias, kw):
@@ -257,43 +321,11 @@ class FusedEpilogueFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        cells, ww, inv, scale, bias, y = ctx.saved_tensors
         kw = ctx.kw
-        m, S, ty, tx = kw["m"], kw["stride"], kw["ty"], kw["tx"]
-        P, oh, ow = kw["padding"], kw["out_h"], kw["out_w"]
-        B, M, ms = cells.shape[0], ww.shape[2], m * S
-        g = grad.float()
-        if kw["out_mode"] == "cells":
-            def uncell(c):  # emitted cells -> padded-interleave coordinates
-                return c.reshape(B, ty * S, tx * S, m, m, M).permute(0, 1, 3, 2, 4, 5).reshape(
-                    B, ty * ms, tx * ms, M)
-
-            # the forward zeroed everything outside the crop window, so the
-            # cotangent there must not flow back
-            mask = cells_window_mask(ty * S, tx * S, m, P, oh, ow, device=g.device)
-            g_img, y_img = uncell(g * mask), uncell(y)
-        else:  # the kernel's nhwc output is already cropped: pad back at offset P
-            g_img = g.new_zeros((B, ty * ms, tx * ms, M))
-            g_img[:, P : P + oh, P : P + ow] = g
-            y_img = g.new_zeros((B, ty * ms, tx * ms, M))
-            y_img[:, P : P + oh, P : P + ow] = y
-        if kw["activation"] == "none" and scale is None and bias is None:
-            g_aff, dscale, dbias = g_img, None, None
-        else:
-            g_aff, dscale, dbias = _epilogue_cotangent(g_img, y_img, scale, bias, kw["activation"], M)
-        # inverse interleave: back to the (B, ty, tx, S2*m2, M) scratch layout
-        g_scr = g_aff.reshape(B, ty, m, S, tx, m, S, M).permute(0, 1, 4, 3, 6, 2, 5, 7).reshape(
-            B, ty, tx, S * S * m * m, M).contiguous()
-        geo = dict(pos_idx=kw["pos_idx"], sub_slices=kw["sub_slices"], m=m, n=kw["n"], ty=ty, tx=tx,
-                   stride=S)
-        dcells = dww = None
-        if ctx.needs_input_grad[0]:
-            dcells = _engine.fused_engine_bwd_x(g_scr, ww, inv, gy=cells.shape[1], gx=cells.shape[2], **geo)
-        if ctx.needs_input_grad[1]:
-            dww = _engine.fused_engine_bwd_w(cells, g_scr, inv, **geo)
-        ds = dscale if scale is not None and ctx.needs_input_grad[3] else None
-        db = dbias if bias is not None and ctx.needs_input_grad[4] else None
-        return dcells, dww, None, ds, db, None
+        geo = dict(pos_idx=kw["pos_idx"], sub_slices=kw["sub_slices"], m=kw["m"], n=kw["n"], ty=kw["ty"],
+                   tx=kw["tx"], stride=kw["stride"])
+        return _epilogue_fn_backward(ctx, grad, kw["stride"], kw["padding"], _engine.fused_engine_bwd_x,
+                                     _engine.fused_engine_bwd_w, geo)
 
 
 def winograd_deconv2d_cells(
@@ -357,4 +389,215 @@ def winograd_deconv2d_packed(
         cells_from_image(x, dims, m, r), packed, dims, (H, W),
         m=m, r=r, backend=backend, epilogue=epilogue or "none",
         scale=scale, bias=bias, emit_cells=emit_cells,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Strided conv: the engine's conv corner.  The S^2 input phases play the
+# sub-filters' role: packed (C, N, M) weights whose positions index the
+# S^2*n^2 phase-major space, one shared inverse transform, one m x m output
+# tile.  Same prepack-then-apply API as the deconv side.
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def conv_packed_layout(cdims: ConvDims, m: int = 2, r: int = 3):
+    """Static packed layout of a strided conv: each kept position's index
+    into the S^2*n^2 phase-major Winograd space (also the pack's gather
+    index) and its packed inverse-transform row.
+
+    Returns (pos_idx, inv_packed_np, plan)."""
+    sp = conv_plan(cdims, m, r)
+    tf = get_transform(m, r)
+    n = tf.n
+    AT = np.asarray(tf.AT)
+    S = cdims.stride
+    pos_idx: list[int] = []
+    inv_rows: list[np.ndarray] = []
+    for ry in range(S):
+        for rx in range(S):
+            s = ry * S + rx
+            for u in range(n):
+                for v in range(n):
+                    if sp.masks_winograd[ry, rx, u, v]:
+                        pos_idx.append(s * n * n + u * n + v)
+                        inv_rows.append(np.outer(AT[:, u], AT[:, v]).reshape(m * m))
+    return tuple(pos_idx), np.stack(inv_rows).astype(np.float32), sp
+
+
+def pack_conv_weights(w: torch.Tensor, cdims: ConvDims, m: int = 2, r: int = 3) -> torch.Tensor:
+    """Conv weights (K, K, N, M) -> packed Winograd-domain (C, N, M): only
+    the structurally nonzero positions of the G-transformed phase
+    sub-filters (C = 36 of 64 for K4S2, 16 for K3S1)."""
+    pos_idx, _, _ = conv_packed_layout(cdims, m, r)
+    ww = transform_conv_weights(w, cdims, m, r)  # (S, S, n, n, N, M)
+    flat = ww.reshape(-1, *ww.shape[4:])
+    return flat[torch.as_tensor(pos_idx, device=w.device)].to(w.dtype).contiguous()
+
+
+class PackedConv(NamedTuple):
+    """Pre-packed Winograd-domain conv weights: ``ww`` is the trainable
+    leaf, ``inv`` the static packed inverse transform."""
+
+    ww: torch.Tensor  # (C, N, M)
+    inv: torch.Tensor  # (C, m2) fp32
+
+
+def conv_packed_inv(cdims: ConvDims, device, m: int = 2, r: int = 3) -> torch.Tensor:
+    """The static (C, m2) inverse-transform rows of ``cdims`` on ``device``,
+    copied there once and cached."""
+    return _conv_inv_on(cdims, m, r, str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=64)
+def _conv_inv_on(cdims: ConvDims, m: int, r: int, device: str) -> torch.Tensor:
+    return torch.as_tensor(conv_packed_layout(cdims, m, r)[1], device=device)
+
+
+def prepack_conv(w: torch.Tensor, cdims: ConvDims, m: int = 2, r: int = 3) -> PackedConv:
+    """One-time G-transform + zero-skipping pack of raw conv weights."""
+    return PackedConv(pack_conv_weights(w, cdims, m, r), conv_packed_inv(cdims, w.device, m, r))
+
+
+def _conv_tiles(cdims: ConvDims, hw: tuple[int, int], m: int, r: int):
+    """(ty, tx, gy, gx, H_O, W_O) of a conv layer on an (H, W) input."""
+    q = -(-get_transform(m, r).n // m)
+    HO, WO = cdims.out_size(hw[0]), cdims.out_size(hw[1])
+    ty, tx = -(-HO // m), -(-WO // m)
+    return ty, tx, ty + q - 1, tx + q - 1, HO, WO
+
+
+def _phase_perm(cdims: ConvDims) -> list[int]:
+    """Input phase of each tap residue: cells hold phases in residue order."""
+    return [cdims.phase_of(rho) for rho in range(cdims.stride)]
+
+
+def conv_cells_from_image(x: torch.Tensor, cdims: ConvDims, m: int = 2, r: int = 3) -> torch.Tensor:
+    """NHWC input -> the conv engine's phase-major cells (B, Gy, Gx,
+    S^2*m*m, N): de-interleave the S^2 input phases, order them by tap
+    residue (``phase_of``), pad every phase left by L cells and
+    space-to-depth each by the tile stride m."""
+    B, H, W, N = x.shape
+    S, L = cdims.stride, cdims.phase_pad
+    _, _, gy, gx, _, _ = _conv_tiles(cdims, (H, W), m, r)
+    hp = max(-(-H // S), gy * m - L)
+    wp = max(-(-W // S), gx * m - L)
+    xp = F.pad(x, (0, 0, 0, S * wp - W, 0, S * hp - H))
+    phases = xp.reshape(B, hp, S, wp, S, N).permute(0, 2, 4, 1, 3, 5)  # (B, phi_y, phi_x, hp, wp, N)
+    perm = torch.as_tensor(_phase_perm(cdims), device=x.device)
+    pairs = phases.index_select(1, perm).index_select(2, perm)
+    pairs = F.pad(pairs, (0, 0, L, 0, L, 0))[:, :, :, : gy * m, : gx * m, :]
+    cells = pairs.reshape(B, S, S, gy, m, gx, m, N).permute(0, 3, 5, 1, 2, 4, 6, 7)
+    return cells.reshape(B, gy, gx, S * S * m * m, N).contiguous()
+
+
+def conv_chain_aligned(cdims: ConvDims, next_cdims: ConvDims, m: int = 2) -> bool:
+    """True when this conv layer's emitted cells become the next conv
+    layer's phase-major cells by whole-cell moves: the next stride equals
+    the cell stride m, so each output cell is one phase pair of the next
+    layer (every discriminator hop).  The reference also chains a
+    unit-stride hop on a cell-aligned pad; no port model takes one, so it
+    is not carried here."""
+    return next_cdims.stride == m
+
+
+def conv_cells_to_next(
+    emitted: torch.Tensor,  # (B, ty, tx, m*m, M) from emit_cells
+    cdims: ConvDims,
+    next_cdims: ConvDims,
+    out_hw: tuple[int, int],  # this layer's (H_O, W_O) = the next layer's input
+    m: int = 2,
+    r: int = 3,
+) -> torch.Tensor:
+    """A conv layer's emitted cells -> the next conv layer's phase-major
+    cells.  With S' = m, emitted cell row m*g + p - L' intra (phi_y, phi_x)
+    is pixel (m*g + p, ...) of the next layer's phase (phi_y, phi_x): pad by
+    L' cell rows and columns, then regroup, a static relayout."""
+    if not conv_chain_aligned(cdims, next_cdims, m):
+        raise ValueError(f"conv cell layouts misaligned: next stride {next_cdims.stride} "
+                         f"is not the cell stride m={m}")
+    _, _, gy2, gx2, _, _ = _conv_tiles(next_cdims, out_hw, m, r)
+    L2 = next_cdims.phase_pad
+    B, R, Cc, _, nch = emitted.shape
+    arr = F.pad(emitted, (0, 0, 0, 0, L2, max(0, gx2 * m - L2 - Cc), L2, max(0, gy2 * m - L2 - R)))
+    arr = arr[:, : gy2 * m, : gx2 * m].reshape(B, gy2, m, gx2, m, m, m, nch)  # (b, g, p, g', q, phi_y, phi_x, c)
+    perm = torch.as_tensor(_phase_perm(next_cdims), device=emitted.device)
+    arr = arr.index_select(5, perm).index_select(6, perm)  # phases -> residue pairs
+    return arr.permute(0, 1, 3, 5, 6, 2, 4, 7).reshape(B, gy2, gx2, m**4, nch).contiguous()
+
+
+class ConvEpilogueFn(torch.autograd.Function):
+    """The conv engine with its gradient.  Forward: the conv kernel (or its
+    plain version, by device), saving the post-activation output.
+    Backward: ``_epilogue_fn_backward`` with the conv corner's uncell (cells
+    mode: re-zero outside [0, out_h) x [0, out_w); nhwc: pad back at offset
+    0), then ``conv_fused_engine_bwd_x`` (dcells) and
+    ``conv_fused_engine_bwd_w`` (dww), each only where a gradient is asked
+    for.  Returns the gradients of (cells, ww, inv, scale, bias)."""
+
+    @staticmethod
+    def forward(ctx, cells, ww, inv, scale, bias, kw):
+        y = _engine.conv_fused_engine(cells, ww, inv, scale=scale, bias=bias, **kw)
+        ctx.kw = kw
+        ctx.save_for_backward(cells, ww, inv, scale, bias, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        geo = {k: ctx.kw[k] for k in ("pos_idx", "m", "n", "ty", "tx", "s2")}
+        return _epilogue_fn_backward(ctx, grad, 1, 0, _engine.conv_fused_engine_bwd_x,
+                                     _engine.conv_fused_engine_bwd_w, geo)
+
+
+def winograd_conv2d_cells(
+    cells: torch.Tensor,  # (B, Gy, Gx, S^2*m*m, N) phase-major cell layout
+    packed: PackedConv,
+    cdims: ConvDims,
+    in_hw: tuple[int, int],  # the (H, W) the cells were built from
+    *,
+    m: int = 2,
+    r: int = 3,
+    backend: str = "cuda",
+    epilogue: str = "none",
+    scale: torch.Tensor | None = None,
+    bias: torch.Tensor | None = None,
+    emit_cells: bool = False,
+) -> torch.Tensor:
+    """Cell-to-cell chained Winograd conv: run the conv engine on the
+    phase-major cells and return the NHWC image (B, H_O, W_O, M) or, with
+    ``emit_cells``, the output image's cells (B, ty, tx, m*m, M) for
+    ``conv_cells_to_next``."""
+    ty, tx, _, _, HO, WO = _conv_tiles(cdims, in_hw, m, r)
+    pos_idx, _, _ = conv_packed_layout(cdims, m, r)
+    kw = dict(pos_idx=pos_idx, m=m, n=get_transform(m, r).n, ty=ty, tx=tx, s2=cdims.stride ** 2,
+              out_mode="cells" if emit_cells else "nhwc", activation=epilogue, out_h=HO, out_w=WO)
+    if backend == "cuda":
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (cells, packed.ww, scale, bias)):
+            return ConvEpilogueFn.apply(cells.contiguous(), packed.ww, packed.inv, scale, bias, kw)
+        return _engine.conv_fused_engine(cells, packed.ww, packed.inv, scale=scale, bias=bias, **kw)
+    if backend == "ref":
+        return _engine.conv_fused_engine_plain(cells, packed.ww, packed.inv, scale=scale, bias=bias, **kw)
+    raise ValueError(f"backend {backend!r} is not 'cuda' or 'ref'")
+
+
+def winograd_conv2d_packed(
+    x: torch.Tensor,  # (B, H, W, N) NHWC
+    packed: PackedConv,
+    cdims: ConvDims,
+    *,
+    m: int = 2,
+    r: int = 3,
+    backend: str = "cuda",
+    epilogue: str | None = None,
+    scale: torch.Tensor | None = None,
+    bias: torch.Tensor | None = None,
+    emit_cells: bool = False,
+) -> torch.Tensor:
+    """Strided Winograd conv from packed weights on an NHWC image:
+    act(scale * conv(x) + bias) through the conv engine; ``emit_cells``
+    returns the output's cells for the next chained conv layer."""
+    return winograd_conv2d_cells(
+        conv_cells_from_image(x, cdims, m, r), packed, cdims, (x.shape[1], x.shape[2]),
+        m=m, r=r, backend=backend, epilogue=epilogue or "none", scale=scale, bias=bias, emit_cells=emit_cells,
     )

@@ -5,7 +5,9 @@ Each function mirrors its counterpart in the reference package's
 fused-engine wrapper takes ``fused_epilogue_engine_ref`` for CPU tensors,
 and ``chip_smoke.py`` holds the CUDA kernel against it on the card.  The
 backward oracles (``*_bwd_*_ref``) are the plain versions of the two
-backward kernels in the same way.
+backward kernels in the same way.  ``conv_engine_ref`` and the
+``conv_engine_bwd_*_ref`` pair are the same contracts at the strided conv's
+corner of the engine (S^2 input phases, one sub-filter, stride 1).
 """
 from __future__ import annotations
 
@@ -23,6 +25,10 @@ __all__ = [
     "engine_bwd_w_ref",
     "fused_pre_engine_bwd_x_ref",
     "fused_pre_engine_bwd_w_ref",
+    "conv_pre_engine_ref",
+    "conv_engine_ref",
+    "conv_engine_bwd_x_ref",
+    "conv_engine_bwd_w_ref",
 ]
 
 LEAKY_SLOPE = 0.2  # must match models.layers.leaky_relu
@@ -270,6 +276,143 @@ def fused_pre_engine_bwd_w_ref(
             cells, w, inv_packed, bt_mat,
             pos_idx=pos_idx, sub_slices=sub_slices, m=m, n=n, ty=ty, tx=tx, m2=m2,
         ),
+        ww0,
+    )
+    return vjp(g)[0]
+
+
+# ------------------------------------------------------------- conv corner
+# The strided conv runs on the same engine with the roles turned: the cells
+# hold S^2 de-interleaved input phases (phase-major, (B, Gy, Gx, S^2*m*m, N)),
+# the packed positions index the concatenated S^2*n^2 Winograd space, and
+# all of them sum through one inverse transform into one m x m output tile.
+
+
+def conv_pre_engine_ref(
+    cells: torch.Tensor,  # (B, Gy, Gx, s2*m*m, N) phase-major cell layout
+    ww_packed: torch.Tensor,  # (C, N, M)
+    inv_packed: torch.Tensor,  # (C, m2) fp32
+    bt_mat,  # (n, n) B^T
+    *,
+    pos_idx: tuple[int, ...],  # into the s2*n^2 phase-major position space
+    m: int,
+    n: int,
+    ty: int,
+    tx: int,
+    s2: int,
+) -> torch.Tensor:
+    """The conv engine's products before the epilogue, (B, ty, tx, m*m, M):
+    per phase, rebuild the phase image from its cells, gather the
+    overlapping tiles and B-transform them; contract the packed positions
+    and sum them through the shared inverse transform."""
+    B, Gy, Gx, _, N = cells.shape
+    M = ww_packed.shape[-1]
+    m2 = m * m
+    dev = cells.device
+    idx_y = (m * torch.arange(ty, device=dev))[:, None] + torch.arange(n, device=dev)[None, :]
+    idx_x = (m * torch.arange(tx, device=dev))[:, None] + torch.arange(n, device=dev)[None, :]
+    bt = torch.as_tensor(bt_mat, dtype=torch.float32, device=dev)
+    xws = []
+    for s in range(s2):
+        sub = cells[:, :, :, s * m2 : (s + 1) * m2, :]
+        img = sub.reshape(B, Gy, Gx, m, m, N).permute(0, 1, 3, 2, 4, 5).reshape(B, Gy * m, Gx * m, N)
+        tiles = img[:, idx_y][:, :, :, idx_x].permute(0, 1, 3, 2, 4, 5)  # (B, ty, tx, n, n, N)
+        xw = torch.einsum("ua,zyxabc,vb->zyxuvc", bt, tiles.float(), bt)
+        xws.append(xw.reshape(B * ty * tx, n * n, N))
+    xw_all = torch.cat(xws, dim=1)  # (T, s2*n2, N)
+    pos = torch.as_tensor(pos_idx, dtype=torch.long, device=dev)
+    xg = xw_all[:, pos, :]  # (T, C, N)
+    yc = torch.einsum("tcn,cnm->ctm", xg, ww_packed.float())
+    y = torch.einsum("ctm,ca->tam", yc, inv_packed.float())  # (T, m2, M)
+    return y.reshape(B, ty, tx, m2, M).to(cells.dtype)
+
+
+def conv_engine_ref(
+    cells: torch.Tensor,  # (B, Gy, Gx, s2*m*m, N)
+    ww_packed: torch.Tensor,  # (C, N, M)
+    inv_packed: torch.Tensor,  # (C, m2) fp32
+    bt_mat,  # (n, n) B^T
+    scale,  # (M,) or None
+    bias,  # (M,) or None
+    *,
+    pos_idx: tuple[int, ...],
+    m: int,
+    n: int,
+    ty: int,
+    tx: int,
+    s2: int,
+    out_mode: str,  # "nhwc" | "cells"
+    activation: str,
+    out_h: int,
+    out_w: int,
+) -> torch.Tensor:
+    """The fused Winograd conv engine with its epilogue: the output-image
+    pixels (B, ty*m, tx*m, M) ("nhwc", uncropped) or their cell layout
+    (B, ty, tx, m*m, M) with everything outside [0, out_h) x [0, out_w)
+    zeroed ("cells")."""
+    y = conv_pre_engine_ref(cells, ww_packed, inv_packed, bt_mat, pos_idx=pos_idx, m=m, n=n,
+                            ty=ty, tx=tx, s2=s2)
+    B, M = y.shape[0], y.shape[-1]
+    img = y.reshape(B, ty, tx, m, m, M).permute(0, 1, 3, 2, 4, 5).reshape(B, ty * m, tx * m, M)
+    img = epilogue_apply_ref(img, scale, bias, activation)
+    if out_mode == "nhwc":
+        return img.to(cells.dtype)
+    if out_mode != "cells":
+        raise ValueError(out_mode)
+    dev = img.device
+    rows = torch.arange(ty * m, device=dev) < out_h
+    cols = torch.arange(tx * m, device=dev) < out_w
+    img = torch.where(rows[None, :, None, None] & cols[None, None, :, None], img, 0.0)
+    out = img.reshape(B, ty, m, tx, m, M).permute(0, 1, 3, 2, 4, 5)
+    return out.reshape(B, ty, tx, m * m, M).to(cells.dtype)
+
+
+def conv_engine_bwd_x_ref(
+    g: torch.Tensor,  # (B, ty, tx, m2, M) cotangent of the products
+    ww_packed: torch.Tensor,
+    inv_packed: torch.Tensor,
+    bt_mat,
+    *,
+    pos_idx: tuple[int, ...],
+    m: int,
+    n: int,
+    ty: int,
+    tx: int,
+    gy: int,
+    gx: int,
+    s2: int,
+) -> torch.Tensor:
+    """dL/dcells (B, gy, gx, s2*m*m, N) of the conv engine's products: the
+    VJP of the (linear-in-cells) ``conv_pre_engine_ref`` at zero primal.
+    Rows and columns the forward never reads get zero."""
+    cells0 = g.new_zeros((g.shape[0], gy, gx, s2 * m * m, ww_packed.shape[1]))
+    _, vjp = torch.func.vjp(
+        lambda c: conv_pre_engine_ref(c, ww_packed, inv_packed, bt_mat, pos_idx=pos_idx, m=m, n=n,
+                                      ty=ty, tx=tx, s2=s2),
+        cells0,
+    )
+    return vjp(g)[0]
+
+
+def conv_engine_bwd_w_ref(
+    cells: torch.Tensor,  # (B, Gy, Gx, s2*m*m, N)
+    g: torch.Tensor,  # (B, ty, tx, m2, M)
+    inv_packed: torch.Tensor,
+    bt_mat,
+    *,
+    pos_idx: tuple[int, ...],
+    m: int,
+    n: int,
+    ty: int,
+    tx: int,
+    s2: int,
+) -> torch.Tensor:
+    """dL/dww (C, N, M) of the conv engine's products: the VJP of the
+    (linear-in-weights) ``conv_pre_engine_ref`` at zero primal."""
+    ww0 = g.new_zeros((len(pos_idx), cells.shape[-1], g.shape[-1]))
+    _, vjp = torch.func.vjp(
+        lambda w: conv_pre_engine_ref(cells, w, inv_packed, bt_mat, pos_idx=pos_idx, m=m, n=n,
+                                      ty=ty, tx=tx, s2=s2),
         ww0,
     )
     return vjp(g)[0]

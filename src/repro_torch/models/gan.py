@@ -16,8 +16,10 @@ Impl names (``cfg.deconv_impl``):
 ``serve_impl`` maps the reference's impl names (``ref``, ``prepacked_ref``,
 ``pallas*``, ...) onto ``"cuda_chained"``; they all compute this function.
 
-The discriminator runs ``conv_impl="lax"``: PyTorch's own convolution, as
-the reference leaves it to XLA.  Its Winograd conv impls are a later slice.
+The discriminator (``cfg.conv_impl``) runs ``"lax"``, PyTorch's own
+convolution as the reference leaves it to XLA, or the same two chained impl
+names on the Winograd conv engine: every K4S2 layer is one conv-engine call
+and hands the next its phase-major cells (``ops.conv_cells_to_next``).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from typing import Any
 import torch
 
 from ..configs.base import GANConfig
-from ..core.tdc import DeconvDims
+from ..core.tdc import ConvDims, DeconvDims, conv_same_dims
 from ..kernels import ops as kops
 from . import layers as L
 
@@ -34,8 +36,8 @@ Params = dict[str, Any]
 
 __all__ = [
     "IMPLS", "uses_chained", "serve_impl", "generator_init", "prepack_generator",
-    "fold_eval_bn", "generator_apply", "DISC_CHANNELS", "disc_channels", "discriminator_init",
-    "discriminator_apply", "merge_bn_stats",
+    "fold_eval_bn", "generator_apply", "DISC_CHANNELS", "CONV_IMPLS", "uses_chained_conv", "disc_channels",
+    "disc_conv_dims", "discriminator_init", "prepack_discriminator", "discriminator_apply", "merge_bn_stats",
 ]
 
 # chained impl -> winograd_deconv2d_cells kwargs
@@ -254,7 +256,19 @@ def generator_apply(
 # ------------------------------------------------------------ discriminator
 DISC_CHANNELS: tuple[int, ...] = (64, 128, 256, 512)
 DISC_KERNEL, DISC_STRIDE = 4, 2
-_CONV_LATER = "the discriminator's Winograd conv impls come with a later slice of the port; use conv_impl='lax'"
+# "lax" or one of the chained impls, which take the same backends as the generator's
+CONV_IMPLS = ("lax", *IMPLS)
+
+
+def uses_chained_conv(impl: str) -> bool:
+    """True if ``impl`` runs the discriminator trunk as one chained
+    conv-engine pipeline (its params hold packed ``{"ww", "b"}`` convs)."""
+    return impl in _CHAINED_KW
+
+
+def _check_conv_impl(impl: str) -> None:
+    if impl not in CONV_IMPLS:
+        raise ValueError(f"conv_impl {impl!r} is not one of {CONV_IMPLS}")
 
 
 def disc_channels(cfg: GANConfig) -> tuple[int, ...]:
@@ -262,17 +276,38 @@ def disc_channels(cfg: GANConfig) -> tuple[int, ...]:
     return tuple(getattr(cfg, "disc_channels", DISC_CHANNELS))
 
 
+def disc_conv_dims(cfg: GANConfig) -> tuple[ConvDims, ...]:
+    """Per-layer ConvDims of the trunk: K4S2 with "SAME" pads for each
+    layer's input extent, the geometry of ``layers.conv2d(stride=2)``."""
+    h, out = cfg.img_hw, []
+    for _ in disc_channels(cfg):
+        cd = conv_same_dims(DISC_KERNEL, DISC_STRIDE, h)
+        out.append(cd)
+        h = cd.out_size(h)
+    return tuple(out)
+
+
+def _packed_conv_of(wd: Params, cdims: ConvDims) -> kops.PackedConv:
+    if "ww" not in wd:
+        raise ValueError("chained conv impls take packed {'ww', 'b'} convs: call prepack_discriminator first")
+    return kops.PackedConv(wd["ww"], kops.conv_packed_inv(cdims, wd["ww"].device))
+
+
 def discriminator_init(cfg: GANConfig, *, seed: int = 0, device="cuda", dtype=torch.float32) -> Params:
     """Random discriminator params from ``seed``, drawn on ``device``: K4S2
-    convs ``conv{i}`` {w (4, 4, C_in, C_out), b}, batchnorm after every conv
-    but the first, and a linear ``head`` to one logit."""
-    if cfg.conv_impl != "lax":
-        raise NotImplementedError(_CONV_LATER)
+    convs ``conv{i}`` {w (4, 4, C_in, C_out), b} (packed {ww (C, N, M), b}
+    for a chained ``cfg.conv_impl``), batchnorm after every conv but the
+    first, and a linear ``head`` to one logit."""
+    _check_conv_impl(cfg.conv_impl)
     gen = torch.Generator(device=device).manual_seed(seed)
     chans = [cfg.img_ch, *disc_channels(cfg)]
+    dims = disc_conv_dims(cfg)
     p: Params = {}
     for i in range(len(chans) - 1):
-        p[f"conv{i}"] = L.conv2d_init(gen, DISC_KERNEL, chans[i], chans[i + 1], dtype)
+        wd = L.conv2d_init(gen, DISC_KERNEL, chans[i], chans[i + 1], dtype)
+        if uses_chained_conv(cfg.conv_impl):  # G-transform and pack once, here
+            wd = {"ww": kops.prepack_conv(wd["w"], dims[i]).ww, "b": wd["b"]}
+        p[f"conv{i}"] = wd
         if i > 0:
             p[f"conv{i}_bn"] = L.batchnorm_init(chans[i + 1], device, dtype)
     final_hw = cfg.img_hw // 2 ** (len(chans) - 1)
@@ -280,14 +315,69 @@ def discriminator_init(cfg: GANConfig, *, seed: int = 0, device="cuda", dtype=to
     return p
 
 
+def prepack_discriminator(params: Params, cfg: GANConfig) -> Params:
+    """Raw conv weights -> packed (C, N, M) ``{"ww", "b"}``, once.  Packed
+    leaves pass through untouched."""
+    out = dict(params)
+    for i, cd in enumerate(disc_conv_dims(cfg)):
+        wd = params.get(f"conv{i}")
+        if wd is not None and "w" in wd:
+            out[f"conv{i}"] = {"ww": kops.prepack_conv(wd["w"], cd).ww, "b": wd["b"]}
+    return out
+
+
+def _chained_conv_trunk(
+    p: Params, cfg: GANConfig, img: torch.Tensor, *, training: bool = True
+) -> tuple[torch.Tensor, Params]:
+    """The discriminator trunk as one conv-engine pipeline: one engine call
+    per K4S2 layer, each handing the next its phase-major cells (with
+    m = S = 2 every output cell is one phase pair of the next layer).  The
+    conv bias is always in the engine's epilogue; eval mode also folds
+    running-stat BN and leaky_relu into it; training-mode BN layers emit raw
+    cells and run ``_bn_act_cells``.  The last layer turns into pixels only
+    for the linear head.  Returns (logits, bn_stats)."""
+    kw = _CHAINED_KW[cfg.conv_impl]
+    dims = disc_conv_dims(cfg)
+    new_stats: Params = {}
+    hw = (img.shape[1], img.shape[2])
+    cells = kops.conv_cells_from_image(img, dims[0])
+    for i, cd in enumerate(dims):
+        wd = p[f"conv{i}"]
+        packed = _packed_conv_of(wd, cd)
+        b = wd["b"].float()
+        has_bn = f"conv{i}_bn" in p
+        last = i + 1 == len(dims)
+        out_hw = (cd.out_size(hw[0]), cd.out_size(hw[1]))
+        if training and has_bn:
+            emitted = kops.winograd_conv2d_cells(cells, packed, cd, hw, bias=b, emit_cells=True, **kw)
+            out, new_stats[f"conv{i}_bn"] = _bn_act_cells(p[f"conv{i}_bn"], emitted, out_hw, act="leaky_relu")
+            if last:
+                out = _cells_to_image(out, out_hw)
+        else:
+            scale, bias = None, b
+            if has_bn:
+                bn = p[f"conv{i}_bn"]
+                a, bb = _bn_eval_affine(bn)
+                scale, bias = a, (a * b + bb).contiguous()
+                new_stats[f"conv{i}_bn"] = {"mean": bn["mean"], "var": bn["var"]}
+            out = kops.winograd_conv2d_cells(cells, packed, cd, hw, epilogue="leaky_relu", scale=scale, bias=bias,
+                                             emit_cells=not last, **kw)
+        if not last:
+            cells = kops.conv_cells_to_next(out, cd, dims[i + 1], out_hw)
+        hw = out_hw
+    return L.linear(p["head"], out.reshape(out.shape[0], -1)), new_stats
+
+
 def discriminator_apply(
     p: Params, cfg: GANConfig, img: torch.Tensor, *, training: bool = True
 ) -> tuple[torch.Tensor, Params]:
-    """img (B, H, W, C) NHWC -> (logits (B, 1), bn_stats), ``conv_impl="lax"``:
-    conv, batchnorm (batch statistics in training mode), leaky_relu per
-    layer, then the linear head."""
-    if cfg.conv_impl != "lax":
-        raise NotImplementedError(_CONV_LATER)
+    """img (B, H, W, C) NHWC -> (logits (B, 1), bn_stats).  ``conv_impl``
+    "lax": conv, batchnorm (batch statistics in training mode), leaky_relu
+    per layer, then the linear head; a chained impl: ``_chained_conv_trunk``,
+    the same function on the Winograd conv engine."""
+    _check_conv_impl(cfg.conv_impl)
+    if uses_chained_conv(cfg.conv_impl):
+        return _chained_conv_trunk(p, cfg, img, training=training)
     h, new_stats = img, {}
     i = 0
     while f"conv{i}" in p:

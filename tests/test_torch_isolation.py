@@ -80,13 +80,15 @@ def test_every_cuda_source_is_built_and_imports_nothing_of_the_reference():
     from repro_torch.kernels import _build
 
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert sources == sorted(_build.SOURCES) and "fused_engine_bwd.cu" in sources
+    assert sources == sorted(_build.SOURCES) and {"fused_engine_bwd.cu", "conv_engine.cu"} <= set(sources)
     for name in sources:
         # a plain C interface bound with ctypes: the CUDA runtime and nothing of PyTorch
         includes = set(re.findall(r"^#include\s+(\S+)", (_build.CSRC / name).read_text(), re.M))
         assert includes <= {"<cuda_runtime.h>", "<stdint.h>"}, (name, includes)
     for fn in ("fused_engine_bwd_x_f32", "fused_engine_bwd_w_f32", "fused_engine_bwd_x_plan",
-               "fused_engine_bwd_w_plan", "fused_engine_epi_f32", "fused_engine_plan"):
+               "fused_engine_bwd_w_plan", "fused_engine_epi_f32", "fused_engine_plan",
+               "conv_engine_fwd_plan", "conv_engine_fwd_f32", "conv_engine_bwd_x_plan", "conv_engine_bwd_x_f32",
+               "conv_engine_bwd_w_plan", "conv_engine_bwd_w_f32"):
         assert fn in _build._SIGNATURES
 
 
@@ -100,3 +102,22 @@ def test_bwd_wrappers_take_the_plain_versions_on_cpu_without_counting():
     dw = E.fused_engine_bwd_w(cells, g, packed.inv, **geo)
     assert dx.shape == cells.shape and dw.shape == packed.ww.shape
     assert (E.fused_engine_bwd_x.launches, E.fused_engine_bwd_w.launches) == before
+
+
+def test_conv_wrappers_take_the_plain_versions_on_cpu_without_counting():
+    from repro_torch.core import conv_same_dims
+
+    cd = conv_same_dims(4, 2, 8)
+    x = torch.randn((1, 8, 8, 3), generator=torch.Generator().manual_seed(1))
+    packed = ops.prepack_conv(torch.randn((4, 4, 3, 2)), cd)
+    cells = ops.conv_cells_from_image(x, cd)
+    geo = dict(pos_idx=ops.conv_packed_layout(cd)[0], m=2, n=4, ty=2, tx=2, s2=4)
+    counters = (E.conv_fused_engine, E.conv_fused_engine_bwd_x, E.conv_fused_engine_bwd_w)
+    before = [f.launches for f in counters]
+    y = E.conv_fused_engine(cells, packed.ww, packed.inv, out_mode="cells", activation="leaky_relu", out_h=4,
+                            out_w=4, **geo)
+    g = torch.randn((1, 2, 2, 4, 2))
+    dx = E.conv_fused_engine_bwd_x(g, packed.ww, packed.inv, gy=cells.shape[1], gx=cells.shape[2], **geo)
+    dw = E.conv_fused_engine_bwd_w(cells, g, packed.inv, **geo)
+    assert y.shape == (1, 2, 2, 4, 2) and dx.shape == cells.shape and dw.shape == packed.ww.shape
+    assert [f.launches for f in counters] == before
