@@ -39,15 +39,17 @@ class GANConfig:
     deconvs: tuple[DeconvSpec, ...] = ()
     img_ch: int = 3
     img_hw: int = 64
-    # generator deconv impl: "cuda_chained" (the CUDA engine for CUDA tensors,
-    # its plain version for CPU tensors) or "chained_ref" (the plain version
-    # everywhere).  The reference's names are accepted and mapped by
-    # models.gan.serve_impl.
+    # generator deconv impl (models.gan.IMPLS): chained ("cuda_chained",
+    # "chained_ref") or per layer ("cuda_prepacked", "cuda_fused_pre_prepacked",
+    # "prepacked_ref"; raw "cuda", "cuda_fused_pre", "ref"; the baselines
+    # "tdc", "zero_padded", "lax").  "cuda*" take the CUDA kernels for CUDA
+    # tensors and their plain versions for CPU tensors.  The reference's
+    # names are mapped by models.gan.serve_impl.
     deconv_impl: str = "ref"
-    # discriminator conv impl: "lax" (PyTorch's own convolution, as the
-    # reference leaves it to XLA), or "cuda_chained" / "chained_ref" (the
-    # Winograd conv engine: its CUDA kernels for CUDA tensors, or its plain
-    # version everywhere)
+    # discriminator conv impl (models.gan.CONV_IMPLS): "lax" (PyTorch's own
+    # convolution, as the reference leaves it to XLA), or the Winograd conv
+    # engine chained ("cuda_chained", "chained_ref") or per layer
+    # ("cuda_prepacked", "prepacked_ref"; raw "cuda", "ref")
     conv_impl: str = "lax"
     disc_channels: tuple[int, ...] = (64, 128, 256, 512)
 

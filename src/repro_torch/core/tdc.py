@@ -28,11 +28,13 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .winograd import get_transform
 
 __all__ = [
     "DeconvDims", "SubFilterPlan", "plan", "decompose_weights",
+    "pad_input_for_subconv", "interleave_crop", "tdc_deconv2d",
     "ConvDims", "conv_same_dims", "ConvSubFilterPlan", "conv_plan", "decompose_conv_weights",
 ]
 
@@ -131,6 +133,45 @@ def decompose_weights(w: torch.Tensor, dims: DeconvDims, r: int = 3) -> torch.Te
                 for tx in range(math.ceil((K - rx) / S)):
                     out[ry, rx, kc - 1 - ty, kc - 1 - tx] = w[ry + S * ty, rx + S * tx]
     return out
+
+
+def pad_input_for_subconv(x: torch.Tensor, dims: DeconvDims, r: int = 3) -> torch.Tensor:
+    """Zero-pad NHWC input so that correlation output j is sub-conv position
+    j in [0, j_extent): left pad kc-1, right pad so that j_extent + r - 1
+    taps are addressable."""
+    kc = dims.kc
+    hj, wj = dims.j_extent(x.shape[1]), dims.j_extent(x.shape[2])
+    pad_r_h = max(0, hj + r - 1 - (x.shape[1] + kc - 1))
+    pad_r_w = max(0, wj + r - 1 - (x.shape[2] + kc - 1))
+    return F.pad(x, (0, 0, kc - 1, pad_r_w, kc - 1, pad_r_h))
+
+
+def interleave_crop(sub_out: torch.Tensor, dims: DeconvDims, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Depth-to-space: sub_out (S, S, B, H_J, W_J, M) -> (B, H_O, W_O, M),
+    out[S*j + rho - P] = out_rho[j], cropped to [0, H_O)."""
+    S, P = dims.stride, dims.padding
+    _, _, B, HJ, WJ, M = sub_out.shape
+    full = sub_out.permute(2, 3, 0, 4, 1, 5).reshape(B, HJ * S, WJ * S, M)
+    return full[:, P : P + out_hw[0], P : P + out_hw[1], :]
+
+
+def tdc_deconv2d(x: torch.Tensor, w: torch.Tensor, dims: DeconvDims) -> torch.Tensor:
+    """TDC deconv without Winograd (the paper's [14] baseline): S^2 stride-1
+    cross-correlations of the padded NHWC input with the flipped sub-kernels,
+    interleaved.  x (B, H, W, N), w (K_D, K_D, N, M) -> (B, H_O, W_O, M)."""
+    S = dims.stride
+    _, H, W, _ = x.shape
+    hj, wj = dims.j_extent(H), dims.j_extent(W)
+    subw = decompose_weights(w, dims)  # (S, S, r, r, N, M)
+    xp = pad_input_for_subconv(x, dims).permute(0, 3, 1, 2)
+    sub_out = torch.stack([
+        torch.stack([
+            F.conv2d(xp, subw[ry, rx].permute(3, 2, 0, 1))[:, :, :hj, :wj].permute(0, 2, 3, 1)
+            for rx in range(S)
+        ])
+        for ry in range(S)
+    ])
+    return interleave_crop(sub_out, dims, (dims.out_size(H), dims.out_size(W)))
 
 
 # ------------------------------------------------------------------ conv

@@ -21,7 +21,7 @@ __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "library_path", "load
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("fused_engine.cu", "fused_engine_bwd.cu", "conv_engine.cu")
+SOURCES = ("fused_engine.cu", "fused_engine_bwd.cu", "conv_engine.cu", "domain_engine.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,6 +43,12 @@ _SIGNATURES = {
     "conv_engine_bwd_x_f32": [_p] * 6 + [_i] * 11 + [_p],
     "conv_engine_bwd_w_plan": [_i] * 7 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2,
     "conv_engine_bwd_w_f32": [_p] * 6 + [_i] * 9 + [_p] * 3,
+    "domain_engine_fwd_plan": [_i] * 5 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2,
+    "domain_engine_fwd_f32": [_p] * 6 + [_i] * 5 + [_p] * 3,
+    "domain_engine_bwd_x_plan": [_i],
+    "domain_engine_bwd_x_f32": [_p] * 6 + [_i] * 4 + [_p],
+    "domain_engine_bwd_w_plan": [_i] * 5 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2,
+    "domain_engine_bwd_w_f32": [_p] * 6 + [_i] * 5 + [_p] * 3,
 }
 
 # what the last build printed (ptxas register / spill report), for the smoke log

@@ -4,7 +4,14 @@
 // "cells" (kernel body _fused_epi_kernel, the pallas_call at engine.py:817),
 // at the deconv corner: one input phase, stride S, S^2 sub-filters whose
 // outputs interleave.  The plain PyTorch version is
-// repro_torch/kernels/ref.py::fused_epilogue_engine_ref.
+// repro_torch/kernels/ref.py::fused_epilogue_engine_ref.  Out mode 2
+// ("scratch") replaces the same function's out_mode "scratch" (kernel body
+// _fused_kernel, the pallas_call at engine.py:739): the same line buffer,
+// adder network and contraction, then the folded tile outputs stored as
+// they are, (B, ty, tx, S^2*m*m, M) sub-filter-major, with no affine, no
+// activation and no depth-to-space; its plain version is
+// ref.py::fused_pre_engine_ref.  (The Pallas kernel returns a block-padded
+// array; this one the exact shape.)
 //
 // What it computes, for one deconv layer under F(2x2, 3x3) (m = 2, n = 4):
 //   for every tile (b, j, t) of the flattened T = B*ty*tx tiles, read its 2x2
@@ -16,7 +23,8 @@
 //   (ry, rx, p, q) of tile (j, t) is interleave row m*S*j + S*p + ry, column
 //   m*S*t + S*q + rx.  "nhwc" writes the cropped image (B, H_O, W_O, M);
 //   "cells" writes the next layer's exact cell layout (B, ty*S, tx*S, m*m, M)
-//   with zeros outside [P, P+H_O) x [P, P+W_O).
+//   with zeros outside [P, P+H_O) x [P, P+W_O); "scratch" writes y itself,
+//   out[(b, j, t), s*m*m + a, m].
 //
 // What bounds it on an H100: at the serving batch sizes the packed weights
 // (102.8 MB for DCGAN's first layer, more than the 50 MB L2) set a floor of
@@ -52,7 +60,7 @@
 //     in launch order, so they stream the same weight slice together and the
 //     L2 serves the rereads: device-memory weight traffic stays near one pass;
 //   * a structurally empty sub-filter (K_D < S) runs no products and writes
-//     act(bias), as the reference does.
+//     act(bias), as the reference does (zeros in scratch mode).
 // wgmma (3xTF32 for fp32 accuracy), TMA and bf16 are later work; this version
 // runs on the fp32 CUDA cores.
 
@@ -329,6 +337,12 @@ fused_epi_kernel(const float* __restrict__ cells, const float* __restrict__ ww,
 #pragma unroll
       for (int a = 0; a < 4; ++a) y[a] = fmaf(inv_s[k * 4 + a], v, y[a]);
     }
+    if (out_mode == 2) {  // scratch: the folded products, no epilogue
+      float* o = out + ((size_t)t * S * S * 4 + s * 4) * M + mc;
+#pragma unroll
+      for (int a = 0; a < 4; ++a) o[(size_t)a * M] = y[a];
+      continue;
+    }
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
       const float v = activate(y[a] * sc + bi, act);
@@ -410,7 +424,8 @@ extern "C" int fused_engine_plan(int B, int ty, int tx, int N, int M, int S, int
   });
 }
 
-// One launch.  scale and bias may be null.  out_mode: 0 = nhwc, 1 = cells.
+// One launch.  scale and bias may be null.  out_mode: 0 = nhwc, 1 = cells,
+// 2 = scratch (scale, bias and act unused).
 // act: 0 none, 1 relu, 2 leaky_relu, 3 tanh.  splits, partial and counters
 // come from fused_engine_plan; the counters are zero on entry and the
 // kernel leaves them zero.  Returns cudaGetLastError().

@@ -1,14 +1,17 @@
-"""The epilogue-fused Winograd engine and its backward: wrappers of the
-CUDA kernels ``csrc/fused_engine.cu``, ``csrc/fused_engine_bwd.cu`` and
-``csrc/conv_engine.cu`` and their plain PyTorch versions.
+"""The Winograd engines and their backward: wrappers of the CUDA kernels
+``csrc/fused_engine.cu``, ``csrc/fused_engine_bwd.cu``, ``csrc/conv_engine.cu``
+and ``csrc/domain_engine.cu`` and their plain PyTorch versions.
 
 ``fused_engine`` takes the padded cell layout of one deconv layer and the
 packed (C, N, M) weights and returns either the cropped NHWC image
 (``out_mode="nhwc"``) or the next layer's exact cell layout
 (``out_mode="cells"``), with the per-channel affine and the activation
-applied.  On a CUDA tensor it launches the kernel (or raises); on a CPU
-tensor it runs ``fused_engine_plain``.  ``fused_engine.launches`` counts
-kernel launches and nothing else.
+applied, or the folded tile outputs (B, ty, tx, S*S*m*m, M) with no
+epilogue (``out_mode="scratch"``).  On a CUDA tensor it launches the kernel
+(or raises); on a CPU tensor it runs ``fused_engine_plain``.
+``fused_engine.launches`` counts its launches with an epilogue (nhwc,
+cells) and ``fused_engine.scratch_launches`` those in scratch mode, and
+nothing else: the reference's two kernels of one function.
 
 ``fused_engine_bwd_x`` and ``fused_engine_bwd_w`` are the two cotangents of
 the engine's pre-epilogue products, from the cotangent ``g`` in the
@@ -20,6 +23,11 @@ dL/dww (C, N, M).  They follow the same contract and keep their own
 same three at the engine's strided-conv corner (S^2 input phases in
 phase-major cells (B, Gy, Gx, S^2*m*m, N), one sub-filter over all C packed
 positions, stride 1, no padding), with the same contract.
+
+``domain_engine`` and ``domain_engine_bwd_x`` / ``_bwd_w`` are the unfused
+engine of the per-layer path: the transformed tiles xw (T, n*n, N) come in
+from device memory, the output is the (T, S*S*m*m, M) tile outputs, and
+the backward gives dxw (T, n*n, N) and dww (C, N, M).  Same contract.
 """
 from __future__ import annotations
 
@@ -35,10 +43,11 @@ __all__ = [
     "LEAKY_SLOPE", "EPILOGUE_ACTIVATIONS", "fused_engine", "fused_engine_plain",
     "fused_engine_bwd_x", "fused_engine_bwd_x_plain", "fused_engine_bwd_w", "fused_engine_bwd_w_plain",
     "conv_fused_engine", "conv_fused_engine_plain", "conv_fused_engine_bwd_x", "conv_fused_engine_bwd_x_plain",
-    "conv_fused_engine_bwd_w", "conv_fused_engine_bwd_w_plain",
+    "conv_fused_engine_bwd_w", "conv_fused_engine_bwd_w_plain", "domain_engine", "domain_engine_plain",
+    "domain_engine_bwd_x", "domain_engine_bwd_x_plain", "domain_engine_bwd_w", "domain_engine_bwd_w_plain",
 ]
 
-_OUT_MODES = {"nhwc": 0, "cells": 1}
+_OUT_MODES = {"nhwc": 0, "cells": 1, "scratch": 2}
 _ACT_CODES = {a: i for i, a in enumerate(EPILOGUE_ACTIVATIONS)}
 
 
@@ -63,7 +72,11 @@ def fused_engine_plain(
     out_w: int,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on any device: the reference's
-    ``fused_epilogue_engine_ref``, cropped in nhwc mode."""
+    ``fused_epilogue_engine_ref``, cropped in nhwc mode, or in scratch mode
+    its ``fused_pre_engine_ref``."""
+    if out_mode == "scratch":
+        return _ref.fused_pre_engine_ref(cells, ww_packed, inv_packed, _bt(m, n), pos_idx=pos_idx,
+                                         sub_slices=sub_slices, m=m, n=n, ty=ty, tx=tx, m2=m * m)
     y = _ref.fused_epilogue_engine_ref(
         cells, ww_packed, inv_packed, _bt(m, n), scale, bias,
         pos_idx=pos_idx, sub_slices=sub_slices, m=m, n=n, ty=ty, tx=tx, m2=m * m,
@@ -136,7 +149,7 @@ def fused_engine(
     n: int,
     ty: int,
     tx: int,
-    out_mode: str,  # "nhwc" | "cells"
+    out_mode: str,  # "nhwc" | "cells" | "scratch"
     activation: str = "none",
     scale: torch.Tensor | None = None,  # (M,) per-channel epilogue scale
     bias: torch.Tensor | None = None,  # (M,) per-channel epilogue bias
@@ -147,14 +160,17 @@ def fused_engine(
 ) -> torch.Tensor:
     """Epilogue-fused engine at the deconv corner (one input phase, stride S).
 
-    Returns (B, out_h, out_w, M) in nhwc mode, or (B, ty*S, tx*S, m*m, M) in
-    cells mode with pixels outside the crop window zeroed.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel, which takes F(2,3)
-    only, fp32, contiguous inputs."""
+    Returns (B, out_h, out_w, M) in nhwc mode, (B, ty*S, tx*S, m*m, M) in
+    cells mode with pixels outside the crop window zeroed, or the tile
+    outputs (B, ty, tx, S*S*m*m, M) in scratch mode (no epilogue).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel, which
+    takes F(2,3) only, fp32, contiguous inputs."""
     if out_mode not in _OUT_MODES:
         raise ValueError(f"out_mode {out_mode!r} not in {tuple(_OUT_MODES)}")
     if activation not in _ACT_CODES:
         raise ValueError(f"unsupported epilogue activation {activation!r}")
+    if out_mode == "scratch" and (activation != "none" or scale is not None or bias is not None):
+        raise ValueError("scratch mode has no epilogue: activation 'none', no scale, no bias")
     if cells.device.type == "cpu":
         return fused_engine_plain(
             cells, ww_packed, inv_packed, pos_idx=pos_idx, sub_slices=sub_slices, m=m, n=n,
@@ -194,7 +210,8 @@ def fused_engine(
         raise ValueError("empty problem")
     if N % 4:
         raise ValueError(f"the CUDA kernel moves cell windows in 16-byte copies: N={N} must be a multiple of 4")
-    out_shape = (B, out_h, out_w, M) if out_mode == "nhwc" else (B, ty * S, tx * S, m * m, M)
+    out_shape = {"nhwc": (B, out_h, out_w, M), "cells": (B, ty * S, tx * S, m * m, M),
+                 "scratch": (B, ty, tx, S * S * m * m, M)}[out_mode]
     n_out = 1
     for d in out_shape:
         n_out *= d
@@ -225,11 +242,15 @@ def fused_engine(
     )
     if err != 0:
         raise RuntimeError(f"fused_engine kernel launch failed: cudaError {err}")
-    fused_engine.launches += 1
+    if out_mode == "scratch":
+        fused_engine.scratch_launches += 1
+    else:
+        fused_engine.launches += 1
     return out
 
 
 fused_engine.launches = 0
+fused_engine.scratch_launches = 0
 
 
 # ------------------------------------------------------------- backward
@@ -786,3 +807,258 @@ def _conv_bwd_w_plan(B: int, ty: int, tx: int, N: int, M: int, s2: int, device_i
     if err != 0:
         raise RuntimeError(f"conv_fused_engine_bwd_w plan failed: cudaError {err}")
     return splits.value, floats.value, counters.value
+
+
+# ------------------------------------------------------------- unfused engine
+def domain_engine_plain(
+    xw: torch.Tensor,
+    ww_packed: torch.Tensor,
+    inv_packed: torch.Tensor,
+    *,
+    pos_idx: tuple[int, ...],
+    sub_slices: tuple[tuple[int, int], ...],
+    m2: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of the unfused kernel, on any device: the
+    reference's ``engine_ref``."""
+    return _ref.engine_ref(xw, ww_packed, inv_packed, pos_idx=pos_idx, sub_slices=sub_slices, m2=m2)
+
+
+def domain_engine_bwd_x_plain(
+    g: torch.Tensor,
+    ww_packed: torch.Tensor,
+    inv_packed: torch.Tensor,
+    *,
+    pos_idx: tuple[int, ...],
+    sub_slices: tuple[tuple[int, int], ...],
+    m2: int,
+    n2: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of the unfused bwd_x kernel: ``engine_bwd_x_ref``."""
+    return _ref.engine_bwd_x_ref(g, ww_packed, inv_packed, pos_idx=pos_idx, sub_slices=sub_slices, m2=m2, n2=n2)
+
+
+def domain_engine_bwd_w_plain(
+    xw: torch.Tensor,
+    g: torch.Tensor,
+    inv_packed: torch.Tensor,
+    *,
+    pos_idx: tuple[int, ...],
+    sub_slices: tuple[tuple[int, int], ...],
+    m2: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of the unfused bwd_w kernel: ``engine_bwd_w_ref``."""
+    return _ref.engine_bwd_w_ref(xw, g, inv_packed, pos_idx=pos_idx, sub_slices=sub_slices, m2=m2)
+
+
+def _check_domain(tensors, *, pos_idx, sub_slices, m2, T, N, M):
+    """The checks the three unfused kernels share: device, dtype,
+    contiguity, F(2,3), the packed layout.  Returns (device, S^2).  Raises:
+    nothing falls back."""
+    dev = tensors[0][1].device
+    for name, t in tensors:
+        if t.device != dev or t.dtype is not torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous fp32 tensor on {dev}, got "
+                             f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+    if m2 != 4:
+        raise ValueError(f"the CUDA kernels implement F(2,3) only (m2=4), got m2={m2}")
+    s2, C = len(sub_slices), len(pos_idx)
+    if not 1 <= s2 <= 16 or sub_slices[0][0] != 0 or sub_slices[-1][1] != C or \
+            any(sub_slices[i][1] != sub_slices[i + 1][0] for i in range(s2 - 1)):
+        raise ValueError(f"sub_slices {sub_slices} must be 1..16 slices tiling [0, {C}) in order")
+    for lo, hi in sub_slices:
+        sub = pos_idx[lo:hi]
+        if len(set(sub)) != len(sub) or any(not 0 <= p < 16 for p in sub):
+            raise ValueError(f"sub-filter positions {sub} must be distinct, in [0, 16)")
+    if min(T, N, M) <= 0:
+        raise ValueError("empty problem")
+    if max(T * 16 * N, T * s2 * 4 * M, C * N * M) >= 2**31:
+        raise ValueError("problem too large for the kernels' 32-bit indices")
+    return dev, s2
+
+
+def _check_packed(ww_packed, inv_packed, C, N=None, M=None):
+    if ww_packed is not None and (ww_packed.dim() != 3 or ww_packed.shape[0] != C
+                                  or (N is not None and ww_packed.shape[1] != N)
+                                  or (M is not None and ww_packed.shape[2] != M)):
+        raise ValueError(f"ww_packed must be ({C}, {N or 'N'}, {M or 'M'}), got {tuple(ww_packed.shape)}")
+    if inv_packed.shape != (C, 4):
+        raise ValueError(f"inv_packed must be ({C}, 4), got {tuple(inv_packed.shape)}")
+
+
+def domain_engine(
+    xw: torch.Tensor,  # (T, n*n, N) transformed input tiles
+    ww_packed: torch.Tensor,  # (C, N, M)
+    inv_packed: torch.Tensor,  # (C, m*m) fp32
+    *,
+    pos_idx: tuple[int, ...],
+    sub_slices: tuple[tuple[int, int], ...],
+    m2: int,
+) -> torch.Tensor:
+    """The unfused engine: the (T, S*S*m*m, M) tile outputs of every
+    sub-filter, sub-filter-major.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (F(2,3), fp32, contiguous, N % 4 == 0)."""
+    kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m2=m2)
+    if xw.device.type == "cpu":
+        return domain_engine_plain(xw, ww_packed, inv_packed, **kw)
+    if xw.device.type != "cuda":
+        raise ValueError(f"domain_engine runs on cpu or cuda tensors, got {xw.device}")
+    if xw.dim() != 3 or xw.shape[1] != 16 or ww_packed.dim() != 3:
+        raise ValueError(f"xw must be (T, 16, N) and ww_packed (C, N, M), got {tuple(xw.shape)}, "
+                         f"{tuple(ww_packed.shape)}")
+    T, _, N = xw.shape
+    M = ww_packed.shape[2]
+    dev, s2 = _check_domain((("xw", xw), ("ww_packed", ww_packed), ("inv_packed", inv_packed)), T=T, N=N, M=M,
+                            **kw)
+    _check_packed(ww_packed, inv_packed, len(pos_idx), N)
+    if N % 4:
+        raise ValueError(f"the CUDA kernel moves xw in 16-byte copies: N={N} must be a multiple of 4")
+
+    from ._build import load_library
+
+    lib = load_library()
+    pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
+    splits, n_scratch, n_counters = _domain_plan("fwd", T, N, M, s2, dev.index)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    partial = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
+    counters = _split_counters(n_counters, dev.index, stream) if n_counters else None
+    out = torch.empty((T, s2 * 4, M), dtype=torch.float32, device=dev)
+    err = lib.domain_engine_fwd_f32(
+        xw.data_ptr(), ww_packed.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), offs.data_ptr(),
+        out.data_ptr(), T, N, M, s2, splits, None if partial is None else partial.data_ptr(),
+        None if counters is None else counters.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"domain_engine kernel launch failed: cudaError {err}")
+    domain_engine.launches += 1
+    return out
+
+
+domain_engine.launches = 0
+
+
+def domain_engine_bwd_x(
+    g: torch.Tensor,  # (T, S*S*m*m, M) cotangent of the tile outputs
+    ww_packed: torch.Tensor,  # (C, N, M)
+    inv_packed: torch.Tensor,  # (C, m*m) fp32
+    *,
+    pos_idx: tuple[int, ...],
+    sub_slices: tuple[tuple[int, int], ...],
+    m2: int,
+    n2: int,
+) -> torch.Tensor:
+    """dL/dxw (T, n*n, N) of the unfused engine, zero at the Winograd
+    positions no packed position keeps.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel (F(2,3), fp32, contiguous)."""
+    kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m2=m2)
+    if g.device.type == "cpu":
+        return domain_engine_bwd_x_plain(g, ww_packed, inv_packed, n2=n2, **kw)
+    if g.device.type != "cuda":
+        raise ValueError(f"domain_engine_bwd_x runs on cpu or cuda tensors, got {g.device}")
+    if n2 != 16 or g.dim() != 3 or g.shape[1] != len(sub_slices) * 4 or ww_packed.dim() != 3:
+        raise ValueError(f"g must be (T, {len(sub_slices) * 4}, M) with n2 = 16 and ww_packed (C, N, M), got "
+                         f"{tuple(g.shape)}, n2={n2}, {tuple(ww_packed.shape)}")
+    T, _, M = g.shape
+    N = ww_packed.shape[1]
+    dev, s2 = _check_domain((("g", g), ("ww_packed", ww_packed), ("inv_packed", inv_packed)), T=T, N=N, M=M,
+                            **kw)
+    _check_packed(ww_packed, inv_packed, len(pos_idx), N, M)
+
+    from ._build import load_library
+
+    lib = load_library()
+    pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
+    _domain_bwd_x_plan(M, dev.index)
+    out = torch.empty((T, 16, N), dtype=torch.float32, device=dev)
+    err = lib.domain_engine_bwd_x_f32(
+        g.data_ptr(), ww_packed.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), offs.data_ptr(),
+        out.data_ptr(), T, N, M, s2, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"domain_engine_bwd_x kernel launch failed: cudaError {err}")
+    domain_engine_bwd_x.launches += 1
+    return out
+
+
+domain_engine_bwd_x.launches = 0
+
+
+def domain_engine_bwd_w(
+    xw: torch.Tensor,  # (T, n*n, N) the forward's transformed tiles
+    g: torch.Tensor,  # (T, S*S*m*m, M)
+    inv_packed: torch.Tensor,  # (C, m*m) fp32
+    *,
+    pos_idx: tuple[int, ...],
+    sub_slices: tuple[tuple[int, int], ...],
+    m2: int,
+) -> torch.Tensor:
+    """dL/dww (C, N, M) of the unfused engine.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel (F(2,3), fp32, contiguous,
+    N % 4 == 0)."""
+    kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m2=m2)
+    if g.device.type == "cpu":
+        return domain_engine_bwd_w_plain(xw, g, inv_packed, **kw)
+    if g.device.type != "cuda":
+        raise ValueError(f"domain_engine_bwd_w runs on cpu or cuda tensors, got {g.device}")
+    if xw.dim() != 3 or xw.shape[1] != 16 or g.dim() != 3 or g.shape[0] != xw.shape[0] or \
+            g.shape[1] != len(sub_slices) * 4:
+        raise ValueError(f"xw must be (T, 16, N) and g (T, {len(sub_slices) * 4}, M), got {tuple(xw.shape)}, "
+                         f"{tuple(g.shape)}")
+    T, _, N = xw.shape
+    M = g.shape[2]
+    dev, s2 = _check_domain((("g", g), ("xw", xw), ("inv_packed", inv_packed)), T=T, N=N, M=M, **kw)
+    _check_packed(None, inv_packed, len(pos_idx))
+    if N % 4:
+        raise ValueError(f"the CUDA kernel moves xw in 16-byte copies: N={N} must be a multiple of 4")
+
+    from ._build import load_library
+
+    lib = load_library()
+    pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
+    splits, n_scratch, n_counters = _domain_plan("bwd_w", T, N, M, s2, dev.index)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    partial = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
+    counters = _split_counters(n_counters, dev.index, stream) if n_counters else None
+    out = torch.empty((len(pos_idx), N, M), dtype=torch.float32, device=dev)
+    err = lib.domain_engine_bwd_w_f32(
+        xw.data_ptr(), g.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), offs.data_ptr(), out.data_ptr(),
+        T, N, M, s2, splits, None if partial is None else partial.data_ptr(),
+        None if counters is None else counters.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"domain_engine_bwd_w kernel launch failed: cudaError {err}")
+    domain_engine_bwd_w.launches += 1
+    return out
+
+
+domain_engine_bwd_w.launches = 0
+
+
+@functools.lru_cache(maxsize=256)
+def _domain_plan(which: str, T: int, N: int, M: int, s2: int, device_index: int):
+    """(splits, scratch floats, counters) of the unfused fwd kernel's N split
+    or bwd_w kernel's T split for this shape on this card; the library
+    raises the kernel's shared-memory limit here, once."""
+    import ctypes
+
+    from ._build import load_library
+
+    splits, floats, counters = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong()
+    fn = getattr(load_library(), f"domain_engine_{which}_plan")
+    with torch.cuda.device(device_index):
+        err = fn(T, N, M, s2, device_index, ctypes.byref(splits), ctypes.byref(floats), ctypes.byref(counters))
+    if err != 0:
+        raise RuntimeError(f"domain_engine {which} plan failed: cudaError {err}")
+    return splits.value, floats.value, counters.value
+
+
+@functools.lru_cache(maxsize=64)
+def _domain_bwd_x_plan(M: int, device_index: int) -> None:
+    """Raise the unfused bwd_x kernel's shared-memory limit for M's block
+    configuration, once per device."""
+    from ._build import load_library
+
+    with torch.cuda.device(device_index):
+        err = load_library().domain_engine_bwd_x_plan(M)
+    if err != 0:
+        raise RuntimeError(f"domain_engine_bwd_x plan failed: cudaError {err}")

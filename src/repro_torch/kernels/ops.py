@@ -5,20 +5,29 @@ once, giving packed (C, N, M) weights; ``cells_from_image`` and
 ``cells_to_next`` build the fused engine's (B, Gy, Gx, m*m, N) cell layout
 from an NHWC image or from the previous layer's emitted cells.
 
-Entry half: ``winograd_deconv2d_cells`` (cells in) and
-``winograd_deconv2d_packed`` (NHWC in) run the epilogue-fused engine.
+Entry half: ``winograd_deconv2d_cells`` (cells in) runs the
+epilogue-fused engine.  ``winograd_deconv2d_packed`` (NHWC in) is the
+reference's per-layer entry point: with an epilogue and ``fuse_pre`` it
+takes the cells path; otherwise it runs the fused pre-PE engine in scratch
+mode (``fuse_pre=True``, through ``FusedPreFn``) or the unfused engine on
+the transformed tiles (``fuse_pre=False``, through ``EngineFn``), then the
+depth-to-space interleave and any epilogue in plain PyTorch, as the
+reference leaves them to XLA.  ``winograd_deconv2d_fused`` packs raw
+weights per call.
 
 The strided conv (the discriminator) mirrors both halves at the engine's
 conv corner: ``conv_packed_layout`` / ``prepack_conv`` pack the phase
 sub-filters' structural nonzeros into (C, N, M), ``conv_cells_from_image``
 and ``conv_cells_to_next`` build the phase-major (B, Gy, Gx, S^2*m*m, N)
 cells, and ``winograd_conv2d_cells`` / ``winograd_conv2d_packed`` run the
-conv engine, through ``ConvEpilogueFn`` where a gradient is wanted.
+conv engine, through ``ConvEpilogueFn`` where a gradient is wanted;
+``winograd_conv2d`` packs raw conv weights per call.
 ``backend="cuda"`` takes the CUDA kernel for CUDA tensors and its plain
-version for CPU tensors; where a gradient is wanted it runs through
-``FusedEpilogueFn``, whose backward is the two backward kernels (or their
-plain versions).  ``backend="ref"`` takes the plain version on any device
-and leaves the gradient to autograd.
+version for CPU tensors; where a gradient is wanted it runs through an
+autograd Function (``FusedEpilogueFn``, ``FusedPreFn``, ``EngineFn``,
+``ConvEpilogueFn``) whose backward is the backward kernels (or their plain
+versions).  ``backend="ref"`` takes the plain version on any device and
+leaves the gradient to autograd.
 """
 from __future__ import annotations
 
@@ -29,10 +38,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.tdc import ConvDims, DeconvDims, conv_plan, plan
+from ..core.tdc import ConvDims, DeconvDims, conv_plan, interleave_crop, plan
 from ..core.winograd import get_transform
-from ..core.winograd_deconv import transform_conv_weights, transform_weights
+from ..core.winograd_deconv import pad_input_for_tiles, transform_conv_weights, transform_input_tiles, transform_weights
 from . import engine as _engine
+from .ref import epilogue_apply_ref
 
 __all__ = [
     "packed_layout",
@@ -45,8 +55,11 @@ __all__ = [
     "cells_to_next",
     "cells_window_mask",
     "FusedEpilogueFn",
+    "FusedPreFn",
+    "EngineFn",
     "winograd_deconv2d_cells",
     "winograd_deconv2d_packed",
+    "winograd_deconv2d_fused",
     "conv_packed_layout",
     "pack_conv_weights",
     "PackedConv",
@@ -58,6 +71,7 @@ __all__ = [
     "ConvEpilogueFn",
     "winograd_conv2d_cells",
     "winograd_conv2d_packed",
+    "winograd_conv2d",
 ]
 
 
@@ -151,20 +165,8 @@ def cells_layout(x_pad: torch.Tensor, ty: int, tx: int, m: int, n: int) -> torch
 def cells_from_image(x: torch.Tensor, dims: DeconvDims, m: int = 2, r: int = 3) -> torch.Tensor:
     """NHWC input -> the padded cell layout for ``dims``: the deconv left pad
     (kc-1) plus the tile-coverage right pad, then ``cells_layout``."""
-    tf = get_transform(m, r)
-    _, H, W, _ = x.shape
-    hj, wj = dims.j_extent(H), dims.j_extent(W)
-    ty, tx = -(-hj // m), -(-wj // m)
-    kc = dims.kc
-    x_pad = F.pad(
-        x,
-        (
-            0, 0,
-            kc - 1, max(0, m * (tx - 1) + tf.n - (W + kc - 1)),
-            kc - 1, max(0, m * (ty - 1) + tf.n - (H + kc - 1)),
-        ),
-    )
-    return cells_layout(x_pad, ty, tx, m, tf.n).contiguous()
+    x_pad, (ty, tx) = pad_input_for_tiles(x, dims, m, r)
+    return cells_layout(x_pad, ty, tx, m, get_transform(m, r).n).contiguous()
 
 
 def chain_aligned(dims: DeconvDims, next_dims: DeconvDims, m: int = 2) -> bool:
@@ -367,6 +369,60 @@ def winograd_deconv2d_cells(
     raise ValueError(f"backend {backend!r} is not 'cuda' or 'ref'")
 
 
+class FusedPreFn(torch.autograd.Function):
+    """The fused pre-PE engine in scratch mode with its gradient (the
+    reference's ``_fused_pre_vjp``).  Forward: ``fused_engine`` with
+    ``out_mode="scratch"``, the (B, ty, tx, S*S*m*m, M) tile outputs.
+    Backward: the cotangent is already in that scratch layout, so it goes
+    straight to ``fused_engine_bwd_x`` (dcells) and ``fused_engine_bwd_w``
+    (dww), each only where a gradient is asked for.  Returns the gradients
+    of (cells, ww, inv)."""
+
+    @staticmethod
+    def forward(ctx, cells, ww, inv, kw):
+        ctx.kw = kw
+        ctx.save_for_backward(cells, ww, inv)
+        return _engine.fused_engine(cells, ww, inv, out_mode="scratch", **kw)
+
+    @staticmethod
+    def backward(ctx, grad):
+        cells, ww, inv = ctx.saved_tensors
+        geo = {k: ctx.kw[k] for k in ("pos_idx", "sub_slices", "m", "n", "ty", "tx", "stride")}
+        g = grad.float().contiguous()
+        dcells = dww = None
+        if ctx.needs_input_grad[0]:
+            dcells = _engine.fused_engine_bwd_x(g, ww, inv, gy=cells.shape[1], gx=cells.shape[2], **geo)
+        if ctx.needs_input_grad[1]:
+            dww = _engine.fused_engine_bwd_w(cells, g, inv, **geo)
+        return dcells, dww, None, None
+
+
+class EngineFn(torch.autograd.Function):
+    """The unfused engine with its gradient (the reference's
+    ``_engine_vjp``).  Forward: ``domain_engine`` on the transformed tiles
+    xw (T, n*n, N), the (T, S*S*m*m, M) tile outputs; xw is saved for the
+    weight gradient.  Backward: ``domain_engine_bwd_x`` (dxw) and
+    ``domain_engine_bwd_w`` (dww), each only where a gradient is asked for.
+    Returns the gradients of (xw, ww, inv)."""
+
+    @staticmethod
+    def forward(ctx, xw, ww, inv, kw):
+        ctx.kw = kw
+        ctx.save_for_backward(xw, ww, inv)
+        return _engine.domain_engine(xw, ww, inv, **kw)
+
+    @staticmethod
+    def backward(ctx, grad):
+        xw, ww, inv = ctx.saved_tensors
+        g = grad.float().contiguous()
+        dxw = dww = None
+        if ctx.needs_input_grad[0]:
+            dxw = _engine.domain_engine_bwd_x(g, ww, inv, n2=xw.shape[1], **ctx.kw)
+        if ctx.needs_input_grad[1]:
+            dww = _engine.domain_engine_bwd_w(xw, g, inv, **ctx.kw)
+        return dxw, dww, None, None
+
+
 def winograd_deconv2d_packed(
     x: torch.Tensor,  # (B, H, W, N) NHWC
     packed: PackedDeconv,
@@ -375,21 +431,79 @@ def winograd_deconv2d_packed(
     m: int = 2,
     r: int = 3,
     backend: str = "cuda",
+    fuse_pre: bool = False,
     epilogue: str | None = None,
     scale: torch.Tensor | None = None,
     bias: torch.Tensor | None = None,
     emit_cells: bool = False,
 ) -> torch.Tensor:
-    """Winograd DeConv from packed weights on an NHWC image: act(scale *
-    deconv(x) + bias), through the fused pre-PE engine with the epilogue in
-    its finalize (the reference's ``fuse_pre=True`` path).  ``emit_cells``
-    returns the next layer's cell layout instead of the image."""
-    _, H, W, _ = x.shape
-    return winograd_deconv2d_cells(
-        cells_from_image(x, dims, m, r), packed, dims, (H, W),
-        m=m, r=r, backend=backend, epilogue=epilogue or "none",
-        scale=scale, bias=bias, emit_cells=emit_cells,
-    )
+    """Winograd DeConv from packed weights on an NHWC image:
+    act(scale * deconv(x) + bias), or deconv(x) with no epilogue.
+
+    With an epilogue (or ``emit_cells``) and ``fuse_pre`` it runs the
+    epilogue-fused engine on the cells (``winograd_deconv2d_cells``);
+    ``emit_cells`` returns the next layer's cell layout and needs
+    ``fuse_pre``.  Otherwise the engine runs per layer: ``fuse_pre=True``
+    builds the cells and runs the fused pre-PE engine in scratch mode;
+    ``fuse_pre=False`` (the default, as in the reference) transforms the
+    input tiles in plain PyTorch and runs the unfused engine on them.  The
+    tile outputs then interleave into the image, and an epilogue runs in
+    plain PyTorch."""
+    tf = get_transform(m, r)
+    B, H, W, N = x.shape
+    M = packed.ww.shape[-1]
+    S = dims.stride
+    HO, WO = dims.out_size(H), dims.out_size(W)
+    hj, wj = dims.j_extent(H), dims.j_extent(W)
+    wants_epi = emit_cells or epilogue is not None or scale is not None or bias is not None
+    if wants_epi and fuse_pre:
+        return winograd_deconv2d_cells(
+            cells_from_image(x, dims, m, r), packed, dims, (H, W),
+            m=m, r=r, backend=backend, epilogue=epilogue or "none",
+            scale=scale, bias=bias, emit_cells=emit_cells,
+        )
+    if emit_cells:
+        raise ValueError("emit_cells requires fuse_pre")
+    if backend not in ("cuda", "ref"):
+        raise ValueError(f"backend {backend!r} is not 'cuda' or 'ref'")
+
+    pos_idx, sub_slices, _, _ = packed_layout(dims, m, r)
+    x_pad, (ty, tx) = pad_input_for_tiles(x, dims, m, r)
+    if fuse_pre:
+        cells = cells_layout(x_pad, ty, tx, m, tf.n).contiguous()
+        kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m=m, n=tf.n, ty=ty, tx=tx, stride=S,
+                  padding=dims.padding, out_h=HO, out_w=WO)
+        if backend == "ref":
+            y = _engine.fused_engine_plain(cells, packed.ww, packed.inv, out_mode="scratch", **kw)
+        elif torch.is_grad_enabled() and (cells.requires_grad or packed.ww.requires_grad):
+            y = FusedPreFn.apply(cells, packed.ww, packed.inv, kw)
+        else:
+            y = _engine.fused_engine(cells, packed.ww, packed.inv, out_mode="scratch", **kw)
+    else:
+        xw = transform_input_tiles(x_pad, (ty, tx), m, r).to(x.dtype).reshape(B * ty * tx, tf.n**2, N)
+        xw = xw.contiguous()
+        kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m2=m * m)
+        if backend == "ref":
+            y = _engine.domain_engine_plain(xw, packed.ww, packed.inv, **kw)
+        elif torch.is_grad_enabled() and (xw.requires_grad or packed.ww.requires_grad):
+            y = EngineFn.apply(xw, packed.ww, packed.inv, kw)
+        else:
+            y = _engine.domain_engine(xw, packed.ww, packed.inv, **kw)
+
+    # (T, S*S*m*m, M) -> (S, S, B, ty*m, tx*m, M) -> interleave
+    y = y.reshape(B, ty, tx, S, S, m, m, M).permute(3, 4, 0, 1, 5, 2, 6, 7).reshape(S, S, B, ty * m, tx * m, M)
+    out = interleave_crop(y[:, :, :, :hj, :wj, :].to(x.dtype), dims, (HO, WO))
+    if wants_epi:  # the unfused and scratch paths: the epilogue in plain PyTorch
+        out = epilogue_apply_ref(out, scale, bias, epilogue or "none")
+    return out.to(x.dtype)
+
+
+def winograd_deconv2d_fused(x: torch.Tensor, w: torch.Tensor, dims: DeconvDims, *, m: int = 2, r: int = 3,
+                            **kw) -> torch.Tensor:
+    """``winograd_deconv2d_packed`` on raw (K_D, K_D, N, M) weights, packed
+    on every call (so the gradient reaches ``w`` through the pack); hot
+    paths ``prepack`` once."""
+    return winograd_deconv2d_packed(x, prepack(w, dims, m, r), dims, m=m, r=r, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -601,3 +715,9 @@ def winograd_conv2d_packed(
         conv_cells_from_image(x, cdims, m, r), packed, cdims, (x.shape[1], x.shape[2]),
         m=m, r=r, backend=backend, epilogue=epilogue or "none", scale=scale, bias=bias, emit_cells=emit_cells,
     )
+
+
+def winograd_conv2d(x: torch.Tensor, w: torch.Tensor, cdims: ConvDims, **kw) -> torch.Tensor:
+    """``winograd_conv2d_packed`` on raw (K, K, N, M) conv weights, packed on
+    every call; hot paths ``prepack_conv`` once."""
+    return winograd_conv2d_packed(x, prepack_conv(w, cdims), cdims, **kw)

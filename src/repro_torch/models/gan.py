@@ -1,25 +1,39 @@
 """GAN generator on the Winograd DeConv engine, and the discriminator.
 
-The generator's deconv trunk runs as one cell-to-cell pipeline: every layer
-is one call of the epilogue-fused engine.  In eval mode batchnorm is folded
-into a per-channel scale and bias and the activation is applied in the
-engine's finalize; in training mode a batchnorm layer's engine emits its
-raw cells and ``_bn_act_cells`` takes the batch statistics and applies BN
-and the activation on the cell tensor.  Where the cell layouts line up
-(``ops.chain_aligned``) a layer emits the next layer's cells directly;
-otherwise it emits NHWC pixels and the next layer re-lays them out.
+The generator's deconv trunk runs either as one cell-to-cell pipeline (the
+chained impls) or layer by layer (every other impl), as in the reference.
 
-Impl names (``cfg.deconv_impl``):
-  * ``"cuda_chained"``: the CUDA engine for CUDA tensors, its plain version
-    for CPU tensors;
-  * ``"chained_ref"``: the plain version on every device.
-``serve_impl`` maps the reference's impl names (``ref``, ``prepacked_ref``,
-``pallas*``, ...) onto ``"cuda_chained"``; they all compute this function.
+Chained: every layer is one call of the epilogue-fused engine.  In eval
+mode batchnorm is folded into a per-channel scale and bias and the
+activation is applied in the engine's finalize; in training mode a
+batchnorm layer's engine emits its raw cells and ``_bn_act_cells`` takes
+the batch statistics and applies BN and the activation on the cell tensor.
+Where the cell layouts line up (``ops.chain_aligned``) a layer emits the
+next layer's cells directly; otherwise it emits NHWC pixels and the next
+layer re-lays them out.
+
+Per layer (``_deconv_apply``): the deconv, then batchnorm and the
+activation in NHWC, in plain PyTorch.
+
+Impl names (``cfg.deconv_impl``), the reference's with ``pallas`` read as
+``cuda``; ``cuda*`` take the CUDA kernels for CUDA tensors and their plain
+versions for CPU tensors, the ``ref`` names the plain versions everywhere:
+  * chained: ``"cuda_chained"``, ``"chained_ref"``;
+  * per layer on packed (C, N, M) ``{"ww"}`` weights: ``"cuda_prepacked"``
+    (the unfused engine), ``"cuda_fused_pre_prepacked"`` (the fused pre-PE
+    engine), ``"prepacked_ref"``;
+  * per layer on raw (K, K, N, M) ``{"w"}`` weights, packed per call:
+    ``"cuda"``, ``"cuda_fused_pre"``, ``"ref"`` (plain Winograd DeConv);
+    and the paper's baselines ``"tdc"``, ``"zero_padded"``, ``"lax"``.
+``serve_impl`` maps a training impl onto its serving impl.
 
 The discriminator (``cfg.conv_impl``) runs ``"lax"``, PyTorch's own
-convolution as the reference leaves it to XLA, or the same two chained impl
-names on the Winograd conv engine: every K4S2 layer is one conv-engine call
-and hands the next its phase-major cells (``ops.conv_cells_to_next``).
+convolution as the reference leaves it to XLA, or the Winograd conv
+engine: chained (``"cuda_chained"``, ``"chained_ref"``: every K4S2 layer
+is one conv-engine call handing the next its phase-major cells,
+``ops.conv_cells_to_next``), or per layer (``"cuda_prepacked"``,
+``"prepacked_ref"``; raw ``"cuda"``, ``"ref"``), one conv-engine call in
+nhwc mode with the bias in its epilogue, then batchnorm and leaky_relu.
 """
 from __future__ import annotations
 
@@ -28,6 +42,7 @@ from typing import Any
 import torch
 
 from ..configs.base import GANConfig
+from ..core import lax_deconv2d, tdc_deconv2d, winograd_deconv2d, zero_padded_deconv2d
 from ..core.tdc import ConvDims, DeconvDims, conv_same_dims
 from ..kernels import ops as kops
 from . import layers as L
@@ -35,8 +50,9 @@ from . import layers as L
 Params = dict[str, Any]
 
 __all__ = [
-    "IMPLS", "uses_chained", "serve_impl", "generator_init", "prepack_generator",
-    "fold_eval_bn", "generator_apply", "DISC_CHANNELS", "CONV_IMPLS", "uses_chained_conv", "disc_channels",
+    "IMPLS", "PORT_NAMES", "PREPACKED_EQUIV", "CHAINED_EQUIV", "uses_prepacked", "uses_chained", "serve_impl",
+    "generator_init", "prepack_generator", "fold_eval_bn", "generator_apply", "DISC_CHANNELS", "CONV_IMPLS",
+    "CONV_PREPACKED_EQUIV", "CONV_CHAINED_EQUIV", "uses_prepacked_conv", "uses_chained_conv", "disc_channels",
     "disc_conv_dims", "discriminator_init", "prepack_discriminator", "discriminator_apply", "merge_bn_stats",
 ]
 
@@ -45,7 +61,42 @@ _CHAINED_KW: dict[str, dict] = {
     "cuda_chained": dict(backend="cuda"),
     "chained_ref": dict(backend="ref"),
 }
-IMPLS = tuple(_CHAINED_KW)
+
+# per-layer impl on packed (C, N, M) weights -> winograd_deconv2d_packed kwargs
+_PREPACKED_KW: dict[str, dict] = {
+    "prepacked_ref": dict(backend="ref"),
+    "cuda_prepacked": dict(backend="cuda"),
+    "cuda_fused_pre_prepacked": dict(backend="cuda", fuse_pre=True),
+}
+
+# raw-weight engine impl -> winograd_deconv2d_fused kwargs (packs per call)
+_RAW_KW: dict[str, dict] = {
+    "cuda": dict(backend="cuda"),
+    "cuda_fused_pre": dict(backend="cuda", fuse_pre=True),
+}
+
+# the paper's baselines and the plain Winograd DeConv, on raw weights
+_RAW_FNS = {"ref": winograd_deconv2d, "tdc": tdc_deconv2d, "zero_padded": zero_padded_deconv2d, "lax": lax_deconv2d}
+
+IMPLS = (*_CHAINED_KW, *_PREPACKED_KW, *_RAW_KW, *_RAW_FNS)
+
+# raw-weight impl -> its prepacked equivalent (same numerics, no per-call pack)
+PREPACKED_EQUIV: dict[str, str] = {
+    "ref": "prepacked_ref",
+    "cuda": "cuda_prepacked",
+    "cuda_fused_pre": "cuda_fused_pre_prepacked",
+}
+
+# prepacked CUDA impl -> the chained pipeline that serves it
+CHAINED_EQUIV: dict[str, str] = {
+    "cuda_prepacked": "cuda_chained",
+    "cuda_fused_pre_prepacked": "cuda_chained",
+}
+
+
+def uses_prepacked(impl: str) -> bool:
+    """True if ``impl`` stores packed Winograd-domain weights in params."""
+    return impl in _PREPACKED_KW or impl in _CHAINED_KW
 
 
 def uses_chained(impl: str) -> bool:
@@ -53,18 +104,56 @@ def uses_chained(impl: str) -> bool:
     return impl in _CHAINED_KW
 
 
-def serve_impl(impl: str) -> str:
-    """The serving impl for ``impl``: the port's own names pass through, and
-    every reference name maps to ``"cuda_chained"``."""
-    return impl if impl in _CHAINED_KW else "cuda_chained"
+# reference engine name -> the port's (the *_interpret names have none)
+PORT_NAMES: dict[str, str] = {
+    "pallas": "cuda",
+    "pallas_prepacked": "cuda_prepacked",
+    "pallas_fused_pre": "cuda_fused_pre",
+    "pallas_fused_pre_prepacked": "cuda_fused_pre_prepacked",
+    "pallas_chained": "cuda_chained",
+}
+
+# where per-layer serving leaves the reference's tables (see serve_impl)
+_PER_LAYER_SERVE: dict[str, str] = {
+    "ref": "cuda",
+    "chained_ref": "prepacked_ref",
+    "cuda_chained": "cuda_fused_pre_prepacked",
+}
+
+
+def serve_impl(impl: str, *, chained: bool = True) -> str:
+    """The serving impl for a training ``impl`` (a reference or a port name).
+
+    As the reference: the name in the port's terms (``PORT_NAMES``), then its
+    prepacked equivalent (``PREPACKED_EQUIV``), then with ``chained`` its
+    chained pipeline (``CHAINED_EQUIV``).  Names already prepacked or
+    chained pass through.
+
+    This deviates from the reference on purpose, so that a default config
+    serves on the kernels and the plain version only when it is asked for by
+    name.  ``chained=True``: every name that is not chained maps to
+    ``"cuda_chained"``, ``ref`` and ``prepacked_ref`` included.
+    ``chained=False``: ``ref`` serves as ``cuda`` (on ``"cuda_prepacked"``),
+    ``chained_ref`` as ``"prepacked_ref"``, ``cuda_chained`` as
+    ``"cuda_fused_pre_prepacked"``, and a name with no packed form
+    (``tdc``, ``zero_padded``, ``lax``) on ``"cuda_prepacked"``; there the
+    reference serves ``ref`` on the plain ``prepacked_ref``."""
+    impl = PORT_NAMES.get(impl, impl)
+    if chained:
+        impl = PREPACKED_EQUIV.get(impl, impl)
+        impl = CHAINED_EQUIV.get(impl, impl)
+        return impl if impl in _CHAINED_KW else "cuda_chained"
+    impl = _PER_LAYER_SERVE.get(impl, impl)
+    impl = PREPACKED_EQUIV.get(impl, impl)
+    return impl if impl in _PREPACKED_KW else "cuda_prepacked"
 
 
 def generator_init(
     cfg: GANConfig, *, seed: int = 0, device="cuda", dtype=torch.float32
 ) -> Params:
     """Random generator params from ``seed``, drawn on ``device``.  Deconv
-    weights are raw (K, K, N, M) ``{"w"}`` unless ``cfg.deconv_impl`` is a
-    chained impl, which keeps packed (C, N, M) ``{"ww"}``."""
+    weights are raw (K, K, N, M) ``{"w"}`` unless ``cfg.deconv_impl`` keeps
+    packed (C, N, M) ``{"ww"}`` (``uses_prepacked``), packed here, once."""
     gen = torch.Generator(device=device).manual_seed(seed)
     p: Params = {}
     if cfg.z_dim:
@@ -76,7 +165,7 @@ def generator_init(
             p[f"enc{i}_bn"] = L.batchnorm_init(e.c_out, device, dtype)
     for i, d in enumerate(cfg.deconvs):
         w = L.normal_init(gen, (d.dims.kernel, d.dims.kernel, d.c_in, d.c_out), 0.02, dtype)
-        p[f"deconv{i}"] = {"ww": kops.prepack(w, d.dims).ww} if uses_chained(cfg.deconv_impl) else {"w": w}
+        p[f"deconv{i}"] = {"ww": kops.prepack(w, d.dims).ww} if uses_prepacked(cfg.deconv_impl) else {"w": w}
         if d.norm == "batch":
             p[f"deconv{i}_bn"] = L.batchnorm_init(d.c_out, device, dtype)
     return p
@@ -95,8 +184,22 @@ def prepack_generator(params: Params, cfg: GANConfig) -> Params:
 
 def _packed_of(wd: Params, dims: DeconvDims) -> kops.PackedDeconv:
     if "ww" not in wd:
-        raise ValueError("chained impls take packed {'ww'} weights: call prepack_generator first")
+        raise ValueError("prepacked impls take packed {'ww'} weights: call prepack_generator first")
     return kops.PackedDeconv(wd["ww"], kops.packed_inv(dims, wd["ww"].device))
+
+
+def _deconv_apply(impl: str, x: torch.Tensor, wd: Params, dims: DeconvDims) -> torch.Tensor:
+    """One deconv layer of the per-layer trunk; ``wd`` is the layer's param
+    dict, {"ww": packed} for the prepacked impls, else {"w": raw}."""
+    if impl in _PREPACKED_KW:
+        return kops.winograd_deconv2d_packed(x, _packed_of(wd, dims), dims, **_PREPACKED_KW[impl])
+    if impl not in _RAW_KW and impl not in _RAW_FNS:
+        raise ValueError(f"deconv_impl {impl!r} is not one of {IMPLS}")
+    if "w" not in wd:
+        raise ValueError(f"deconv_impl {impl!r} takes raw {{'w'}} weights, got packed ones")
+    if impl in _RAW_KW:
+        return kops.winograd_deconv2d_fused(x, wd["w"], dims, **_RAW_KW[impl])
+    return _RAW_FNS[impl](x, wd["w"], dims)
 
 
 def _bn_eval_affine(bn: Params, eps: float = 1e-5):
@@ -220,14 +323,14 @@ def generator_apply(
 ) -> tuple[torch.Tensor, Params]:
     """inp: (B, z_dim) latents or (B, H, W, 3) images (image-to-image).
     Returns (NHWC image, bn_stats).  The stem is a plain matrix product; the
-    deconv trunk is ``_chained_deconv_trunk``.  Eval mode (the default,
-    for serving) folds BN into affines: ``folded`` is ``fold_eval_bn(p,
-    cfg)``, computed here when not given.  Training mode normalises by batch
-    statistics and returns the moved running statistics."""
-    if not uses_chained(cfg.deconv_impl):
-        raise ValueError(
-            f"deconv_impl {cfg.deconv_impl!r} is not one of {IMPLS}; map it with serve_impl"
-        )
+    deconv trunk is ``_chained_deconv_trunk`` for a chained impl, else one
+    ``_deconv_apply`` per layer, each followed by batchnorm and the
+    activation.  Eval mode (the default, for serving) folds BN into
+    affines: ``folded`` is ``fold_eval_bn(p, cfg)``, computed here when not
+    given.  Training mode normalises by batch statistics and returns the
+    moved running statistics."""
+    if cfg.deconv_impl not in IMPLS:
+        raise ValueError(f"deconv_impl {cfg.deconv_impl!r} is not one of {IMPLS}; map it with serve_impl")
     if folded is None and not training:
         folded = fold_eval_bn(p, cfg)
     new_stats: Params = {}
@@ -249,20 +352,51 @@ def generator_apply(
                 h, s = L.batchnorm(p[f"enc{i}_bn"], h, training=training)
                 new_stats[f"enc{i}_bn"] = s
             h = L.ACTIVATIONS[e.act](h)
-    img, trunk_stats = _chained_deconv_trunk(p, cfg, h, folded, training=training)
-    return img, {**new_stats, **trunk_stats}
+    if uses_chained(cfg.deconv_impl):
+        img, trunk_stats = _chained_deconv_trunk(p, cfg, h, folded, training=training)
+        return img, {**new_stats, **trunk_stats}
+    for i, d in enumerate(cfg.deconvs):
+        h = _deconv_apply(cfg.deconv_impl, h, p[f"deconv{i}"], d.dims)
+        if d.norm == "batch":
+            bn = p[f"deconv{i}_bn"]
+            if training:
+                h, new_stats[f"deconv{i}_bn"] = L.batchnorm(bn, h, training=True)
+            else:
+                a, b = folded[f"deconv{i}_bn"]
+                h = torch.addcmul(b, h, a)  # eval-mode BN, folded
+                new_stats[f"deconv{i}_bn"] = {"mean": bn["mean"], "var": bn["var"]}
+        h = L.ACTIVATIONS[d.act](h)
+    return h, new_stats
 
 
 # ------------------------------------------------------------ discriminator
 DISC_CHANNELS: tuple[int, ...] = (64, 128, 256, 512)
 DISC_KERNEL, DISC_STRIDE = 4, 2
-# "lax" or one of the chained impls, which take the same backends as the generator's
-CONV_IMPLS = ("lax", *IMPLS)
+
+# per-layer conv impl on packed (C, N, M) convs -> winograd_conv2d_packed kwargs
+_CONV_PREPACKED_KW: dict[str, dict] = {
+    "prepacked_ref": dict(backend="ref"),
+    "cuda_prepacked": dict(backend="cuda"),
+}
+# raw-weight conv impl -> winograd_conv2d kwargs (packs per call)
+_CONV_RAW_KW: dict[str, dict] = {
+    "ref": dict(backend="ref"),
+    "cuda": dict(backend="cuda"),
+}
+CONV_IMPLS = ("lax", *_CHAINED_KW, *_CONV_PREPACKED_KW, *_CONV_RAW_KW)
+CONV_PREPACKED_EQUIV: dict[str, str] = {"ref": "prepacked_ref", "cuda": "cuda_prepacked"}
+CONV_CHAINED_EQUIV: dict[str, str] = {"cuda_prepacked": "cuda_chained"}
+
+
+def uses_prepacked_conv(impl: str) -> bool:
+    """True if ``impl`` stores packed ``{"ww", "b"}`` convs in the
+    discriminator params."""
+    return impl in _CONV_PREPACKED_KW or impl in _CHAINED_KW
 
 
 def uses_chained_conv(impl: str) -> bool:
     """True if ``impl`` runs the discriminator trunk as one chained
-    conv-engine pipeline (its params hold packed ``{"ww", "b"}`` convs)."""
+    conv-engine pipeline."""
     return impl in _CHAINED_KW
 
 
@@ -289,15 +423,28 @@ def disc_conv_dims(cfg: GANConfig) -> tuple[ConvDims, ...]:
 
 def _packed_conv_of(wd: Params, cdims: ConvDims) -> kops.PackedConv:
     if "ww" not in wd:
-        raise ValueError("chained conv impls take packed {'ww', 'b'} convs: call prepack_discriminator first")
+        raise ValueError("prepacked conv impls take packed {'ww', 'b'} convs: call prepack_discriminator first")
     return kops.PackedConv(wd["ww"], kops.conv_packed_inv(cdims, wd["ww"].device))
+
+
+def _disc_conv_apply(impl: str, x: torch.Tensor, wd: Params, cdims: ConvDims) -> torch.Tensor:
+    """One per-layer discriminator conv; the winograd impls run the conv
+    engine in nhwc mode with the bias in its epilogue."""
+    if impl == "lax":
+        return L.conv2d(wd, x, stride=DISC_STRIDE)
+    if impl in _CONV_RAW_KW:
+        if "w" not in wd:
+            raise ValueError(f"conv_impl {impl!r} takes raw {{'w', 'b'}} convs, got packed ones")
+        return kops.winograd_conv2d(x, wd["w"], cdims, bias=wd["b"].float(), **_CONV_RAW_KW[impl])
+    return kops.winograd_conv2d_packed(x, _packed_conv_of(wd, cdims), cdims, bias=wd["b"].float(),
+                                       **_CONV_PREPACKED_KW[impl])
 
 
 def discriminator_init(cfg: GANConfig, *, seed: int = 0, device="cuda", dtype=torch.float32) -> Params:
     """Random discriminator params from ``seed``, drawn on ``device``: K4S2
     convs ``conv{i}`` {w (4, 4, C_in, C_out), b} (packed {ww (C, N, M), b}
-    for a chained ``cfg.conv_impl``), batchnorm after every conv but the
-    first, and a linear ``head`` to one logit."""
+    where ``uses_prepacked_conv(cfg.conv_impl)``), batchnorm after every
+    conv but the first, and a linear ``head`` to one logit."""
     _check_conv_impl(cfg.conv_impl)
     gen = torch.Generator(device=device).manual_seed(seed)
     chans = [cfg.img_ch, *disc_channels(cfg)]
@@ -305,7 +452,7 @@ def discriminator_init(cfg: GANConfig, *, seed: int = 0, device="cuda", dtype=to
     p: Params = {}
     for i in range(len(chans) - 1):
         wd = L.conv2d_init(gen, DISC_KERNEL, chans[i], chans[i + 1], dtype)
-        if uses_chained_conv(cfg.conv_impl):  # G-transform and pack once, here
+        if uses_prepacked_conv(cfg.conv_impl):  # G-transform and pack once, here
             wd = {"ww": kops.prepack_conv(wd["w"], dims[i]).ww, "b": wd["b"]}
         p[f"conv{i}"] = wd
         if i > 0:
@@ -371,17 +518,19 @@ def _chained_conv_trunk(
 def discriminator_apply(
     p: Params, cfg: GANConfig, img: torch.Tensor, *, training: bool = True
 ) -> tuple[torch.Tensor, Params]:
-    """img (B, H, W, C) NHWC -> (logits (B, 1), bn_stats).  ``conv_impl``
-    "lax": conv, batchnorm (batch statistics in training mode), leaky_relu
-    per layer, then the linear head; a chained impl: ``_chained_conv_trunk``,
-    the same function on the Winograd conv engine."""
+    """img (B, H, W, C) NHWC -> (logits (B, 1), bn_stats).  A chained
+    ``conv_impl`` runs ``_chained_conv_trunk``; every other impl runs per
+    layer: the conv (``_disc_conv_apply``: "lax" or the Winograd conv
+    engine), batchnorm (batch statistics in training mode), leaky_relu,
+    then the linear head.  All compute the same function."""
     _check_conv_impl(cfg.conv_impl)
     if uses_chained_conv(cfg.conv_impl):
         return _chained_conv_trunk(p, cfg, img, training=training)
+    dims = disc_conv_dims(cfg)
     h, new_stats = img, {}
     i = 0
     while f"conv{i}" in p:
-        h = L.conv2d(p[f"conv{i}"], h, stride=DISC_STRIDE)
+        h = _disc_conv_apply(cfg.conv_impl, h, p[f"conv{i}"], dims[i])
         if f"conv{i}_bn" in p:
             h, new_stats[f"conv{i}_bn"] = L.batchnorm(p[f"conv{i}_bn"], h, training=training)
         h = L.leaky_relu(h)

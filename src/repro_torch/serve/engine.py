@@ -2,7 +2,9 @@
 
 Each resident arch pays the G-transform and zero-skipping pack once, at
 construction, and keeps its packed (C, N, M) weights on the device; a
-request then runs only the stem and the chained fused-engine trunk.
+request then runs only the stem and the deconv trunk: the chained
+fused-engine pipeline by default, or per layer with ``chained=False``
+(``models.gan.serve_impl`` picks the impl).
 
 Scheduling is the reference's: one shared FIFO queue feeds one pool of
 ``batch`` slot rows (a request that does not fit the free rows blocks the
@@ -76,9 +78,9 @@ class _Resident:
     """One arch resident on the device: its serving config, packed weights,
     folded batchnorm, per-bucket counts and its generate."""
 
-    def __init__(self, arch: str, gen_params, cfg: GANConfig, device: torch.device):
+    def __init__(self, arch: str, gen_params, cfg: GANConfig, device: torch.device, *, chained: bool):
         self.arch = arch
-        self.cfg = dataclasses.replace(cfg, deconv_impl=G.serve_impl(cfg.deconv_impl))
+        self.cfg = dataclasses.replace(cfg, deconv_impl=G.serve_impl(cfg.deconv_impl, chained=chained))
         params = {k: {kk: v.to(device, torch.float32).contiguous() for kk, v in d.items()}
                   for k, d in gen_params.items()}
         self.params = G.prepack_generator(params, self.cfg)
@@ -101,10 +103,13 @@ class GanServeEngine:
     ``GanServeEngine(models={"dcgan": (params, cfg), ...})`` serves several
     from one shared row pool.  Params are the reference's layout (raw
     ``{"w"}`` or packed ``{"ww"}`` deconv weights) as torch tensors on any
-    device; they are moved to ``device`` and packed once here."""
+    device; they are moved to ``device`` and packed once here.  Each
+    resident runs its generator as one chained pipeline; ``chained=False``
+    runs it per layer."""
 
     def __init__(self, gen_params=None, cfg: Optional[GANConfig] = None, *, models=None,
-                 batch: int = 8, buckets: Optional[tuple[int, ...]] = None, device="cuda"):
+                 batch: int = 8, buckets: Optional[tuple[int, ...]] = None, device="cuda",
+                 chained: bool = True):
         if models is None:
             if gen_params is None or cfg is None:
                 raise ValueError("pass (gen_params, cfg) or models={arch: (params, cfg)}")
@@ -121,7 +126,7 @@ class GanServeEngine:
         # ladder but never shrink the largest request served
         self.buckets = tuple(sorted({int(b) for b in buckets} | {int(batch)}))
         self.batch = self.buckets[-1]
-        self.archs = {arch: _Resident(arch, p, c, self.device) for arch, (p, c) in models.items()}
+        self.archs = {arch: _Resident(arch, p, c, self.device, chained=chained) for arch, (p, c) in models.items()}
         self.default_arch = next(iter(self.archs))
         default = self.archs[self.default_arch]
         self.cfg, self.params, self.bucket_counts = default.cfg, default.params, default.bucket_counts

@@ -51,7 +51,7 @@ def _both(geom, act, with_bias, mode, jax_kw, seed=0):
     )
     packed = tops.PackedDeconv(torch.from_numpy(np.array(jp.ww)), torch.from_numpy(np.array(jp.inv)))
     got = tops.winograd_deconv2d_packed(
-        torch.from_numpy(x), packed, td, epilogue=act, scale=t(scale), bias=t(bias),
+        torch.from_numpy(x), packed, td, fuse_pre=True, epilogue=act, scale=t(scale), bias=t(bias),
         emit_cells=mode == "cells",
     )
     return got.numpy(), np.asarray(want)
@@ -93,7 +93,7 @@ def test_fused_engine_matches_scatter_sum_oracle(geom):
     x, w, scale, bias = (None if a is None else torch.from_numpy(a) for a in _data(geom, True, seed=2))
     td = DeconvDims(*GEOMS[geom])
     want = epilogue_apply_ref(standard_deconv2d(x, w, td), scale, bias, "leaky_relu")
-    got = tops.winograd_deconv2d_packed(x, tops.prepack(w, td), td, epilogue="leaky_relu",
+    got = tops.winograd_deconv2d_packed(x, tops.prepack(w, td), td, fuse_pre=True, epilogue="leaky_relu",
                                         scale=scale, bias=bias)
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
 
@@ -104,7 +104,7 @@ def test_cuda_backend_on_cpu_equals_ref_backend(mode):
     x, w, scale, bias = (torch.from_numpy(a) for a in _data("k5s2", True, seed=3))
     td = DeconvDims(*GEOMS["k5s2"])
     p = tops.prepack(w, td)
-    kw = dict(epilogue="relu", scale=scale, bias=bias, emit_cells=mode == "cells")
+    kw = dict(fuse_pre=True, epilogue="relu", scale=scale, bias=bias, emit_cells=mode == "cells")
     a = tops.winograd_deconv2d_packed(x, p, td, backend="cuda", **kw)
     b = tops.winograd_deconv2d_packed(x, p, td, backend="ref", **kw)
     assert torch.equal(a, b)
@@ -115,8 +115,8 @@ def test_emitted_cells_chain_into_next_layer():
     x, w, scale, bias = (torch.from_numpy(a) for a in _data("k5s2", True, seed=4))
     td = DeconvDims(*GEOMS["k5s2"])
     p = tops.prepack(w, td)
-    img = tops.winograd_deconv2d_packed(x, p, td, epilogue="relu", scale=scale, bias=bias)
-    cells = tops.winograd_deconv2d_packed(x, p, td, epilogue="relu", scale=scale, bias=bias,
+    img = tops.winograd_deconv2d_packed(x, p, td, fuse_pre=True, epilogue="relu", scale=scale, bias=bias)
+    cells = tops.winograd_deconv2d_packed(x, p, td, fuse_pre=True, epilogue="relu", scale=scale, bias=bias,
                                           emit_cells=True)
     got = tops.cells_to_next(cells, td, td, (img.shape[1], img.shape[2]))
     want = tops.cells_from_image(img, td)
@@ -133,6 +133,8 @@ def test_fused_engine_rejects_bad_arguments():
               out_h=8, out_w=8)
     ww, invt = torch.zeros(len(pos), 2, 3), torch.from_numpy(inv)
     with pytest.raises(ValueError):
-        E.fused_engine(cells, ww, invt, out_mode="scratch", **kw)
+        E.fused_engine(cells, ww, invt, out_mode="image", **kw)
+    with pytest.raises(ValueError):  # scratch mode has no epilogue
+        E.fused_engine(cells, ww, invt, out_mode="scratch", activation="relu", **kw)
     with pytest.raises(ValueError):
         E.fused_engine(cells, ww, invt, out_mode="nhwc", activation="gelu", **kw)

@@ -80,7 +80,8 @@ def test_every_cuda_source_is_built_and_imports_nothing_of_the_reference():
     from repro_torch.kernels import _build
 
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert sources == sorted(_build.SOURCES) and {"fused_engine_bwd.cu", "conv_engine.cu"} <= set(sources)
+    assert sources == sorted(_build.SOURCES)
+    assert {"fused_engine.cu", "fused_engine_bwd.cu", "conv_engine.cu", "domain_engine.cu"} <= set(sources)
     for name in sources:
         # a plain C interface bound with ctypes: the CUDA runtime and nothing of PyTorch
         includes = set(re.findall(r"^#include\s+(\S+)", (_build.CSRC / name).read_text(), re.M))
@@ -88,7 +89,9 @@ def test_every_cuda_source_is_built_and_imports_nothing_of_the_reference():
     for fn in ("fused_engine_bwd_x_f32", "fused_engine_bwd_w_f32", "fused_engine_bwd_x_plan",
                "fused_engine_bwd_w_plan", "fused_engine_epi_f32", "fused_engine_plan",
                "conv_engine_fwd_plan", "conv_engine_fwd_f32", "conv_engine_bwd_x_plan", "conv_engine_bwd_x_f32",
-               "conv_engine_bwd_w_plan", "conv_engine_bwd_w_f32"):
+               "conv_engine_bwd_w_plan", "conv_engine_bwd_w_f32", "domain_engine_fwd_plan", "domain_engine_fwd_f32",
+               "domain_engine_bwd_x_plan", "domain_engine_bwd_x_f32", "domain_engine_bwd_w_plan",
+               "domain_engine_bwd_w_f32"):
         assert fn in _build._SIGNATURES
 
 

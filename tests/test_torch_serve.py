@@ -94,3 +94,45 @@ def test_serve_routing_and_limits():
     assert eng.bucket_for(3) == 4 and eng.buckets == (1, 2, 4)
     out = eng.generate(torch.zeros(3, 100), arch="b")
     assert out.shape == (3, 64, 64, 3) and eng.archs["b"].bucket_counts == {4: 1}
+
+
+def test_serve_impl_per_layer_mapping():
+    """chained=False: every name serves per layer on packed weights, on the
+    kernels unless the plain version is asked for by name (``prepacked_ref``,
+    or ``chained_ref``'s per-layer form)."""
+    from repro_torch.models import gan as TG
+
+    for name in ("pallas", "pallas_prepacked", "cuda", "cuda_prepacked", "ref"):
+        assert TG.serve_impl(name, chained=False) == "cuda_prepacked"
+    for name in ("pallas_fused_pre", "pallas_fused_pre_prepacked", "cuda_fused_pre", "cuda_fused_pre_prepacked"):
+        assert TG.serve_impl(name, chained=False) == "cuda_fused_pre_prepacked"
+    assert TG.serve_impl("chained_ref", chained=False) == "prepacked_ref"
+    assert TG.serve_impl("prepacked_ref", chained=False) == "prepacked_ref"
+    assert TG.serve_impl("cuda_chained", chained=False) == "cuda_fused_pre_prepacked"
+    # the default stays the chained pipeline
+    assert TG.serve_impl("ref") == TG.serve_impl("ref", chained=True) == "cuda_chained"
+
+
+@pytest.mark.parametrize("impl", ["ref", "pallas_fused_pre"], ids=["unfused", "fused_pre"])
+def test_serve_per_layer_matches_jax_engine(impl):
+    """GanServeEngine(chained=False) schedules as the JAX engine with
+    chained=False does, and its images (the port's per-layer engine, plain
+    versions on CPU) match the JAX engine's (JAX ``ref`` serves its
+    per-layer ``prepacked_ref``, the same function)."""
+    jcfg, tcfg = jzoo.tiny_dcgan("ref"), tzoo.tiny_dcgan(impl)
+    p = _params(jcfg, 5)
+    zs = _zs([2, 1, 4, 3, 1], 6)
+    jeng = JaxEngine(jax.tree.map(jnp.asarray, p), jcfg, batch=4, chained=False)
+    assert jeng.cfg.deconv_impl == "prepacked_ref"
+    want = jeng.run([jnp.asarray(z) for z in zs])
+    teng = GanServeEngine(generator_params_from_numpy(p, tcfg, device="cpu"), tcfg, batch=4, device="cpu",
+                          chained=False)
+    assert teng.cfg.deconv_impl == ("cuda_prepacked" if impl == "ref" else "cuda_fused_pre_prepacked")
+    assert "ww" in teng.params["deconv0"]
+    got = teng.run([torch.from_numpy(z) for z in zs])
+    assert teng.dispatch_log == jeng.dispatch_log
+    assert teng.bucket_counts == jeng.bucket_counts
+    assert teng.served == jeng.served == 11
+    for g, w, z in zip(got, want, zs):
+        assert g.shape == (z.shape[0], 64, 64, 3)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
