@@ -2,13 +2,13 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases kernel,kernel_bwd,kernel_conv,kernel_domain,serve,train,train_chained,
-                                    serve_per_layer,train_per_layer]
+                                    serve_per_layer,train_per_layer,kernel_1d,audio]
 
 Phases, each printing one JSON line:
   env     torch / CUDA versions, the card's name and power limit; TF32 off.
   build   nvcc builds the kernels in src/repro_torch/kernels/csrc/ (sm_90a):
           fused_engine.cu, fused_engine_bwd.cu, conv_engine.cu,
-          domain_engine.cu.
+          domain_engine.cu, engine1d.cu.
   kernel  the fused Winograd-DeConv kernel against its plain PyTorch version
           at the four DCGAN layer shapes (batch 8) and a K4S2, a K3S1 and a
           K2S3 shape, each also checked against conv_transpose2d plus the same
@@ -72,6 +72,26 @@ Phases, each printing one JSON line:
           (4/4/4, none of the deconv corner's 3, 6, 7, and 8/11/12) and per
           pull, no F.conv2d call, no cuDNN or aten convolution kernel in the
           profile; step ms, idle share, images/s, peak memory.
+  kernel_1d
+          the 1D engine (engine1d.cu: TPU kernels 8 and 9) against its plain
+          version in nlc and scratch mode at the audio decoder's three
+          layers at full width (256 -> 128 -> 64 -> 1, K4S2, batch 16,
+          4096 latent frames), the reference benchmark's conv1d (K4 causal,
+          (8, 2048, 256) -> 256) and deconv1d (K4S2, (8, 1024, 128) -> 64), a
+          K3S2 OP1 and a K6S3 deconv, a phases=2 scratch shape, and the nlc
+          epilogue with each activation; rank-1 kernels 4 and 5
+          (domain_engine.cu, m2 = 2) against theirs at the decoder's three
+          layers; device, one-call and plain ms, the bound, and as
+          yardsticks conv_transpose1d / conv1d and aten's
+          convolution_backward (input grad for 4, raw-weight grad for 5).
+  audio   the audio decoder at full width through audio_decoder_apply
+          (impl "cuda"), batch 16 and 1, 4096 frames (32768 samples a clip):
+          3 launches of the 1D engine per forward and none of any other
+          kernel, no plain-version call; the waveform finite, in [-1, 1],
+          against impl "ref" and "lax"; the gradient of sum(y^2) against
+          "ref" leaf by leaf (1e-3 of each leaf's largest), with its
+          launches of rank-1 kernels 4 and 5; forward ms, device ms, idle
+          share, samples/s, gradient ms, peak memory.
   kernels one summary line per kernel (launches on each serving and training
           path, as that phase's run counted them, null for a phase that did
           not run; error, times, the least time the card could take; for the
@@ -105,9 +125,13 @@ REPLACES_DOM = "src/repro/kernels/engine.py:381"  # domain_engine's pallas_call
 REPLACES_DOM_X = "src/repro/kernels/engine.py:995"  # domain_engine_bwd_x's pallas_call
 REPLACES_DOM_W = "src/repro/kernels/engine.py:1085"  # domain_engine_bwd_w's pallas_call
 REPLACES_SCRATCH = "src/repro/kernels/engine.py:739"  # fused_engine's scratch pallas_call (in SOURCE)
+SOURCE_1D = "src/repro_torch/kernels/csrc/engine1d.cu"  # kernels 8 and 9
+REPLACES_1D_NLC = "src/repro/kernels/engine.py:1724"  # winograd_conv1d_fused_engine's nlc pallas_call
+REPLACES_1D_SCRATCH = "src/repro/kernels/engine.py:1690"  # its scratch pallas_call
 PHASES = ("kernel", "kernel_bwd", "kernel_conv", "kernel_domain", "serve", "train", "train_chained",
-          "serve_per_layer", "train_per_layer")
+          "serve_per_layer", "train_per_layer", "kernel_1d", "audio")
 TRAIN_BATCH = 128  # the DCGAN paper's mini-batch
+AUDIO_BATCH, AUDIO_FRAMES, AUDIO_WIDTH = 16, 4096, 64  # the audio decoder's cell: 16 clips of 4096 latent frames
 # each row of the kernels line -> (its wrapper in repro_torch.kernels.engine,
 # the attribute that counts its launches)
 COUNTERS = {
@@ -121,6 +145,10 @@ COUNTERS = {
     "domain_engine_bwd_x": ("domain_engine_bwd_x", "launches"),
     "domain_engine_bwd_w": ("domain_engine_bwd_w", "launches"),
     "fused_engine_scratch": ("fused_engine", "scratch_launches"),
+    "engine1d_nlc": ("winograd_conv1d_fused_engine", "launches"),
+    "engine1d_scratch": ("winograd_conv1d_fused_engine", "scratch_launches"),
+    "domain_engine_bwd_x_rank1": ("domain_engine_bwd_x", "rank1_launches"),
+    "domain_engine_bwd_w_rank1": ("domain_engine_bwd_w", "rank1_launches"),
 }
 
 # (fp32 FLOP/s outside the tensor cores, HBM bytes/s) from NVIDIA's data sheets
@@ -195,6 +223,28 @@ def overlap_adds(B: int, phases: int, N: int, ty: int, tx: int) -> int:
     return B * phases * 4 * N * max(0, 4 * ty * tx - (ty + 1) * (tx + 1))
 
 
+def transform_ops_1d(mat) -> int:
+    """Least operations of applying ``mat`` (rows of a 1D transform) to one
+    vector: per row, an add for each nonzero after the first and a multiply
+    for each nonzero that is not +-1."""
+    import numpy as np
+
+    mat = np.asarray(mat, dtype=np.float64)
+    nz = mat != 0
+    return int(np.maximum(nz.sum(axis=1) - 1, 0).sum() + (nz & (np.abs(mat) != 1)).sum())
+
+
+def fold_ops_1d(inv, groups, backward: bool = False) -> int:
+    """Least operations of the rank-1 inverse transform per tile and output
+    channel: forward, each sub-filter's m outputs from its packed products
+    (``transform_ops_1d`` of inv[lo:hi]^T); backward, gw of every packed
+    position from its sub-filter's m cotangents (of inv's rows)."""
+    import numpy as np
+
+    inv = np.asarray(inv, dtype=np.float64)
+    return sum(transform_ops_1d(inv[lo:hi] if backward else inv[lo:hi].T) for lo, hi in groups if hi > lo)
+
+
 def wall_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     """CUDA-event time of ``reps`` back-to-back calls, per call (ms): what a
     caller waits, host overhead included where the host is the slower side."""
@@ -266,6 +316,19 @@ def profiled_ms(fn, reps: int = 10, warmup: int = 3, name: str = "", what: str =
         fail(f"the profiler recorded no device time for {what or name or 'any kernel'} in 3 sessions")
     by_kernel = {e.key: e.device_time_total / reps / 1e3 for e in evs if e.device_time_total > 0}
     return a.elapsed_time(b) / reps, total / reps / 1e3, named / reps / 1e3, by_kernel
+
+
+def host_ops_ms(fn, reps: int = 10, top: int = 8) -> dict:
+    """Host milliseconds per call of the ``top`` PyTorch ops by self CPU time
+    in one profiled run of ``reps`` calls (no device activity recorded)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(reps):
+            fn()
+    evs = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:top]
+    return {e.key: e.self_cpu_time_total / reps / 1e3 for e in evs}
 
 
 def kernel_phase(torch, peaks):
@@ -831,6 +894,309 @@ def kernel_domain_phase(torch, peaks):
     return rows
 
 
+def kernel_1d_phase(torch, peaks):
+    """TPU kernels 8 and 9 (engine1d.cu) against their plain versions at the
+    audio decoder's three layers at full width (nlc, as the decoder runs
+    them, and scratch), the reference benchmark's conv1d and deconv1d, a
+    K3S2 OP1 and a K6S3 deconv, a phases=2 scratch shape and the nlc
+    epilogue with each activation; rank-1 kernels 4 and 5 at the decoder's
+    three layers.  Device, one-call and plain ms, the bound, and the
+    library yardsticks (conv_transpose1d / conv1d plus the epilogue; aten
+    convolution_backward, input grad for 4, raw-weight grad for 5)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.configs import audio_decoder
+    from repro_torch.core.tdc import DeconvDims
+    from repro_torch.core.winograd import get_transform
+    from repro_torch.kernels import engine, ops
+    from repro_torch.kernels.ref import epilogue_apply_ref, xw_from_cells_1d
+
+    K4S2 = DeconvDims(4, 2, 1, 0)
+    specs = audio_decoder(AUDIO_WIDTH)
+    decoder = [(f"audio.deconv{i}", "deconv", sp.dims, AUDIO_BATCH, AUDIO_FRAMES * 2**i, sp.c_in, sp.c_out)
+               for i, sp in enumerate(specs)]
+    # name, kind, geometry, B, L, N, M, out_mode, activation, affine
+    shapes = [(*d, "nlc", "none", False) for d in decoder] + [(*d, "scratch", "none", False) for d in decoder] + [
+        ("bench.conv1d_k4_causal", "conv", 4, 8, 2048, 256, 256, "nlc", "none", False),
+        ("bench.deconv1d_k4s2", "deconv", K4S2, 8, 1024, 128, 64, "nlc", "none", False),
+        ("k3s2_op1", "deconv", DeconvDims(3, 2, 1, 1), 4, 512, 64, 48, "nlc", "relu", True),
+        ("k6s3", "deconv", DeconvDims(6, 3, 2, 0), 4, 512, 64, 48, "nlc", "leaky_relu", True),
+        ("phases2", "phases", 2, 4, 1024, 64, 64, "scratch", "none", False),
+    ] + [(f"epilogue.{act}", "deconv", K4S2, 4, 512, 64, 64, "nlc", act, True)
+         for act in ("none", "relu", "leaky_relu", "tanh")]
+    flops_peak, bytes_peak = peaks
+    rows = []
+
+    def held(what, got, want):
+        if tuple(got.shape) != tuple(want.shape):
+            fail(f"{what}: shape {tuple(got.shape)} != plain {tuple(want.shape)}")
+        err = (got - want).abs().max().item()
+        tol = 1e-4 * want.abs().max().item() + 1e-5
+        if not err <= tol:
+            fail(f"{what} kernel vs plain: max|err| {err:.3e} > {tol:.3e}")
+        return err, tol
+
+    def measure(kernel, name, run, plain, kname, lib, lib_note, n_bytes, n_ops, err, **extra):
+        t_bytes, t_ops = 1e3 * n_bytes / bytes_peak, 1e3 * n_ops / flops_peak
+        ms = profiled_ms(run, reps=20, name=kname)[2]
+        row = dict(kernel=kernel, name=name, max_abs_err=err[0], tol=err[1], ms=ms,
+                   ms_wall=event_median_ms(run, reps=20),
+                   plain_ms=profiled_ms(plain, reps=5, warmup=1, what=f"plain {kernel} at {name}")[1],
+                   library_ms=None if lib is None else profiled_ms(lib, reps=20, what=f"library {kernel} at {name}")[1],
+                   library_note=lib_note, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=n_bytes, ops=n_ops,
+                   achieved_tflops=n_ops / (ms * 1e-3) / 1e12, **extra)
+        emit({"phase": "kernel_1d", **row})
+        rows.append(row)
+
+    bt23 = tuple(tuple(float(v) for v in row) for row in get_transform(2, 3).BT)
+    for i, (name, kind, geo, B, L, N, M, out_mode, act, affine) in enumerate(shapes):
+        g = torch.Generator(device="cuda").manual_seed(700 + i)
+        x = w = None
+        if kind == "deconv":
+            x = torch.randn((B, L, N), generator=g, device="cuda")
+            w = 0.05 * torch.randn((geo.kernel, N, M), generator=g, device="cuda")
+            packed = ops.prepack_deconv1d(w, geo)
+            cells, ty = ops.deconv1d_cells_from_seq(x, geo)
+            pos_idx, sub_slices, _, _ = ops.packed_deconv1d_layout(geo)
+            bt, n, S = bt23, 4, geo.stride
+        elif kind == "conv":
+            x = torch.randn((B, L, N), generator=g, device="cuda")
+            w = 0.05 * torch.randn((geo, N, M), generator=g, device="cuda")
+            packed = ops.prepack_conv1d(w, geo)
+            cells, ty, _ = ops.conv1d_cells_from_seq(x, geo, padding="causal")
+            pos_idx, sub_slices, _, bt, n = ops.conv1d_layout(geo)
+            S = 1
+        else:  # one sub-filter over `geo` phases of F(2,3) positions, as a strided conv lays them out
+            ty, n, S, bt = L, 4, 1, bt23
+            cells = torch.randn((B, ty + 1, 2 * geo, N), generator=g, device="cuda")
+            pos_idx, sub_slices = tuple(range(4 * geo)), ((0, 4 * geo),)
+            inv = torch.as_tensor(np.tile(ops.conv1d_layout(3)[2], (geo, 1)), device="cuda")
+            packed = ops.PackedConv1d(0.05 * torch.randn((4 * geo, N, M), generator=g, device="cuda"), inv)
+        phases = geo if kind == "phases" else 1
+        scale = (1.0 + 0.1 * torch.randn((M,), generator=g, device="cuda")) if affine else None
+        bias = (0.1 * torch.randn((M,), generator=g, device="cuda")) if affine else None
+        kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m=2, n=n, ty=ty, phases=phases, out_mode=out_mode)
+        if out_mode == "nlc":
+            kw.update(activation=act, scale=scale, bias=bias, stride=S)
+        run = lambda: engine.winograd_conv1d_fused_engine(cells, packed.ww, packed.inv, bt, **kw)  # noqa: E731
+        plain = lambda: engine.winograd_conv1d_fused_engine_plain(cells, packed.ww, packed.inv, bt, **kw)  # noqa: E731
+        got = run()
+        torch.cuda.synchronize()
+        err = held(f"engine1d {out_mode} at {name}", got, plain())
+
+        lib, lib_note, lib_err = None, None, None
+        if kind != "phases":
+            P = geo.padding if kind == "deconv" else 0
+            LO = geo.out_size(L) if kind == "deconv" else L
+            xc = x.permute(0, 2, 1).contiguous()
+            if kind == "deconv":
+                wt = w.permute(1, 2, 0).contiguous()
+                lib_y = lambda: F.conv_transpose1d(xc, wt, stride=geo.stride, padding=geo.padding,  # noqa: E731
+                                                   output_padding=geo.output_padding)
+                lib_note = "conv_transpose1d (cuDNN)"
+            else:
+                wt, xp = w.permute(2, 1, 0).contiguous(), F.pad(xc, (geo - 1, 0))
+                lib_y = lambda: F.conv1d(xp, wt)  # noqa: E731
+                lib_note = "conv1d (cuDNN) on the causally padded input"
+            if out_mode == "nlc":
+                lib = lambda: epilogue_apply_ref(lib_y().permute(0, 2, 1), scale, bias, act)  # noqa: E731
+                lib_note += " + the epilogue" if affine or act != "none" else ""
+                mine = got[:, P : P + LO]
+            else:
+                lib = lambda: lib_y().permute(0, 2, 1)  # noqa: E731
+                Bb, _, s2m, Mm = got.shape
+                mine = got.reshape(Bb, ty, S, 2, Mm).permute(0, 1, 3, 2, 4).reshape(Bb, ty * 2 * S, Mm)[:, P : P + LO]
+            want_lib = lib()
+            lib_err = (mine - want_lib).abs().max().item()
+            if not lib_err <= 1e-4 * want_lib.abs().max().item() + 1e-5:
+                fail(f"engine1d at {name} vs {lib_note}: max|err| {lib_err:.3e}")
+        T, C = cells.shape[0] * ty, len(pos_idx)
+        inv_np = packed.inv.cpu().numpy()
+        n_bytes = 4 * (cells.numel() + packed.ww.numel() + packed.inv.numel() + got.numel()
+                       + (2 * M if affine else 0))
+        epi = got.numel() * ((2 if affine else 0) + (act != "none")) if out_mode == "nlc" else 0
+        n_ops = (2 * T * C * N * M + T * phases * N * transform_ops_1d(bt) + T * M * fold_ops_1d(inv_np, sub_slices)
+                 + epi)
+        measure(f"engine1d_{out_mode}", name, run, plain, "engine1d_kernel", lib, lib_note, n_bytes, n_ops, err,
+                B=B, L=L, N=N, M=M, C=C, T=T, phases=phases, activation=act, affine=affine,
+                library_max_abs_err=lib_err)
+        del cells, packed, got
+        torch.cuda.empty_cache()
+
+    # --- rank-1 kernels 4 and 5 at the decoder's layers (batch 16)
+    for i, (name, _, dims, B, L, N, M) in enumerate(decoder):
+        g = torch.Generator(device="cuda").manual_seed(800 + i)
+        x = torch.randn((B, L, N), generator=g, device="cuda")
+        w = 0.05 * torch.randn((dims.kernel, N, M), generator=g, device="cuda")
+        packed = ops.prepack_deconv1d(w, dims)
+        cells, ty = ops.deconv1d_cells_from_seq(x, dims)
+        pos_idx, sub_slices, _, _ = ops.packed_deconv1d_layout(dims)
+        T, C, S2 = B * ty, len(pos_idx), len(sub_slices)
+        xw = xw_from_cells_1d(cells, bt23, m=2, n=4, ty=ty).contiguous()
+        gs = torch.randn((T, S2 * 2, M), generator=g, device="cuda")
+        kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m2=2)
+        runs = {"bwd_x": (lambda: engine.domain_engine_bwd_x(gs, packed.ww, packed.inv, n2=4, **kw),
+                          lambda: engine.domain_engine_bwd_x_plain(gs, packed.ww, packed.inv, n2=4, **kw)),
+                "bwd_w": (lambda: engine.domain_engine_bwd_w(xw, gs, packed.inv, **kw),
+                          lambda: engine.domain_engine_bwd_w_plain(xw, gs, packed.inv, **kw))}
+        errs = {}
+        for key, (run, plain) in runs.items():
+            got = run()
+            torch.cuda.synchronize()
+            errs[key] = held(f"rank-1 domain_engine {key} at {name}", got, plain())
+        xc, wt = x.permute(0, 2, 1).contiguous(), w.permute(1, 2, 0).contiguous()
+        go = torch.randn((B, M, dims.out_size(L)), generator=g, device="cuda")
+        conv_bwd = lambda mask: torch.ops.aten.convolution_backward(  # noqa: E731
+            go, xc, wt, None, [dims.stride], [dims.padding], [1], True, [dims.output_padding], 1, mask)
+        inv_np = packed.inv.cpu().numpy()
+        prod = 2 * T * C * N * M + T * M * fold_ops_1d(inv_np, sub_slices, backward=True)
+        io = {"bwd_x": gs.numel() + packed.ww.numel() + xw.numel(), "bwd_w": xw.numel() + gs.numel() + packed.ww.numel()}
+        libs = {"bwd_x": (lambda: conv_bwd([True, False, False]), "aten convolution_backward, input grad"),
+                "bwd_w": (lambda: conv_bwd([False, True, False]),
+                          "aten convolution_backward, raw-weight grad (not the packed one)")}
+        for key, (run, plain) in runs.items():
+            extra = {"splits": engine._domain_plan("bwd_w", T, N, M, S2, torch.cuda.current_device(), 2)[0]} \
+                if key == "bwd_w" else {}
+            measure(f"domain_engine_{key}_rank1", name, run, plain, f"domain_{key}_kernel", *libs[key],
+                    4 * (io[key] + packed.inv.numel()), prod, errs[key], B=B, L=L, N=N, M=M, C=C, T=T, **extra)
+        del x, w, packed, cells, xw, gs, go, xc
+        torch.cuda.empty_cache()
+    return rows
+
+
+def audio_phase(torch, card):
+    """The audio decoder at full width through audio_decoder_apply on the
+    kernels, batch 16 and 1: launches, no plain-version call, the waveform
+    against the plain and lax decoders, the gradient of sum(y^2) against the
+    plain decoder's with its launches; then forward and gradient times, idle
+    share, samples/s, peak memory.  Returns the counted runs' launches."""
+    from repro_torch.configs import audio_decoder
+    from repro_torch.kernels import engine
+    from repro_torch.models import gan as G
+
+    specs = audio_decoder(AUDIO_WIDTH)
+    t0 = time.perf_counter()
+    params = G.audio_decoder_init(specs, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for leaf in params.values():  # non-zero biases, so the check holds them too
+        leaf["b"] = 0.1 * torch.randn(leaf["b"].shape, generator=g, device="cuda")
+    xs = {b: torch.randn((b, AUDIO_FRAMES, specs[0].c_in), generator=g, device="cuda") for b in (AUDIO_BATCH, 1)}
+    samples = AUDIO_FRAMES * 2 ** len(specs)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    plains = ("winograd_conv1d_fused_engine_plain", "domain_engine_bwd_x_plain", "domain_engine_bwd_w_plain")
+    plain_calls = [0]
+
+    def counted(fn):
+        """Run ``fn`` with every kernel count at 0 just before and read just
+        after, and the wrappers' plain versions counting their calls."""
+        real = {nm: getattr(engine, nm) for nm in plains}
+
+        def counting(f):
+            def call(*a, **k):
+                plain_calls[0] += 1
+                return f(*a, **k)
+            return call
+
+        zero_counts()
+        for nm in plains:
+            setattr(engine, nm, counting(real[nm]))
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            for nm, f in real.items():
+                setattr(engine, nm, f)
+        return out, read_counts()
+
+    # --- the main path, forward: 3 launches of the 1D engine per decode
+    with torch.no_grad():
+        outs, launches = counted(lambda: {b: G.audio_decoder_apply(params, specs, x, impl="cuda")
+                                          for b, x in xs.items()})
+    check_counts("audio forward", launches, {"engine1d_nlc": 3 * len(xs)})
+    if plain_calls[0]:
+        fail(f"the audio decoder on CUDA tensors called a plain version {plain_calls[0]} times")
+    errs = {}
+    with torch.no_grad():
+        for b, y in outs.items():
+            if tuple(y.shape) != (b, samples, specs[-1].c_out):
+                fail(f"waveform shape {tuple(y.shape)} for batch {b}")
+            if not torch.isfinite(y).all() or y.abs().max().item() > 1.0:
+                fail("waveform not finite or outside [-1, 1]")
+            for impl in ("ref", "lax"):
+                want = G.audio_decoder_apply(params, specs, xs[b], impl=impl)
+                err = (y - want).abs().max().item()
+                tol = 1e-4 * want.abs().max().item() + 1e-5
+                if not err <= tol:
+                    fail(f"waveform (batch {b}) vs impl {impl!r}: max|err| {err:.3e} > {tol:.3e}")
+                errs[f"b{b}_vs_{impl}"] = (err, tol)
+
+    # --- the main path, gradient of sum(y^2) in every weight and bias
+    x = xs[AUDIO_BATCH]
+
+    def grads(impl):
+        p = {k: {kk: v.detach().clone().requires_grad_(True) for kk, v in leaf.items()} for k, leaf in params.items()}
+        y = G.audio_decoder_apply(p, specs, x, impl=impl)
+        keys = [(k, kk) for k, leaf in p.items() for kk in leaf]
+        return dict(zip(keys, torch.autograd.grad((y**2).sum(), [p[k][kk] for k, kk in keys])))
+
+    plain_calls[0] = 0
+    g_k, grad_launches = counted(lambda: grads("cuda"))
+    # layer 0's input is the latent (no gradient wanted): rank-1 kernel 4 on layers 1 and 2
+    check_counts("audio gradient", grad_launches,
+                 {"engine1d_nlc": 3, "domain_engine_bwd_x_rank1": 2, "domain_engine_bwd_w_rank1": 3})
+    if plain_calls[0]:
+        fail(f"the audio decoder's gradient on CUDA tensors called a plain version {plain_calls[0]} times")
+    g_r = grads("ref")
+    grad_share = 0.0
+    for key, want in g_r.items():
+        err = (g_k[key] - want).abs().max().item()
+        tol = 1e-3 * want.abs().max().item()
+        if not err <= tol:
+            fail(f"gradient of {key[0]}.{key[1]}: kernels vs plain {err:.3e} > {tol:.3e}")
+        grad_share = max(grad_share, err / tol if tol > 0 else 0.0)
+    emit({"phase": "audio", "width": AUDIO_WIDTH, "frames": AUDIO_FRAMES, "samples": samples,
+          "batches": list(xs), "launches": launches, "grad_launches": grad_launches,
+          "max_abs_err": {k: v[0] for k, v in errs.items()}, "tol": {k: v[1] for k, v in errs.items()},
+          "grad_err_share_of_tol": grad_share, "out_std": float(outs[AUDIO_BATCH].std()), "setup_s": setup_s,
+          "card": card})
+    del outs, g_k, g_r
+
+    # --- speed (after the counted runs)
+    fwd_kernel_ms = {}
+    for b, xb in xs.items():
+        def fwd(impl="cuda", xb=xb):
+            with torch.no_grad():
+                return G.audio_decoder_apply(params, specs, xb, impl=impl)
+        fwd_ms = wall_ms(fwd, reps=10)
+        prof_ms, dev_ms, kern_ms, by_kernel = profiled_ms(fwd, reps=10, name="engine1d_kernel")
+        idle = 1.0 - dev_ms / prof_ms
+        if idle < 0.0:
+            fail(f"device time {dev_ms:.4f} ms exceeds the wall time {prof_ms:.4f} ms it was taken in")
+        fwd_kernel_ms[b] = kern_ms
+        emit({"phase": "audio_rate", "batch": b, "forward_ms": fwd_ms, "samples_per_s": 1e3 * b * samples / fwd_ms,
+              "profiled_forward_ms": prof_ms, "device_ms": dev_ms, "device_idle_share": idle,
+              "engine1d_kernel_ms": kern_ms,
+              "top_kernels": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]),
+              "host_ms_by_op": host_ops_ms(fwd),
+              "plain_forward_ms": wall_ms(lambda: fwd("ref"), reps=5, warmup=1),
+              "lax_forward_ms": wall_ms(lambda: fwd("lax"), reps=10), "card": card})
+    torch.cuda.reset_peak_memory_stats()
+    grad_ms = wall_ms(lambda: grads("cuda"), reps=5, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    prof_ms, dev_ms, _, by_kernel = profiled_ms(lambda: grads("cuda"), reps=5, warmup=1)
+    emit({"phase": "audio_grad_rate", "batch": AUDIO_BATCH, "grad_ms": grad_ms, "profiled_grad_ms": prof_ms,
+          "device_ms": dev_ms, "device_idle_share": 1.0 - dev_ms / prof_ms,
+          "top_kernels": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]),
+          "plain_grad_ms": wall_ms(lambda: grads("ref"), reps=3, warmup=1),
+          "lax_grad_ms": wall_ms(lambda: grads("lax"), reps=5, warmup=1),
+          "max_memory_allocated": peak, "card": card})
+    return dict(launches=launches, grad_launches=grad_launches, fwd_kernel_ms=fwd_kernel_ms, grad_kernels=by_kernel)
+
+
 def _dcgan_disc_shapes():
     """(name, K, S, B, H, W, N, M, emit_cells, act, affine) of DCGAN's four
     discriminator layers in a training step at batch 128 (conv0: bias and
@@ -1276,10 +1642,13 @@ def main(argv=None) -> int:
     chained = timed("train_chained", lambda: train_phase(torch, smi, "cuda_chained"), {})
     serve_pl = timed("serve_per_layer", lambda: serve_per_layer_phase(torch, smi), {})
     per_layer = timed("train_per_layer", lambda: train_phase(torch, smi, "cuda_prepacked", "cuda_prepacked"), {})
+    rows_1d = timed("kernel_1d", lambda: kernel_1d_phase(torch, peaks), [])
+    audio = timed("audio", lambda: audio_phase(torch, smi), {})
     # each path's launches of every kernel, counted in its run (None: not run)
     path_launches = {"serve": serve_launches, "train": train.get("launches"),
                      "train_chained": chained.get("launches"), "serve_per_layer": serve_pl.get("launches"),
-                     "train_per_layer": per_layer.get("launches")}
+                     "train_per_layer": per_layer.get("launches"), "audio": audio.get("launches"),
+                     "audio_grad": audio.get("grad_launches")}
 
     def step_device_ms(kname, run=None):
         """Device ms per step of ``kname``'s instantiations in a train
@@ -1289,20 +1658,25 @@ def main(argv=None) -> int:
             return None
         return sum(v for k, v in run["step_kernels"].items() if f"::{kname}<" in k)
 
-    def summary(krows, weights=None, batch=None):
-        """Sums over the DCGAN layer rows (one generate, or one train step;
-        those at ``batch`` if given), layer i counted ``weights[i]`` times
-        (once each by default)."""
-        main_rows = [r for r in krows if r["name"].startswith("dcgan.") and (batch is None or r["B"] == batch)]
+    def summary(krows, weights=None, batch=None, prefix="dcgan."):
+        """Sums over the main path's layer rows (``prefix``: DCGAN's, one
+        generate or one train step, those at ``batch`` if given; the audio
+        decoder's), layer i counted ``weights[i]`` times (once each by
+        default). Null figures where no such row was measured in this run
+        (its phase did not run)."""
+        main_rows = [r for r in krows if r["name"].startswith(prefix) and (batch is None or r["B"] == batch)]
+        shapes = [{k: r[k] for k in ("name", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                     "max_abs_err")} for r in krows]
+        if not main_rows:
+            return dict(ms=None, plain_ms=None, bound_ms=None, bound_by=None, library_ms=None,
+                        max_abs_err=max((r["max_abs_err"] for r in krows), default=None), shapes=shapes)
         wts = weights or (1,) * len(main_rows)
         tot = {k: sum(w * r[k] for w, r in zip(wts, main_rows)) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
         by_bytes = sum(w * 1e3 * r["bytes"] / peaks[1] for w, r in zip(wts, main_rows))
         by_ops = sum(w * 1e3 * r["ops"] / peaks[0] for w, r in zip(wts, main_rows))
         return dict(ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
                     bound_by="bytes" if by_bytes >= by_ops else "operations", library_ms=tot["library_ms"],
-                    max_abs_err=max((r["max_abs_err"] for r in krows), default=None),
-                    shapes=[{k: r[k] for k in ("name", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                                               "max_abs_err")} for r in krows])
+                    max_abs_err=max((r["max_abs_err"] for r in krows), default=None), shapes=shapes)
 
     def by_path(row):
         paths = {path: None if n is None else n[row] for path, n in path_launches.items()}
@@ -1351,6 +1725,24 @@ def main(argv=None) -> int:
                  "train_step_batch128": {k: v for k, v in summary(scratch, batch=TRAIN_BATCH).items()
                                          if k != "shapes"},
                  "serve_batch8_profile_ms": serve_pl.get("kernel_ms", {}).get("fused_engine_scratch")})
+    for key, replaces in (("nlc", REPLACES_1D_NLC), ("scratch", REPLACES_1D_SCRATCH)):
+        krows = [r for r in rows_1d if r["kernel"] == f"engine1d_{key}"]
+        line.append({"name": f"engine1d_{key}", "route": "cuda", "source": SOURCE_1D, "replaces": replaces,
+                     "corner": "1d", **by_path(f"engine1d_{key}"),
+                     # ms ... library_ms: one audio decoder forward at batch 16, the three layers summed
+                     **summary(krows, prefix="audio."),
+                     "decode_profile_ms": audio.get("fwd_kernel_ms", {}).get(AUDIO_BATCH) if key == "nlc" else None})
+    for key, replaces, weights in (("x", REPLACES_DOM_X, (0, 1, 1)), ("w", REPLACES_DOM_W, (1, 1, 1))):
+        krows = [r for r in rows_1d if r["kernel"] == f"domain_engine_bwd_{key}_rank1"]
+        line.append({"name": f"domain_engine_bwd_{key}_rank1", "route": "cuda", "source": SOURCE_DOM,
+                     "replaces": replaces + " (rank 1, via src/repro/kernels/engine.py:"
+                     + ("1772" if key == "x" else "1818") + ")", "corner": "1d",
+                     **by_path(f"domain_engine_bwd_{key}_rank1"),
+                     # ms ... library_ms: one audio decoder gradient at batch 16, each layer counted as often
+                     # as the audio gradient run launches it (kernel 4: not on layer 0, whose input is the latent)
+                     **summary(krows, weights, prefix="audio."), "launches_per_gradient_by_layer": weights,
+                     "grad_profile_ms": sum(v for k, v in audio.get("grad_kernels", {}).items()
+                                            if f"domain_bwd_{key}_kernel" in k) if audio else None})
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

@@ -1,4 +1,5 @@
-"""GAN config dataclasses (the GAN part of the reference's configs/base.py)."""
+"""Config dataclasses (the GAN part of the reference's configs/base.py, and
+its audio decoder layer)."""
 from __future__ import annotations
 
 import dataclasses
@@ -6,7 +7,7 @@ from typing import Literal
 
 from ..core.tdc import DeconvDims
 
-__all__ = ["DeconvSpec", "ConvSpec", "GANConfig"]
+__all__ = ["DeconvSpec", "Deconv1dSpec", "ConvSpec", "GANConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -16,6 +17,16 @@ class DeconvSpec:
     dims: DeconvDims
     norm: str = "batch"  # batch | none
     act: str = "relu"
+
+
+@dataclasses.dataclass(frozen=True)
+class Deconv1dSpec:
+    """One layer of a MusicGen-style audio deconv decoder (1D TDC upsample)."""
+
+    c_in: int
+    c_out: int
+    dims: DeconvDims  # per-axis scalar geometry, used 1D (K_D, S, P, OP)
+    act: str = "relu"  # relu | leaky_relu | tanh | none
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,7 +8,7 @@ import torch
 
 from .configs.base import GANConfig
 
-__all__ = ["generator_params_from_numpy", "discriminator_params_from_numpy"]
+__all__ = ["generator_params_from_numpy", "discriminator_params_from_numpy", "audio_decoder_params_from_numpy"]
 
 
 def _to_torch(tree, device):
@@ -75,4 +75,19 @@ def discriminator_params_from_numpy(tree, cfg: GANConfig, device="cuda"):
     final_hw = cfg.img_hw // 2 ** (len(chans) - 1)
     if tuple(out["head"]["w"].shape) != (final_hw**2 * chans[-1], 1):
         raise ValueError(f"head weights {tuple(out['head']['w'].shape)} do not match {cfg.arch_id}")
+    return out
+
+
+def audio_decoder_params_from_numpy(tree, specs, device="cuda"):
+    """An audio decoder param tree of numpy arrays in the reference's layout
+    (``deconv{i}: {"w": (K_D, N, M), "b": (M,)}``) -> the same tree of fp32
+    tensors on ``device``.  Keys and shapes are checked against ``specs``."""
+    want = {f"deconv{i}" for i in range(len(specs))}
+    if set(tree) != want or any(set(tree[k]) != {"w", "b"} for k in want):
+        raise ValueError(f"param keys {sorted(tree)} != {sorted(want)}, each {{'w', 'b'}}")
+    out = _to_torch(tree, device)
+    for i, s in enumerate(specs):
+        wd = out[f"deconv{i}"]
+        if tuple(wd["w"].shape) != (s.dims.kernel, s.c_in, s.c_out) or tuple(wd["b"].shape) != (s.c_out,):
+            raise ValueError(f"deconv{i} shapes {tuple(wd['w'].shape)} / {tuple(wd['b'].shape)} do not match {s}")
     return out

@@ -35,6 +35,7 @@ from .winograd import get_transform
 __all__ = [
     "DeconvDims", "SubFilterPlan", "plan", "decompose_weights",
     "pad_input_for_subconv", "interleave_crop", "tdc_deconv2d",
+    "SubFilterPlan1D", "plan_1d", "decompose_weights_1d", "tdc_deconv1d",
     "ConvDims", "conv_same_dims", "ConvSubFilterPlan", "conv_plan", "decompose_conv_weights",
 ]
 
@@ -172,6 +173,72 @@ def tdc_deconv2d(x: torch.Tensor, w: torch.Tensor, dims: DeconvDims) -> torch.Te
         for ry in range(S)
     ])
     return interleave_crop(sub_out, dims, (dims.out_size(H), dims.out_size(W)))
+
+
+# ------------------------------------------------------------------ 1D
+# The audio deconv stacks: DeconvDims is per-axis geometry already, so the 1D
+# decomposition is the rank-1 restriction of the 2D one (S flipped
+# sub-kernels instead of S^2, the structural masks straight from the 1D
+# tap-presence vectors, depth-to-space along the one sequence axis).
+
+
+@dataclasses.dataclass(frozen=True)
+class SubFilterPlan1D:
+    """Structural description of the S sub-filters of a 1D deconv."""
+
+    dims: DeconvDims
+    r: int
+    taps_1d: tuple[tuple[int, ...], ...]  # per rho: flipped tap presence (len r)
+    nnz_winograd: np.ndarray  # (S,) nonzero count of each transformed sub-filter
+    masks_winograd: np.ndarray  # (S, n) bool structural nonzero masks
+
+    @property
+    def c_total(self) -> int:
+        """Multiplies per m-long output tile over the S sub-filters (the 1D
+        analogue of the paper's C(K_C)): 6 for K4S2 under F(2,3), of 8."""
+        return int(self.nnz_winograd.sum())
+
+
+def plan_1d(dims: DeconvDims, m: int = 2, r: int = 3) -> SubFilterPlan1D:
+    """Structural sparsity plan of a 1D deconv under F(m, r)."""
+    if dims.kc > r:
+        raise ValueError(
+            f"K_C={dims.kc} > r={r}: kernel {dims.kernel} stride {dims.stride} "
+            f"not expressible in F({m},{r}); use a larger r."
+        )
+    tf = get_transform(m, r)
+    pres = [_tap_presence_1d(dims, rho, r) for rho in range(dims.stride)]
+    masks = np.stack([tf.filter_mask1d(p) for p in pres]).astype(bool)
+    taps = tuple(tuple(int(v) for v in p) for p in pres)
+    return SubFilterPlan1D(dims, r, taps, masks.sum(axis=1).astype(int), masks)
+
+
+def decompose_weights_1d(w: torch.Tensor, dims: DeconvDims, r: int = 3) -> torch.Tensor:
+    """Split deconv1d weights (K_D, N, M) into S correlation-ready
+    sub-kernels, flipped and zero-padded to (S, r, N, M)."""
+    K, S, kc = dims.kernel, dims.stride, dims.kc
+    if w.shape[0] != K:
+        raise ValueError(f"weight tap dim {w.shape[0]} != K_D={K}")
+    out = w.new_zeros((S, r, w.shape[1], w.shape[2]))
+    for rho in range(S):
+        for t in range(math.ceil((K - rho) / S)):
+            out[rho, kc - 1 - t] = w[rho + S * t]
+    return out
+
+
+def tdc_deconv1d(x: torch.Tensor, w: torch.Tensor, dims: DeconvDims) -> torch.Tensor:
+    """TDC deconv1d without Winograd, the 1D oracle baseline: S stride-1
+    cross-correlations of the padded (B, L, N) input with the flipped
+    sub-kernels, interleaved and cropped.  w (K_D, N, M) -> (B, L_O, M)."""
+    S, kc = dims.stride, dims.kc
+    B, L, _ = x.shape
+    M = w.shape[-1]
+    lj = dims.j_extent(L)
+    subw = decompose_weights_1d(w, dims, r=kc)  # (S, kc, N, M)
+    xp = F.pad(x, (0, 0, kc - 1, max(0, lj - L))).permute(0, 2, 1)  # (B, N, Lp)
+    sub_out = torch.stack([F.conv1d(xp, subw[rho].permute(2, 1, 0))[:, :, :lj] for rho in range(S)])
+    full = sub_out.permute(1, 3, 0, 2).reshape(B, lj * S, M)  # out[S*j + rho]
+    return full[:, dims.padding : dims.padding + dims.out_size(L), :]
 
 
 # ------------------------------------------------------------------ conv

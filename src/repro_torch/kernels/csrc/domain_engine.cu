@@ -56,6 +56,16 @@
 //   * M = 3 rules out 16-byte copies and stores of g, weights and outputs:
 //     those paths take 4-byte copies; xw and dxw move in 16-byte copies
 //     (N % 4 == 0).
+//
+// bwd_x and bwd_w also take the rank-1 instantiation of the 1D engine's
+// backward (src/repro/kernels/engine.py::winograd_conv1d_fused_bwd_x / _bwd_w
+// call the same two pallas_calls with m2 = m = 2 and n2 = phases*n): M2, the
+// outputs per tile (4, or 2 for F(2, r) in 1D), is a template parameter, and
+// N2, the xw row count (16, or phases*n <= 16), a runtime one.  So g is
+// (T, S2*M2, M), inv (C, M2), xw and dxw (T, N2, N); the 2D instantiation
+// (M2 = 4, N2 = 16) runs the same arithmetic as before.  In 1D a sub-filter
+// keeps at most n2 positions (3 of 4 at the audio decoder's K4S2), so
+// bwd_w's rank-1 blocks take 4 position groups, not 8.
 // wgmma (3xTF32), TMA and one gw pass shared by both backward kernels are
 // later work.
 
@@ -64,8 +74,21 @@
 
 namespace {
 
-constexpr int kMaxPos = 16;  // n*n Winograd positions of F(2,3); xw's row count
+constexpr int kMaxPos = 16;  // n*n Winograd positions of F(2,3); the most xw rows (N2)
 constexpr int kMaxSub = 16;  // S^2 sub-filters, S <= 4
+
+// gw of one packed position from a tile's M2 values of g: the inverse
+// transform's row, in the same order of operations for every launch
+template <int M2>
+__device__ __forceinline__ float fold_g(const float* iv, const float* gv);
+template <>
+__device__ __forceinline__ float fold_g<4>(const float* iv, const float* gv) {
+  return fmaf(iv[0], gv[0], fmaf(iv[1], gv[1], fmaf(iv[2], gv[2], iv[3] * gv[3])));
+}
+template <>
+__device__ __forceinline__ float fold_g<2>(const float* iv, const float* gv) {
+  return fmaf(iv[0], gv[0], iv[1] * gv[1]);
+}
 
 __device__ __forceinline__ void cp_async(float* dst, const float* src, bool pred, int bytes_vec) {
   // global -> shared without passing through registers; pred false
@@ -276,14 +299,15 @@ domain_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ ww, co
 // ============================================================== bwd_x
 // G position groups x (NT_T x NT_N) threads; group g owns Winograd positions
 // g, g + G, ...; each thread a 4-tile x 4-channel micro tile.  BM: the M
-// chunk; VW: 4 for 16-byte g copies (M % 4 == 0), 1 for 4-byte copies.
-template <int G, int NT_T, int NT_N, int BM, int VW>
+// chunk; VW: 4 for 16-byte g copies (M % 4 == 0), 1 for 4-byte copies;
+// M2: outputs per tile (4 in 2D, 2 in 1D).
+template <int G, int NT_T, int NT_N, int BM, int VW, int M2>
 struct BxCfg {
   static constexpr int PG = kMaxPos / G;
   static constexpr int kThreads = G * NT_T * NT_N;
   static constexpr int BT = NT_T * 4;       // tiles per block
   static constexpr int BN = NT_N * 4;       // input channels per block
-  static constexpr int GS = 4 * BM + 8;     // g_s row stride per tile: 16-byte aligned, skewed banks
+  static constexpr int GS = M2 * BM + 8;    // g_s row stride per tile: 16-byte aligned, skewed banks
   static constexpr int XT = BT + 4;         // gw_s row stride
   static constexpr int kG = BT * GS;        // g rows, one stage
   static constexpr int kW = kMaxPos * BM * BN;  // ww slice [k][m][n], one stage
@@ -294,18 +318,18 @@ struct BxCfg {
       sizeof(float) * (kStage + kMaxC * 4) + sizeof(int) * (kMaxSub * kMaxPos + kMaxC + kMaxSub + 1);
 };
 
-template <int G, int NT_T, int NT_N, int BM, int VW>
+template <int G, int NT_T, int NT_N, int BM, int VW, int M2>
 __global__ void __launch_bounds__(G * NT_T * NT_N)
 domain_bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ ww, const float* __restrict__ inv,
                     const int* __restrict__ pos, const int* __restrict__ sub_off, float* __restrict__ dxw,
-                    int T, int N, int M, int S2) {
-  using K = BxCfg<G, NT_T, NT_N, BM, VW>;
+                    int T, int N, int M, int S2, int N2) {
+  using K = BxCfg<G, NT_T, NT_N, BM, VW, M2>;
   constexpr int PG = K::PG, BT = K::BT, BN = K::BN, GS = K::GS, XT = K::XT, NT = K::kThreads;
   extern __shared__ float4 smem4[];
   float* g_s = reinterpret_cast<float*>(smem4);  // 2 x [BT][GS]
   float* w_s = g_s + 2 * K::kG;                   // 2 x [16][BM][BN]
   float* gw_s = w_s + 2 * K::kW;                  // [16][BM][XT]
-  float* inv_s = g_s + K::kStage;                 // [C][4]
+  float* inv_s = g_s + K::kStage;                 // [C][M2]
   int* kmap_s = reinterpret_cast<int*>(inv_s + K::kMaxC * 4);  // [S^2][16] pos -> k or -1
   int* pos_s = kmap_s + kMaxSub * kMaxPos;        // [C]
   int* off_s = pos_s + K::kMaxC;                  // [S^2 + 1]
@@ -317,7 +341,7 @@ domain_bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ ww, c
   const int C = sub_off[S2];
   const int t0 = blockIdx.x * BT, n0 = blockIdx.y * BN;
 
-  for (int i = tid; i < C * 4; i += NT) inv_s[i] = inv[i];
+  for (int i = tid; i < C * M2; i += NT) inv_s[i] = inv[i];
   for (int i = tid; i < C; i += NT) pos_s[i] = pos[i];
   for (int i = tid; i <= S2; i += NT) off_s[i] = sub_off[i];
   for (int i = tid; i < kMaxSub * kMaxPos; i += NT) kmap_s[i] = -1;
@@ -328,7 +352,7 @@ domain_bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ ww, c
 
   const int mchunks = (M + BM - 1) / BM;
   const int nchunks = S2 * mchunks;
-  const int s2m2 = S2 * 4;
+  const int s2m2 = S2 * M2;
 
   // one pipeline stage: the g rows of sub-filter s for every tile, and
   // ww[lo+k, n0:n0+BN, m0:m0+BM] transposed to [k][m][n]; ragged edges
@@ -337,12 +361,12 @@ domain_bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ ww, c
     const int s = c / mchunks, m0 = (c % mchunks) * BM;
     const int lo = off_s[s], cnt = off_s[s + 1] - lo;
     float* gd = g_s + buf * K::kG;
-    constexpr int kGv = BT * 4 * BM / VW;
+    constexpr int kGv = BT * M2 * BM / VW;
     for (int e = tid; e < kGv; e += NT) {
-      const int mm = (e % (BM / VW)) * VW, a = (e / (BM / VW)) % 4, tl = e / (BM / VW * 4);
+      const int mm = (e % (BM / VW)) * VW, a = (e / (BM / VW)) % M2, tl = e / (BM / VW * M2);
       const int t = t0 + tl;
       const bool ok = t < T && m0 + mm < M;
-      const float* src = ok ? g + ((size_t)t * s2m2 + s * 4 + a) * M + m0 + mm : g;
+      const float* src = ok ? g + ((size_t)t * s2m2 + s * M2 + a) * M + m0 + mm : g;
       cp_async(gd + tl * GS + a * BM + mm, src, ok, 4 * VW);
     }
     float* wd = w_s + buf * K::kW;
@@ -376,14 +400,11 @@ domain_bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ ww, c
     const float* gb = g_s + buf * K::kG;
     for (int it = tid; it < BT * BM; it += NT) {
       const int mm = it % BM, tl = it / BM;
-      float gv[4];
+      float gv[M2];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) gv[a] = gb[tl * GS + a * BM + mm];
-      for (int k = 0; k < cnt; ++k) {
-        const float* iv = inv_s + (lo + k) * 4;
-        gw_s[(pos_s[lo + k] * BM + mm) * XT + tl] =
-            fmaf(iv[0], gv[0], fmaf(iv[1], gv[1], fmaf(iv[2], gv[2], iv[3] * gv[3])));
-      }
+      for (int a = 0; a < M2; ++a) gv[a] = gb[tl * GS + a * BM + mm];
+      for (int k = 0; k < cnt; ++k)
+        gw_s[(pos_s[lo + k] * BM + mm) * XT + tl] = fold_g<M2>(inv_s + (lo + k) * M2, gv);
     }
     __syncthreads();
 
@@ -418,11 +439,12 @@ domain_bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ ww, c
 #pragma unroll
   for (int kk = 0; kk < PG; ++kk) {
     const int p = kk * G + grp;
+    if (p >= N2) continue;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int t = t0 + tt * 4 + i, n = n0 + tn * 4;
       if (t >= T || n >= N) continue;
-      float* o = dxw + ((size_t)t * kMaxPos + p) * N + n;
+      float* o = dxw + ((size_t)t * N2 + p) * N + n;
       if (vec) {
         *reinterpret_cast<float4*>(o) = make_float4(acc[kk][i][0], acc[kk][i][1], acc[kk][i][2], acc[kk][i][3]);
       } else {
@@ -437,34 +459,35 @@ domain_bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ ww, c
 // ============================================================== bwd_w
 // G position groups x (NT_N x NT_M) threads; group g owns the packed
 // positions k = g, g + G, ... of the block's sub-filter; each thread a
-// 4-channel (n) x 4-channel (m) micro tile.  BT tiles per T chunk.
-template <int G, int NT_N, int NT_M, int BT, int VW>
+// 4-channel (n) x 4-channel (m) micro tile.  BT tiles per T chunk; M2
+// outputs per tile.
+template <int G, int NT_N, int NT_M, int BT, int VW, int M2>
 struct BwCfg {
   static constexpr int PG = kMaxPos / G;
   static constexpr int kThreads = G * NT_N * NT_M;
   static constexpr int BN = NT_N * 4;
   static constexpr int BM = NT_M * 4;
   static constexpr int kX = kMaxPos * BT * BN;   // xw [k][tile][n], one stage
-  static constexpr int kG = BT * 4 * BM;        // g rows, one stage
+  static constexpr int kG = BT * M2 * BM;       // g rows, one stage
   static constexpr int kGw = kMaxPos * BT * BM;  // gw [k][tile][m]
   static constexpr int kRed = kMaxPos * BN * BM;  // one block's sums, in scratch
   static constexpr size_t kSmemBytes =
       sizeof(float) * (2 * (kX + kG) + kGw + kMaxPos * 4) + sizeof(int) * kMaxPos;
 };
 
-template <int G, int NT_N, int NT_M, int BT, int VW, bool SPLIT>
+template <int G, int NT_N, int NT_M, int BT, int VW, int M2, bool SPLIT>
 __global__ void __launch_bounds__(G * NT_N * NT_M)
 domain_bwd_w_kernel(const float* __restrict__ xw, const float* __restrict__ g, const float* __restrict__ inv,
                     const int* __restrict__ pos, const int* __restrict__ sub_off, float* __restrict__ dww,
-                    int T, int N, int M, int S2, int splits, float* __restrict__ partial,
+                    int T, int N, int M, int S2, int N2, int splits, float* __restrict__ partial,
                     int* __restrict__ counters) {
-  using K = BwCfg<G, NT_N, NT_M, BT, VW>;
+  using K = BwCfg<G, NT_N, NT_M, BT, VW, M2>;
   constexpr int PG = K::PG, BN = K::BN, BM = K::BM, NT = K::kThreads;
   extern __shared__ float4 smem4[];
   float* x_s = reinterpret_cast<float*>(smem4);  // 2 x [16][BT][BN]
-  float* gr_s = x_s + 2 * K::kX;                  // 2 x [BT][4][BM]
+  float* gr_s = x_s + 2 * K::kX;                  // 2 x [BT][M2][BM]
   float* gw_s = gr_s + 2 * K::kG;                 // [16][BT][BM]
-  float* inv_s = gw_s + K::kGw;                   // [16][4]
+  float* inv_s = gw_s + K::kGw;                   // [16][M2]
   int* pos_s = reinterpret_cast<int*>(inv_s + kMaxPos * 4);
 
   const int n_nt = (N + BN - 1) / BN, n_mt = (M + BM - 1) / BM;
@@ -478,9 +501,9 @@ domain_bwd_w_kernel(const float* __restrict__ xw, const float* __restrict__ g, c
   const int gq = tid / (NT_N * NT_M);  // position group, uniform per warp
   const int rem = tid % (NT_N * NT_M);
   const int tn = rem / NT_M, tm = rem % NT_M;
-  const int s2m2 = S2 * 4;
+  const int s2m2 = S2 * M2;
 
-  if (tid < kMaxPos * 4) inv_s[tid] = (tid / 4 < cnt) ? inv[(lo + tid / 4) * 4 + tid % 4] : 0.0f;
+  if (tid < kMaxPos * M2) inv_s[tid] = (tid / M2 < cnt) ? inv[(lo + tid / M2) * M2 + tid % M2] : 0.0f;
   if (tid < kMaxPos) pos_s[tid] = tid < cnt ? pos[lo + tid] : 0;
   __syncthreads();
 
@@ -499,17 +522,17 @@ domain_bwd_w_kernel(const float* __restrict__ xw, const float* __restrict__ g, c
       const int nl = (e % (BN / 4)) * 4, tl = (e / (BN / 4)) % BT, k = e / (BN / 4 * BT);
       const int t = t0 + tl, n = n0 + nl;
       const bool ok = t < T && n < N;
-      const float* src = ok ? xw + ((size_t)t * kMaxPos + pos_s[k]) * N + n : xw;
+      const float* src = ok ? xw + ((size_t)t * N2 + pos_s[k]) * N + n : xw;
       cp_async(xd + (k * BT + tl) * BN + nl, src, ok, 16);
     }
     float* gd = gr_s + buf * K::kG;
-    constexpr int kGv = BT * 4 * BM / VW;
+    constexpr int kGv = BT * M2 * BM / VW;
     for (int e = tid; e < kGv; e += NT) {
-      const int mm = (e % (BM / VW)) * VW, a = (e / (BM / VW)) % 4, tl = e / (BM / VW * 4);
+      const int mm = (e % (BM / VW)) * VW, a = (e / (BM / VW)) % M2, tl = e / (BM / VW * M2);
       const int t = t0 + tl;
       const bool ok = t < T && m0 + mm < M;
-      const float* src = ok ? g + ((size_t)t * s2m2 + s * 4 + a) * M + m0 + mm : g;
-      cp_async(gd + (tl * 4 + a) * BM + mm, src, ok, 4 * VW);
+      const float* src = ok ? g + ((size_t)t * s2m2 + s * M2 + a) * M + m0 + mm : g;
+      cp_async(gd + (tl * M2 + a) * BM + mm, src, ok, 4 * VW);
     }
     cp_async_commit();
   };
@@ -533,14 +556,10 @@ domain_bwd_w_kernel(const float* __restrict__ xw, const float* __restrict__ g, c
     const float* gb = gr_s + buf * K::kG;
     for (int it = tid; it < BT * BM; it += NT) {
       const int mm = it % BM, tl = it / BM;
-      float gv[4];
+      float gv[M2];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) gv[a] = gb[(tl * 4 + a) * BM + mm];
-      for (int k = 0; k < cnt; ++k) {
-        const float* iv = inv_s + k * 4;
-        gw_s[(k * BT + tl) * BM + mm] =
-            fmaf(iv[0], gv[0], fmaf(iv[1], gv[1], fmaf(iv[2], gv[2], iv[3] * gv[3])));
-      }
+      for (int a = 0; a < M2; ++a) gv[a] = gb[(tl * M2 + a) * BM + mm];
+      for (int k = 0; k < cnt; ++k) gw_s[(k * BT + tl) * BM + mm] = fold_g<M2>(inv_s + k * M2, gv);
     }
     __syncthreads();
 
@@ -652,44 +671,55 @@ int with_fwd_conf(int M, F&& f) {
   return f(FwdConf<8, 16, 1, 8, 1>{});
 }
 
-template <int G_, int NT_T_, int NT_N_, int BM_, int VW_>
+template <int G_, int NT_T_, int NT_N_, int BM_, int VW_, int M2_>
 struct BxConf {
-  static constexpr int G = G_, NT_T = NT_T_, NT_N = NT_N_, BM = BM_, VW = VW_;
-  using K = BxCfg<G, NT_T, NT_N, BM, VW>;
+  static constexpr int G = G_, NT_T = NT_T_, NT_N = NT_N_, BM = BM_, VW = VW_, M2 = M2_;
+  using K = BxCfg<G, NT_T, NT_N, BM, VW, M2>;
 };
-#define BX_KERNEL(C) domain_bwd_x_kernel<C::G, C::NT_T, C::NT_N, C::BM, C::VW>
+#define BX_KERNEL(C) domain_bwd_x_kernel<C::G, C::NT_T, C::NT_N, C::BM, C::VW, C::M2>
 
-// bwd_x block configuration for M: 64 tiles x 32 channels n per block, 4
-// position groups, 512 threads; M in chunks of 8 with 16-byte g copies, or
-// chunks of 4 with 4-byte copies for few or ragged channels (RGB).
+// bwd_x block configuration for (M, M2): 64 tiles x 32 channels n per
+// block, 4 position groups, 512 threads; M in chunks of 8 with 16-byte g
+// copies, or chunks of 4 with 4-byte copies for few or ragged channels (RGB,
+// the audio decoder's mono waveform).  The same blocks in 1D (M2 = 2).
 template <class F>
-int with_bx_conf(int M, F&& f) {
-  if (M >= 8 && M % 4 == 0) return f(BxConf<4, 16, 8, 8, 4>{});
-  return f(BxConf<4, 16, 8, 4, 1>{});
+int with_bx_conf(int M, int M2, F&& f) {
+  if (M2 == 2) {
+    if (M >= 8 && M % 4 == 0) return f(BxConf<4, 16, 8, 8, 4, 2>{});
+    return f(BxConf<4, 16, 8, 4, 1, 2>{});
+  }
+  if (M >= 8 && M % 4 == 0) return f(BxConf<4, 16, 8, 8, 4, 4>{});
+  return f(BxConf<4, 16, 8, 4, 1, 4>{});
 }
 
-template <int G_, int NT_N_, int NT_M_, int BT_, int VW_>
+template <int G_, int NT_N_, int NT_M_, int BT_, int VW_, int M2_>
 struct BwConf {
-  static constexpr int G = G_, NT_N = NT_N_, NT_M = NT_M_, BT = BT_, VW = VW_;
-  using K = BwCfg<G, NT_N, NT_M, BT, VW>;
+  static constexpr int G = G_, NT_N = NT_N_, NT_M = NT_M_, BT = BT_, VW = VW_, M2 = M2_;
+  using K = BwCfg<G, NT_N, NT_M, BT, VW, M2>;
 };
-#define BW_KERNEL(C, SPLIT) domain_bwd_w_kernel<C::G, C::NT_N, C::NT_M, C::BT, C::VW, SPLIT>
+#define BW_KERNEL(C, SPLIT) domain_bwd_w_kernel<C::G, C::NT_N, C::NT_M, C::BT, C::VW, C::M2, SPLIT>
 
-// bwd_w block configuration for M: 32 x 32 (n, m) per block, 8 position
-// groups, 512 threads, 8 tiles per T chunk, 16-byte g copies; or, for few
-// or ragged M (RGB), 64 x 4 per block, 128 threads, 4 tiles per chunk and
-// 4-byte g copies.
+// bwd_w block configuration for (M, M2): 32 x 32 (n, m) per block, 8
+// position groups, 512 threads, 8 tiles per T chunk, 16-byte g copies; or,
+// for few or ragged M (RGB), 64 x 4 per block, 128 threads, 4 tiles per
+// chunk and 4-byte g copies.  In 1D (M2 = 2) a sub-filter holds at most n2
+// (3 at K4S2) positions: 4 position groups, 256 or 64 threads.
 template <class F>
-int with_bw_conf(int M, F&& f) {
-  if (M >= 16 && M % 4 == 0) return f(BwConf<8, 8, 8, 8, 4>{});
-  return f(BwConf<8, 16, 1, 4, 1>{});
+int with_bw_conf(int M, int M2, F&& f) {
+  if (M2 == 2) {
+    if (M >= 16 && M % 4 == 0) return f(BwConf<4, 8, 8, 8, 4, 2>{});
+    return f(BwConf<4, 16, 1, 4, 1, 2>{});
+  }
+  if (M >= 16 && M % 4 == 0) return f(BwConf<8, 8, 8, 8, 4, 4>{});
+  return f(BwConf<8, 16, 1, 4, 1, 4>{});
 }
 
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  Every pointer is a device
-// pointer; xw and dxw are (T, 16, N), g and y are (T, S2*4, M), ww and dww
-// (C, N, M), inv (C, 4), pos (C,), sub_off (S2 + 1,).  The plan functions
+// pointer; xw and dxw are (T, N2, N), g and y are (T, S2*M2, M), ww and dww
+// (C, N, M), inv (C, M2), pos (C,), sub_off (S2 + 1,); fwd takes M2 = 4,
+// N2 = 16 only, the backward kernels also M2 = 2 with N2 <= 16.  The plan functions
 // also raise their kernels' shared-memory limit on the current device,
 // which a launch needs: call each for M on that device before its first
 // launch.  Every launch returns cudaGetLastError().
@@ -746,24 +776,24 @@ extern "C" int domain_engine_fwd_f32(const float* xw, const float* ww, const flo
   });
 }
 
-extern "C" int domain_engine_bwd_x_plan(int M) {
-  return with_bx_conf(M, [&](auto conf) {
+extern "C" int domain_engine_bwd_x_plan(int M, int M2) {
+  return with_bx_conf(M, M2, [&](auto conf) {
     using C = decltype(conf);
     return (int)cudaFuncSetAttribute(BX_KERNEL(C), cudaFuncAttributeMaxDynamicSharedMemorySize,
                                      (int)C::K::kSmemBytes);
   });
 }
 
-// One bwd_x launch: g, ww -> dxw (T, 16, N), every element written.
+// One bwd_x launch: g, ww -> dxw (T, N2, N), every element written.
 extern "C" int domain_engine_bwd_x_f32(const float* g, const float* ww, const float* inv, const int* pos,
-                                       const int* sub_off, float* dxw, int T, int N, int M, int S2,
-                                       void* stream) {
-  return with_bx_conf(M, [&](auto conf) {
+                                       const int* sub_off, float* dxw, int T, int N, int M, int S2, int M2,
+                                       int N2, void* stream) {
+  return with_bx_conf(M, M2, [&](auto conf) {
     using C = decltype(conf);
     using K = typename C::K;
     dim3 grid((T + K::BT - 1) / K::BT, (N + K::BN - 1) / K::BN);
     BX_KERNEL(C)<<<grid, K::kThreads, K::kSmemBytes, reinterpret_cast<cudaStream_t>(stream)>>>(
-        g, ww, inv, pos, sub_off, dxw, T, N, M, S2);
+        g, ww, inv, pos, sub_off, dxw, T, N, M, S2, N2);
     return (int)cudaGetLastError();
   });
 }
@@ -771,9 +801,9 @@ extern "C" int domain_engine_bwd_x_f32(const float* g, const float* ww, const fl
 // bwd_w split plan: the T loop is split over as many blocks per (sub-filter,
 // N-tile, M-tile) group as fill the card's resident block slots once, with
 // at least 4 chunks per split (fused_engine_bwd_w_plan's rule).
-extern "C" int domain_engine_bwd_w_plan(int T, int N, int M, int S2, int device, int* splits,
+extern "C" int domain_engine_bwd_w_plan(int T, int N, int M, int S2, int M2, int device, int* splits,
                                         long long* scratch_floats, long long* counters) {
-  return with_bw_conf(M, [&](auto conf) {
+  return with_bw_conf(M, M2, [&](auto conf) {
     using C = decltype(conf);
     using K = typename C::K;
     cudaError_t err = cudaFuncSetAttribute(BW_KERNEL(C, false), cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -804,15 +834,15 @@ extern "C" int domain_engine_bwd_w_plan(int T, int N, int M, int S2, int device,
 // partial and counters from domain_engine_bwd_w_plan; the counters are zero
 // on entry and the kernel leaves them zero.
 extern "C" int domain_engine_bwd_w_f32(const float* xw, const float* g, const float* inv, const int* pos,
-                                       const int* sub_off, float* dww, int T, int N, int M, int S2, int splits,
-                                       float* partial, int* counters, void* stream) {
-  return with_bw_conf(M, [&](auto conf) {
+                                       const int* sub_off, float* dww, int T, int N, int M, int S2, int M2,
+                                       int N2, int splits, float* partial, int* counters, void* stream) {
+  return with_bw_conf(M, M2, [&](auto conf) {
     using C = decltype(conf);
     using K = typename C::K;
     auto kernel = splits > 1 ? BW_KERNEL(C, true) : BW_KERNEL(C, false);
     dim3 grid(S2 * ((N + K::BN - 1) / K::BN) * ((M + K::BM - 1) / K::BM), splits);
     kernel<<<grid, K::kThreads, K::kSmemBytes, reinterpret_cast<cudaStream_t>(stream)>>>(
-        xw, g, inv, pos, sub_off, dww, T, N, M, S2, splits, partial, counters);
+        xw, g, inv, pos, sub_off, dww, T, N, M, S2, N2, splits, partial, counters);
     return (int)cudaGetLastError();
   });
 }

@@ -1,6 +1,7 @@
 """The Winograd engines and their backward: wrappers of the CUDA kernels
-``csrc/fused_engine.cu``, ``csrc/fused_engine_bwd.cu``, ``csrc/conv_engine.cu``
-and ``csrc/domain_engine.cu`` and their plain PyTorch versions.
+``csrc/fused_engine.cu``, ``csrc/fused_engine_bwd.cu``, ``csrc/conv_engine.cu``,
+``csrc/domain_engine.cu`` and ``csrc/engine1d.cu`` and their plain PyTorch
+versions.
 
 ``fused_engine`` takes the padded cell layout of one deconv layer and the
 packed (C, N, M) weights and returns either the cropped NHWC image
@@ -27,7 +28,18 @@ positions, stride 1, no padding), with the same contract.
 ``domain_engine`` and ``domain_engine_bwd_x`` / ``_bwd_w`` are the unfused
 engine of the per-layer path: the transformed tiles xw (T, n*n, N) come in
 from device memory, the output is the (T, S*S*m*m, M) tile outputs, and
-the backward gives dxw (T, n*n, N) and dww (C, N, M).  Same contract.
+the backward gives dxw (T, n*n, N) and dww (C, N, M).  Same contract.  The
+two backward kernels also take the 1D engine's rank (m2 = 2 outputs and
+n2 = phases*n positions per tile), counted apart in ``.rank1_launches``.
+
+``winograd_conv1d_fused_engine`` is the 1D engine (the audio decoder's
+deconv1d, strided and unit-stride conv1d): cells (B, Gy, phases*m, N) in,
+the folded tile outputs (B, ty, S2*m, M) out (``out_mode="scratch"``,
+counted in ``.scratch_launches``) or the epilogue and the stride-S
+interleave (B, ty*m*S, M) (``"nlc"``, counted in ``.launches``).  Same
+contract.  Its backward, ``winograd_conv1d_fused_bwd_x`` / ``_bwd_w``, is
+host code around the rank-1 ``domain_engine_bwd_x`` / ``_bwd_w``, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -36,8 +48,9 @@ import functools
 import torch
 
 from ..core.winograd import get_transform
+from ..core.winograd_deconv import _bt_on
 from . import ref as _ref
-from .ref import EPILOGUE_ACTIVATIONS, LEAKY_SLOPE
+from .ref import EPILOGUE_ACTIVATIONS, LEAKY_SLOPE, epilogue_apply_ref, xw_from_cells_1d
 
 __all__ = [
     "LEAKY_SLOPE", "EPILOGUE_ACTIVATIONS", "fused_engine", "fused_engine_plain",
@@ -45,6 +58,8 @@ __all__ = [
     "conv_fused_engine", "conv_fused_engine_plain", "conv_fused_engine_bwd_x", "conv_fused_engine_bwd_x_plain",
     "conv_fused_engine_bwd_w", "conv_fused_engine_bwd_w_plain", "domain_engine", "domain_engine_plain",
     "domain_engine_bwd_x", "domain_engine_bwd_x_plain", "domain_engine_bwd_w", "domain_engine_bwd_w_plain",
+    "winograd_conv1d_fused_engine", "winograd_conv1d_fused_engine_plain", "winograd_conv1d_fused_bwd_x",
+    "winograd_conv1d_fused_bwd_x_plain", "winograd_conv1d_fused_bwd_w", "winograd_conv1d_fused_bwd_w_plain",
 ]
 
 _OUT_MODES = {"nhwc": 0, "cells": 1, "scratch": 2}
@@ -88,6 +103,7 @@ def fused_engine_plain(
     return y
 
 
+@functools.lru_cache(maxsize=None)
 def _bt(m: int, n: int):
     """B^T of F(m, n - m + 1) as nested tuples."""
     return tuple(tuple(float(v) for v in row) for row in get_transform(m, n - m + 1).BT)
@@ -851,39 +867,54 @@ def domain_engine_bwd_w_plain(
     return _ref.engine_bwd_w_ref(xw, g, inv_packed, pos_idx=pos_idx, sub_slices=sub_slices, m2=m2)
 
 
-def _check_domain(tensors, *, pos_idx, sub_slices, m2, T, N, M):
-    """The checks the three unfused kernels share: device, dtype,
-    contiguity, F(2,3), the packed layout.  Returns (device, S^2).  Raises:
-    nothing falls back."""
+def _check_layout(tensors, *, pos_idx, sub_slices, n_pos, extents, sizes):
+    """The checks every packed kernel shares: ``tensors`` contiguous fp32 on
+    one device, 1..16 sub-filter slices tiling [0, C) in order, each
+    sub-filter's positions distinct and in [0, n_pos), no empty extent and
+    no size past 32-bit indices.  Returns (device, S2).  Raises: nothing
+    falls back."""
     dev = tensors[0][1].device
     for name, t in tensors:
         if t.device != dev or t.dtype is not torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous fp32 tensor on {dev}, got "
                              f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
-    if m2 != 4:
-        raise ValueError(f"the CUDA kernels implement F(2,3) only (m2=4), got m2={m2}")
     s2, C = len(sub_slices), len(pos_idx)
     if not 1 <= s2 <= 16 or sub_slices[0][0] != 0 or sub_slices[-1][1] != C or \
             any(sub_slices[i][1] != sub_slices[i + 1][0] for i in range(s2 - 1)):
         raise ValueError(f"sub_slices {sub_slices} must be 1..16 slices tiling [0, {C}) in order")
     for lo, hi in sub_slices:
         sub = pos_idx[lo:hi]
-        if len(set(sub)) != len(sub) or any(not 0 <= p < 16 for p in sub):
-            raise ValueError(f"sub-filter positions {sub} must be distinct, in [0, 16)")
-    if min(T, N, M) <= 0:
+        if len(set(sub)) != len(sub) or any(not 0 <= p < n_pos for p in sub):
+            raise ValueError(f"sub-filter positions {sub} must be distinct, in [0, {n_pos})")
+    if min(extents) <= 0:
         raise ValueError("empty problem")
-    if max(T * 16 * N, T * s2 * 4 * M, C * N * M) >= 2**31:
+    if max(sizes) >= 2**31:
         raise ValueError("problem too large for the kernels' 32-bit indices")
     return dev, s2
 
 
-def _check_packed(ww_packed, inv_packed, C, N=None, M=None):
+def _check_domain(tensors, *, pos_idx, sub_slices, m2, T, N, M, n2=16, ranks=(4,)):
+    """The checks the three unfused kernels share: ``_check_layout`` and
+    the transform.  The kernels take F(2x2, 3x3) (m2 = 4 outputs and n2 =
+    16 positions per tile) and, where ``ranks`` holds 2, the 1D engine's
+    F(2, r) (m2 = 2, n2 <= 16 positions: phases*n).  Returns (device, S^2)."""
+    if m2 not in ranks:
+        raise ValueError(f"the CUDA kernel takes m2 in {ranks} (F(2x2,3x3){' or 1D F(2,r)' if 2 in ranks else ''}), "
+                         f"got m2={m2}")
+    if (m2 == 4 and n2 != 16) or not 1 <= n2 <= 16:
+        raise ValueError(f"n2={n2} Winograd positions per tile: 16 for m2=4, at most 16 for m2=2")
+    s2, C = len(sub_slices), len(pos_idx)
+    return _check_layout(tensors, pos_idx=pos_idx, sub_slices=sub_slices, n_pos=n2, extents=(T, N, M),
+                         sizes=(T * n2 * N, T * s2 * m2 * M, C * N * M))
+
+
+def _check_packed(ww_packed, inv_packed, C, N=None, M=None, m2=4):
     if ww_packed is not None and (ww_packed.dim() != 3 or ww_packed.shape[0] != C
                                   or (N is not None and ww_packed.shape[1] != N)
                                   or (M is not None and ww_packed.shape[2] != M)):
         raise ValueError(f"ww_packed must be ({C}, {N or 'N'}, {M or 'M'}), got {tuple(ww_packed.shape)}")
-    if inv_packed.shape != (C, 4):
-        raise ValueError(f"inv_packed must be ({C}, 4), got {tuple(inv_packed.shape)}")
+    if inv_packed.shape != (C, m2):
+        raise ValueError(f"inv_packed must be ({C}, {m2}), got {tuple(inv_packed.shape)}")
 
 
 def domain_engine(
@@ -938,76 +969,84 @@ domain_engine.launches = 0
 
 
 def domain_engine_bwd_x(
-    g: torch.Tensor,  # (T, S*S*m*m, M) cotangent of the tile outputs
+    g: torch.Tensor,  # (T, S2*m2, M) cotangent of the tile outputs
     ww_packed: torch.Tensor,  # (C, N, M)
-    inv_packed: torch.Tensor,  # (C, m*m) fp32
+    inv_packed: torch.Tensor,  # (C, m2) fp32
     *,
     pos_idx: tuple[int, ...],
     sub_slices: tuple[tuple[int, int], ...],
     m2: int,
     n2: int,
 ) -> torch.Tensor:
-    """dL/dxw (T, n*n, N) of the unfused engine, zero at the Winograd
+    """dL/dxw (T, n2, N) of the unfused engine, zero at the Winograd
     positions no packed position keeps.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (F(2,3), fp32, contiguous)."""
+    version; CUDA tensors launch the kernel (fp32, contiguous; F(2x2,3x3),
+    m2 = 4 and n2 = 16, or the 1D engine's m2 = 2 and n2 <= 16).
+    ``.launches`` counts the 2D launches, ``.rank1_launches`` the 1D ones."""
     kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m2=m2)
     if g.device.type == "cpu":
         return domain_engine_bwd_x_plain(g, ww_packed, inv_packed, n2=n2, **kw)
     if g.device.type != "cuda":
         raise ValueError(f"domain_engine_bwd_x runs on cpu or cuda tensors, got {g.device}")
-    if n2 != 16 or g.dim() != 3 or g.shape[1] != len(sub_slices) * 4 or ww_packed.dim() != 3:
-        raise ValueError(f"g must be (T, {len(sub_slices) * 4}, M) with n2 = 16 and ww_packed (C, N, M), got "
-                         f"{tuple(g.shape)}, n2={n2}, {tuple(ww_packed.shape)}")
+    if g.dim() != 3 or g.shape[1] != len(sub_slices) * m2 or ww_packed.dim() != 3:
+        raise ValueError(f"g must be (T, {len(sub_slices) * m2}, M) and ww_packed (C, N, M), got "
+                         f"{tuple(g.shape)}, {tuple(ww_packed.shape)}")
     T, _, M = g.shape
     N = ww_packed.shape[1]
     dev, s2 = _check_domain((("g", g), ("ww_packed", ww_packed), ("inv_packed", inv_packed)), T=T, N=N, M=M,
-                            **kw)
-    _check_packed(ww_packed, inv_packed, len(pos_idx), N, M)
+                            n2=n2, ranks=(2, 4), **kw)
+    _check_packed(ww_packed, inv_packed, len(pos_idx), N, M, m2)
 
     from ._build import load_library
 
     lib = load_library()
     pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
-    _domain_bwd_x_plan(M, dev.index)
-    out = torch.empty((T, 16, N), dtype=torch.float32, device=dev)
+    _domain_bwd_x_plan(M, m2, dev.index)
+    out = torch.empty((T, n2, N), dtype=torch.float32, device=dev)
     err = lib.domain_engine_bwd_x_f32(
         g.data_ptr(), ww_packed.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), offs.data_ptr(),
-        out.data_ptr(), T, N, M, s2, torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), T, N, M, s2, m2, n2, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"domain_engine_bwd_x kernel launch failed: cudaError {err}")
-    domain_engine_bwd_x.launches += 1
+    if m2 == 2:
+        domain_engine_bwd_x.rank1_launches += 1
+    else:
+        domain_engine_bwd_x.launches += 1
     return out
 
 
 domain_engine_bwd_x.launches = 0
+domain_engine_bwd_x.rank1_launches = 0
 
 
 def domain_engine_bwd_w(
-    xw: torch.Tensor,  # (T, n*n, N) the forward's transformed tiles
-    g: torch.Tensor,  # (T, S*S*m*m, M)
-    inv_packed: torch.Tensor,  # (C, m*m) fp32
+    xw: torch.Tensor,  # (T, n2, N) the forward's transformed tiles
+    g: torch.Tensor,  # (T, S2*m2, M)
+    inv_packed: torch.Tensor,  # (C, m2) fp32
     *,
     pos_idx: tuple[int, ...],
     sub_slices: tuple[tuple[int, int], ...],
     m2: int,
 ) -> torch.Tensor:
     """dL/dww (C, N, M) of the unfused engine.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (F(2,3), fp32, contiguous,
-    N % 4 == 0)."""
+    version; CUDA tensors launch the kernel (fp32, contiguous, N % 4 == 0;
+    F(2x2,3x3) with xw (T, 16, N), or the 1D engine's m2 = 2 with xw
+    (T, n2 <= 16, N)).  ``.launches`` counts the 2D launches,
+    ``.rank1_launches`` the 1D ones."""
     kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m2=m2)
     if g.device.type == "cpu":
         return domain_engine_bwd_w_plain(xw, g, inv_packed, **kw)
     if g.device.type != "cuda":
         raise ValueError(f"domain_engine_bwd_w runs on cpu or cuda tensors, got {g.device}")
-    if xw.dim() != 3 or xw.shape[1] != 16 or g.dim() != 3 or g.shape[0] != xw.shape[0] or \
-            g.shape[1] != len(sub_slices) * 4:
-        raise ValueError(f"xw must be (T, 16, N) and g (T, {len(sub_slices) * 4}, M), got {tuple(xw.shape)}, "
+    if xw.dim() != 3 or g.dim() != 3 or g.shape[0] != xw.shape[0] or g.shape[1] != len(sub_slices) * m2:
+        raise ValueError(f"xw must be (T, n2, N) and g (T, {len(sub_slices) * m2}, M), got {tuple(xw.shape)}, "
                          f"{tuple(g.shape)}")
-    T, _, N = xw.shape
+    T, n2, N = xw.shape
     M = g.shape[2]
-    dev, s2 = _check_domain((("g", g), ("xw", xw), ("inv_packed", inv_packed)), T=T, N=N, M=M, **kw)
-    _check_packed(None, inv_packed, len(pos_idx))
+    dev, s2 = _check_domain((("g", g), ("xw", xw), ("inv_packed", inv_packed)), T=T, N=N, M=M, n2=n2,
+                            ranks=(2, 4), **kw)
+    _check_packed(None, inv_packed, len(pos_idx), m2=m2)
     if N % 4:
         raise ValueError(f"the CUDA kernel moves xw in 16-byte copies: N={N} must be a multiple of 4")
 
@@ -1015,50 +1054,301 @@ def domain_engine_bwd_w(
 
     lib = load_library()
     pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
-    splits, n_scratch, n_counters = _domain_plan("bwd_w", T, N, M, s2, dev.index)
+    splits, n_scratch, n_counters = _domain_plan("bwd_w", T, N, M, s2, dev.index, m2)
     stream = torch.cuda.current_stream(dev).cuda_stream
     partial = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
     counters = _split_counters(n_counters, dev.index, stream) if n_counters else None
     out = torch.empty((len(pos_idx), N, M), dtype=torch.float32, device=dev)
     err = lib.domain_engine_bwd_w_f32(
         xw.data_ptr(), g.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), offs.data_ptr(), out.data_ptr(),
-        T, N, M, s2, splits, None if partial is None else partial.data_ptr(),
+        T, N, M, s2, m2, n2, splits, None if partial is None else partial.data_ptr(),
         None if counters is None else counters.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"domain_engine_bwd_w kernel launch failed: cudaError {err}")
-    domain_engine_bwd_w.launches += 1
+    if m2 == 2:
+        domain_engine_bwd_w.rank1_launches += 1
+    else:
+        domain_engine_bwd_w.launches += 1
     return out
 
 
 domain_engine_bwd_w.launches = 0
+domain_engine_bwd_w.rank1_launches = 0
 
 
 @functools.lru_cache(maxsize=256)
-def _domain_plan(which: str, T: int, N: int, M: int, s2: int, device_index: int):
+def _domain_plan(which: str, T: int, N: int, M: int, s2: int, device_index: int, m2: int = 4):
     """(splits, scratch floats, counters) of the unfused fwd kernel's N split
-    or bwd_w kernel's T split for this shape on this card; the library
-    raises the kernel's shared-memory limit here, once."""
+    or bwd_w kernel's T split (with its m2 outputs per tile) for this shape
+    on this card; the library raises the kernel's shared-memory limit here,
+    once."""
     import ctypes
 
     from ._build import load_library
 
     splits, floats, counters = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong()
     fn = getattr(load_library(), f"domain_engine_{which}_plan")
+    rank = () if which == "fwd" else (m2,)
     with torch.cuda.device(device_index):
-        err = fn(T, N, M, s2, device_index, ctypes.byref(splits), ctypes.byref(floats), ctypes.byref(counters))
+        err = fn(T, N, M, s2, *rank, device_index, ctypes.byref(splits), ctypes.byref(floats),
+                 ctypes.byref(counters))
     if err != 0:
         raise RuntimeError(f"domain_engine {which} plan failed: cudaError {err}")
     return splits.value, floats.value, counters.value
 
 
 @functools.lru_cache(maxsize=64)
-def _domain_bwd_x_plan(M: int, device_index: int) -> None:
-    """Raise the unfused bwd_x kernel's shared-memory limit for M's block
-    configuration, once per device."""
+def _domain_bwd_x_plan(M: int, m2: int, device_index: int) -> None:
+    """Raise the unfused bwd_x kernel's shared-memory limit for (M, m2)'s
+    block configuration, once per device."""
     from ._build import load_library
 
     with torch.cuda.device(device_index):
-        err = load_library().domain_engine_bwd_x_plan(M)
+        err = load_library().domain_engine_bwd_x_plan(M, m2)
     if err != 0:
         raise RuntimeError(f"domain_engine_bwd_x plan failed: cudaError {err}")
+
+
+# ------------------------------------------------------------- 1D engine
+_OUT_MODES_1D = {"scratch": 0, "nlc": 1}
+
+
+def winograd_conv1d_fused_engine_plain(
+    cells: torch.Tensor,
+    ww_packed: torch.Tensor,
+    inv_packed: torch.Tensor,
+    bt_mat,
+    *,
+    pos_idx: tuple[int, ...],
+    sub_slices: tuple[tuple[int, int], ...],
+    m: int,
+    n: int,
+    ty: int,
+    phases: int = 1,
+    out_mode: str = "nlc",
+    activation: str = "none",
+    scale: torch.Tensor | None = None,
+    bias: torch.Tensor | None = None,
+    stride: int = 1,
+) -> torch.Tensor:
+    """Plain PyTorch version of the 1D kernel, on any device: the
+    reference's ``conv1d_engine_ref`` then the epilogue (nlc), or its
+    scratch counterpart ``conv1d_pre_engine_ref``."""
+    kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m=m, n=n, ty=ty, phases=phases)
+    if out_mode == "scratch":
+        return _ref.conv1d_pre_engine_ref(cells, ww_packed, inv_packed, bt_mat, **kw)
+    y = _ref.conv1d_engine_ref(cells, ww_packed, inv_packed, bt_mat, stride=stride, **kw)
+    return epilogue_apply_ref(y, scale, bias, activation).to(cells.dtype)
+
+
+def _bt_1d(bt_mat, m: int, n: int, device) -> torch.Tensor:
+    """The layout's B^T as F(m, n - m + 1)'s fp32 (n, n) tensor on
+    ``device``, cached there; raises for any other matrix."""
+    if tuple(tuple(float(v) for v in row) for row in bt_mat) != _bt(m, n):
+        raise ValueError(f"B^T must be the {n}x{n} matrix of F({m},{n - m + 1})")
+    return _bt_on(m, n - m + 1, torch.float32, str(device))
+
+
+def _check_engine1d(cells, ww_packed, inv_packed, bt_mat, *, pos_idx, sub_slices, m, n, ty, phases, out_mode,
+                    stride, scale, bias):
+    """What the 1D kernel takes; raises on anything else (nothing falls
+    back).  Returns the output shape and B^T on the cells' device."""
+    if m != 2 or n not in (4, 5):
+        raise ValueError(f"the CUDA kernel takes F(2,3) and F(2,4) (m=2, n=4 or 5), got m={m}, n={n}")
+    if not 1 <= phases <= 3 or phases * n > 16:
+        raise ValueError(f"phases={phases}: the kernel takes 1..3 phases of at most 16 positions in all")
+    if cells.dim() != 4 or cells.shape[2] != phases * m:
+        raise ValueError(f"cells must be (B, Gy, {phases * m}, N), got {tuple(cells.shape)}")
+    B, Gy, _, N = cells.shape
+    C, S2 = len(pos_idx), len(sub_slices)
+    if ww_packed.dim() != 3 or ww_packed.shape[:2] != (C, N) or inv_packed.shape != (C, m) or C > 16:
+        raise ValueError(f"ww_packed {tuple(ww_packed.shape)} / inv_packed {tuple(inv_packed.shape)} do not hold "
+                         f"C={C} <= 16 positions of {N} channels")
+    M = ww_packed.shape[2]
+    dev, _ = _check_layout((("cells", cells), ("ww_packed", ww_packed), ("inv_packed", inv_packed)),
+                           pos_idx=pos_idx, sub_slices=sub_slices, n_pos=phases * n, extents=(B, Gy, N, M, ty),
+                           sizes=(cells.numel(), ww_packed.numel(), B * ty * S2 * m * M))
+    if out_mode == "nlc" and stride != S2:
+        raise ValueError(f"nlc interleaves the sub-filters: stride {stride} must equal their count {S2}")
+    if N % 4 or cells.data_ptr() % 16 or ww_packed.data_ptr() % 16:
+        raise ValueError(f"the CUDA kernel moves cell rows and weights in 16-byte copies: N={N} must be a "
+                         f"multiple of 4, cells and ww_packed 16-byte aligned")
+    _check_vec("scale", scale, M, dev)
+    _check_vec("bias", bias, M, dev)
+    out_shape = (B, ty, S2 * m, M) if out_mode == "scratch" else (B, ty * m * stride, M)
+    return out_shape, _bt_1d(bt_mat, m, n, dev)
+
+
+def winograd_conv1d_fused_engine(
+    cells: torch.Tensor,  # (B, Gy, phases*m, N) space-to-depth padded sequence
+    ww_packed: torch.Tensor,  # (C, N, M)
+    inv_packed: torch.Tensor,  # (C, m) fp32
+    bt_mat: tuple[tuple[float, ...], ...],  # B^T (n, n)
+    *,
+    pos_idx: tuple[int, ...],
+    sub_slices: tuple[tuple[int, int], ...],
+    m: int,
+    n: int,
+    ty: int,
+    phases: int = 1,
+    out_mode: str = "nlc",  # "scratch" | "nlc"
+    activation: str = "none",
+    scale: torch.Tensor | None = None,  # (M,) per-channel epilogue scale
+    bias: torch.Tensor | None = None,  # (M,) per-channel epilogue bias
+    stride: int = 1,  # S, the nlc interleave factor
+) -> torch.Tensor:
+    """The 1D engine (the reference's ``winograd_conv1d_fused_engine``).
+
+    Stride-1 conv1d (``phases=1, stride=1``, one sub-filter over all n
+    positions), phase-decomposed strided conv1d (``phases=S``, its phases'
+    positions in one sub-filter), and TDC deconv1d (``phases=1, stride=S``,
+    S sub-filters interleaving); causal or SAME padding is in the caller's
+    cells.  ``"scratch"`` returns (B, ty, S2*m, M); ``"nlc"`` applies
+    act(scale * y + bias) and returns the padded interleave (B, ty*m*S, M),
+    whose rows [P, P + L_O) are the output sequence.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel (F(2,3) or F(2,4), fp32,
+    contiguous, N % 4 == 0)."""
+    if out_mode not in _OUT_MODES_1D:
+        raise ValueError(f"out_mode {out_mode!r} not in {tuple(_OUT_MODES_1D)}")
+    if activation not in _ACT_CODES:
+        raise ValueError(f"unsupported epilogue activation {activation!r}")
+    if out_mode == "scratch" and (activation != "none" or scale is not None or bias is not None):
+        raise ValueError("scratch mode has no epilogue: activation 'none', no scale, no bias")
+    if stride <= 0:
+        raise ValueError(f"stride {stride} must be >= 1")
+    kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m=m, n=n, ty=ty, phases=phases, out_mode=out_mode)
+    if cells.device.type == "cpu":
+        return winograd_conv1d_fused_engine_plain(cells, ww_packed, inv_packed, bt_mat, activation=activation,
+                                                  scale=scale, bias=bias, stride=stride, **kw)
+    if cells.device.type != "cuda":
+        raise ValueError(f"winograd_conv1d_fused_engine runs on cpu or cuda tensors, got {cells.device}")
+    out_shape, bt = _check_engine1d(cells, ww_packed, inv_packed, bt_mat, stride=stride, scale=scale, bias=bias,
+                                    **kw)
+    B, Gy, _, N = cells.shape
+    M = ww_packed.shape[2]
+    dev = cells.device
+
+    from ._build import load_library
+
+    lib = load_library()
+    pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
+    _engine1d_plan(M, dev.index)
+    out = torch.empty(out_shape, dtype=torch.float32, device=dev)
+    err = lib.engine1d_f32(
+        cells.data_ptr(), ww_packed.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), offs.data_ptr(),
+        bt.data_ptr(), None if scale is None else scale.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), B, Gy, N, M, ty, n, phases, len(sub_slices), stride, len(pos_idx),
+        _OUT_MODES_1D[out_mode], _ACT_CODES[activation], torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"winograd_conv1d_fused_engine kernel launch failed: cudaError {err}")
+    if out_mode == "scratch":
+        winograd_conv1d_fused_engine.scratch_launches += 1
+    else:
+        winograd_conv1d_fused_engine.launches += 1
+    return out
+
+
+winograd_conv1d_fused_engine.launches = 0
+winograd_conv1d_fused_engine.scratch_launches = 0
+
+
+@functools.lru_cache(maxsize=64)
+def _engine1d_plan(M: int, device_index: int) -> None:
+    """Raise the 1D kernel's shared-memory limit for M's block configuration,
+    once per device."""
+    from ._build import load_library
+
+    with torch.cuda.device(device_index):
+        err = load_library().engine1d_plan(M)
+    if err != 0:
+        raise RuntimeError(f"winograd_conv1d_fused_engine plan failed: cudaError {err}")
+
+
+def _scatter_1d(dxw: torch.Tensor, bt_mat, *, B: int, ty: int, gy: int, m: int, n: int, phases: int):
+    """dL/dcells from dL/dxw (B*ty, phases*n, N): dz = B dxw per tile and
+    phase, then the overlap sum, cell row g taking tile g - dy's cell offset
+    dy (O(n) adds; the reference's host einsum)."""
+    q = -(-n // m)
+    N = dxw.shape[2]
+    b_mat = _bt_1d(bt_mat, m, n, dxw.device).T
+    dz = torch.einsum("au,btsuc->btsac", b_mat, dxw.reshape(B, ty, phases, n, N).float())
+    dz = torch.nn.functional.pad(dz, (0, 0, 0, q * m - n)).reshape(B, ty, phases, q, m, N)
+    acc = dz.new_zeros((B, ty + q - 1, phases, m, N))
+    for dy in range(q):
+        acc[:, dy : dy + ty] += dz[:, :, :, dy]
+    out = acc.reshape(B, ty + q - 1, phases * m, N)
+    if out.shape[1] < gy:  # cell rows past the tiles' reach get zero
+        out = torch.nn.functional.pad(out, (0, 0, 0, 0, 0, gy - out.shape[1]))
+    return out[:, :gy].contiguous()
+
+
+def _conv1d_bwd_x(bwd_x, g, ww_packed, inv_packed, bt_mat, *, pos_idx, sub_slices, m, n, ty, gy, phases):
+    B, _, s2m, M = g.shape
+    dxw = bwd_x(g.reshape(B * ty, s2m, M), ww_packed, inv_packed, pos_idx=pos_idx, sub_slices=sub_slices,
+                m2=m, n2=phases * n)
+    return _scatter_1d(dxw, bt_mat, B=B, ty=ty, gy=gy, m=m, n=n, phases=phases).to(g.dtype)
+
+
+def _conv1d_bwd_w(bwd_w, cells, g, inv_packed, bt_mat, *, pos_idx, sub_slices, m, n, ty, phases):
+    B, _, s2m, M = g.shape
+    bt = _bt_1d(bt_mat, m, n, cells.device)
+    xw = xw_from_cells_1d(cells, bt, m=m, n=n, ty=ty, phases=phases).to(cells.dtype).contiguous()
+    return bwd_w(xw, g.reshape(B * ty, s2m, M), inv_packed, pos_idx=pos_idx, sub_slices=sub_slices, m2=m)
+
+
+def winograd_conv1d_fused_bwd_x(
+    g: torch.Tensor,  # (B, ty, S2*m, M) scratch-layout cotangent
+    ww_packed: torch.Tensor,  # (C, N, M)
+    inv_packed: torch.Tensor,  # (C, m) fp32
+    bt_mat,
+    *,
+    pos_idx: tuple[int, ...],
+    sub_slices: tuple[tuple[int, int], ...],
+    m: int,
+    n: int,
+    ty: int,
+    gy: int,
+    phases: int = 1,
+) -> torch.Tensor:
+    """dL/dcells (B, gy, phases*m, N) of the 1D engine's products: the
+    rank-1 ``domain_engine_bwd_x`` (the packed contraction) then the
+    B-scatter and overlap sum in PyTorch, as the reference composes it."""
+    return _conv1d_bwd_x(domain_engine_bwd_x, g, ww_packed, inv_packed, bt_mat, pos_idx=pos_idx,
+                         sub_slices=sub_slices, m=m, n=n, ty=ty, gy=gy, phases=phases)
+
+
+def winograd_conv1d_fused_bwd_x_plain(g, ww_packed, inv_packed, bt_mat, *, pos_idx, sub_slices, m, n, ty, gy,
+                                      phases=1):
+    """Plain version of ``winograd_conv1d_fused_bwd_x``, on any device: the
+    same composition around ``domain_engine_bwd_x_plain``."""
+    return _conv1d_bwd_x(domain_engine_bwd_x_plain, g, ww_packed, inv_packed, bt_mat, pos_idx=pos_idx,
+                         sub_slices=sub_slices, m=m, n=n, ty=ty, gy=gy, phases=phases)
+
+
+def winograd_conv1d_fused_bwd_w(
+    cells: torch.Tensor,  # (B, Gy, phases*m, N) the forward's cells
+    g: torch.Tensor,  # (B, ty, S2*m, M)
+    inv_packed: torch.Tensor,  # (C, m) fp32
+    bt_mat,
+    *,
+    pos_idx: tuple[int, ...],
+    sub_slices: tuple[tuple[int, int], ...],
+    m: int,
+    n: int,
+    ty: int,
+    phases: int = 1,
+) -> torch.Tensor:
+    """dL/dww (C, N, M) of the 1D engine's products: the rank-1 transformed
+    tiles recomputed in PyTorch, the tile axis reduced by the rank-1
+    ``domain_engine_bwd_w``, as the reference composes it."""
+    return _conv1d_bwd_w(domain_engine_bwd_w, cells, g, inv_packed, bt_mat, pos_idx=pos_idx,
+                         sub_slices=sub_slices, m=m, n=n, ty=ty, phases=phases)
+
+
+def winograd_conv1d_fused_bwd_w_plain(cells, g, inv_packed, bt_mat, *, pos_idx, sub_slices, m, n, ty, phases=1):
+    """Plain version of ``winograd_conv1d_fused_bwd_w``, on any device: the
+    same composition around ``domain_engine_bwd_w_plain``."""
+    return _conv1d_bwd_w(domain_engine_bwd_w_plain, cells, g, inv_packed, bt_mat, pos_idx=pos_idx,
+                         sub_slices=sub_slices, m=m, n=n, ty=ty, phases=phases)

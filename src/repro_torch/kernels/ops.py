@@ -22,6 +22,14 @@ and ``conv_cells_to_next`` build the phase-major (B, Gy, Gx, S^2*m*m, N)
 cells, and ``winograd_conv2d_cells`` / ``winograd_conv2d_packed`` run the
 conv engine, through ``ConvEpilogueFn`` where a gradient is wanted;
 ``winograd_conv2d`` packs raw conv weights per call.
+
+The 1D half (the audio decoder, conv1d) is the rank-1 instantiation of the
+same API: ``conv1d_layout`` / ``packed_deconv1d_layout``,
+``prepack_conv1d`` / ``prepack_deconv1d`` (``PackedConv1d``),
+``conv1d_cells``, and ``winograd_conv1d[_packed]`` /
+``winograd_deconv1d[_packed]`` on the 1D engine in nlc mode, through
+``Engine1dFn`` where a gradient is wanted.  The 1D engine is linear: the
+bias and activation stay outside it, where autograd differentiates them.
 ``backend="cuda"`` takes the CUDA kernel for CUDA tensors and its plain
 version for CPU tensors; where a gradient is wanted it runs through an
 autograd Function (``FusedEpilogueFn``, ``FusedPreFn``, ``EngineFn``,
@@ -38,7 +46,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.tdc import ConvDims, DeconvDims, conv_plan, interleave_crop, plan
+from ..core.tdc import ConvDims, DeconvDims, conv_plan, decompose_weights_1d, interleave_crop, plan, plan_1d
 from ..core.winograd import get_transform
 from ..core.winograd_deconv import pad_input_for_tiles, transform_conv_weights, transform_input_tiles, transform_weights
 from . import engine as _engine
@@ -72,6 +80,21 @@ __all__ = [
     "winograd_conv2d_cells",
     "winograd_conv2d_packed",
     "winograd_conv2d",
+    "conv1d_layout",
+    "packed_deconv1d_layout",
+    "pack_conv1d_weights",
+    "pack_deconv1d_weights",
+    "PackedConv1d",
+    "prepack_conv1d",
+    "prepack_deconv1d",
+    "conv1d_cells",
+    "conv1d_cells_from_seq",
+    "deconv1d_cells_from_seq",
+    "Engine1dFn",
+    "winograd_conv1d_packed",
+    "winograd_conv1d",
+    "winograd_deconv1d_packed",
+    "winograd_deconv1d",
 ]
 
 
@@ -721,3 +744,252 @@ def winograd_conv2d(x: torch.Tensor, w: torch.Tensor, cdims: ConvDims, **kw) -> 
     """``winograd_conv2d_packed`` on raw (K, K, N, M) conv weights, packed on
     every call; hot paths ``prepack_conv`` once."""
     return winograd_conv2d_packed(x, prepack_conv(w, cdims), cdims, **kw)
+
+
+# ---------------------------------------------------------------------------
+# 1D Winograd (de)conv: the rank-1 instantiations of the engine.  Stride-1
+# conv1d is one sub-filter over all n positions; the 1D TDC deconv (the
+# audio decoder) packs the S flipped sub-kernels' structural nonzeros and
+# interleaves their outputs in the engine's finalize.  The cells are the
+# padded sequence space-to-depth by the tile stride m: (B, Gy, m, N).
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def conv1d_layout(kernel: int, m: int = 2):
+    """Static packed layout of a stride-1 conv1d under F(m, K): every one of
+    the n = m + K - 1 positions is kept (a dense 1D kernel has no structural
+    zeros), one sub-filter spans them all.
+
+    Returns (pos_idx, sub_slices, inv_packed_np, bt_mat, n)."""
+    tf = get_transform(m, kernel)
+    inv = np.ascontiguousarray(np.asarray(tf.AT).T).astype(np.float32)  # (n, m)
+    return tuple(range(tf.n)), ((0, tf.n),), inv, _engine._bt(m, tf.n), tf.n
+
+
+@functools.lru_cache(maxsize=None)
+def packed_deconv1d_layout(dims: DeconvDims, m: int = 2, r: int = 3):
+    """Static packed layout of a 1D TDC deconv: positions into the shared
+    n-space, per-residue sub-filter slices, and the packed 1D inverse
+    transform rows of the structurally nonzero positions.
+
+    Returns (pos_idx, sub_slices, inv_packed_np, keeps)."""
+    sp = plan_1d(dims, m, r)
+    tf = get_transform(m, r)
+    AT = np.asarray(tf.AT)
+    pos_idx: list[int] = []
+    sub_slices: list[tuple[int, int]] = []
+    inv_rows: list[np.ndarray] = []
+    keeps: list[list[int]] = []
+    for rho in range(dims.stride):
+        keep = [u for u in range(tf.n) if sp.masks_winograd[rho][u]]
+        lo = len(pos_idx)
+        for u in keep:
+            pos_idx.append(u)
+            inv_rows.append(AT[:, u])
+        sub_slices.append((lo, len(pos_idx)))
+        keeps.append(keep)
+    inv = np.stack(inv_rows).astype(np.float32) if inv_rows else np.zeros((0, m), np.float32)
+    return tuple(pos_idx), tuple(sub_slices), inv, keeps
+
+
+@functools.lru_cache(maxsize=64)
+def _g_on(m: int, r: int, device: str) -> torch.Tensor:
+    """G of F(m, r) on ``device``, copied there once: a pageable host copy
+    per call would wait for the stream to drain."""
+    return torch.as_tensor(np.asarray(get_transform(m, r).G), dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _pack1d_idx_on(dims: DeconvDims, m: int, r: int, device: str) -> torch.Tensor:
+    """Packed row -> flat (S*n) index into the transformed sub-kernels, on
+    ``device``, copied once."""
+    n = get_transform(m, r).n
+    keeps = packed_deconv1d_layout(dims, m, r)[3]
+    return torch.as_tensor([rho * n + u for rho, keep in enumerate(keeps) for u in keep], device=device)
+
+
+def pack_conv1d_weights(w: torch.Tensor, kernel: int, m: int = 2) -> torch.Tensor:
+    """Conv1d weights (K, N, M) -> packed Winograd-domain (n, N, M) by the 1D
+    G-transform (dense: every position is structurally nonzero)."""
+    if w.shape[0] != kernel:
+        raise ValueError(f"weight tap dim {w.shape[0]} != K={kernel}")
+    return torch.einsum("ur,rnm->unm", _g_on(m, kernel, str(w.device)), w.float()).to(w.dtype).contiguous()
+
+
+def pack_deconv1d_weights(w: torch.Tensor, dims: DeconvDims, m: int = 2, r: int = 3) -> torch.Tensor:
+    """Deconv1d weights (K_D, N, M) -> packed Winograd-domain (C, N, M): the
+    S flipped sub-kernels, G-transformed, structurally nonzero rows only."""
+    idx = _pack1d_idx_on(dims, m, r, str(w.device))
+    if not idx.numel():
+        return w.new_zeros((0, *w.shape[1:]))
+    G = _g_on(m, r, str(w.device))
+    wt = torch.einsum("ur,srnm->sunm", G, decompose_weights_1d(w, dims, r).float())  # (S, n, N, M)
+    return wt.reshape(-1, *wt.shape[2:])[idx].to(w.dtype).contiguous()
+
+
+class PackedConv1d(NamedTuple):
+    """Pre-packed Winograd-domain 1D (de)conv weights."""
+
+    ww: torch.Tensor  # (C, N, M)
+    inv: torch.Tensor  # (C, m) fp32
+
+
+@functools.lru_cache(maxsize=64)
+def _inv1d_on(key, device: str) -> torch.Tensor:
+    layout = conv1d_layout(*key[1:]) if key[0] == "conv" else packed_deconv1d_layout(*key[1:])
+    return torch.as_tensor(layout[2], device=device)
+
+
+def prepack_conv1d(w: torch.Tensor, kernel: int, m: int = 2) -> PackedConv1d:
+    """One-time 1D G-transform of raw stride-1 conv1d weights (K, N, M)."""
+    return PackedConv1d(pack_conv1d_weights(w, kernel, m), _inv1d_on(("conv", kernel, m), str(w.device)))
+
+
+def prepack_deconv1d(w: torch.Tensor, dims: DeconvDims, m: int = 2, r: int = 3) -> PackedConv1d:
+    """One-time G-transform and zero-skipping pack of raw deconv1d weights."""
+    return PackedConv1d(pack_deconv1d_weights(w, dims, m, r), _inv1d_on(("deconv", dims, m, r), str(w.device)))
+
+
+def conv1d_cells(x_pad: torch.Tensor, ty: int, m: int, n: int) -> torch.Tensor:
+    """Padded (B, Lp, N) sequence -> the 1D engine's cell layout (B, Gy, m, N),
+    Gy = ty + ceil(n/m) - 1: space-to-depth by the tile stride m."""
+    B, Lp, N = x_pad.shape
+    need = (ty + -(-n // m) - 1) * m
+    x_pad = F.pad(x_pad, (0, 0, 0, max(0, need - Lp)))[:, :need, :]
+    return x_pad.reshape(B, need // m, m, N)
+
+
+def conv1d_cells_from_seq(x: torch.Tensor, kernel: int, m: int = 2, padding: str = "causal"):
+    """(B, L, N) sequence -> the cells of a stride-1 conv1d under F(m, K),
+    with ``padding``'s left pad and the tile-coverage right pad.  Returns
+    (cells, ty, L_O)."""
+    n = get_transform(m, kernel).n
+    L = x.shape[1]
+    pad_lo, pad_hi = _conv1d_pads(kernel, padding)
+    LO = L + pad_lo + pad_hi - (kernel - 1)
+    ty = -(-LO // m)
+    x_pad = F.pad(x, (0, 0, pad_lo, max(0, m * (ty - 1) + n - (L + pad_lo))))
+    return conv1d_cells(x_pad, ty, m, n).contiguous(), ty, LO
+
+
+def deconv1d_cells_from_seq(x: torch.Tensor, dims: DeconvDims, m: int = 2, r: int = 3):
+    """(B, L, N) sequence -> the cells of a 1D TDC deconv under F(m, r): the
+    left pad kc - 1 and the tile-coverage right pad.  Returns (cells, ty)."""
+    n = get_transform(m, r).n
+    L = x.shape[1]
+    ty = -(-dims.j_extent(L) // m)
+    x_pad = F.pad(x, (0, 0, dims.kc - 1, max(0, m * (ty - 1) + n - (L + dims.kc - 1))))
+    return conv1d_cells(x_pad, ty, m, n).contiguous(), ty
+
+
+class Engine1dFn(torch.autograd.Function):
+    """The 1D engine in nlc mode with its gradient (the reference's
+    ``_engine1d_vjp``).  Forward: ``winograd_conv1d_fused_engine``, the
+    padded interleave (B, ty*m*S, M), no epilogue.  Backward: the inverse
+    interleave to the scratch layout (B, ty, S*m, M), then
+    ``winograd_conv1d_fused_bwd_x`` (dcells: rank-1 kernel 4, the B-scatter)
+    and ``winograd_conv1d_fused_bwd_w`` (dww: the transformed tiles, rank-1
+    kernel 5), each only where a gradient is asked for.  Returns the
+    gradients of (cells, ww, inv)."""
+
+    @staticmethod
+    def forward(ctx, cells, ww, inv, kw):
+        ctx.kw = kw
+        ctx.save_for_backward(cells, ww, inv)
+        return _engine.winograd_conv1d_fused_engine(cells, ww, inv, out_mode="nlc", **kw)
+
+    @staticmethod
+    def backward(ctx, grad):
+        cells, ww, inv = ctx.saved_tensors
+        kw = dict(ctx.kw)
+        S, m, ty, bt = kw.pop("stride"), kw["m"], kw["ty"], kw.pop("bt_mat")
+        B, M = cells.shape[0], grad.shape[-1]
+        # row m*S*j + S*p + rho of the interleave -> scratch row rho*m + p of tile j
+        g = grad.float().reshape(B, ty, m, S, M).permute(0, 1, 3, 2, 4).reshape(B, ty, S * m, M).contiguous()
+        dcells = dww = None
+        if ctx.needs_input_grad[0]:
+            dcells = _engine.winograd_conv1d_fused_bwd_x(g, ww, inv, bt, gy=cells.shape[1], **kw)
+        if ctx.needs_input_grad[1]:
+            dww = _engine.winograd_conv1d_fused_bwd_w(cells, g, inv, bt, **kw)
+        return dcells, dww, None, None
+
+
+def _engine1d(cells, packed: PackedConv1d, backend: str, **kw) -> torch.Tensor:
+    """The 1D engine in nlc mode on ``backend``: "ref" the plain version
+    (autograd differentiates it), "cuda" the wrapper, through
+    ``Engine1dFn`` where a gradient is wanted."""
+    if backend == "ref":
+        return _engine.winograd_conv1d_fused_engine_plain(cells, packed.ww, packed.inv, out_mode="nlc", **kw)
+    if backend != "cuda":
+        raise ValueError(f"backend {backend!r} is not 'cuda' or 'ref'")
+    if torch.is_grad_enabled() and (cells.requires_grad or packed.ww.requires_grad):
+        return Engine1dFn.apply(cells, packed.ww, packed.inv, kw)
+    return _engine.winograd_conv1d_fused_engine(cells, packed.ww, packed.inv, out_mode="nlc", **kw)
+
+
+def _conv1d_pads(kernel: int, padding: str) -> tuple[int, int]:
+    if padding == "causal":
+        return kernel - 1, 0
+    if padding == "same":
+        return (kernel - 1) // 2, kernel - 1 - (kernel - 1) // 2
+    if padding == "valid":
+        return 0, 0
+    raise ValueError(padding)
+
+
+def winograd_conv1d_packed(
+    x: torch.Tensor,  # (B, L, N)
+    packed: PackedConv1d,
+    kernel: int,
+    *,
+    m: int = 2,
+    padding: str = "causal",  # "causal" | "same" | "valid"
+    backend: str = "cuda",
+) -> torch.Tensor:
+    """Stride-1 Winograd conv1d from packed weights: x (B, L, N) ->
+    (B, L_O, M), L_O = L (causal, same) or L - K + 1 (valid).  ``causal``
+    left-pads K-1 (output t sees inputs t-K+1 .. t); ``same`` splits the pad
+    low-first.  No bias or activation: they belong outside the engine."""
+    pos_idx, sub_slices, _, bt_mat, n = conv1d_layout(kernel, m)
+    cells, ty, LO = conv1d_cells_from_seq(x, kernel, m, padding)
+    y = _engine1d(cells, packed, backend, bt_mat=bt_mat, pos_idx=pos_idx, sub_slices=sub_slices, m=m, n=n, ty=ty,
+                  stride=1)
+    return y[:, :LO, :].to(x.dtype)
+
+
+def winograd_conv1d(x: torch.Tensor, w: torch.Tensor, *, m: int = 2, **kw) -> torch.Tensor:
+    """``winograd_conv1d_packed`` on raw (K, N, M) conv1d weights
+    (cross-correlation taps), packed on every call; hot paths
+    ``prepack_conv1d`` once."""
+    return winograd_conv1d_packed(x, prepack_conv1d(w, w.shape[0], m), w.shape[0], m=m, **kw)
+
+
+def winograd_deconv1d_packed(
+    x: torch.Tensor,  # (B, L, N)
+    packed: PackedConv1d,
+    dims: DeconvDims,
+    *,
+    m: int = 2,
+    r: int = 3,
+    backend: str = "cuda",
+) -> torch.Tensor:
+    """1D TDC Winograd deconv from packed weights: x (B, L, N) -> (B, L_O, M),
+    L_O = S*(L-1) + K_D - 2P + OP: the S sub-correlations in the engine, the
+    stride-S interleave in its finalize, then the crop [P, P + L_O)."""
+    tf = get_transform(m, r)
+    pos_idx, sub_slices, _, _ = packed_deconv1d_layout(dims, m, r)
+    cells, ty = deconv1d_cells_from_seq(x, dims, m, r)
+    LO = dims.out_size(x.shape[1])
+    y = _engine1d(cells, packed, backend, bt_mat=_engine._bt(m, tf.n), pos_idx=pos_idx, sub_slices=sub_slices, m=m,
+                  n=tf.n, ty=ty, stride=dims.stride)
+    P = dims.padding
+    return y[:, P : P + LO, :].to(x.dtype)
+
+
+def winograd_deconv1d(x: torch.Tensor, w: torch.Tensor, dims: DeconvDims, *, m: int = 2, r: int = 3,
+                      **kw) -> torch.Tensor:
+    """``winograd_deconv1d_packed`` on raw (K_D, N, M) deconv1d weights,
+    packed on every call (so the gradient reaches ``w`` through the pack);
+    hot paths ``prepack_deconv1d`` once."""
+    return winograd_deconv1d_packed(x, prepack_deconv1d(w, dims, m, r), dims, m=m, r=r, **kw)

@@ -8,6 +8,8 @@ backward oracles (``*_bwd_*_ref``) are the plain versions of the two
 backward kernels in the same way.  ``conv_engine_ref`` and the
 ``conv_engine_bwd_*_ref`` pair are the same contracts at the strided conv's
 corner of the engine (S^2 input phases, one sub-filter, stride 1).
+``conv1d_pre_engine_ref`` and ``conv1d_engine_ref`` are the 1D engine's
+scratch and nlc contracts (rank-1 cells, one-sided B^T).
 """
 from __future__ import annotations
 
@@ -29,6 +31,9 @@ __all__ = [
     "conv_engine_ref",
     "conv_engine_bwd_x_ref",
     "conv_engine_bwd_w_ref",
+    "xw_from_cells_1d",
+    "conv1d_pre_engine_ref",
+    "conv1d_engine_ref",
 ]
 
 LEAKY_SLOPE = 0.2  # must match models.layers.leaky_relu
@@ -416,3 +421,70 @@ def conv_engine_bwd_w_ref(
         ww0,
     )
     return vjp(g)[0]
+
+
+# ------------------------------------------------------------- 1D engine
+def xw_from_cells_1d(cells: torch.Tensor, bt_mat, *, m: int, n: int, ty: int, phases: int = 1) -> torch.Tensor:
+    """The 1D pre-PE on the cell layout: (B, Gy, phases*m, N) ->
+    (B*ty, phases*n, N) fp32.  Tile j of phase s is cell rows [j, j + q) of
+    that phase's m-row block, cropped to n (q = ceil(n/m)), then B^T
+    (nested tuples, or a tensor on the cells' device)."""
+    q = -(-n // m)
+    B, Gy, _, N = cells.shape
+    need = ty + q - 1
+    if Gy < need:
+        cells = torch.nn.functional.pad(cells, (0, 0, 0, 0, 0, need - Gy))
+    bt = torch.as_tensor(bt_mat, dtype=torch.float32, device=cells.device)
+    parts = []
+    for s in range(phases):
+        blk = cells[:, :, s * m : (s + 1) * m, :]  # (B, Gy', m, N)
+        tiles = torch.cat([blk[:, dy : dy + ty] for dy in range(q)], dim=2)[:, :, :n, :]  # (B, ty, n, N)
+        parts.append(torch.einsum("ua,btac->btuc", bt, tiles.float()))
+    xw = parts[0] if phases == 1 else torch.cat(parts, dim=2)
+    return xw.reshape(B * ty, phases * n, N)
+
+
+def conv1d_pre_engine_ref(
+    cells: torch.Tensor,  # (B, Gy, phases*m, N) 1D cell layout
+    ww_packed: torch.Tensor,  # (C, N, M)
+    inv_packed: torch.Tensor,  # (C, m) fp32
+    bt_mat,  # (n, n) B^T
+    *,
+    pos_idx: tuple[int, ...],  # into the phases*n phase-major position space
+    sub_slices: tuple[tuple[int, int], ...],
+    m: int,
+    n: int,
+    ty: int,
+    phases: int = 1,
+) -> torch.Tensor:
+    """The 1D engine's scratch contract: the folded tile outputs
+    (B, ty, S2*m, M), sub-filter-major, no epilogue."""
+    B = cells.shape[0]
+    xw = xw_from_cells_1d(cells, bt_mat, m=m, n=n, ty=ty, phases=phases).to(cells.dtype)
+    y = engine_ref(xw, ww_packed, inv_packed, pos_idx=pos_idx, sub_slices=sub_slices, m2=m)
+    return y.reshape(B, ty, -1, ww_packed.shape[-1])
+
+
+def conv1d_engine_ref(
+    cells: torch.Tensor,  # (B, Gy, phases*m, N)
+    ww_packed: torch.Tensor,  # (C, N, M)
+    inv_packed: torch.Tensor,  # (C, m) fp32
+    bt_mat,  # (n, n) B^T
+    *,
+    pos_idx: tuple[int, ...],
+    sub_slices: tuple[tuple[int, int], ...],
+    m: int,
+    n: int,
+    ty: int,
+    stride: int,
+    phases: int = 1,
+) -> torch.Tensor:
+    """The 1D engine's nlc contract without the epilogue: the padded
+    interleave (B, ty*m*S, M), tile j's sub-pixel (rho, p) at row
+    m*S*j + S*p + rho.  ``stride`` is the sub-filter count (deconv) or 1
+    (conv)."""
+    y = conv1d_pre_engine_ref(cells, ww_packed, inv_packed, bt_mat, pos_idx=pos_idx, sub_slices=sub_slices,
+                              m=m, n=n, ty=ty, phases=phases)
+    B, M = y.shape[0], y.shape[-1]
+    y = y.reshape(B, ty, stride, m, M)
+    return y.permute(0, 1, 3, 2, 4).reshape(B, ty * m * stride, M).to(cells.dtype)

@@ -34,6 +34,10 @@ is one conv-engine call handing the next its phase-major cells,
 ``ops.conv_cells_to_next``), or per layer (``"cuda_prepacked"``,
 ``"prepacked_ref"``; raw ``"cuda"``, ``"ref"``), one conv-engine call in
 nhwc mode with the bias in its epilogue, then batchnorm and leaky_relu.
+
+The audio decoder (``audio_decoder_init`` / ``audio_decoder_apply``) is a
+stack of 1D K4S2 deconvs on the 1D engine, each followed by its bias and
+activation (``AUDIO_IMPLS``).
 """
 from __future__ import annotations
 
@@ -41,9 +45,9 @@ from typing import Any
 
 import torch
 
-from ..configs.base import GANConfig
+from ..configs.base import Deconv1dSpec, GANConfig
 from ..core import lax_deconv2d, tdc_deconv2d, winograd_deconv2d, zero_padded_deconv2d
-from ..core.tdc import ConvDims, DeconvDims, conv_same_dims
+from ..core.tdc import ConvDims, DeconvDims, conv_same_dims, tdc_deconv1d
 from ..kernels import ops as kops
 from . import layers as L
 
@@ -54,6 +58,7 @@ __all__ = [
     "generator_init", "prepack_generator", "fold_eval_bn", "generator_apply", "DISC_CHANNELS", "CONV_IMPLS",
     "CONV_PREPACKED_EQUIV", "CONV_CHAINED_EQUIV", "uses_prepacked_conv", "uses_chained_conv", "disc_channels",
     "disc_conv_dims", "discriminator_init", "prepack_discriminator", "discriminator_apply", "merge_bn_stats",
+    "AUDIO_IMPLS", "lax_deconv1d", "audio_decoder_init", "audio_decoder_apply",
 ]
 
 # chained impl -> winograd_deconv2d_cells kwargs
@@ -544,3 +549,68 @@ def merge_bn_stats(params: Params, stats: Params) -> Params:
     for k, s in stats.items():
         out[k] = {**params[k], **s}
     return out
+
+
+# ------------------------------------------------------------ audio decoder
+# The MusicGen/EnCodec-style waveform head: 1D K4S2 TDC deconv layers
+# (configs.musicgen_medium.audio_decoder) on the 1D engine.  The engine call
+# is linear; the bias and activation run after it in PyTorch, where autograd
+# differentiates them, and the engine's gradient is Engine1dFn's.
+
+_AUDIO_ACTS = {
+    "relu": torch.relu,
+    "leaky_relu": L.leaky_relu,
+    "tanh": torch.tanh,
+    "none": lambda x: x,
+}
+
+# impl -> winograd_deconv1d kwargs (the 1D engine); "lax" and "tdc" are the
+# baselines on raw weights
+_AUDIO_ENGINE_KW: dict[str, dict] = {"cuda": dict(backend="cuda"), "ref": dict(backend="ref")}
+AUDIO_IMPLS = ("lax", "tdc", *_AUDIO_ENGINE_KW)
+
+
+def lax_deconv1d(x: torch.Tensor, w: torch.Tensor, dims: DeconvDims) -> torch.Tensor:
+    """The framework's own 1D transposed convolution (``F.conv_transpose1d``,
+    as the reference leaves it to XLA): x (B, L, N), w (K_D, N, M) ->
+    (B, L_O, M).  The baseline and yardstick; the kernel path never calls it."""
+    y = torch.nn.functional.conv_transpose1d(x.permute(0, 2, 1), w.permute(1, 2, 0), stride=dims.stride,
+                                             padding=dims.padding, output_padding=dims.output_padding)
+    return y.permute(0, 2, 1)
+
+
+def audio_decoder_init(specs: tuple[Deconv1dSpec, ...], *, seed: int | torch.Generator = 0, device="cuda",
+                       dtype=torch.float32) -> Params:
+    """Params of a ``Deconv1dSpec`` stack from ``seed`` (an int or a
+    ``torch.Generator`` on ``device``): raw (K_D, N, M) taps, N(0, 0.02^2),
+    and a zero bias per layer (no batchnorm: audio decoders normalize
+    upstream of the waveform head)."""
+    gen = seed if isinstance(seed, torch.Generator) else torch.Generator(device=device).manual_seed(seed)
+    return {f"deconv{i}": {"w": L.normal_init(gen, (s.dims.kernel, s.c_in, s.c_out), 0.02, dtype),
+                           "b": torch.zeros((s.c_out,), dtype=dtype, device=device)}
+            for i, s in enumerate(specs)}
+
+
+def _audio_deconv_apply(impl: str, x: torch.Tensor, w: torch.Tensor, dims: DeconvDims) -> torch.Tensor:
+    if impl == "lax":
+        return lax_deconv1d(x, w, dims)
+    if impl == "tdc":
+        return tdc_deconv1d(x, w, dims)
+    return kops.winograd_deconv1d(x, w, dims, **_AUDIO_ENGINE_KW[impl])
+
+
+def audio_decoder_apply(params: Params, specs: tuple[Deconv1dSpec, ...], x: torch.Tensor, *,
+                        impl: str = "cuda") -> torch.Tensor:
+    """Run the decoder stack: latent (B, L, c_in) -> waveform
+    (B, L * prod(strides), c_out).  ``impl``: ``"cuda"`` (the 1D engine's
+    kernels for CUDA tensors, their plain versions for CPU tensors; the
+    reference's ``"pallas"`` reads as it), ``"ref"`` (the plain 1D engine),
+    ``"tdc"`` (the sub-correlation oracle), ``"lax"`` (the framework's
+    transposed convolution); all compute the same waveform."""
+    impl = PORT_NAMES.get(impl, impl)
+    if impl not in AUDIO_IMPLS:
+        raise ValueError(f"audio impl {impl!r} is not one of {AUDIO_IMPLS}")
+    for i, s in enumerate(specs):
+        wd = params[f"deconv{i}"]
+        x = _AUDIO_ACTS[s.act](_audio_deconv_apply(impl, x, wd["w"], s.dims) + wd["b"])
+    return x

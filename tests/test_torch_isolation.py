@@ -81,7 +81,7 @@ def test_every_cuda_source_is_built_and_imports_nothing_of_the_reference():
 
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     assert sources == sorted(_build.SOURCES)
-    assert {"fused_engine.cu", "fused_engine_bwd.cu", "conv_engine.cu", "domain_engine.cu"} <= set(sources)
+    assert {"fused_engine.cu", "fused_engine_bwd.cu", "conv_engine.cu", "domain_engine.cu", "engine1d.cu"} <= set(sources)
     for name in sources:
         # a plain C interface bound with ctypes: the CUDA runtime and nothing of PyTorch
         includes = set(re.findall(r"^#include\s+(\S+)", (_build.CSRC / name).read_text(), re.M))
@@ -91,7 +91,7 @@ def test_every_cuda_source_is_built_and_imports_nothing_of_the_reference():
                "conv_engine_fwd_plan", "conv_engine_fwd_f32", "conv_engine_bwd_x_plan", "conv_engine_bwd_x_f32",
                "conv_engine_bwd_w_plan", "conv_engine_bwd_w_f32", "domain_engine_fwd_plan", "domain_engine_fwd_f32",
                "domain_engine_bwd_x_plan", "domain_engine_bwd_x_f32", "domain_engine_bwd_w_plan",
-               "domain_engine_bwd_w_f32"):
+               "domain_engine_bwd_w_f32", "engine1d_plan", "engine1d_f32"):
         assert fn in _build._SIGNATURES
 
 
@@ -124,3 +124,101 @@ def test_conv_wrappers_take_the_plain_versions_on_cpu_without_counting():
     dw = E.conv_fused_engine_bwd_w(cells, g, packed.inv, **geo)
     assert y.shape == (1, 2, 2, 4, 2) and dx.shape == cells.shape and dw.shape == packed.ww.shape
     assert [f.launches for f in counters] == before
+
+
+def _case_1d():
+    from repro_torch.core.winograd import get_transform
+
+    dims = DeconvDims(4, 2, 1, 0)
+    pos, subs, _, _ = ops.packed_deconv1d_layout(dims)
+    packed = ops.prepack_deconv1d(torch.randn((4, 8, 4), generator=torch.Generator().manual_seed(2)), dims)
+    cells = torch.randn((2, 6, 2, 8), generator=torch.Generator().manual_seed(3))
+    bt = tuple(tuple(float(v) for v in row) for row in get_transform(2, 3).BT)
+    return cells, packed, bt, dict(pos_idx=pos, sub_slices=subs, m=2, n=4, ty=5)
+
+
+def test_1d_wrappers_take_the_plain_versions_on_cpu_without_counting():
+    cells, packed, bt, kw = _case_1d()
+    f = E.winograd_conv1d_fused_engine
+    counters = [(f, "launches"), (f, "scratch_launches"), (E.domain_engine_bwd_x, "rank1_launches"),
+                (E.domain_engine_bwd_w, "rank1_launches")]
+    before = [getattr(c, a) for c, a in counters]
+    y = f(cells, packed.ww, packed.inv, bt, out_mode="nlc", activation="relu", stride=2, **kw)
+    scr = f(cells, packed.ww, packed.inv, bt, out_mode="scratch", **kw)
+    assert torch.equal(y, E.winograd_conv1d_fused_engine_plain(cells, packed.ww, packed.inv, bt, activation="relu",
+                                                               stride=2, **kw))
+    g = torch.randn(scr.shape)
+    dx = E.winograd_conv1d_fused_bwd_x(g, packed.ww, packed.inv, bt, gy=cells.shape[1], **kw)
+    dw = E.winograd_conv1d_fused_bwd_w(cells, g, packed.inv, bt, **kw)
+    assert y.shape == (2, 20, 4) and scr.shape == (2, 5, 4, 4) and dx.shape == cells.shape
+    assert dw.shape == packed.ww.shape
+    assert [getattr(c, a) for c, a in counters] == before
+
+
+def test_1d_wrappers_raise_for_other_devices_and_bad_arguments():
+    cells, packed, bt, kw = _case_1d()
+    f = E.winograd_conv1d_fused_engine
+    meta = dict(ww_packed=packed.ww.to("meta"), inv_packed=packed.inv.to("meta"))
+    before = (f.launches, f.scratch_launches, E.domain_engine_bwd_x.rank1_launches)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        f(cells.to("meta"), bt_mat=bt, stride=2, **meta, **kw)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        E.winograd_conv1d_fused_bwd_x(torch.empty((2, 5, 4, 4), device="meta"), packed.ww.to("meta"),
+                                      packed.inv.to("meta"), bt, gy=6, **kw)
+    with pytest.raises(ValueError, match="out_mode"):
+        f(cells, packed.ww, packed.inv, bt, out_mode="nhwc", **kw)
+    with pytest.raises(ValueError, match="no epilogue"):
+        f(cells, packed.ww, packed.inv, bt, out_mode="scratch", activation="tanh", **kw)
+    assert (f.launches, f.scratch_launches, E.domain_engine_bwd_x.rank1_launches) == before
+
+
+@pytest.mark.parametrize("bad", ["m", "phases", "stride", "channels", "sub_slices", "positions", "dtype"])
+def test_1d_kernel_check_refuses_shapes_it_does_not_cover(bad):
+    """What a CUDA tensor's launch would be refused for, checked on CPU
+    tensors by the same function the wrapper calls before launching."""
+    cells, packed, bt, kw = _case_1d()
+    ww, inv = packed.ww, packed.inv
+    args = dict(out_mode="nlc", stride=2, scale=None, bias=None, phases=1, **kw)
+    E._check_engine1d(cells, ww, inv, bt, **args)  # the case itself is covered
+    if bad == "m":
+        args["m"] = 4
+    elif bad == "phases":
+        args["phases"] = 4
+    elif bad == "stride":
+        args["stride"] = 1
+    elif bad == "channels":
+        cells, ww = cells[..., :6].contiguous(), ww[:, :6].contiguous()
+    elif bad == "sub_slices":
+        args["sub_slices"] = ((0, 3), (4, 6))
+    elif bad == "positions":
+        args["pos_idx"] = (0, 1, 2, 1, 2, 4)
+    else:
+        cells = cells.double()
+    with pytest.raises(ValueError):
+        E._check_engine1d(cells, ww, inv, bt, **args)
+
+
+@pytest.mark.parametrize("bad", ["m2", "n2_2d", "n2_big", "inv", "position"])
+def test_rank1_domain_check_refuses_what_the_kernels_do_not_take(bad):
+    """Kernels 4 and 5 take m2 = 2 with n2 <= 16, or m2 = 4 with n2 = 16,
+    and nothing else; kernel 1 keeps m2 = 4 only."""
+    pos, subs, inv, _ = ops.packed_deconv1d_layout(DeconvDims(4, 2, 1, 0))
+    g = torch.zeros((3, 4, 5))
+    kw = dict(pos_idx=pos, sub_slices=subs, m2=2, T=3, N=8, M=5, n2=4, ranks=(2, 4))
+    E._check_domain((("g", g),), **kw)
+    with pytest.raises(ValueError, match="m2"):
+        E._check_domain((("g", g),), **{**kw, "ranks": (4,)})  # kernel 1
+    if bad == "m2":
+        kw["m2"] = 3
+    elif bad == "n2_2d":
+        kw.update(m2=4, n2=4)
+    elif bad == "n2_big":
+        kw["n2"] = 17
+    elif bad == "position":
+        kw["n2"] = 2  # positions 2 and 3 fall outside
+    if bad == "inv":
+        with pytest.raises(ValueError, match="inv_packed"):
+            E._check_packed(None, torch.zeros((6, 4)), 6, m2=2)
+        return
+    with pytest.raises(ValueError):
+        E._check_domain((("g", g),), **kw)
