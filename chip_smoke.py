@@ -8,7 +8,8 @@ Phases, each printing one JSON line:
   env     torch / CUDA versions, the card's name and power limit; TF32 off.
   build   nvcc builds the kernels in src/repro_torch/kernels/csrc/ (sm_90a):
           fused_engine.cu, fused_engine_bwd.cu, conv_engine.cu,
-          domain_engine.cu, engine1d.cu.
+          domain_engine.cu, engine1d.cu (the two bwd_x kernels share
+          bwd_x_core.cuh).
   kernel  the fused Winograd-DeConv kernel against its plain PyTorch version
           at the four DCGAN layer shapes (batch 8) and a K4S2, a K3S1 and a
           K2S3 shape, each also checked against conv_transpose2d plus the same
@@ -17,7 +18,12 @@ Phases, each printing one JSON line:
   kernel_bwd
           the two backward kernels (fused_engine_bwd.cu) against their plain
           versions at the four DCGAN layer shapes at the training batch 128
-          and the K4S2, K3S1 and K2S3 shapes above; device, one-call and
+          and the K4S2, K3S1 and K2S3 shapes above; bwd_x (TPU kernel 6, on
+          the tensor cores through bwd_x_core.cuh) also against itself: two
+          launches bitwise equal, the instantiation that ran, its bound with
+          the products at the 3xTF32 rate where they ran on the tensor cores
+          (the fp32 one beside it) and how its blocks spend their tile
+          slots; device, one-call and
           plain times, the bound, and as a yardstick aten's
           convolution_backward of the layer's conv_transpose2d (input grad
           for bwd_x, raw-weight grad for bwd_w).  Also the forward kernel at
@@ -37,7 +43,9 @@ Phases, each printing one JSON line:
           serves); the fused engine's scratch mode (kernel 2) at the four
           layers at batch 8 and 128; one FusedPreFn and one EngineFn
           gradient (deconv2, batch 128) against autograd of the plain
-          versions; device, one-call and plain times, the bound, and as
+          versions; kernel 4 (bwd_x, on the tensor cores) two launches
+          bitwise equal and its bound as kernel 6's; device, one-call and plain
+          times, the bound, and as
           yardsticks conv_transpose2d (1, 2) and aten's convolution_backward
           (input grad for 4, raw-weight grad for 5).
   serve   DCGAN at its published widths through GanServeEngine (random
@@ -81,7 +89,10 @@ Phases, each printing one JSON line:
           K3S2 OP1 and a K6S3 deconv, a phases=2 scratch shape, and the nlc
           epilogue with each activation; rank-1 kernels 4 and 5
           (domain_engine.cu, m2 = 2) against theirs at the decoder's three
-          layers; device, one-call and plain ms, the bound, and as
+          layers (rank-1 kernel 4 also two launches bitwise equal and its
+          bound as kernel 6's), rank-1 kernel 4 also at the conv1d shape
+          above (n2 = 5 positions: the tensor-core instantiation for more
+          than 4); device, one-call and plain ms, the bound, and as
           yardsticks conv_transpose1d / conv1d and aten's
           convolution_backward (input grad for 4, raw-weight grad for 5).
   audio   the audio decoder at full width through audio_decoder_apply
@@ -151,12 +162,18 @@ COUNTERS = {
     "domain_engine_bwd_w_rank1": ("domain_engine_bwd_w", "rank1_launches"),
 }
 
-# (fp32 FLOP/s outside the tensor cores, HBM bytes/s) from NVIDIA's data sheets
+# (fp32 FLOP/s outside the tensor cores, HBM bytes/s, fp32-accurate products
+# on the tensor cores: dense TF32 / 3, as 3xTF32 issues three TF32 products
+# for each) from NVIDIA's data sheets
 PEAKS = {
-    "PCIe": (51.2e12, 2.0e12),
-    "NVL": (60.0e12, 3.9e12),
-    "SXM": (66.9e12, 3.35e12),
+    "PCIe": (51.2e12, 2.0e12, 378e12 / 3),
+    "NVL": (60.0e12, 3.9e12, 417.5e12 / 3),
+    "SXM": (66.9e12, 3.35e12, 495e12 / 3),
 }
+# the kernels redesigned for the tensor cores, and each one's fp32 CUDA-core
+# instantiation for few or ragged channels, as the profiler names them
+BWD_X_KERNELS = ("bwd_x_kernel", "bwd_x_mma_kernel")
+DOMAIN_BWD_X_KERNELS = ("domain_bwd_x_kernel", "domain_bwd_x_mma_kernel")
 
 
 def zero_counts() -> None:
@@ -245,6 +262,52 @@ def fold_ops_1d(inv, groups, backward: bool = False) -> int:
     return sum(transform_ops_1d(inv[lo:hi] if backward else inv[lo:hi].T) for lo, hi in groups if hi > lo)
 
 
+def mma_bound(n_bytes: int, n_ops: int, products: int, instantiation, peaks) -> dict:
+    """The bound of a redesigned bwd_x row.  Where the instantiation that ran
+    is the tensor-core one (``*_mma_kernel``), its products run in 3xTF32:
+    the bound is the largest of the bytes' time, the products' at the 3xTF32
+    rate and the other operations' (folds, transforms, sums) at the fp32
+    rate; it can only be tighter than the fp32 CUDA-core bound, kept as
+    ``bound_fp32_ms``.  Elsewhere (few or ragged channels on the CUDA cores)
+    the fp32 bound stands.  ``bound_ops_ms`` is the operations' side."""
+    flops_peak, bytes_peak, tc_peak = peaks
+    t_bytes, t_fp32 = 1e3 * n_bytes / bytes_peak, 1e3 * n_ops / flops_peak
+    t_ops = t_fp32
+    if any("_mma_kernel" in k for k in instantiation):
+        t_ops = max(1e3 * products / tc_peak, 1e3 * (n_ops - products) / flops_peak)
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_ops_ms=t_ops, bound_fp32_ms=max(t_bytes, t_fp32), instantiation=list(instantiation))
+
+
+def bitwise_repeat(what: str, run, got) -> None:
+    """Fail unless a second launch on the same inputs gives ``got`` bit for bit."""
+    import torch
+
+    again = run()
+    torch.cuda.synchronize()
+    if not torch.equal(again, got):
+        fail(f"{what}: two launches on the same inputs differ (max |diff| {(again - got).abs().max().item():.3e})")
+
+
+def bwd_x_block_use(B: int, gy: int, gx: int, ty: int, tx: int, R: int, W: int, TC: int, BT: int) -> dict:
+    """How fused_engine_bwd_x's blocks spend their tile slots (the kernel's
+    own geometry, fused_engine_bwd.cu::CellBlock): the share of the computed
+    tiles that a block above also computes (the recomputed halo row), and the
+    share of all slots that hold no needed tile (halo and empty slots)."""
+    nrb, ncb = -(-(B * gy) // R), -(-gx // W)
+    computed = 0
+    for rb in range(nrb):
+        rho0, rho1 = rb * R, min(rb * R + R, B * gy)
+        taus = [b * ty + j for rho in range(rho0, rho1) for b, r in [divmod(rho, gy)]
+                for j in range(max(r - 1, 0), min(r, ty - 1) + 1)]
+        rows = max(taus) - min(taus) + 1 if taus else 0
+        for cb in range(ncb):
+            c0, c1 = cb * W, min(cb * W + W, gx)
+            computed += rows * max(0, min(c1 - 1, tx - 1) - max(c0 - 1, 0) + 1)
+    T = B * ty * tx
+    return dict(blocks=nrb * ncb, recomputed_share=1 - T / computed, idle_slot_share=1 - T / (nrb * ncb * BT))
+
+
 def wall_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     """CUDA-event time of ``reps`` back-to-back calls, per call (ms): what a
     caller waits, host overhead included where the host is the slower side."""
@@ -282,11 +345,11 @@ def event_median_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def profiled_ms(fn, reps: int = 10, warmup: int = 3, name: str = "", what: str = ""):
+def profiled_ms(fn, reps: int = 10, warmup: int = 3, name="", what: str = ""):
     """One profiled run of ``reps`` back-to-back calls: (wall ms per call from
     CUDA events around the run, device ms per call from the profiler, device
-    ms per call of the kernels whose name contains ``name``, device ms per
-    call of each kernel by name).  The device time is taken inside the wall
+    ms per call of the kernels whose name contains ``name`` (or one of a
+    tuple of names), device ms per call of each kernel by name).  The device time is taken inside the wall
     time it is compared with.  A session that records no device time (or
     none for ``name``) is run again, up to three sessions in all, and then
     fails: the tracer has been seen to drop a whole session's events."""
@@ -307,7 +370,8 @@ def profiled_ms(fn, reps: int = 10, warmup: int = 3, name: str = "", what: str =
             torch.cuda.synchronize()
         evs = prof.key_averages()
         total = sum(e.device_time_total for e in evs)
-        named = sum(e.device_time_total for e in evs if name and name in e.key)
+        names = (name,) if isinstance(name, str) else name
+        named = sum(e.device_time_total for e in evs if any(n and n in e.key for n in names))
         if total > 0 and (named > 0 or not name):
             break
         emit({"note": f"profiler session {attempt + 1} recorded no device time",
@@ -350,7 +414,7 @@ def kernel_phase(torch, peaks):
         ("k3s1", K3, 8, 32, 64, 3, False, "tanh", False),
         ("k2s3", K2S3, 2, 8, 32, 16, False, "relu", True),
     ]
-    flops_peak, bytes_peak = peaks
+    flops_peak, bytes_peak, _ = peaks
     rows = []
     for i, (name, dims, B, H, N, M, emit_cells, act, affine) in enumerate(shapes):
         g = torch.Generator(device="cuda").manual_seed(100 + i)
@@ -625,7 +689,7 @@ def kernel_bwd_phase(torch, peaks):
         ("k3s1", K3, 8, 32, 64, 3, None, False, "tanh"),
         ("k2s3", K2S3, 2, 8, 32, 16, None, False, "relu"),
     ]
-    flops_peak, bytes_peak = peaks
+    flops_peak, bytes_peak, _ = peaks
     rows = []
     for i, (name, dims, B, H, N, M, gy, emit_cells, act) in enumerate(shapes):
         g = torch.Generator(device="cuda").manual_seed(200 + i)
@@ -659,6 +723,8 @@ def kernel_bwd_phase(torch, peaks):
             if not err <= tol:
                 fail(f"bwd_{key} kernel vs plain at {name}: max|err| {err:.3e} > {tol:.3e}")
             errs[key] = (err, tol)
+            if key == "x":
+                bitwise_repeat(f"bwd_x at {name}", run, got)
 
         # the yardstick: aten's backward of this layer's conv_transpose2d
         HO = dims.out_size(H)
@@ -671,7 +737,8 @@ def kernel_bwd_phase(torch, peaks):
         T = B * ty * ty
         # products, gw from g (fold_adds), the B-transform or its transpose
         # (32 adds per tile and channel), and for bwd_x the overlap sum
-        common_ops = 2 * T * C * N * M + T * M * fold_adds(packed.inv.cpu(), sub_slices, True) + 32 * T * N
+        products = 2 * T * C * N * M
+        common_ops = products + T * M * fold_adds(packed.inv.cpu(), sub_slices, True) + 32 * T * N
         dcells_n = B * gy * gy * 4 * N
         work = {
             "x": (4 * (gs.numel() + packed.ww.numel() + packed.inv.numel() + dcells_n),
@@ -679,11 +746,11 @@ def kernel_bwd_phase(torch, peaks):
             "w": (4 * (cells.numel() + gs.numel() + packed.inv.numel() + C * N * M), common_ops),
         }
         for key, run, plain, kname, mask in (
-                ("x", run_x, plain_x, "bwd_x_kernel", [True, False, False]),
+                ("x", run_x, plain_x, BWD_X_KERNELS, [True, False, False]),
                 ("w", run_w, plain_w, "bwd_w_kernel", [False, True, False])):
             n_bytes, n_ops = work[key]
             t_bytes, t_ops = 1e3 * n_bytes / bytes_peak, 1e3 * n_ops / flops_peak
-            ms = profiled_ms(run, reps=20, name=kname)[2]
+            _, _, ms, by_kernel = profiled_ms(run, reps=20, name=kname)
             plain_ms = profiled_ms(plain, reps=5, warmup=1, what=f"plain bwd_{key} at {name}")[1]
             library_ms = profiled_ms(lambda: conv_bwd(mask), reps=20, what=f"convolution_backward at {name}")[1]
             row = dict(kernel=f"fused_engine_bwd_{key}", name=name, B=B, H_in=H, N=N, M=M, C=C, T=T, gy=gy,
@@ -696,7 +763,13 @@ def kernel_bwd_phase(torch, peaks):
                        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
                        bytes=n_bytes, ops=n_ops, achieved_tflops=n_ops / (ms * 1e-3) / 1e12)
             if key == "x":
-                row["plan"] = engine._bwd_x_plan(B, gy, gy, ty, ty, M, torch.cuda.current_device())
+                # the redesigned kernel: the instantiation that ran and its bound (the products at
+                # the 3xTF32 rate where it ran on the tensor cores), and how its blocks spend
+                # their tile slots
+                row.update(mma_bound(n_bytes, n_ops, products,
+                                     sorted(k for k in by_kernel if any(n in k for n in kname)), peaks))
+                R, W, TC, BT = engine._bwd_x_plan(B, gy, gy, ty, ty, M, torch.cuda.current_device())
+                row["plan"] = dict(R=R, W=W, TC=TC, BT=BT, **bwd_x_block_use(B, gy, gy, ty, ty, R, W, TC, BT))
             else:
                 row["splits"] = engine._bwd_w_plan(B, ty, ty, N, M, S, torch.cuda.current_device())[0]
             emit({"phase": "kernel_bwd", **row})
@@ -757,7 +830,7 @@ def kernel_domain_phase(torch, peaks):
         (f"{n}.b8", d, 8, H, N, M, ("fwd",)) for n, d, H, N, M in layers] + [  # kernel 1 serves at batch 8
         ("k4s2", K4, 8, 8, 256, 128, all3), ("k3s1", K3, 8, 32, 64, 3, all3), ("k2s3", K2S3, 2, 8, 32, 16, all3)]
     scratch_shapes = [(n, d, B, H, N, M) for B in (8, TRAIN_BATCH) for n, d, H, N, M in layers]
-    flops_peak, bytes_peak = peaks
+    flops_peak, bytes_peak, _ = peaks
     dev = torch.cuda.current_device()
     rows = []
 
@@ -787,16 +860,21 @@ def kernel_domain_phase(torch, peaks):
             go, xc, wt, None, [S, S], [P, P], [1, 1], True, [dims.output_padding] * 2, 1, mask)
         return fwd, bwd
 
-    def measure(kernel, name, B, H, N, M, C, T, run, plain, kname, lib, lib_note, n_bytes, n_ops, err, **extra):
+    def measure(kernel, name, B, H, N, M, C, T, run, plain, kname, lib, lib_note, n_bytes, n_ops, err,
+                products=None, **extra):
         t_bytes, t_ops = 1e3 * n_bytes / bytes_peak, 1e3 * n_ops / flops_peak
-        ms = profiled_ms(run, reps=20, name=kname)[2]
+        _, _, ms, by_kernel = profiled_ms(run, reps=20, name=kname)
+        if products is not None:  # a redesigned kernel: the instantiation that ran, and its bound
+            extra.update(mma_bound(n_bytes, n_ops, products,
+                                   sorted(k for k in by_kernel if any(n in k for n in kname)), peaks))
         row = dict(kernel=kernel, name=name, B=B, H_in=H, N=N, M=M, C=C, T=T, max_abs_err=err[0], tol=err[1],
                    ms=ms, ms_wall=event_median_ms(run, reps=20),
                    plain_ms=profiled_ms(plain, reps=5, warmup=1, what=f"plain {kernel} at {name}")[1],
                    library_ms=profiled_ms(lib, reps=20, what=f"library {kernel} at {name}")[1],
                    library_note=lib_note, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=n_bytes, ops=n_ops,
-                   achieved_tflops=n_ops / (ms * 1e-3) / 1e12, **extra)
+                   achieved_tflops=n_ops / (ms * 1e-3) / 1e12)
+        row.update(extra)  # a redesigned kernel's bound replaces the fp32 one
         emit({"phase": "kernel_domain", **row})
         rows.append(row)
 
@@ -823,6 +901,8 @@ def kernel_domain_phase(torch, peaks):
             got = run()
             torch.cuda.synchronize()
             errs[key] = held(f"domain_engine {key} at {name}", got, plain())
+            if key == "bwd_x":
+                bitwise_repeat(f"domain_engine bwd_x at {name}", run, got)
         lib_fwd, lib_bwd = library_calls(g, x, w, dims, B, H, M)
         inv_np = packed.inv.cpu()
         prod = 2 * T * C * N * M
@@ -834,13 +914,15 @@ def kernel_domain_phase(torch, peaks):
                 "bwd_x": (lambda: lib_bwd([True, False, False]), "aten convolution_backward, input grad"),
                 "bwd_w": (lambda: lib_bwd([False, True, False]),
                           "aten convolution_backward, raw-weight grad (not the packed one)")}
-        knames = {"fwd": "domain_fwd_kernel", "bwd_x": "domain_bwd_x_kernel", "bwd_w": "domain_bwd_w_kernel"}
+        knames = {"fwd": "domain_fwd_kernel", "bwd_x": DOMAIN_BWD_X_KERNELS, "bwd_w": "domain_bwd_w_kernel"}
         for key, (run, plain) in runs.items():
             extra = {}
             if key == "fwd":
                 extra["splits"] = engine._domain_plan("fwd", T, N, M, S2, dev)[0]
             elif key == "bwd_w":
                 extra["splits"] = engine._domain_plan("bwd_w", T, N, M, S2, dev)[0]
+            else:
+                extra["products"] = prod
             measure(f"domain_engine{'' if key == 'fwd' else '_' + key}", name, B, H, N, M, C, T, run, plain,
                     knames[key], *libs[key], 4 * (io[key] + packed.inv.numel()),
                     prod + (fold if key == "fwd" else gw), errs[key], **extra)
@@ -925,7 +1007,7 @@ def kernel_1d_phase(torch, peaks):
         ("phases2", "phases", 2, 4, 1024, 64, 64, "scratch", "none", False),
     ] + [(f"epilogue.{act}", "deconv", K4S2, 4, 512, 64, 64, "nlc", act, True)
          for act in ("none", "relu", "leaky_relu", "tanh")]
-    flops_peak, bytes_peak = peaks
+    flops_peak, bytes_peak, _ = peaks
     rows = []
 
     def held(what, got, want):
@@ -937,16 +1019,20 @@ def kernel_1d_phase(torch, peaks):
             fail(f"{what} kernel vs plain: max|err| {err:.3e} > {tol:.3e}")
         return err, tol
 
-    def measure(kernel, name, run, plain, kname, lib, lib_note, n_bytes, n_ops, err, **extra):
+    def measure(kernel, name, run, plain, kname, lib, lib_note, n_bytes, n_ops, err, products=None, **extra):
         t_bytes, t_ops = 1e3 * n_bytes / bytes_peak, 1e3 * n_ops / flops_peak
-        ms = profiled_ms(run, reps=20, name=kname)[2]
+        _, _, ms, by_kernel = profiled_ms(run, reps=20, name=kname)
+        if products is not None:  # a redesigned kernel: the instantiation that ran, and its bound
+            extra.update(mma_bound(n_bytes, n_ops, products,
+                                   sorted(k for k in by_kernel if any(n in k for n in kname)), peaks))
         row = dict(kernel=kernel, name=name, max_abs_err=err[0], tol=err[1], ms=ms,
                    ms_wall=event_median_ms(run, reps=20),
                    plain_ms=profiled_ms(plain, reps=5, warmup=1, what=f"plain {kernel} at {name}")[1],
                    library_ms=None if lib is None else profiled_ms(lib, reps=20, what=f"library {kernel} at {name}")[1],
                    library_note=lib_note, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=n_bytes, ops=n_ops,
-                   achieved_tflops=n_ops / (ms * 1e-3) / 1e12, **extra)
+                   achieved_tflops=n_ops / (ms * 1e-3) / 1e12)
+        row.update(extra)  # a redesigned kernel's bound replaces the fp32 one
         emit({"phase": "kernel_1d", **row})
         rows.append(row)
 
@@ -1046,23 +1132,57 @@ def kernel_1d_phase(torch, peaks):
             got = run()
             torch.cuda.synchronize()
             errs[key] = held(f"rank-1 domain_engine {key} at {name}", got, plain())
+            if key == "bwd_x":
+                bitwise_repeat(f"rank-1 domain_engine bwd_x at {name}", run, got)
         xc, wt = x.permute(0, 2, 1).contiguous(), w.permute(1, 2, 0).contiguous()
         go = torch.randn((B, M, dims.out_size(L)), generator=g, device="cuda")
         conv_bwd = lambda mask: torch.ops.aten.convolution_backward(  # noqa: E731
             go, xc, wt, None, [dims.stride], [dims.padding], [1], True, [dims.output_padding], 1, mask)
         inv_np = packed.inv.cpu().numpy()
-        prod = 2 * T * C * N * M + T * M * fold_ops_1d(inv_np, sub_slices, backward=True)
+        products = 2 * T * C * N * M
+        prod = products + T * M * fold_ops_1d(inv_np, sub_slices, backward=True)
         io = {"bwd_x": gs.numel() + packed.ww.numel() + xw.numel(), "bwd_w": xw.numel() + gs.numel() + packed.ww.numel()}
         libs = {"bwd_x": (lambda: conv_bwd([True, False, False]), "aten convolution_backward, input grad"),
                 "bwd_w": (lambda: conv_bwd([False, True, False]),
                           "aten convolution_backward, raw-weight grad (not the packed one)")}
         for key, (run, plain) in runs.items():
             extra = {"splits": engine._domain_plan("bwd_w", T, N, M, S2, torch.cuda.current_device(), 2)[0]} \
-                if key == "bwd_w" else {}
-            measure(f"domain_engine_{key}_rank1", name, run, plain, f"domain_{key}_kernel", *libs[key],
+                if key == "bwd_w" else {"products": products}
+            measure(f"domain_engine_{key}_rank1", name, run, plain,
+                    DOMAIN_BWD_X_KERNELS if key == "bwd_x" else "domain_bwd_w_kernel", *libs[key],
                     4 * (io[key] + packed.inv.numel()), prod, errs[key], B=B, L=L, N=N, M=M, C=C, T=T, **extra)
         del x, w, packed, cells, xw, gs, go, xc
         torch.cuda.empty_cache()
+
+    # --- rank-1 kernel 4 at the benchmark's conv1d (K4 causal, F(2,4): n2 = 5 positions in one
+    # sub-filter, the tensor-core instantiation for more than 4), as winograd_conv1d's gradient runs it
+    name, _, K, B, L, N, M = shapes[2 * len(decoder)][:7]
+    g = torch.Generator(device="cuda").manual_seed(850)
+    w = 0.05 * torch.randn((K, N, M), generator=g, device="cuda")
+    packed = ops.prepack_conv1d(w, K)
+    pos_idx, sub_slices, _, _, n = ops.conv1d_layout(K)
+    ty = -(-L // 2)
+    T, C = B * ty, len(pos_idx)
+    gs = torch.randn((T, 2, M), generator=g, device="cuda")
+    kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m2=2, n2=n)
+    run = lambda: engine.domain_engine_bwd_x(gs, packed.ww, packed.inv, **kw)  # noqa: E731
+    plain = lambda: engine.domain_engine_bwd_x_plain(gs, packed.ww, packed.inv, **kw)  # noqa: E731
+    got = run()
+    torch.cuda.synchronize()
+    err = held(f"rank-1 domain_engine bwd_x at {name}", got, plain())
+    bitwise_repeat(f"rank-1 domain_engine bwd_x at {name}", run, got)
+    xp = F.pad(torch.randn((B, N, L), generator=g, device="cuda"), (K - 1, 0))
+    wt, go = w.permute(2, 1, 0).contiguous(), torch.randn((B, M, L), generator=g, device="cuda")
+    lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+        go, xp, wt, None, [1], [0], [1], False, [0], 1, [True, False, False])
+    products = 2 * T * C * N * M
+    measure("domain_engine_bwd_x_rank1", name, run, plain, DOMAIN_BWD_X_KERNELS, lib,
+            "aten convolution_backward, input grad (of the causally padded input)",
+            4 * (gs.numel() + packed.ww.numel() + got.numel() + packed.inv.numel()),
+            products + T * M * fold_ops_1d(packed.inv.cpu().numpy(), sub_slices, backward=True), err,
+            products=products, B=B, L=L, N=N, M=M, C=C, T=T)
+    del w, packed, gs, got, xp, go
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1232,7 +1352,7 @@ def kernel_conv_phase(torch, peaks):
         ("k3s2", 3, 2, 8, 16, 16, 36, 20, True, "relu", True),
         ("k3s1", 3, 1, 4, 16, 16, 3, 3, False, "leaky_relu", False),
     ]
-    flops_peak, bytes_peak = peaks
+    flops_peak, bytes_peak, _ = peaks
     dev = torch.cuda.current_device()
     rows = []
     for i, (name, K, S, B, H, W, N, M, emit_cells, act, affine) in enumerate(shapes):
@@ -1612,7 +1732,7 @@ def main(argv=None) -> int:
     peak_key, peaks = peaks_for(kind)
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda, "device": kind,
           "count": torch.cuda.device_count(), "nvidia_smi": smi, "peak_table": peak_key,
-          "peak_fp32_flops": peaks[0], "peak_bytes_per_s": peaks[1]})
+          "peak_fp32_flops": peaks[0], "peak_bytes_per_s": peaks[1], "peak_3xtf32_flops": peaks[2]})
 
     from repro_torch.kernels import _build
 
@@ -1651,12 +1771,14 @@ def main(argv=None) -> int:
                      "audio_grad": audio.get("grad_launches")}
 
     def step_device_ms(kname, run=None):
-        """Device ms per step of ``kname``'s instantiations in a train
-        step's profile (the chained step's by default; None without it)."""
+        """Device ms per step of the instantiations of ``kname`` (or of a
+        tuple of kernel names) in a train step's profile (the chained step's
+        by default; None without it)."""
         run = chained if run is None else run
         if not run:
             return None
-        return sum(v for k, v in run["step_kernels"].items() if f"::{kname}<" in k)
+        names = (kname,) if isinstance(kname, str) else kname
+        return sum(v for k, v in run["step_kernels"].items() if any(f"::{n}<" in k for n in names))
 
     def summary(krows, weights=None, batch=None, prefix="dcgan."):
         """Sums over the main path's layer rows (``prefix``: DCGAN's, one
@@ -1665,17 +1787,19 @@ def main(argv=None) -> int:
         default). Null figures where no such row was measured in this run
         (its phase did not run)."""
         main_rows = [r for r in krows if r["name"].startswith(prefix) and (batch is None or r["B"] == batch)]
-        shapes = [{k: r[k] for k in ("name", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                                     "max_abs_err")} for r in krows]
+        shapes = [{k: r[k] for k in ("name", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_fp32_ms",
+                                     "instantiation", "max_abs_err") if k in r} for r in krows]
         if not main_rows:
             return dict(ms=None, plain_ms=None, bound_ms=None, bound_by=None, library_ms=None,
                         max_abs_err=max((r["max_abs_err"] for r in krows), default=None), shapes=shapes)
         wts = weights or (1,) * len(main_rows)
         tot = {k: sum(w * r[k] for w, r in zip(wts, main_rows)) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
         by_bytes = sum(w * 1e3 * r["bytes"] / peaks[1] for w, r in zip(wts, main_rows))
-        by_ops = sum(w * 1e3 * r["ops"] / peaks[0] for w, r in zip(wts, main_rows))
+        by_ops = sum(w * r.get("bound_ops_ms", 1e3 * r["ops"] / peaks[0]) for w, r in zip(wts, main_rows))
+        tc = {"bound_fp32_ms": sum(w * r["bound_fp32_ms"] for w, r in zip(wts, main_rows))} \
+            if all("bound_fp32_ms" in r for r in main_rows) else {}
         return dict(ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
-                    bound_by="bytes" if by_bytes >= by_ops else "operations", library_ms=tot["library_ms"],
+                    bound_by="bytes" if by_bytes >= by_ops else "operations", library_ms=tot["library_ms"], **tc,
                     max_abs_err=max((r["max_abs_err"] for r in krows), default=None), shapes=shapes)
 
     def by_path(row):
@@ -1694,7 +1818,8 @@ def main(argv=None) -> int:
         line.append({"name": f"fused_engine_bwd_{key}", "route": "cuda", "source": SOURCE_BWD,
                      "replaces": replaces, "corner": "deconv", **by_path(f"fused_engine_bwd_{key}"),
                      # ms ... library_ms: one DCGAN train step at batch 128, the four layer shapes summed
-                     **summary(krows), "step_profile_ms": step_device_ms(f"bwd_{key}_kernel")})
+                     **summary(krows),
+                     "step_profile_ms": step_device_ms(BWD_X_KERNELS if key == "x" else "bwd_w_kernel")})
     for key, replaces in (("fwd", REPLACES), ("bwd_x", REPLACES_BWD_X), ("bwd_w", REPLACES_BWD_W)):
         krows = [r for r in conv_rows if r["kernel"] == f"conv_engine_{key}"]
         weights = chained["per_layer"][key] if chained else None
@@ -1709,7 +1834,7 @@ def main(argv=None) -> int:
                      "per_pass": {k: v for k, v in summary(krows).items() if k != "shapes"}})
     for key, replaces in (("", REPLACES_DOM), ("_bwd_x", REPLACES_DOM_X), ("_bwd_w", REPLACES_DOM_W)):
         krows = [r for r in domain_rows if r["kernel"] == f"domain_engine{key}"]
-        kname = f"domain_{key[1:] or 'fwd'}_kernel"
+        kname = DOMAIN_BWD_X_KERNELS if key == "_bwd_x" else f"domain_{key[1:] or 'fwd'}_kernel"
         line.append({"name": f"domain_engine{key}", "route": "cuda", "source": SOURCE_DOM, "replaces": replaces,
                      "corner": "deconv", **by_path(f"domain_engine{key}"),
                      # ms ... library_ms: one DCGAN train step at batch 128, the four layer shapes summed
@@ -1742,7 +1867,7 @@ def main(argv=None) -> int:
                      # as the audio gradient run launches it (kernel 4: not on layer 0, whose input is the latent)
                      **summary(krows, weights, prefix="audio."), "launches_per_gradient_by_layer": weights,
                      "grad_profile_ms": sum(v for k, v in audio.get("grad_kernels", {}).items()
-                                            if f"domain_bwd_{key}_kernel" in k) if audio else None})
+                                            if f"domain_bwd_{key}_" in k) if audio else None})
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

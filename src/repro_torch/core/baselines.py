@@ -51,7 +51,12 @@ def zero_padded_deconv2d(x: torch.Tensor, w: torch.Tensor, dims: DeconvDims) -> 
 def lax_deconv2d(x: torch.Tensor, w: torch.Tensor, dims: DeconvDims) -> torch.Tensor:
     """The transposed convolution as the framework computes it: PyTorch's
     convention is this package's (out[S*i + k - P] += x[i] * w[k]), so the
-    weights only move to (N, M, K, K) and the image to NCHW."""
+    weights only move to (N, M, K, K) and the image to NCHW.
+    ``F.conv_transpose2d`` refuses output_padding >= stride; there the
+    reference's own form runs: the S-dilated input, padded (K-1-P,
+    K-1-P+OP) (a negative pad crops), correlated with the flipped taps."""
+    if dims.output_padding >= dims.stride:
+        return zero_padded_deconv2d(x, w, dims)
     y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w.permute(2, 3, 0, 1), stride=dims.stride,
                            padding=dims.padding, output_padding=dims.output_padding)
     return y.permute(0, 2, 3, 1)

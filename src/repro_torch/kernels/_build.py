@@ -1,9 +1,9 @@
 """Build the CUDA sources of this package with nvcc and load them with ctypes.
 
 The shared library goes to ``build/repro_torch/`` at the root of the
-checkout, named by a hash of the sources and flags, and is built on first
-use: one ``nvcc`` per source, all started together, then one link.  A
-missing ``nvcc`` or a failed build raises; nothing falls back.
+checkout, named by a hash of the sources, their headers and the flags, and
+is built on first use: one ``nvcc`` per source, all started together, then
+one link.  A missing ``nvcc`` or a failed build raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -33,8 +33,8 @@ _i = ctypes.c_int
 _SIGNATURES = {
     "fused_engine_plan": [_i] * 7 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2,
     "fused_engine_epi_f32": [_p] * 8 + [_i] * 14 + [_p] * 3,
-    "fused_engine_bwd_x_plan": [_i] * 6 + [ctypes.POINTER(_i)] * 3,
-    "fused_engine_bwd_x_f32": [_p] * 6 + [_i] * 11 + [_p],
+    "fused_engine_bwd_x_plan": [_i] * 6 + [ctypes.POINTER(_i)] * 4,
+    "fused_engine_bwd_x_f32": [_p] * 6 + [_i] * 12 + [_p],
     "fused_engine_bwd_w_plan": [_i] * 7 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2,
     "fused_engine_bwd_w_f32": [_p] * 6 + [_i] * 9 + [_p] * 3,
     "conv_engine_fwd_plan": [_i] * 2,
@@ -45,8 +45,8 @@ _SIGNATURES = {
     "conv_engine_bwd_w_f32": [_p] * 6 + [_i] * 9 + [_p] * 3,
     "domain_engine_fwd_plan": [_i] * 5 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2,
     "domain_engine_fwd_f32": [_p] * 6 + [_i] * 5 + [_p] * 3,
-    "domain_engine_bwd_x_plan": [_i] * 2,
-    "domain_engine_bwd_x_f32": [_p] * 6 + [_i] * 6 + [_p],
+    "domain_engine_bwd_x_plan": [_i] * 3,
+    "domain_engine_bwd_x_f32": [_p] * 6 + [_i] * 7 + [_p],
     "domain_engine_bwd_w_plan": [_i] * 6 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2,
     "domain_engine_bwd_w_f32": [_p] * 6 + [_i] * 7 + [_p] * 3,
     "engine1d_plan": [_i],
@@ -73,10 +73,13 @@ def find_nvcc() -> str:
 
 
 def library_path() -> Path:
+    """The library's path, named by a hash of every source and header under
+    ``CSRC`` (``*.cu``, ``*.cuh``) and the flags: an edit to any of them
+    builds anew."""
     h = hashlib.sha256()
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libfused_engine_{h.hexdigest()[:16]}.so"
 

@@ -21,10 +21,12 @@
 //     dww[p, n, m] = sum_t xw[t, pos_p, n] * gw[p, t, m]
 // Plain: engine_bwd_w_ref.
 //
-// What bounds them on an H100: the products, 2*T*C*N*M flops each on the
-// fp32 CUDA cores (67 TFLOP/s), at DCGAN's first three layers; at the RGB
-// layer (M = 3) the bytes of xw (fwd, bwd_w) and of dxw (bwd_x), 16*T*N
-// floats each, 303 MB at batch 128.
+// What bounds them on an H100: the products, 2*T*C*N*M flops each, at
+// DCGAN's first three layers (fwd and bwd_w on the fp32 CUDA cores, 67
+// TFLOP/s; bwd_x on the tensor cores in 3xTF32, 165 TFLOP/s, where the
+// operand work of its positions holds it at about a sixth: bwd_x_core.cuh);
+// at the RGB layer (M = 3) the bytes of xw (fwd, bwd_w) and of dxw (bwd_x),
+// 16*T*N floats each, 303 MB at batch 128.
 //
 // What the designs do about it (they are fused_engine.cu's and
 // fused_engine_bwd.cu's with the pre-PE taken out; the TPU's 128-lane
@@ -43,12 +45,16 @@
 //     blocks, and the last block to arrive sums the partial products in
 //     split order, as fused_engine.cu does: the result does not depend on
 //     the order blocks run in.  An empty sub-filter (K_D < S) writes zeros;
-//   * bwd_x: one block per (T-tile, N-tile); a loop over (sub-filter,
-//     M-chunk) stages g and the sub-filter's weights, folds gw in shared
-//     memory and accumulates per Winograd position, so the packed positions
-//     that share a Winograd position add in one fixed order (sub-filter
-//     order, then m): no atomics, deterministic.  Every position of every
-//     tile is written, zeros included: the output is not pre-zeroed;
+//   * bwd_x: one block per (T-tile, N-tile) on the tensor cores
+//     (bwd_x_core.cuh, shared with fused_engine_bwd.cu's bwd_x): a loop
+//     over (sub-filter, 32-channel M chunk) stages g and the sub-filter's
+//     weights with 16-byte copies; every warp accumulates its position
+//     set's products in 3xTF32 mma.sync, so the packed positions that share
+//     a Winograd position add in one fixed order (sub-filter order, then
+//     m): no atomics, deterministic.  Few or ragged channels (M = 3, M = 1)
+//     keep the fp32 CUDA-core kernel below, which folds gw in shared memory
+//     per (sub-filter, 4-channel chunk).  Every position of every tile is
+//     written, zeros included: the output is not pre-zeroed;
 //   * bwd_w: one block per (sub-filter, N-tile, M-tile) looping over T in
 //     chunks, xw and g by cp.async; the long, thin T loop of the RGB layer
 //     (36992 tiles for 128 x 3 channels at batch 128) splits over blocks with
@@ -66,16 +72,21 @@
 // (M2 = 4, N2 = 16) runs the same arithmetic as before.  In 1D a sub-filter
 // keeps at most n2 positions (3 of 4 at the audio decoder's K4S2), so
 // bwd_w's rank-1 blocks take 4 position groups, not 8.
-// wgmma (3xTF32), TMA and one gw pass shared by both backward kernels are
-// later work.
+// wgmma and TMA for fwd and bwd_w, and one gw pass shared by both backward
+// kernels, are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bwd_x_core.cuh"
+
 namespace {
 
-constexpr int kMaxPos = 16;  // n*n Winograd positions of F(2,3); the most xw rows (N2)
-constexpr int kMaxSub = 16;  // S^2 sub-filters, S <= 4
+using bwdx::cp_async;
+using bwdx::cp_async_commit;
+using bwdx::cp_async_wait;
+using bwdx::kMaxPos;  // n*n Winograd positions of F(2,3); the most xw rows (N2)
+using bwdx::kMaxSub;  // S^2 sub-filters, S <= 4
 
 // gw of one packed position from a tile's M2 values of g: the inverse
 // transform's row, in the same order of operations for every launch
@@ -89,20 +100,6 @@ template <>
 __device__ __forceinline__ float fold_g<2>(const float* iv, const float* gv) {
   return fmaf(iv[0], gv[0], iv[1] * gv[1]);
 }
-
-__device__ __forceinline__ void cp_async(float* dst, const float* src, bool pred, int bytes_vec) {
-  // global -> shared without passing through registers; pred false
-  // zero-fills the destination without reading src
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if (bytes_vec == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(pred ? 16 : 0));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(pred ? 4 : 0));
-  }
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 // ============================================================== fwd
 // G warp-uniform position groups x (NT_T x NT_M) threads; group g owns the
@@ -297,12 +294,14 @@ domain_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ ww, co
 }
 
 // ============================================================== bwd_x
-// G position groups x (NT_T x NT_N) threads; group g owns Winograd positions
-// g, g + G, ...; each thread a 4-tile x 4-channel micro tile.  BM: the M
-// chunk; VW: 4 for 16-byte g copies (M % 4 == 0), 1 for 4-byte copies;
-// M2: outputs per tile (4 in 2D, 2 in 1D).
-template <int G, int NT_T, int NT_N, int BM, int VW, int M2>
+// The fp32 CUDA-core bwd_x for few or ragged channels (M < 8 or M % 4 != 0:
+// RGB, mono): G = 4 position groups x (NT_T x NT_N) = (16 x 8) threads;
+// group g owns Winograd positions g, g + G, ...; each thread a 4-tile x
+// 4-channel micro tile; M in chunks of BM = 4 with 4-byte copies of g and
+// ww.  M2: outputs per tile (4 in 2D, 2 in 1D).
+template <int M2>
 struct BxCfg {
+  static constexpr int G = 4, NT_T = 16, NT_N = 8, BM = 4;
   static constexpr int PG = kMaxPos / G;
   static constexpr int kThreads = G * NT_T * NT_N;
   static constexpr int BT = NT_T * 4;       // tiles per block
@@ -318,12 +317,13 @@ struct BxCfg {
       sizeof(float) * (kStage + kMaxC * 4) + sizeof(int) * (kMaxSub * kMaxPos + kMaxC + kMaxSub + 1);
 };
 
-template <int G, int NT_T, int NT_N, int BM, int VW, int M2>
-__global__ void __launch_bounds__(G * NT_T * NT_N)
+template <int M2>
+__global__ void __launch_bounds__(BxCfg<M2>::kThreads)
 domain_bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ ww, const float* __restrict__ inv,
                     const int* __restrict__ pos, const int* __restrict__ sub_off, float* __restrict__ dxw,
                     int T, int N, int M, int S2, int N2) {
-  using K = BxCfg<G, NT_T, NT_N, BM, VW, M2>;
+  using K = BxCfg<M2>;
+  constexpr int G = K::G, NT_T = K::NT_T, NT_N = K::NT_N, BM = K::BM;
   constexpr int PG = K::PG, BT = K::BT, BN = K::BN, GS = K::GS, XT = K::XT, NT = K::kThreads;
   extern __shared__ float4 smem4[];
   float* g_s = reinterpret_cast<float*>(smem4);  // 2 x [BT][GS]
@@ -361,13 +361,12 @@ domain_bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ ww, c
     const int s = c / mchunks, m0 = (c % mchunks) * BM;
     const int lo = off_s[s], cnt = off_s[s + 1] - lo;
     float* gd = g_s + buf * K::kG;
-    constexpr int kGv = BT * M2 * BM / VW;
-    for (int e = tid; e < kGv; e += NT) {
-      const int mm = (e % (BM / VW)) * VW, a = (e / (BM / VW)) % M2, tl = e / (BM / VW * M2);
+    for (int e = tid; e < BT * M2 * BM; e += NT) {
+      const int mm = e % BM, a = (e / BM) % M2, tl = e / (BM * M2);
       const int t = t0 + tl;
       const bool ok = t < T && m0 + mm < M;
       const float* src = ok ? g + ((size_t)t * s2m2 + s * M2 + a) * M + m0 + mm : g;
-      cp_async(gd + tl * GS + a * BM + mm, src, ok, 4 * VW);
+      cp_async(gd + tl * GS + a * BM + mm, src, ok, 4);
     }
     float* wd = w_s + buf * K::kW;
     for (int e = tid; e < cnt * BN * BM; e += NT) {
@@ -453,6 +452,49 @@ domain_bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ ww, c
           if (n + j < N) o[j] = acc[kk][i][j];
       }
     }
+  }
+}
+
+// bwd_x on the tensor cores (bwd_x_core.cuh): one block per (T-tile, N-tile)
+// holds every Winograd position of its BT tiles x BN channels; the grid runs
+// N-tiles fastest where g outweighs ww (ww then stays in L2 while each g
+// slab is read by consecutive blocks), T-tiles fastest otherwise.  Every
+// position q < N2 of every tile is written, zeros included.
+template <class K>
+__global__ void __launch_bounds__(K::kThreads, K::kMinBlocks)
+domain_bwd_x_mma_kernel(const float* __restrict__ g, const float* __restrict__ ww, const float* __restrict__ inv,
+                        const int* __restrict__ pos, const int* __restrict__ sub_off, float* __restrict__ dxw,
+                        int T, int N, int M, int S2, int N2, int n_tb, int n_nb, int n_fast) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);   // the pipeline
+  float* inv_s = smem + K::kFloats;                // [C][M2]
+  int* kmap_s = reinterpret_cast<int*>(inv_s + kMaxPos * kMaxSub * 4);  // [S^2][16]
+  int* pos_s = kmap_s + kMaxSub * kMaxPos;  // [C]
+  int* off_s = pos_s + kMaxSub * kMaxPos;   // [S^2 + 1]
+  int* tile_s = off_s + kMaxSub + 1;             // [BT] tile index, -1 past T
+
+  const int b = blockIdx.x;
+  const int tb = n_fast ? b / n_nb : b % n_tb, nb = n_fast ? b % n_nb : b / n_tb;
+  const int t0 = tb * K::BT, n0 = nb * K::BN;
+  for (int i = threadIdx.x; i < K::BT; i += K::kThreads) tile_s[i] = t0 + i < T ? t0 + i : -1;
+  bwdx::load_layout<K::M2>(inv_s, kmap_s, off_s, pos_s, inv, pos, sub_off, S2);
+
+  bwdx::Acc<K> acc;
+  bwdx::contract<K>(acc, smem, g, ww, tile_s, inv_s, kmap_s, off_s, S2, M, N, n0);
+
+#pragma unroll
+  for (int p = 0; p < K::NPS; ++p) {
+    const int q = bwdx::position<K>(p);
+    if (q >= N2) continue;
+#pragma unroll
+    for (int fa = 0; fa < K::FA; ++fa)
+#pragma unroll
+      for (int fb = 0; fb < K::FB; ++fb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int t = t0 + bwdx::acc_slot<K>(fb, i), n = n0 + bwdx::acc_n(fa, i);
+          if (t < T && n < N) dxw[((size_t)t * N2 + q) * N + n] = acc[p][fa][fb][i];
+        }
   }
 }
 
@@ -671,25 +713,45 @@ int with_fwd_conf(int M, F&& f) {
   return f(FwdConf<8, 16, 1, 8, 1>{});
 }
 
-template <int G_, int NT_T_, int NT_N_, int BM_, int VW_, int M2_>
+template <int M2_>
 struct BxConf {
-  static constexpr int G = G_, NT_T = NT_T_, NT_N = NT_N_, BM = BM_, VW = VW_, M2 = M2_;
-  using K = BxCfg<G, NT_T, NT_N, BM, VW, M2>;
+  static constexpr int M2 = M2_;
+  static constexpr bool kMma = false;
+  using K = BxCfg<M2>;
 };
-#define BX_KERNEL(C) domain_bwd_x_kernel<C::G, C::NT_T, C::NT_N, C::BM, C::VW, C::M2>
+#define BX_KERNEL(C) domain_bwd_x_kernel<C::M2>
 
-// bwd_x block configuration for (M, M2): 64 tiles x 32 channels n per
-// block, 4 position groups, 512 threads; M in chunks of 8 with 16-byte g
-// copies, or chunks of 4 with 4-byte copies for few or ragged channels (RGB,
-// the audio decoder's mono waveform).  The same blocks in 1D (M2 = 2).
+template <class K_>
+struct BxMma {
+  static constexpr bool kMma = true;
+  using K = K_;
+};
+
+// bwd_x configuration for (M, M2, N2): the tensor cores where M % 4 == 0
+// and M >= 8 (g and ww in 16-byte copies: the wrapper has checked their
+// alignment): in 2D 64 tiles x 32 channels n a block, two position sets of
+// 4 warps, each warp 32 n x 16 tiles x 8 positions (the set's colour of the
+// 4x4 checkerboard); at rank 1 with n2 <= 4 positions 128 tiles x 64 n,
+// each warp 64 n x 16 tiles x all positions; rank 1 with more positions as
+// 2D with one set.  Otherwise (few or ragged channels: RGB, the audio
+// decoder's mono waveform) the fp32 CUDA-core kernel (BxCfg).
 template <class F>
-int with_bx_conf(int M, int M2, F&& f) {
-  if (M2 == 2) {
-    if (M >= 8 && M % 4 == 0) return f(BxConf<4, 16, 8, 8, 4, 2>{});
-    return f(BxConf<4, 16, 8, 4, 1, 2>{});
+int with_bx_conf(int M, int M2, int N2, F&& f) {
+  if (M >= 8 && M % 4 == 0) {
+    if (M2 == 2 && N2 <= 4) return f(BxMma<bwdx::Core<4, 2, 4, 2, 8>>{});
+    if (M2 == 2) return f(BxMma<bwdx::Core<16, 2, 2, 1, 8>>{});
+    return f(BxMma<bwdx::Core<16, 4, 2, 2, 8, 2>>{});
   }
-  if (M >= 8 && M % 4 == 0) return f(BxConf<4, 16, 8, 8, 4, 4>{});
-  return f(BxConf<4, 16, 8, 4, 1, 4>{});
+  if (M2 == 2) return f(BxConf<2>{});
+  return f(BxConf<4>{});
+}
+
+// dynamic shared memory of the tensor-core kernel: the pipeline, the layout
+// tables and the tile slots
+template <class K>
+constexpr size_t mma_smem_bytes() {
+  return sizeof(float) * (K::kFloats + kMaxPos * kMaxSub * 4) +
+         sizeof(int) * (2 * kMaxSub * kMaxPos + kMaxSub + 1 + K::BT);
 }
 
 template <int G_, int NT_N_, int NT_M_, int BT_, int VW_, int M2_>
@@ -776,24 +838,41 @@ extern "C" int domain_engine_fwd_f32(const float* xw, const float* ww, const flo
   });
 }
 
-extern "C" int domain_engine_bwd_x_plan(int M, int M2) {
-  return with_bx_conf(M, M2, [&](auto conf) {
-    using C = decltype(conf);
-    return (int)cudaFuncSetAttribute(BX_KERNEL(C), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)C::K::kSmemBytes);
+// Raises the bwd_x kernel's shared-memory limit for (M, M2, N2) on the
+// current device (call it before the first launch for this shape).
+extern "C" int domain_engine_bwd_x_plan(int M, int M2, int N2) {
+  return with_bx_conf(M, M2, N2, [&](auto conf) {
+    using Cf = decltype(conf);
+    using K = typename Cf::K;
+    if constexpr (Cf::kMma)
+      return (int)cudaFuncSetAttribute(domain_bwd_x_mma_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)mma_smem_bytes<K>());
+    else
+      return (int)cudaFuncSetAttribute(BX_KERNEL(Cf), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)K::kSmemBytes);
   });
 }
 
-// One bwd_x launch: g, ww -> dxw (T, N2, N), every element written.
+// One bwd_x launch: g, ww -> dxw (T, N2, N), every element written.  C:
+// the packed positions.  Where M % 4 == 0, g and ww start on 16-byte
+// boundaries.
 extern "C" int domain_engine_bwd_x_f32(const float* g, const float* ww, const float* inv, const int* pos,
                                        const int* sub_off, float* dxw, int T, int N, int M, int S2, int M2,
-                                       int N2, void* stream) {
-  return with_bx_conf(M, M2, [&](auto conf) {
-    using C = decltype(conf);
-    using K = typename C::K;
-    dim3 grid((T + K::BT - 1) / K::BT, (N + K::BN - 1) / K::BN);
-    BX_KERNEL(C)<<<grid, K::kThreads, K::kSmemBytes, reinterpret_cast<cudaStream_t>(stream)>>>(
-        g, ww, inv, pos, sub_off, dxw, T, N, M, S2, N2);
+                                       int N2, int C, void* stream) {
+  return with_bx_conf(M, M2, N2, [&](auto conf) {
+    using Cf = decltype(conf);
+    using K = typename Cf::K;
+    const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+    const int n_tb = (T + K::BT - 1) / K::BT, n_nb = (N + K::BN - 1) / K::BN;
+    if constexpr (Cf::kMma) {
+      // N-tiles fastest where g (T*S2*M2 rows of M) outweighs ww (C*N rows)
+      const int n_fast = (long long)T * S2 * M2 > (long long)C * N;
+      domain_bwd_x_mma_kernel<K><<<n_tb * n_nb, K::kThreads, mma_smem_bytes<K>(), st>>>(
+          g, ww, inv, pos, sub_off, dxw, T, N, M, S2, N2, n_tb, n_nb, n_fast);
+    } else {
+      BX_KERNEL(Cf)<<<dim3(n_tb, n_nb), K::kThreads, K::kSmemBytes, st>>>(g, ww, inv, pos, sub_off, dxw, T, N, M,
+                                                                          S2, N2);
+    }
     return (int)cudaGetLastError();
   });
 }

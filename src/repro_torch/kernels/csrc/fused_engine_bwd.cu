@@ -23,9 +23,11 @@
 // with xw = B^T Z B recomputed from the cell windows, as the forward does.
 // Its plain version is ref.py::fused_pre_engine_bwd_w_ref.
 //
-// What bounds them on an H100: the products, 2*T*C*N*M flops each on the
-// fp32 CUDA cores (67 TFLOP/s), at every DCGAN layer but the RGB one; there
-// (M = 3) the bytes of dcells (bwd_x) and of the cell windows (bwd_w) do.
+// What bounds them on an H100: the products, 2*T*C*N*M flops each, at every
+// DCGAN layer but the RGB one (bwd_w on the fp32 CUDA cores, 67 TFLOP/s;
+// bwd_x on the tensor cores in 3xTF32, 165 TFLOP/s, where the operand work
+// of its positions holds it at about a sixth: bwd_x_core.cuh); at the RGB
+// layer (M = 3) the bytes of dcells (bwd_x) and of the cell windows (bwd_w).
 //
 // What the design does about it:
 //   * bwd_x gathers instead of scattering.  A block owns a range of R output
@@ -36,10 +38,16 @@
 //     again by the block above), then dZ, then sums the up to four pieces of
 //     each cell in a fixed order: no atomics, no scratch in device memory,
 //     and the result does not depend on the order blocks run in.  The
-//     contraction over M runs in chunks of (sub-filter s, BM channels); the
-//     block's 4 position groups each keep 4 Winograd positions x 4 tiles x 4
-//     channels in registers for the whole loop, as the forward keeps its
-//     products.  gw is formed in shared memory once per chunk;
+//     contraction over M runs on the tensor cores (bwd_x_core.cuh, shared
+//     with domain_engine.cu's bwd_x): chunks of (sub-filter s, 32 channels),
+//     every warp holding its position set's products for 64 tile slots x 32
+//     channels in registers for the whole loop; dXw then passes through
+//     shared memory for dZ and the gather (dz_gather).  64 slots keep the
+//     recomputed halo row at 0 / 7 / 13% of the products at deconv0-2 (128
+//     slots would keep it under 4%, but a warp tile that covers them ran
+//     slower).  Few or ragged channels (RGB) keep the fp32 CUDA-core kernel,
+//     whose 4 position groups each keep 4 Winograd positions x 4 tiles x 4
+//     channels in registers, gw formed in shared memory once per chunk;
 //   * bwd_w gives each block one (sub-filter, N-tile, M-tile); its 8
 //     position groups each keep 2 packed positions x 4 channels n x 4
 //     channels m in registers and run over T in chunks of BT tiles: the
@@ -51,36 +59,124 @@
 //     arrival counter to 0, as the forward's N split does;
 //   * M = 3 is not a multiple of 4, so g rows move in 4-byte copies on that
 //     path; the tensor is never padded on the host.
-// wgmma (3xTF32), TMA and one gw pass shared by both kernels are later work.
+// wgmma and TMA for bwd_w, and one gw pass shared by both kernels, are later
+// work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bwd_x_core.cuh"
+
 namespace {
 
-constexpr int kMaxPos = 16;  // n*n Winograd positions of F(2,3)
-constexpr int kMaxSub = 16;  // S^2 sub-filters, S <= 4
+using bwdx::cp_async;
+using bwdx::cp_async_commit;
+using bwdx::cp_async_wait;
+using bwdx::kMaxPos;  // n*n Winograd positions of F(2,3)
+using bwdx::kMaxSub;  // S^2 sub-filters, S <= 4
 
-__device__ __forceinline__ void cp_async(float* dst, const float* src, bool pred, int bytes_vec) {
-  // global -> shared without passing through registers; pred false
-  // zero-fills the destination without reading src
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if (bytes_vec == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(pred ? 16 : 0));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(pred ? 4 : 0));
+// The cells of one bwd_x block and the tile slots they read: R cell rows
+// [rho0, rho1) (rows of all B images end to end) by columns [c0, c1); cell
+// row r takes tile rows r-1 and r, so the slots hold tile rows (tau = b*ty
+// + j, contiguous) [tau_lo, tau_hi] by columns [tc0, tc1], TC columns a
+// slot row.
+struct CellBlock {
+  int rho0, rho1, c0, c1, tau_lo, tau_hi, tc0, tc1;
+  __device__ CellBlock(int rb, int cb, int B, int gy, int gx, int ty, int tx, int R, int W) {
+    rho0 = rb * R;
+    c0 = cb * W;
+    rho1 = min(rho0 + R, B * gy);
+    c1 = min(c0 + W, gx);
+    tau_lo = 0x7fffffff;
+    tau_hi = -1;
+    for (int rho = rho0; rho < rho1; ++rho) {
+      const int b = rho / gy, r = rho - b * gy;
+      const int jlo = max(r - 1, 0), jhi = min(r, ty - 1);
+      if (jlo <= jhi) {
+        tau_lo = min(tau_lo, b * ty + jlo);
+        tau_hi = max(tau_hi, b * ty + jhi);
+      }
+    }
+    if (tau_hi < 0) tau_lo = 0;  // no tile: every slot stays empty
+    tc0 = max(c0 - 1, 0);
+    tc1 = min(c1 - 1, tx - 1);
+  }
+  // flat tile index of slot tl, -1 if none
+  __device__ int tile(int tl, int TC, int tx) const {
+    const int tau = tau_lo + tl / TC, col = tc0 + tl % TC;
+    return (tau <= tau_hi && col <= tc1) ? tau * tx + col : -1;
+  }
+};
+
+// dZ = B dXw B^T in place for every (slot, channel) of red (16 positions,
+// position p at red[p * PS]), then the gather: every cell of the block sums
+// the dZ pieces of the tiles that read it, in the fixed order (dy, dx) =
+// (0,0), (0,1), (1,0), (1,1).  red's element (slot, channel nn) sits at
+// slot * SS + nn.
+template <int BT, int BN, int NT, int PS, int SS>
+__device__ __forceinline__ void dz_gather(float* red, const CellBlock& cb, float* __restrict__ dcells, int gy, int gx,
+                                          int ty, int tx, int N, int n0, int TC) {
+  constexpr int ps = PS, ss = SS;
+  const int tid = threadIdx.x;
+  for (int it = tid; it < BT * BN; it += NT) {
+    float* e = red + (it / BN) * ss + it % BN;
+    float d[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) d[u][v] = e[(u * 4 + v) * ps];
+    // rows: (B X)[a] = sum_u BT[u][a] X[u], B^T = [[1,0,-1,0],[0,1,1,0],[0,-1,1,0],[0,1,0,-1]]
+    float y[4][4];
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      y[0][v] = d[0][v];
+      y[1][v] = d[1][v] - d[2][v] + d[3][v];
+      y[2][v] = d[1][v] + d[2][v] - d[0][v];
+      y[3][v] = -d[3][v];
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      float* dst = e + (a * 4) * ps;
+      dst[0 * ps] = y[a][0];
+      dst[1 * ps] = y[a][1] - y[a][2] + y[a][3];
+      dst[2 * ps] = y[a][1] + y[a][2] - y[a][0];
+      dst[3 * ps] = -y[a][3];
+    }
+  }
+  __syncthreads();
+
+  const int wc = cb.c1 - cb.c0;
+  const int items = (cb.rho1 - cb.rho0) * wc * 4 * BN;
+  for (int it = tid; it < items; it += NT) {
+    const int nn = it % BN, a = (it / BN) % 4, cell = it / (4 * BN);
+    const int rho = cb.rho0 + cell / wc, col = cb.c0 + cell % wc;
+    const int b = rho / gy, r = rho - b * gy;
+    const int pp = a / 2, qq = a % 2;
+    float v = 0.0f;
+#pragma unroll
+    for (int dy = 0; dy < 2; ++dy) {
+      const int j = r - dy;
+      if (j < 0 || j >= ty) continue;
+      const int tr = b * ty + j - cb.tau_lo;
+#pragma unroll
+      for (int dx = 0; dx < 2; ++dx) {
+        const int tcol = col - dx;
+        if (tcol < 0 || tcol >= tx) continue;
+        const int slot = tr * TC + tcol - cb.tc0;
+        v += red[((2 * dy + pp) * 4 + 2 * dx + qq) * ps + slot * ss + nn];
+      }
+    }
+    if (n0 + nn < N) dcells[(((size_t)rho * gx + col) * 4 + a) * N + n0 + nn] = v;
   }
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 // ============================================================== bwd_x
-// G position groups x (NT_T x NT_N) threads; group g owns Winograd positions
-// g, g + G, ...; each thread a 4-tile x 4-channel micro tile.  BM: the M
-// chunk; VW: 4 for 16-byte g copies (M % 4 == 0), 1 for 4-byte copies.
-template <int G, int NT_T, int NT_N, int BM, int VW>
+// The fp32 CUDA-core bwd_x for few or ragged channels (M < 8 or M % 4 != 0:
+// RGB): G = 4 position groups x (NT_T x NT_N) = (16 x 8) threads; group g
+// owns Winograd positions g, g + G, ...; each thread a 4-tile x 4-channel
+// micro tile; M in chunks of BM = 4 with 4-byte copies of g and ww.
 struct BxCfg {
+  static constexpr int G = 4, NT_T = 16, NT_N = 8, BM = 4;
   static constexpr int PG = kMaxPos / G;
   static constexpr int kThreads = G * NT_T * NT_N;
   static constexpr int BT = NT_T * 4;       // tile slots per block
@@ -98,12 +194,12 @@ struct BxCfg {
       sizeof(float) * (kBig + kMaxC * 4) + sizeof(int) * (kMaxSub * kMaxPos + kMaxC + kMaxSub + 1 + BT);
 };
 
-template <int G, int NT_T, int NT_N, int BM, int VW>
-__global__ void __launch_bounds__(G * NT_T * NT_N)
+__global__ void __launch_bounds__(BxCfg::kThreads)
 bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ ww, const float* __restrict__ inv,
              const int* __restrict__ pos, const int* __restrict__ sub_off, float* __restrict__ dcells,
              int B, int gy, int gx, int N, int M, int S, int ty, int tx, int R, int W, int TC, int ncb) {
-  using K = BxCfg<G, NT_T, NT_N, BM, VW>;
+  using K = BxCfg;
+  constexpr int G = K::G, NT_T = K::NT_T, NT_N = K::NT_N, BM = K::BM;
   constexpr int PG = K::PG, BT = K::BT, BN = K::BN, GS = K::GS, XT = K::XT, NT = K::kThreads;
   extern __shared__ float4 smem4[];
   float* g_s = reinterpret_cast<float*>(smem4);  // 2 x [BT][GS]
@@ -121,41 +217,10 @@ bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ ww, const fl
   const int rem = tid % (NT_T * NT_N);
   const int tt = rem / NT_N, tn = rem % NT_N;
   const int S2 = S * S;
-  const int C = sub_off[S2];
   const int n0 = blockIdx.y * BN;
-  const int rb = blockIdx.x / ncb, cb = blockIdx.x % ncb;
-  const int rho0 = rb * R, c0 = cb * W;
-  const int rows = B * gy;
-  const int rho1 = min(rho0 + R, rows);
-  const int c1 = min(c0 + W, gx);
-
-  // the tile rows (tau = b*ty + j, contiguous) and columns this block's
-  // cells read from: cell row r takes tile rows r-1 and r
-  int tau_lo = 0x7fffffff, tau_hi = -1;
-  for (int rho = rho0; rho < rho1; ++rho) {
-    const int b = rho / gy, r = rho - b * gy;
-    const int jlo = max(r - 1, 0), jhi = min(r, ty - 1);
-    if (jlo <= jhi) {
-      tau_lo = min(tau_lo, b * ty + jlo);
-      tau_hi = max(tau_hi, b * ty + jhi);
-    }
-  }
-  if (tau_hi < 0) tau_lo = 0;  // no tile: every slot stays empty
-  const int tc0 = max(c0 - 1, 0), tc1 = min(c1 - 1, tx - 1);
-
-  for (int i = tid; i < C * 4; i += NT) inv_s[i] = inv[i];
-  for (int i = tid; i < C; i += NT) pos_s[i] = pos[i];
-  for (int i = tid; i <= S2; i += NT) off_s[i] = sub_off[i];
-  for (int i = tid; i < kMaxSub * kMaxPos; i += NT) kmap_s[i] = -1;
-  for (int tl = tid; tl < BT; tl += NT) {
-    const int tr = tl / TC, tc = tl % TC;
-    const int tau = tau_lo + tr, col = tc0 + tc;
-    tile_s[tl] = (tau <= tau_hi && col <= tc1) ? tau * tx + col : -1;
-  }
-  __syncthreads();
-  for (int s = tid; s < S2; s += NT)
-    for (int k = 0; k < off_s[s + 1] - off_s[s]; ++k) kmap_s[s * kMaxPos + pos_s[off_s[s] + k]] = k;
-  __syncthreads();
+  const CellBlock cb(blockIdx.x / ncb, blockIdx.x % ncb, B, gy, gx, ty, tx, R, W);
+  for (int tl = tid; tl < BT; tl += NT) tile_s[tl] = cb.tile(tl, TC, tx);
+  bwdx::load_layout<4>(inv_s, kmap_s, off_s, pos_s, inv, pos, sub_off, S2);
 
   const int mchunks = (M + BM - 1) / BM;
   const int nchunks = S2 * mchunks;
@@ -168,13 +233,12 @@ bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ ww, const fl
     const int s = c / mchunks, m0 = (c % mchunks) * BM;
     const int lo = off_s[s], cnt = off_s[s + 1] - lo;
     float* gd = g_s + buf * K::kG;
-    constexpr int kGv = BT * 4 * BM / VW;
-    for (int e = tid; e < kGv; e += NT) {
-      const int mm = (e % (BM / VW)) * VW, a = (e / (BM / VW)) % 4, tl = e / (BM / VW * 4);
+    for (int e = tid; e < BT * 4 * BM; e += NT) {
+      const int mm = e % BM, a = (e / BM) % 4, tl = e / (BM * 4);
       const int t = tile_s[tl];
       const bool ok = t >= 0 && m0 + mm < M;
       const float* src = ok ? g + ((size_t)t * s2m2 + s * 4 + a) * M + m0 + mm : g;
-      cp_async(gd + tl * GS + a * BM + mm, src, ok, 4 * VW);
+      cp_async(gd + tl * GS + a * BM + mm, src, ok, 4);
     }
     float* wd = w_s + buf * K::kW;
     for (int e = tid; e < cnt * BN * BM; e += NT) {
@@ -244,7 +308,7 @@ bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ ww, const fl
     if (c + 2 < nchunks) stage(buf, c + 2);
   }
 
-  // dXw of every tile slot in shared memory, then dZ = B dXw B^T in place
+  // dXw of every tile slot in shared memory, then dZ and the gather
 #pragma unroll
   for (int kk = 0; kk < PG; ++kk) {
     const int p = kk * G + grp;
@@ -254,57 +318,51 @@ bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ ww, const fl
           make_float4(acc[kk][i][0], acc[kk][i][1], acc[kk][i][2], acc[kk][i][3]);
   }
   __syncthreads();
-  for (int it = tid; it < BT * BN; it += NT) {
-    float d[4][4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) d[u][v] = red_s[(u * 4 + v) * BT * BN + it];
-    // rows: (B X)[a] = sum_u BT[u][a] X[u], B^T = [[1,0,-1,0],[0,1,1,0],[0,-1,1,0],[0,1,0,-1]]
-    float y[4][4];
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      y[0][v] = d[0][v];
-      y[1][v] = d[1][v] - d[2][v] + d[3][v];
-      y[2][v] = d[1][v] + d[2][v] - d[0][v];
-      y[3][v] = -d[3][v];
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      float* dst = red_s + (a * 4) * BT * BN + it;
-      dst[0 * BT * BN] = y[a][0];
-      dst[1 * BT * BN] = y[a][1] - y[a][2] + y[a][3];
-      dst[2 * BT * BN] = y[a][1] + y[a][2] - y[a][0];
-      dst[3 * BT * BN] = -y[a][3];
-    }
-  }
-  __syncthreads();
+  dz_gather<BT, BN, NT, BT * BN, BN>(red_s, cb, dcells, gy, gx, ty, tx, N, n0, TC);
+}
 
-  // gather: every cell of the block sums the dZ pieces of the tiles that
-  // read it, in the fixed order (dy, dx) = (0,0), (0,1), (1,0), (1,1)
-  const int wc = c1 - c0;
-  const int items = (rho1 - rho0) * wc * 4 * BN;
-  for (int it = tid; it < items; it += NT) {
-    const int nn = it % BN, a = (it / BN) % 4, cell = it / (4 * BN);
-    const int rho = rho0 + cell / wc, col = c0 + cell % wc;
-    const int b = rho / gy, r = rho - b * gy;
-    const int pp = a / 2, qq = a % 2;
-    float v = 0.0f;
+// bwd_x on the tensor cores (bwd_x_core.cuh): the block's cells as in the
+// CUDA-core kernel above, every Winograd position of its BT tile slots x BN
+// channels in registers, then dXw into shared memory as [pos][slot][n] and
+// dz_gather.  The grid runs N-tiles fastest where g outweighs ww.
+template <class K>
+__global__ void __launch_bounds__(K::kThreads, K::kMinBlocks)
+bwd_x_mma_kernel(const float* __restrict__ g, const float* __restrict__ ww, const float* __restrict__ inv,
+                 const int* __restrict__ pos, const int* __restrict__ sub_off, float* __restrict__ dcells,
+                 int B, int gy, int gx, int N, int M, int S, int ty, int tx, int R, int W, int TC, int ncb,
+                 int n_cb, int n_nb, int n_fast) {
+  constexpr int BT = K::BT, BN = K::BN, SS = BN + 4;  // dXw [pos][slot][SS]
+  static_assert(16 * BT * SS <= K::kFloats, "dXw fits in the pipeline's shared memory");
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);  // the pipeline, then dXw
+  float* inv_s = smem + K::kFloats;               // [C][4]
+  int* kmap_s = reinterpret_cast<int*>(inv_s + kMaxPos * kMaxSub * 4);  // [S^2][16]
+  int* pos_s = kmap_s + kMaxSub * kMaxPos;  // [C]
+  int* off_s = pos_s + kMaxSub * kMaxPos;   // [S^2 + 1]
+  int* tile_s = off_s + kMaxSub + 1;             // [BT] flat tile index, -1 if none
+
+  const int bid = blockIdx.x;
+  const int c = n_fast ? bid / n_nb : bid % n_cb, nb = n_fast ? bid % n_nb : bid / n_cb;
+  const CellBlock cb(c / ncb, c % ncb, B, gy, gx, ty, tx, R, W);
+  const int n0 = nb * BN;
+  for (int tl = threadIdx.x; tl < BT; tl += K::kThreads) tile_s[tl] = cb.tile(tl, TC, tx);
+  bwdx::load_layout<4>(inv_s, kmap_s, off_s, pos_s, inv, pos, sub_off, S * S);
+
+  bwdx::Acc<K> acc;
+  bwdx::contract<K>(acc, smem, g, ww, tile_s, inv_s, kmap_s, off_s, S * S, M, N, n0);
+
+  float* red = smem;
 #pragma unroll
-    for (int dy = 0; dy < 2; ++dy) {
-      const int j = r - dy;
-      if (j < 0 || j >= ty) continue;
-      const int tr = b * ty + j - tau_lo;
+  for (int p = 0; p < K::NPS; ++p)
 #pragma unroll
-      for (int dx = 0; dx < 2; ++dx) {
-        const int tcol = col - dx;
-        if (tcol < 0 || tcol >= tx) continue;
-        const int slot = tr * TC + tcol - tc0;
-        v += red_s[(((2 * dy + pp) * 4 + 2 * dx + qq) * BT + slot) * BN + nn];
-      }
-    }
-    if (n0 + nn < N) dcells[(((size_t)rho * gx + col) * 4 + a) * N + n0 + nn] = v;
-  }
+    for (int fa = 0; fa < K::FA; ++fa)
+#pragma unroll
+      for (int fb = 0; fb < K::FB; ++fb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          red[(bwdx::position<K>(p) * BT + bwdx::acc_slot<K>(fb, i)) * SS + bwdx::acc_n(fa, i)] = acc[p][fa][fb][i];
+  __syncthreads();
+  dz_gather<BT, BN, K::kThreads, BT * SS, SS>(red, cb, dcells, gy, gx, ty, tx, N, n0, TC);
 }
 
 // ============================================================== bwd_w
@@ -541,20 +599,32 @@ bwd_w_kernel(const float* __restrict__ cells, const float* __restrict__ g, const
   }
 }
 
-template <int G_, int NT_T_, int NT_N_, int BM_, int VW_>
 struct BxConf {
-  static constexpr int G = G_, NT_T = NT_T_, NT_N = NT_N_, BM = BM_, VW = VW_;
-  using K = BxCfg<G, NT_T, NT_N, BM, VW>;
+  static constexpr bool kMma = false;
+  using K = BxCfg;
+  static constexpr size_t kSmemBytes = K::kSmemBytes;
 };
-#define BX_KERNEL(C) bwd_x_kernel<C::G, C::NT_T, C::NT_N, C::BM, C::VW>
 
-// bwd_x block configuration for M: 64 tile slots x 32 channels n per block,
-// 4 position groups, 512 threads; M in chunks of 8 with 16-byte g copies,
-// or chunks of 4 with 4-byte copies for few or ragged channels (RGB).
+template <class K_>
+struct BxMma {
+  static constexpr bool kMma = true;
+  using K = K_;
+  // the pipeline (then dXw), the layout tables and the tile slots
+  static constexpr size_t kSmemBytes =
+      sizeof(float) * (K::kFloats + kMaxPos * kMaxSub * 4) +
+      sizeof(int) * (2 * kMaxSub * kMaxPos + kMaxSub + 1 + K::BT);
+};
+
+// bwd_x block configuration for M: the tensor cores where M % 4 == 0 and M
+// >= 8 (g and ww in 16-byte copies: the wrapper has checked their
+// alignment): 64 tile slots x 32 channels n a block, two position sets of 4
+// warps, each warp 32 n x 16 tiles x 8 positions (the set's colour of the
+// 4x4 checkerboard); otherwise (few or ragged channels: RGB) the fp32
+// CUDA-core kernel (BxCfg): 64 tile slots x 32 n, 512 threads.
 template <class F>
 int with_bx_conf(int M, F&& f) {
-  if (M >= 8 && M % 4 == 0) return f(BxConf<4, 16, 8, 8, 4>{});
-  return f(BxConf<4, 16, 8, 4, 1>{});
+  if (M >= 8 && M % 4 == 0) return f(BxMma<bwdx::Core<16, 4, 2, 2, 8, 2>>{});
+  return f(BxConf{});
 }
 
 template <int G_, int NT_N_, int NT_M_, int BT_, int VW_>
@@ -579,18 +649,23 @@ int with_bw_conf(int M, F&& f) {
 // Plain C entry points (bound with ctypes).  Every pointer is a device pointer.
 
 // bwd_x geometry: a block covers R cell rows (rows of all B images end to
-// end) by W cell columns; its tile slots are TC tile columns by BT/TC tile
-// rows.  W is all gx columns when two tile rows of tx tiles fit the slots,
-// else one cell row and BT/2 - 1 columns.  R is the largest count of rows
-// whose every block reads at most BT/TC tile rows.  Also raises the
+// end) by W cell columns; its BT tile slots are TC tile columns by BT/TC
+// tile rows.  W is all gx columns when two tile rows of tx tiles fit the
+// slots, else one cell row and BT/2 - 1 columns.  R is the largest count of
+// rows whose every block reads at most BT/TC tile rows.  Also raises the
 // kernel's shared-memory limit on the current device (call it before the
 // first launch for this M).
-extern "C" int fused_engine_bwd_x_plan(int B, int gy, int gx, int ty, int tx, int M, int* R, int* W, int* TC) {
+extern "C" int fused_engine_bwd_x_plan(int B, int gy, int gx, int ty, int tx, int M, int* R, int* W, int* TC,
+                                       int* BT) {
   return with_bx_conf(M, [&](auto conf) {
-    using C = decltype(conf);
-    using K = typename C::K;
-    cudaError_t err = cudaFuncSetAttribute(BX_KERNEL(C), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)K::kSmemBytes);
+    using Cf = decltype(conf);
+    using K = typename Cf::K;
+    cudaError_t err;
+    if constexpr (Cf::kMma)
+      err = cudaFuncSetAttribute(bwd_x_mma_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)Cf::kSmemBytes);
+    else
+      err = cudaFuncSetAttribute(bwd_x_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Cf::kSmemBytes);
     if (err != cudaSuccess) return (int)err;
     int w, tc;
     if (2 * tx <= K::BT) {
@@ -625,23 +700,34 @@ extern "C" int fused_engine_bwd_x_plan(int B, int gy, int gx, int ty, int tx, in
     *R = best;
     *W = w;
     *TC = tc;
+    *BT = K::BT;
     return 0;
   });
 }
 
 // One bwd_x launch: g (B, ty, tx, S^2*4, M), ww (C, N, M), inv (C, 4),
 // pos (C,), sub_off (S^2 + 1,) -> dcells (B, gy, gx, 4, N), every element
-// written.  R, W, TC from fused_engine_bwd_x_plan.  Returns cudaGetLastError().
+// written.  R, W, TC from fused_engine_bwd_x_plan with the same M; C the
+// packed positions; where M % 4 == 0, g and ww start on 16-byte boundaries.
+// Returns cudaGetLastError().
 extern "C" int fused_engine_bwd_x_f32(const float* g, const float* ww, const float* inv, const int* pos,
                                       const int* sub_off, float* dcells, int B, int gy, int gx, int N,
-                                      int M, int S, int ty, int tx, int R, int W, int TC, void* stream) {
+                                      int M, int S, int ty, int tx, int R, int W, int TC, int C, void* stream) {
   return with_bx_conf(M, [&](auto conf) {
-    using C = decltype(conf);
-    using K = typename C::K;
+    using Cf = decltype(conf);
+    using K = typename Cf::K;
     const int nrb = (B * gy + R - 1) / R, ncb = (gx + W - 1) / W;
-    dim3 grid(nrb * ncb, (N + K::BN - 1) / K::BN);
-    BX_KERNEL(C)<<<grid, K::kThreads, K::kSmemBytes, reinterpret_cast<cudaStream_t>(stream)>>>(
-        g, ww, inv, pos, sub_off, dcells, B, gy, gx, N, M, S, ty, tx, R, W, TC, ncb);
+    const int n_nb = (N + K::BN - 1) / K::BN;
+    if constexpr (Cf::kMma) {
+      // N-tiles fastest where g (B*ty*tx*S^2*4 rows of M) outweighs ww (C*N rows)
+      const int n_fast = (long long)B * ty * tx * S * S * 4 > (long long)C * N;
+      bwd_x_mma_kernel<K><<<nrb * ncb * n_nb, K::kThreads, Cf::kSmemBytes,
+                            reinterpret_cast<cudaStream_t>(stream)>>>(
+          g, ww, inv, pos, sub_off, dcells, B, gy, gx, N, M, S, ty, tx, R, W, TC, ncb, nrb * ncb, n_nb, n_fast);
+    } else {
+      bwd_x_kernel<<<dim3(nrb * ncb, n_nb), K::kThreads, Cf::kSmemBytes, reinterpret_cast<cudaStream_t>(stream)>>>(
+          g, ww, inv, pos, sub_off, dcells, B, gy, gx, N, M, S, ty, tx, R, W, TC, ncb);
+    }
     return (int)cudaGetLastError();
   });
 }

@@ -145,6 +145,14 @@ def _split_counters(n: int, device_index: int, stream: int) -> torch.Tensor:
     return torch.zeros(n, dtype=torch.int32, device=torch.device("cuda", device_index))
 
 
+def _check_bwd_x_aligned(what: str, M: int, g: torch.Tensor, ww_packed: torch.Tensor) -> None:
+    """The bwd_x kernels stage rows of g and ww in 16-byte copies wherever
+    M % 4 == 0: both must then start on a 16-byte boundary."""
+    if M % 4 == 0 and (g.data_ptr() % 16 or ww_packed.data_ptr() % 16):
+        raise ValueError(f"{what} moves rows of g and ww_packed in 16-byte copies at M={M} (a multiple of 4): "
+                         f"both must be 16-byte aligned")
+
+
 def _check_vec(name, v, M, device):
     if v is None:
         return None
@@ -359,7 +367,8 @@ def fused_engine_bwd_x(
     """dL/dcells (B, gy, gx, m*m, N) of the fused engine at the deconv
     corner: the exact shape of the forward's cells input, zero in rows and
     columns the forward never reads.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel (F(2,3), fp32, contiguous inputs)."""
+    CUDA tensors launch the kernel (F(2,3), fp32, contiguous inputs; g and
+    ww_packed 16-byte aligned where M % 4 == 0)."""
     kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m=m, n=n, ty=ty, tx=tx, stride=stride)
     if g.device.type == "cpu":
         return fused_engine_bwd_x_plain(g, ww_packed, inv_packed, gy=gy, gx=gx, **kw)
@@ -376,21 +385,23 @@ def fused_engine_bwd_x(
     out_shape = (B, gy, gx, m * m, N)
     if max(g.numel(), ww_packed.numel(), B * gy * gx * m * m * N) >= 2**31:
         raise ValueError("problem too large for the kernel's 32-bit indices")
+    _check_bwd_x_aligned("fused_engine_bwd_x", M, g, ww_packed)
 
     from ._build import load_library
 
     dev = g.device
     lib = load_library()
     pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
-    R, W, TC = _bwd_x_plan(B, gy, gx, ty, tx, M, dev.index)
+    R, W, TC, _ = _bwd_x_plan(B, gy, gx, ty, tx, M, dev.index)
     out = torch.empty(out_shape, dtype=torch.float32, device=dev)
     err = lib.fused_engine_bwd_x_f32(
         g.data_ptr(), ww_packed.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), offs.data_ptr(),
-        out.data_ptr(), B, gy, gx, N, M, stride, ty, tx, R, W, TC,
+        out.data_ptr(), B, gy, gx, N, M, stride, ty, tx, R, W, TC, C,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"fused_engine_bwd_x kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"fused_engine_bwd_x kernel launch failed: cudaError {err} (B={B}, cells {gy}x{gx}, "
+                           f"tiles {ty}x{tx}, N={N}, M={M}, S={stride}, C={C}, plan {(R, W, TC)})")
     fused_engine_bwd_x.launches += 1
     return out
 
@@ -460,14 +471,15 @@ fused_engine_bwd_w.launches = 0
 
 @functools.lru_cache(maxsize=256)
 def _bwd_x_plan(B: int, gy: int, gx: int, ty: int, tx: int, M: int, device_index: int):
-    """(R, W, TC) of the bwd_x kernel's block geometry for this shape: R
-    cell rows by W cell columns per block, TC tile columns per slot row.
-    The library raises the kernel's shared-memory limit here, once."""
+    """(R, W, TC, BT) of the bwd_x kernel's block geometry for this shape: R
+    cell rows by W cell columns per block, TC tile columns per slot row, BT
+    tile slots.  The library raises the kernel's shared-memory limit here,
+    once."""
     import ctypes
 
     from ._build import load_library
 
-    out = [ctypes.c_int() for _ in range(3)]
+    out = [ctypes.c_int() for _ in range(4)]
     with torch.cuda.device(device_index):
         err = load_library().fused_engine_bwd_x_plan(B, gy, gx, ty, tx, M, *map(ctypes.byref, out))
     if err != 0:
@@ -980,8 +992,9 @@ def domain_engine_bwd_x(
 ) -> torch.Tensor:
     """dL/dxw (T, n2, N) of the unfused engine, zero at the Winograd
     positions no packed position keeps.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (fp32, contiguous; F(2x2,3x3),
-    m2 = 4 and n2 = 16, or the 1D engine's m2 = 2 and n2 <= 16).
+    version; CUDA tensors launch the kernel (fp32, contiguous, g and
+    ww_packed 16-byte aligned where M % 4 == 0; F(2x2,3x3), m2 = 4 and
+    n2 = 16, or the 1D engine's m2 = 2 and n2 <= 16).
     ``.launches`` counts the 2D launches, ``.rank1_launches`` the 1D ones."""
     kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m2=m2)
     if g.device.type == "cpu":
@@ -996,16 +1009,17 @@ def domain_engine_bwd_x(
     dev, s2 = _check_domain((("g", g), ("ww_packed", ww_packed), ("inv_packed", inv_packed)), T=T, N=N, M=M,
                             n2=n2, ranks=(2, 4), **kw)
     _check_packed(ww_packed, inv_packed, len(pos_idx), N, M, m2)
+    _check_bwd_x_aligned("domain_engine_bwd_x", M, g, ww_packed)
 
     from ._build import load_library
 
     lib = load_library()
     pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
-    _domain_bwd_x_plan(M, m2, dev.index)
+    _domain_bwd_x_plan(M, m2, n2, dev.index)
     out = torch.empty((T, n2, N), dtype=torch.float32, device=dev)
     err = lib.domain_engine_bwd_x_f32(
         g.data_ptr(), ww_packed.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), offs.data_ptr(),
-        out.data_ptr(), T, N, M, s2, m2, n2, torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), T, N, M, s2, m2, n2, len(pos_idx), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"domain_engine_bwd_x kernel launch failed: cudaError {err}")
@@ -1099,13 +1113,13 @@ def _domain_plan(which: str, T: int, N: int, M: int, s2: int, device_index: int,
 
 
 @functools.lru_cache(maxsize=64)
-def _domain_bwd_x_plan(M: int, m2: int, device_index: int) -> None:
-    """Raise the unfused bwd_x kernel's shared-memory limit for (M, m2)'s
-    block configuration, once per device."""
+def _domain_bwd_x_plan(M: int, m2: int, n2: int, device_index: int) -> None:
+    """Raise the unfused bwd_x kernel's shared-memory limit for (M, m2,
+    n2)'s block configuration, once per device."""
     from ._build import load_library
 
     with torch.cuda.device(device_index):
-        err = load_library().domain_engine_bwd_x_plan(M, m2)
+        err = load_library().domain_engine_bwd_x_plan(M, m2, n2)
     if err != 0:
         raise RuntimeError(f"domain_engine_bwd_x plan failed: cudaError {err}")
 

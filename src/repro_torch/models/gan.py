@@ -573,7 +573,17 @@ AUDIO_IMPLS = ("lax", "tdc", *_AUDIO_ENGINE_KW)
 def lax_deconv1d(x: torch.Tensor, w: torch.Tensor, dims: DeconvDims) -> torch.Tensor:
     """The framework's own 1D transposed convolution (``F.conv_transpose1d``,
     as the reference leaves it to XLA): x (B, L, N), w (K_D, N, M) ->
-    (B, L_O, M).  The baseline and yardstick; the kernel path never calls it."""
+    (B, L_O, M).  The baseline and yardstick; the kernel path never calls it.
+    ``conv_transpose1d`` refuses output_padding >= stride; there the
+    reference's own form runs: the S-dilated input, padded (K-1-P,
+    K-1-P+OP) (a negative pad crops), correlated with the flipped taps."""
+    K, S, P, OP = dims.kernel, dims.stride, dims.padding, dims.output_padding
+    if OP >= S:
+        B, L, N = x.shape
+        xd = x.new_zeros((B, S * (L - 1) + 1, N))
+        xd[:, ::S] = x
+        xd = torch.nn.functional.pad(xd, (0, 0, K - 1 - P, K - 1 - P + OP))  # crops where a pad is negative
+        return torch.nn.functional.conv1d(xd.permute(0, 2, 1), w.flip(0).permute(2, 1, 0)).permute(0, 2, 1)
     y = torch.nn.functional.conv_transpose1d(x.permute(0, 2, 1), w.permute(1, 2, 0), stride=dims.stride,
                                              padding=dims.padding, output_padding=dims.output_padding)
     return y.permute(0, 2, 1)

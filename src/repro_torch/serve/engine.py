@@ -156,21 +156,27 @@ class GanServeEngine:
                 return k
         raise ValueError(f"request batch {b} > engine max bucket {self.buckets[-1]}")
 
+    def _count_bucket(self, res: _Resident, b: int) -> None:
+        k = self.bucket_for(b)
+        res.bucket_counts[k] = res.bucket_counts.get(k, 0) + 1
+
     def _run_bucketed(self, res: _Resident, z: torch.Tensor) -> torch.Tensor:
         b = z.shape[0]
         k = self.bucket_for(b)
         if k > b:
             z = torch.cat([z, z.new_zeros((k - b, *z.shape[1:]))])
         imgs = res.generate(z)
-        res.bucket_counts[k] = res.bucket_counts.get(k, 0) + 1
         res.served += b
         self.served += b
         return imgs[:b]
 
     def generate(self, z: torch.Tensor, arch: Optional[str] = None) -> torch.Tensor:
         """z: (b, z_dim) latents (or (b, H, W, 3) images), b <= max bucket.
-        Returns the b images of the named resident (or the only one)."""
+        Returns the b images of the named resident (or the only one).  The
+        bucket counts before the generate runs, as the reference's does: a
+        generate that raises still counts (a dispatch counts on success)."""
         res = self.archs[self._resolve_arch(arch)]
+        self._count_bucket(res, z.shape[0])
         return self._run_bucketed(res, z.to(self.device, torch.float32))
 
     # ------------------------------------------------------- admission core
@@ -201,6 +207,7 @@ class GanServeEngine:
                 for r in reqs:
                     r.failed, r.error = True, e
                 continue
+            self._count_bucket(self.archs[arch], imgs.shape[0])
             row = 0
             for r in reqs:
                 r.out = imgs[row : row + r.size]

@@ -82,10 +82,12 @@ def test_every_cuda_source_is_built_and_imports_nothing_of_the_reference():
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     assert sources == sorted(_build.SOURCES)
     assert {"fused_engine.cu", "fused_engine_bwd.cu", "conv_engine.cu", "domain_engine.cu", "engine1d.cu"} <= set(sources)
-    for name in sources:
-        # a plain C interface bound with ctypes: the CUDA runtime and nothing of PyTorch
+    headers = {f'"{p.name}"' for p in _build.CSRC.glob("*.cuh")}
+    for name in sources + sorted(p.name for p in _build.CSRC.glob("*.cuh")):
+        # a plain C interface bound with ctypes: the CUDA runtime, the
+        # package's own headers and nothing of PyTorch
         includes = set(re.findall(r"^#include\s+(\S+)", (_build.CSRC / name).read_text(), re.M))
-        assert includes <= {"<cuda_runtime.h>", "<stdint.h>"}, (name, includes)
+        assert includes <= {"<cuda_runtime.h>", "<stdint.h>"} | headers, (name, includes)
     for fn in ("fused_engine_bwd_x_f32", "fused_engine_bwd_w_f32", "fused_engine_bwd_x_plan",
                "fused_engine_bwd_w_plan", "fused_engine_epi_f32", "fused_engine_plan",
                "conv_engine_fwd_plan", "conv_engine_fwd_f32", "conv_engine_bwd_x_plan", "conv_engine_bwd_x_f32",
@@ -222,3 +224,22 @@ def test_rank1_domain_check_refuses_what_the_kernels_do_not_take(bad):
         return
     with pytest.raises(ValueError):
         E._check_domain((("g", g),), **kw)
+
+
+@pytest.mark.parametrize("M", [3, 4, 8, 64])
+@pytest.mark.parametrize("which", ["none", "g", "ww_packed"])
+def test_bwd_x_check_refuses_misaligned_operands_of_16_byte_copies(M, which):
+    """Kernels 4 and 6 move rows of g and ww in 16-byte copies wherever
+    M % 4 == 0: a tensor that starts off a 16-byte boundary is refused
+    there, and taken where M is ragged (4-byte copies)."""
+    def tensor(misaligned):
+        buf = torch.zeros(8 * M + 1)  # the allocator's base is 16-byte aligned
+        return buf[1:] if misaligned else buf[:-1]
+
+    g, ww = tensor(which == "g"), tensor(which == "ww_packed")
+    assert tensor(False).data_ptr() % 16 == 0 and tensor(True).data_ptr() % 16 == 4
+    if which != "none" and M % 4 == 0:
+        with pytest.raises(ValueError, match="16-byte"):
+            E._check_bwd_x_aligned("bwd_x", M, g, ww)
+    else:
+        E._check_bwd_x_aligned("bwd_x", M, g, ww)
