@@ -9,7 +9,11 @@ Phases, each printing one JSON line:
   build   nvcc builds the kernels in src/repro_torch/kernels/csrc/ (sm_90a):
           fused_engine.cu, fused_engine_bwd.cu, conv_engine.cu,
           domain_engine.cu, engine1d.cu (the two bwd_x kernels share
-          bwd_x_core.cuh).
+          bwd_x_core.cuh, the two bwd_w kernels bwd_w_core.cuh).
+Each kernel phase also calls each of its wrappers once with a misaligned
+contiguous view of one operand that the kernel moves in 16-byte copies: the
+call must raise ValueError before any launch, and an aligned launch after it
+must still run (no sticky CUDA error).
   kernel  the fused Winograd-DeConv kernel against its plain PyTorch version
           at the four DCGAN layer shapes (batch 8) and a K4S2, a K3S1 and a
           K2S3 shape, each also checked against conv_transpose2d plus the same
@@ -17,13 +21,17 @@ Phases, each printing one JSON line:
           of 20 calls) and wall times (CUDA events, median of >= 20 calls).
   kernel_bwd
           the two backward kernels (fused_engine_bwd.cu) against their plain
-          versions at the four DCGAN layer shapes at the training batch 128
-          and the K4S2, K3S1 and K2S3 shapes above; bwd_x (TPU kernel 6, on
-          the tensor cores through bwd_x_core.cuh) also against itself: two
+          versions at the four DCGAN layer shapes at the training batch 128,
+          the K4S2, K3S1 and K2S3 shapes above and a ragged K5S2 shape (N, M
+          not multiples of the block tile, T not of the chunk, T split);
+          bwd_x (TPU kernel 6, bwd_x_core.cuh) and bwd_w (TPU kernel 7,
+          bwd_w_core.cuh), on the tensor cores, also against themselves: two
           launches bitwise equal, the instantiation that ran, its bound with
           the products at the 3xTF32 rate where they ran on the tensor cores
-          (the fp32 one beside it) and how its blocks spend their tile
-          slots; device, one-call and
+          (the fp32 one beside it), and its plan (bwd_x: how its blocks
+          spend their tile slots; bwd_w: the T split, the block tile and how
+          often it forms each value of xw);
+          device, one-call and
           plain times, the bound, and as a yardstick aten's
           convolution_backward of the layer's conv_transpose2d (input grad
           for bwd_x, raw-weight grad for bwd_w).  Also the forward kernel at
@@ -38,13 +46,14 @@ Phases, each printing one JSON line:
   kernel_domain
           the per-layer path's kernels: the unfused engine and its backward
           (domain_engine.cu: kernels 1, 4, 5) against their plain versions at
-          the four DCGAN layer shapes at batch 128 and the K4S2, K3S1 and
-          K2S3 shapes, kernel 1 also at the four layers at batch 8 (as it
-          serves); the fused engine's scratch mode (kernel 2) at the four
-          layers at batch 8 and 128; one FusedPreFn and one EngineFn
-          gradient (deconv2, batch 128) against autograd of the plain
-          versions; kernel 4 (bwd_x, on the tensor cores) two launches
-          bitwise equal and its bound as kernel 6's; device, one-call and plain
+          the four DCGAN layer shapes at batch 128, the K4S2, K3S1 and K2S3
+          shapes and kernel_bwd's ragged shape, kernel 1 also at the four
+          layers at batch 8 (as it serves); the fused engine's scratch mode
+          (kernel 2) at the four layers at batch 8 and 128; one FusedPreFn
+          and one EngineFn gradient (deconv2, batch 128) against autograd of
+          the plain versions; kernels 4 and 5 (on the tensor cores) two
+          launches bitwise equal and their bound as kernels 6 and 7's,
+          kernel 5 its plan as kernel 7's; device, one-call and plain
           times, the bound, and as
           yardsticks conv_transpose2d (1, 2) and aten's convolution_backward
           (input grad for 4, raw-weight grad for 5).
@@ -89,8 +98,8 @@ Phases, each printing one JSON line:
           K3S2 OP1 and a K6S3 deconv, a phases=2 scratch shape, and the nlc
           epilogue with each activation; rank-1 kernels 4 and 5
           (domain_engine.cu, m2 = 2) against theirs at the decoder's three
-          layers (rank-1 kernel 4 also two launches bitwise equal and its
-          bound as kernel 6's), rank-1 kernel 4 also at the conv1d shape
+          layers (both also two launches bitwise equal and their bound as
+          kernels 6 and 7's, kernel 5 its plan), rank-1 kernel 4 also at the conv1d shape
           above (n2 = 5 positions: the tensor-core instantiation for more
           than 4); device, one-call and plain ms, the bound, and as
           yardsticks conv_transpose1d / conv1d and aten's
@@ -142,6 +151,8 @@ REPLACES_1D_SCRATCH = "src/repro/kernels/engine.py:1690"  # its scratch pallas_c
 PHASES = ("kernel", "kernel_bwd", "kernel_conv", "kernel_domain", "serve", "train", "train_chained",
           "serve_per_layer", "train_per_layer", "kernel_1d", "audio")
 TRAIN_BATCH = 128  # the DCGAN paper's mini-batch
+# K5S2 at batch 7, 11x11 input, 100 -> 36 channels: name, (kernel, stride, padding, output_padding), B, H, N, M
+RAGGED_SHAPE = ("ragged", (5, 2, 2, 1), 7, 11, 100, 36)
 AUDIO_BATCH, AUDIO_FRAMES, AUDIO_WIDTH = 16, 4096, 64  # the audio decoder's cell: 16 clips of 4096 latent frames
 # each row of the kernels line -> (its wrapper in repro_torch.kernels.engine,
 # the attribute that counts its launches)
@@ -174,6 +185,8 @@ PEAKS = {
 # instantiation for few or ragged channels, as the profiler names them
 BWD_X_KERNELS = ("bwd_x_kernel", "bwd_x_mma_kernel")
 DOMAIN_BWD_X_KERNELS = ("domain_bwd_x_kernel", "domain_bwd_x_mma_kernel")
+BWD_W_KERNELS = ("bwd_w_kernel", "bwd_w_mma_kernel")
+DOMAIN_BWD_W_KERNELS = ("domain_bwd_w_kernel", "domain_bwd_w_mma_kernel")
 
 
 def zero_counts() -> None:
@@ -289,6 +302,58 @@ def bitwise_repeat(what: str, run, got) -> None:
         fail(f"{what}: two launches on the same inputs differ (max |diff| {(again - got).abs().max().item():.3e})")
 
 
+def bwd_w_plan(tile, splits: int, C: int, S2: int, M: int) -> dict:
+    """A bwd_w row's plan: its T split and block tile (BN x BM channels, BT
+    tiles a chunk, from the library's plan) and how often the kernel forms
+    each value of xw that it reads: the tensor-core kernel forms only its
+    own packed position's Winograd position, once per M tile, so C/16 *
+    M tiles; the CUDA-core kernel forms all 16 positions once per
+    (sub-filter, M tile), S^2 * M tiles.  (Kernel 5 reads xw from memory: the
+    same factor counts its reads.)"""
+    BN, BM, BT, mma = tile
+    m_tiles = -(-M // BM)
+    return dict(splits=splits, BN=BN, BM=BM, BT=BT, tensor_cores=bool(mma),
+                xw_per_value=C * m_tiles / 16 if mma else S2 * m_tiles)
+
+
+def misaligned(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary (``buf[1:]`` of a fresh buffer), as a caller's offset view
+    would."""
+    import torch
+
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    view = buf[1 : 1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    if view.data_ptr() % 16 == 0 or not view.is_contiguous():
+        fail("could not build a misaligned contiguous view")
+    return view
+
+
+def refuses_misaligned(what: str, run_misaligned, run) -> dict:
+    """Fail unless the wrapper call ``run_misaligned`` (one operand a
+    misaligned contiguous view) raises ValueError before any launch, and
+    the aligned call ``run`` after it still launches and finishes: a
+    misaligned 16-byte copy would have left a sticky CUDA error."""
+    import torch
+
+    before = read_counts()
+    try:
+        run_misaligned()
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        torch.cuda.synchronize()
+        fail(f"{what}: a misaligned operand was not refused")
+    if read_counts() != before:
+        fail(f"{what}: the refused call counted a launch")
+    out = run()
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()):
+        fail(f"{what}: the launch after the refusal gave non-finite values")
+    return dict(wrapper=what, refusal=refusal)
+
+
 def bwd_x_block_use(B: int, gy: int, gx: int, ty: int, tx: int, R: int, W: int, TC: int, BT: int) -> dict:
     """How fused_engine_bwd_x's blocks spend their tile slots (the kernel's
     own geometry, fused_engine_bwd.cu::CellBlock): the share of the computed
@@ -351,15 +416,18 @@ def profiled_ms(fn, reps: int = 10, warmup: int = 3, name="", what: str = ""):
     ms per call of the kernels whose name contains ``name`` (or one of a
     tuple of names), device ms per call of each kernel by name).  The device time is taken inside the wall
     time it is compared with.  A session that records no device time (or
-    none for ``name``) is run again, up to three sessions in all, and then
-    fails: the tracer has been seen to drop a whole session's events."""
+    none for ``name``) is run again after a pause, up to five sessions in
+    all, and then fails: the tracer has been seen to drop a whole session's
+    events, once those of three sessions of one call in a row."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
+    for attempt in range(5):
+        if attempt:
+            time.sleep(0.2 * attempt)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -377,7 +445,7 @@ def profiled_ms(fn, reps: int = 10, warmup: int = 3, name="", what: str = ""):
         emit({"note": f"profiler session {attempt + 1} recorded no device time",
               "for": what or name or "(all kernels)"})
     else:
-        fail(f"the profiler recorded no device time for {what or name or 'any kernel'} in 3 sessions")
+        fail(f"the profiler recorded no device time for {what or name or 'any kernel'} in 5 sessions")
     by_kernel = {e.key: e.device_time_total / reps / 1e3 for e in evs if e.device_time_total > 0}
     return a.elapsed_time(b) / reps, total / reps / 1e3, named / reps / 1e3, by_kernel
 
@@ -433,6 +501,10 @@ def kernel_phase(torch, peaks):
         tol = 1e-4 * want.abs().max().item() + 1e-5
         if not err <= tol:
             fail(f"kernel vs plain at {name}: max|err| {err:.3e} > {tol:.3e}")
+        if i == 0:  # the wrapper refuses a misaligned operand, and launches again after it
+            emit({"phase": "kernel", "misaligned_refusals": [refuses_misaligned(
+                "fused_engine", lambda: ops.winograd_deconv2d_cells(misaligned(cells), packed, dims, (H, H), **kw),
+                lambda: run("cuda"))]})
 
         HO = dims.out_size(H)
         wt = w.permute(2, 3, 0, 1).contiguous()
@@ -688,9 +760,13 @@ def kernel_bwd_phase(torch, peaks):
         ("k4s2", K4, 8, 8, 256, 128, None, True, "leaky_relu"),
         ("k3s1", K3, 8, 32, 64, 3, None, False, "tanh"),
         ("k2s3", K2S3, 2, 8, 32, 16, None, False, "relu"),
+        # the tensor-core routes' edges: N, M multiples of 4 but not of the block tile, T = 252 tiles (not a
+        # multiple of the 8- or 16-tile chunk), and a T split
+        (RAGGED_SHAPE[0], DeconvDims(*RAGGED_SHAPE[1]), *RAGGED_SHAPE[2:], None, True, "relu"),
     ]
     flops_peak, bytes_peak, _ = peaks
-    rows = []
+    dev = torch.cuda.current_device()
+    rows, refusals = [], []
     for i, (name, dims, B, H, N, M, gy, emit_cells, act) in enumerate(shapes):
         g = torch.Generator(device="cuda").manual_seed(200 + i)
         S, P = dims.stride, dims.padding
@@ -723,8 +799,19 @@ def kernel_bwd_phase(torch, peaks):
             if not err <= tol:
                 fail(f"bwd_{key} kernel vs plain at {name}: max|err| {err:.3e} > {tol:.3e}")
             errs[key] = (err, tol)
-            if key == "x":
-                bitwise_repeat(f"bwd_x at {name}", run, got)
+            bitwise_repeat(f"bwd_{key} at {name}", run, got)
+        if i == 0:  # each wrapper refuses a misaligned operand, and launches again after it
+            fwd = dict(pos_idx=pos_idx, sub_slices=sub_slices, m=2, n=4, ty=ty, tx=ty, stride=S, padding=P,
+                       out_h=dims.out_size(H), out_w=dims.out_size(H), out_mode="scratch")
+            refusals += [
+                refuses_misaligned("fused_engine_bwd_x", lambda: engine.fused_engine_bwd_x(
+                    misaligned(gs), packed.ww, packed.inv, gy=gy, gx=gy, **geo), run_x),
+                refuses_misaligned("fused_engine_bwd_w", lambda: engine.fused_engine_bwd_w(
+                    cells, misaligned(gs), packed.inv, **geo), run_w),
+                refuses_misaligned("fused_engine", lambda: engine.fused_engine(
+                    misaligned(cells), packed.ww, packed.inv, **fwd),
+                    lambda: engine.fused_engine(cells, packed.ww, packed.inv, **fwd))]
+            emit({"phase": "kernel_bwd", "misaligned_refusals": refusals})
 
         # the yardstick: aten's backward of this layer's conv_transpose2d
         HO = dims.out_size(H)
@@ -747,7 +834,7 @@ def kernel_bwd_phase(torch, peaks):
         }
         for key, run, plain, kname, mask in (
                 ("x", run_x, plain_x, BWD_X_KERNELS, [True, False, False]),
-                ("w", run_w, plain_w, "bwd_w_kernel", [False, True, False])):
+                ("w", run_w, plain_w, BWD_W_KERNELS, [False, True, False])):
             n_bytes, n_ops = work[key]
             t_bytes, t_ops = 1e3 * n_bytes / bytes_peak, 1e3 * n_ops / flops_peak
             _, _, ms, by_kernel = profiled_ms(run, reps=20, name=kname)
@@ -762,16 +849,19 @@ def kernel_bwd_phase(torch, peaks):
                                      "aten convolution_backward, raw-weight grad (not the packed one)"),
                        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
                        bytes=n_bytes, ops=n_ops, achieved_tflops=n_ops / (ms * 1e-3) / 1e12)
+            # the redesigned kernels: the instantiation that ran and its bound (the products at the
+            # 3xTF32 rate where it ran on the tensor cores), and their plan: bwd_x's tile slots,
+            # bwd_w's split, block tile and how often it forms each value of xw
+            row.update(mma_bound(n_bytes, n_ops, products,
+                                 sorted(k for k in by_kernel if any(n in k for n in kname)), peaks))
             if key == "x":
-                # the redesigned kernel: the instantiation that ran and its bound (the products at
-                # the 3xTF32 rate where it ran on the tensor cores), and how its blocks spend
-                # their tile slots
-                row.update(mma_bound(n_bytes, n_ops, products,
-                                     sorted(k for k in by_kernel if any(n in k for n in kname)), peaks))
-                R, W, TC, BT = engine._bwd_x_plan(B, gy, gy, ty, ty, M, torch.cuda.current_device())
+                R, W, TC, BT = engine._bwd_x_plan(B, gy, gy, ty, ty, M, dev)
                 row["plan"] = dict(R=R, W=W, TC=TC, BT=BT, **bwd_x_block_use(B, gy, gy, ty, ty, R, W, TC, BT))
             else:
-                row["splits"] = engine._bwd_w_plan(B, ty, ty, N, M, S, torch.cuda.current_device())[0]
+                splits, _, _, tile = engine._bwd_w_plan(B, ty, ty, N, M, S, C, dev)
+                row["plan"] = bwd_w_plan(tile, splits, C, S * S, M)
+                if name == RAGGED_SHAPE[0] and splits < 2:
+                    fail(f"kernel 7 at the ragged shape ran unsplit (plan {row['plan']})")
             emit({"phase": "kernel_bwd", **row})
             rows.append(row)
 
@@ -828,11 +918,13 @@ def kernel_domain_phase(torch, peaks):
     all3 = ("fwd", "bwd_x", "bwd_w")
     shapes = [(n, d, TRAIN_BATCH, H, N, M, all3) for n, d, H, N, M in layers] + [
         (f"{n}.b8", d, 8, H, N, M, ("fwd",)) for n, d, H, N, M in layers] + [  # kernel 1 serves at batch 8
-        ("k4s2", K4, 8, 8, 256, 128, all3), ("k3s1", K3, 8, 32, 64, 3, all3), ("k2s3", K2S3, 2, 8, 32, 16, all3)]
+        ("k4s2", K4, 8, 8, 256, 128, all3), ("k3s1", K3, 8, 32, 64, 3, all3), ("k2s3", K2S3, 2, 8, 32, 16, all3),
+        # the tensor-core routes' edges (kernel_bwd's ragged shape)
+        (RAGGED_SHAPE[0], DeconvDims(*RAGGED_SHAPE[1]), *RAGGED_SHAPE[2:], all3)]
     scratch_shapes = [(n, d, B, H, N, M) for B in (8, TRAIN_BATCH) for n, d, H, N, M in layers]
     flops_peak, bytes_peak, _ = peaks
     dev = torch.cuda.current_device()
-    rows = []
+    rows, refusals = [], []
 
     def held(what, got, want):
         if tuple(got.shape) != tuple(want.shape):
@@ -901,8 +993,16 @@ def kernel_domain_phase(torch, peaks):
             got = run()
             torch.cuda.synchronize()
             errs[key] = held(f"domain_engine {key} at {name}", got, plain())
-            if key == "bwd_x":
-                bitwise_repeat(f"domain_engine bwd_x at {name}", run, got)
+            if key != "fwd":
+                bitwise_repeat(f"domain_engine {key} at {name}", run, got)
+        if i == 0:  # each wrapper refuses a misaligned operand, and launches again after it
+            refusals += [
+                refuses_misaligned("domain_engine", lambda: engine.domain_engine(
+                    misaligned(xw), packed.ww, packed.inv, **kw), runs["fwd"][0]),
+                refuses_misaligned("domain_engine_bwd_x", lambda: engine.domain_engine_bwd_x(
+                    misaligned(gs), packed.ww, packed.inv, n2=16, **kw), runs["bwd_x"][0]),
+                refuses_misaligned("domain_engine_bwd_w", lambda: engine.domain_engine_bwd_w(
+                    xw, misaligned(gs), packed.inv, **kw), runs["bwd_w"][0])]
         lib_fwd, lib_bwd = library_calls(g, x, w, dims, B, H, M)
         inv_np = packed.inv.cpu()
         prod = 2 * T * C * N * M
@@ -914,15 +1014,18 @@ def kernel_domain_phase(torch, peaks):
                 "bwd_x": (lambda: lib_bwd([True, False, False]), "aten convolution_backward, input grad"),
                 "bwd_w": (lambda: lib_bwd([False, True, False]),
                           "aten convolution_backward, raw-weight grad (not the packed one)")}
-        knames = {"fwd": "domain_fwd_kernel", "bwd_x": DOMAIN_BWD_X_KERNELS, "bwd_w": "domain_bwd_w_kernel"}
+        knames = {"fwd": "domain_fwd_kernel", "bwd_x": DOMAIN_BWD_X_KERNELS, "bwd_w": DOMAIN_BWD_W_KERNELS}
         for key, (run, plain) in runs.items():
             extra = {}
             if key == "fwd":
                 extra["splits"] = engine._domain_plan("fwd", T, N, M, S2, dev)[0]
-            elif key == "bwd_w":
-                extra["splits"] = engine._domain_plan("bwd_w", T, N, M, S2, dev)[0]
             else:
                 extra["products"] = prod
+            if key == "bwd_w":
+                splits, _, _, tile = engine._domain_plan("bwd_w", T, N, M, S2, dev, 4, C)
+                extra["plan"] = bwd_w_plan(tile, splits, C, S2, M)
+                if name == RAGGED_SHAPE[0] and splits < 2:
+                    fail(f"kernel 5 at the ragged shape ran unsplit (plan {extra['plan']})")
             measure(f"domain_engine{'' if key == 'fwd' else '_' + key}", name, B, H, N, M, C, T, run, plain,
                     knames[key], *libs[key], 4 * (io[key] + packed.inv.numel()),
                     prod + (fold if key == "fwd" else gw), errs[key], **extra)
@@ -944,6 +1047,10 @@ def kernel_domain_phase(torch, peaks):
         got = run()
         torch.cuda.synchronize()
         err = held(f"fused_engine scratch at {name} batch {B}", got, plain())
+        if i == 0:
+            refusals.append(refuses_misaligned("fused_engine", lambda: engine.fused_engine(
+                misaligned(cells), packed.ww, packed.inv, **kw), run))
+            emit({"phase": "kernel_domain", "misaligned_refusals": refusals})
         lib_fwd, _ = library_calls(g, x, w, dims, B, H, M)
         n_bytes = 4 * (cells.numel() + packed.ww.numel() + packed.inv.numel() + got.numel())
         n_ops = 2 * T * C * N * M + 32 * T * N + T * M * fold_adds(packed.inv.cpu(), sub_slices)
@@ -1008,7 +1115,7 @@ def kernel_1d_phase(torch, peaks):
     ] + [(f"epilogue.{act}", "deconv", K4S2, 4, 512, 64, 64, "nlc", act, True)
          for act in ("none", "relu", "leaky_relu", "tanh")]
     flops_peak, bytes_peak, _ = peaks
-    rows = []
+    rows, refusals = [], []
 
     def held(what, got, want):
         if tuple(got.shape) != tuple(want.shape):
@@ -1071,6 +1178,9 @@ def kernel_1d_phase(torch, peaks):
         got = run()
         torch.cuda.synchronize()
         err = held(f"engine1d {out_mode} at {name}", got, plain())
+        if i == 0:  # the 1D wrapper refuses a misaligned operand, and launches again after it
+            refusals.append(refuses_misaligned("winograd_conv1d_fused_engine", lambda: engine.winograd_conv1d_fused_engine(
+                misaligned(cells), packed.ww, packed.inv, bt, **kw), run))
 
         lib, lib_note, lib_err = None, None, None
         if kind != "phases":
@@ -1132,8 +1242,14 @@ def kernel_1d_phase(torch, peaks):
             got = run()
             torch.cuda.synchronize()
             errs[key] = held(f"rank-1 domain_engine {key} at {name}", got, plain())
-            if key == "bwd_x":
-                bitwise_repeat(f"rank-1 domain_engine bwd_x at {name}", run, got)
+            bitwise_repeat(f"rank-1 domain_engine {key} at {name}", run, got)
+        if i == 0:  # the rank-1 wrappers refuse a misaligned operand, and launch again after it
+            refusals += [
+                refuses_misaligned("domain_engine_bwd_x (rank 1)", lambda: engine.domain_engine_bwd_x(
+                    misaligned(gs), packed.ww, packed.inv, n2=4, **kw), runs["bwd_x"][0]),
+                refuses_misaligned("domain_engine_bwd_w (rank 1)", lambda: engine.domain_engine_bwd_w(
+                    xw, misaligned(gs), packed.inv, **kw), runs["bwd_w"][0])]
+            emit({"phase": "kernel_1d", "misaligned_refusals": refusals})
         xc, wt = x.permute(0, 2, 1).contiguous(), w.permute(1, 2, 0).contiguous()
         go = torch.randn((B, M, dims.out_size(L)), generator=g, device="cuda")
         conv_bwd = lambda mask: torch.ops.aten.convolution_backward(  # noqa: E731
@@ -1146,10 +1262,12 @@ def kernel_1d_phase(torch, peaks):
                 "bwd_w": (lambda: conv_bwd([False, True, False]),
                           "aten convolution_backward, raw-weight grad (not the packed one)")}
         for key, (run, plain) in runs.items():
-            extra = {"splits": engine._domain_plan("bwd_w", T, N, M, S2, torch.cuda.current_device(), 2)[0]} \
-                if key == "bwd_w" else {"products": products}
+            extra = {"products": products}
+            if key == "bwd_w":
+                splits, _, _, tile = engine._domain_plan("bwd_w", T, N, M, S2, torch.cuda.current_device(), 2, C)
+                extra["plan"] = bwd_w_plan(tile, splits, C, S2, M)
             measure(f"domain_engine_{key}_rank1", name, run, plain,
-                    DOMAIN_BWD_X_KERNELS if key == "bwd_x" else "domain_bwd_w_kernel", *libs[key],
+                    DOMAIN_BWD_X_KERNELS if key == "bwd_x" else DOMAIN_BWD_W_KERNELS, *libs[key],
                     4 * (io[key] + packed.inv.numel()), prod, errs[key], B=B, L=L, N=N, M=M, C=C, T=T, **extra)
         del x, w, packed, cells, xw, gs, go, xc
         torch.cuda.empty_cache()
@@ -1394,6 +1512,16 @@ def kernel_conv_phase(torch, peaks):
             if not err <= tol:
                 fail(f"conv {key} kernel vs plain at {name}: max|err| {err:.3e} > {tol:.3e}")
             errs[key] = (err, tol, got.numel())
+        if i == 1:  # conv1 (64 -> 128): each wrapper refuses a misaligned operand, and launches again after it
+            fwd = dict(out_mode="nhwc", out_h=HO, out_w=WO, **geo)
+            emit({"phase": "kernel_conv", "misaligned_refusals": [
+                refuses_misaligned("conv_fused_engine", lambda: engine.conv_fused_engine(
+                    misaligned(cells), packed.ww, packed.inv, **fwd),
+                    lambda: engine.conv_fused_engine(cells, packed.ww, packed.inv, **fwd)),
+                refuses_misaligned("conv_fused_engine_bwd_x", lambda: engine.conv_fused_engine_bwd_x(
+                    misaligned(gs), packed.ww, packed.inv, gy=gy, gx=gx, **geo), runs["bwd_x"][0]),
+                refuses_misaligned("conv_fused_engine_bwd_w", lambda: engine.conv_fused_engine_bwd_w(
+                    cells, misaligned(gs), packed.inv, **geo), runs["bwd_w"][0])]})
 
         # the yardsticks, which the port never calls: cuDNN through F.conv2d
         # on the SAME-padded NCHW image, aten's convolution_backward
@@ -1685,7 +1813,7 @@ def train_phase(torch, card, conv_impl="lax", deconv_impl="cuda_chained"):
     if not chained and not library_convs:  # the check's own control: the lax step does run cuDNN
         fail(f"no convolution kernel found in the lax step's profile: {sorted(by_kernel)[:20]}")
     ours = {k: v for k, v in by_kernel.items() if any(n in k for n in (
-        "fused_epi_kernel", "bwd_x_kernel", "bwd_w_kernel", "conv_fwd_kernel", "domain_fwd_kernel"))}
+        "fused_epi_kernel", *BWD_X_KERNELS, *BWD_W_KERNELS, "conv_fwd_kernel", "domain_fwd_kernel"))}
     plain_step = make_gan_step(cfg, settings=dataclasses.replace(settings, **plain))
     pstate = [gp_k, dp_k, adamw_init(gp_k), adamw_init(dp_k)]
 
@@ -1819,7 +1947,7 @@ def main(argv=None) -> int:
                      "replaces": replaces, "corner": "deconv", **by_path(f"fused_engine_bwd_{key}"),
                      # ms ... library_ms: one DCGAN train step at batch 128, the four layer shapes summed
                      **summary(krows),
-                     "step_profile_ms": step_device_ms(BWD_X_KERNELS if key == "x" else "bwd_w_kernel")})
+                     "step_profile_ms": step_device_ms(BWD_X_KERNELS if key == "x" else BWD_W_KERNELS)})
     for key, replaces in (("fwd", REPLACES), ("bwd_x", REPLACES_BWD_X), ("bwd_w", REPLACES_BWD_W)):
         krows = [r for r in conv_rows if r["kernel"] == f"conv_engine_{key}"]
         weights = chained["per_layer"][key] if chained else None
@@ -1834,7 +1962,7 @@ def main(argv=None) -> int:
                      "per_pass": {k: v for k, v in summary(krows).items() if k != "shapes"}})
     for key, replaces in (("", REPLACES_DOM), ("_bwd_x", REPLACES_DOM_X), ("_bwd_w", REPLACES_DOM_W)):
         krows = [r for r in domain_rows if r["kernel"] == f"domain_engine{key}"]
-        kname = DOMAIN_BWD_X_KERNELS if key == "_bwd_x" else f"domain_{key[1:] or 'fwd'}_kernel"
+        kname = {"": "domain_fwd_kernel", "_bwd_x": DOMAIN_BWD_X_KERNELS, "_bwd_w": DOMAIN_BWD_W_KERNELS}[key]
         line.append({"name": f"domain_engine{key}", "route": "cuda", "source": SOURCE_DOM, "replaces": replaces,
                      "corner": "deconv", **by_path(f"domain_engine{key}"),
                      # ms ... library_ms: one DCGAN train step at batch 128, the four layer shapes summed

@@ -81,14 +81,29 @@ def transform_input_tiles(x_pad: torch.Tensor, n_tiles: tuple[int, int], m: int 
     return torch.einsum("zyxubc,vb->zyxuvc", rows, bt)
 
 
-@functools.lru_cache(maxsize=16)
+def device_constant(maxsize: int):
+    """``functools.lru_cache`` for a function that builds a constant tensor
+    on a device, which builds it outside any inference mode: a serving
+    caller's ``torch.inference_mode()`` would otherwise cache an inference
+    tensor, which autograd refuses to save in a later training step."""
+    def wrap(fn):
+        @functools.lru_cache(maxsize=maxsize)
+        @functools.wraps(fn)
+        def cached(*args):
+            with torch.inference_mode(False):
+                return fn(*args)
+        return cached
+    return wrap
+
+
+@device_constant(maxsize=16)
 def _bt_on(m: int, r: int, dtype: torch.dtype, device: str) -> torch.Tensor:
     """B^T of F(m, r) on ``device``, copied there once: a copy from host
     memory on every call would wait for the device each time."""
     return torch.as_tensor(get_transform(m, r).BT, dtype=dtype, device=device)
 
 
-@functools.lru_cache(maxsize=64)
+@device_constant(maxsize=64)
 def _tile_rows(t: int, m: int, n: int, device: str) -> torch.Tensor:
     """(t, n) input rows of t overlapping n-tiles at stride m, on ``device``,
     built once per geometry."""

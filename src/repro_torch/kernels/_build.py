@@ -35,8 +35,9 @@ _SIGNATURES = {
     "fused_engine_epi_f32": [_p] * 8 + [_i] * 14 + [_p] * 3,
     "fused_engine_bwd_x_plan": [_i] * 6 + [ctypes.POINTER(_i)] * 4,
     "fused_engine_bwd_x_f32": [_p] * 6 + [_i] * 12 + [_p],
-    "fused_engine_bwd_w_plan": [_i] * 7 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2,
-    "fused_engine_bwd_w_f32": [_p] * 6 + [_i] * 9 + [_p] * 3,
+    "fused_engine_bwd_w_plan": [_i] * 8 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2
+    + [ctypes.POINTER(_i)],
+    "fused_engine_bwd_w_f32": [_p] * 6 + [_i] * 10 + [_p] * 3,
     "conv_engine_fwd_plan": [_i] * 2,
     "conv_engine_fwd_f32": [_p] * 8 + [_i] * 12 + [_p],
     "conv_engine_bwd_x_plan": [_i] * 7 + [ctypes.POINTER(_i)] * 3,
@@ -47,8 +48,9 @@ _SIGNATURES = {
     "domain_engine_fwd_f32": [_p] * 6 + [_i] * 5 + [_p] * 3,
     "domain_engine_bwd_x_plan": [_i] * 3,
     "domain_engine_bwd_x_f32": [_p] * 6 + [_i] * 7 + [_p],
-    "domain_engine_bwd_w_plan": [_i] * 6 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2,
-    "domain_engine_bwd_w_f32": [_p] * 6 + [_i] * 7 + [_p] * 3,
+    "domain_engine_bwd_w_plan": [_i] * 7 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2
+    + [ctypes.POINTER(_i)],
+    "domain_engine_bwd_w_f32": [_p] * 6 + [_i] * 8 + [_p] * 3,
     "engine1d_plan": [_i],
     "engine1d_f32": [_p] * 9 + [_i] * 12 + [_p],
 }

@@ -22,11 +22,12 @@
 // Plain: engine_bwd_w_ref.
 //
 // What bounds them on an H100: the products, 2*T*C*N*M flops each, at
-// DCGAN's first three layers (fwd and bwd_w on the fp32 CUDA cores, 67
-// TFLOP/s; bwd_x on the tensor cores in 3xTF32, 165 TFLOP/s, where the
-// operand work of its positions holds it at about a sixth: bwd_x_core.cuh);
-// at the RGB layer (M = 3) the bytes of xw (fwd, bwd_w) and of dxw (bwd_x),
-// 16*T*N floats each, 303 MB at batch 128.
+// DCGAN's first three layers (fwd on the fp32 CUDA cores, 67 TFLOP/s; bwd_x
+// and bwd_w on the tensor cores in 3xTF32, 165 TFLOP/s, where the operand
+// work of its positions holds bwd_x at about a sixth, bwd_x_core.cuh, and
+// latency holds bwd_w at about a fifth, bwd_w_core.cuh); at the RGB layer
+// (M = 3) the bytes of xw (fwd, bwd_w) and of dxw (bwd_x), 16*T*N floats
+// each, 303 MB at batch 128.
 //
 // What the designs do about it (they are fused_engine.cu's and
 // fused_engine_bwd.cu's with the pre-PE taken out; the TPU's 128-lane
@@ -55,10 +56,15 @@
 //     keep the fp32 CUDA-core kernel below, which folds gw in shared memory
 //     per (sub-filter, 4-channel chunk).  Every position of every tile is
 //     written, zeros included: the output is not pre-zeroed;
-//   * bwd_w: one block per (sub-filter, N-tile, M-tile) looping over T in
-//     chunks, xw and g by cp.async; the long, thin T loop of the RGB layer
-//     (36992 tiles for 128 x 3 channels at batch 128) splits over blocks with
-//     the deterministic last-block sum;
+//   * bwd_w: on the tensor cores (bwd_w_core.cuh, shared with
+//     fused_engine_bwd.cu's bwd_w): one block per (packed position, N tile,
+//     M tile) looping over T in chunks of 16 tiles, the position's xw rows
+//     and its sub-filter's g rows by 16-byte cp.async, split into TF32 halves
+//     in fragment order in shared memory; the long, thin T loops (10368
+//     tiles at deconv2, 32784-131088 at rank 1) split over blocks with the
+//     deterministic last-block sum.  Few or ragged channels (M = 3, M = 1)
+//     keep the fp32 CUDA-core kernel, one block per (sub-filter, N tile, M
+//     tile) and a T split of its own;
 //   * M = 3 rules out 16-byte copies and stores of g, weights and outputs:
 //     those paths take 4-byte copies; xw and dxw move in 16-byte copies
 //     (N % 4 == 0).
@@ -70,14 +76,16 @@
 // N2, the xw row count (16, or phases*n <= 16), a runtime one.  So g is
 // (T, S2*M2, M), inv (C, M2), xw and dxw (T, N2, N); the 2D instantiation
 // (M2 = 4, N2 = 16) runs the same arithmetic as before.  In 1D a sub-filter
-// keeps at most n2 positions (3 of 4 at the audio decoder's K4S2), so
-// bwd_w's rank-1 blocks take 4 position groups, not 8.
-// wgmma and TMA for fwd and bwd_w, and one gw pass shared by both backward
-// kernels, are later work.
+// keeps at most n2 positions (3 of 4 at the audio decoder's K4S2), so the
+// CUDA-core bwd_w's rank-1 blocks take 4 position groups, not 8; the
+// tensor-core bwd_w holds one position a block in either rank.
+// wgmma and TMA for fwd, and one gw pass shared by both backward kernels,
+// are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bwd_w_core.cuh"
 #include "bwd_x_core.cuh"
 
 namespace {
@@ -499,12 +507,17 @@ domain_bwd_x_mma_kernel(const float* __restrict__ g, const float* __restrict__ w
 }
 
 // ============================================================== bwd_w
-// G position groups x (NT_N x NT_M) threads; group g owns the packed
-// positions k = g, g + G, ... of the block's sub-filter; each thread a
-// 4-channel (n) x 4-channel (m) micro tile.  BT tiles per T chunk; M2
-// outputs per tile.
-template <int G, int NT_N, int NT_M, int BT, int VW, int M2>
+// The fp32 CUDA-core bwd_w for few or ragged channels (M < 16 or M % 4 !=
+// 0: RGB, mono): G position groups x (NT_N x NT_M) = (16 x 1) threads;
+// group g owns the packed positions k = g, g + G, ... of the block's
+// sub-filter; each thread a 4-channel (n) x 4-channel (m) micro tile; BT = 4
+// tiles per T chunk, g rows in 4-byte copies; M2 outputs per tile.  In 1D
+// (M2 = 2) a sub-filter holds at most n2 (3 at K4S2) positions: 4 position
+// groups, not 8.
+template <int M2>
 struct BwCfg {
+  static constexpr int kM2 = M2;
+  static constexpr int G = M2 == 2 ? 4 : 8, NT_N = 16, NT_M = 1, BT = 4;
   static constexpr int PG = kMaxPos / G;
   static constexpr int kThreads = G * NT_N * NT_M;
   static constexpr int BN = NT_N * 4;
@@ -517,13 +530,14 @@ struct BwCfg {
       sizeof(float) * (2 * (kX + kG) + kGw + kMaxPos * 4) + sizeof(int) * kMaxPos;
 };
 
-template <int G, int NT_N, int NT_M, int BT, int VW, int M2, bool SPLIT>
-__global__ void __launch_bounds__(G * NT_N * NT_M)
+template <int M2, bool SPLIT>
+__global__ void __launch_bounds__(BwCfg<M2>::kThreads)
 domain_bwd_w_kernel(const float* __restrict__ xw, const float* __restrict__ g, const float* __restrict__ inv,
                     const int* __restrict__ pos, const int* __restrict__ sub_off, float* __restrict__ dww,
                     int T, int N, int M, int S2, int N2, int splits, float* __restrict__ partial,
                     int* __restrict__ counters) {
-  using K = BwCfg<G, NT_N, NT_M, BT, VW, M2>;
+  using K = BwCfg<M2>;
+  constexpr int G = K::G, NT_N = K::NT_N, NT_M = K::NT_M, BT = K::BT;
   constexpr int PG = K::PG, BN = K::BN, BM = K::BM, NT = K::kThreads;
   extern __shared__ float4 smem4[];
   float* x_s = reinterpret_cast<float*>(smem4);  // 2 x [16][BT][BN]
@@ -568,13 +582,12 @@ domain_bwd_w_kernel(const float* __restrict__ xw, const float* __restrict__ g, c
       cp_async(xd + (k * BT + tl) * BN + nl, src, ok, 16);
     }
     float* gd = gr_s + buf * K::kG;
-    constexpr int kGv = BT * M2 * BM / VW;
-    for (int e = tid; e < kGv; e += NT) {
-      const int mm = (e % (BM / VW)) * VW, a = (e / (BM / VW)) % M2, tl = e / (BM / VW * M2);
+    for (int e = tid; e < BT * M2 * BM; e += NT) {
+      const int mm = e % BM, a = (e / BM) % M2, tl = e / (BM * M2);
       const int t = t0 + tl;
       const bool ok = t < T && m0 + mm < M;
       const float* src = ok ? g + ((size_t)t * s2m2 + s * M2 + a) * M + m0 + mm : g;
-      cp_async(gd + (tl * M2 + a) * BM + mm, src, ok, 4 * VW);
+      cp_async(gd + (tl * M2 + a) * BM + mm, src, ok, 4);
     }
     cp_async_commit();
   };
@@ -696,6 +709,60 @@ domain_bwd_w_kernel(const float* __restrict__ xw, const float* __restrict__ g, c
   }
 }
 
+
+// bwd_w on the tensor cores (bwd_w_core.cuh): one block per (packed position
+// p, N tile, M tile) and T split; its A operand is xw at p's Winograd
+// position, staged as rows [tile][n] and split in fragment order.
+template <class K, bool SPLIT>
+__global__ void __launch_bounds__(K::kThreads, 1)
+domain_bwd_w_mma_kernel(const float* __restrict__ xw, const float* __restrict__ g, const float* __restrict__ inv,
+                        const int* __restrict__ pos, const int* __restrict__ sub_off, float* __restrict__ dww,
+                        int T, int N, int M, int S2, int N2, int splits, float* __restrict__ partial,
+                        int* __restrict__ counters) {
+  static_assert(K::EA == 1, "one xw plane");
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int n_nt = (N + K::BN - 1) / K::BN, n_mt = (M + K::BM - 1) / K::BM;
+  const int grp = blockIdx.x, p = grp / (n_nt * n_mt);
+  const int n0 = (grp / n_mt) % n_nt * K::BN, m0 = grp % n_mt * K::BM;
+  const int ks = SPLIT ? blockIdx.y : 0;
+  int s = 0;
+  while (sub_off[s + 1] <= p) ++s;  // p's sub-filter
+  const int q = pos[p];
+  float iv[K::M2];
+#pragma unroll
+  for (int a = 0; a < K::M2; ++a) iv[a] = inv[p * K::M2 + a];
+  const int all = (T + K::BT - 1) / K::BT, nsp = SPLIT ? splits : 1;
+  const int c_lo = (int)((long long)ks * all / nsp);
+  const int n_chunks = (int)((long long)(ks + 1) * all / nsp) - c_lo;
+
+  // one stage: the chunk's xw rows at q [tile][n], then its g rows
+  auto stage = [&](float* raw, int chunk) {
+    constexpr int SEG = K::BN / 4;
+    const int t0 = chunk * K::BT;
+    for (int e = threadIdx.x; e < K::BT * SEG; e += K::kThreads) {
+      const int seg = e % SEG, tl = e / SEG, t = t0 + tl, n = n0 + 4 * seg;
+      const bool ok = t < T && n < N;
+      cp_async(raw + tl * K::RS + 4 * seg, ok ? xw + ((size_t)t * N2 + q) * N + n : xw, ok, 16);
+    }
+    bwdw::stage_g<K>(raw + K::kRawA, g, t0, T, S2 * K::M2, s * K::M2, M, m0);
+    cp_async_commit();
+  };
+  // the A pass: channels (n, n+1) of tiles (t, t+1), split in fragment order
+  auto prep_a = [&](uint32_t* split, const float* raw) {
+    for (int slot = threadIdx.x; slot < K::BT * K::BN / 4; slot += K::kThreads) {
+      int n, t;
+      bwdw::a_slot<K>(slot, n, t);
+      const float2 v0 = *reinterpret_cast<const float2*>(raw + t * K::RS + n);
+      const float2 v1 = *reinterpret_cast<const float2*>(raw + (t + 1) * K::RS + n);
+      bwdw::put_a<K>(split, slot, v0.x, v0.y, v1.x, v1.y);
+    }
+  };
+  bwdw::Acc<K> acc;
+  bwdw::contract<K>(acc, smem, c_lo, n_chunks, iv, stage, prep_a);
+  bwdw::finish<K, SPLIT>(acc, dww, p, n0, m0, N, M, grp, ks, splits, partial, counters);
+}
+
 // ------------------------------------------------------ configurations
 template <int G_, int NT_T_, int NT_M_, int BN_, int VW_>
 struct FwdConf {
@@ -754,26 +821,42 @@ constexpr size_t mma_smem_bytes() {
          sizeof(int) * (2 * kMaxSub * kMaxPos + kMaxSub + 1 + K::BT);
 }
 
-template <int G_, int NT_N_, int NT_M_, int BT_, int VW_, int M2_>
+template <int M2_>
 struct BwConf {
-  static constexpr int G = G_, NT_N = NT_N_, NT_M = NT_M_, BT = BT_, VW = VW_, M2 = M2_;
-  using K = BwCfg<G, NT_N, NT_M, BT, VW, M2>;
+  static constexpr bool kMma = false;
+  using K = BwCfg<M2_>;
 };
-#define BW_KERNEL(C, SPLIT) domain_bwd_w_kernel<C::G, C::NT_N, C::NT_M, C::BT, C::VW, C::M2, SPLIT>
+template <class K_>
+struct BwMma {
+  static constexpr bool kMma = true;
+  using K = K_;
+};
 
-// bwd_w block configuration for (M, M2): 32 x 32 (n, m) per block, 8
-// position groups, 512 threads, 8 tiles per T chunk, 16-byte g copies; or,
-// for few or ragged M (RGB), 64 x 4 per block, 128 threads, 4 tiles per
-// chunk and 4-byte g copies.  In 1D (M2 = 2) a sub-filter holds at most n2
-// (3 at K4S2) positions: 4 position groups, 256 or 64 threads.
+// bwd_w configuration for (N, M, M2): the tensor cores where M % 4 == 0 and
+// M >= 16 (g rows in 16-byte copies: the wrapper has checked g's
+// alignment): 256 channels n x 128 m a block, 8 warps of 64 x 64, 16 tiles
+// a chunk (193 KB of shared memory in 2D, 161 KB at rank 1), or at rank 1
+// with N < 256 or M < 128 (the audio decoder's 128 -> 64 layer) 128 x 64, 4
+// warps of 64 x 32 (81 KB); otherwise (few or ragged channels: RGB, the
+// audio decoder's mono waveform) the fp32 CUDA-core kernel (BwCfg).
 template <class F>
-int with_bw_conf(int M, int M2, F&& f) {
-  if (M2 == 2) {
-    if (M >= 16 && M % 4 == 0) return f(BwConf<4, 8, 8, 8, 4, 2>{});
-    return f(BwConf<4, 16, 1, 4, 1, 2>{});
+int with_bw_conf(int N, int M, int M2, F&& f) {
+  if (M >= 16 && M % 4 == 0) {
+    if (M2 == 4) return f(BwMma<bwdw::Core<4, 2, 4, 8, 16, 4, 1>>{});
+    if (N >= 256 && M >= 128) return f(BwMma<bwdw::Core<4, 2, 4, 8, 16, 2, 1>>{});
+    return f(BwMma<bwdw::Core<2, 2, 4, 4, 16, 2, 1>>{});
   }
-  if (M >= 16 && M % 4 == 0) return f(BwConf<8, 8, 8, 8, 4, 4>{});
-  return f(BwConf<8, 16, 1, 4, 1, 4>{});
+  if (M2 == 2) return f(BwConf<2>{});
+  return f(BwConf<4>{});
+}
+
+// The bwd_w kernel of configuration Cf, with or without the T split
+template <class Cf, bool SPLIT>
+auto bw_kernel() {
+  if constexpr (Cf::kMma)
+    return domain_bwd_w_mma_kernel<typename Cf::K, SPLIT>;
+  else
+    return domain_bwd_w_kernel<Cf::K::kM2, SPLIT>;
 }
 
 }  // namespace
@@ -877,51 +960,69 @@ extern "C" int domain_engine_bwd_x_f32(const float* g, const float* ww, const fl
   });
 }
 
-// bwd_w split plan: the T loop is split over as many blocks per (sub-filter,
-// N-tile, M-tile) group as fill the card's resident block slots once, with
-// at least 4 chunks per split (fused_engine_bwd_w_plan's rule).
-extern "C" int domain_engine_bwd_w_plan(int T, int N, int M, int S2, int M2, int device, int* splits,
-                                        long long* scratch_floats, long long* counters) {
-  return with_bw_conf(M, M2, [&](auto conf) {
-    using C = decltype(conf);
-    using K = typename C::K;
-    cudaError_t err = cudaFuncSetAttribute(BW_KERNEL(C, false), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)K::kSmemBytes);
+// bwd_w plan: the T-loop split and the block tile for this shape.  The
+// tensor-core kernel runs a block per (packed position, N tile, M tile)
+// group and splits T by bwdw::plan_splits; the CUDA-core kernel a block per
+// (sub-filter, N tile, M tile), split over as many blocks as fill the card's
+// resident block slots once, at least 4 chunks a split
+// (fused_engine_bwd_w_plan's rules).  tile gets (BN, BM, BT, 1 for the
+// tensor cores or 0).
+extern "C" int domain_engine_bwd_w_plan(int T, int N, int M, int S2, int M2, int C, int device, int* splits,
+                                        long long* scratch_floats, long long* counters, int* tile) {
+  return with_bw_conf(N, M, M2, [&](auto conf) {
+    using Cf = decltype(conf);
+    using K = typename Cf::K;
+    const auto k0 = bw_kernel<Cf, false>(), k1 = bw_kernel<Cf, true>();
+    cudaError_t err = cudaFuncSetAttribute(k0, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::kSmemBytes);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(BW_KERNEL(C, true), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)K::kSmemBytes);
+      err = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::kSmemBytes);
     int occ = 0, sms = 0;
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, BW_KERNEL(C, true), K::kThreads, K::kSmemBytes);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, k1, K::kThreads, K::kSmemBytes);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return (int)err;
     const long long slots = (long long)(occ > 0 ? occ : 1) * sms;
-    const long long groups = (long long)S2 * ((N + K::BN - 1) / K::BN) * ((M + K::BM - 1) / K::BM);
-    const long long chunks = ((long long)T + C::BT - 1) / C::BT;
-    long long k = slots / groups;
-    if (k > chunks / 4) k = chunks / 4;
-    if (k > 65535) k = 65535;
-    if (k < 1) k = 1;
+    const long long tiles = (long long)((N + K::BN - 1) / K::BN) * ((M + K::BM - 1) / K::BM);
+    const long long chunks = ((long long)T + K::BT - 1) / K::BT;
+    long long groups, k;
+    if constexpr (Cf::kMma) {
+      groups = (long long)C * tiles;
+      k = bwdw::plan_splits(groups, chunks, slots);
+    } else {
+      groups = (long long)S2 * tiles;
+      k = slots / groups;
+      if (k > chunks / 4) k = chunks / 4;
+      if (k > 65535) k = 65535;
+      if (k < 1) k = 1;
+    }
     *splits = (int)k;
     *scratch_floats = k > 1 ? groups * k * K::kRed : 0;
     *counters = k > 1 ? groups : 0;
+    tile[0] = K::BN;
+    tile[1] = K::BM;
+    tile[2] = K::BT;
+    tile[3] = Cf::kMma;
     return 0;
   });
 }
 
-// One bwd_w launch: xw, g -> dww (C, N, M), every element written.  splits,
-// partial and counters from domain_engine_bwd_w_plan; the counters are zero
-// on entry and the kernel leaves them zero.
+// One bwd_w launch: xw, g -> dww (C, N, M), every element written.  C the
+// packed positions; splits, partial and counters from
+// domain_engine_bwd_w_plan with the same shape; the counters are zero on
+// entry and the kernel leaves them zero; xw (and g where M % 4 == 0 and M >=
+// 16) start on 16-byte boundaries.
 extern "C" int domain_engine_bwd_w_f32(const float* xw, const float* g, const float* inv, const int* pos,
                                        const int* sub_off, float* dww, int T, int N, int M, int S2, int M2,
-                                       int N2, int splits, float* partial, int* counters, void* stream) {
-  return with_bw_conf(M, M2, [&](auto conf) {
-    using C = decltype(conf);
-    using K = typename C::K;
-    auto kernel = splits > 1 ? BW_KERNEL(C, true) : BW_KERNEL(C, false);
-    dim3 grid(S2 * ((N + K::BN - 1) / K::BN) * ((M + K::BM - 1) / K::BM), splits);
-    kernel<<<grid, K::kThreads, K::kSmemBytes, reinterpret_cast<cudaStream_t>(stream)>>>(
-        xw, g, inv, pos, sub_off, dww, T, N, M, S2, N2, splits, partial, counters);
+                                       int N2, int C, int splits, float* partial, int* counters, void* stream) {
+  return with_bw_conf(N, M, M2, [&](auto conf) {
+    using Cf = decltype(conf);
+    using K = typename Cf::K;
+    const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+    const int tiles = ((N + K::BN - 1) / K::BN) * ((M + K::BM - 1) / K::BM);
+    // a block per (packed position or, on the CUDA cores, sub-filter, N tile, M tile) and split
+    const dim3 grid((Cf::kMma ? C : S2) * tiles, splits);
+    auto kernel = splits > 1 ? bw_kernel<Cf, true>() : bw_kernel<Cf, false>();
+    kernel<<<grid, K::kThreads, K::kSmemBytes, st>>>(xw, g, inv, pos, sub_off, dww, T, N, M, S2, N2, splits,
+                                                     partial, counters);
     return (int)cudaGetLastError();
   });
 }

@@ -24,10 +24,11 @@
 // Its plain version is ref.py::fused_pre_engine_bwd_w_ref.
 //
 // What bounds them on an H100: the products, 2*T*C*N*M flops each, at every
-// DCGAN layer but the RGB one (bwd_w on the fp32 CUDA cores, 67 TFLOP/s;
-// bwd_x on the tensor cores in 3xTF32, 165 TFLOP/s, where the operand work
-// of its positions holds it at about a sixth: bwd_x_core.cuh); at the RGB
-// layer (M = 3) the bytes of dcells (bwd_x) and of the cell windows (bwd_w).
+// DCGAN layer but the RGB one, on the tensor cores in 3xTF32 (165 TFLOP/s):
+// bwd_x held at about a sixth of that rate by the operand work of its
+// positions (bwd_x_core.cuh), bwd_w at about a fifth by latency
+// (bwd_w_core.cuh); at the RGB layer (M = 3) the bytes of dcells (bwd_x) and
+// of the cell windows (bwd_w).
 //
 // What the design does about it:
 //   * bwd_x gathers instead of scattering.  A block owns a range of R output
@@ -48,23 +49,31 @@
 //     slower).  Few or ragged channels (RGB) keep the fp32 CUDA-core kernel,
 //     whose 4 position groups each keep 4 Winograd positions x 4 tiles x 4
 //     channels in registers, gw formed in shared memory once per chunk;
-//   * bwd_w gives each block one (sub-filter, N-tile, M-tile); its 8
-//     position groups each keep 2 packed positions x 4 channels n x 4
-//     channels m in registers and run over T in chunks of BT tiles: the
-//     chunk's raw 4x4 cell windows and its g rows arrive by cp.async while
-//     the previous chunk computes; B^T Z B and the gw fold run shared-to-shared.  The T
-//     loop is long (36992 tiles at DCGAN's RGB layer) where (N, M) is small,
-//     so it is split over blocks: each writes its sums to scratch and the
-//     last to arrive adds them in split order (deterministic) and resets its
-//     arrival counter to 0, as the forward's N split does;
+//   * bwd_w runs on the tensor cores too (bwd_w_core.cuh, shared with
+//     domain_engine.cu's bwd_w): a block per (packed position, 256-channel N
+//     tile, 128-channel M tile) runs over T in chunks of 8 tiles.  Its A
+//     operand, xw at the position's Winograd position, is formed in shared
+//     memory from the only four entries of each 4x4 cell window that
+//     position reads (B^T's rows have two +-1 entries each), so the block
+//     stages four planes of the windows by cp.async and forms xw once per M
+//     tile: C/16 * M/128 times per value of xw (12.3 / 6.1 / 3.1 at DCGAN's
+//     deconv0-2), where the CUDA-core design formed all 16 positions once per
+//     sub-filter and 32-channel M tile (64 / 32 / 16).  The T loop is long
+//     (10368 tiles at deconv2) where (N, M) fit one block tile, so it splits
+//     over blocks: each writes its sums to scratch and the last to arrive
+//     adds them in split order (deterministic) and resets its arrival
+//     counter to 0, as the forward's N split does.  Few or ragged channels
+//     (RGB) keep the fp32 CUDA-core kernel, one block per (sub-filter,
+//     64-channel N tile, 4-channel M tile) and a T split of its own, the
+//     raw windows and B^T Z B of all 16 positions in shared memory;
 //   * M = 3 is not a multiple of 4, so g rows move in 4-byte copies on that
 //     path; the tensor is never padded on the host.
-// wgmma and TMA for bwd_w, and one gw pass shared by both kernels, are later
-// work.
+// One gw pass shared by both kernels is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bwd_w_core.cuh"
 #include "bwd_x_core.cuh"
 
 namespace {
@@ -366,11 +375,13 @@ bwd_x_mma_kernel(const float* __restrict__ g, const float* __restrict__ ww, cons
 }
 
 // ============================================================== bwd_w
-// G position groups x (NT_N x NT_M) threads; group g owns the packed
-// positions k = g, g + G, ... of the block's sub-filter; each thread a
-// 4-channel (n) x 4-channel (m) micro tile.  BT tiles per T chunk.
-template <int G, int NT_N, int NT_M, int BT, int VW>
+// The fp32 CUDA-core bwd_w for few or ragged channels (M < 16 or M % 4 !=
+// 0: RGB): G = 8 position groups x (NT_N x NT_M) = (16 x 1) threads; group
+// g owns the packed positions k = g, g + G, ... of the block's sub-filter;
+// each thread a 4-channel (n) x 4-channel (m) micro tile; BT = 4 tiles per
+// T chunk, g rows in 4-byte copies.
 struct BwCfg {
+  static constexpr int G = 8, NT_N = 16, NT_M = 1, BT = 4;
   static constexpr int PG = kMaxPos / G;
   static constexpr int kThreads = G * NT_N * NT_M;
   static constexpr int BN = NT_N * 4;
@@ -384,13 +395,14 @@ struct BwCfg {
       sizeof(float) * (2 * (kZ + kG) + kXw + kGw + kMaxPos * 4) + sizeof(int) * kMaxPos;
 };
 
-template <int G, int NT_N, int NT_M, int BT, int VW, bool SPLIT>
-__global__ void __launch_bounds__(G * NT_N * NT_M)
+template <bool SPLIT>
+__global__ void __launch_bounds__(BwCfg::kThreads)
 bwd_w_kernel(const float* __restrict__ cells, const float* __restrict__ g, const float* __restrict__ inv,
              const int* __restrict__ pos, const int* __restrict__ sub_off, float* __restrict__ dww,
              int B, int Gy, int Gx, int N, int M, int S, int ty, int tx, int splits,
              float* __restrict__ partial, int* __restrict__ counters) {
-  using K = BwCfg<G, NT_N, NT_M, BT, VW>;
+  using K = BwCfg;
+  constexpr int G = K::G, NT_N = K::NT_N, NT_M = K::NT_M, BT = K::BT;
   constexpr int PG = K::PG, BN = K::BN, BM = K::BM, NT = K::kThreads;
   extern __shared__ float4 smem4[];
   float* z_s = reinterpret_cast<float*>(smem4);  // 2 x [BT][16][BN]
@@ -444,13 +456,12 @@ bwd_w_kernel(const float* __restrict__ cells, const float* __restrict__ g, const
       cp_async(zd + (tl * 16 + zi) * BN + nl, cells + off, ok, 16);
     }
     float* gd = gr_s + buf * K::kG;
-    constexpr int kGv = BT * 4 * BM / VW;
-    for (int e = tid; e < kGv; e += NT) {
-      const int mm = (e % (BM / VW)) * VW, a = (e / (BM / VW)) % 4, tl = e / (BM / VW * 4);
+    for (int e = tid; e < BT * 4 * BM; e += NT) {
+      const int mm = e % BM, a = (e / BM) % 4, tl = e / (BM * 4);
       const int t = t0 + tl;
       const bool ok = t < T && m0 + mm < M;
       const float* src = ok ? g + ((size_t)t * s2m2 + s * 4 + a) * M + m0 + mm : g;
-      cp_async(gd + (tl * 4 + a) * BM + mm, src, ok, 4 * VW);
+      cp_async(gd + (tl * 4 + a) * BM + mm, src, ok, 4);
     }
     cp_async_commit();
   };
@@ -599,6 +610,96 @@ bwd_w_kernel(const float* __restrict__ cells, const float* __restrict__ g, const
   }
 }
 
+
+// bwd_w on the tensor cores (bwd_w_core.cuh): one block per (packed position
+// p, N tile, M tile) and T split.  Its A operand, xw at p's Winograd
+// position q = (u, v), is formed from the four window entries that row u and
+// column v of B^T read (B^T = [[1,0,-1,0],[0,1,1,0],[0,-1,1,0],[0,1,0,-1]]:
+// two entries a row, each +-1), so the block stages those four planes of the
+// cell windows, not all sixteen, and forms only its own position:
+// x = sum over the row's (a, ra) and the column's (c, rc) of ra*rc*Z[a][c].
+template <class K, bool SPLIT>
+__global__ void __launch_bounds__(K::kThreads, 1)
+bwd_w_mma_kernel(const float* __restrict__ cells, const float* __restrict__ g, const float* __restrict__ inv,
+                 const int* __restrict__ pos, const int* __restrict__ sub_off, float* __restrict__ dww,
+                 int B, int Gy, int Gx, int N, int M, int S, int ty, int tx, int splits,
+                 float* __restrict__ partial, int* __restrict__ counters) {
+  static_assert(K::EA == 4 && K::M2 == 4, "four window planes, m^2 = 4 rows of g");
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int n_nt = (N + K::BN - 1) / K::BN, n_mt = (M + K::BM - 1) / K::BM;
+  const int grp = blockIdx.x, p = grp / (n_nt * n_mt);
+  const int n0 = (grp / n_mt) % n_nt * K::BN, m0 = grp % n_mt * K::BM;
+  const int ks = SPLIT ? blockIdx.y : 0;
+  const int S2 = S * S, tpi = ty * tx, T = B * tpi;
+  int s = 0;
+  while (sub_off[s + 1] <= p) ++s;  // p's sub-filter
+  float iv[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) iv[a] = inv[p * 4 + a];
+
+  // the window entries of position q = 4u + v: rows a0 < a1 of B^T's row u
+  // and columns c0 < c1 of its row v, entry e = 2i + j at (a_i, c_j), its
+  // offset from the tile's first window cell in rows of N, and its sign
+  const int q = pos[p], u = q >> 2, v = q & 3;
+  const int a0 = u == 0 ? 0 : 1, a1 = u == 3 ? 3 : 2, c0 = v == 0 ? 0 : 1, c1 = v == 3 ? 3 : 2;
+  const float ra0 = u == 2 ? -1.0f : 1.0f, ra1 = (u == 0 || u == 3) ? -1.0f : 1.0f;
+  const float rc0 = v == 2 ? -1.0f : 1.0f, rc1 = (v == 0 || v == 3) ? -1.0f : 1.0f;
+  auto entry = [&](int a, int c) { return ((a >> 1) * Gx + (c >> 1)) * 4 + (a & 1) * 2 + (c & 1); };
+  const int eo0 = entry(a0, c0), eo1 = entry(a0, c1), eo2 = entry(a1, c0), eo3 = entry(a1, c1);
+  const float sg0 = ra0 * rc0, sg1 = ra0 * rc1, sg2 = ra1 * rc0, sg3 = ra1 * rc1;
+
+  const int all = (T + K::BT - 1) / K::BT, nsp = SPLIT ? splits : 1;
+  const int c_lo = (int)((long long)ks * all / nsp);
+  const int n_chunks = (int)((long long)(ks + 1) * all / nsp) - c_lo;
+
+  // one stage: the four entry planes [e][tile][n] of the chunk's windows
+  // (a tile's copies by TPT threads, its cell found once), then its g rows
+  auto stage = [&](float* raw, int chunk) {
+    constexpr int TPT = K::kThreads / K::BT, SEG = K::BN / 4;
+    static_assert(K::kThreads % K::BT == 0 && (4 * SEG) % TPT == 0, "whole tiles per thread group");
+    const int t0 = chunk * K::BT, tl = threadIdx.x / TPT, t = t0 + tl;
+    int base = 0;  // the tile's first window cell, in rows of N
+    if (t < T) {
+      const int b = t / tpi, r = t - b * tpi, jy = r / tx, jx = r - jy * tx;
+      base = ((b * Gy + jy) * Gx + jx) * 4;
+    }
+#pragma unroll
+    for (int k = 0; k < 4 * SEG / TPT; ++k) {
+      const int i = threadIdx.x % TPT + k * TPT, e = i / SEG, seg = i % SEG, n = n0 + 4 * seg;
+      const int eo = e == 0 ? eo0 : e == 1 ? eo1 : e == 2 ? eo2 : eo3;
+      const bool ok = t < T && n < N;
+      cp_async(raw + (e * K::BT + tl) * K::RS + 4 * seg, ok ? cells + (size_t)(base + eo) * N + n : cells, ok, 16);
+    }
+    bwdw::stage_g<K>(raw + K::kRawA, g, t0, T, S2 * 4, s * 4, M, m0);
+    cp_async_commit();
+  };
+  // the A pass: xw at q of channels (n, n+1), tiles (t, t+1) from the planes
+  auto prep_a = [&](uint32_t* split, const float* raw) {
+    for (int slot = threadIdx.x; slot < K::BT * K::BN / 4; slot += K::kThreads) {
+      int n, t;
+      bwdw::a_slot<K>(slot, n, t);
+      const float* r = raw + t * K::RS + n;
+      float2 z[4][2];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        z[e][0] = *reinterpret_cast<const float2*>(r + e * K::BT * K::RS);
+        z[e][1] = *reinterpret_cast<const float2*>(r + e * K::BT * K::RS + K::RS);
+      }
+      float x[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        x[h][0] = fmaf(sg3, z[3][h].x, fmaf(sg2, z[2][h].x, fmaf(sg1, z[1][h].x, sg0 * z[0][h].x)));
+        x[h][1] = fmaf(sg3, z[3][h].y, fmaf(sg2, z[2][h].y, fmaf(sg1, z[1][h].y, sg0 * z[0][h].y)));
+      }
+      bwdw::put_a<K>(split, slot, x[0][0], x[0][1], x[1][0], x[1][1]);
+    }
+  };
+  bwdw::Acc<K> acc;
+  bwdw::contract<K>(acc, smem, c_lo, n_chunks, iv, stage, prep_a);
+  bwdw::finish<K, SPLIT>(acc, dww, p, n0, m0, N, M, grp, ks, splits, partial, counters);
+}
+
 struct BxConf {
   static constexpr bool kMma = false;
   using K = BxCfg;
@@ -627,21 +728,35 @@ int with_bx_conf(int M, F&& f) {
   return f(BxConf{});
 }
 
-template <int G_, int NT_N_, int NT_M_, int BT_, int VW_>
+// bwd_w configuration for M: the tensor cores where M % 4 == 0 and M >= 16
+// (g rows in 16-byte copies: the wrapper has checked its alignment):
+// 256 channels n x 128 channels m a block, 8 warps of 64 x 64, 8 tiles a
+// chunk (the four window planes and g rows of two chunks and the split
+// operands of two fill 145 KB); otherwise (few or ragged channels: RGB) the
+// fp32 CUDA-core kernel (BwCfg): 64 x 4 a block, 128 threads.
 struct BwConf {
-  static constexpr int G = G_, NT_N = NT_N_, NT_M = NT_M_, BT = BT_, VW = VW_;
-  using K = BwCfg<G, NT_N, NT_M, BT, VW>;
+  static constexpr bool kMma = false;
+  using K = BwCfg;
 };
-#define BW_KERNEL(C, SPLIT) bwd_w_kernel<C::G, C::NT_N, C::NT_M, C::BT, C::VW, SPLIT>
+template <class K_>
+struct BwMma {
+  static constexpr bool kMma = true;
+  using K = K_;
+};
 
-// bwd_w block configuration for M: 32 x 32 (n, m) per block, 8 position
-// groups, 512 threads, 8 tiles per T chunk, 16-byte g copies; or, for few
-// or ragged M (RGB), 64 x 4 per block, 128 threads, 4 tiles per chunk and
-// 4-byte g copies.  (N % 4 == 0 is the caller's to check.)
 template <class F>
 int with_bw_conf(int M, F&& f) {
-  if (M >= 16 && M % 4 == 0) return f(BwConf<8, 8, 8, 8, 4>{});
-  return f(BwConf<8, 16, 1, 4, 1>{});
+  if (M >= 16 && M % 4 == 0) return f(BwMma<bwdw::Core<4, 2, 4, 8, 8, 4, 4>>{});
+  return f(BwConf{});
+}
+
+// The bwd_w kernel of configuration Cf, with or without the T split
+template <class Cf, bool SPLIT>
+auto bw_kernel() {
+  if constexpr (Cf::kMma)
+    return bwd_w_mma_kernel<typename Cf::K, SPLIT>;
+  else
+    return bwd_w_kernel<SPLIT>;
 }
 
 }  // namespace
@@ -732,55 +847,72 @@ extern "C" int fused_engine_bwd_x_f32(const float* g, const float* ww, const flo
   });
 }
 
-// bwd_w split plan: the T loop is split over as many blocks per (sub-filter,
-// N-tile, M-tile) group as fill the card's resident block slots once, with
-// at least 4 chunks per split.  scratch_floats / counters are 0 when the
-// split count is 1.  Also raises both variants' shared-memory limit on the
+// bwd_w plan: the T-loop split and the block tile for this shape.  The
+// tensor-core kernel runs a block per (packed position, N tile, M tile)
+// group and splits T by bwdw::plan_splits; the CUDA-core kernel a block per
+// (sub-filter, N tile, M tile), split over as many blocks as fill the card's
+// resident block slots once, at least 4 chunks a split.  scratch_floats /
+// counters are 0 when the split count is 1; tile gets (BN, BM, BT, 1 for the
+// tensor cores or 0).  Also raises both variants' shared-memory limit on the
 // current device (call it before the first launch for this M).
-extern "C" int fused_engine_bwd_w_plan(int B, int ty, int tx, int N, int M, int S, int device, int* splits,
-                                       long long* scratch_floats, long long* counters) {
+extern "C" int fused_engine_bwd_w_plan(int B, int ty, int tx, int N, int M, int S, int C, int device, int* splits,
+                                       long long* scratch_floats, long long* counters, int* tile) {
   return with_bw_conf(M, [&](auto conf) {
-    using C = decltype(conf);
-    using K = typename C::K;
-    cudaError_t err = cudaFuncSetAttribute(BW_KERNEL(C, false), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)K::kSmemBytes);
+    using Cf = decltype(conf);
+    using K = typename Cf::K;
+    const auto k0 = bw_kernel<Cf, false>(), k1 = bw_kernel<Cf, true>();
+    cudaError_t err = cudaFuncSetAttribute(k0, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::kSmemBytes);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(BW_KERNEL(C, true), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)K::kSmemBytes);
+      err = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::kSmemBytes);
     int occ = 0, sms = 0;
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, BW_KERNEL(C, true), K::kThreads, K::kSmemBytes);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, k1, K::kThreads, K::kSmemBytes);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return (int)err;
     const long long slots = (long long)(occ > 0 ? occ : 1) * sms;
-    const long long groups = (long long)S * S * ((N + K::BN - 1) / K::BN) * ((M + K::BM - 1) / K::BM);
-    const long long chunks = ((long long)B * ty * tx + C::BT - 1) / C::BT;
-    long long k = slots / groups;
-    if (k > chunks / 4) k = chunks / 4;
-    if (k > 65535) k = 65535;
-    if (k < 1) k = 1;
+    const long long tiles = (long long)((N + K::BN - 1) / K::BN) * ((M + K::BM - 1) / K::BM);
+    const long long chunks = ((long long)B * ty * tx + K::BT - 1) / K::BT;
+    long long groups, k;
+    if constexpr (Cf::kMma) {
+      groups = (long long)C * tiles;
+      k = bwdw::plan_splits(groups, chunks, slots);
+    } else {
+      groups = (long long)S * S * tiles;
+      k = slots / groups;
+      if (k > chunks / 4) k = chunks / 4;
+      if (k > 65535) k = 65535;
+      if (k < 1) k = 1;
+    }
     *splits = (int)k;
     *scratch_floats = k > 1 ? groups * k * K::kRed : 0;
     *counters = k > 1 ? groups : 0;
+    tile[0] = K::BN;
+    tile[1] = K::BM;
+    tile[2] = K::BT;
+    tile[3] = Cf::kMma;
     return 0;
   });
 }
 
 // One bwd_w launch: cells (B, Gy, Gx, 4, N), g (B, ty, tx, S^2*4, M),
 // inv (C, 4), pos (C,), sub_off (S^2 + 1,) -> dww (C, N, M), every element
-// written.  splits, partial and counters from fused_engine_bwd_w_plan; the
-// counters are zero on entry and the kernel leaves them zero.
+// written.  C the packed positions; splits, partial and counters from
+// fused_engine_bwd_w_plan with the same shape; the counters are zero on
+// entry and the kernel leaves them zero; cells (and g where M % 4 == 0 and
+// M >= 16) start on 16-byte boundaries.
 extern "C" int fused_engine_bwd_w_f32(const float* cells, const float* g, const float* inv, const int* pos,
                                       const int* sub_off, float* dww, int B, int Gy, int Gx, int N, int M,
-                                      int S, int ty, int tx, int splits, float* partial, int* counters,
+                                      int S, int ty, int tx, int C, int splits, float* partial, int* counters,
                                       void* stream) {
   return with_bw_conf(M, [&](auto conf) {
-    using C = decltype(conf);
-    using K = typename C::K;
-    auto kernel = splits > 1 ? BW_KERNEL(C, true) : BW_KERNEL(C, false);
-    dim3 grid(S * S * ((N + K::BN - 1) / K::BN) * ((M + K::BM - 1) / K::BM), splits);
-    kernel<<<grid, K::kThreads, K::kSmemBytes, reinterpret_cast<cudaStream_t>(stream)>>>(
-        cells, g, inv, pos, sub_off, dww, B, Gy, Gx, N, M, S, ty, tx, splits, partial, counters);
+    using Cf = decltype(conf);
+    using K = typename Cf::K;
+    const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+    const int tiles = ((N + K::BN - 1) / K::BN) * ((M + K::BM - 1) / K::BM);
+    // a block per (packed position or, on the CUDA cores, sub-filter, N tile, M tile) and split
+    const dim3 grid((Cf::kMma ? C : S * S) * tiles, splits);
+    auto kernel = splits > 1 ? bw_kernel<Cf, true>() : bw_kernel<Cf, false>();
+    kernel<<<grid, K::kThreads, K::kSmemBytes, st>>>(cells, g, inv, pos, sub_off, dww, B, Gy, Gx, N, M, S, ty, tx,
+                                                     splits, partial, counters);
     return (int)cudaGetLastError();
   });
 }

@@ -145,12 +145,41 @@ def _split_counters(n: int, device_index: int, stream: int) -> torch.Tensor:
     return torch.zeros(n, dtype=torch.int32, device=torch.device("cuda", device_index))
 
 
-def _check_bwd_x_aligned(what: str, M: int, g: torch.Tensor, ww_packed: torch.Tensor) -> None:
-    """The bwd_x kernels stage rows of g and ww in 16-byte copies wherever
-    M % 4 == 0: both must then start on a 16-byte boundary."""
-    if M % 4 == 0 and (g.data_ptr() % 16 or ww_packed.data_ptr() % 16):
-        raise ValueError(f"{what} moves rows of g and ww_packed in 16-byte copies at M={M} (a multiple of 4): "
-                         f"both must be 16-byte aligned")
+def _m4(least: int):
+    """(N, M) -> M % 4 == 0 and M >= least: where a kernel's configuration
+    moves rows of M channels in 16-byte copies."""
+    return lambda N, M: M % 4 == 0 and M >= least
+
+
+# The operands each CUDA wrapper's kernel stages in 16-byte cp.async copies,
+# each with the (N, M) where it does: the kernels' configuration choices
+# (with_conf, with_fwd_conf, with_bx_conf, with_bw_conf in csrc/).  Elsewhere
+# the kernel takes 4-byte copies (few or ragged channels).
+_SIXTEEN_BYTE_COPIES = {
+    "fused_engine": {"cells": lambda N, M: True, "ww_packed": _m4(32)},
+    "fused_engine_bwd_x": {"g": _m4(8), "ww_packed": _m4(8)},
+    "fused_engine_bwd_w": {"cells": lambda N, M: True, "g": _m4(16)},
+    "conv_fused_engine": {"cells": lambda N, M: N % 4 == 0, "ww_packed": _m4(32)},
+    "conv_fused_engine_bwd_x": {"g": _m4(8)},
+    "conv_fused_engine_bwd_w": {"cells": lambda N, M: N % 4 == 0, "g": _m4(16)},
+    "domain_engine": {"xw": lambda N, M: True, "ww_packed": _m4(32)},
+    "domain_engine_bwd_x": {"g": _m4(8), "ww_packed": _m4(8)},
+    "domain_engine_bwd_w": {"xw": lambda N, M: True, "g": _m4(16)},
+    "winograd_conv1d_fused_engine": {"cells": lambda N, M: True, "ww_packed": lambda N, M: True},
+}
+
+
+def _check_aligned(what: str, N: int, M: int, **operands: torch.Tensor) -> None:
+    """The operands that ``what``'s kernel stages in 16-byte copies at
+    (N, M) must start on a 16-byte boundary: a contiguous view at another
+    offset (``buf[1:]``) would fault in the kernel and lose the process's
+    CUDA context.  Refuse it before any launch; nothing copies the tensor or
+    falls back."""
+    moved = [name for name, when in _SIXTEEN_BYTE_COPIES[what].items() if when(N, M)]
+    bad = [name for name in moved if operands[name].data_ptr() % 16]
+    if bad:
+        raise ValueError(f"{what} moves rows of {', '.join(moved)} in 16-byte copies at N={N}, M={M}: "
+                         f"{', '.join(bad)} must start on a 16-byte boundary")
 
 
 def _check_vec(name, v, M, device):
@@ -234,6 +263,7 @@ def fused_engine(
         raise ValueError("empty problem")
     if N % 4:
         raise ValueError(f"the CUDA kernel moves cell windows in 16-byte copies: N={N} must be a multiple of 4")
+    _check_aligned("fused_engine", N, M, cells=cells, ww_packed=ww_packed)
     out_shape = {"nhwc": (B, out_h, out_w, M), "cells": (B, ty * S, tx * S, m * m, M),
                  "scratch": (B, ty, tx, S * S * m * m, M)}[out_mode]
     n_out = 1
@@ -385,7 +415,7 @@ def fused_engine_bwd_x(
     out_shape = (B, gy, gx, m * m, N)
     if max(g.numel(), ww_packed.numel(), B * gy * gx * m * m * N) >= 2**31:
         raise ValueError("problem too large for the kernel's 32-bit indices")
-    _check_bwd_x_aligned("fused_engine_bwd_x", M, g, ww_packed)
+    _check_aligned("fused_engine_bwd_x", N, M, g=g, ww_packed=ww_packed)
 
     from ._build import load_library
 
@@ -424,7 +454,8 @@ def fused_engine_bwd_w(
 ) -> torch.Tensor:
     """dL/dww (C, N, M) of the fused engine at the deconv corner, xw
     recomputed from the cells.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (F(2,3), fp32, contiguous, N % 4 == 0)."""
+    tensors launch the kernel (F(2,3), fp32, contiguous, N % 4 == 0; cells
+    16-byte aligned, and g where M % 4 == 0 and M >= 16)."""
     kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m=m, n=n, ty=ty, tx=tx, stride=stride)
     if g.device.type == "cpu":
         return fused_engine_bwd_w_plain(cells, g, inv_packed, **kw)
@@ -442,20 +473,21 @@ def fused_engine_bwd_w(
         raise ValueError(f"the CUDA kernel moves cell windows in 16-byte copies: N={N} must be a multiple of 4")
     if max(cells.numel(), g.numel(), C * N * M) >= 2**31 or B * ty * tx >= 2**31:
         raise ValueError("problem too large for the kernel's 32-bit indices")
+    _check_aligned("fused_engine_bwd_w", N, M, cells=cells, g=g)
 
     from ._build import load_library
 
     dev = g.device
     lib = load_library()
     pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
-    splits, n_scratch, n_counters = _bwd_w_plan(B, ty, tx, N, M, stride, dev.index)
+    splits, n_scratch, n_counters, _ = _bwd_w_plan(B, ty, tx, N, M, stride, C, dev.index)
     stream = torch.cuda.current_stream(dev).cuda_stream
     partial = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
     counters = _split_counters(n_counters, dev.index, stream) if n_counters else None
     out = torch.empty((C, N, M), dtype=torch.float32, device=dev)
     err = lib.fused_engine_bwd_w_f32(
         cells.data_ptr(), g.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), offs.data_ptr(),
-        out.data_ptr(), B, Gy, Gx, N, M, stride, ty, tx, splits,
+        out.data_ptr(), B, Gy, Gx, N, M, stride, ty, tx, C, splits,
         None if partial is None else partial.data_ptr(),
         None if counters is None else counters.data_ptr(),
         stream,
@@ -488,21 +520,22 @@ def _bwd_x_plan(B: int, gy: int, gx: int, ty: int, tx: int, M: int, device_index
 
 
 @functools.lru_cache(maxsize=256)
-def _bwd_w_plan(B: int, ty: int, tx: int, N: int, M: int, S: int, device_index: int):
-    """(splits, scratch floats, counters) of the bwd_w kernel's T-loop split
-    for this shape on this card; the library raises the kernel's
-    shared-memory limit here, once."""
+def _bwd_w_plan(B: int, ty: int, tx: int, N: int, M: int, S: int, C: int, device_index: int):
+    """(splits, scratch floats, counters, (BN, BM, BT, tensor cores 1 or 0))
+    of the bwd_w kernel for this shape on this card: its T-loop split and
+    block tile.  The library raises the kernel's shared-memory limit here,
+    once."""
     import ctypes
 
     from ._build import load_library
 
-    splits, floats, counters = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong()
+    splits, floats, counters, tile = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong(), (ctypes.c_int * 4)()
     with torch.cuda.device(device_index):
-        err = load_library().fused_engine_bwd_w_plan(B, ty, tx, N, M, S, device_index, ctypes.byref(splits),
-                                                     ctypes.byref(floats), ctypes.byref(counters))
+        err = load_library().fused_engine_bwd_w_plan(B, ty, tx, N, M, S, C, device_index, ctypes.byref(splits),
+                                                     ctypes.byref(floats), ctypes.byref(counters), tile)
     if err != 0:
         raise RuntimeError(f"fused_engine_bwd_w plan failed: cudaError {err}")
-    return splits.value, floats.value, counters.value
+    return splits.value, floats.value, counters.value, tuple(tile)
 
 
 # ------------------------------------------------------------- conv corner
@@ -656,6 +689,7 @@ def conv_fused_engine(
         raise ValueError("problem too large for the kernel's 32-bit indices")
     scale = _check_vec("scale", scale, M, dev)
     bias = _check_vec("bias", bias, M, dev)
+    _check_aligned("conv_fused_engine", N, M, cells=cells, ww_packed=ww_packed)
     pos, off = _conv_layout_tensors(tuple(pos_idx), s2, str(dev))
 
     from ._build import load_library
@@ -713,6 +747,7 @@ def conv_fused_engine_bwd_x(
         raise ValueError(f"cells ({gy}, {gx}) do not cover {ty}x{tx} tiles plus the halo, or an empty problem")
     if max(g.numel(), ww_packed.numel(), B * gy * gx * s2 * 4 * N) >= 2**31:
         raise ValueError("problem too large for the kernel's 32-bit indices")
+    _check_aligned("conv_fused_engine_bwd_x", N, M, g=g)
     pos, off = _conv_layout_tensors(tuple(pos_idx), s2, str(dev))
 
     from ._build import load_library
@@ -766,6 +801,7 @@ def conv_fused_engine_bwd_w(
         raise ValueError("empty problem")
     if max(cells.numel(), g.numel(), C * N * M) >= 2**31:
         raise ValueError("problem too large for the kernel's 32-bit indices")
+    _check_aligned("conv_fused_engine_bwd_w", N, M, cells=cells, g=g)
     pos, off = _conv_layout_tensors(tuple(pos_idx), s2, str(dev))
 
     from ._build import load_library
@@ -956,12 +992,13 @@ def domain_engine(
     _check_packed(ww_packed, inv_packed, len(pos_idx), N)
     if N % 4:
         raise ValueError(f"the CUDA kernel moves xw in 16-byte copies: N={N} must be a multiple of 4")
+    _check_aligned("domain_engine", N, M, xw=xw, ww_packed=ww_packed)
 
     from ._build import load_library
 
     lib = load_library()
     pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
-    splits, n_scratch, n_counters = _domain_plan("fwd", T, N, M, s2, dev.index)
+    splits, n_scratch, n_counters, _ = _domain_plan("fwd", T, N, M, s2, dev.index)
     stream = torch.cuda.current_stream(dev).cuda_stream
     partial = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
     counters = _split_counters(n_counters, dev.index, stream) if n_counters else None
@@ -1009,7 +1046,7 @@ def domain_engine_bwd_x(
     dev, s2 = _check_domain((("g", g), ("ww_packed", ww_packed), ("inv_packed", inv_packed)), T=T, N=N, M=M,
                             n2=n2, ranks=(2, 4), **kw)
     _check_packed(ww_packed, inv_packed, len(pos_idx), N, M, m2)
-    _check_bwd_x_aligned("domain_engine_bwd_x", M, g, ww_packed)
+    _check_aligned("domain_engine_bwd_x", N, M, g=g, ww_packed=ww_packed)
 
     from ._build import load_library
 
@@ -1046,7 +1083,8 @@ def domain_engine_bwd_w(
     """dL/dww (C, N, M) of the unfused engine.  CPU tensors take the plain
     version; CUDA tensors launch the kernel (fp32, contiguous, N % 4 == 0;
     F(2x2,3x3) with xw (T, 16, N), or the 1D engine's m2 = 2 with xw
-    (T, n2 <= 16, N)).  ``.launches`` counts the 2D launches,
+    (T, n2 <= 16, N); xw 16-byte aligned, and g where M % 4 == 0 and M >=
+    16).  ``.launches`` counts the 2D launches,
     ``.rank1_launches`` the 1D ones."""
     kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m2=m2)
     if g.device.type == "cpu":
@@ -1063,19 +1101,21 @@ def domain_engine_bwd_w(
     _check_packed(None, inv_packed, len(pos_idx), m2=m2)
     if N % 4:
         raise ValueError(f"the CUDA kernel moves xw in 16-byte copies: N={N} must be a multiple of 4")
+    _check_aligned("domain_engine_bwd_w", N, M, xw=xw, g=g)
 
     from ._build import load_library
 
     lib = load_library()
+    C = len(pos_idx)
     pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
-    splits, n_scratch, n_counters = _domain_plan("bwd_w", T, N, M, s2, dev.index, m2)
+    splits, n_scratch, n_counters, _ = _domain_plan("bwd_w", T, N, M, s2, dev.index, m2, C)
     stream = torch.cuda.current_stream(dev).cuda_stream
     partial = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
     counters = _split_counters(n_counters, dev.index, stream) if n_counters else None
-    out = torch.empty((len(pos_idx), N, M), dtype=torch.float32, device=dev)
+    out = torch.empty((C, N, M), dtype=torch.float32, device=dev)
     err = lib.domain_engine_bwd_w_f32(
         xw.data_ptr(), g.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), offs.data_ptr(), out.data_ptr(),
-        T, N, M, s2, m2, n2, splits, None if partial is None else partial.data_ptr(),
+        T, N, M, s2, m2, n2, C, splits, None if partial is None else partial.data_ptr(),
         None if counters is None else counters.data_ptr(), stream,
     )
     if err != 0:
@@ -1092,24 +1132,25 @@ domain_engine_bwd_w.rank1_launches = 0
 
 
 @functools.lru_cache(maxsize=256)
-def _domain_plan(which: str, T: int, N: int, M: int, s2: int, device_index: int, m2: int = 4):
-    """(splits, scratch floats, counters) of the unfused fwd kernel's N split
-    or bwd_w kernel's T split (with its m2 outputs per tile) for this shape
-    on this card; the library raises the kernel's shared-memory limit here,
-    once."""
+def _domain_plan(which: str, T: int, N: int, M: int, s2: int, device_index: int, m2: int = 4, C: int = 0):
+    """(splits, scratch floats, counters, tile) of the unfused fwd kernel's N
+    split (tile None) or the bwd_w kernel's T split and block tile (BN, BM,
+    BT, tensor cores 1 or 0), with its m2 outputs per tile and C packed
+    positions, for this shape on this card; the library raises the kernel's
+    shared-memory limit here, once."""
     import ctypes
 
     from ._build import load_library
 
-    splits, floats, counters = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong()
+    splits, floats, counters, tile = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong(), (ctypes.c_int * 4)()
     fn = getattr(load_library(), f"domain_engine_{which}_plan")
-    rank = () if which == "fwd" else (m2,)
+    shape, out = ((), ()) if which == "fwd" else ((m2, C), (tile,))
     with torch.cuda.device(device_index):
-        err = fn(T, N, M, s2, *rank, device_index, ctypes.byref(splits), ctypes.byref(floats),
-                 ctypes.byref(counters))
+        err = fn(T, N, M, s2, *shape, device_index, ctypes.byref(splits), ctypes.byref(floats),
+                 ctypes.byref(counters), *out)
     if err != 0:
         raise RuntimeError(f"domain_engine {which} plan failed: cudaError {err}")
-    return splits.value, floats.value, counters.value
+    return splits.value, floats.value, counters.value, None if which == "fwd" else tuple(tile)
 
 
 @functools.lru_cache(maxsize=64)
@@ -1185,9 +1226,10 @@ def _check_engine1d(cells, ww_packed, inv_packed, bt_mat, *, pos_idx, sub_slices
                            sizes=(cells.numel(), ww_packed.numel(), B * ty * S2 * m * M))
     if out_mode == "nlc" and stride != S2:
         raise ValueError(f"nlc interleaves the sub-filters: stride {stride} must equal their count {S2}")
-    if N % 4 or cells.data_ptr() % 16 or ww_packed.data_ptr() % 16:
+    if N % 4:
         raise ValueError(f"the CUDA kernel moves cell rows and weights in 16-byte copies: N={N} must be a "
-                         f"multiple of 4, cells and ww_packed 16-byte aligned")
+                         f"multiple of 4")
+    _check_aligned("winograd_conv1d_fused_engine", N, M, cells=cells, ww_packed=ww_packed)
     _check_vec("scale", scale, M, dev)
     _check_vec("bias", bias, M, dev)
     out_shape = (B, ty, S2 * m, M) if out_mode == "scratch" else (B, ty * m * stride, M)

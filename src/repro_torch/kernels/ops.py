@@ -48,7 +48,9 @@ import torch.nn.functional as F
 
 from ..core.tdc import ConvDims, DeconvDims, conv_plan, decompose_weights_1d, interleave_crop, plan, plan_1d
 from ..core.winograd import get_transform
-from ..core.winograd_deconv import pad_input_for_tiles, transform_conv_weights, transform_input_tiles, transform_weights
+from ..core.winograd_deconv import (
+    device_constant, pad_input_for_tiles, transform_conv_weights, transform_input_tiles, transform_weights,
+)
 from . import engine as _engine
 from .ref import epilogue_apply_ref
 
@@ -164,7 +166,7 @@ def packed_inv(dims: DeconvDims, device, m: int = 2, r: int = 3) -> torch.Tensor
     return _inv_on(dims, m, r, str(torch.device(device)))
 
 
-@functools.lru_cache(maxsize=64)
+@device_constant(maxsize=64)
 def _inv_on(dims: DeconvDims, m: int, r: int, device: str) -> torch.Tensor:
     return torch.as_tensor(packed_layout(dims, m, r)[2], device=device)
 
@@ -586,7 +588,7 @@ def conv_packed_inv(cdims: ConvDims, device, m: int = 2, r: int = 3) -> torch.Te
     return _conv_inv_on(cdims, m, r, str(torch.device(device)))
 
 
-@functools.lru_cache(maxsize=64)
+@device_constant(maxsize=64)
 def _conv_inv_on(cdims: ConvDims, m: int, r: int, device: str) -> torch.Tensor:
     return torch.as_tensor(conv_packed_layout(cdims, m, r)[1], device=device)
 
@@ -793,14 +795,14 @@ def packed_deconv1d_layout(dims: DeconvDims, m: int = 2, r: int = 3):
     return tuple(pos_idx), tuple(sub_slices), inv, keeps
 
 
-@functools.lru_cache(maxsize=64)
+@device_constant(maxsize=64)
 def _g_on(m: int, r: int, device: str) -> torch.Tensor:
     """G of F(m, r) on ``device``, copied there once: a pageable host copy
     per call would wait for the stream to drain."""
     return torch.as_tensor(np.asarray(get_transform(m, r).G), dtype=torch.float32, device=device)
 
 
-@functools.lru_cache(maxsize=64)
+@device_constant(maxsize=64)
 def _pack1d_idx_on(dims: DeconvDims, m: int, r: int, device: str) -> torch.Tensor:
     """Packed row -> flat (S*n) index into the transformed sub-kernels, on
     ``device``, copied once."""
@@ -835,7 +837,7 @@ class PackedConv1d(NamedTuple):
     inv: torch.Tensor  # (C, m) fp32
 
 
-@functools.lru_cache(maxsize=64)
+@device_constant(maxsize=64)
 def _inv1d_on(key, device: str) -> torch.Tensor:
     layout = conv1d_layout(*key[1:]) if key[0] == "conv" else packed_deconv1d_layout(*key[1:])
     return torch.as_tensor(layout[2], device=device)

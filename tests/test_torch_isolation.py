@@ -226,20 +226,46 @@ def test_rank1_domain_check_refuses_what_the_kernels_do_not_take(bad):
         E._check_domain((("g", g),), **kw)
 
 
-@pytest.mark.parametrize("M", [3, 4, 8, 64])
-@pytest.mark.parametrize("which", ["none", "g", "ww_packed"])
-def test_bwd_x_check_refuses_misaligned_operands_of_16_byte_copies(M, which):
-    """Kernels 4 and 6 move rows of g and ww in 16-byte copies wherever
-    M % 4 == 0: a tensor that starts off a 16-byte boundary is refused
-    there, and taken where M is ragged (4-byte copies)."""
+# Where each wrapper's kernel moves an operand's rows in 16-byte copies, read
+# off the kernels' configuration choices (csrc/*.cu): the forward kernels' weights at M % 4 == 0 and
+# M >= 32; bwd_x's g and weights at M >= 8 (the tensor cores); bwd_w's g at M >= 16; the deconv
+# corner's and the 1D engine's cells and the unfused engine's xw always (N % 4 == 0 is required); the
+# conv corner's cells where N % 4 == 0.
+def _moves_16_bytes(wrapper, operand, N, M):
+    if operand == "cells" and wrapper.startswith("conv_"):
+        return N % 4 == 0
+    if operand in ("cells", "xw") or wrapper.startswith("winograd_conv1d"):
+        return True
+    least = 8 if wrapper.endswith("bwd_x") else 16 if wrapper.endswith("bwd_w") else 32
+    return M % 4 == 0 and M >= least
+
+
+_OPERANDS = [(w, o) for w, ops_ in (
+    ("fused_engine", ("cells", "ww_packed")), ("fused_engine_bwd_x", ("g", "ww_packed")),
+    ("fused_engine_bwd_w", ("cells", "g")), ("conv_fused_engine", ("cells", "ww_packed")),
+    ("conv_fused_engine_bwd_x", ("g",)), ("conv_fused_engine_bwd_w", ("cells", "g")),
+    ("domain_engine", ("xw", "ww_packed")), ("domain_engine_bwd_x", ("g", "ww_packed")),
+    ("domain_engine_bwd_w", ("xw", "g")), ("winograd_conv1d_fused_engine", ("cells", "ww_packed"))) for o in ops_]
+
+
+@pytest.mark.parametrize("N,M", [(64, 3), (64, 4), (64, 8), (64, 16), (64, 64), (6, 64)])
+@pytest.mark.parametrize("wrapper,operand", _OPERANDS, ids=[f"{w}.{o}" for w, o in _OPERANDS])
+def test_wrappers_refuse_misaligned_operands_of_16_byte_copies(wrapper, operand, N, M):
+    """Every wrapper whose kernel moves an operand in 16-byte copies refuses
+    that operand where it starts off a 16-byte boundary (a contiguous view
+    ``buf[1:]``, which would fault in the kernel and lose the CUDA context),
+    before any launch; where the kernel moves it in 4-byte copies (few or
+    ragged channels) the view is taken."""
     def tensor(misaligned):
         buf = torch.zeros(8 * M + 1)  # the allocator's base is 16-byte aligned
         return buf[1:] if misaligned else buf[:-1]
 
-    g, ww = tensor(which == "g"), tensor(which == "ww_packed")
     assert tensor(False).data_ptr() % 16 == 0 and tensor(True).data_ptr() % 16 == 4
-    if which != "none" and M % 4 == 0:
-        with pytest.raises(ValueError, match="16-byte"):
-            E._check_bwd_x_aligned("bwd_x", M, g, ww)
+    assert {o for w, o in _OPERANDS if w == wrapper} == set(E._SIXTEEN_BYTE_COPIES[wrapper])
+    operands = {o: tensor(o == operand) for o in E._SIXTEEN_BYTE_COPIES[wrapper]}
+    if _moves_16_bytes(wrapper, operand, N, M):
+        with pytest.raises(ValueError, match=f"16-byte.*{operand} must start"):
+            E._check_aligned(wrapper, N, M, **operands)
     else:
-        E._check_bwd_x_aligned("bwd_x", M, g, ww)
+        E._check_aligned(wrapper, N, M, **operands)
+    E._check_aligned(wrapper, N, M, **{o: tensor(False) for o in operands})  # aligned: always taken

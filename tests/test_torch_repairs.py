@@ -8,6 +8,10 @@
 * ``GanServeEngine`` bucket counts when a generate raises: a direct
   ``generate`` counts its bucket before it runs, a dispatch only after
   success, in both packages alike.
+* The small constant tensors the port caches per device (B^T, tile rows,
+  packed inverse transforms, G, gather indices): one first built under a
+  server's ``torch.inference_mode()`` is an ordinary tensor, so a later
+  training step in the same process can save it for backward.
 """
 import jax
 import jax.numpy as jnp
@@ -25,7 +29,9 @@ from repro_torch.configs import base as tbase
 from repro_torch.configs import gan_zoo as tzoo
 from repro_torch.convert import audio_decoder_params_from_numpy, generator_params_from_numpy
 from repro_torch.core import baselines
-from repro_torch.core.tdc import DeconvDims
+from repro_torch.core import winograd_deconv as W
+from repro_torch.core.tdc import DeconvDims, conv_same_dims
+from repro_torch.kernels import ops as tops
 from repro_torch.models import gan as G
 from repro_torch.serve import GanServeEngine
 
@@ -101,3 +107,39 @@ def test_bucket_counts_when_a_generate_raises(monkeypatch):
     assert teng.bucket_counts == jeng.bucket_counts == {4: 1}
     assert teng.dispatch_log == jeng.dispatch_log == [(0,)]
     assert teng.served == jeng.served == 0
+
+
+CONSTANTS = {
+    "bt": (W._bt_on, (2, 3, torch.float32, "cpu")),
+    "tile_rows": (W._tile_rows, (3, 2, 4, "cpu")),
+    "inv": (tops._inv_on, (DeconvDims(5, 2, 2, 1), 2, 3, "cpu")),
+    "conv_inv": (tops._conv_inv_on, (conv_same_dims(4, 2, 8), 2, 3, "cpu")),
+    "g": (tops._g_on, (2, 3, "cpu")),
+    "pack1d_idx": (tops._pack1d_idx_on, (DeconvDims(4, 2, 1, 0), 2, 3, "cpu")),
+    "inv1d": (tops._inv1d_on, (("conv", 4, 2), "cpu")),
+}
+
+
+@pytest.mark.parametrize("name", list(CONSTANTS))
+def test_device_constants_built_in_inference_mode_are_ordinary_tensors(name):
+    fn, args = CONSTANTS[name]
+    fn.cache_clear()
+    with torch.inference_mode():
+        first = fn(*args)
+    assert not first.is_inference()
+    assert fn(*args) is first  # built once
+
+
+def test_training_gradient_after_an_inference_mode_transform():
+    """The per-layer path's B^T Z B, first run by a server in inference mode,
+    then differentiated by a training step (autograd saves the cached
+    B^T and tile rows)."""
+    W._bt_on.cache_clear()
+    W._tile_rows.cache_clear()
+    x = torch.randn((2, 6, 6, 3), generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        want = W.transform_input_tiles(x, (2, 2))
+    xg = x.clone().requires_grad_(True)
+    got = W.transform_input_tiles(xg, (2, 2))
+    got.square().sum().backward()
+    assert torch.equal(got.detach(), want) and xg.grad is not None and bool(torch.isfinite(xg.grad).all())
