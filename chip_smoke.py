@@ -8,8 +8,8 @@ Phases, each printing one JSON line:
   env     torch / CUDA versions, the card's name and power limit; TF32 off.
   build   nvcc builds the kernels in src/repro_torch/kernels/csrc/ (sm_90a):
           fused_engine.cu, fused_engine_bwd.cu, conv_engine.cu,
-          domain_engine.cu, engine1d.cu (the two bwd_x kernels share
-          bwd_x_core.cuh, the two bwd_w kernels bwd_w_core.cuh).
+          domain_engine.cu, engine1d.cu (the three bwd_x kernels share
+          bwd_x_core.cuh, the three bwd_w kernels bwd_w_core.cuh).
 Each kernel phase also calls each of its wrappers once with a misaligned
 contiguous view of one operand that the kernel moves in 16-byte copies: the
 call must raise ValueError before any launch, and an aligned launch after it
@@ -39,10 +39,17 @@ must still run (no sticky CUDA error).
   kernel_conv
           the three conv-corner kernels (conv_engine.cu: forward, bwd_x,
           bwd_w) against their plain versions at the DCGAN discriminator's
-          four layers at batch 128 and an odd-extent K4S2, a K3S2 and a K3S1
-          shape; device, one-call and plain times, the bound, and as
-          yardsticks F.conv2d plus the epilogue and aten's
-          convolution_backward (input grad, raw-weight grad).
+          four layers at batch 128, an odd-extent K4S2, a K3S2 and a K3S1
+          shape and a ragged K4S2 shape (N, M not multiples of the block
+          tiles, T not of the chunk, T split); bwd_x (TPU kernel 6,
+          bwd_x_core.cuh) and bwd_w (TPU kernel 7, bwd_w_core.cuh), on the
+          tensor cores, as kernel_bwd holds the deconv corner's: two launches
+          bitwise equal, the instantiation that ran and its bound, and their
+          plan (bwd_x: its tile slots and the blocks it launches against the
+          SMs; bwd_w: split, block tile, xw formed per value); device,
+          one-call and plain times, the bound, and as yardsticks F.conv2d
+          plus the epilogue and aten's convolution_backward (input grad,
+          raw-weight grad).
   kernel_domain
           the per-layer path's kernels: the unfused engine and its backward
           (domain_engine.cu: kernels 1, 4, 5) against their plain versions at
@@ -153,6 +160,9 @@ PHASES = ("kernel", "kernel_bwd", "kernel_conv", "kernel_domain", "serve", "trai
 TRAIN_BATCH = 128  # the DCGAN paper's mini-batch
 # K5S2 at batch 7, 11x11 input, 100 -> 36 channels: name, (kernel, stride, padding, output_padding), B, H, N, M
 RAGGED_SHAPE = ("ragged", (5, 2, 2, 1), 7, 11, 100, 36)
+# the conv corner's: K4S2 at batch 7, 11x11 input, 100 -> 36 channels (T = 63 tiles): name, K, S, B, H, W,
+# N, M, emit_cells, activation, affine
+CONV_RAGGED_SHAPE = ("k4s2_ragged", 4, 2, 7, 11, 11, 100, 36, True, "relu", True)
 AUDIO_BATCH, AUDIO_FRAMES, AUDIO_WIDTH = 16, 4096, 64  # the audio decoder's cell: 16 clips of 4096 latent frames
 # each row of the kernels line -> (its wrapper in repro_torch.kernels.engine,
 # the attribute that counts its launches)
@@ -183,10 +193,28 @@ PEAKS = {
 }
 # the kernels redesigned for the tensor cores, and each one's fp32 CUDA-core
 # instantiation for few or ragged channels, as the profiler names them
+# (kernel_named tells them apart)
 BWD_X_KERNELS = ("bwd_x_kernel", "bwd_x_mma_kernel")
 DOMAIN_BWD_X_KERNELS = ("domain_bwd_x_kernel", "domain_bwd_x_mma_kernel")
+CONV_BWD_X_KERNELS = ("conv_bwd_x_kernel", "conv_bwd_x_mma_kernel")
 BWD_W_KERNELS = ("bwd_w_kernel", "bwd_w_mma_kernel")
 DOMAIN_BWD_W_KERNELS = ("domain_bwd_w_kernel", "domain_bwd_w_mma_kernel")
+CONV_BWD_W_KERNELS = ("conv_bwd_w_kernel", "conv_bwd_w_mma_kernel")
+CONV_KERNELS = {"fwd": "conv_fwd_kernel", "bwd_x": CONV_BWD_X_KERNELS, "bwd_w": CONV_BWD_W_KERNELS}
+# every 2D engine kernel a train step can launch
+STEP_KERNELS = ("fused_epi_kernel", *BWD_X_KERNELS, *BWD_W_KERNELS, "conv_fwd_kernel", *CONV_BWD_X_KERNELS,
+                *CONV_BWD_W_KERNELS, "domain_fwd_kernel", *DOMAIN_BWD_X_KERNELS, *DOMAIN_BWD_W_KERNELS)
+
+
+def kernel_named(key: str, names) -> bool:
+    """Whether the profiler's kernel name ``key`` is one of ``names`` (a
+    name or a tuple of names): that kernel, a template instantiation of it
+    or not, and never another kernel whose name merely contains it (the
+    conv corner's ``conv_bwd_x_kernel`` is not the deconv corner's
+    ``bwd_x_kernel``).  The port's kernels sit in an anonymous namespace:
+    ``void (anonymous namespace)::bwd_x_mma_kernel<...>(...)``."""
+    names = (names,) if isinstance(names, str) else names
+    return any(f"::{n}<" in key or f"::{n}(" in key for n in names)
 
 
 def zero_counts() -> None:
@@ -355,8 +383,8 @@ def refuses_misaligned(what: str, run_misaligned, run) -> dict:
 
 
 def bwd_x_block_use(B: int, gy: int, gx: int, ty: int, tx: int, R: int, W: int, TC: int, BT: int) -> dict:
-    """How fused_engine_bwd_x's blocks spend their tile slots (the kernel's
-    own geometry, fused_engine_bwd.cu::CellBlock): the share of the computed
+    """How a bwd_x kernel's cell blocks spend their tile slots (the kernels'
+    own geometry, bwd_x_core.cuh::CellBlock): the share of the computed
     tiles that a block above also computes (the recomputed halo row), and the
     share of all slots that hold no needed tile (halo and empty slots)."""
     nrb, ncb = -(-(B * gy) // R), -(-gx // W)
@@ -438,8 +466,7 @@ def profiled_ms(fn, reps: int = 10, warmup: int = 3, name="", what: str = ""):
             torch.cuda.synchronize()
         evs = prof.key_averages()
         total = sum(e.device_time_total for e in evs)
-        names = (name,) if isinstance(name, str) else name
-        named = sum(e.device_time_total for e in evs if any(n and n in e.key for n in names))
+        named = sum(e.device_time_total for e in evs if name and kernel_named(e.key, name))
         if total > 0 and (named > 0 or not name):
             break
         emit({"note": f"profiler session {attempt + 1} recorded no device time",
@@ -853,7 +880,7 @@ def kernel_bwd_phase(torch, peaks):
             # 3xTF32 rate where it ran on the tensor cores), and their plan: bwd_x's tile slots,
             # bwd_w's split, block tile and how often it forms each value of xw
             row.update(mma_bound(n_bytes, n_ops, products,
-                                 sorted(k for k in by_kernel if any(n in k for n in kname)), peaks))
+                                 sorted(k for k in by_kernel if kernel_named(k, kname)), peaks))
             if key == "x":
                 R, W, TC, BT = engine._bwd_x_plan(B, gy, gy, ty, ty, M, dev)
                 row["plan"] = dict(R=R, W=W, TC=TC, BT=BT, **bwd_x_block_use(B, gy, gy, ty, ty, R, W, TC, BT))
@@ -958,7 +985,7 @@ def kernel_domain_phase(torch, peaks):
         _, _, ms, by_kernel = profiled_ms(run, reps=20, name=kname)
         if products is not None:  # a redesigned kernel: the instantiation that ran, and its bound
             extra.update(mma_bound(n_bytes, n_ops, products,
-                                   sorted(k for k in by_kernel if any(n in k for n in kname)), peaks))
+                                   sorted(k for k in by_kernel if kernel_named(k, kname)), peaks))
         row = dict(kernel=kernel, name=name, B=B, H_in=H, N=N, M=M, C=C, T=T, max_abs_err=err[0], tol=err[1],
                    ms=ms, ms_wall=event_median_ms(run, reps=20),
                    plain_ms=profiled_ms(plain, reps=5, warmup=1, what=f"plain {kernel} at {name}")[1],
@@ -1131,7 +1158,7 @@ def kernel_1d_phase(torch, peaks):
         _, _, ms, by_kernel = profiled_ms(run, reps=20, name=kname)
         if products is not None:  # a redesigned kernel: the instantiation that ran, and its bound
             extra.update(mma_bound(n_bytes, n_ops, products,
-                                   sorted(k for k in by_kernel if any(n in k for n in kname)), peaks))
+                                   sorted(k for k in by_kernel if kernel_named(k, kname)), peaks))
         row = dict(kernel=kernel, name=name, max_abs_err=err[0], tol=err[1], ms=ms,
                    ms_wall=event_median_ms(run, reps=20),
                    plain_ms=profiled_ms(plain, reps=5, warmup=1, what=f"plain {kernel} at {name}")[1],
@@ -1469,9 +1496,13 @@ def kernel_conv_phase(torch, peaks):
         ("k4s2_odd", 4, 2, 8, 15, 13, 32, 48, False, "tanh", True),
         ("k3s2", 3, 2, 8, 16, 16, 36, 20, True, "relu", True),
         ("k3s1", 3, 1, 4, 16, 16, 3, 3, False, "leaky_relu", False),
+        # the tensor-core routes' edges: N, M multiples of 4 but not of the block tiles, T = 63 tiles (not
+        # a multiple of the 8-tile chunk)
+        CONV_RAGGED_SHAPE,
     ]
     flops_peak, bytes_peak, _ = peaks
     dev = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     for i, (name, K, S, B, H, W, N, M, emit_cells, act, affine) in enumerate(shapes):
         gen = torch.Generator(device="cuda").manual_seed(300 + i)
@@ -1512,6 +1543,8 @@ def kernel_conv_phase(torch, peaks):
             if not err <= tol:
                 fail(f"conv {key} kernel vs plain at {name}: max|err| {err:.3e} > {tol:.3e}")
             errs[key] = (err, tol, got.numel())
+            if key != "fwd":
+                bitwise_repeat(f"conv {key} at {name}", run, got)
         if i == 1:  # conv1 (64 -> 128): each wrapper refuses a misaligned operand, and launches again after it
             fwd = dict(out_mode="nhwc", out_h=HO, out_w=WO, **geo)
             emit({"phase": "kernel_conv", "misaligned_refusals": [
@@ -1520,6 +1553,8 @@ def kernel_conv_phase(torch, peaks):
                     lambda: engine.conv_fused_engine(cells, packed.ww, packed.inv, **fwd)),
                 refuses_misaligned("conv_fused_engine_bwd_x", lambda: engine.conv_fused_engine_bwd_x(
                     misaligned(gs), packed.ww, packed.inv, gy=gy, gx=gx, **geo), runs["bwd_x"][0]),
+                refuses_misaligned("conv_fused_engine_bwd_x", lambda: engine.conv_fused_engine_bwd_x(
+                    gs, misaligned(packed.ww), packed.inv, gy=gy, gx=gx, **geo), runs["bwd_x"][0]),
                 refuses_misaligned("conv_fused_engine_bwd_w", lambda: engine.conv_fused_engine_bwd_w(
                     cells, misaligned(gs), packed.inv, **geo), runs["bwd_w"][0])]})
 
@@ -1555,7 +1590,8 @@ def kernel_conv_phase(torch, peaks):
         # phase and channel), the inverse transform or gw (fold_adds over
         # one group of all C positions), the epilogue (3 per output) or the
         # overlap sum
-        prod = 2 * T * C * N * M + 32 * T * S * S * N
+        products = 2 * T * C * N * M
+        prod = products + 32 * T * S * S * N
         inv_np = packed.inv.cpu()
         fold, gw = T * M * fold_adds(inv_np, [(0, C)]), T * M * fold_adds(inv_np, [(0, C)], True)
         dcells_n = B * gy * gx * S * S * 4 * N
@@ -1566,12 +1602,11 @@ def kernel_conv_phase(torch, peaks):
                       prod + gw + overlap_adds(B, S * S, N, ty, tx)),
             "bwd_w": (4 * (cells.numel() + gs.numel() + packed.inv.numel() + C * N * M), prod + gw),
         }
-        knames = {"fwd": "conv_fwd_kernel", "bwd_x": "conv_bwd_x_kernel", "bwd_w": "conv_bwd_w_kernel"}
         for key, (run, plain) in runs.items():
             n_bytes, n_ops = work[key]
             t_bytes, t_ops = 1e3 * n_bytes / bytes_peak, 1e3 * n_ops / flops_peak
             lib, lib_note = libs[key]
-            ms = profiled_ms(run, reps=20, name=knames[key])[2]
+            _, _, ms, by_kernel = profiled_ms(run, reps=20, name=CONV_KERNELS[key])
             row = dict(kernel=f"conv_engine_{key}", name=name, B=B, H_in=H, W_in=W, N=N, M=M, C=C, T=T,
                        out_mode="cells" if emit_cells else "nhwc", activation=act,
                        max_abs_err=errs[key][0], tol=errs[key][1], ms=ms, ms_wall=event_median_ms(run, reps=20),
@@ -1582,10 +1617,24 @@ def kernel_conv_phase(torch, peaks):
                        achieved_tflops=n_ops / (ms * 1e-3) / 1e12)
             if key == "fwd":
                 row["library_max_abs_err"] = lib_err
-            elif key == "bwd_x":
-                row["plan"] = engine._conv_bwd_x_plan(B, gy, gx, ty, tx, N, M, dev)
-            else:
-                row["splits"] = engine._conv_bwd_w_plan(B, ty, tx, N, M, S * S, dev)[0]
+            else:  # the redesigned kernels: the instantiation that ran, its bound and its plan
+                row.update(mma_bound(n_bytes, n_ops, products,
+                                     sorted(k for k in by_kernel if kernel_named(k, CONV_KERNELS[key])), peaks))
+            if key == "bwd_x":  # the cell blocks' tile slots, and the blocks launched against the SMs
+                R, Wc, TC, (BT, BN, mma) = engine._conv_bwd_x_plan(B, gy, gx, ty, tx, N, M, dev)
+                use = bwd_x_block_use(B, gy, gx, ty, tx, R, Wc, TC, BT)
+                blocks = use.pop("blocks") * -(-N // BN) * (S * S if mma else 1)
+                row["plan"] = dict(R=R, W=Wc, TC=TC, BT=BT, BN=BN, tensor_cores=bool(mma), blocks=blocks,
+                                   blocks_per_sm=blocks / sms, **use)
+            elif key == "bwd_w":
+                splits, _, _, tile = engine._conv_bwd_w_plan(B, ty, tx, N, M, S * S, C, dev)
+                row["plan"] = bwd_w_plan(tile, splits, C, S * S, M)
+                if name == CONV_RAGGED_SHAPE[0] and splits < 2:
+                    fail(f"conv kernel 7 at the ragged shape ran unsplit (plan {row['plan']})")
+            # the tensor cores run the DCGAN layers of M >= 64: bwd_x at every layer, bwd_w where N % 4 == 0
+            if key != "fwd" and name.startswith("dcgan.") and (key == "bwd_x" or N % 4 == 0) and \
+                    not any("_mma_kernel" in k for k in row["instantiation"]):
+                fail(f"conv {key} at {name} ran {row['instantiation']}, not the tensor-core kernel")
             emit({"phase": "kernel_conv", **row})
             rows.append(row)
         del x, w, packed, cells, gs, go, xc, xp
@@ -1812,8 +1861,7 @@ def train_phase(torch, card, conv_impl="lax", deconv_impl="cuda_chained"):
         fail(f"cuDNN or aten convolution kernels in the {tag} step's profile: {library_convs}")
     if not chained and not library_convs:  # the check's own control: the lax step does run cuDNN
         fail(f"no convolution kernel found in the lax step's profile: {sorted(by_kernel)[:20]}")
-    ours = {k: v for k, v in by_kernel.items() if any(n in k for n in (
-        "fused_epi_kernel", *BWD_X_KERNELS, *BWD_W_KERNELS, "conv_fwd_kernel", "domain_fwd_kernel"))}
+    ours = {k: v for k, v in by_kernel.items() if kernel_named(k, STEP_KERNELS)}
     plain_step = make_gan_step(cfg, settings=dataclasses.replace(settings, **plain))
     pstate = [gp_k, dp_k, adamw_init(gp_k), adamw_init(dp_k)]
 
@@ -1905,8 +1953,7 @@ def main(argv=None) -> int:
         run = chained if run is None else run
         if not run:
             return None
-        names = (kname,) if isinstance(kname, str) else kname
-        return sum(v for k, v in run["step_kernels"].items() if any(f"::{n}<" in k for n in names))
+        return sum(v for k, v in run["step_kernels"].items() if kernel_named(k, kname))
 
     def summary(krows, weights=None, batch=None, prefix="dcgan."):
         """Sums over the main path's layer rows (``prefix``: DCGAN's, one
@@ -1958,7 +2005,7 @@ def main(argv=None) -> int:
                      # counted as often as the train_chained run launched it per step (per_pass: once
                      # each, when that phase did not run)
                      **summary(krows, weights), "launches_per_step_by_layer": weights,
-                     "step_profile_ms": step_device_ms(f"conv_{key}_kernel"),
+                     "step_profile_ms": step_device_ms(CONV_KERNELS[key]),
                      "per_pass": {k: v for k, v in summary(krows).items() if k != "shapes"}})
     for key, replaces in (("", REPLACES_DOM), ("_bwd_x", REPLACES_DOM_X), ("_bwd_w", REPLACES_DOM_W)):
         krows = [r for r in domain_rows if r["kernel"] == f"domain_engine{key}"]

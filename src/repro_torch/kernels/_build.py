@@ -40,10 +40,11 @@ _SIGNATURES = {
     "fused_engine_bwd_w_f32": [_p] * 6 + [_i] * 10 + [_p] * 3,
     "conv_engine_fwd_plan": [_i] * 2,
     "conv_engine_fwd_f32": [_p] * 8 + [_i] * 12 + [_p],
-    "conv_engine_bwd_x_plan": [_i] * 7 + [ctypes.POINTER(_i)] * 3,
+    "conv_engine_bwd_x_plan": [_i] * 7 + [ctypes.POINTER(_i)] * 4,
     "conv_engine_bwd_x_f32": [_p] * 6 + [_i] * 11 + [_p],
-    "conv_engine_bwd_w_plan": [_i] * 7 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2,
-    "conv_engine_bwd_w_f32": [_p] * 6 + [_i] * 9 + [_p] * 3,
+    "conv_engine_bwd_w_plan": [_i] * 8 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2
+    + [ctypes.POINTER(_i)],
+    "conv_engine_bwd_w_f32": [_p] * 6 + [_i] * 10 + [_p] * 3,
     "domain_engine_fwd_plan": [_i] * 5 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2,
     "domain_engine_fwd_f32": [_p] * 6 + [_i] * 5 + [_p] * 3,
     "domain_engine_bwd_x_plan": [_i] * 3,

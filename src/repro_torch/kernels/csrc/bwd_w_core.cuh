@@ -2,8 +2,11 @@
 // at fp32 accuracy (3xTF32).  Shared by
 //   * domain_engine.cu's bwd_w (replaces src/repro/kernels/engine.py::
 //     domain_engine_bwd_w, the pallas_call at engine.py:1085), 2D and rank 1;
-//   * fused_engine_bwd.cu's bwd_w at the deconv corner (replaces
-//     engine.py::fused_engine_bwd_w, the pallas_call at engine.py:1427).
+//   * fused_engine_bwd.cu's bwd_w at the deconv corner and conv_engine.cu's
+//     at the conv corner (replace engine.py::fused_engine_bwd_w, the
+//     pallas_call at engine.py:1427, as the two corners instantiate it):
+//     one block body for both, window_block, which forms xw from the cell
+//     windows.
 // For one packed position p of sub-filter s, a BN x BM block of (n, m) and a
 // range of tiles t it accumulates
 //     dww[p, n, m] = sum_t xw[t, pos_p, n] * gw[p, t, m],
@@ -331,6 +334,98 @@ __device__ __forceinline__ void finish(Acc<K>& acc, float* __restrict__ dww, int
       if (n < N) *reinterpret_cast<float2*>(o) = make_float2(acc[fa][fb][0], acc[fa][fb][1]);
       if (n + 1 < N) *reinterpret_cast<float2*>(o + M) = make_float2(acc[fa][fb][2], acc[fa][fb][3]);
     }
+}
+
+// The fused engines' bwd_w (kernel 7, at both corners) for one block: packed
+// position p, at Winograd position q = (u, v), N tile n0, M tile m0, T split
+// ks.  Its A operand, xw at q, is formed from the four window entries that
+// row u and column v of B^T read (B^T = [[1,0,-1,0],[0,1,1,0],[0,-1,1,0],
+// [0,1,0,-1]]: two entries a row, each +-1), so the block stages those four
+// planes of the cell windows, not all sixteen, and forms only its own
+// position: x = sum over the row's (a, ra) and the column's (c, rc) of
+// ra*rc*Z[a][c].  The corner fixes the layouts at compile time: the cells
+// hold cs rows of N channels a cell, Gy x Gx cells an image, and a tile's
+// window entry (a, c) is row sub + 2(a&1) + (c&1) of the cell (a/2, c/2)
+// past the tile's first; its g rows are srow .. srow+3 of the s2m2 rows of a
+// tile.  At the deconv corner (CONV false) the cells hold one phase (cs = 4,
+// sub = 0) and g the S2 sub-filters' rows, s the sub-filter (s2m2 = 4 S2,
+// srow = 4s); at the conv corner the cells hold the S2 phases (cs = 4 S2,
+// sub = 4s, s the phase) and g one sub-filter (s2m2 = 4, srow = 0).
+template <class K, bool SPLIT, bool CONV>
+__device__ __forceinline__ void window_block(const float* __restrict__ cells, const float* __restrict__ g,
+                                             const float* __restrict__ inv, float* __restrict__ dww, int grp, int p,
+                                             int q, int n0, int m0, int ks, int S2, int s, int B, int Gy, int Gx,
+                                             int N, int M, int ty, int tx, int splits, float* __restrict__ partial,
+                                             int* __restrict__ counters) {
+  static_assert(K::EA == 4 && K::M2 == 4, "four window planes, m^2 = 4 rows of g");
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tpi = ty * tx, T = B * tpi;
+  const int cs = CONV ? 4 * S2 : 4, sub = CONV ? 4 * s : 0;
+  float iv[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) iv[a] = inv[p * 4 + a];
+
+  // the window entries of q: rows a0 < a1 of B^T's row u and columns c0 < c1
+  // of its row v, entry e = 2i + j at (a_i, c_j), its offset from the tile's
+  // first window row in rows of N, and its sign
+  const int u = q >> 2, v = q & 3;
+  const int a0 = u == 0 ? 0 : 1, a1 = u == 3 ? 3 : 2, c0 = v == 0 ? 0 : 1, c1 = v == 3 ? 3 : 2;
+  const float ra0 = u == 2 ? -1.0f : 1.0f, ra1 = (u == 0 || u == 3) ? -1.0f : 1.0f;
+  const float rc0 = v == 2 ? -1.0f : 1.0f, rc1 = (v == 0 || v == 3) ? -1.0f : 1.0f;
+  auto entry = [&](int a, int c) { return ((a >> 1) * Gx + (c >> 1)) * cs + sub + (a & 1) * 2 + (c & 1); };
+  const int eo0 = entry(a0, c0), eo1 = entry(a0, c1), eo2 = entry(a1, c0), eo3 = entry(a1, c1);
+  const float sg0 = ra0 * rc0, sg1 = ra0 * rc1, sg2 = ra1 * rc0, sg3 = ra1 * rc1;
+
+  const int all = (T + K::BT - 1) / K::BT, nsp = SPLIT ? splits : 1;
+  const int c_lo = (int)((long long)ks * all / nsp);
+  const int n_chunks = (int)((long long)(ks + 1) * all / nsp) - c_lo;
+
+  // one stage: the four entry planes [e][tile][n] of the chunk's windows
+  // (a tile's copies by TPT threads, its cell found once), then its g rows
+  auto stage = [&](float* raw, int chunk) {
+    constexpr int TPT = K::kThreads / K::BT, SEG = K::BN / 4;
+    static_assert(K::kThreads % K::BT == 0 && (4 * SEG) % TPT == 0, "whole tiles per thread group");
+    const int t0 = chunk * K::BT, tl = threadIdx.x / TPT, t = t0 + tl;
+    int base = 0;  // the tile's first window cell, in rows of N
+    if (t < T) {
+      const int b = t / tpi, r = t - b * tpi, jy = r / tx, jx = r - jy * tx;
+      base = ((b * Gy + jy) * Gx + jx) * cs;
+    }
+#pragma unroll
+    for (int k = 0; k < 4 * SEG / TPT; ++k) {
+      const int i = threadIdx.x % TPT + k * TPT, e = i / SEG, seg = i % SEG, n = n0 + 4 * seg;
+      const int eo = e == 0 ? eo0 : e == 1 ? eo1 : e == 2 ? eo2 : eo3;
+      const bool ok = t < T && n < N;
+      cp_async(raw + (e * K::BT + tl) * K::RS + 4 * seg, ok ? cells + (size_t)(base + eo) * N + n : cells, ok, 16);
+    }
+    stage_g<K>(raw + K::kRawA, g, t0, T, CONV ? 4 : 4 * S2, CONV ? 0 : 4 * s, M, m0);  // s2m2, srow
+    cp_async_commit();
+  };
+  // the A pass: xw at q of channels (n, n+1), tiles (t, t+1) from the planes
+  auto prep_a = [&](uint32_t* split, const float* raw) {
+    for (int slot = threadIdx.x; slot < K::BT * K::BN / 4; slot += K::kThreads) {
+      int n, t;
+      a_slot<K>(slot, n, t);
+      const float* r = raw + t * K::RS + n;
+      float2 z[4][2];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        z[e][0] = *reinterpret_cast<const float2*>(r + e * K::BT * K::RS);
+        z[e][1] = *reinterpret_cast<const float2*>(r + e * K::BT * K::RS + K::RS);
+      }
+      float x[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        x[h][0] = fmaf(sg3, z[3][h].x, fmaf(sg2, z[2][h].x, fmaf(sg1, z[1][h].x, sg0 * z[0][h].x)));
+        x[h][1] = fmaf(sg3, z[3][h].y, fmaf(sg2, z[2][h].y, fmaf(sg1, z[1][h].y, sg0 * z[0][h].y)));
+      }
+      put_a<K>(split, slot, x[0][0], x[0][1], x[1][0], x[1][1]);
+    }
+  };
+  Acc<K> acc;
+  contract<K>(acc, smem, c_lo, n_chunks, iv, stage, prep_a);
+  finish<K, SPLIT>(acc, dww, p, n0, m0, N, M, grp, ks, splits, partial, counters);
 }
 
 // The T split: the block count per (position, N tile, M tile) group that

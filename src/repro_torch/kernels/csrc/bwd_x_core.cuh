@@ -2,8 +2,10 @@
 // Hopper's tensor cores at fp32 accuracy (3xTF32).  Shared by
 //   * domain_engine.cu's bwd_x (replaces src/repro/kernels/engine.py::
 //     domain_engine_bwd_x, the pallas_call at engine.py:995), 2D and rank 1;
-//   * fused_engine_bwd.cu's bwd_x at the deconv corner (replaces
-//     engine.py::fused_engine_bwd_x, the pallas_call at engine.py:1291).
+//   * fused_engine_bwd.cu's bwd_x at the deconv corner and conv_engine.cu's
+//     at the conv corner (replace engine.py::fused_engine_bwd_x, the
+//     pallas_call at engine.py:1291, as the two corners instantiate it);
+//     the two also share the gather below (CellBlock, dz_gather).
 // For a block of BT tile slots and BN input channels n it accumulates, for
 // every Winograd position q < NP,
 //     dxw[t, q, n] = sum over the packed p with pos_p = q of
@@ -335,6 +337,147 @@ __device__ __forceinline__ void load_layout(float* inv_s, int* kmap_s, int* off_
   for (int s = tid; s < S2; s += nt)
     for (int k = 0; k < off_s[s + 1] - off_s[s]; ++k) kmap_s[s * kMaxPos + pos_s[off_s[s] + k]] = k;
   __syncthreads();
+}
+
+// ---------------------------------------------------------------- the gather
+// The fused engines' bwd_x (kernel 6, at both corners) gathers instead of
+// scattering: a block owns R output cell rows (rows of all B images end to
+// end) by W cell columns and computes dXw for every tile those cells read,
+// the one tile row above its first cell row included (the halo, computed
+// again by the block above); then each cell sums its pieces in a fixed
+// order.  No atomics, no scratch, no dependence on block order.
+
+// The cells of one block and the tile slots they read: R cell rows [rho0,
+// rho1) by columns [c0, c1); cell row r takes tile rows r-1 and r, so the
+// slots hold tile rows (tau = b*ty + j, contiguous) [tau_lo, tau_hi] by
+// columns [tc0, tc1], TC columns a slot row.
+struct CellBlock {
+  int rho0, rho1, c0, c1, tau_lo, tau_hi, tc0, tc1;
+  __device__ CellBlock(int rb, int cb, int B, int gy, int gx, int ty, int tx, int R, int W) {
+    rho0 = rb * R;
+    c0 = cb * W;
+    rho1 = min(rho0 + R, B * gy);
+    c1 = min(c0 + W, gx);
+    tau_lo = 0x7fffffff;
+    tau_hi = -1;
+    for (int rho = rho0; rho < rho1; ++rho) {
+      const int b = rho / gy, r = rho - b * gy;
+      const int jlo = max(r - 1, 0), jhi = min(r, ty - 1);
+      if (jlo <= jhi) {
+        tau_lo = min(tau_lo, b * ty + jlo);
+        tau_hi = max(tau_hi, b * ty + jhi);
+      }
+    }
+    if (tau_hi < 0) tau_lo = 0;  // no tile: every slot stays empty
+    tc0 = max(c0 - 1, 0);
+    tc1 = min(c1 - 1, tx - 1);
+  }
+  // flat tile index of slot tl, -1 if none
+  __device__ int tile(int tl, int TC, int tx) const {
+    const int tau = tau_lo + tl / TC, col = tc0 + tl % TC;
+    return (tau <= tau_hi && col <= tc1) ? tau * tx + col : -1;
+  }
+};
+
+// dZ = B dXw B^T in place for every (slot, channel) of red (16 positions,
+// position p at red[p * PS]), then the gather: every cell of the block sums
+// the dZ pieces of the tiles that read it, in the fixed order (dy, dx) =
+// (0,0), (0,1), (1,0), (1,1), into its channel slots [sub, sub + 4) of cs.
+// red's element (slot, channel nn) sits at slot * SS + nn.
+template <int BT, int BN, int NT, int PS, int SS>
+__device__ __forceinline__ void dz_gather(float* red, const CellBlock& cb, float* __restrict__ dcells, int gy, int gx,
+                                          int ty, int tx, int N, int n0, int TC, int cs, int sub) {
+  const int tid = threadIdx.x;
+  for (int it = tid; it < BT * BN; it += NT) {
+    float* e = red + (it / BN) * SS + it % BN;
+    float d[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) d[u][v] = e[(u * 4 + v) * PS];
+    // rows: (B X)[a] = sum_u BT[u][a] X[u], B^T = [[1,0,-1,0],[0,1,1,0],[0,-1,1,0],[0,1,0,-1]]
+    float y[4][4];
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      y[0][v] = d[0][v];
+      y[1][v] = d[1][v] - d[2][v] + d[3][v];
+      y[2][v] = d[1][v] + d[2][v] - d[0][v];
+      y[3][v] = -d[3][v];
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      float* dst = e + (a * 4) * PS;
+      dst[0 * PS] = y[a][0];
+      dst[1 * PS] = y[a][1] - y[a][2] + y[a][3];
+      dst[2 * PS] = y[a][1] + y[a][2] - y[a][0];
+      dst[3 * PS] = -y[a][3];
+    }
+  }
+  __syncthreads();
+
+  const int wc = cb.c1 - cb.c0;
+  const int items = (cb.rho1 - cb.rho0) * wc * 4 * BN;
+  for (int it = tid; it < items; it += NT) {
+    const int nn = it % BN, a = (it / BN) % 4, cell = it / (4 * BN);
+    const int rho = cb.rho0 + cell / wc, col = cb.c0 + cell % wc;
+    const int b = rho / gy, r = rho - b * gy;
+    const int pp = a / 2, qq = a % 2;
+    float v = 0.0f;
+#pragma unroll
+    for (int dy = 0; dy < 2; ++dy) {
+      const int j = r - dy;
+      if (j < 0 || j >= ty) continue;
+      const int tr = b * ty + j - cb.tau_lo;
+#pragma unroll
+      for (int dx = 0; dx < 2; ++dx) {
+        const int tcol = col - dx;
+        if (tcol < 0 || tcol >= tx) continue;
+        const int slot = tr * TC + tcol - cb.tc0;
+        v += red[((2 * dy + pp) * 4 + 2 * dx + qq) * PS + slot * SS + nn];
+      }
+    }
+    if (n0 + nn < N) dcells[(((size_t)rho * gx + col) * cs + sub + a) * N + n0 + nn] = v;
+  }
+}
+
+// The gather's block geometry for BT tile slots (host code): W is all gx
+// columns when two tile rows of tx tiles fit the slots, else one cell row
+// and BT/2 - 1 columns; TC tile columns a slot row; R the largest count of
+// cell rows whose every block reads at most BT/TC tile rows.
+inline void cell_geometry(int B, int gy, int gx, int ty, int tx, int BT, int* R, int* W, int* TC) {
+  int w, tc;
+  if (2 * tx <= BT) {
+    w = gx;
+    tc = tx;
+  } else {
+    w = BT / 2 - 1;
+    tc = w + 1;
+  }
+  const int tr_max = BT / tc;
+  const int rows = B * gy;
+  int best = 1;
+  for (int r = tr_max * gy; r >= 1; --r) {
+    bool ok = true;
+    for (int rho0 = 0; rho0 < rows && ok; rho0 += r) {
+      int lo = 0x7fffffff, hi = -1;
+      for (int rho = rho0; rho < rho0 + r && rho < rows; ++rho) {
+        const int b = rho / gy, rr = rho - b * gy;
+        const int jlo = rr - 1 > 0 ? rr - 1 : 0, jhi = rr < ty - 1 ? rr : ty - 1;
+        if (jlo <= jhi) {
+          lo = lo < b * ty + jlo ? lo : b * ty + jlo;
+          hi = hi > b * ty + jhi ? hi : b * ty + jhi;
+        }
+      }
+      ok = hi < lo || hi - lo + 1 <= tr_max;
+    }
+    if (ok) {
+      best = r;
+      break;
+    }
+  }
+  *R = best;
+  *W = w;
+  *TC = tc;
 }
 
 }  // namespace bwdx

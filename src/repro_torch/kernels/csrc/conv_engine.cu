@@ -30,10 +30,13 @@
 //   bwd_w: dww[p, n, m] = sum_t xw[t, pos_p, n] gw[p, t, m], xw recomputed
 //     from the cells phase by phase -> (C, N, M).
 //
-// What bounds them on an H100: the products, 2*T*C*N*M flops each on the
-// fp32 CUDA cores (67 TFLOP/s), at every DCGAN discriminator layer but the
-// first; there (N = 3) the bytes of the output cells (forward), of g and
-// dcells (bwd_x) and of the cell windows and g (bwd_w) do.
+// What bounds them on an H100 (times below: NVIDIA H100 80GB HBM3 at its
+// 700 W limit, PERF.md): the products, 2*T*C*N*M flops each, at every DCGAN
+// discriminator layer but the first: the forward's on the fp32 CUDA cores
+// (67 TFLOP/s), the backward's on the tensor cores in 3xTF32 (165 TFLOP/s),
+// which they use at a tenth to an eighth of that rate;
+// at the first (N = 3) the bytes of the output cells (forward), of g and
+// dcells (bwd_x) and of the cell windows and g (bwd_w).
 //
 // What the designs do about it:
 //   * forward: one block per (T-tile, M-tile), the deconv engine's micro
@@ -45,22 +48,34 @@
 //     memory, and fold through inv into the tile's 4 outputs, which stay in
 //     registers (2 tile-channel pairs x 4 outputs a thread) across phases.
 //     The epilogue and the store run once, after the last phase;
-//   * bwd_x: a gather, as the deconv corner's bwd_x: a block owns R cell rows
-//     x W cell columns x BN channels, computes dXw for every tile its cells
-//     read (the one-row halo again), and sums each cell's pieces in a fixed
-//     order: no atomics, no scratch, no dependence on block order.  The
-//     phases run one after another, each writing its own channel slots;
-//   * bwd_w: one block per (phase, N-tile, M-tile), the T loop split over
-//     blocks with the deterministic last-block sum (conv0 reduces T = 32768
-//     tiles into 36 x 3 x 64 outputs);
-//   * N = 3 (conv0's RGB input) is not a multiple of 4: cell windows move in
-//     4-byte copies and the channel chunk is 4 wide; nothing is padded on the
-//     host.
-// wgmma (3xTF32), TMA and a gw pass shared by both backward kernels are later
-// work.
+//   * bwd_x: the deconv corner's gather (bwd_x_core.cuh: a block owns R cell
+//     rows x W cell columns x BN channels, computes dXw for every tile its
+//     cells read, the one-row halo again, and sums each cell's pieces in a
+//     fixed order: no atomics, no scratch, no dependence on block order) on
+//     the tensor cores with the phase in the grid: each phase is a problem
+//     of one sub-filter (its own positions, kmap and g's 4 rows a tile) for
+//     bwdx::contract, and a block writes only its phase's channel slots.
+//     The S^2 blocks of one cell block run side by side, so g comes from
+//     device memory once and from L2 for the other phases (the CUDA-core
+//     design before it ran the phases in one block and staged g four times:
+//     0.43-0.87 ms a layer, 64 blocks at conv3);
+//   * bwd_w: the deconv corner's tensor-core design (bwd_w_core.cuh): a
+//     block per (packed position, N tile, M tile) and T split, xw formed only
+//     at the block's Winograd position from the four window planes of its
+//     phase that position reads (C * M tiles / 16 formations a value), the T
+//     loop split over blocks with the deterministic last-block sum;
+//   * few or ragged channels keep fp32 CUDA-core kernels: bwd_x a phase loop
+//     of micro tiles (M < 8 or M % 4 != 0), bwd_w one block per (phase,
+//     N-tile, M-tile) with a T split (M < 16 or M % 4 != 0, and N % 4 != 0:
+//     conv0's RGB input, whose cell windows move in 4-byte copies; there it
+//     reads g once per phase where the tensor-core grid would read it once
+//     per packed position).  Nothing is padded on the host.
+// A gw pass shared by both backward kernels is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bwd_w_core.cuh"
 
 namespace {
 
@@ -340,11 +355,13 @@ int with_fwd_conf(int N, int M, F&& f) {
 }
 
 // ============================================================== bwd_x
-// G position groups x (NT_T x NT_N) threads; group g owns Winograd positions
-// g, g + G, ... of the current phase; each thread a 4-tile x 4-channel micro
-// tile.  BM: the M chunk; VW: floats per g copy.
-template <int G, int NT_T, int NT_N, int BM, int VW>
+// The fp32 CUDA-core bwd_x, for few or ragged channels (M < 8 or M % 4 !=
+// 0): G position groups x (NT_T x NT_N) threads; group g owns Winograd
+// positions g, g + G, ... of the current phase; each thread a 4-tile x
+// 4-channel micro tile; M in chunks of BM = 4 with 4-byte copies of g and ww.
+template <int G, int NT_T, int NT_N>
 struct BxCfg {
+  static constexpr int BM = 4;
   static constexpr int PG = kN2 / G;
   static constexpr int kThreads = G * NT_T * NT_N;
   static constexpr int BT = NT_T * 4;        // tile slots per block
@@ -361,13 +378,13 @@ struct BxCfg {
       sizeof(float) * (kBig + kMaxC * 4) + sizeof(int) * (2 * kMaxC + kMaxPhases + 1 + BT);
 };
 
-template <int G, int NT_T, int NT_N, int BM, int VW>
+template <int G, int NT_T, int NT_N>
 __global__ void __launch_bounds__(G * NT_T * NT_N)
 conv_bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ ww, const float* __restrict__ inv,
                   const int* __restrict__ pos, const int* __restrict__ phase_off, float* __restrict__ dcells,
                   int B, int gy, int gx, int N, int M, int S2, int ty, int tx, int R, int W, int TC, int ncb) {
-  using K = BxCfg<G, NT_T, NT_N, BM, VW>;
-  constexpr int PG = K::PG, BT = K::BT, BN = K::BN, GS = K::GS, XT = K::XT, NT = K::kThreads;
+  using K = BxCfg<G, NT_T, NT_N>;
+  constexpr int PG = K::PG, BT = K::BT, BN = K::BN, BM = K::BM, GS = K::GS, XT = K::XT, NT = K::kThreads;
   extern __shared__ float4 smem4[];
   float* g_s = reinterpret_cast<float*>(smem4);  // 2 x [BT][GS]
   float* w_s = g_s + 2 * K::kG;                   // 2 x [16][BM][BN]
@@ -386,34 +403,13 @@ conv_bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ ww, con
   const int C = phase_off[S2];
   const int cs = S2 * 4;
   const int n0 = blockIdx.y * BN;
-  const int rb = blockIdx.x / ncb, cb = blockIdx.x % ncb;
-  const int rho0 = rb * R, c0 = cb * W;
-  const int rows = B * gy;
-  const int rho1 = min(rho0 + R, rows);
-  const int c1 = min(c0 + W, gx);
-
-  // the tile rows (tau = b*ty + j) and columns this block's cells read from
-  int tau_lo = 0x7fffffff, tau_hi = -1;
-  for (int rho = rho0; rho < rho1; ++rho) {
-    const int b = rho / gy, r = rho - b * gy;
-    const int jlo = max(r - 1, 0), jhi = min(r, ty - 1);
-    if (jlo <= jhi) {
-      tau_lo = min(tau_lo, b * ty + jlo);
-      tau_hi = max(tau_hi, b * ty + jhi);
-    }
-  }
-  if (tau_hi < 0) tau_lo = 0;
-  const int tc0 = max(c0 - 1, 0), tc1 = min(c1 - 1, tx - 1);
+  const bwdx::CellBlock cb(blockIdx.x / ncb, blockIdx.x % ncb, B, gy, gx, ty, tx, R, W);
 
   for (int i = tid; i < C * 4; i += NT) inv_s[i] = inv[i];
   for (int i = tid; i < C; i += NT) pos_s[i] = pos[i] % kN2;
   for (int i = tid; i <= S2; i += NT) off_s[i] = phase_off[i];
   for (int i = tid; i < S2 * kN2; i += NT) kmap_s[i] = -1;
-  for (int tl = tid; tl < BT; tl += NT) {
-    const int tr = tl / TC, tc = tl % TC;
-    const int tau = tau_lo + tr, col = tc0 + tc;
-    tile_s[tl] = (tau <= tau_hi && col <= tc1) ? tau * tx + col : -1;
-  }
+  for (int tl = tid; tl < BT; tl += NT) tile_s[tl] = cb.tile(tl, TC, tx);
   __syncthreads();
   for (int i = tid; i < C; i += NT) kmap_s[pos[i]] = i - off_s[pos[i] / kN2];
   __syncthreads();
@@ -425,12 +421,11 @@ conv_bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ ww, con
   auto stage = [&](int buf, int lo, int cnt, int c) {
     const int m0 = c * BM;
     float* gd = g_s + buf * K::kG;
-    constexpr int kGv = BT * 4 * BM / VW;
-    for (int e = tid; e < kGv; e += NT) {
-      const int mm = (e % (BM / VW)) * VW, a = (e / (BM / VW)) % 4, tl = e / (BM / VW * 4);
+    for (int e = tid; e < BT * 4 * BM; e += NT) {
+      const int mm = e % BM, a = (e / BM) % 4, tl = e / (BM * 4);
       const int t = tile_s[tl];
       const bool ok = t >= 0 && m0 + mm < M;
-      cp_async<VW>(gd + tl * GS + a * BM + mm, ok ? g + ((size_t)t * 4 + a) * M + m0 + mm : g, ok);
+      cp_async<1>(gd + tl * GS + a * BM + mm, ok ? g + ((size_t)t * 4 + a) * M + m0 + mm : g, ok);
     }
     float* wd = w_s + buf * K::kW;
     for (int e = tid; e < cnt * BN * BM; e += NT) {
@@ -500,7 +495,8 @@ conv_bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ ww, con
       if (c + 2 < mchunks) stage(buf, lo, cnt, c + 2);
     }
 
-    // dXw of every tile slot in shared memory, then dZ = B dXw B^T in place
+    // dXw of every tile slot in shared memory, then dZ and the gather into
+    // the phase's channel slots
 #pragma unroll
     for (int kk = 0; kk < PG; ++kk) {
       const int p = kk * G + grp;
@@ -510,76 +506,105 @@ conv_bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ ww, con
             make_float4(acc[kk][i][0], acc[kk][i][1], acc[kk][i][2], acc[kk][i][3]);
     }
     __syncthreads();
-    for (int it = tid; it < BT * BN; it += NT) {
-      float d[4][4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) d[u][v] = red_s[(u * 4 + v) * BT * BN + it];
-      float yv[4][4];
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        yv[0][v] = d[0][v];
-        yv[1][v] = d[1][v] - d[2][v] + d[3][v];
-        yv[2][v] = d[1][v] + d[2][v] - d[0][v];
-        yv[3][v] = -d[3][v];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        float* dst = red_s + (a * 4) * BT * BN + it;
-        dst[0 * BT * BN] = yv[a][0];
-        dst[1 * BT * BN] = yv[a][1] - yv[a][2] + yv[a][3];
-        dst[2 * BT * BN] = yv[a][1] + yv[a][2] - yv[a][0];
-        dst[3 * BT * BN] = -yv[a][3];
-      }
-    }
-    __syncthreads();
-
-    // gather: every cell of the block sums the dZ pieces of the tiles that
-    // read it, in the fixed order (dy, dx) = (0,0), (0,1), (1,0), (1,1), into
-    // its phase-s channel slots
-    const int wc = c1 - c0;
-    const int items = (rho1 - rho0) * wc * 4 * BN;
-    for (int it = tid; it < items; it += NT) {
-      const int nn = it % BN, a = (it / BN) % 4, cell = it / (4 * BN);
-      const int rho = rho0 + cell / wc, col = c0 + cell % wc;
-      const int b = rho / gy, r = rho - b * gy;
-      const int pp = a / 2, qq = a % 2;
-      float v = 0.0f;
-#pragma unroll
-      for (int dy = 0; dy < 2; ++dy) {
-        const int j = r - dy;
-        if (j < 0 || j >= ty) continue;
-        const int tr = b * ty + j - tau_lo;
-#pragma unroll
-        for (int dx = 0; dx < 2; ++dx) {
-          const int tcol = col - dx;
-          if (tcol < 0 || tcol >= tx) continue;
-          const int slot = tr * TC + tcol - tc0;
-          v += red_s[(((2 * dy + pp) * 4 + 2 * dx + qq) * BT + slot) * BN + nn];
-        }
-      }
-      if (n0 + nn < N) dcells[(((size_t)rho * gx + col) * cs + s * 4 + a) * N + n0 + nn] = v;
-    }
+    bwdx::dz_gather<BT, BN, NT, BT * BN, BN>(red_s, cb, dcells, gy, gx, ty, tx, N, n0, TC, cs, s * 4);
     __syncthreads();  // red_s is the next phase's staging space
   }
 }
 
-template <int G_, int NT_T_, int NT_N_, int BM_, int VW_>
-struct BxConf {
-  static constexpr int G = G_, NT_T = NT_T_, NT_N = NT_N_, BM = BM_, VW = VW_;
-  using K = BxCfg<G, NT_T, NT_N, BM, VW>;
-};
-#define BX_KERNEL(C) conv_bwd_x_kernel<C::G, C::NT_T, C::NT_N, C::BM, C::VW>
+// bwd_x on the tensor cores (bwd_x_core.cuh): one block per (cell block,
+// N tile, phase s), the phases of one cell block and N tile adjacent in the
+// launch (their blocks read the same g rows: once from device memory, then
+// from L2).  Each phase is a problem of one sub-filter, its own positions
+// [phase_off[s], phase_off[s+1]) and kmap, g's 4 rows a tile: bwdx::contract
+// over it holds every Winograd position of the block's BT tile slots x BN
+// channels in registers; dXw then goes to shared memory as [pos][slot][n],
+// dZ = B dXw B^T, and the fixed-order gather into the phase's channel slots
+// [4s, 4s + 4) (bwdx::dz_gather).  A block writes only its phase's slots: no
+// sum across blocks.
+template <class K>
+__global__ void __launch_bounds__(K::kThreads, K::kMinBlocks)
+conv_bwd_x_mma_kernel(const float* __restrict__ g, const float* __restrict__ ww, const float* __restrict__ inv,
+                      const int* __restrict__ pos, const int* __restrict__ phase_off, float* __restrict__ dcells,
+                      int B, int gy, int gx, int N, int M, int S2, int ty, int tx, int R, int W, int TC, int ncb) {
+  constexpr int BT = K::BT, BN = K::BN, SS = BN + 4;  // dXw [pos][slot][SS]
+  static_assert(16 * BT * SS <= K::kFloats, "dXw fits in the pipeline's shared memory");
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);  // the pipeline, then dXw
+  float* inv_s = smem + K::kFloats;               // [C][4]
+  int* kmap_s = reinterpret_cast<int*>(inv_s + kMaxC * 4);  // [16] the phase's position -> k, or -1
+  int* off_s = kmap_s + kN2;                       // the phase's [first, last + 1) packed positions
+  int* tile_s = off_s + 2;                         // [BT] flat tile index, -1 if none
 
-// bwd_x block configuration: 64 tile slots x 32 channels n, 512 threads; or,
-// for N <= 4 (conv0's RGB input), 128 tile slots x 4 channels, 128 threads.
-// M in chunks of 8 with 16-byte g copies, or of 4 with 4-byte copies.
+  const int n_nb = (N + BN - 1) / BN;
+  const int s = blockIdx.x % S2, nb = blockIdx.x / S2 % n_nb, c = blockIdx.x / (S2 * n_nb);
+  const bwdx::CellBlock cb(c / ncb, c % ncb, B, gy, gx, ty, tx, R, W);
+  const int n0 = nb * BN, lo = phase_off[s], hi = phase_off[s + 1];
+  const int tid = threadIdx.x;
+  for (int i = lo * 4 + tid; i < hi * 4; i += K::kThreads) inv_s[i] = inv[i];
+  for (int i = tid; i < kN2; i += K::kThreads) kmap_s[i] = -1;
+  for (int tl = tid; tl < BT; tl += K::kThreads) tile_s[tl] = cb.tile(tl, TC, tx);
+  if (tid == 0) off_s[0] = lo, off_s[1] = hi;
+  __syncthreads();
+  for (int i = lo + tid; i < hi; i += K::kThreads) kmap_s[pos[i] % kN2] = i - lo;
+  __syncthreads();
+
+  bwdx::Acc<K> acc;
+  bwdx::contract<K>(acc, smem, g, ww, tile_s, inv_s, kmap_s, off_s, 1, M, N, n0);
+
+  float* red = smem;
+#pragma unroll
+  for (int p = 0; p < K::NPS; ++p)
+#pragma unroll
+    for (int fa = 0; fa < K::FA; ++fa)
+#pragma unroll
+      for (int fb = 0; fb < K::FB; ++fb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          red[(bwdx::position<K>(p) * BT + bwdx::acc_slot<K>(fb, i)) * SS + bwdx::acc_n(fa, i)] = acc[p][fa][fb][i];
+  __syncthreads();
+  bwdx::dz_gather<BT, BN, K::kThreads, BT * SS, SS>(red, cb, dcells, gy, gx, ty, tx, N, n0, TC, S2 * 4, s * 4);
+}
+
+// The CUDA-core kernel's configurations
+template <int G_, int NT_T_, int NT_N_>
+struct BxConf {
+  static constexpr bool kMma = false;
+  static constexpr int G = G_, NT_T = NT_T_, NT_N = NT_N_;
+  using K = BxCfg<G_, NT_T_, NT_N_>;
+  static constexpr size_t kSmemBytes = K::kSmemBytes;
+};
+
+// The tensor-core kernel's: the pipeline (then dXw), inv, the phase's kmap
+// and offsets, the tile slots
+template <class K_>
+struct BxMma {
+  static constexpr bool kMma = true;
+  using K = K_;
+  static constexpr size_t kSmemBytes = sizeof(float) * (K::kFloats + kMaxC * 4) + sizeof(int) * (kN2 + 2 + K::BT);
+};
+
+// bwd_x block configuration: the tensor cores where M % 4 == 0 and M >= 8 (g
+// and ww in 16-byte copies: the wrapper has checked their alignment), two
+// position sets of 4 warps, each warp 8 positions (its colour of the 4x4
+// checkerboard): 64 tile slots x 32 channels n a block, each warp 32 n x 16
+// tiles; or for N <= 16 (conv0's RGB input, channels past N zero-filled) 128
+// slots x 16 n, each warp 16 n x 32 tiles: at every DCGAN layer the fastest
+// of the block configurations timed on an H100 (PERF.md).  Otherwise (few or
+// ragged M) the fp32 CUDA-core kernel: 64 tile slots x 32 channels, 512 threads, or for N
+// <= 4, 128 tile slots x 4 channels, 128 threads.
 template <class F>
 int with_bx_conf(int N, int M, F&& f) {
-  const bool wide = M >= 8 && M % 4 == 0;
-  if (N > 4) return wide ? f(BxConf<4, 16, 8, 8, 4>{}) : f(BxConf<4, 16, 8, 4, 1>{});
-  return wide ? f(BxConf<4, 32, 1, 8, 4>{}) : f(BxConf<4, 32, 1, 4, 1>{});
+  if (M >= 8 && M % 4 == 0)
+    return N <= 16 ? f(BxMma<bwdx::Core<16, 4, 1, 4, 8, 2>>{}) : f(BxMma<bwdx::Core<16, 4, 2, 2, 8, 2>>{});
+  return N > 4 ? f(BxConf<4, 16, 8>{}) : f(BxConf<4, 32, 1>{});
+}
+
+template <class Cf>
+auto bx_kernel() {
+  if constexpr (Cf::kMma)
+    return conv_bwd_x_mma_kernel<typename Cf::K>;
+  else
+    return conv_bwd_x_kernel<Cf::G, Cf::NT_T, Cf::NT_N>;
 }
 
 // ============================================================== bwd_w
@@ -802,22 +827,73 @@ conv_bwd_w_kernel(const float* __restrict__ cells, const float* __restrict__ g, 
   }
 }
 
+// bwd_w on the tensor cores (bwd_w_core.cuh): one block per (packed position
+// p, N tile, M tile) and T split, xw formed at p's Winograd position q =
+// pos[p] % 16 only, from the four window planes of p's phase s = pos[p] / 16
+// that q reads (bwdw::window_block): the conv corner's cells hold the S^2
+// phases, 4 rows each, so an entry sits at row 4s + 2(a&1) + (c&1) of its
+// cell of 4 S^2 rows; g is one sub-filter, the tile's 4 rows.
+template <class K, bool SPLIT>
+__global__ void __launch_bounds__(K::kThreads, 1)
+conv_bwd_w_mma_kernel(const float* __restrict__ cells, const float* __restrict__ g, const float* __restrict__ inv,
+                      const int* __restrict__ pos, const int* __restrict__ phase_off, float* __restrict__ dww,
+                      int B, int Gy, int Gx, int N, int M, int S2, int ty, int tx, int splits,
+                      float* __restrict__ partial, int* __restrict__ counters) {
+  const int n_nt = (N + K::BN - 1) / K::BN, n_mt = (M + K::BM - 1) / K::BM;
+  const int grp = blockIdx.x, p = grp / (n_nt * n_mt), q = pos[p];
+  bwdw::window_block<K, SPLIT, true>(cells, g, inv, dww, grp, p, q % kN2, (grp / n_mt) % n_nt * K::BN,
+                                     grp % n_mt * K::BM, SPLIT ? blockIdx.y : 0, S2, q / kN2, B, Gy, Gx, N, M, ty,
+                                     tx, splits, partial, counters);
+}
+
+// The CUDA-core kernel's configurations
 template <int G_, int NT_N_, int NT_M_, int BT_, int VZ_, int VW_>
 struct BwConf {
+  static constexpr bool kMma = false;
   static constexpr int G = G_, NT_N = NT_N_, NT_M = NT_M_, BT = BT_, VZ = VZ_, VW = VW_;
   using K = BwCfg<G, NT_N, NT_M, BT, VZ, VW>;
 };
-#define BW_KERNEL(C, SPLIT) conv_bwd_w_kernel<C::G, C::NT_N, C::NT_M, C::BT, C::VZ, C::VW, SPLIT>
+// The tensor-core kernel's: a bwdw::Core
+template <class K_>
+struct BwMma {
+  static constexpr bool kMma = true;
+  static constexpr int BT = K_::BT;
+  using K = K_;
+};
 
-// bwd_w block configuration: 32 x 32 (n, m), 512 threads, 8 tiles per chunk
-// (N % 4 == 0, M % 4 == 0, M >= 16); 64 x 4, 128 threads, 4 tiles (N % 4 ==
-// 0, few or ragged M); for N % 4 != 0, 4-channel n tiles with 4-byte window
-// copies: 4 x 64 (128 threads) or 4 x 16 (32 threads), 8 tiles per chunk
+// bwd_w block configuration: the tensor cores where N % 4 == 0, M % 4 == 0
+// and M >= 16 (windows and g rows in 16-byte copies: the wrapper has checked
+// their alignment), the block tile by N, each the fastest of the
+// configurations timed on an H100 at DCGAN's conv1-3 (PERF.md): 128 n x 128
+// m, 8 warps of 64 x 32, 16 tiles a chunk (N > 128: conv3, T = 512 tiles);
+// 128 x 128, 4 warps of 64 x 64, 8 tiles (N > 64: conv2); 64 x 128, 4 warps
+// of 64 x 32, 8 tiles (conv1).
+// Otherwise the fp32 CUDA-core kernel: 64 x 4 (n, m), 128 threads, 4 tiles
+// a chunk (N % 4 == 0, few or ragged M); for N % 4 != 0 (conv0's RGB
+// input), 4-channel n tiles with 4-byte window copies: 4 x 64 (128 threads)
+// or 4 x 16 (32 threads), 8 tiles a chunk.  (The tensor cores at conv0, with
+// 4-byte window copies, ran slower than this kernel on an H100 (PERF.md):
+// the grid of one block per packed position reads g 36 times, the CUDA-core
+// grid of one per phase 4 times.)
 template <class F>
 int with_bw_conf(int N, int M, F&& f) {
   const bool wide = M >= 16 && M % 4 == 0;
-  if (N % 4 == 0) return wide ? f(BwConf<8, 8, 8, 8, 4, 4>{}) : f(BwConf<8, 16, 1, 4, 4, 1>{});
+  if (N % 4 == 0) {
+    if (!wide) return f(BwConf<8, 16, 1, 4, 4, 1>{});
+    if (N > 128) return f(BwMma<bwdw::Core<2, 4, 4, 4, 16, 4, 4>>{});
+    if (N > 64) return f(BwMma<bwdw::Core<2, 2, 4, 8, 8, 4, 4>>{});
+    return f(BwMma<bwdw::Core<1, 4, 4, 4, 8, 4, 4>>{});
+  }
   return wide ? f(BwConf<8, 1, 16, 8, 1, 4>{}) : f(BwConf<8, 1, 4, 8, 1, 1>{});
+}
+
+// The bwd_w kernel of configuration Cf, with or without the T split
+template <class Cf, bool SPLIT>
+auto bw_kernel() {
+  if constexpr (Cf::kMma)
+    return conv_bwd_w_mma_kernel<typename Cf::K, SPLIT>;
+  else
+    return conv_bwd_w_kernel<Cf::G, Cf::NT_N, Cf::NT_M, Cf::BT, Cf::VZ, Cf::VW, SPLIT>;
 }
 
 }  // namespace
@@ -857,119 +933,110 @@ extern "C" int conv_engine_fwd_f32(const float* cells, const float* ww, const fl
   });
 }
 
-// bwd_x geometry, as the deconv corner's: a block covers R cell rows (rows
-// of all B images end to end) by W cell columns; its tile slots are TC tile
-// columns by BT/TC tile rows.  Also raises the kernel's shared-memory limit
-// on the current device.
+// bwd_x geometry (bwdx::cell_geometry): a block covers R cell rows (rows of
+// all B images end to end) by W cell columns; its BT tile slots are TC tile
+// columns by BT/TC tile rows; tile gets (BT, BN channels n a block, 1 for
+// the tensor cores or 0).  Also raises the kernel's shared-memory limit on
+// the current device (call it before the first launch for this (N, M)).
 extern "C" int conv_engine_bwd_x_plan(int B, int gy, int gx, int ty, int tx, int N, int M, int* R, int* W,
-                                      int* TC) {
+                                      int* TC, int* tile) {
   return with_bx_conf(N, M, [&](auto conf) {
-    using C = decltype(conf);
-    using K = typename C::K;
-    cudaError_t err = cudaFuncSetAttribute(BX_KERNEL(C), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)K::kSmemBytes);
+    using Cf = decltype(conf);
+    using K = typename Cf::K;
+    cudaError_t err =
+        cudaFuncSetAttribute(bx_kernel<Cf>(), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Cf::kSmemBytes);
     if (err != cudaSuccess) return (int)err;
-    int w, tc;
-    if (2 * tx <= K::BT) {
-      w = gx;
-      tc = tx;
-    } else {
-      w = K::BT / 2 - 1;
-      tc = w + 1;
-    }
-    const int tr_max = K::BT / tc;
-    const int rows = B * gy;
-    int best = 1;
-    for (int r = tr_max * gy; r >= 1; --r) {
-      bool ok = true;
-      for (int rho0 = 0; rho0 < rows && ok; rho0 += r) {
-        int lo = 0x7fffffff, hi = -1;
-        for (int rho = rho0; rho < rho0 + r && rho < rows; ++rho) {
-          const int b = rho / gy, rr = rho - b * gy;
-          const int jlo = rr - 1 > 0 ? rr - 1 : 0, jhi = rr < ty - 1 ? rr : ty - 1;
-          if (jlo <= jhi) {
-            lo = lo < b * ty + jlo ? lo : b * ty + jlo;
-            hi = hi > b * ty + jhi ? hi : b * ty + jhi;
-          }
-        }
-        ok = hi < lo || hi - lo + 1 <= tr_max;
-      }
-      if (ok) {
-        best = r;
-        break;
-      }
-    }
-    *R = best;
-    *W = w;
-    *TC = tc;
+    bwdx::cell_geometry(B, gy, gx, ty, tx, K::BT, R, W, TC);
+    tile[0] = K::BT;
+    tile[1] = K::BN;
+    tile[2] = Cf::kMma;
     return 0;
   });
 }
 
 // One bwd_x launch: g (B, ty, tx, 4, M), ww (C, N, M), inv (C, 4) -> dcells
 // (B, gy, gx, S2*4, N), every element written.  R, W, TC from
-// conv_engine_bwd_x_plan.  Returns cudaGetLastError().
+// conv_engine_bwd_x_plan; where M % 4 == 0 and M >= 8, g and ww start on
+// 16-byte boundaries.  Returns cudaGetLastError().
 extern "C" int conv_engine_bwd_x_f32(const float* g, const float* ww, const float* inv, const int* pos,
                                      const int* phase_off, float* dcells, int B, int gy, int gx, int N, int M,
                                      int S2, int ty, int tx, int R, int W, int TC, void* stream) {
   return with_bx_conf(N, M, [&](auto conf) {
-    using C = decltype(conf);
-    using K = typename C::K;
-    const int nrb = (B * gy + R - 1) / R, ncb = (gx + W - 1) / W;
-    dim3 grid(nrb * ncb, (N + K::BN - 1) / K::BN);
-    BX_KERNEL(C)<<<grid, K::kThreads, K::kSmemBytes, reinterpret_cast<cudaStream_t>(stream)>>>(
+    using Cf = decltype(conf);
+    using K = typename Cf::K;
+    const int cblocks = ((B * gy + R - 1) / R) * ((gx + W - 1) / W), ncb = (gx + W - 1) / W;
+    const int n_nb = (N + K::BN - 1) / K::BN;
+    // the tensor-core kernel: a block per (cell block, N tile, phase), phase fastest
+    const dim3 grid = Cf::kMma ? dim3(cblocks * n_nb * S2) : dim3(cblocks, n_nb);
+    bx_kernel<Cf>()<<<grid, K::kThreads, Cf::kSmemBytes, reinterpret_cast<cudaStream_t>(stream)>>>(
         g, ww, inv, pos, phase_off, dcells, B, gy, gx, N, M, S2, ty, tx, R, W, TC, ncb);
     return (int)cudaGetLastError();
   });
 }
 
-// bwd_w split plan: the T loop is split over as many blocks per (phase,
-// N-tile, M-tile) group as fill the card's resident block slots once, with
-// at least 4 chunks per split.  scratch_floats / counters are 0 when the
-// split count is 1.  Also raises both variants' shared-memory limit on the
-// current device.
-extern "C" int conv_engine_bwd_w_plan(int B, int ty, int tx, int N, int M, int S2, int device, int* splits,
-                                      long long* scratch_floats, long long* counters) {
+// bwd_w plan: the T-loop split and the block tile for this shape.  The
+// tensor-core kernel runs a block per (packed position, N tile, M tile)
+// group and splits T by bwdw::plan_splits; the CUDA-core kernel a block per
+// (phase, N tile, M tile), split over as many blocks as fill the card's
+// resident block slots once, at least 4 chunks a split.  scratch_floats /
+// counters are 0 when the split count is 1; tile gets (BN, BM, BT, 1 for the
+// tensor cores or 0).  Also raises both variants' shared-memory limit on the
+// current device (call it before the first launch for this (N, M)).
+extern "C" int conv_engine_bwd_w_plan(int B, int ty, int tx, int N, int M, int S2, int C, int device, int* splits,
+                                      long long* scratch_floats, long long* counters, int* tile) {
   return with_bw_conf(N, M, [&](auto conf) {
-    using C = decltype(conf);
-    using K = typename C::K;
-    cudaError_t err = cudaFuncSetAttribute(BW_KERNEL(C, false), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)K::kSmemBytes);
+    using Cf = decltype(conf);
+    using K = typename Cf::K;
+    const auto k0 = bw_kernel<Cf, false>(), k1 = bw_kernel<Cf, true>();
+    cudaError_t err = cudaFuncSetAttribute(k0, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::kSmemBytes);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(BW_KERNEL(C, true), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)K::kSmemBytes);
+      err = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::kSmemBytes);
     int occ = 0, sms = 0;
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, BW_KERNEL(C, true), K::kThreads, K::kSmemBytes);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, k1, K::kThreads, K::kSmemBytes);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return (int)err;
     const long long slots = (long long)(occ > 0 ? occ : 1) * sms;
-    const long long groups = (long long)S2 * ((N + K::BN - 1) / K::BN) * ((M + K::BM - 1) / K::BM);
-    const long long chunks = ((long long)B * ty * tx + C::BT - 1) / C::BT;
-    long long k = slots / groups;
-    if (k > chunks / 4) k = chunks / 4;
-    if (k > 65535) k = 65535;
-    if (k < 1) k = 1;
+    const long long tiles = (long long)((N + K::BN - 1) / K::BN) * ((M + K::BM - 1) / K::BM);
+    const long long chunks = ((long long)B * ty * tx + Cf::BT - 1) / Cf::BT;
+    long long groups, k;
+    if constexpr (Cf::kMma) {
+      groups = (long long)C * tiles;
+      k = bwdw::plan_splits(groups, chunks, slots);
+    } else {
+      groups = (long long)S2 * tiles;
+      k = slots / groups;
+      if (k > chunks / 4) k = chunks / 4;
+      if (k > 65535) k = 65535;
+      if (k < 1) k = 1;
+    }
     *splits = (int)k;
     *scratch_floats = k > 1 ? groups * k * K::kRed : 0;
     *counters = k > 1 ? groups : 0;
+    tile[0] = K::BN;
+    tile[1] = K::BM;
+    tile[2] = Cf::BT;
+    tile[3] = Cf::kMma;
     return 0;
   });
 }
 
 // One bwd_w launch: cells (B, Gy, Gx, S2*4, N), g (B, ty, tx, 4, M),
-// inv (C, 4) -> dww (C, N, M), every element written.  splits, partial and
-// counters from conv_engine_bwd_w_plan; the counters are zero on entry and
-// the kernel leaves them zero.  Returns cudaGetLastError().
+// inv (C, 4) -> dww (C, N, M), every element written.  C the packed
+// positions; splits, partial and counters from conv_engine_bwd_w_plan with
+// the same shape; the counters are zero on entry and the kernel leaves them
+// zero; where N % 4 == 0, cells (and g where M % 4 == 0 and M >= 16) start
+// on 16-byte boundaries.  Returns cudaGetLastError().
 extern "C" int conv_engine_bwd_w_f32(const float* cells, const float* g, const float* inv, const int* pos,
                                      const int* phase_off, float* dww, int B, int Gy, int Gx, int N, int M,
-                                     int S2, int ty, int tx, int splits, float* partial, int* counters,
+                                     int S2, int ty, int tx, int C, int splits, float* partial, int* counters,
                                      void* stream) {
   return with_bw_conf(N, M, [&](auto conf) {
-    using C = decltype(conf);
-    using K = typename C::K;
-    auto kernel = splits > 1 ? BW_KERNEL(C, true) : BW_KERNEL(C, false);
-    dim3 grid(S2 * ((N + K::BN - 1) / K::BN) * ((M + K::BM - 1) / K::BM), splits);
+    using Cf = decltype(conf);
+    using K = typename Cf::K;
+    const int tiles = ((N + K::BN - 1) / K::BN) * ((M + K::BM - 1) / K::BM);
+    // a block per (packed position or, on the CUDA cores, phase, N tile, M tile) and split
+    const dim3 grid((Cf::kMma ? C : S2) * tiles, splits);
+    auto kernel = splits > 1 ? bw_kernel<Cf, true>() : bw_kernel<Cf, false>();
     kernel<<<grid, K::kThreads, K::kSmemBytes, reinterpret_cast<cudaStream_t>(stream)>>>(
         cells, g, inv, pos, phase_off, dww, B, Gy, Gx, N, M, S2, ty, tx, splits, partial, counters);
     return (int)cudaGetLastError();

@@ -84,100 +84,8 @@ using bwdx::cp_async_wait;
 using bwdx::kMaxPos;  // n*n Winograd positions of F(2,3)
 using bwdx::kMaxSub;  // S^2 sub-filters, S <= 4
 
-// The cells of one bwd_x block and the tile slots they read: R cell rows
-// [rho0, rho1) (rows of all B images end to end) by columns [c0, c1); cell
-// row r takes tile rows r-1 and r, so the slots hold tile rows (tau = b*ty
-// + j, contiguous) [tau_lo, tau_hi] by columns [tc0, tc1], TC columns a
-// slot row.
-struct CellBlock {
-  int rho0, rho1, c0, c1, tau_lo, tau_hi, tc0, tc1;
-  __device__ CellBlock(int rb, int cb, int B, int gy, int gx, int ty, int tx, int R, int W) {
-    rho0 = rb * R;
-    c0 = cb * W;
-    rho1 = min(rho0 + R, B * gy);
-    c1 = min(c0 + W, gx);
-    tau_lo = 0x7fffffff;
-    tau_hi = -1;
-    for (int rho = rho0; rho < rho1; ++rho) {
-      const int b = rho / gy, r = rho - b * gy;
-      const int jlo = max(r - 1, 0), jhi = min(r, ty - 1);
-      if (jlo <= jhi) {
-        tau_lo = min(tau_lo, b * ty + jlo);
-        tau_hi = max(tau_hi, b * ty + jhi);
-      }
-    }
-    if (tau_hi < 0) tau_lo = 0;  // no tile: every slot stays empty
-    tc0 = max(c0 - 1, 0);
-    tc1 = min(c1 - 1, tx - 1);
-  }
-  // flat tile index of slot tl, -1 if none
-  __device__ int tile(int tl, int TC, int tx) const {
-    const int tau = tau_lo + tl / TC, col = tc0 + tl % TC;
-    return (tau <= tau_hi && col <= tc1) ? tau * tx + col : -1;
-  }
-};
-
-// dZ = B dXw B^T in place for every (slot, channel) of red (16 positions,
-// position p at red[p * PS]), then the gather: every cell of the block sums
-// the dZ pieces of the tiles that read it, in the fixed order (dy, dx) =
-// (0,0), (0,1), (1,0), (1,1).  red's element (slot, channel nn) sits at
-// slot * SS + nn.
-template <int BT, int BN, int NT, int PS, int SS>
-__device__ __forceinline__ void dz_gather(float* red, const CellBlock& cb, float* __restrict__ dcells, int gy, int gx,
-                                          int ty, int tx, int N, int n0, int TC) {
-  constexpr int ps = PS, ss = SS;
-  const int tid = threadIdx.x;
-  for (int it = tid; it < BT * BN; it += NT) {
-    float* e = red + (it / BN) * ss + it % BN;
-    float d[4][4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) d[u][v] = e[(u * 4 + v) * ps];
-    // rows: (B X)[a] = sum_u BT[u][a] X[u], B^T = [[1,0,-1,0],[0,1,1,0],[0,-1,1,0],[0,1,0,-1]]
-    float y[4][4];
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      y[0][v] = d[0][v];
-      y[1][v] = d[1][v] - d[2][v] + d[3][v];
-      y[2][v] = d[1][v] + d[2][v] - d[0][v];
-      y[3][v] = -d[3][v];
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      float* dst = e + (a * 4) * ps;
-      dst[0 * ps] = y[a][0];
-      dst[1 * ps] = y[a][1] - y[a][2] + y[a][3];
-      dst[2 * ps] = y[a][1] + y[a][2] - y[a][0];
-      dst[3 * ps] = -y[a][3];
-    }
-  }
-  __syncthreads();
-
-  const int wc = cb.c1 - cb.c0;
-  const int items = (cb.rho1 - cb.rho0) * wc * 4 * BN;
-  for (int it = tid; it < items; it += NT) {
-    const int nn = it % BN, a = (it / BN) % 4, cell = it / (4 * BN);
-    const int rho = cb.rho0 + cell / wc, col = cb.c0 + cell % wc;
-    const int b = rho / gy, r = rho - b * gy;
-    const int pp = a / 2, qq = a % 2;
-    float v = 0.0f;
-#pragma unroll
-    for (int dy = 0; dy < 2; ++dy) {
-      const int j = r - dy;
-      if (j < 0 || j >= ty) continue;
-      const int tr = b * ty + j - cb.tau_lo;
-#pragma unroll
-      for (int dx = 0; dx < 2; ++dx) {
-        const int tcol = col - dx;
-        if (tcol < 0 || tcol >= tx) continue;
-        const int slot = tr * TC + tcol - cb.tc0;
-        v += red[((2 * dy + pp) * 4 + 2 * dx + qq) * ps + slot * ss + nn];
-      }
-    }
-    if (n0 + nn < N) dcells[(((size_t)rho * gx + col) * 4 + a) * N + n0 + nn] = v;
-  }
-}
+using bwdx::CellBlock;
+using bwdx::dz_gather;
 
 // ============================================================== bwd_x
 // The fp32 CUDA-core bwd_x for few or ragged channels (M < 8 or M % 4 != 0:
@@ -327,7 +235,7 @@ bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ ww, const fl
           make_float4(acc[kk][i][0], acc[kk][i][1], acc[kk][i][2], acc[kk][i][3]);
   }
   __syncthreads();
-  dz_gather<BT, BN, NT, BT * BN, BN>(red_s, cb, dcells, gy, gx, ty, tx, N, n0, TC);
+  dz_gather<BT, BN, NT, BT * BN, BN>(red_s, cb, dcells, gy, gx, ty, tx, N, n0, TC, 4, 0);
 }
 
 // bwd_x on the tensor cores (bwd_x_core.cuh): the block's cells as in the
@@ -371,7 +279,7 @@ bwd_x_mma_kernel(const float* __restrict__ g, const float* __restrict__ ww, cons
         for (int i = 0; i < 4; ++i)
           red[(bwdx::position<K>(p) * BT + bwdx::acc_slot<K>(fb, i)) * SS + bwdx::acc_n(fa, i)] = acc[p][fa][fb][i];
   __syncthreads();
-  dz_gather<BT, BN, K::kThreads, BT * SS, SS>(red, cb, dcells, gy, gx, ty, tx, N, n0, TC);
+  dz_gather<BT, BN, K::kThreads, BT * SS, SS>(red, cb, dcells, gy, gx, ty, tx, N, n0, TC, 4, 0);
 }
 
 // ============================================================== bwd_w
@@ -612,92 +520,23 @@ bwd_w_kernel(const float* __restrict__ cells, const float* __restrict__ g, const
 
 
 // bwd_w on the tensor cores (bwd_w_core.cuh): one block per (packed position
-// p, N tile, M tile) and T split.  Its A operand, xw at p's Winograd
-// position q = (u, v), is formed from the four window entries that row u and
-// column v of B^T read (B^T = [[1,0,-1,0],[0,1,1,0],[0,-1,1,0],[0,1,0,-1]]:
-// two entries a row, each +-1), so the block stages those four planes of the
-// cell windows, not all sixteen, and forms only its own position:
-// x = sum over the row's (a, ra) and the column's (c, rc) of ra*rc*Z[a][c].
+// p, N tile, M tile) and T split, xw formed at p's Winograd position only
+// from the four window planes it reads (bwdw::window_block); the deconv
+// corner's cells hold one phase, 4 rows a cell, and g the S^2 sub-filters'
+// rows of each tile.
 template <class K, bool SPLIT>
 __global__ void __launch_bounds__(K::kThreads, 1)
 bwd_w_mma_kernel(const float* __restrict__ cells, const float* __restrict__ g, const float* __restrict__ inv,
                  const int* __restrict__ pos, const int* __restrict__ sub_off, float* __restrict__ dww,
                  int B, int Gy, int Gx, int N, int M, int S, int ty, int tx, int splits,
                  float* __restrict__ partial, int* __restrict__ counters) {
-  static_assert(K::EA == 4 && K::M2 == 4, "four window planes, m^2 = 4 rows of g");
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
   const int n_nt = (N + K::BN - 1) / K::BN, n_mt = (M + K::BM - 1) / K::BM;
   const int grp = blockIdx.x, p = grp / (n_nt * n_mt);
-  const int n0 = (grp / n_mt) % n_nt * K::BN, m0 = grp % n_mt * K::BM;
-  const int ks = SPLIT ? blockIdx.y : 0;
-  const int S2 = S * S, tpi = ty * tx, T = B * tpi;
+  const int n0 = (grp / n_mt) % n_nt * K::BN, m0 = grp % n_mt * K::BM, ks = SPLIT ? blockIdx.y : 0;
   int s = 0;
   while (sub_off[s + 1] <= p) ++s;  // p's sub-filter
-  float iv[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) iv[a] = inv[p * 4 + a];
-
-  // the window entries of position q = 4u + v: rows a0 < a1 of B^T's row u
-  // and columns c0 < c1 of its row v, entry e = 2i + j at (a_i, c_j), its
-  // offset from the tile's first window cell in rows of N, and its sign
-  const int q = pos[p], u = q >> 2, v = q & 3;
-  const int a0 = u == 0 ? 0 : 1, a1 = u == 3 ? 3 : 2, c0 = v == 0 ? 0 : 1, c1 = v == 3 ? 3 : 2;
-  const float ra0 = u == 2 ? -1.0f : 1.0f, ra1 = (u == 0 || u == 3) ? -1.0f : 1.0f;
-  const float rc0 = v == 2 ? -1.0f : 1.0f, rc1 = (v == 0 || v == 3) ? -1.0f : 1.0f;
-  auto entry = [&](int a, int c) { return ((a >> 1) * Gx + (c >> 1)) * 4 + (a & 1) * 2 + (c & 1); };
-  const int eo0 = entry(a0, c0), eo1 = entry(a0, c1), eo2 = entry(a1, c0), eo3 = entry(a1, c1);
-  const float sg0 = ra0 * rc0, sg1 = ra0 * rc1, sg2 = ra1 * rc0, sg3 = ra1 * rc1;
-
-  const int all = (T + K::BT - 1) / K::BT, nsp = SPLIT ? splits : 1;
-  const int c_lo = (int)((long long)ks * all / nsp);
-  const int n_chunks = (int)((long long)(ks + 1) * all / nsp) - c_lo;
-
-  // one stage: the four entry planes [e][tile][n] of the chunk's windows
-  // (a tile's copies by TPT threads, its cell found once), then its g rows
-  auto stage = [&](float* raw, int chunk) {
-    constexpr int TPT = K::kThreads / K::BT, SEG = K::BN / 4;
-    static_assert(K::kThreads % K::BT == 0 && (4 * SEG) % TPT == 0, "whole tiles per thread group");
-    const int t0 = chunk * K::BT, tl = threadIdx.x / TPT, t = t0 + tl;
-    int base = 0;  // the tile's first window cell, in rows of N
-    if (t < T) {
-      const int b = t / tpi, r = t - b * tpi, jy = r / tx, jx = r - jy * tx;
-      base = ((b * Gy + jy) * Gx + jx) * 4;
-    }
-#pragma unroll
-    for (int k = 0; k < 4 * SEG / TPT; ++k) {
-      const int i = threadIdx.x % TPT + k * TPT, e = i / SEG, seg = i % SEG, n = n0 + 4 * seg;
-      const int eo = e == 0 ? eo0 : e == 1 ? eo1 : e == 2 ? eo2 : eo3;
-      const bool ok = t < T && n < N;
-      cp_async(raw + (e * K::BT + tl) * K::RS + 4 * seg, ok ? cells + (size_t)(base + eo) * N + n : cells, ok, 16);
-    }
-    bwdw::stage_g<K>(raw + K::kRawA, g, t0, T, S2 * 4, s * 4, M, m0);
-    cp_async_commit();
-  };
-  // the A pass: xw at q of channels (n, n+1), tiles (t, t+1) from the planes
-  auto prep_a = [&](uint32_t* split, const float* raw) {
-    for (int slot = threadIdx.x; slot < K::BT * K::BN / 4; slot += K::kThreads) {
-      int n, t;
-      bwdw::a_slot<K>(slot, n, t);
-      const float* r = raw + t * K::RS + n;
-      float2 z[4][2];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        z[e][0] = *reinterpret_cast<const float2*>(r + e * K::BT * K::RS);
-        z[e][1] = *reinterpret_cast<const float2*>(r + e * K::BT * K::RS + K::RS);
-      }
-      float x[2][2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        x[h][0] = fmaf(sg3, z[3][h].x, fmaf(sg2, z[2][h].x, fmaf(sg1, z[1][h].x, sg0 * z[0][h].x)));
-        x[h][1] = fmaf(sg3, z[3][h].y, fmaf(sg2, z[2][h].y, fmaf(sg1, z[1][h].y, sg0 * z[0][h].y)));
-      }
-      bwdw::put_a<K>(split, slot, x[0][0], x[0][1], x[1][0], x[1][1]);
-    }
-  };
-  bwdw::Acc<K> acc;
-  bwdw::contract<K>(acc, smem, c_lo, n_chunks, iv, stage, prep_a);
-  bwdw::finish<K, SPLIT>(acc, dww, p, n0, m0, N, M, grp, ks, splits, partial, counters);
+  bwdw::window_block<K, SPLIT, false>(cells, g, inv, dww, grp, p, pos[p], n0, m0, ks, S * S, s, B, Gy, Gx, N, M,
+                                      ty, tx, splits, partial, counters);
 }
 
 struct BxConf {
@@ -763,13 +602,10 @@ auto bw_kernel() {
 
 // Plain C entry points (bound with ctypes).  Every pointer is a device pointer.
 
-// bwd_x geometry: a block covers R cell rows (rows of all B images end to
-// end) by W cell columns; its BT tile slots are TC tile columns by BT/TC
-// tile rows.  W is all gx columns when two tile rows of tx tiles fit the
-// slots, else one cell row and BT/2 - 1 columns.  R is the largest count of
-// rows whose every block reads at most BT/TC tile rows.  Also raises the
-// kernel's shared-memory limit on the current device (call it before the
-// first launch for this M).
+// bwd_x geometry (bwdx::cell_geometry): a block covers R cell rows (rows of
+// all B images end to end) by W cell columns; its BT tile slots are TC tile
+// columns by BT/TC tile rows.  Also raises the kernel's shared-memory limit
+// on the current device (call it before the first launch for this M).
 extern "C" int fused_engine_bwd_x_plan(int B, int gy, int gx, int ty, int tx, int M, int* R, int* W, int* TC,
                                        int* BT) {
   return with_bx_conf(M, [&](auto conf) {
@@ -782,39 +618,7 @@ extern "C" int fused_engine_bwd_x_plan(int B, int gy, int gx, int ty, int tx, in
     else
       err = cudaFuncSetAttribute(bwd_x_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Cf::kSmemBytes);
     if (err != cudaSuccess) return (int)err;
-    int w, tc;
-    if (2 * tx <= K::BT) {
-      w = gx;
-      tc = tx;
-    } else {
-      w = K::BT / 2 - 1;
-      tc = w + 1;
-    }
-    const int tr_max = K::BT / tc;
-    const int rows = B * gy;
-    int best = 1;
-    for (int r = tr_max * gy; r >= 1; --r) {
-      bool ok = true;
-      for (int rho0 = 0; rho0 < rows && ok; rho0 += r) {
-        int lo = 0x7fffffff, hi = -1;
-        for (int rho = rho0; rho < rho0 + r && rho < rows; ++rho) {
-          const int b = rho / gy, rr = rho - b * gy;
-          const int jlo = rr - 1 > 0 ? rr - 1 : 0, jhi = rr < ty - 1 ? rr : ty - 1;
-          if (jlo <= jhi) {
-            lo = lo < b * ty + jlo ? lo : b * ty + jlo;
-            hi = hi > b * ty + jhi ? hi : b * ty + jhi;
-          }
-        }
-        ok = hi < lo || hi - lo + 1 <= tr_max;
-      }
-      if (ok) {
-        best = r;
-        break;
-      }
-    }
-    *R = best;
-    *W = w;
-    *TC = tc;
+    bwdx::cell_geometry(B, gy, gx, ty, tx, K::BT, R, W, TC);
     *BT = K::BT;
     return 0;
   });

@@ -160,7 +160,7 @@ _SIXTEEN_BYTE_COPIES = {
     "fused_engine_bwd_x": {"g": _m4(8), "ww_packed": _m4(8)},
     "fused_engine_bwd_w": {"cells": lambda N, M: True, "g": _m4(16)},
     "conv_fused_engine": {"cells": lambda N, M: N % 4 == 0, "ww_packed": _m4(32)},
-    "conv_fused_engine_bwd_x": {"g": _m4(8)},
+    "conv_fused_engine_bwd_x": {"g": _m4(8), "ww_packed": _m4(8)},
     "conv_fused_engine_bwd_w": {"cells": lambda N, M: N % 4 == 0, "g": _m4(16)},
     "domain_engine": {"xw": lambda N, M: True, "ww_packed": _m4(32)},
     "domain_engine_bwd_x": {"g": _m4(8), "ww_packed": _m4(8)},
@@ -728,7 +728,8 @@ def conv_fused_engine_bwd_x(
 ) -> torch.Tensor:
     """dL/dcells (B, gy, gx, s2*m*m, N) of the conv engine's products, zero
     in rows and columns the forward never reads.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
+    plain version; CUDA tensors launch the kernel (F(2,3), fp32, contiguous
+    inputs; g and ww_packed 16-byte aligned where M % 4 == 0 and M >= 8)."""
     kw = dict(pos_idx=pos_idx, m=m, n=n, ty=ty, tx=tx, s2=s2)
     if g.device.type == "cpu":
         return conv_fused_engine_bwd_x_plain(g, ww_packed, inv_packed, gy=gy, gx=gx, **kw)
@@ -747,13 +748,13 @@ def conv_fused_engine_bwd_x(
         raise ValueError(f"cells ({gy}, {gx}) do not cover {ty}x{tx} tiles plus the halo, or an empty problem")
     if max(g.numel(), ww_packed.numel(), B * gy * gx * s2 * 4 * N) >= 2**31:
         raise ValueError("problem too large for the kernel's 32-bit indices")
-    _check_aligned("conv_fused_engine_bwd_x", N, M, g=g)
+    _check_aligned("conv_fused_engine_bwd_x", N, M, g=g, ww_packed=ww_packed)
     pos, off = _conv_layout_tensors(tuple(pos_idx), s2, str(dev))
 
     from ._build import load_library
 
     lib = load_library()
-    R, W, TC = _conv_bwd_x_plan(B, gy, gx, ty, tx, N, M, dev.index)
+    R, W, TC, _ = _conv_bwd_x_plan(B, gy, gx, ty, tx, N, M, dev.index)
     out = torch.empty((B, gy, gx, s2 * m * m, N), dtype=torch.float32, device=dev)
     err = lib.conv_engine_bwd_x_f32(
         g.data_ptr(), ww_packed.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), off.data_ptr(),
@@ -782,7 +783,8 @@ def conv_fused_engine_bwd_w(
 ) -> torch.Tensor:
     """dL/dww (C, N, M) of the conv engine's products, xw recomputed from
     the cells.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    kernel (F(2,3), fp32, contiguous inputs; cells 16-byte aligned where N %
+    4 == 0, and g where M % 4 == 0 and M >= 16)."""
     kw = dict(pos_idx=pos_idx, m=m, n=n, ty=ty, tx=tx, s2=s2)
     if g.device.type == "cpu":
         return conv_fused_engine_bwd_w_plain(cells, g, inv_packed, **kw)
@@ -807,14 +809,14 @@ def conv_fused_engine_bwd_w(
     from ._build import load_library
 
     lib = load_library()
-    splits, n_scratch, n_counters = _conv_bwd_w_plan(B, ty, tx, N, M, s2, dev.index)
+    splits, n_scratch, n_counters, _ = _conv_bwd_w_plan(B, ty, tx, N, M, s2, C, dev.index)
     stream = torch.cuda.current_stream(dev).cuda_stream
     partial = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
     counters = _split_counters(n_counters, dev.index, stream) if n_counters else None
     out = torch.empty((C, N, M), dtype=torch.float32, device=dev)
     err = lib.conv_engine_bwd_w_f32(
         cells.data_ptr(), g.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), off.data_ptr(), out.data_ptr(),
-        B, cells.shape[1], cells.shape[2], N, M, s2, ty, tx, splits,
+        B, cells.shape[1], cells.shape[2], N, M, s2, ty, tx, C, splits,
         None if partial is None else partial.data_ptr(), None if counters is None else counters.data_ptr(),
         stream,
     )
@@ -841,36 +843,39 @@ def _conv_fwd_plan(N: int, M: int, device_index: int) -> None:
 
 @functools.lru_cache(maxsize=256)
 def _conv_bwd_x_plan(B: int, gy: int, gx: int, ty: int, tx: int, N: int, M: int, device_index: int):
-    """(R, W, TC) of the conv bwd_x kernel's block geometry for this shape;
-    the library raises the kernel's shared-memory limit here, once."""
+    """(R, W, TC, (BT, BN, tensor cores 1 or 0)) of the conv bwd_x kernel's
+    block geometry for this shape: R cell rows by W cell columns per block,
+    TC tile columns per slot row, BT tile slots by BN channels.  The library
+    raises the kernel's shared-memory limit here, once."""
     import ctypes
 
     from ._build import load_library
 
-    out = [ctypes.c_int() for _ in range(3)]
+    out, tile = [ctypes.c_int() for _ in range(3)], (ctypes.c_int * 3)()
     with torch.cuda.device(device_index):
-        err = load_library().conv_engine_bwd_x_plan(B, gy, gx, ty, tx, N, M, *map(ctypes.byref, out))
+        err = load_library().conv_engine_bwd_x_plan(B, gy, gx, ty, tx, N, M, *map(ctypes.byref, out), tile)
     if err != 0:
         raise RuntimeError(f"conv_fused_engine_bwd_x plan failed: cudaError {err}")
-    return tuple(v.value for v in out)
+    return (*(v.value for v in out), tuple(tile))
 
 
 @functools.lru_cache(maxsize=256)
-def _conv_bwd_w_plan(B: int, ty: int, tx: int, N: int, M: int, s2: int, device_index: int):
-    """(splits, scratch floats, counters) of the conv bwd_w kernel's T-loop
-    split for this shape on this card; the library raises the kernel's
-    shared-memory limit here, once."""
+def _conv_bwd_w_plan(B: int, ty: int, tx: int, N: int, M: int, s2: int, C: int, device_index: int):
+    """(splits, scratch floats, counters, (BN, BM, BT, tensor cores 1 or 0))
+    of the conv bwd_w kernel for this shape on this card: its T-loop split
+    and block tile.  The library raises the kernel's shared-memory limit
+    here, once."""
     import ctypes
 
     from ._build import load_library
 
-    splits, floats, counters = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong()
+    splits, floats, counters, tile = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong(), (ctypes.c_int * 4)()
     with torch.cuda.device(device_index):
-        err = load_library().conv_engine_bwd_w_plan(B, ty, tx, N, M, s2, device_index, ctypes.byref(splits),
-                                                    ctypes.byref(floats), ctypes.byref(counters))
+        err = load_library().conv_engine_bwd_w_plan(B, ty, tx, N, M, s2, C, device_index, ctypes.byref(splits),
+                                                    ctypes.byref(floats), ctypes.byref(counters), tile)
     if err != 0:
         raise RuntimeError(f"conv_fused_engine_bwd_w plan failed: cudaError {err}")
-    return splits.value, floats.value, counters.value
+    return splits.value, floats.value, counters.value, tuple(tile)
 
 
 # ------------------------------------------------------------- unfused engine

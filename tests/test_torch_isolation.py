@@ -243,7 +243,7 @@ def _moves_16_bytes(wrapper, operand, N, M):
 _OPERANDS = [(w, o) for w, ops_ in (
     ("fused_engine", ("cells", "ww_packed")), ("fused_engine_bwd_x", ("g", "ww_packed")),
     ("fused_engine_bwd_w", ("cells", "g")), ("conv_fused_engine", ("cells", "ww_packed")),
-    ("conv_fused_engine_bwd_x", ("g",)), ("conv_fused_engine_bwd_w", ("cells", "g")),
+    ("conv_fused_engine_bwd_x", ("g", "ww_packed")), ("conv_fused_engine_bwd_w", ("cells", "g")),
     ("domain_engine", ("xw", "ww_packed")), ("domain_engine_bwd_x", ("g", "ww_packed")),
     ("domain_engine_bwd_w", ("xw", "g")), ("winograd_conv1d_fused_engine", ("cells", "ww_packed"))) for o in ops_]
 
