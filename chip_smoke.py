@@ -9,7 +9,8 @@ Phases, each printing one JSON line:
   build   nvcc builds the kernels in src/repro_torch/kernels/csrc/ (sm_90a):
           fused_engine.cu, fused_engine_bwd.cu, conv_engine.cu,
           domain_engine.cu, engine1d.cu (the three bwd_x kernels share
-          bwd_x_core.cuh, the three bwd_w kernels bwd_w_core.cuh).
+          bwd_x_core.cuh, the three bwd_w kernels bwd_w_core.cuh, the 1D
+          engine fwd_core.cuh).
 Each kernel phase also calls each of its wrappers once with a misaligned
 contiguous view of one operand that the kernel moves in 16-byte copies: the
 call must raise ValueError before any launch, and an aligned launch after it
@@ -46,7 +47,9 @@ must still run (no sticky CUDA error).
           tensor cores, as kernel_bwd holds the deconv corner's: two launches
           bitwise equal, the instantiation that ran and its bound, and their
           plan (bwd_x: its tile slots and the blocks it launches against the
-          SMs; bwd_w: split, block tile, xw formed per value); device,
+          SMs; bwd_w: split, block tile, xw formed per value); the forward
+          (TPU kernel 3, the fp32 CUDA-core kernel) two launches bitwise
+          equal, with the instantiation that ran and its bound; device,
           one-call and plain times, the bound, and as yardsticks F.conv2d
           plus the epilogue and aten's convolution_backward (input grad,
           raw-weight grad).
@@ -103,7 +106,9 @@ must still run (no sticky CUDA error).
           4096 latent frames), the reference benchmark's conv1d (K4 causal,
           (8, 2048, 256) -> 256) and deconv1d (K4S2, (8, 1024, 128) -> 64), a
           K3S2 OP1 and a K6S3 deconv, a phases=2 scratch shape, and the nlc
-          epilogue with each activation; rank-1 kernels 4 and 5
+          epilogue with each activation (two launches bitwise equal, the
+          instantiation that ran and its bound: the tensor cores,
+          fwd_core.cuh, at the decoder's deconv0-1); rank-1 kernels 4 and 5
           (domain_engine.cu, m2 = 2) against theirs at the decoder's three
           layers (both also two launches bitwise equal and their bound as
           kernels 6 and 7's, kernel 5 its plan), rank-1 kernel 4 also at the conv1d shape
@@ -200,6 +205,7 @@ CONV_BWD_X_KERNELS = ("conv_bwd_x_kernel", "conv_bwd_x_mma_kernel")
 BWD_W_KERNELS = ("bwd_w_kernel", "bwd_w_mma_kernel")
 DOMAIN_BWD_W_KERNELS = ("domain_bwd_w_kernel", "domain_bwd_w_mma_kernel")
 CONV_BWD_W_KERNELS = ("conv_bwd_w_kernel", "conv_bwd_w_mma_kernel")
+ENGINE1D_KERNELS = ("engine1d_kernel", "engine1d_mma_kernel")
 CONV_KERNELS = {"fwd": "conv_fwd_kernel", "bwd_x": CONV_BWD_X_KERNELS, "bwd_w": CONV_BWD_W_KERNELS}
 # every 2D engine kernel a train step can launch
 STEP_KERNELS = ("fused_epi_kernel", *BWD_X_KERNELS, *BWD_W_KERNELS, "conv_fwd_kernel", *CONV_BWD_X_KERNELS,
@@ -1205,9 +1211,14 @@ def kernel_1d_phase(torch, peaks):
         got = run()
         torch.cuda.synchronize()
         err = held(f"engine1d {out_mode} at {name}", got, plain())
+        bitwise_repeat(f"engine1d {out_mode} at {name}", run, got)
         if i == 0:  # the 1D wrapper refuses a misaligned operand, and launches again after it
-            refusals.append(refuses_misaligned("winograd_conv1d_fused_engine", lambda: engine.winograd_conv1d_fused_engine(
-                misaligned(cells), packed.ww, packed.inv, bt, **kw), run))
+            e1 = engine.winograd_conv1d_fused_engine
+            refusals += [
+                refuses_misaligned("winograd_conv1d_fused_engine",
+                                   lambda: e1(misaligned(cells), packed.ww, packed.inv, bt, **kw), run),
+                refuses_misaligned("winograd_conv1d_fused_engine",
+                                   lambda: e1(cells, misaligned(packed.ww), packed.inv, bt, **kw), run)]
 
         lib, lib_note, lib_err = None, None, None
         if kind != "phases":
@@ -1242,9 +1253,12 @@ def kernel_1d_phase(torch, peaks):
         epi = got.numel() * ((2 if affine else 0) + (act != "none")) if out_mode == "nlc" else 0
         n_ops = (2 * T * C * N * M + T * phases * N * transform_ops_1d(bt) + T * M * fold_ops_1d(inv_np, sub_slices)
                  + epi)
-        measure(f"engine1d_{out_mode}", name, run, plain, "engine1d_kernel", lib, lib_note, n_bytes, n_ops, err,
-                B=B, L=L, N=N, M=M, C=C, T=T, phases=phases, activation=act, affine=affine,
-                library_max_abs_err=lib_err)
+        measure(f"engine1d_{out_mode}", name, run, plain, ENGINE1D_KERNELS, lib, lib_note, n_bytes, n_ops, err,
+                products=2 * T * C * N * M, B=B, L=L, N=N, M=M, C=C, T=T, phases=phases, activation=act,
+                affine=affine, library_max_abs_err=lib_err)
+        # the tensor cores run the decoder's layers of M >= 64 (deconv0-1; the mono deconv2 stays on the CUDA cores)
+        if name.startswith("audio.") and M >= 16 and not any("_mma_kernel" in k for k in rows[-1]["instantiation"]):
+            fail(f"engine1d at {name} ran {rows[-1]['instantiation']}, not the tensor-core kernel")
         del cells, packed, got
         torch.cuda.empty_cache()
 
@@ -1437,11 +1451,16 @@ def audio_phase(torch, card):
             with torch.no_grad():
                 return G.audio_decoder_apply(params, specs, xb, impl=impl)
         fwd_ms = wall_ms(fwd, reps=10)
-        prof_ms, dev_ms, kern_ms, by_kernel = profiled_ms(fwd, reps=10, name="engine1d_kernel")
+        prof_ms, dev_ms, kern_ms, by_kernel = profiled_ms(fwd, reps=10, name=ENGINE1D_KERNELS)
         idle = 1.0 - dev_ms / prof_ms
         if idle < 0.0:
             fail(f"device time {dev_ms:.4f} ms exceeds the wall time {prof_ms:.4f} ms it was taken in")
         fwd_kernel_ms[b] = kern_ms
+        # the tensor cores' 64-tile blocks fill the card at batch 16; at batch 1 they would leave most SMs idle,
+        # so the plan keeps the CUDA-core kernel there
+        on_tc = {k for k in by_kernel if kernel_named(k, "engine1d_mma_kernel")}
+        if bool(on_tc) != (b == AUDIO_BATCH):
+            fail(f"the decoder at batch {b} ran {sorted(k for k in by_kernel if kernel_named(k, ENGINE1D_KERNELS))}")
         emit({"phase": "audio_rate", "batch": b, "forward_ms": fwd_ms, "samples_per_s": 1e3 * b * samples / fwd_ms,
               "profiled_forward_ms": prof_ms, "device_ms": dev_ms, "device_idle_share": idle,
               "engine1d_kernel_ms": kern_ms,
@@ -1543,8 +1562,7 @@ def kernel_conv_phase(torch, peaks):
             if not err <= tol:
                 fail(f"conv {key} kernel vs plain at {name}: max|err| {err:.3e} > {tol:.3e}")
             errs[key] = (err, tol, got.numel())
-            if key != "fwd":
-                bitwise_repeat(f"conv {key} at {name}", run, got)
+            bitwise_repeat(f"conv {key} at {name}", run, got)
         if i == 1:  # conv1 (64 -> 128): each wrapper refuses a misaligned operand, and launches again after it
             fwd = dict(out_mode="nhwc", out_h=HO, out_w=WO, **geo)
             emit({"phase": "kernel_conv", "misaligned_refusals": [
@@ -1617,9 +1635,9 @@ def kernel_conv_phase(torch, peaks):
                        achieved_tflops=n_ops / (ms * 1e-3) / 1e12)
             if key == "fwd":
                 row["library_max_abs_err"] = lib_err
-            else:  # the redesigned kernels: the instantiation that ran, its bound and its plan
-                row.update(mma_bound(n_bytes, n_ops, products,
-                                     sorted(k for k in by_kernel if kernel_named(k, CONV_KERNELS[key])), peaks))
+            # the instantiation that ran, its bound and (backward) its plan
+            row.update(mma_bound(n_bytes, n_ops, products,
+                                 sorted(k for k in by_kernel if kernel_named(k, CONV_KERNELS[key])), peaks))
             if key == "bwd_x":  # the cell blocks' tile slots, and the blocks launched against the SMs
                 R, Wc, TC, (BT, BN, mma) = engine._conv_bwd_x_plan(B, gy, gx, ty, tx, N, M, dev)
                 use = bwd_x_block_use(B, gy, gx, ty, tx, R, Wc, TC, BT)

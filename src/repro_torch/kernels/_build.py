@@ -52,8 +52,8 @@ _SIGNATURES = {
     "domain_engine_bwd_w_plan": [_i] * 7 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2
     + [ctypes.POINTER(_i)],
     "domain_engine_bwd_w_f32": [_p] * 6 + [_i] * 8 + [_p] * 3,
-    "engine1d_plan": [_i],
-    "engine1d_f32": [_p] * 9 + [_i] * 12 + [_p],
+    "engine1d_plan": [_i] * 3 + [ctypes.POINTER(_i)],
+    "engine1d_f32": [_p] * 10 + [_i] * 16 + [_p],
 }
 
 # what the last build printed (ptxas register / spill report), for the smoke log

@@ -153,8 +153,10 @@ def _m4(least: int):
 
 # The operands each CUDA wrapper's kernel stages in 16-byte cp.async copies,
 # each with the (N, M) where it does: the kernels' configuration choices
-# (with_conf, with_fwd_conf, with_bx_conf, with_bw_conf in csrc/).  Elsewhere
-# the kernel takes 4-byte copies (few or ragged channels).
+# (with_conf, with_fwd_conf, with_bx_conf, with_bw_conf in csrc/; the 1D
+# engine's weights at M % 4 == 0 and M >= 16, where its tensor-core kernel
+# takes them on a grid that fills the card, held to that condition at any
+# grid).  Elsewhere the kernel takes 4-byte copies (few or ragged channels).
 _SIXTEEN_BYTE_COPIES = {
     "fused_engine": {"cells": lambda N, M: True, "ww_packed": _m4(32)},
     "fused_engine_bwd_x": {"g": _m4(8), "ww_packed": _m4(8)},
@@ -165,7 +167,7 @@ _SIXTEEN_BYTE_COPIES = {
     "domain_engine": {"xw": lambda N, M: True, "ww_packed": _m4(32)},
     "domain_engine_bwd_x": {"g": _m4(8), "ww_packed": _m4(8)},
     "domain_engine_bwd_w": {"xw": lambda N, M: True, "g": _m4(16)},
-    "winograd_conv1d_fused_engine": {"cells": lambda N, M: True, "ww_packed": lambda N, M: True},
+    "winograd_conv1d_fused_engine": {"cells": lambda N, M: True, "ww_packed": _m4(16)},
 }
 
 
@@ -189,6 +191,51 @@ def _check_vec(name, v, M, device):
         raise ValueError(f"{name} must be a contiguous fp32 ({M},) tensor on {device}, got "
                          f"{tuple(v.shape)} {v.dtype} on {v.device}")
     return v
+
+
+def _fwd_passes(pos_q: tuple[int, ...], subs: tuple[tuple[int, int], ...], pmax: int, smax: int):
+    """The pass plan of the forward tensor-core kernel (csrc/fwd_core.cuh).
+
+    ``pos_q``: each packed position's Winograd position (< 16); ``subs``:
+    the fold groups' [lo, hi) ranges of packed positions (the 1D engine's
+    sub-filters).  A pass holds consecutive positions, at most ``pmax`` of
+    them (the shared memory of their operands) from at most ``smax`` fold
+    groups (the outputs a thread holds); its distinct Winograd positions get
+    slots in order of first use.  Returns (plan, npass, nslot, npos): plan =
+    pass offsets (npass + 1), each pass's fold groups (npass x smax, -1 past
+    the last), each position's index among them (C), its slot (C), each
+    pass's Winograd position -> slot or -1 (npass x 16), as the kernel reads
+    it (fwd::Plan); nslot / npos the most slots / positions of any pass."""
+    sub_of = [s for s, (lo, hi) in enumerate(subs) for _ in range(lo, hi)]
+    passes, a = [], 0
+    for p in range(len(pos_q)):
+        held = set(sub_of[a:p])
+        if p > a and (p - a == pmax or (sub_of[p] not in held and len(held) == smax)):
+            passes.append((a, p))
+            a = p
+    if len(pos_q) > a:
+        passes.append((a, len(pos_q)))
+    psub, isub, islot, qslot = [], [], [], []
+    for a, b in passes:
+        held = sorted(set(sub_of[a:b]))
+        psub += held + [-1] * (smax - len(held))
+        slots: dict[int, int] = {}
+        for p in range(a, b):
+            isub.append(held.index(sub_of[p]))
+            islot.append(slots.setdefault(pos_q[p], len(slots)))
+        qslot += [slots.get(q, -1) for q in range(16)]
+    pass_off = [0] + [b for _, b in passes]
+    nslot = max((len(set(pos_q[a:b])) for a, b in passes), default=0)
+    npos = max((b - a for a, b in passes), default=0)
+    return tuple(pass_off + psub + isub + islot + qslot), len(passes), nslot, npos
+
+
+@functools.lru_cache(maxsize=64)
+def _fwd_plan_tensor(pos_q: tuple[int, ...], subs: tuple[tuple[int, int], ...], pmax: int, smax: int, device: str):
+    """``_fwd_passes`` with the plan as an int32 tensor on ``device``, built
+    once per layer geometry and device."""
+    plan, npass, nslot, npos = _fwd_passes(pos_q, subs, pmax, smax)
+    return torch.tensor(plan, dtype=torch.int32, device=device), npass, nslot, npos
 
 
 def fused_engine(
@@ -1294,13 +1341,18 @@ def winograd_conv1d_fused_engine(
 
     lib = load_library()
     pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
-    _engine1d_plan(M, dev.index)
+    _, _, pmax, smax, mma = _engine1d_plan(B, ty, M, dev.index)
+    C = len(pos_idx)
+    fplan, npass, nslot, npos = None, 0, 0, 0
+    if mma:
+        fplan, npass, nslot, npos = _fwd_plan_tensor(tuple(pos_idx), tuple(sub_slices), pmax, smax, str(dev))
     out = torch.empty(out_shape, dtype=torch.float32, device=dev)
     err = lib.engine1d_f32(
         cells.data_ptr(), ww_packed.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), offs.data_ptr(),
-        bt.data_ptr(), None if scale is None else scale.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), B, Gy, N, M, ty, n, phases, len(sub_slices), stride, len(pos_idx),
-        _OUT_MODES_1D[out_mode], _ACT_CODES[activation], torch.cuda.current_stream(dev).cuda_stream,
+        bt.data_ptr(), None if fplan is None else fplan.data_ptr(), None if scale is None else scale.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), B, Gy, N, M, ty, n, phases, len(sub_slices),
+        stride, C, _OUT_MODES_1D[out_mode], _ACT_CODES[activation], mma, npass, nslot, npos,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"winograd_conv1d_fused_engine kernel launch failed: cudaError {err}")
@@ -1315,16 +1367,24 @@ winograd_conv1d_fused_engine.launches = 0
 winograd_conv1d_fused_engine.scratch_launches = 0
 
 
-@functools.lru_cache(maxsize=64)
-def _engine1d_plan(M: int, device_index: int) -> None:
-    """Raise the 1D kernel's shared-memory limit for M's block configuration,
-    once per device."""
+@functools.lru_cache(maxsize=256)
+def _engine1d_plan(B: int, ty: int, M: int, device_index: int):
+    """(BT, BM, the most positions and sub-filters a pass, tensor cores 1 or
+    0) of the 1D kernel's block configuration for B sequences of ty tiles
+    and M channels on this card: the tensor cores where M allows them and
+    their blocks fill every SM at least once, else the CUDA cores, whose
+    smaller tiles do.  The library raises the kernel's shared-memory limit
+    here."""
+    import ctypes
+
     from ._build import load_library
 
+    tile = (ctypes.c_int * 5)()
     with torch.cuda.device(device_index):
-        err = load_library().engine1d_plan(M)
+        err = load_library().engine1d_plan(B, ty, M, tile)
     if err != 0:
         raise RuntimeError(f"winograd_conv1d_fused_engine plan failed: cudaError {err}")
+    return tuple(tile)
 
 
 def _scatter_1d(dxw: torch.Tensor, bt_mat, *, B: int, ty: int, gy: int, m: int, n: int, phases: int):

@@ -113,6 +113,9 @@ PROFILED = {  # kernel names as the profiler reports them on the card
     "domain_x": "void (anonymous namespace)::domain_bwd_x_mma_kernel<bwdx::Core<16, 4, 2, 2, 8, 2> >(float)",
     "deconv_w": "void (anonymous namespace)::bwd_w_kernel<true>(float const*, int)",
     "conv_w": "void (anonymous namespace)::conv_bwd_w_mma_kernel<bwdw::Core<1, 4, 4, 4, 8, 4, 4>, true>(float)",
+    "conv_fwd": "void (anonymous namespace)::conv_fwd_kernel<8, 8, 8, 16, 4, 4>(float const*, int)",
+    "e1_cuda_cores": "void (anonymous namespace)::engine1d_kernel<32, 1, 8, 1, 1>(float const*, int)",
+    "e1": "void (anonymous namespace)::engine1d_mma_kernel<fwd::Core<2, 4, 2, 4, 9, 2, 2, 1> >(float const*)",
     "cudnn": "void cudnn::engines_precompiled::scalePackedTensor_kernel<float, float>(float*)",
 }
 
@@ -123,7 +126,8 @@ PROFILED = {  # kernel names as the profiler reports them on the card
     ("DOMAIN_BWD_X_KERNELS", {"domain_x"}),
     ("BWD_W_KERNELS", {"deconv_w"}),
     ("CONV_BWD_W_KERNELS", {"conv_w"}),
-    ("STEP_KERNELS", set(PROFILED) - {"cudnn"}),
+    ("ENGINE1D_KERNELS", {"e1_cuda_cores", "e1"}),
+    ("STEP_KERNELS", set(PROFILED) - {"cudnn", "e1_cuda_cores", "e1"}),
 ])
 def test_kernel_names_tell_the_two_corners_apart(names, want):
     """Each tuple catches its own kernels, template instantiations or not

@@ -227,15 +227,18 @@ def test_rank1_domain_check_refuses_what_the_kernels_do_not_take(bad):
 
 
 # Where each wrapper's kernel moves an operand's rows in 16-byte copies, read
-# off the kernels' configuration choices (csrc/*.cu): the forward kernels' weights at M % 4 == 0 and
-# M >= 32; bwd_x's g and weights at M >= 8 (the tensor cores); bwd_w's g at M >= 16; the deconv
-# corner's and the 1D engine's cells and the unfused engine's xw always (N % 4 == 0 is required); the
-# conv corner's cells where N % 4 == 0.
+# off the kernels' configuration choices (csrc/*.cu): the 2D forward kernels' weights at M % 4 == 0 and
+# M >= 32; the 1D engine's at M % 4 == 0 and M >= 16 (its tensor-core kernel, fwd_core.cuh, where the
+# grid fills the card; held at any grid); bwd_x's g and weights at M >= 8 (the tensor cores); bwd_w's g
+# at M >= 16; the deconv corner's and the 1D engine's cells and the unfused engine's xw always (N % 4 ==
+# 0 is required); the conv corner's cells where N % 4 == 0.
 def _moves_16_bytes(wrapper, operand, N, M):
     if operand == "cells" and wrapper.startswith("conv_"):
         return N % 4 == 0
-    if operand in ("cells", "xw") or wrapper.startswith("winograd_conv1d"):
+    if operand in ("cells", "xw"):
         return True
+    if wrapper == "winograd_conv1d_fused_engine":
+        return M % 4 == 0 and M >= 16
     least = 8 if wrapper.endswith("bwd_x") else 16 if wrapper.endswith("bwd_w") else 32
     return M % 4 == 0 and M >= least
 
