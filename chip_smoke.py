@@ -15,10 +15,18 @@ Each kernel phase also calls each of its wrappers once with a misaligned
 contiguous view of one operand that the kernel moves in 16-byte copies: the
 call must raise ValueError before any launch, and an aligned launch after it
 must still run (no sticky CUDA error).
-  kernel  the fused Winograd-DeConv kernel against its plain PyTorch version
-          at the four DCGAN layer shapes (batch 8) and a K4S2, a K3S1 and a
-          K2S3 shape, each also checked against conv_transpose2d plus the same
-          epilogue; kernel, plain and library device times (profiler, mean
+  kernel  the fused Winograd-DeConv kernel (TPU kernel 3 at the deconv
+          corner) against its plain PyTorch version at the four DCGAN layer
+          shapes as a generate serves them (batch 8: the CUDA-core kernel)
+          and as a train step runs them (batch 128: deconv0-2 on the tensor
+          cores, fused_epi_mma_kernel on fwd_core.cuh; deconv3's three
+          channels on the CUDA cores), a K4S2, a K3S1 and a K2S3 shape, and a
+          ragged K5S2 shape on the tensor cores (batch 127), each also
+          checked against conv_transpose2d plus the same epilogue; two
+          launches bitwise equal, the instantiation that ran (held to the
+          plan's choice) and its bound (the products at the 3xTF32 rate on
+          the tensor cores, the fp32 bound beside it), TFLOP/s and error
+          share; kernel, plain and library device times (profiler, mean
           of 20 calls) and wall times (CUDA events, median of >= 20 calls).
   kernel_bwd
           the two backward kernels (fused_engine_bwd.cu) against their plain
@@ -35,8 +43,7 @@ must still run (no sticky CUDA error).
           device, one-call and
           plain times, the bound, and as a yardstick aten's
           convolution_backward of the layer's conv_transpose2d (input grad
-          for bwd_x, raw-weight grad for bwd_w).  Also the forward kernel at
-          the four training shapes (batch 128).
+          for bwd_x, raw-weight grad for bwd_w).
   kernel_conv
           the three conv-corner kernels (conv_engine.cu: forward, bwd_x,
           bwd_w) against their plain versions at the DCGAN discriminator's
@@ -48,8 +55,12 @@ must still run (no sticky CUDA error).
           bitwise equal, the instantiation that ran and its bound, and their
           plan (bwd_x: its tile slots and the blocks it launches against the
           SMs; bwd_w: split, block tile, xw formed per value); the forward
-          (TPU kernel 3, the fp32 CUDA-core kernel) two launches bitwise
-          equal, with the instantiation that ran and its bound; device,
+          (TPU kernel 3, conv_fwd_mma_kernel on fwd_core.cuh at conv1-3 and
+          the odd and ragged shapes, its passes split over blocks where the
+          grid is small; conv0's RGB input on the fp32 CUDA-core kernel) two
+          launches bitwise equal, the instantiation that ran (held to the
+          plan's choice at DCGAN's layers), its bound, plan, TFLOP/s and
+          error share; device,
           one-call and plain times, the bound, and as yardsticks F.conv2d
           plus the epilogue and aten's convolution_backward (input grad,
           raw-weight grad).
@@ -78,8 +89,16 @@ must still run (no sticky CUDA error).
           non-finite flag, the step-1 gradients (each run's AdamW first
           moment) and 4/4/4 launches of the three kernels per step,
           with none of the backward ones in the discriminator's gradient
-          pull; step ms, device ms, idle share, images/s, peak memory; the
-          profile must show cuDNN convolutions (the check's own control).
+          pull.  Step 1 compares on the kernel run's side of each activation
+          kink: the kernel run records which side of relu / leaky_relu every
+          input took (kink_sides), the plain run takes those sides, and the
+          inputs whose sides differ (flips) must lie within the forward
+          tolerance of zero in both runs, at most 1e-5 of a call's inputs
+          (compare_kinks; the flips and the unmasked share of the step-1
+          tolerance are printed as readings).  Step ms, device ms, idle
+          share, images/s, peak memory; the profile must show cuDNN
+          convolutions (the check's own control) and the forward kernels by
+          name (the tensor-core and the CUDA-core instantiation).
   train_chained
           the same with the discriminator on the conv kernels too
           (conv_impl="cuda_chained") against chained_ref on both nets:
@@ -121,7 +140,9 @@ must still run (no sticky CUDA error).
           3 launches of the 1D engine per forward and none of any other
           kernel, no plain-version call; the waveform finite, in [-1, 1],
           against impl "ref" and "lax"; the gradient of sum(y^2) against
-          "ref" leaf by leaf (1e-3 of each leaf's largest), with its
+          "ref" leaf by leaf (1e-3 of each leaf's largest; the plain
+          gradient on the kernel run's side of each relu kink, as the train
+          phases' step 1), with its
           launches of rank-1 kernels 4 and 5; forward ms, device ms, idle
           share, samples/s, gradient ms, peak memory.
   kernels one summary line per kernel (launches on each serving and training
@@ -138,6 +159,8 @@ this script, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -206,9 +229,11 @@ BWD_W_KERNELS = ("bwd_w_kernel", "bwd_w_mma_kernel")
 DOMAIN_BWD_W_KERNELS = ("domain_bwd_w_kernel", "domain_bwd_w_mma_kernel")
 CONV_BWD_W_KERNELS = ("conv_bwd_w_kernel", "conv_bwd_w_mma_kernel")
 ENGINE1D_KERNELS = ("engine1d_kernel", "engine1d_mma_kernel")
-CONV_KERNELS = {"fwd": "conv_fwd_kernel", "bwd_x": CONV_BWD_X_KERNELS, "bwd_w": CONV_BWD_W_KERNELS}
+FWD_KERNELS = ("fused_epi_kernel", "fused_epi_mma_kernel")  # TPU kernels 2 and 3 at the deconv corner
+CONV_FWD_KERNELS = ("conv_fwd_kernel", "conv_fwd_mma_kernel")
+CONV_KERNELS = {"fwd": CONV_FWD_KERNELS, "bwd_x": CONV_BWD_X_KERNELS, "bwd_w": CONV_BWD_W_KERNELS}
 # every 2D engine kernel a train step can launch
-STEP_KERNELS = ("fused_epi_kernel", *BWD_X_KERNELS, *BWD_W_KERNELS, "conv_fwd_kernel", *CONV_BWD_X_KERNELS,
+STEP_KERNELS = (*FWD_KERNELS, *BWD_X_KERNELS, *BWD_W_KERNELS, *CONV_FWD_KERNELS, *CONV_BWD_X_KERNELS,
                 *CONV_BWD_W_KERNELS, "domain_fwd_kernel", *DOMAIN_BWD_X_KERNELS, *DOMAIN_BWD_W_KERNELS)
 
 
@@ -496,7 +521,25 @@ def host_ops_ms(fn, reps: int = 10, top: int = 8) -> dict:
     return {e.key: e.self_cpu_time_total / reps / 1e3 for e in evs}
 
 
+def ran_on(what: str, instantiation, tensor_cores: bool) -> None:
+    """Fail unless the profiled ``instantiation`` is the tensor-core kernel
+    (``*_mma_kernel``) exactly where ``tensor_cores``: the plans' choices the
+    smoke holds (the grids that fill the card; few channels and the serving
+    batches on the CUDA cores)."""
+    if any("_mma_kernel" in k for k in instantiation) != tensor_cores or not instantiation:
+        fail(f"{what} ran {list(instantiation)}, want the {'tensor-core' if tensor_cores else 'CUDA-core'} kernel")
+
+
 def kernel_phase(torch, peaks):
+    """TPU kernels 3 (nhwc / cells) at the deconv corner, fused_engine.cu,
+    against the plain version and conv_transpose2d plus the epilogue: at
+    DCGAN's four layers as one generate serves them (batch 8, the CUDA-core
+    kernel) and as a train step runs them (batch 128: deconv0-2 emit raw
+    cells, on the tensor cores; deconv3's three channels on the CUDA
+    cores), at a K4S2, a K3S1 and a K2S3 shape, and at a ragged K5S2 shape
+    on the tensor cores (N, M not multiples of the tiles, T not of the
+    block).  Each row: two launches bitwise equal, the instantiation that ran,
+    its bound (mma_bound), TFLOP/s and error share."""
     import torch.nn.functional as F
 
     from repro_torch.core.tdc import DeconvDims
@@ -505,19 +548,23 @@ def kernel_phase(torch, peaks):
     from repro_torch.models.gan import _cells_to_image
 
     K5, K4, K3, K2S3 = DeconvDims(5, 2, 2, 1), DeconvDims(4, 2, 1, 0), DeconvDims(3, 1, 1, 0), DeconvDims(2, 3, 0, 0)
-    # name, dims, B, H, N, M, emit_cells, activation, affine
+    # name, dims, B, H, N, M, gy (None: the layer's own cells), emit_cells, activation, affine, tensor cores
     shapes = [
-        ("dcgan.deconv0", K5, 8, 4, 1024, 512, True, "relu", True),
-        ("dcgan.deconv1", K5, 8, 8, 512, 256, True, "relu", True),
-        ("dcgan.deconv2", K5, 8, 16, 256, 128, True, "relu", True),
-        ("dcgan.deconv3", K5, 8, 32, 128, 3, False, "tanh", False),
-        ("k4s2", K4, 8, 8, 256, 128, True, "leaky_relu", True),
-        ("k3s1", K3, 8, 32, 64, 3, False, "tanh", False),
-        ("k2s3", K2S3, 2, 8, 32, 16, False, "relu", True),
+        ("dcgan.deconv0", K5, 8, 4, 1024, 512, None, True, "relu", True, False),
+        ("dcgan.deconv1", K5, 8, 8, 512, 256, None, True, "relu", True, False),
+        ("dcgan.deconv2", K5, 8, 16, 256, 128, None, True, "relu", True, False),
+        ("dcgan.deconv3", K5, 8, 32, 128, 3, None, False, "tanh", False, False),
+        *[(name + ".train", dims, B, H, N, M, gy, emit, act, False, M >= 16)
+          for name, dims, B, H, N, M, gy, emit, act in _dcgan_train_shapes()],
+        ("k4s2", K4, 8, 8, 256, 128, None, True, "leaky_relu", True, False),
+        ("k3s1", K3, 8, 32, 64, 3, None, False, "tanh", False, False),
+        ("k2s3", K2S3, 2, 8, 32, 16, None, False, "relu", True, False),
+        # the tensor-core kernel's edges: T = 4572 tiles (not a multiple of 64), N = 100 (a ragged k-step), M = 36
+        ("ragged.fwd", DeconvDims(*RAGGED_SHAPE[1]), 127, *RAGGED_SHAPE[3:], None, True, "relu", True, True),
     ]
-    flops_peak, bytes_peak, _ = peaks
+    dev = torch.cuda.current_device()
     rows = []
-    for i, (name, dims, B, H, N, M, emit_cells, act, affine) in enumerate(shapes):
+    for i, (name, dims, B, H, N, M, gy, emit_cells, act, affine, tc) in enumerate(shapes):
         g = torch.Generator(device="cuda").manual_seed(100 + i)
         x = torch.randn((B, H, H, N), generator=g, device="cuda")
         w = 0.02 * torch.randn((dims.kernel, dims.kernel, N, M), generator=g, device="cuda")
@@ -525,6 +572,8 @@ def kernel_phase(torch, peaks):
         bias = (0.1 * torch.randn((M,), generator=g, device="cuda")) if affine else None
         packed = ops.prepack(w, dims)
         cells = ops.cells_from_image(x, dims)
+        if gy is not None and cells.shape[1] < gy:  # the pass-through cells of a chained layer are larger
+            cells = F.pad(cells, (0, 0, 0, 0, 0, gy - cells.shape[2], 0, gy - cells.shape[1])).contiguous()
         kw = dict(epilogue=act, scale=scale, bias=bias, emit_cells=emit_cells)
         run = lambda backend: ops.winograd_deconv2d_cells(cells, packed, dims, (H, H), backend=backend, **kw)  # noqa: E731
         got = run("cuda")
@@ -534,6 +583,7 @@ def kernel_phase(torch, peaks):
         tol = 1e-4 * want.abs().max().item() + 1e-5
         if not err <= tol:
             fail(f"kernel vs plain at {name}: max|err| {err:.3e} > {tol:.3e}")
+        bitwise_repeat(f"forward at {name}", lambda: run("cuda"), got)
         if i == 0:  # the wrapper refuses a misaligned operand, and launches again after it
             emit({"phase": "kernel", "misaligned_refusals": [refuses_misaligned(
                 "fused_engine", lambda: ops.winograd_deconv2d_cells(misaligned(cells), packed, dims, (H, H), **kw),
@@ -555,35 +605,38 @@ def kernel_phase(torch, peaks):
         if not lib_err <= lib_tol:
             fail(f"kernel vs conv_transpose2d at {name}: max|err| {lib_err:.3e} > {lib_tol:.3e}")
 
-        ms = profiled_ms(lambda: run("cuda"), reps=20, name="fused_epi_kernel")[2]
-        plain_ms = profiled_ms(lambda: run("ref"), reps=20)[1]
+        _, _, ms, by_kernel = profiled_ms(lambda: run("cuda"), reps=20, name=FWD_KERNELS)
+        plain_ms = profiled_ms(lambda: run("ref"), reps=5 if B > 8 else 20, warmup=1)[1]
         _, library_ms, _, library_kernels = profiled_ms(library, reps=20)
         walls = dict(ms_wall=event_median_ms(lambda: run("cuda")),
-                     plain_ms_wall=event_median_ms(lambda: run("ref"), reps=20),
+                     plain_ms_wall=event_median_ms(lambda: run("ref"), reps=5 if B > 8 else 20),
                      library_ms_wall=event_median_ms(library, reps=20))
 
         pos_idx, sub_slices, _, _ = ops.packed_layout(dims)
         C = len(pos_idx)
         ty = -(-dims.j_extent(H) // 2)
-        splits = engine._plan(B, ty, ty, N, M, dims.stride, torch.cuda.current_device())[0]
+        splits, _, _, (BT, BM, _, conf) = engine._plan(B, ty, ty, N, M, dims.stride, dev)
         T = B * ty * ty
         n_bytes = 4 * (cells.numel() + packed.ww.numel() + packed.inv.numel() + got.numel()
                        + (2 * M if affine else 0))
         # com-PE products, the pre-PE adder network (32 adds per tile and
         # channel), the post-PE inverse transform (fold_adds) and the
         # epilogue (affine + activation per output value)
-        n_ops = (2 * T * C * N * M + 32 * T * N + T * M * fold_adds(packed.inv.cpu(), sub_slices)
-                 + 3 * got.numel())
-        t_bytes, t_ops = 1e3 * n_bytes / bytes_peak, 1e3 * n_ops / flops_peak
-        row = dict(name=name, B=B, H_in=H, N=N, M=M, C=C, T=T, n_splits=splits,
+        products = 2 * T * C * N * M
+        n_ops = products + 32 * T * N + T * M * fold_adds(packed.inv.cpu(), sub_slices) + 3 * got.numel()
+        instantiation = sorted(k for k in by_kernel if kernel_named(k, FWD_KERNELS))
+        ran_on(f"the forward at {name}", instantiation, tc)
+        row = dict(kernel="fused_engine_epi", name=name, B=B, H_in=H, N=N, M=M, C=C, T=T,
+                   plan=dict(BT=BT, BM=BM, tensor_cores=conf > 0, n_splits=splits),
                    out_mode="cells" if emit_cells else "nhwc", activation=act,
-                   max_abs_err=err, tol=tol, library_max_abs_err=lib_err,
+                   max_abs_err=err, tol=tol, err_share=err / tol, library_max_abs_err=lib_err,
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms, library_kernels=library_kernels, **walls,
-                   bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   bytes=n_bytes, ops=n_ops,
-                   achieved_tflops=n_ops / (ms * 1e-3) / 1e12)
+                   bytes=n_bytes, ops=n_ops, achieved_tflops=n_ops / (ms * 1e-3) / 1e12,
+                   **mma_bound(n_bytes, n_ops, products, instantiation, peaks))
         emit({"phase": "kernel", **row})
         rows.append(row)
+        del x, w, packed, cells, got, want
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -687,7 +740,7 @@ def serve_phase(torch, card):
           "setup_s": setup_s, "card": card})
 
     # --- throughput and latency (after the counted run)
-    for b, rate in serve_rates(torch, eng, ref_cfg, "fused_epi_kernel").items():
+    for b, rate in serve_rates(torch, eng, ref_cfg, FWD_KERNELS).items():
         emit({"phase": "serve_rate", "batch": b, **rate, "card": card})
     return launches
 
@@ -712,7 +765,7 @@ def serve_per_layer_phase(torch, card):
     rates = {}
     for impl, served, key, kname in (
             ("pallas_prepacked", "cuda_prepacked", "domain_engine", "domain_fwd_kernel"),
-            ("pallas_fused_pre_prepacked", "cuda_fused_pre_prepacked", "fused_engine_scratch", "fused_epi_kernel")):
+            ("pallas_fused_pre_prepacked", "cuda_fused_pre_prepacked", "fused_engine_scratch", FWD_KERNELS)):
         t0 = time.perf_counter()
         eng = GanServeEngine(params, dataclasses.replace(DCGAN, deconv_impl=impl), batch=8, device="cuda",
                              chained=False)
@@ -898,33 +951,6 @@ def kernel_bwd_phase(torch, peaks):
             emit({"phase": "kernel_bwd", **row})
             rows.append(row)
 
-        if name.startswith("dcgan."):  # the forward kernel at this training shape
-            run_f = lambda: ops.winograd_deconv2d_cells(  # noqa: E731
-                cells, packed, dims, (H, H), epilogue=act, emit_cells=emit_cells)
-            plain_f = lambda: ops.winograd_deconv2d_cells(  # noqa: E731
-                cells, packed, dims, (H, H), epilogue=act, emit_cells=emit_cells, backend="ref")
-            got, want = run_f(), plain_f()
-            err = (got - want).abs().max().item()
-            tol = 1e-4 * want.abs().max().item() + 1e-5
-            if not err <= tol:
-                fail(f"forward kernel vs plain at {name} (batch {B}): max|err| {err:.3e} > {tol:.3e}")
-            n_bytes = 4 * (cells.numel() + packed.ww.numel() + packed.inv.numel() + got.numel())
-            n_ops = (2 * T * C * N * M + 32 * T * N + T * M * fold_adds(packed.inv.cpu(), sub_slices)
-                     + 3 * got.numel())
-            t_bytes, t_ops = 1e3 * n_bytes / bytes_peak, 1e3 * n_ops / flops_peak
-            xc_ = x.permute(0, 3, 1, 2).contiguous()
-            lib_f = lambda: torch.nn.functional.conv_transpose2d(  # noqa: E731
-                xc_, wt, stride=S, padding=P, output_padding=dims.output_padding)
-            ms = profiled_ms(run_f, reps=20, name="fused_epi_kernel")[2]
-            row = dict(kernel="fused_engine_epi", name=name + ".train", B=B, H_in=H, N=N, M=M, C=C, T=T,
-                       max_abs_err=err, tol=tol, ms=ms, ms_wall=event_median_ms(run_f, reps=20),
-                       plain_ms=profiled_ms(plain_f, reps=5, warmup=1, what=f"plain forward at {name}")[1],
-                       library_ms=profiled_ms(lib_f, reps=20, what=f"conv_transpose2d at {name}")[1],
-                       library_note="conv_transpose2d without the epilogue",
-                       bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       bytes=n_bytes, ops=n_ops, achieved_tflops=n_ops / (ms * 1e-3) / 1e12)
-            emit({"phase": "kernel_bwd", **row})
-            rows.append(row)
         del x, w, packed, cells, gs, go, xc
         torch.cuda.empty_cache()
     return rows
@@ -986,12 +1012,14 @@ def kernel_domain_phase(torch, peaks):
         return fwd, bwd
 
     def measure(kernel, name, B, H, N, M, C, T, run, plain, kname, lib, lib_note, n_bytes, n_ops, err,
-                products=None, **extra):
+                products=None, tensor_cores=None, **extra):
         t_bytes, t_ops = 1e3 * n_bytes / bytes_peak, 1e3 * n_ops / flops_peak
         _, _, ms, by_kernel = profiled_ms(run, reps=20, name=kname)
         if products is not None:  # a redesigned kernel: the instantiation that ran, and its bound
             extra.update(mma_bound(n_bytes, n_ops, products,
                                    sorted(k for k in by_kernel if kernel_named(k, kname)), peaks))
+        if tensor_cores is not None:
+            ran_on(f"{kernel} at {name}", extra["instantiation"], tensor_cores)
         row = dict(kernel=kernel, name=name, B=B, H_in=H, N=N, M=M, C=C, T=T, max_abs_err=err[0], tol=err[1],
                    ms=ms, ms_wall=event_median_ms(run, reps=20),
                    plain_ms=profiled_ms(plain, reps=5, warmup=1, what=f"plain {kernel} at {name}")[1],
@@ -1080,6 +1108,7 @@ def kernel_domain_phase(torch, peaks):
         got = run()
         torch.cuda.synchronize()
         err = held(f"fused_engine scratch at {name} batch {B}", got, plain())
+        bitwise_repeat(f"fused_engine scratch at {name} batch {B}", run, got)
         if i == 0:
             refusals.append(refuses_misaligned("fused_engine", lambda: engine.fused_engine(
                 misaligned(cells), packed.ww, packed.inv, **kw), run))
@@ -1087,9 +1116,12 @@ def kernel_domain_phase(torch, peaks):
         lib_fwd, _ = library_calls(g, x, w, dims, B, H, M)
         n_bytes = 4 * (cells.numel() + packed.ww.numel() + packed.inv.numel() + got.numel())
         n_ops = 2 * T * C * N * M + 32 * T * N + T * M * fold_adds(packed.inv.cpu(), sub_slices)
-        measure("fused_engine_scratch", f"{name}.b{B}", B, H, N, M, C, T, run, plain, "fused_epi_kernel", lib_fwd,
-                "conv_transpose2d (cuDNN), the whole layer", n_bytes, n_ops, err,
-                splits=engine._plan(B, ty, tx, N, M, dims.stride, dev)[0])
+        # the tensor cores where the grid fills the card: DCGAN's deconv0-2 at batch 128
+        splits, _, _, (BT, BM, _, conf) = engine._plan(B, ty, tx, N, M, dims.stride, dev)
+        measure("fused_engine_scratch", f"{name}.b{B}", B, H, N, M, C, T, run, plain, FWD_KERNELS, lib_fwd,
+                "conv_transpose2d (cuDNN), the whole layer", n_bytes, n_ops, err, products=2 * T * C * N * M,
+                tensor_cores=B == TRAIN_BATCH and M >= 16,
+                plan=dict(BT=BT, BM=BM, tensor_cores=conf > 0, n_splits=splits))
         del x, w, packed, cells, got
         torch.cuda.empty_cache()
 
@@ -1423,13 +1455,20 @@ def audio_phase(torch, card):
         return dict(zip(keys, torch.autograd.grad((y**2).sum(), [p[k][kk] for k, kk in keys])))
 
     plain_calls[0] = 0
-    g_k, grad_launches = counted(lambda: grads("cuda"))
+    k_kinks = []
+    with kink_sides(k_kinks):
+        g_k, grad_launches = counted(lambda: grads("cuda"))
     # layer 0's input is the latent (no gradient wanted): rank-1 kernel 4 on layers 1 and 2
     check_counts("audio gradient", grad_launches,
                  {"engine1d_nlc": 3, "domain_engine_bwd_x_rank1": 2, "domain_engine_bwd_w_rank1": 3})
     if plain_calls[0]:
         fail(f"the audio decoder's gradient on CUDA tensors called a plain version {plain_calls[0]} times")
-    g_r = grads("ref")
+    # the plain gradient on the kernel run's side of each relu kink, the
+    # flips bounded; then on its own sides, a reading
+    p_kinks = []
+    with kink_sides(p_kinks, follow=k_kinks):
+        g_r = grads("ref")
+    kinks = compare_kinks(k_kinks, p_kinks)
     grad_share = 0.0
     for key, want in g_r.items():
         err = (g_k[key] - want).abs().max().item()
@@ -1437,10 +1476,17 @@ def audio_phase(torch, card):
         if not err <= tol:
             fail(f"gradient of {key[0]}.{key[1]}: kernels vs plain {err:.3e} > {tol:.3e}")
         grad_share = max(grad_share, err / tol if tol > 0 else 0.0)
+    g_u = grads("ref")
+    unmasked_share = 0.0
+    for key, want in g_u.items():
+        tol = 1e-3 * want.abs().max().item()
+        unmasked_share = max(unmasked_share, (g_k[key] - want).abs().max().item() / tol if tol > 0 else 0.0)
+    del k_kinks, p_kinks, g_u
     emit({"phase": "audio", "width": AUDIO_WIDTH, "frames": AUDIO_FRAMES, "samples": samples,
           "batches": list(xs), "launches": launches, "grad_launches": grad_launches,
           "max_abs_err": {k: v[0] for k, v in errs.items()}, "tol": {k: v[1] for k, v in errs.items()},
-          "grad_err_share_of_tol": grad_share, "out_std": float(outs[AUDIO_BATCH].std()), "setup_s": setup_s,
+          "grad_err_share_of_tol": grad_share, "grad_err_share_of_tol_unmasked": unmasked_share, **kinks,
+          "out_std": float(outs[AUDIO_BATCH].std()), "setup_s": setup_s,
           "card": card})
     del outs, g_k, g_r
 
@@ -1627,7 +1673,8 @@ def kernel_conv_phase(torch, peaks):
             _, _, ms, by_kernel = profiled_ms(run, reps=20, name=CONV_KERNELS[key])
             row = dict(kernel=f"conv_engine_{key}", name=name, B=B, H_in=H, W_in=W, N=N, M=M, C=C, T=T,
                        out_mode="cells" if emit_cells else "nhwc", activation=act,
-                       max_abs_err=errs[key][0], tol=errs[key][1], ms=ms, ms_wall=event_median_ms(run, reps=20),
+                       max_abs_err=errs[key][0], tol=errs[key][1], err_share=errs[key][0] / errs[key][1], ms=ms,
+                       ms_wall=event_median_ms(run, reps=20),
                        plain_ms=profiled_ms(plain, reps=5, warmup=1, what=f"plain conv {key} at {name}")[1],
                        library_ms=profiled_ms(lib, reps=20, what=f"library conv {key} at {name}")[1],
                        library_note=lib_note, bound_ms=max(t_bytes, t_ops),
@@ -1649,10 +1696,17 @@ def kernel_conv_phase(torch, peaks):
                 row["plan"] = bwd_w_plan(tile, splits, C, S * S, M)
                 if name == CONV_RAGGED_SHAPE[0] and splits < 2:
                     fail(f"conv kernel 7 at the ragged shape ran unsplit (plan {row['plan']})")
-            # the tensor cores run the DCGAN layers of M >= 64: bwd_x at every layer, bwd_w where N % 4 == 0
-            if key != "fwd" and name.startswith("dcgan.") and (key == "bwd_x" or N % 4 == 0) and \
-                    not any("_mma_kernel" in k for k in row["instantiation"]):
-                fail(f"conv {key} at {name} ran {row['instantiation']}, not the tensor-core kernel")
+            elif key == "fwd":  # the pass split over blocks
+                sp, _, _, (_, npass, nslot, npos) = engine._conv_fwd_plan(B, ty, tx, N, M, tuple(pos_idx), S * S, dev)
+                BT, BM, _, mma = engine._conv_fwd_conf(N, M, S * S)
+                row["plan"] = dict(BT=BT, BM=BM, tensor_cores=bool(mma), splits=sp, passes=npass, slots=nslot,
+                                   positions=npos, blocks=-(-T // BT) * -(-M // BM) * sp, sms=sms)
+                if name == CONV_RAGGED_SHAPE[0] and sp < 2:
+                    fail(f"conv kernel 3 at the ragged shape ran unsplit (plan {row['plan']})")
+            # the tensor cores run the DCGAN layers of M >= 64: bwd_x at every layer, bwd_w and the forward
+            # where N % 4 == 0 (conv1-3; conv0's RGB input on the CUDA cores)
+            if name.startswith("dcgan."):
+                ran_on(f"conv {key} at {name}", row["instantiation"], key == "bwd_x" or N % 4 == 0)
             emit({"phase": "kernel_conv", **row})
             rows.append(row)
         del x, w, packed, cells, gs, go, xc, xp
@@ -1679,24 +1733,211 @@ def _train_params(torch, cfg, seed):
     return gp, dp
 
 
-def check_first_moments(first_k, first_r) -> float:
-    """Step-1 gradients of both nets, as each run's AdamW took them (the first
-    moment after one step from zero is (1 - b1) * g): per leaf within 1e-3 of
-    the leaf's largest value, a bias right before a batch-statistics BN
-    (exact gradient zero, fp32 noise in both) within 1e-5 of the net's
-    largest.  Returns the worst error as a share of its tolerance."""
-    worst = 0.0
+def first_moment_errs(first_k, first_r):
+    """(leaf, max|err|, tol) of every step-1 gradient of both nets, as each
+    run's AdamW took them (the first moment after one step from zero is (1 -
+    b1) * g): per leaf 1e-3 of the leaf's largest value, a bias right before
+    a batch-statistics BN (exact gradient zero, fp32 noise in both) 1e-5 of
+    the net's largest."""
     for net, mk, mr in zip(("G", "D"), first_k, first_r):
         top = max(float(v.abs().max()) for leaf in mr.values() for v in leaf.values())
         for k, leaf in mr.items():
             for kk, want in leaf.items():
                 exact_zero = kk == "b" and f"{k}_bn" in mr
                 tol = 1e-5 * top if exact_zero else 1e-3 * float(want.abs().max())
-                err = float((mk[k][kk] - want).abs().max())
-                if not err <= tol:
-                    fail(f"step-1 AdamW first moment of {net}.{k}.{kk}: kernels vs plain {err:.3e} > {tol:.3e}")
-                worst = max(worst, err / tol if tol > 0 else 0.0)
+                yield f"{net}.{k}.{kk}", float((mk[k][kk] - want).abs().max()), tol
+
+
+def check_first_moments(first_k, first_r) -> float:
+    """Fail unless every step-1 first moment is within its tolerance
+    (``first_moment_errs``); returns the worst error as a share of its
+    tolerance."""
+    worst = 0.0
+    for leaf, err, tol in first_moment_errs(first_k, first_r):
+        if not err <= tol:
+            fail(f"step-1 AdamW first moment of {leaf}: kernels vs plain {err:.3e} > {tol:.3e}")
+        worst = max(worst, err / tol if tol > 0 else 0.0)
     return worst
+
+
+# The activations with a kink, and their slope on the negative side
+KINKS = {"relu": 0.0, "leaky_relu": 0.2}  # the leaky slope: models.layers / kernels.ref LEAKY_SLOPE
+# A flip (an activation input on one side of its kink in the kernels' run and
+# on the other in the plain run's) must lie within the forward tolerance of
+# zero in both runs, |x| <= KINK_RTOL * max|x of its call| + KINK_ATOL; at
+# most KINK_SHARE of a call's inputs may flip
+KINK_RTOL, KINK_ATOL, KINK_SHARE = 1e-4, 1e-5, 1e-5
+
+
+class Tap:
+    """Stands in for a kernel wrapper ``fn`` of ``engine`` during a counted
+    run: calls it, then ``hook(out, args, kwargs, launches it counted)``.
+    Its launch counters are the wrapper's own (the wrapper counts through
+    its module-level name)."""
+
+    def __init__(self, fn, hook):
+        self.__dict__.update(fn=fn, hook=hook)
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self.fn, name, value)
+
+    def __call__(self, *a, **k):
+        before = self.fn.launches
+        out = self.fn(*a, **k)
+        self.hook(out, a, k, self.fn.launches - before)
+        return out
+
+
+def _side(x, act):
+    """Which side of ``act``'s kink each element of ``x`` takes: True where
+    the identity (x >= 0 for leaky_relu, as models.layers.leaky_relu; x > 0
+    for relu)."""
+    return x >= 0 if act == "leaky_relu" else x > 0
+
+
+def _epilogue_image(name: str, out, kw):
+    """A kernel's epilogue output as the plain version's epilogue sees its
+    input (kernels/ref.py): the uncropped image of the deconv corner
+    (B, 2S ty, 2S tx, M) and the conv corner (B, 2 ty, 2 tx, M), the 1D
+    engine's padded interleave as it is; and the mask of the pixels the
+    output holds (None: all)."""
+    import torch
+
+    if name == "winograd_conv1d_fused_engine":
+        return out, None
+    S, P = (kw["stride"], kw["padding"]) if name == "fused_engine" else (1, 0)
+    B, M, H, W = out.shape[0], out.shape[-1], 2 * S * kw["ty"], 2 * S * kw["tx"]
+    if kw["out_mode"] == "cells":
+        img = out.reshape(B, H // 2, W // 2, 2, 2, M).permute(0, 1, 3, 2, 4, 5).reshape(B, H, W, M)
+    else:
+        img = out.new_zeros((B, H, W, M))
+        img[:, P : P + kw["out_h"], P : P + kw["out_w"]] = out
+    valid = torch.zeros((1, H, W, 1), dtype=torch.bool, device=out.device)
+    valid[:, P : P + kw["out_h"], P : P + kw["out_w"]] = True
+    return img, valid
+
+
+@contextlib.contextmanager
+def kink_sides(calls: list, follow: list | None = None):
+    """Within it, every call of an activation with a kink (relu, leaky_relu)
+    appends (act, x, side, valid) to ``calls``: the sites the models run
+    (models.layers' ``leaky_relu`` and ``ACTIVATIONS``, models.gan's
+    ``_AUDIO_ACTS``), the plain versions' epilogues (kernels/ref.py's
+    ``epilogue_apply_ref``, as engine.py and ops.py import it too) and the
+    kernels' epilogues (the three forward wrappers of ``engine``, whose
+    output's sign gives the side: the input is the output, or for
+    leaky_relu's negative side the output over the slope; a relu output of 0
+    leaves it unknown, NaN).  With ``follow`` (the calls of a run made
+    under this context) the i-th call takes follow[i]'s side wherever that
+    run's output held the element, so that its output and derivative are
+    those of the other run's side; a call past the end of ``follow``, of
+    another activation or shape fails.  Calls are matched by order."""
+    import torch
+
+    from repro_torch.kernels import engine, ops, ref
+    from repro_torch.models import gan, layers
+
+    def activation(x, act, real):
+        side = _side(x, act)
+        if follow is None:
+            calls.append((act, x.detach().clone(), side, None))
+            return real(x)
+        i = len(calls)
+        if i >= len(follow) or follow[i][0] != act or follow[i][1].shape != x.shape:
+            fail(f"kink call {i} ({act}, {tuple(x.shape)}) does not match the kernel run's "
+                 f"{'(none)' if i >= len(follow) else (follow[i][0], tuple(follow[i][1].shape))}")
+        _, _, theirs, valid = follow[i]
+        calls.append((act, x.detach().clone(), side, valid))
+        taken = theirs if valid is None else torch.where(valid, theirs, side)
+        return torch.where(taken, x, KINKS[act] * x)
+
+    real_epi = ref.epilogue_apply_ref
+
+    def epilogue(y, scale, bias, act):
+        if act not in KINKS:
+            return real_epi(y, scale, bias, act)
+        return activation(real_epi(y, scale, bias, "none"), act, lambda x: real_epi(x, None, None, act))
+
+    def kernel_epilogue(name):
+        def hook(out, a, kw, launched):  # (a CPU tensor took the plain version, whose epilogue recorded itself)
+            act = kw.get("activation", "none")
+            if act in KINKS and out.is_cuda:
+                img, valid = _epilogue_image(name, out.detach(), kw)
+                x = torch.where(img >= 0, img, img / KINKS[act]) if act == "leaky_relu" else \
+                    torch.where(img > 0, img, float("nan"))
+                calls.append((act, x, _side(img, act), valid))
+        return hook
+
+    real_leaky = layers.leaky_relu
+    patches = [(d, k, functools.partial(activation, act=k, real=d[k])) for d in (layers.ACTIVATIONS, gan._AUDIO_ACTS)
+               for k in KINKS]
+    patches += [(m, "epilogue_apply_ref", epilogue) for m in (ref, engine, ops)]
+    patches.append((layers, "leaky_relu",
+                    lambda x, slope=0.2: activation(x, "leaky_relu", lambda v: real_leaky(v, slope))))
+    if follow is None:
+        patches += [(engine, n, Tap(getattr(engine, n), kernel_epilogue(n)))
+                    for n in ("fused_engine", "conv_fused_engine", "winograd_conv1d_fused_engine")]
+
+    def put(d, k, v):
+        if isinstance(d, dict):
+            d[k] = v
+        else:
+            setattr(d, k, v)
+
+    saved = [(d, k, d[k] if isinstance(d, dict) else getattr(d, k)) for d, k, _ in patches]
+    try:
+        for d, k, v in patches:
+            put(d, k, v)
+        yield calls
+    finally:
+        for d, k, v in saved:
+            put(d, k, v)
+
+
+def compare_kinks(kernel_calls: list, plain_calls: list) -> dict:
+    """Hold the flips between a kernel run's activation calls and the plain
+    run's made under ``kink_sides(plain_calls, follow=kernel_calls)``: the
+    same calls in the same order, each flip within the forward tolerance of
+    zero in both runs (KINK_RTOL, KINK_ATOL; a kernel input that its relu
+    epilogue left unknown is held on the plain side alone), at most
+    KINK_SHARE of a call's inputs flipped.  Returns the readings: the calls,
+    the flips (in all and by call), the largest flipped |x| over its call's
+    standard deviation and as a share of its bound."""
+    import torch
+
+    if len(kernel_calls) != len(plain_calls):
+        fail(f"the kernel run made {len(kernel_calls)} kink calls, the plain run {len(plain_calls)}")
+    flips, by_call, over_std, share = 0, [], 0.0, 0.0
+    for i, ((act, xk, sk, valid), (act_p, xp, sp, _)) in enumerate(zip(kernel_calls, plain_calls)):
+        if act != act_p or xk.shape != xp.shape:
+            fail(f"kink call {i}: {act} {tuple(xk.shape)} in the kernel run, {act_p} {tuple(xp.shape)} in the plain run")
+        held = torch.ones_like(sp) if valid is None else valid.expand_as(sp)
+        flip = (sk != sp) & held
+        n, of = int(flip.sum()), int(held.sum())
+        if not n:
+            continue
+        if n > KINK_SHARE * of:
+            fail(f"kink call {i} ({act}): {n} of {of} inputs on the other side (at most {KINK_SHARE:g} of them)")
+        std = float(xp[held].std())
+        for run, x in (("kernels", xk), ("plain", xp)):
+            ax = torch.where(held, x.abs(), 0.0).nan_to_num(0.0)
+            bound = KINK_RTOL * float(ax.max()) + KINK_ATOL
+            at = x.abs()[flip]
+            at = at[~torch.isnan(at)]
+            if not at.numel():
+                continue
+            top = float(at.max())
+            if not top <= bound:
+                fail(f"kink call {i} ({act}): an input on the other side at |x| {top:.3e} in the {run} run "
+                     f"> {bound:.3e} (the forward tolerance of zero)")
+            share, over_std = max(share, top / bound), max(over_std, top / std)
+        flips += n
+        by_call.append(dict(call=i, act=act, flips=n, of=of))
+    return dict(kink_calls=len(kernel_calls), kink_flips=flips, kink_flips_by_call=by_call,
+                max_flip_abs_over_std=over_std, max_flip_share_of_bound=share)
 
 
 def train_phase(torch, card, conv_impl="lax", deconv_impl="cuda_chained"):
@@ -1742,27 +1983,11 @@ def train_phase(torch, card, conv_impl="lax", deconv_impl="cuda_chained"):
     per_layer = {key: [0] * len(chans) for key, chans in conv_wrappers.values()}
     counts = lambda: tuple(read_counts()[n] for n in names)  # noqa: E731
 
-    class ByLayer:
-        """Stands in for a conv wrapper in ``engine`` during the counted run.
-        The wrapper counts its launch through its module-level name, so
-        ``launches`` passes through to the real function's count."""
-
-        def __init__(self, key, chans, fn):
-            self.key, self.chans, self.fn = key, chans, fn
-
-        @property
-        def launches(self):
-            return self.fn.launches
-
-        @launches.setter
-        def launches(self, value):
-            self.fn.launches = value
-
-        def __call__(self, *a, **k):
-            before = self.fn.launches
-            out = self.fn(*a, **k)
-            per_layer[self.key][self.chans.index(a[0].shape[-1])] += self.fn.launches - before
-            return out
+    def by_layer(key, chans):
+        """A Tap hook counting a conv wrapper's launches by layer."""
+        def hook(out, a, kw, launched):
+            per_layer[key][chans.index(a[0].shape[-1])] += launched
+        return hook
 
     ref_of = {"cuda_chained": "chained_ref", "cuda_prepacked": "prepacked_ref", "lax": "lax"}
     plain = dict(deconv_impl=ref_of[deconv_impl], conv_impl=ref_of[conv_impl])
@@ -1791,28 +2016,34 @@ def train_phase(torch, card, conv_impl="lax", deconv_impl="cuda_chained"):
         conv2d_calls[0] += 1
         return real_conv2d(*a, **k)
 
-    def run(**impls):
+    def run(sides=contextlib.nullcontext, **impls):
+        """The 3 steps; the first (whose gradients are held leaf by leaf)
+        inside the context ``sides()``."""
         step = make_gan_step(cfg, settings=dataclasses.replace(settings, **impls))
         gp, dp = gp0, dp0
         g_opt, d_opt = adamw_init(gp), adamw_init(dp)
         per_step, metrics, first = [], [], None
-        for z, real in batches:
+        for s, (z, real) in enumerate(batches):
             before = counts()
-            gp, dp, g_opt, d_opt, m = step(gp, dp, g_opt, d_opt, z, real)
+            with sides() if s == 0 else contextlib.nullcontext():
+                gp, dp, g_opt, d_opt, m = step(gp, dp, g_opt, d_opt, z, real)
             torch.cuda.synchronize()
             per_step.append(tuple(a - b for a, b in zip(counts(), before)))
             metrics.append({k: float(v) for k, v in m.items()})
             first = first or (g_opt.m, d_opt.m)
         return gp, dp, per_step, metrics, first
 
-    # --- the main path: counts at 0 just before, read just after
+    # --- the main path: counts at 0 just before, read just after; in step 1
+    # the side of every activation kink recorded (kink_sides)
     zero_counts()
     real_conv = {name: getattr(engine, name) for name in conv_wrappers}
     T._grads, F.conv2d = recording_grads, counting_conv2d
     for name, (key, chans) in conv_wrappers.items():
-        setattr(engine, name, ByLayer(key, chans, real_conv[name]))
+        setattr(engine, name, Tap(real_conv[name], by_layer(key, chans)))
+    k_kinks = []
     try:
-        gp_k, dp_k, per_step, m_k, first_k = run(deconv_impl=deconv_impl, conv_impl=conv_impl)
+        gp_k, dp_k, per_step, m_k, first_k = run(lambda: kink_sides(k_kinks), deconv_impl=deconv_impl,
+                                                 conv_impl=conv_impl)
     finally:
         T._grads, F.conv2d = real_grads, real_conv2d
         for name, fn in real_conv.items():
@@ -1831,9 +2062,18 @@ def train_phase(torch, card, conv_impl="lax", deconv_impl="cuda_chained"):
         fail(f"the {conv_impl} discriminator called F.conv2d {conv2d_calls[0]} times")
     if not chained and conv2d_calls[0] != 8 * steps:
         fail(f"the lax step called F.conv2d {conv2d_calls[0]} times, want 8 per step")
-    gp_r, dp_r, _, m_r, first_r = run(**plain)
+    # the plain run's step 1 on the kernel run's side of each kink, the flips
+    # bounded (steps 2-3 take their own sides: after one AdamW step the two
+    # runs' parameters differ by up to a few lr, which the metrics' and the
+    # parameters' tolerances hold); then on its own sides, a reading of what
+    # the step-1 check would see unmasked
+    p_kinks = []
+    gp_r, dp_r, _, m_r, first_r = run(lambda: kink_sides(p_kinks, follow=k_kinks), **plain)
+    kinks = compare_kinks(k_kinks, p_kinks)
     moment_share = check_first_moments(first_k, first_r)
-    del first_k, first_r  # not held into the peak-memory reading below
+    first_u = run(**plain)[4]
+    unmasked_share = max(err / tol if tol > 0 else 0.0 for _, err, tol in first_moment_errs(first_k, first_u))
+    del first_k, first_r, first_u, k_kinks, p_kinks  # not held into the peak-memory reading below
 
     worst = {}
     for s, (a, b) in enumerate(zip(m_k, m_r)):
@@ -1856,6 +2096,7 @@ def train_phase(torch, card, conv_impl="lax", deconv_impl="cuda_chained"):
           "launches_per_pull": {"G": g_pulls, "D": d_pulls}, "f_conv2d_calls": conv2d_calls[0],
           "conv_launches_per_step_by_layer": {k: [v / steps for v in n] for k, n in per_layer.items()},
           "step1_first_moment_err_share_of_tol": moment_share,
+          "step1_first_moment_err_share_of_tol_unmasked": unmasked_share, **kinks,
           "metrics": m_k, "metrics_plain": m_r, "plain_impls": plain, "max_rel_err_metrics": worst,
           "max_abs_err_params": param_err, "param_bound": bound, "setup_s": setup_s, "card": card})
 
@@ -1875,6 +2116,12 @@ def train_phase(torch, card, conv_impl="lax", deconv_impl="cuda_chained"):
     if idle < 0.0:
         fail(f"device time {dev_ms:.4f} ms exceeds the wall time {prof_ms:.4f} ms it was taken in")
     library_convs = _library_convs(by_kernel)
+    # the forward kernels by name: on the tensor cores where the plans put them (DCGAN's deconv0-2, conv1-3), the
+    # CUDA-core kernel where they keep it (deconv3's and conv0's few channels)
+    named = ([*FWD_KERNELS] if not per_layer_g else []) + ([*CONV_FWD_KERNELS] if chained else [])
+    fwd_ms = {n: sum(v for k, v in by_kernel.items() if kernel_named(k, n)) for n in named}
+    if not all(fwd_ms.values()):
+        fail(f"the {tag} step's profile lacks forward kernels: {fwd_ms}")
     if chained and library_convs:
         fail(f"cuDNN or aten convolution kernels in the {tag} step's profile: {library_convs}")
     if not chained and not library_convs:  # the check's own control: the lax step does run cuDNN
@@ -1889,7 +2136,7 @@ def train_phase(torch, card, conv_impl="lax", deconv_impl="cuda_chained"):
     plain_step_ms = wall_ms(one_plain, reps=3, warmup=1)
     emit({"phase": tag + "_rate", "batch": B, "step_ms": step_ms, "images_per_s": 1e3 * B / step_ms,
           "profiled_step_ms": prof_ms, "device_ms": dev_ms, "device_idle_share": idle,
-          "engine_kernels_ms": sum(ours.values()), "engine_kernels": ours,
+          "engine_kernels_ms": sum(ours.values()), "engine_kernels": ours, "forward_kernels_ms": fwd_ms,
           "library_conv_kernels_ms": {k: by_kernel[k] for k in library_convs},
           "top_kernels": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]),
           "plain_step_ms": plain_step_ms, "max_memory_allocated": peak, "card": card})
@@ -1999,13 +2246,13 @@ def main(argv=None) -> int:
         paths = {path: None if n is None else n[row] for path, n in path_launches.items()}
         return dict(launches=sum(n for n in paths.values() if n), launches_by_path=paths)
 
-    fwd_train = [r for r in bwd_rows if r["kernel"] == "fused_engine_epi"]
     line = [{"name": "fused_engine_epi", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
              "corner": "deconv", **by_path("fused_engine_epi"),
              # ms ... library_ms: one DCGAN generate at batch 8, the four layer shapes summed
-             **summary(rows), "step_profile_ms": step_device_ms("fused_epi_kernel")}]
-    if fwd_train:
-        line[0]["train_step_batch128"] = {k: v for k, v in summary(fwd_train).items() if k != "shapes"}
+             **summary(rows, batch=8), "step_profile_ms": step_device_ms(FWD_KERNELS)}]
+    if rows:
+        line[0]["train_step_batch128"] = {k: v for k, v in summary(rows, batch=TRAIN_BATCH).items()
+                                          if k != "shapes"}
     for key, replaces in (("x", REPLACES_BWD_X), ("w", REPLACES_BWD_W)):
         krows = [r for r in bwd_rows if r["kernel"] == f"fused_engine_bwd_{key}"]
         line.append({"name": f"fused_engine_bwd_{key}", "route": "cuda", "source": SOURCE_BWD,

@@ -31,15 +31,17 @@ _p = ctypes.c_void_p
 _i = ctypes.c_int
 # name -> argtypes of each C entry point
 _SIGNATURES = {
-    "fused_engine_plan": [_i] * 7 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2,
-    "fused_engine_epi_f32": [_p] * 8 + [_i] * 14 + [_p] * 3,
+    "fused_engine_plan": [_i] * 7 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2
+    + [ctypes.POINTER(_i)],
+    "fused_engine_epi_f32": [_p] * 9 + [_i] * 19 + [_p] * 3,
     "fused_engine_bwd_x_plan": [_i] * 6 + [ctypes.POINTER(_i)] * 4,
     "fused_engine_bwd_x_f32": [_p] * 6 + [_i] * 12 + [_p],
     "fused_engine_bwd_w_plan": [_i] * 8 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2
     + [ctypes.POINTER(_i)],
     "fused_engine_bwd_w_f32": [_p] * 6 + [_i] * 10 + [_p] * 3,
-    "conv_engine_fwd_plan": [_i] * 2,
-    "conv_engine_fwd_f32": [_p] * 8 + [_i] * 12 + [_p],
+    "conv_engine_fwd_conf": [_i] * 3 + [ctypes.POINTER(_i)],
+    "conv_engine_fwd_plan": [_i] * 11 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2,
+    "conv_engine_fwd_f32": [_p] * 9 + [_i] * 17 + [_p] * 3,
     "conv_engine_bwd_x_plan": [_i] * 7 + [ctypes.POINTER(_i)] * 4,
     "conv_engine_bwd_x_f32": [_p] * 6 + [_i] * 11 + [_p],
     "conv_engine_bwd_w_plan": [_i] * 8 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2

@@ -32,22 +32,30 @@
 //
 // What bounds them on an H100 (times below: NVIDIA H100 80GB HBM3 at its
 // 700 W limit, PERF.md): the products, 2*T*C*N*M flops each, at every DCGAN
-// discriminator layer but the first: the forward's on the fp32 CUDA cores
-// (67 TFLOP/s), the backward's on the tensor cores in 3xTF32 (165 TFLOP/s),
-// which they use at a tenth to an eighth of that rate;
-// at the first (N = 3) the bytes of the output cells (forward), of g and
-// dcells (bwd_x) and of the cell windows and g (bwd_w).
+// discriminator layer but the first, on the tensor cores in 3xTF32 (165
+// TFLOP/s), which all three use at a tenth to an eighth of that rate; at the
+// first (N = 3) the bytes of the output cells (forward), of g and dcells
+// (bwd_x) and of the cell windows and g (bwd_w).
 //
 // What the designs do about it:
-//   * forward: one block per (T-tile, M-tile), the deconv engine's micro
-//     tiles (8 position groups, 4 tiles x 4 channels each, fed from a
-//     two-stage cp.async pipeline of raw windows and weights with the
-//     B-transform run shared-to-shared).  36 positions' products do not fit
-//     in registers, so the block runs the phases one after another: a phase's
-//     at most 16 positions accumulate over the whole N loop, meet in shared
-//     memory, and fold through inv into the tile's 4 outputs, which stay in
-//     registers (2 tile-channel pairs x 4 outputs a thread) across phases.
-//     The epilogue and the store run once, after the last phase;
+//   * forward (conv_fwd_mma_kernel): the shared forward core (fwd_core.cuh)
+//     on a block of 64 tiles x 128 (or 64) channels m.  A pass holds the at
+//     most 9 packed positions of one phase; a chunk stages each tile's 4x4
+//     window of that phase (fwd::stage_windows) and forms xw at the pass's
+//     Winograd positions (fwd::prep_windows); every k-step's products of all
+//     positions fold into the tile's 4 outputs in registers.  Where the grid
+//     of (tile block, M tile) blocks leaves SMs idle (conv2-3 at batch 128),
+//     the phases' passes split over blocks, summed in split order by the last
+//     block to arrive.  0.21-0.27 ms a pass at conv1-3 at batch 128, about
+//     half the fp32 CUDA-core kernel's time (PERF.md).  Its sums are not
+//     bitwise those of the plain version, whose order the CUDA-core kernel
+//     kept; few or ragged channels (conv0's RGB input) keep that kernel,
+//     conv_fwd_kernel: the deconv engine's micro tiles (8 position groups, 4
+//     tiles x 4 channels each, a two-stage cp.async pipeline of raw windows
+//     and weights, the B-transform shared-to-shared), the phases one after
+//     another, a phase's at most 16 positions accumulated over the whole N
+//     loop, met in shared memory and folded through inv into the tile's 4
+//     outputs, which stay in registers across phases;
 //   * bwd_x: the deconv corner's gather (bwd_x_core.cuh: a block owns R cell
 //     rows x W cell columns x BN channels, computes dXw for every tile its
 //     cells read, the one-row halo again, and sums each cell's pieces in a
@@ -76,6 +84,7 @@
 #include <stdint.h>
 
 #include "bwd_w_core.cuh"
+#include "fwd_core.cuh"
 
 namespace {
 
@@ -107,25 +116,7 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
-// B^T Z B for F(2,3), B^T = [[1,0,-1,0],[0,1,1,0],[0,-1,1,0],[0,1,0,-1]]:
-// adds only.  z[a][c] in, x[u][v] out.
-__device__ __forceinline__ void bt_z_b(const float (&z)[4][4], float (&x)[4][4]) {
-  float r4[4][4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    r4[0][c] = z[0][c] - z[2][c];
-    r4[1][c] = z[1][c] + z[2][c];
-    r4[2][c] = z[2][c] - z[1][c];
-    r4[3][c] = z[1][c] - z[3][c];
-  }
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    x[u][0] = r4[u][0] - r4[u][2];
-    x[u][1] = r4[u][1] + r4[u][2];
-    x[u][2] = r4[u][2] - r4[u][1];
-    x[u][3] = r4[u][1] - r4[u][3];
-  }
-}
+using fwd::bt_z_b;
 
 // ============================================================ forward
 // G warp-uniform position groups x (NT_T x NT_M) threads; group g owns the
@@ -336,19 +327,170 @@ conv_fwd_kernel(const float* __restrict__ cells, const float* __restrict__ ww, c
   }
 }
 
+// The forward on the tensor cores (fwd_core.cuh): one block per (BT
+// consecutive tiles, BM channels m) and split of the pass plan.  The host
+// plans passes of at most PMAX packed positions of one phase each
+// (engine.py::_fwd_passes with the phases as its groups); a chunk stages the
+// block's 4x4 windows of the pass's phase (fwd::stage_windows) and forms xw
+// at the Winograd positions the pass reads (fwd::prep_windows), and every
+// k-step's products of every position fold into the tile's 4 outputs.
+// Where the grid of (tile block, M tile) blocks would leave SMs idle (conv3
+// at batch 128: 32 blocks) the passes are split over `splits` blocks, each
+// writing its outputs to the scratch `partial`; the last to arrive sums them
+// in split order (the same result on every launch), leaves the group's
+// counter at 0 and runs the epilogue.
+template <class K, bool SPLIT>
+__global__ void __launch_bounds__(K::kThreads, K::kMinBlocks)
+conv_fwd_mma_kernel(const float* __restrict__ cells, const float* __restrict__ ww, const float* __restrict__ inv,
+                    const int* __restrict__ fplan, const float* __restrict__ scale, const float* __restrict__ bias,
+                    float* __restrict__ out, int B, int Gy, int Gx, int N, int M, int S2, int ty, int tx, int out_h,
+                    int out_w, int out_mode, int act, int npass, int nslot, int npos, int splits,
+                    float* __restrict__ partial, int* __restrict__ counters) {
+  constexpr int BT = K::BT, BM = K::BM;
+  const int C = fplan[npass];
+  const fwd::Layout L(BT, BM, nslot, npos, BT * fwd::kRT);
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* inv_s = smem + L.floats;                              // [C][4]
+  int* tile_s = reinterpret_cast<int*>(inv_s + C * K::M2);  // [BT]
+  int* plan_s = tile_s + BT;
+
+  const int tid = threadIdx.x, T = B * ty * tx, t0 = blockIdx.x * BT;
+  if (!SPLIT) splits = 1;  // compiled out of the unsplit variant
+  const int mt = blockIdx.y / splits, ks = blockIdx.y % splits, m0 = mt * BM;
+  for (int i = tid; i < C * K::M2; i += K::kThreads) inv_s[i] = inv[i];
+  fwd::tile_cells(tile_s, BT, t0, T, ty, tx, Gy, Gx);
+  const fwd::Plan plan = fwd::from_pass(fwd::load_plan<K>(plan_s, fplan, npass, C), ks * npass / splits, K::SMAX);
+  __syncthreads();
+  const int nck = (N + fwd::BN - 1) / fwd::BN;
+  // each pass's group is its phase
+  auto stage_a = [&](float* raw, int c) {
+    fwd::stage_windows<K>(raw, cells, tile_s, S2 * 4, plan.psub[c / nck], c % nck * fwd::BN, N, Gx);
+  };
+  auto prep_a = [&](uint32_t* split, const float* raw, int c) {
+    fwd::prep_windows<K>(split, L, raw, plan.qslot + c / nck * fwd::kMaxQ);
+  };
+  fwd::Out<K> y;
+  fwd::zero<K>(y[0]);
+  fwd::contract<K>(y, smem, L, plan, (ks + 1) * npass / splits - ks * npass / splits, nck, ww, N, M, m0, inv_s,
+                   stage_a, prep_a, [](int) {});
+
+  if (SPLIT) {
+    // this split's outputs, register order (float4 i of thread tid at
+    // i * kThreads + tid: coalesced); the last block of the group sums all
+    // splits' in split order
+    __shared__ int last;
+    constexpr int kY4 = K::kY / 4;
+    const size_t grp = (size_t)blockIdx.x * (gridDim.y / splits) + mt;
+    float4* mine = reinterpret_cast<float4*>(partial) + (grp * splits + ks) * kY4 * K::kThreads;
+#pragma unroll
+    for (int a = 0; a < K::M2; ++a)
+#pragma unroll
+      for (int fa = 0; fa < K::FA; ++fa)
+#pragma unroll
+        for (int fb = 0; fb < K::FB; ++fb) {
+          const float* v = y[0][a][fa][fb];
+          __stcg(mine + ((a * K::FA + fa) * K::FB + fb) * K::kThreads + tid, make_float4(v[0], v[1], v[2], v[3]));
+        }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      last = atomicAdd(counters + grp, 1) == splits - 1;
+      if (last) counters[grp] = 0;  // every split has arrived: zero for the next launch
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    const float4* all = reinterpret_cast<const float4*>(partial) + grp * splits * kY4 * K::kThreads;
+#pragma unroll
+    for (int a = 0; a < K::M2; ++a)
+#pragma unroll
+      for (int fa = 0; fa < K::FA; ++fa)
+#pragma unroll
+        for (int fb = 0; fb < K::FB; ++fb) {
+          float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          for (int j = 0; j < splits; ++j) {
+            const float4 v = __ldcg(all + (j * kY4 + (a * K::FA + fa) * K::FB + fb) * K::kThreads + tid);
+            acc.x += v.x;
+            acc.y += v.y;
+            acc.z += v.z;
+            acc.w += v.w;
+          }
+          y[0][a][fa][fb][0] = acc.x, y[0][a][fa][fb][1] = acc.y, y[0][a][fa][fb][2] = acc.z;
+          y[0][a][fa][fb][3] = acc.w;
+        }
+  }
+
+  // epilogue and store: output pixel (2jy + a/2, 2jx + a%2) of tile (b, jy, jx), channels m, m + 1
+#pragma unroll
+  for (int fa = 0; fa < K::FA; ++fa)
+#pragma unroll
+    for (int fb = 0; fb < K::FB; ++fb)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = t0 + fwd::out_tile<K>(fa, 2 * h), m = m0 + fwd::out_m<K>(fb, 0);
+        if (t >= T || m >= M) continue;
+        const int b = t / (ty * tx), rm = t - b * ty * tx, jy = rm / tx, jx = rm - jy * tx;
+        const float2 sc = scale ? make_float2(scale[m], scale[m + 1]) : make_float2(1.0f, 1.0f);
+        const float2 bi = bias ? make_float2(bias[m], bias[m + 1]) : make_float2(0.0f, 0.0f);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int row = 2 * jy + a / 2, col = 2 * jx + a % 2;
+          const bool inside = row < out_h && col < out_w;
+          float2 v = make_float2(activate(y[0][a][fa][fb][2 * h] * sc.x + bi.x, act),
+                                 activate(y[0][a][fa][fb][2 * h + 1] * sc.y + bi.y, act));
+          if (out_mode == 0) {
+            if (inside) *reinterpret_cast<float2*>(out + (((size_t)b * out_h + row) * out_w + col) * M + m) = v;
+          } else {
+            if (!inside) v = make_float2(0.0f, 0.0f);
+            *reinterpret_cast<float2*>(out + ((size_t)t * 4 + a) * M + m) = v;
+          }
+        }
+      }
+}
+
 template <int G_, int NT_T_, int NT_M_, int BN_, int VZ_, int VW_>
 struct FwdConf {
+  static constexpr bool kMma = false;
   static constexpr int G = G_, NT_T = NT_T_, NT_M = NT_M_, BN = BN_, VZ = VZ_, VW = VW_;
   using K = FwdCfg<G, NT_T, NT_M, BN, VZ, VW>;
+  static constexpr int BT = K::BT, BM = K::BM, PMAX = 0;
 };
-#define FWD_KERNEL(C) conv_fwd_kernel<C::G, C::NT_T, C::NT_M, C::BN, C::VZ, C::VW>
+template <class K_>
+struct FwdMma {
+  static constexpr bool kMma = true;
+  using K = K_;
+  static constexpr int BT = K::BT, BM = K::BM, PMAX = K::PMAX;
+};
 
-// forward block configuration: 32 tiles x 32 channels, 512 threads, for
-// M % 4 == 0 and M >= 32, else 64 tiles x 4 channels, 128 threads; cell
-// windows in 16-byte copies and 16 (8) channel chunks when N % 4 == 0, else
-// 4-byte copies and 4-channel chunks
+template <class Cf, bool SPLIT>
+auto fwd_kernel() {
+  if constexpr (Cf::kMma)
+    return conv_fwd_mma_kernel<typename Cf::K, SPLIT>;
+  else
+    return conv_fwd_kernel<Cf::G, Cf::NT_T, Cf::NT_M, Cf::BN, Cf::VZ, Cf::VW>;
+}
+
+// The most packed positions of the phases the tensor-core kernel takes (S <=
+// 2: 4 phases of 16): its smem limit holds their inv rows and pass plan
+constexpr int kMmaMaxC = 4 * kN2;
+
+// forward block configuration.  The tensor cores where N % 4 == 0, M % 4 ==
+// 0, M >= 16 and S^2 <= 4 (windows and weights in 16-byte copies: the
+// wrapper has checked their alignment): 64 tiles x 128 channels m, 16 warps
+// of 32 x 16, for M >= 128 (the fastest of three configurations timed on an
+// H100 at DCGAN's conv1-3, PERF.md), else 64 x 64, 8 warps of 32 x 16;
+// passes of at most 9 packed positions (one K4S2 phase).  Otherwise the fp32 CUDA-core
+// kernel, which sums in the plain version's order: 32 tiles x 32 channels,
+// 512 threads, for M % 4 == 0 and M >= 32, else 64 tiles x 4 channels, 128
+// threads; cell windows in 16-byte copies and 16 (8) channel chunks when N
+// % 4 == 0, else 4-byte copies and 4-channel chunks (conv0's RGB input).
 template <class F>
-int with_fwd_conf(int N, int M, F&& f) {
+int with_fwd_conf(int N, int M, int S2, F&& f) {
+  if (N % 4 == 0 && M % 4 == 0 && M >= 16 && S2 <= 4) {
+    if (M >= 128) return f(FwdMma<fwd::Core<2, 8, 2, 2, 9, 4, 1, 1>>{});
+    return f(FwdMma<fwd::Core<2, 4, 2, 2, 9, 4, 1, 1>>{});
+  }
   const bool wide = M >= 32 && M % 4 == 0;
   if (N % 4 == 0) return wide ? f(FwdConf<8, 8, 8, 16, 4, 4>{}) : f(FwdConf<8, 16, 1, 8, 4, 1>{});
   return wide ? f(FwdConf<8, 8, 8, 4, 1, 4>{}) : f(FwdConf<8, 16, 1, 4, 1, 1>{});
@@ -903,32 +1045,97 @@ auto bw_kernel() {
 // phase-major Winograd space, phase_off (S2 + 1,) each phase's first packed
 // position.
 
-// Raises the forward kernel's shared-memory limit on the current device for
-// (N, M)'s block configuration (call before the first launch).
-extern "C" int conv_engine_fwd_plan(int N, int M) {
-  return with_fwd_conf(N, M, [&](auto conf) {
-    using C = decltype(conf);
-    return (int)cudaFuncSetAttribute(FWD_KERNEL(C), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)C::K::kSmemBytes);
+// The forward's block configuration for (N, M, S^2): tile gets (BT, BM, the
+// most packed positions a pass, 1 for the tensor cores or 0).  The caller
+// plans the tensor-core kernel's passes with it (engine.py::_fwd_passes,
+// the phases as groups, one a pass) before conv_engine_fwd_plan.
+extern "C" int conv_engine_fwd_conf(int N, int M, int S2, int* tile) {
+  return with_fwd_conf(N, M, S2, [&](auto conf) {
+    using Cf = decltype(conf);
+    tile[0] = Cf::BT;
+    tile[1] = Cf::BM;
+    tile[2] = Cf::PMAX;
+    tile[3] = Cf::kMma;
+    return 0;
+  });
+}
+
+// The forward's plan for B images of ty x tx tiles: on the tensor cores the
+// split of its npass passes (nslot / npos: the most Winograd / packed
+// positions of a pass; C packed positions) over blocks, from the card's
+// resident blocks at this plan's own shared memory: the count that
+// minimises the waves over the block slots times the work a block (1/k),
+// times 25% an extra split for the partials' round trip; scratch_floats /
+// counters are 0 unsplit.  Also raises the configuration's shared-memory
+// limit on the current device (to the most any launch of it takes): call
+// it before the first launch for this shape.
+extern "C" int conv_engine_fwd_plan(int B, int ty, int tx, int N, int M, int S2, int C, int npass, int nslot,
+                                    int npos, int device, int* splits, long long* scratch_floats,
+                                    long long* counters) {
+  return with_fwd_conf(N, M, S2, [&](auto conf) {
+    using Cf = decltype(conf);
+    using K = typename Cf::K;
+    *splits = 1;
+    *scratch_floats = *counters = 0;
+    if constexpr (!Cf::kMma) {
+      return (int)cudaFuncSetAttribute(fwd_kernel<Cf, false>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)K::kSmemBytes);
+    } else {
+      const int most = (int)fwd::smem_2d<K>(kMmaMaxC, 2 * 4, K::PMAX, K::PMAX);
+      const auto k0 = fwd_kernel<Cf, false>(), k1 = fwd_kernel<Cf, true>();
+      cudaError_t err = cudaFuncSetAttribute(k0, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+      if (err == cudaSuccess) err = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+      int occ = 0, sms = 0;
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, k1, K::kThreads,
+                                                            fwd::smem_2d<K>(C, npass, nslot, npos));
+      if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+      if (err != cudaSuccess) return (int)err;
+      const long long slots = (long long)(occ > 0 ? occ : 1) * sms;
+      const long long groups = (long long)((B * ty * tx + K::BT - 1) / K::BT) * ((M + K::BM - 1) / K::BM);
+      int best = 1;
+      double best_cost = (double)((groups + slots - 1) / slots);
+      for (int k = 2; k <= npass; ++k) {
+        const double cost = (double)((groups * k + slots - 1) / slots) / k * (1.0 + 0.25 * (k - 1));
+        if (cost < best_cost - 1e-9) best = k, best_cost = cost;
+      }
+      *splits = best;
+      *scratch_floats = best > 1 ? groups * best * K::kY * K::kThreads : 0;
+      *counters = best > 1 ? groups : 0;
+      return 0;
+    }
   });
 }
 
 // One forward launch: cells (B, Gy, Gx, S2*4, N), ww (C, N, M), inv (C, 4)
 // -> out (B, out_h, out_w, M) (out_mode 0) or (B, ty, tx, 4, M) (out_mode 1).
 // scale and bias may be null; act: 0 none, 1 relu, 2 leaky_relu, 3 tanh.
-// Returns cudaGetLastError().
+// The tensor-core kernel reads fplan (the pass plan of the C packed
+// positions, npass / nslot / npos as conv_engine_fwd_plan took them) and, split, partial and counters from
+// that plan (the counters zero on entry; the kernel leaves them zero); the
+// CUDA-core kernel pos and phase_off.  Returns cudaGetLastError().
 extern "C" int conv_engine_fwd_f32(const float* cells, const float* ww, const float* inv, const int* pos,
-                                   const int* phase_off, const float* scale, const float* bias, float* out,
-                                   int B, int Gy, int Gx, int N, int M, int S2, int ty, int tx, int out_h,
-                                   int out_w, int out_mode, int act, void* stream) {
-  return with_fwd_conf(N, M, [&](auto conf) {
-    using C = decltype(conf);
-    using K = typename C::K;
+                                   const int* phase_off, const int* fplan, const float* scale, const float* bias,
+                                   float* out, int B, int Gy, int Gx, int N, int M, int S2, int ty, int tx,
+                                   int out_h, int out_w, int out_mode, int act, int C, int npass, int nslot,
+                                   int npos, int splits, float* partial, int* counters, void* stream) {
+  return with_fwd_conf(N, M, S2, [&](auto conf) {
+    using Cf = decltype(conf);
+    using K = typename Cf::K;
     const int T = B * ty * tx;
-    dim3 grid((T + K::BT - 1) / K::BT, (M + K::BM - 1) / K::BM);
-    FWD_KERNEL(C)<<<grid, K::kThreads, K::kSmemBytes, reinterpret_cast<cudaStream_t>(stream)>>>(
-        cells, ww, inv, pos, phase_off, scale, bias, out, B, Gy, Gx, N, M, S2, ty, tx, out_h, out_w, out_mode,
-        act);
+    const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+    if constexpr (Cf::kMma) {
+      const dim3 grid((T + K::BT - 1) / K::BT, ((M + K::BM - 1) / K::BM) * splits);
+      const auto kernel = splits > 1 ? fwd_kernel<Cf, true>() : fwd_kernel<Cf, false>();
+      kernel<<<grid, K::kThreads, fwd::smem_2d<K>(C, npass, nslot, npos), st>>>(
+          cells, ww, inv, fplan, scale, bias, out, B, Gy, Gx, N, M, S2, ty, tx, out_h, out_w, out_mode, act, npass,
+          nslot, npos, splits, partial, counters);
+    } else {
+      dim3 grid((T + K::BT - 1) / K::BT, (M + K::BM - 1) / K::BM);
+      fwd_kernel<Cf, false>()<<<grid, K::kThreads, K::kSmemBytes, st>>>(cells, ww, inv, pos, phase_off, scale, bias,
+                                                                       out, B, Gy, Gx, N, M, S2, ty, tx, out_h,
+                                                                       out_w, out_mode, act);
+    }
     return (int)cudaGetLastError();
   });
 }

@@ -30,9 +30,23 @@
 // (102.8 MB for DCGAN's first layer, more than the 50 MB L2) set a floor of
 // bytes / HBM rate, and at batch 8 the com-PE products (2*T*C*N*M flops on
 // the fp32 CUDA cores, 67 TFLOP/s) take longer than that.  So it is bound by
-// fp32 operations at batch 8 and by weight bytes at batch 1.
+// fp32 operations at batch 8 and by weight bytes at batch 1.  At the
+// training batch 128 the products (26-33 GFLOP a layer at deconv0-2) bound
+// it.
 //
-// What the design does about it:
+// Where the grid fills the card (DCGAN's deconv0-2 at batch 128) the
+// products run on the tensor cores in 3xTF32, fused_epi_mma_kernel on the
+// shared forward core (fwd_core.cuh): a block of 64 tiles x 128 (or 64)
+// channels m of one sub-filter, passes of at most 9 of its packed positions
+// (K5S2's sub-filter of 16: two), each chunk staging the tiles' 4x4 cell
+// windows and forming xw at the pass's Winograd positions (shared with the
+// conv corner's kernel), every k-step's products folded into the tile's 4
+// outputs in registers, then the epilogue and store below.  It runs at 19-21
+// TFLOP/s, 1-13% faster than the CUDA-core kernel there (PERF.md): latency
+// and the fold's FMAs hold it, as the core's note says.
+//
+// The fp32 CUDA-core kernel (fused_epi_kernel) serves the batches up to 8,
+// few channels (the RGB layer) and grids that would leave SMs idle:
 //   * one block per (T-tile of BT tiles, sub-filter s, M-tile of BM
 //     channels).  A block only touches the packed positions of its own
 //     sub-filter (at most n^2 = 16).  Its threads form G = 8 position groups;
@@ -61,11 +75,12 @@
 //     L2 serves the rereads: device-memory weight traffic stays near one pass;
 //   * a structurally empty sub-filter (K_D < S) runs no products and writes
 //     act(bias), as the reference does (zeros in scratch mode).
-// wgmma (3xTF32 for fp32 accuracy), TMA and bf16 are later work; this version
-// runs on the fp32 CUDA cores.
+// wgmma, TMA and bf16 are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fwd_core.cuh"
 
 namespace {
 
@@ -361,6 +376,93 @@ fused_epi_kernel(const float* __restrict__ cells, const float* __restrict__ ww,
   }
 }
 
+// The engine on the tensor cores (fwd_core.cuh): one block per (BT
+// consecutive tiles, sub-filter s, BM channels m), as the CUDA-core kernel's
+// grid.  The host plans passes of at most PMAX packed positions of one
+// sub-filter each (engine.py::_fwd_passes, the sub-filters as its groups);
+// a block runs its sub-filter's passes (K5S2's 16 positions: two), each
+// chunk staging the block's 4x4 cell windows (the line buffer,
+// fwd::stage_windows) and forming xw at the Winograd positions the pass
+// reads (fwd::prep_windows); every k-step's products fold into the tile's 4
+// outputs of the sub-filter, then the epilogue and the depth-to-space store
+// as the CUDA-core kernel's (an empty sub-filter writes act(bias), zeros in
+// scratch mode).
+template <class K>
+__global__ void __launch_bounds__(K::kThreads, K::kMinBlocks)
+fused_epi_mma_kernel(const float* __restrict__ cells, const float* __restrict__ ww, const float* __restrict__ inv,
+                     const int* __restrict__ sub_off, const int* __restrict__ fplan, const float* __restrict__ scale,
+                     const float* __restrict__ bias, float* __restrict__ out, int B, int Gy, int Gx, int N, int M,
+                     int S, int ty, int tx, int P, int out_h, int out_w, int out_mode, int act, int npass, int nslot,
+                     int npos) {
+  constexpr int BT = K::BT, BM = K::BM;
+  const int C = fplan[npass];
+  const fwd::Layout L(BT, BM, nslot, npos, BT * fwd::kRT);
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* inv_s = smem + L.floats;                              // [C][4]
+  int* tile_s = reinterpret_cast<int*>(inv_s + C * K::M2);  // [BT]
+  int* plan_s = tile_s + BT;
+
+  const int tid = threadIdx.x, T = B * ty * tx, t0 = blockIdx.x * BT;
+  const int s = blockIdx.y, m0 = blockIdx.z * BM;
+  for (int i = tid; i < C * K::M2; i += K::kThreads) inv_s[i] = inv[i];
+  fwd::tile_cells(tile_s, BT, t0, T, ty, tx, Gy, Gx);
+  const fwd::Plan all = fwd::load_plan<K>(plan_s, fplan, npass, C);
+  __syncthreads();
+  // this sub-filter's passes: those of its packed positions [sub_off[s], sub_off[s + 1])
+  int p0 = 0, p1 = 0;
+  for (int p = 0; p < npass; ++p) {
+    p0 += all.pass_off[p + 1] <= sub_off[s];
+    p1 += all.pass_off[p] < sub_off[s + 1];
+  }
+  const fwd::Plan plan = fwd::from_pass(all, p0, K::SMAX);
+  const int nck = (N + fwd::BN - 1) / fwd::BN;
+  auto stage_a = [&](float* raw, int c) {
+    fwd::stage_windows<K>(raw, cells, tile_s, 4, 0, c % nck * fwd::BN, N, Gx);
+  };
+  auto prep_a = [&](uint32_t* split, const float* raw, int c) {
+    fwd::prep_windows<K>(split, L, raw, plan.qslot + c / nck * fwd::kMaxQ);
+  };
+  fwd::Out<K> y;
+  fwd::zero<K>(y[0]);
+  fwd::contract<K>(y, smem, L, plan, p1 - p0, nck, ww, N, M, m0, inv_s, stage_a, prep_a, [](int) {});
+
+  // epilogue and store: sub-pixel (ry, rx, a/2, a%2) of tile (b, jy, jx), channels m, m + 1
+  const int ry = s / S, rx = s % S;
+#pragma unroll
+  for (int fa = 0; fa < K::FA; ++fa)
+#pragma unroll
+    for (int fb = 0; fb < K::FB; ++fb)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = t0 + fwd::out_tile<K>(fa, 2 * h), m = m0 + fwd::out_m<K>(fb, 0);
+        if (t >= T || m >= M) continue;
+        const int b = t / (ty * tx), rm = t - b * ty * tx, jy = rm / tx, jx = rm - jy * tx;
+        const float2 sc = scale ? make_float2(scale[m], scale[m + 1]) : make_float2(1.0f, 1.0f);
+        const float2 bi = bias ? make_float2(bias[m], bias[m + 1]) : make_float2(0.0f, 0.0f);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          float2 v = make_float2(y[0][a][fa][fb][2 * h], y[0][a][fa][fb][2 * h + 1]);
+          if (out_mode == 2) {  // scratch: the folded products, no epilogue
+            *reinterpret_cast<float2*>(out + ((size_t)t * S * S * 4 + s * 4 + a) * M + m) = v;
+            continue;
+          }
+          v = make_float2(activate(v.x * sc.x + bi.x, act), activate(v.y * sc.y + bi.y, act));
+          const int row = 2 * S * jy + S * (a / 2) + ry, col = 2 * S * jx + S * (a % 2) + rx;
+          if (out_mode == 0) {
+            const int orow = row - P, ocol = col - P;
+            if (orow >= 0 && orow < out_h && ocol >= 0 && ocol < out_w)
+              *reinterpret_cast<float2*>(out + (((size_t)b * out_h + orow) * out_w + ocol) * M + m) = v;
+          } else {
+            const bool inside = row >= P && row < P + out_h && col >= P && col < P + out_w;
+            const size_t cell = ((size_t)b * (ty * S) + row / 2) * (tx * S) + col / 2;
+            *reinterpret_cast<float2*>(out + (cell * 4 + (row % 2) * 2 + col % 2) * M + m) =
+                inside ? v : make_float2(0.0f, 0.0f);
+          }
+        }
+      }
+}
+
 template <int G_, int NT_T_, int NT_M_, int BN_, int VW_>
 struct Conf {
   static constexpr int G = G_, NT_T = NT_T_, NT_M = NT_M_, BN = BN_, VW = VW_;
@@ -368,8 +470,9 @@ struct Conf {
 };
 #define FE_KERNEL(C, SPLIT) fused_epi_kernel<C::G, C::NT_T, C::NT_M, C::BN, C::VW, SPLIT>
 
-// The block configuration for M, handed to f as a Conf.  (N % 4 == 0 is the
-// caller's to check: cell windows move in 16-byte copies.)
+// The CUDA-core kernel's block configuration for M, handed to f as a Conf.
+// (N % 4 == 0 is the caller's to check: cell windows move in 16-byte
+// copies.)
 template <class F>
 int with_conf(int M, F&& f) {
   // 32 tiles x 32 channels per block, 8 position groups, 512 threads;
@@ -380,37 +483,94 @@ int with_conf(int M, F&& f) {
   return f(Conf<8, 16, 1, 8, 1>{});
 }
 
+// The tensor-core configurations, handed to f by their number (1 or 2):
+// 64 tiles x 128 channels m, 16 warps of 32 x 16 (the conv corner's), or
+// 64 x 64, 8 warps of 32 x 16; passes of at most 9 packed positions
+template <class F>
+int with_mma(int conf, F&& f) {
+  if (conf == 1) return f(fwd::Core<2, 8, 2, 2, 9, 4, 1, 1>{});
+  return f(fwd::Core<2, 4, 2, 2, 9, 4, 1, 1>{});
+}
+
+// The most packed positions the tensor-core kernel takes (S <= 4: 16
+// sub-filters of at most 16) and passes (two a sub-filter): its smem limit
+constexpr int kMmaMaxC = 16 * kMaxPos, kMmaMaxPasses = 32;
+
+// Which configuration runs B images of ty x tx tiles at stride S and M
+// channels on this card: the tensor cores (1: 64 x 128 for M >= 128, else
+// 2: 64 x 64) where M % 4 == 0 and M >= 16 (weights in 16-byte copies: the
+// wrapper has checked their alignment) and the blocks, a sub-filter each,
+// fill every SM at least once (64 x 64 where 64 x 128 would not: DCGAN's
+// deconv0 at batch 128); elsewhere (the serving batches, few channels) the
+// CUDA-core kernel (0), whose smaller tiles and N split keep more of the
+// card busy.
+int mma_conf(int B, int ty, int tx, int M, int S, int sms) {
+  if (M < 16 || M % 4 != 0 || S > 4) return 0;
+  auto fills = [&](int conf) {
+    return with_mma(conf, [&](auto core) {
+      using K = decltype(core);
+      return (int)((long long)(B * ty * tx + K::BT - 1) / K::BT * S * S * ((M + K::BM - 1) / K::BM) >= sms);
+    }) != 0;
+  };
+  if (M >= 128 && fills(1)) return 1;
+  return fills(2) ? 2 : 0;
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  Every pointer is a device pointer.
 
-// How many ways to split the N loop, and the scratch it needs: the split
-// count minimises the waves of blocks over the card's resident block slots,
-// times the work per block (1/k), times a 25% cost per extra split for the
-// partials' round trip and the shorter pipelines; at least 4 chunks per
-// split.  scratch_floats / counters are 0 when
-// the split count is 1.  It also raises the block configuration's
-// shared-memory limit on the current device, which a launch needs: call it
-// for M on that device before the first launch.
+// The configuration for this shape on the current device and, on the CUDA
+// cores, how many ways to split the N loop and the scratch it needs: the
+// split count minimises the waves of blocks over the card's resident block
+// slots, times the work per block (1/k), times a 25% cost per extra split for
+// the partials' round trip and the shorter pipelines; at least 4 chunks per
+// split.  scratch_floats / counters are 0 when the split count is 1 (always
+// on the tensor cores).  tile gets (BT, BM, the most packed positions a
+// pass, conf: 0 the CUDA cores, 1 or 2 a tensor-core configuration), which
+// fused_engine_epi_f32 takes; the caller plans the tensor-core kernel's
+// passes with it (engine.py::_fwd_passes, the sub-filters as groups).  It
+// also raises the configuration's shared-memory limit on the current device
+// (to the most any launch of it takes), which a launch needs: call it for
+// the shape on that device before the first launch.
 extern "C" int fused_engine_plan(int B, int ty, int tx, int N, int M, int S, int device,
-                                 int* splits, long long* scratch_floats, long long* counters) {
-  return with_conf(M, [&](auto conf) {
-    using C = decltype(conf);
-    using K = typename C::K;
+                                 int* splits, long long* scratch_floats, long long* counters, int* tile) {
+  int sms = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const int conf = mma_conf(B, ty, tx, M, S, sms);
+  *splits = 1;
+  *scratch_floats = *counters = 0;
+  tile[3] = conf;
+  if (conf) {
+    return with_mma(conf, [&](auto core) {
+      using K = decltype(core);
+      tile[0] = K::BT;
+      tile[1] = K::BM;
+      tile[2] = K::PMAX;
+      return (int)cudaFuncSetAttribute(fused_epi_mma_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)fwd::smem_2d<K>(kMmaMaxC, kMmaMaxPasses, K::PMAX, K::PMAX));
+    });
+  }
+  return with_conf(M, [&](auto cf) {
+    using Cf = decltype(cf);
+    using K = typename Cf::K;
+    tile[0] = K::BT;
+    tile[1] = K::BM;
+    tile[2] = 0;
     // both variants' shared-memory limit, here and not at every launch
-    cudaError_t err = cudaFuncSetAttribute(FE_KERNEL(C, false), cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t err = cudaFuncSetAttribute(FE_KERNEL(Cf, false), cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)K::kSmemBytes);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(FE_KERNEL(C, true), cudaFuncAttributeMaxDynamicSharedMemorySize,
+      err = cudaFuncSetAttribute(FE_KERNEL(Cf, true), cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)K::kSmemBytes);
-    int occ = 0, sms = 0;
+    int occ = 0;
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, FE_KERNEL(C, false), K::kThreads, K::kSmemBytes);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, FE_KERNEL(Cf, false), K::kThreads, K::kSmemBytes);
     if (err != cudaSuccess) return (int)err;
     const long long slots = occ > 0 ? (long long)occ * sms : 1;
     const long long groups = (long long)((B * ty * tx + K::BT - 1) / K::BT) * S * S * ((M + K::BM - 1) / K::BM);
-    const int chunks = (N + C::BN - 1) / C::BN;
+    const int chunks = (N + Cf::BN - 1) / Cf::BN;
     int best = 1;
     double best_cost = (double)((groups + slots - 1) / slots);
     for (int k = 2; k <= 8 && chunks / k >= 4; ++k) {
@@ -426,23 +586,37 @@ extern "C" int fused_engine_plan(int B, int ty, int tx, int N, int M, int S, int
 
 // One launch.  scale and bias may be null.  out_mode: 0 = nhwc, 1 = cells,
 // 2 = scratch (scale, bias and act unused).
-// act: 0 none, 1 relu, 2 leaky_relu, 3 tanh.  splits, partial and counters
-// come from fused_engine_plan; the counters are zero on entry and the
-// kernel leaves them zero.  Returns cudaGetLastError().
+// act: 0 none, 1 relu, 2 leaky_relu, 3 tanh.  conf, splits, partial and
+// counters come from fused_engine_plan (the counters zero on entry; the
+// kernel leaves them zero).  The tensor-core kernel (conf 1 or 2) reads
+// fplan, the pass plan of the C packed positions (npass passes, nslot /
+// npos the most Winograd / packed positions of a pass); the CUDA-core kernel
+// pos.  Returns cudaGetLastError().
 extern "C" int fused_engine_epi_f32(const float* cells, const float* ww, const float* inv,
-                                    const int* pos, const int* sub_off, const float* scale,
+                                    const int* pos, const int* sub_off, const int* fplan, const float* scale,
                                     const float* bias, float* out, int B, int Gy, int Gx,
                                     int N, int M, int S, int ty, int tx, int P, int out_h,
-                                    int out_w, int out_mode, int act, int splits, float* partial,
-                                    int* counters, void* stream) {
-  return with_conf(M, [&](auto conf) {
-    using C = decltype(conf);
-    using K = typename C::K;
+                                    int out_w, int out_mode, int act, int conf, int C, int npass, int nslot,
+                                    int npos, int splits, float* partial, int* counters, void* stream) {
+  const int T = B * ty * tx;
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (conf) {
+    return with_mma(conf, [&](auto core) {
+      using K = decltype(core);
+      const dim3 grid((T + K::BT - 1) / K::BT, S * S, (M + K::BM - 1) / K::BM);
+      fused_epi_mma_kernel<K><<<grid, K::kThreads, fwd::smem_2d<K>(C, npass, nslot, npos), st>>>(
+          cells, ww, inv, sub_off, fplan, scale, bias, out, B, Gy, Gx, N, M, S, ty, tx, P, out_h, out_w, out_mode,
+          act, npass, nslot, npos);
+      return (int)cudaGetLastError();
+    });
+  }
+  return with_conf(M, [&](auto cf) {
+    using Cf = decltype(cf);
+    using K = typename Cf::K;
     // the unsplit variant carries no split code at all
-    auto kernel = splits > 1 ? FE_KERNEL(C, true) : FE_KERNEL(C, false);
-    const int T = B * ty * tx;
+    auto kernel = splits > 1 ? FE_KERNEL(Cf, true) : FE_KERNEL(Cf, false);
     dim3 grid((T + K::BT - 1) / K::BT, S * S, ((M + K::BM - 1) / K::BM) * splits);
-    kernel<<<grid, K::kThreads, K::kSmemBytes, reinterpret_cast<cudaStream_t>(stream)>>>(
+    kernel<<<grid, K::kThreads, K::kSmemBytes, st>>>(
         cells, ww, inv, pos, sub_off, scale, bias, out, B, Gy, Gx, N, M, S, ty, tx, P, out_h,
         out_w, out_mode, act, splits, partial, counters);
     return (int)cudaGetLastError();

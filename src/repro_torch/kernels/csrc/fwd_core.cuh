@@ -1,10 +1,12 @@
 // The forward contraction of the fused engines, on Hopper's tensor cores at
 // fp32 accuracy (3xTF32).  Used by engine1d.cu's 1D engine (replaces
 // src/repro/kernels/engine.py::winograd_conv1d_fused_engine, both of its
-// pallas_calls: scratch at engine.py:1690 and nlc at engine.py:1724).  The
-// other forward kernels (conv_engine.cu's, fused_engine.cu's,
-// domain_engine.cu's; engine.py::fused_engine, the pallas_call at
-// engine.py:817) compute the same contraction and fold and can take it.
+// pallas_calls: scratch at engine.py:1690 and nlc at engine.py:1724), and by
+// the two 2D forward kernels of engine.py::fused_engine (its pallas_calls at
+// engine.py:739 and :817): fused_engine.cu's fused_epi_mma_kernel at the
+// deconv corner and conv_engine.cu's conv_fwd_mma_kernel at the conv corner,
+// which share the 2D A operand below (stage_windows, prep_windows).
+// domain_engine.cu's forward computes the same contraction and fold.
 // For a block of BT tiles t and BM output channels m it computes, for every
 // packed position p,
 //     dot_p[t, m] = sum_n xw[t, pos_p, n] * ww[p, n, m],
@@ -60,19 +62,22 @@
 // wrapper refuses misaligned ones); few or ragged channels (the mono
 // waveform M = 1) keep the fp32 CUDA-core kernel.
 // What bounds it on an H100 (PERF.md): latency, at 15-23 TFLOP/s of the
-// 3xTF32 rate's 165: one block of 8 warps an SM (the outputs), each chunk's
-// B-transform, copies and products between barriers.  Its grid is 64 tiles
-// a block: below one block an SM (the decoder at batch 1) the caller keeps
-// the CUDA-core kernel.
+// 3xTF32 rate's 165: one block of 8 or 16 warps an SM (the outputs), each
+// chunk's B-transform, copies and products between barriers, and at the 2D
+// corners the fold (4 outputs a tile: about 2.25 FMAs a product entry a
+// k-step, against its 3 mma).  Its grid is 64 tiles a block: below one
+// block an SM (the decoder at batch 1, the serving batches) the callers keep
+// their CUDA-core kernels, or (the conv corner) split the passes over
+// blocks.
 // Its sums are fp32-accurate but not bitwise those of the plain versions
 // (sequential fp32 FMAs over n): the outputs differ by a few 1e-6 of their
 // spread, so an activation input within that of a kink (relu, leaky_relu)
-// may take its other side (PERF.md: at DCGAN's discriminator this kept the
-// conv corner's training forward off this core).
+// may take its other side (chip_smoke.py's train and audio checks hold the
+// plain run to the kernel run's side of each kink and bound such flips).
 // Shared memory: two stages of the split A operand (slots x BT x 8 x 2
 // words), the raw A rows and the pass's weights (positions x 8 x (BM + 4)):
 // ~64 KB for the audio decoder's deconv1 (6 positions on 3 Winograd
-// positions).
+// positions), ~215 KB for a 2D pass of 9 positions on 64 x 128 blocks.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -317,6 +322,119 @@ __device__ __forceinline__ void contract(Out<K>& y, float* smem, const Layout& L
     if (c % nck == nck - 1) pass_end(pass);
     if (c + 1 < n_chunks) prep_a(split(b ^ 1), raw_a(b ^ 1), c + 1);
   }
+}
+
+// The passes [p0, npass) of a plan, as contract reads a plan of its own (a
+// block that runs part of the passes: one sub-filter's, or a split's share);
+// packed positions keep their indices.
+__device__ __forceinline__ Plan from_pass(const Plan& p, int p0, int smax) {
+  Plan q = p;
+  q.pass_off += p0;
+  q.psub += p0 * smax;
+  q.qslot += p0 * kMaxQ;
+  return q;
+}
+
+// ------------------------------------------------ the 2D engines' A operand
+// At both 2D corners a tile's A rows are the 4x4 window of one input phase:
+// cell rows jy, jy + 1 by cell columns jx, jx + 1 of the phase-major cells
+// (B, Gy, Gx, phases*4, N), each cell a 2x2 block of pixels.  The raw rows of
+// a chunk: every tile's 16 window entries of its 8 channels, kRT floats a
+// tile (tiles 8 mod 32 words apart: prep_windows' loads hit 32 banks).
+constexpr int kRT = 16 * BN + 8;
+
+// tile_s[tl]: the first cell (b*Gy + jy)*Gx + jx of tile t0 + tl of the
+// B*ty*tx flattened tiles, -1 past them
+__device__ __forceinline__ void tile_cells(int* tile_s, int BT, int t0, int T, int ty, int tx, int Gy, int Gx) {
+  for (int tl = threadIdx.x; tl < BT; tl += blockDim.x) {
+    const int t = t0 + tl, b = t / (ty * tx), rm = t - b * ty * tx, jy = rm / tx, jx = rm - jy * tx;
+    tile_s[tl] = t < T ? (b * Gy + jy) * Gx + jx : -1;
+  }
+}
+
+// Chunk copies of the block's BT windows of phase s, channels n0 .. n0 + 8
+// (16-byte copies: N % 4 == 0; tiles past T and channels past N zero-filled)
+template <class K>
+__device__ __forceinline__ void stage_windows(float* raw, const float* __restrict__ cells, const int* tile_s, int cs,
+                                              int s, int n0, int N, int Gx) {
+  for (int e = threadIdx.x; e < K::BT * 32; e += K::kThreads) {
+    const int seg = e & 1, zi = (e >> 1) & 15, tl = e >> 5;
+    const int base = tile_s[tl], n = n0 + 4 * seg, a = zi >> 2, c = zi & 3;
+    const bool ok = base >= 0 && n < N;
+    const size_t off =
+        ok ? ((size_t)(base + (a >> 1) * Gx + (c >> 1)) * cs + s * 4 + (a & 1) * 2 + (c & 1)) * N + n : 0;
+    cp_async(raw + tl * kRT + zi * BN + 4 * seg, cells + off, ok, 16);
+  }
+}
+
+// B^T Z B for F(2,3), B^T = [[1,0,-1,0],[0,1,1,0],[0,-1,1,0],[0,1,0,-1]]:
+// adds only.  z[a][c] in, x[u][v] out.
+__device__ __forceinline__ void bt_z_b(const float (&z)[4][4], float (&x)[4][4]) {
+  float r4[4][4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    r4[0][c] = z[0][c] - z[2][c];
+    r4[1][c] = z[1][c] + z[2][c];
+    r4[2][c] = z[2][c] - z[1][c];
+    r4[3][c] = z[1][c] - z[3][c];
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    x[u][0] = r4[u][0] - r4[u][2];
+    x[u][1] = r4[u][1] + r4[u][2];
+    x[u][2] = r4[u][2] - r4[u][1];
+    x[u][3] = r4[u][1] - r4[u][3];
+  }
+}
+
+// B^T Z of a window, in place: z[a][c] in, (B^T Z)[u][c] out
+__device__ __forceinline__ void bt_rows(float (&z)[4][4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float z0 = z[0][c], z1 = z[1][c], z2 = z[2][c], z3 = z[3][c];
+    z[0][c] = z0 - z2;
+    z[1][c] = z1 + z2;
+    z[2][c] = z2 - z1;
+    z[3][c] = z1 - z3;
+  }
+}
+// entry v of a row of B^T Z times B
+__device__ __forceinline__ float b_col(const float (&r)[4], int v) {
+  return v == 0 ? r[0] - r[2] : v == 1 ? r[1] + r[2] : v == 2 ? r[2] - r[1] : r[1] - r[3];
+}
+
+// The A pass of a 2D chunk: xw = B^T Z B of tiles 16f + gq and + 8, channel
+// 2tq + e, from the raw windows, into the slot of each Winograd position q
+// the pass reads (qs: q -> slot or -1); B^T Z once a window, then each
+// position's entry as it is written
+template <class K>
+__device__ __forceinline__ void prep_windows(uint32_t* split, const Layout& L, const float* raw, const int* qs) {
+  for (int it = threadIdx.x; it < 4 * K::BT; it += K::kThreads) {
+    const int e = it & 1, lane = (it >> 1) & 31, f = it >> 6;
+    const float* r = raw + (16 * f + (lane >> 2)) * kRT + 2 * (lane & 3) + e;
+    float z0[4][4], z1[4][4];
+#pragma unroll
+    for (int zi = 0; zi < 16; ++zi) {
+      z0[zi >> 2][zi & 3] = r[zi * BN];
+      z1[zi >> 2][zi & 3] = r[8 * kRT + zi * BN];
+    }
+    bt_rows(z0);
+    bt_rows(z1);
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const int sl = qs[q];
+      if (sl >= 0) put_a<K>(split, L, sl, f, lane, e, b_col(z0[q >> 2], q & 3), b_col(z1[q >> 2], q & 3));
+    }
+  }
+}
+
+// The smem of a 2D kernel's launch, in bytes: the pipeline (nslot / npos:
+// its pass plan's most Winograd / packed positions a pass), C rows of inv,
+// the BT tiles' first cells and the plan
+template <class K>
+size_t smem_2d(int C, int npass, int nslot, int npos) {
+  const Layout L(K::BT, K::BM, nslot, npos, K::BT * kRT);
+  return sizeof(float) * (L.floats + C * K::M2) + sizeof(int) * (K::BT + Plan::ints(npass, C, K::SMAX));
 }
 
 }  // namespace fwd

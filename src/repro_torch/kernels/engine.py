@@ -120,21 +120,23 @@ def _layout_tensors(pos_idx: tuple[int, ...], sub_slices: tuple[tuple[int, int],
 
 @functools.lru_cache(maxsize=256)
 def _plan(B: int, ty: int, tx: int, N: int, M: int, S: int, device_index: int):
-    """(splits, scratch floats, counters) the kernel's N-loop split needs for
-    this shape on this card, from the library's own block configuration.
-    The library also raises the kernel's shared-memory limit here, once per
-    block configuration and device, which every launch needs."""
+    """(splits, scratch floats, counters, (BT, BM, the most packed positions
+    a pass, conf)) of the kernel for this shape on this card, from the
+    library's own choice: conf 0 is the CUDA-core kernel (its N-loop split:
+    splits, scratch and counters), 1 or 2 a tensor-core configuration (where
+    its blocks fill the card; unsplit).  The library also raises the
+    configuration's shared-memory limit here, which every launch needs."""
     import ctypes
 
     from ._build import load_library
 
-    splits, floats, counters = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong()
+    splits, floats, counters, tile = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong(), (ctypes.c_int * 4)()
     with torch.cuda.device(device_index):
         err = load_library().fused_engine_plan(B, ty, tx, N, M, S, device_index, ctypes.byref(splits),
-                                               ctypes.byref(floats), ctypes.byref(counters))
+                                               ctypes.byref(floats), ctypes.byref(counters), tile)
     if err != 0:
         raise RuntimeError(f"fused_engine plan failed: cudaError {err}")
-    return splits.value, floats.value, counters.value
+    return splits.value, floats.value, counters.value, tuple(tile)
 
 
 @functools.lru_cache(maxsize=None)  # a few hundred ints per (shape, stream); never freed under a launch
@@ -153,15 +155,18 @@ def _m4(least: int):
 
 # The operands each CUDA wrapper's kernel stages in 16-byte cp.async copies,
 # each with the (N, M) where it does: the kernels' configuration choices
-# (with_conf, with_fwd_conf, with_bx_conf, with_bw_conf in csrc/; the 1D
-# engine's weights at M % 4 == 0 and M >= 16, where its tensor-core kernel
-# takes them on a grid that fills the card, held to that condition at any
-# grid).  Elsewhere the kernel takes 4-byte copies (few or ragged channels).
+# (with_conf, mma_conf, with_fwd_conf, with_bx_conf, with_bw_conf in csrc/;
+# the deconv corner's and the 1D engine's weights at M % 4 == 0 and M >=
+# 16, where their tensor-core kernels take them on a grid that fills the
+# card, held to that condition at any grid; the conv corner's at M >= 16
+# where N % 4 == 0, its tensor-core kernel's, held at any stride).
+# Elsewhere the kernel takes 4-byte copies (few or ragged channels).
 _SIXTEEN_BYTE_COPIES = {
-    "fused_engine": {"cells": lambda N, M: True, "ww_packed": _m4(32)},
+    "fused_engine": {"cells": lambda N, M: True, "ww_packed": _m4(16)},
     "fused_engine_bwd_x": {"g": _m4(8), "ww_packed": _m4(8)},
     "fused_engine_bwd_w": {"cells": lambda N, M: True, "g": _m4(16)},
-    "conv_fused_engine": {"cells": lambda N, M: N % 4 == 0, "ww_packed": _m4(32)},
+    "conv_fused_engine": {"cells": lambda N, M: N % 4 == 0,
+                          "ww_packed": lambda N, M: M % 4 == 0 and M >= (16 if N % 4 == 0 else 32)},
     "conv_fused_engine_bwd_x": {"g": _m4(8), "ww_packed": _m4(8)},
     "conv_fused_engine_bwd_w": {"cells": lambda N, M: N % 4 == 0, "g": _m4(16)},
     "domain_engine": {"xw": lambda N, M: True, "ww_packed": _m4(32)},
@@ -264,7 +269,9 @@ def fused_engine(
     cells mode with pixels outside the crop window zeroed, or the tile
     outputs (B, ty, tx, S*S*m*m, M) in scratch mode (no epilogue).  CPU
     tensors take the plain version; CUDA tensors launch the kernel, which
-    takes F(2,3) only, fp32, contiguous inputs."""
+    takes F(2,3) only, fp32, contiguous inputs: on the tensor cores where
+    the plan finds that their blocks fill the card, else on the CUDA cores
+    (``_plan``)."""
     if out_mode not in _OUT_MODES:
         raise ValueError(f"out_mode {out_mode!r} not in {tuple(_OUT_MODES)}")
     if activation not in _ACT_CODES:
@@ -325,7 +332,10 @@ def fused_engine(
 
     lib = load_library()
     pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
-    splits, n_scratch, n_counters = _plan(B, ty, tx, N, M, S, dev.index)
+    splits, n_scratch, n_counters, (_, _, pmax, conf) = _plan(B, ty, tx, N, M, S, dev.index)
+    fplan, npass, nslot, npos = None, 0, 0, 0
+    if conf:  # the tensor cores: passes of one sub-filter each
+        fplan, npass, nslot, npos = _fwd_plan_tensor(tuple(pos_idx), tuple(sub_slices), pmax, 1, str(dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
     # the N-loop split's partial products and arrival counters
     partial = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
@@ -333,10 +343,10 @@ def fused_engine(
     out = torch.empty(out_shape, dtype=torch.float32, device=dev)
     err = lib.fused_engine_epi_f32(
         cells.data_ptr(), ww_packed.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(),
-        offs.data_ptr(), None if scale is None else scale.data_ptr(),
+        offs.data_ptr(), None if fplan is None else fplan.data_ptr(), None if scale is None else scale.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         B, Gy, Gx, N, M, S, ty, tx, padding, out_h, out_w,
-        _OUT_MODES[out_mode], _ACT_CODES[activation], splits,
+        _OUT_MODES[out_mode], _ACT_CODES[activation], conf, C, npass, nslot, npos, splits,
         None if partial is None else partial.data_ptr(),
         None if counters is None else counters.data_ptr(),
         stream,
@@ -710,7 +720,9 @@ def conv_fused_engine(
     """Epilogue-fused engine at the conv corner: returns (B, out_h, out_w, M)
     in nhwc mode, or (B, ty, tx, m*m, M) in cells mode with pixels outside
     [0, out_h) x [0, out_w) zeroed.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel (F(2,3), fp32, contiguous inputs)."""
+    CUDA tensors launch the kernel (F(2,3), fp32, contiguous inputs; on the
+    tensor cores where N % 4 == 0, M % 4 == 0, M >= 16 and S <= 2, their
+    passes split over blocks where the grid would leave SMs idle)."""
     if out_mode not in _OUT_MODES:
         raise ValueError(f"out_mode {out_mode!r} not in {tuple(_OUT_MODES)}")
     if activation not in _ACT_CODES:
@@ -742,13 +754,19 @@ def conv_fused_engine(
     from ._build import load_library
 
     lib = load_library()
-    _conv_fwd_plan(N, M, dev.index)
+    splits, n_scratch, n_counters, (fplan, npass, nslot, npos) = _conv_fwd_plan(B, ty, tx, N, M, tuple(pos_idx), s2,
+                                                                               dev.index)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the pass split's partial outputs and arrival counters
+    partial = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
+    counters = _split_counters(n_counters, dev.index, stream) if n_counters else None
     out = torch.empty(out_shape, dtype=torch.float32, device=dev)
     err = lib.conv_engine_fwd_f32(
         cells.data_ptr(), ww_packed.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), off.data_ptr(),
-        None if scale is None else scale.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
-        B, cells.shape[1], cells.shape[2], N, M, s2, ty, tx, out_h, out_w,
-        _OUT_MODES[out_mode], _ACT_CODES[activation], torch.cuda.current_stream(dev).cuda_stream,
+        None if fplan is None else fplan.data_ptr(), None if scale is None else scale.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), B, cells.shape[1], cells.shape[2], N, M, s2, ty,
+        tx, out_h, out_w, _OUT_MODES[out_mode], _ACT_CODES[activation], C, npass, nslot, npos, splits,
+        None if partial is None else partial.data_ptr(), None if counters is None else counters.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"conv_fused_engine kernel launch failed: cudaError {err}")
@@ -876,16 +894,43 @@ def conv_fused_engine_bwd_w(
 conv_fused_engine_bwd_w.launches = 0
 
 
-@functools.lru_cache(maxsize=64)
-def _conv_fwd_plan(N: int, M: int, device_index: int) -> None:
-    """Raise the conv forward kernel's shared-memory limit for (N, M)'s block
-    configuration, once per device."""
+def _conv_fwd_conf(N: int, M: int, s2: int):
+    """(BT, BM, the most packed positions a pass, tensor cores 1 or 0) of the
+    conv forward kernel's block configuration for (N, M, S^2)."""
+    import ctypes
+
     from ._build import load_library
 
+    tile = (ctypes.c_int * 4)()
+    load_library().conv_engine_fwd_conf(N, M, s2, tile)
+    return tuple(tile)
+
+
+@functools.lru_cache(maxsize=256)
+def _conv_fwd_plan(B: int, ty: int, tx: int, N: int, M: int, pos_idx: tuple[int, ...], s2: int, device_index: int):
+    """(splits, scratch floats, counters, (pass plan tensor or None, npass,
+    nslot, npos)) of the conv forward kernel for this shape on this card: on
+    the tensor cores its passes (at most the configuration's positions of
+    one phase each) and their split over blocks, which the library sizes from
+    this plan's own shared memory.  The library raises the kernel's
+    shared-memory limit here, once."""
+    import ctypes
+
+    from ._build import load_library
+
+    _, _, pmax, mma = _conv_fwd_conf(N, M, s2)
+    fplan, npass, nslot, npos = None, 0, 0, 0
+    if mma:  # the phases are the passes' groups: a pass holds positions of one phase
+        off = [sum(p // 16 < s for p in pos_idx) for s in range(s2 + 1)]
+        fplan, npass, nslot, npos = _fwd_plan_tensor(tuple(p % 16 for p in pos_idx),
+                                                      tuple(zip(off[:-1], off[1:])), pmax, 1, f"cuda:{device_index}")
+    splits, floats, counters = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong()
     with torch.cuda.device(device_index):
-        err = load_library().conv_engine_fwd_plan(N, M)
+        err = load_library().conv_engine_fwd_plan(B, ty, tx, N, M, s2, len(pos_idx), npass, nslot, npos, device_index,
+                                                  ctypes.byref(splits), ctypes.byref(floats), ctypes.byref(counters))
     if err != 0:
         raise RuntimeError(f"conv_fused_engine plan failed: cudaError {err}")
+    return splits.value, floats.value, counters.value, (fplan, npass, nslot, npos)
 
 
 @functools.lru_cache(maxsize=256)

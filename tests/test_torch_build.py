@@ -33,3 +33,15 @@ def test_every_entry_point_binds_as_many_arguments_as_its_c_definition():
         m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
         assert m, name
         assert len([a for a in m.group(1).split(",") if a.strip()]) == len(argtypes), name
+
+
+def test_every_c_entry_point_is_bound():
+    """Each ``extern "C"`` function of the sources has its argtypes in
+    _SIGNATURES (a new entry point, such as a plan's, bound with ctypes'
+    default int arguments would cut its pointers)."""
+    import re
+
+    src = "".join(p.read_text() for p in sorted(_build.CSRC.glob("*.cu")))
+    defined = set(re.findall(r'extern "C" int (\w+)\(', src))
+    assert {"conv_engine_fwd_conf", "conv_engine_fwd_plan", "fused_engine_plan"} <= defined
+    assert defined == set(_build._SIGNATURES)

@@ -19,7 +19,16 @@ formulas (``put_a``, ``mma_fold``'s fragment loads, ``out_tile`` /
   the same sums as one pass;
 * the plain forward versions the card holds the forward kernels against,
   against JAX's ``conv1d_engine_ref`` and, at the conv corner,
-  ``winograd_conv_fused_engine`` (Pallas, interpret mode).
+  ``winograd_conv_fused_engine`` (Pallas, interpret mode);
+* the two 2D kernels on the core, TPU kernel 3 at both corners
+  (``conv_engine.cu::conv_fwd_mma_kernel``, ``fused_engine.cu::
+  fused_epi_mma_kernel``): a model of their block layout (each tile's 4x4
+  cell window as ``fwd::stage_windows`` reads it, B^T Z B as
+  ``fwd::prep_windows`` forms it, passes of one phase or sub-filter, the
+  conv corner's passes split over blocks and summed in split order, the
+  deconv corner's block finding its sub-filter's passes, every out mode's
+  store) against the plain forward and JAX's ``conv_engine_ref`` /
+  ``fused_epilogue_engine_ref`` / ``fused_pre_engine_ref``.
 
 Shapes: the audio decoder's K4S2 deconv1d (6 positions on 3 Winograd
 positions), the F(2,4) conv1d K4 (n = 5) and the F(2,3) K3, K6S3 (3
@@ -27,8 +36,11 @@ sub-filters: two passes), K3S2 and K5S2 with output padding, K2S3 (an empty
 sub-filter), K4S4 (4 sub-filters of 3: two passes) and phases=2; at the
 conv corner the smoke's ragged shape
 (``chip_smoke.CONV_RAGGED_SHAPE``: K4S2, batch 7, 11x11, 100 -> 36, T =
-63), K3S1, K3S2 at an odd extent and K5S2.  Tolerance ``1e-4 * max|plain| +
-1e-5``, the smoke's for kernel against plain; the model runs in float64.
+63), K3S1, K3S2 at an odd extent and K5S2; at the deconv corner DCGAN's
+K5S2 (sub-filters of 16, 12, 12 and 9 packed positions: two passes for
+all but the last), the smoke's ragged shape (``chip_smoke.RAGGED_SHAPE``),
+K4S2 and K2S3 (empty sub-filters).  Tolerance ``1e-4 * max|plain| +
+1e-5``, the smoke's for kernel against plain; the models run in float64.
 """
 import re
 
@@ -59,9 +71,12 @@ def _cores(source: str):
 
 
 CORES_1D = _cores("engine1d.cu")
-# every instantiation shares its pass limits (PMAX, SMAX)
-assert len({c[4:] for c in CORES_1D}) == 1
+CORES_2D = {"conv": _cores("conv_engine.cu"), "deconv": _cores("fused_engine.cu")}
+# every instantiation of a kernel shares its pass limits (PMAX, M2, SMAX): one group a pass at the 2D corners
+assert len({c[4:] for c in CORES_1D}) == 1 and all(len({c[4:] for c in v}) == 1 for v in CORES_2D.values())
 CORE_1D = CORES_1D[0]
+PMAX_2D = {k: v[0][4] for k, v in CORES_2D.items()}
+assert all(v[0][5:] == (4, 1) for v in CORES_2D.values())
 
 
 def _close(got, want):
@@ -113,7 +128,12 @@ def _fragment_maps(WT, WM, FA, FB):
     return out_tl, out_ml, a_tl, a_ch, b_n, b_ml
 
 
-@pytest.mark.parametrize("core", CORES_1D, ids=[f"rank1_{i}" for i in range(len(CORES_1D))])
+_ALL_CORES = CORES_1D + CORES_2D["conv"] + CORES_2D["deconv"]
+_CORE_IDS = [f"rank1_{i}" for i in range(len(CORES_1D))] + [f"{k}_{i}" for k in ("conv", "deconv")
+                                                             for i in range(len(CORES_2D[k]))]
+
+
+@pytest.mark.parametrize("core", _ALL_CORES, ids=_CORE_IDS)
 def test_fragments_cover_each_output_once_and_pair_one_channel_a_k_step(core):
     WT, WM, FA, FB = core[:4]
     out_tl, out_ml, a_tl, a_ch, b_n, b_ml = _fragment_maps(WT, WM, FA, FB)
@@ -320,3 +340,203 @@ def test_rank1_plain_forward_matches_jax_ref(name):
     got = E.winograd_conv1d_fused_engine_plain(c["cells"], c["ww"], c["inv"], c["bt"], out_mode="nlc", stride=stride,
                                                **kw)
     _close(got.numpy(), np.asarray(want))
+
+
+# ------------------------------------------------------ the 2D kernels' blocks
+def _windows(cells, ty, tx, s):
+    """Every tile's 4x4 window of phase s, (T, 16, N), as fwd::stage_windows
+    copies it: entry 4a + c from cell (jy + a // 2, jx + c // 2), sub-cell
+    (a % 2) * 2 + c % 2 of the phase's four channel slots."""
+    B, Gy, Gx, cs, N = cells.shape
+    b, rm = np.divmod(np.arange(B * ty * tx), ty * tx)
+    jy, jx = np.divmod(rm, tx)
+    base = (b * Gy + jy) * Gx + jx
+    flat = cells.reshape(B * Gy * Gx, cs, N)
+    return np.stack([flat[base + (a // 2) * Gx + c // 2, s * 4 + (a % 2) * 2 + c % 2]
+                     for a in range(4) for c in range(4)], axis=1)
+
+
+def _prep(z):
+    """xw (T, 16, N) as fwd::prep_windows forms it: B^T Z once a window
+    (bt_rows), then each position's entry of that times B (b_col)."""
+    z = z.reshape(len(z), 4, 4, -1)
+    r = np.stack([z[:, 0] - z[:, 2], z[:, 1] + z[:, 2], z[:, 2] - z[:, 1], z[:, 1] - z[:, 3]], axis=1)
+    x = np.stack([r[:, :, 0] - r[:, :, 2], r[:, :, 1] + r[:, :, 2], r[:, :, 2] - r[:, :, 1], r[:, :, 1] - r[:, :, 3]],
+                 axis=2)
+    return x.reshape(len(z), 16, -1)
+
+
+def _fold(xw_of, ww, inv, plan, passes):
+    """The tiles' 4 outputs (T, 4, M) over ``passes``: every k step's
+    products of each position, folded through its inv row as they come, the
+    A operand read from the slot its Winograd position was formed in."""
+    off, psub, isub, islot, qslot = plan
+    y = 0.0
+    for k in passes:
+        assert list(isub[off[k] : off[k + 1]]) == [0] * (off[k + 1] - off[k])  # one group a pass
+        xw, slot_q = xw_of(psub[k][0]), {sl: q for q, sl in enumerate(qslot[k]) if sl >= 0}
+        for n0 in range(0, ww.shape[1], 8):
+            for p in range(off[k], off[k + 1]):
+                y = y + inv[p][None, :, None] * (xw[:, slot_q[islot[p]], n0 : n0 + 8] @ ww[p, n0 : n0 + 8])[:, None]
+    return y
+
+
+def _act(v, act):
+    return {"none": v, "relu": np.maximum(v, 0), "tanh": np.tanh(v),
+            "leaky_relu": np.where(v >= 0, v, 0.2 * v)}[act]
+
+
+def _conv_model(c, act, out_mode, splits, scale, bias):
+    """conv_fwd_mma_kernel's sums: passes of one phase (at most PMAX
+    positions), split into ``splits`` ranges [k npass / splits, (k + 1) npass
+    / splits), each range's outputs from zero, summed in split order; the
+    epilogue and the store of out_mode."""
+    cells, ww, inv = (np.asarray(c[k], np.float64) for k in ("cells", "ww", "inv"))
+    pos, s2, ty, tx = c["pos"], c["s2"], c["ty"], c["tx"]
+    off = [sum(p // 16 < s for p in pos) for s in range(s2 + 1)]
+    plan = _check_passes([p % 16 for p in pos], list(zip(off[:-1], off[1:])), PMAX_2D["conv"], 1)
+    npass = len(plan[0]) - 1
+    xw = {s: _prep(_windows(cells, ty, tx, s)) for s in range(s2)}
+    y = 0.0
+    for k in range(splits):  # the last block's sum, in split order
+        y = y + _fold(xw.__getitem__, ww, inv, plan, range(k * npass // splits, (k + 1) * npass // splits))
+    B, M = cells.shape[0], ww.shape[2]
+    v = _act(y * (1.0 if scale is None else scale) + bias, act)  # (T, 4, M): pixel (2jy + a // 2, 2jx + a % 2)
+    img = v.reshape(B, ty, tx, 2, 2, M).transpose(0, 1, 3, 2, 4, 5).reshape(B, 2 * ty, 2 * tx, M)
+    if out_mode == "nhwc":
+        return img[:, : c["HO"], : c["WO"]]
+    img[:, c["HO"] :], img[:, :, c["WO"] :] = 0.0, 0.0
+    return img.reshape(B, ty, 2, tx, 2, M).transpose(0, 1, 3, 2, 4, 5).reshape(B, ty, tx, 4, M)
+
+
+_CONV_MODEL_CASES = [(name, act, mode, splits) for name, act, mode in (
+    (chip_smoke.CONV_RAGGED_SHAPE[0], "relu", "cells"), ("k3s1", "leaky_relu", "nhwc"), ("k5s2", "tanh", "cells"))
+    for splits in (1, 2, 4)]
+
+
+@pytest.mark.parametrize("name,act,mode,splits", _CONV_MODEL_CASES)
+def test_conv_block_model_matches_the_plain_forward_and_jax(name, act, mode, splits):
+    c = _conv_case(*CONV_SHAPES[name], seed=4)
+    M = c["ww"].shape[2]
+    rng = np.random.default_rng(5)
+    scale, bias = (1 + 0.1 * rng.standard_normal(M)).astype(np.float32), (0.1 * rng.standard_normal(M)).astype(np.float32)
+    geo = dict(pos_idx=c["pos"], m=2, n=4, ty=c["ty"], tx=c["tx"], s2=c["s2"])
+    got = _conv_model(c, act, mode, splits, scale, bias)
+    want = E.conv_fused_engine_plain(c["cells"], c["ww"], c["inv"], out_mode=mode, activation=act,
+                                     scale=torch.from_numpy(scale), bias=torch.from_numpy(bias), out_h=c["HO"],
+                                     out_w=c["WO"], **geo)
+    _close(got, want.numpy())
+    bt = tuple(tuple(float(v) for v in row) for row in jget_transform(2, 3).BT)
+    j = lambda a: jnp.asarray(np.asarray(a))  # noqa: E731
+    jw = jref.conv_engine_ref(j(c["cells"]), j(c["ww"]), j(c["inv"]), bt, j(scale), j(bias), out_mode=mode,
+                              activation=act, out_h=c["HO"], out_w=c["WO"], **geo)
+    jw = np.asarray(jw)
+    _close(got, jw[:, : c["HO"], : c["WO"]] if mode == "nhwc" else jw)
+    if splits > 1:  # the split changes only the order of the sums
+        np.testing.assert_allclose(got, _conv_model(c, act, mode, 1, scale, bias), rtol=1e-12, atol=1e-12)
+
+
+def test_conv_passes_hold_one_phase_each():
+    """K4S2's 36 positions: a pass a phase (9 positions on 9 Winograd
+    positions); K5S2's 49: 16 / 12 / 12 / 9 by phase, 7 passes."""
+    got = {}
+    for name in (chip_smoke.CONV_RAGGED_SHAPE[0], "k5s2", "k3s1"):
+        pos, s2 = _conv_case(*CONV_SHAPES[name])["pos"], CONV_SHAPES[name][1] ** 2
+        off = [sum(p // 16 < s for p in pos) for s in range(s2 + 1)]
+        plan, npass, nslot, npos = E._fwd_passes(tuple(p % 16 for p in pos), tuple(zip(off[:-1], off[1:])),
+                                                 PMAX_2D["conv"], 1)
+        got[name] = (off, npass, nslot, npos)
+    assert got == {chip_smoke.CONV_RAGGED_SHAPE[0]: ([0, 9, 18, 27, 36], 4, 9, 9),
+                   "k5s2": ([0, 16, 28, 40, 49], 7, 9, 9), "k3s1": ([0, 16], 2, 9, 9)}
+
+
+def _deconv_case(dims, B, H, N, M, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, H, H, N)).astype(np.float32)
+    w = (0.05 * rng.standard_normal((dims.kernel, dims.kernel, N, M))).astype(np.float32)
+    packed = tops.prepack(torch.from_numpy(w), dims)
+    pos, subs, _, _ = tops.packed_layout(dims)
+    return dict(cells=tops.cells_from_image(torch.from_numpy(x), dims), ww=packed.ww, inv=packed.inv, pos=pos,
+                subs=subs, ty=-(-dims.j_extent(H) // 2), S=dims.stride, P=dims.padding, HO=dims.out_size(H))
+
+
+def _deconv_model(c, act, out_mode, scale, bias):
+    """fused_epi_mma_kernel's sums: passes of one sub-filter (at most PMAX
+    positions); the block of sub-filter s runs passes [p0, p1), p0 those
+    ending at or before its first position, p1 those starting before its
+    end (an empty sub-filter: none, its outputs zero); the epilogue and the
+    depth-to-space store of out_mode."""
+    cells, ww, inv = (np.asarray(c[k], np.float64) for k in ("cells", "ww", "inv"))
+    subs, ty, S, P, HO = c["subs"], c["ty"], c["S"], c["P"], c["HO"]
+    plan = _check_passes(list(c["pos"]), subs, PMAX_2D["deconv"], 1)
+    off, psub = plan[0], plan[1]
+    xw = _prep(_windows(cells, ty, ty, 0))
+    B, M, T = cells.shape[0], ww.shape[2], len(xw)
+    y = np.zeros((T, S * S, 4, M))
+    for s, (lo, hi) in enumerate(subs):
+        p0 = sum(off[p + 1] <= lo for p in range(len(off) - 1))
+        p1 = sum(off[p] < hi for p in range(len(off) - 1))
+        assert [k for k in range(len(off) - 1) if psub[k][0] == s] == list(range(p0, p1))
+        y[:, s] = _fold(lambda _: xw, ww, inv, plan, range(p0, p1))
+    if out_mode == "scratch":
+        return y.reshape(B, ty, ty, S * S * 4, M)
+    v = _act(y * (1.0 if scale is None else scale) + (0.0 if bias is None else bias), act)
+    # sub-pixel (ry, rx, a // 2, a % 2) of tile (jy, jx): pixel (2S jy + S (a // 2) + ry, 2S jx + S (a % 2) + rx)
+    img = v.reshape(B, ty, ty, S, S, 2, 2, M).transpose(0, 1, 5, 3, 2, 6, 4, 7).reshape(B, 2 * S * ty, 2 * S * ty, M)
+    if out_mode == "nhwc":
+        return img[:, P : P + HO, P : P + HO]
+    keep = (np.arange(2 * S * ty) >= P) & (np.arange(2 * S * ty) < P + HO)
+    img = np.where(keep[None, :, None, None] & keep[None, None, :, None], img, 0.0)
+    return img.reshape(B, S * ty, 2, S * ty, 2, M).transpose(0, 1, 3, 2, 4, 5).reshape(B, S * ty, S * ty, 4, M)
+
+
+_DECONV_MODEL_CASES = {
+    "dcgan_k5s2": ((5, 2, 2, 1), 2, 5, 12, 24, "relu", "cells"),
+    "ragged": (chip_smoke.RAGGED_SHAPE[1], *chip_smoke.RAGGED_SHAPE[2:], "relu", "cells"),
+    "k5s2_nhwc": ((5, 2, 2, 1), 2, 4, 8, 16, "tanh", "nhwc"),
+    "k5s2_scratch": ((5, 2, 2, 1), 2, 4, 8, 16, "none", "scratch"),
+    "k4s2": ((4, 2, 1, 0), 2, 6, 8, 16, "leaky_relu", "cells"),
+    "k2s3_empty": ((2, 3, 0, 0), 2, 5, 8, 16, "relu", "nhwc"),
+}
+
+
+@pytest.mark.parametrize("name", list(_DECONV_MODEL_CASES))
+def test_deconv_block_model_matches_the_plain_forward_and_jax(name):
+    geo, B, H, N, M, act, mode = _DECONV_MODEL_CASES[name]
+    c = _deconv_case(DeconvDims(*geo), B, H, N, M, seed=6)
+    rng = np.random.default_rng(7)
+    affine = mode != "scratch"
+    scale = (1 + 0.1 * rng.standard_normal(M)).astype(np.float32) if affine else None
+    bias = (0.1 * rng.standard_normal(M)).astype(np.float32) if affine else None
+    got = _deconv_model(c, act, mode, scale, bias)
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    kw = dict(pos_idx=c["pos"], sub_slices=c["subs"], m=2, n=4, ty=c["ty"], tx=c["ty"])
+    want = E.fused_engine_plain(c["cells"], c["ww"], c["inv"], out_mode=mode, activation=act, scale=t(scale),
+                                bias=t(bias), stride=c["S"], padding=c["P"], out_h=c["HO"], out_w=c["HO"], **kw)
+    _close(got, want.numpy())
+    bt = tuple(tuple(float(v) for v in row) for row in jget_transform(2, 3).BT)
+    j = lambda a: None if a is None else jnp.asarray(np.asarray(a))  # noqa: E731
+    if mode == "scratch":
+        jw = jref.fused_pre_engine_ref(j(c["cells"]), j(c["ww"]), j(c["inv"]), bt, m2=4, **kw)
+    else:
+        jw = jref.fused_epilogue_engine_ref(j(c["cells"]), j(c["ww"]), j(c["inv"]), bt, j(scale), j(bias), m2=4,
+                                            out_mode=mode, activation=act, stride=c["S"], padding=c["P"],
+                                            out_h=c["HO"], out_w=c["HO"], **kw)
+    jw = np.asarray(jw)
+    if mode == "nhwc":
+        jw = jw[:, c["P"] : c["P"] + c["HO"], c["P"] : c["P"] + c["HO"]]
+    _close(got, jw.reshape(got.shape))
+
+
+def test_deconv_passes_of_dcgan_and_an_empty_sub_filter():
+    """DCGAN's K5S2: 16 / 12 / 12 / 9 positions by sub-filter, 2 / 2 / 2 / 1
+    passes; K2S3's 9 sub-filters hold 4 / 2 / 0 / ...: its empty ones none."""
+    c = _deconv_case(DeconvDims(5, 2, 2, 1), 1, 4, 8, 8)
+    assert [hi - lo for lo, hi in c["subs"]] == [16, 12, 12, 9]
+    off, psub = _check_passes(list(c["pos"]), c["subs"], PMAX_2D["deconv"], 1)[:2]
+    assert [int(ps[0]) for ps in psub] == [0, 0, 1, 1, 2, 2, 3] and len(off) == 8
+    c = _deconv_case(DeconvDims(2, 3, 0, 0), 1, 4, 8, 8)
+    sizes = [hi - lo for lo, hi in c["subs"]]
+    assert 0 in sizes
+    psub = _check_passes(list(c["pos"]), c["subs"], PMAX_2D["deconv"], 1)[1]
+    assert sorted({int(ps[0]) for ps in psub}) == [s for s, n in enumerate(sizes) if n]

@@ -227,18 +227,21 @@ def test_rank1_domain_check_refuses_what_the_kernels_do_not_take(bad):
 
 
 # Where each wrapper's kernel moves an operand's rows in 16-byte copies, read
-# off the kernels' configuration choices (csrc/*.cu): the 2D forward kernels' weights at M % 4 == 0 and
-# M >= 32; the 1D engine's at M % 4 == 0 and M >= 16 (its tensor-core kernel, fwd_core.cuh, where the
-# grid fills the card; held at any grid); bwd_x's g and weights at M >= 8 (the tensor cores); bwd_w's g
-# at M >= 16; the deconv corner's and the 1D engine's cells and the unfused engine's xw always (N % 4 ==
-# 0 is required); the conv corner's cells where N % 4 == 0.
+# off the kernels' configuration choices (csrc/*.cu): the deconv corner's and the 1D engine's weights at M % 4
+# == 0 and M >= 16 (their tensor-core kernels, fwd_core.cuh, where the grid fills the card; held at any
+# grid); the conv corner's forward weights at M >= 16 where N % 4 == 0 (its tensor-core kernel), else at M
+# >= 32 (the CUDA-core kernel), the unfused engine's at M >= 32; bwd_x's g and weights at M >= 8 (the
+# tensor cores); bwd_w's g at M >= 16; the deconv corner's and the 1D engine's cells and the unfused
+# engine's xw always (N % 4 == 0 is required); the conv corner's cells where N % 4 == 0.
 def _moves_16_bytes(wrapper, operand, N, M):
     if operand == "cells" and wrapper.startswith("conv_"):
         return N % 4 == 0
     if operand in ("cells", "xw"):
         return True
-    if wrapper == "winograd_conv1d_fused_engine":
+    if wrapper in ("winograd_conv1d_fused_engine", "fused_engine"):
         return M % 4 == 0 and M >= 16
+    if wrapper == "conv_fused_engine":
+        return M % 4 == 0 and M >= (16 if N % 4 == 0 else 32)
     least = 8 if wrapper.endswith("bwd_x") else 16 if wrapper.endswith("bwd_w") else 32
     return M % 4 == 0 and M >= least
 
@@ -251,7 +254,7 @@ _OPERANDS = [(w, o) for w, ops_ in (
     ("domain_engine_bwd_w", ("xw", "g")), ("winograd_conv1d_fused_engine", ("cells", "ww_packed"))) for o in ops_]
 
 
-@pytest.mark.parametrize("N,M", [(64, 3), (64, 4), (64, 8), (64, 16), (64, 64), (6, 64)])
+@pytest.mark.parametrize("N,M", [(64, 3), (64, 4), (64, 8), (64, 16), (64, 64), (6, 64), (6, 16)])
 @pytest.mark.parametrize("wrapper,operand", _OPERANDS, ids=[f"{w}.{o}" for w, o in _OPERANDS])
 def test_wrappers_refuse_misaligned_operands_of_16_byte_copies(wrapper, operand, N, M):
     """Every wrapper whose kernel moves an operand in 16-byte copies refuses
