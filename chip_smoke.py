@@ -230,11 +230,15 @@ DOMAIN_BWD_W_KERNELS = ("domain_bwd_w_kernel", "domain_bwd_w_mma_kernel")
 CONV_BWD_W_KERNELS = ("conv_bwd_w_kernel", "conv_bwd_w_mma_kernel")
 ENGINE1D_KERNELS = ("engine1d_kernel", "engine1d_mma_kernel")
 FWD_KERNELS = ("fused_epi_kernel", "fused_epi_mma_kernel")  # TPU kernels 2 and 3 at the deconv corner
+# TPU kernel 1 (domain_engine.cu's forward): the CUDA-core kernel, the tensor-core kernel and the weight pack
+# that feeds it, the few-channel kernel
+DOMAIN_FWD_MMA = ("domain_fwd_mma_kernel", "domain_fwd_pack_kernel")
+DOMAIN_FWD_KERNELS = ("domain_fwd_kernel", *DOMAIN_FWD_MMA, "domain_fwd_few_kernel")
 CONV_FWD_KERNELS = ("conv_fwd_kernel", "conv_fwd_mma_kernel")
 CONV_KERNELS = {"fwd": CONV_FWD_KERNELS, "bwd_x": CONV_BWD_X_KERNELS, "bwd_w": CONV_BWD_W_KERNELS}
 # every 2D engine kernel a train step can launch
 STEP_KERNELS = (*FWD_KERNELS, *BWD_X_KERNELS, *BWD_W_KERNELS, *CONV_FWD_KERNELS, *CONV_BWD_X_KERNELS,
-                *CONV_BWD_W_KERNELS, "domain_fwd_kernel", *DOMAIN_BWD_X_KERNELS, *DOMAIN_BWD_W_KERNELS)
+                *CONV_BWD_W_KERNELS, *DOMAIN_FWD_KERNELS, *DOMAIN_BWD_X_KERNELS, *DOMAIN_BWD_W_KERNELS)
 
 
 def kernel_named(key: str, names) -> bool:
@@ -764,7 +768,7 @@ def serve_per_layer_phase(torch, card):
     launches = dict.fromkeys(COUNTERS, 0)
     rates = {}
     for impl, served, key, kname in (
-            ("pallas_prepacked", "cuda_prepacked", "domain_engine", "domain_fwd_kernel"),
+            ("pallas_prepacked", "cuda_prepacked", "domain_engine", DOMAIN_FWD_KERNELS),
             ("pallas_fused_pre_prepacked", "cuda_fused_pre_prepacked", "fused_engine_scratch", FWD_KERNELS)):
         t0 = time.perf_counter()
         eng = GanServeEngine(params, dataclasses.replace(DCGAN, deconv_impl=impl), batch=8, device="cuda",
@@ -956,6 +960,43 @@ def kernel_bwd_phase(torch, peaks):
     return rows
 
 
+FWD_CONF_KERNELS = {0: ("domain_fwd_kernel",), 1: DOMAIN_FWD_MMA, 2: ("domain_fwd_few_kernel",)}
+
+
+def domain_fwd_plan(torch, engine, name, B, xw, packed, kw, dev, held, err):
+    """Kernel 1's plan at one shape and what it is held to: the
+    instantiation (conf 1, the tensor cores, at DCGAN's deconv0-2 at the
+    training batch; conf 2, few channels, at its RGB layer there; the
+    CUDA-core kernel at every other shape of the phase, the serving batch
+    among them), its launch, and each instantiation the shape allows against
+    the plain version with its device ms: the plan's must not be slower than
+    the CUDA-core kernel's (10% for noise)."""
+    T, _, N = xw.shape
+    M, C, S2 = packed.ww.shape[2], packed.ww.shape[0], len(kw["sub_slices"])
+    splits, _, _, (BT, BM, conf, _) = engine._domain_plan("fwd", T, N, M, S2, dev, C=C)
+    dcgan_train = name.startswith("dcgan.") and B == TRAIN_BATCH
+    want = 1 if dcgan_train and M >= 16 else 2 if dcgan_train else 0
+    if conf != want:
+        fail(f"kernel 1's plan at {name} batch {B} chose instantiation {conf}, want {want}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the grid: (T tile, M tile) blocks, times S^2 sub-filters (tensor and CUDA cores) and the N split (CUDA cores)
+    blocks = -(-T // BT) * -(-M // BM) * (1 if conf == 2 else S2) * (splits if conf == 0 else 1)
+    plan = dict(instantiation={0: "cuda_cores", 1: "tensor_cores", 2: "few_channels"}[conf], BT=BT, BM=BM,
+                blocks=blocks, sms=sms, n_splits=splits)
+    allowed = [0, 2] + ([1] if M % 4 == 0 and M >= 16 else [])
+    confs = {}
+    for c in sorted(allowed):
+        run = lambda: engine._domain_fwd(xw, packed.ww, packed.inv, conf=c, **kw)  # noqa: E731
+        e, tol = held(f"domain_engine fwd instantiation {c} at {name}", run(),
+                      engine.domain_engine_plain(xw, packed.ww, packed.inv, **kw))
+        confs[c] = dict(ms=profiled_ms(run, reps=10, name=FWD_CONF_KERNELS[c])[2], err_share=e / tol)
+    if confs[conf]["ms"] > 1.1 * confs[0]["ms"]:
+        fail(f"kernel 1's plan at {name} batch {B} chose instantiation {conf} ({confs[conf]['ms']:.4f} ms), "
+             f"slower than the CUDA-core kernel ({confs[0]['ms']:.4f} ms)")
+    return dict(plan=plan, instantiations_ms={k: v["ms"] for k, v in confs.items()},
+                want_kernels=FWD_CONF_KERNELS[conf], tensor_cores=conf == 1)
+
+
 def kernel_domain_phase(torch, peaks):
     """Kernels 1, 4 and 5 (domain_engine.cu) against their plain versions at
     DCGAN's four generator layers at the training batch 128 and at a K4S2, a
@@ -1020,7 +1061,14 @@ def kernel_domain_phase(torch, peaks):
                                    sorted(k for k in by_kernel if kernel_named(k, kname)), peaks))
         if tensor_cores is not None:
             ran_on(f"{kernel} at {name}", extra["instantiation"], tensor_cores)
+        if "want_kernels" in extra:  # kernel 1: exactly the instantiation its plan names for this shape
+            want = extra.pop("want_kernels")
+            if sorted({k for n in want for k in extra["instantiation"] if kernel_named(k, n)}) != \
+                    sorted(extra["instantiation"]) or not all(
+                    any(kernel_named(k, n) for k in extra["instantiation"]) for n in want):
+                fail(f"{kernel} at {name} ran {extra['instantiation']}, want {list(want)}")
         row = dict(kernel=kernel, name=name, B=B, H_in=H, N=N, M=M, C=C, T=T, max_abs_err=err[0], tol=err[1],
+                   err_share=err[0] / err[1],
                    ms=ms, ms_wall=event_median_ms(run, reps=20),
                    plain_ms=profiled_ms(plain, reps=5, warmup=1, what=f"plain {kernel} at {name}")[1],
                    library_ms=profiled_ms(lib, reps=20, what=f"library {kernel} at {name}")[1],
@@ -1054,8 +1102,7 @@ def kernel_domain_phase(torch, peaks):
             got = run()
             torch.cuda.synchronize()
             errs[key] = held(f"domain_engine {key} at {name}", got, plain())
-            if key != "fwd":
-                bitwise_repeat(f"domain_engine {key} at {name}", run, got)
+            bitwise_repeat(f"domain_engine {key} at {name}", run, got)
         if i == 0:  # each wrapper refuses a misaligned operand, and launches again after it
             refusals += [
                 refuses_misaligned("domain_engine", lambda: engine.domain_engine(
@@ -1075,13 +1122,11 @@ def kernel_domain_phase(torch, peaks):
                 "bwd_x": (lambda: lib_bwd([True, False, False]), "aten convolution_backward, input grad"),
                 "bwd_w": (lambda: lib_bwd([False, True, False]),
                           "aten convolution_backward, raw-weight grad (not the packed one)")}
-        knames = {"fwd": "domain_fwd_kernel", "bwd_x": DOMAIN_BWD_X_KERNELS, "bwd_w": DOMAIN_BWD_W_KERNELS}
+        knames = {"fwd": DOMAIN_FWD_KERNELS, "bwd_x": DOMAIN_BWD_X_KERNELS, "bwd_w": DOMAIN_BWD_W_KERNELS}
         for key, (run, plain) in runs.items():
-            extra = {}
+            extra = {"products": prod}
             if key == "fwd":
-                extra["splits"] = engine._domain_plan("fwd", T, N, M, S2, dev)[0]
-            else:
-                extra["products"] = prod
+                extra.update(domain_fwd_plan(torch, engine, name, B, xw, packed, kw, dev, held, errs["fwd"]))
             if key == "bwd_w":
                 splits, _, _, tile = engine._domain_plan("bwd_w", T, N, M, S2, dev, 4, C)
                 extra["plan"] = bwd_w_plan(tile, splits, C, S2, M)
@@ -1171,7 +1216,11 @@ def kernel_1d_phase(torch, peaks):
     decoder = [(f"audio.deconv{i}", "deconv", sp.dims, AUDIO_BATCH, AUDIO_FRAMES * 2**i, sp.c_in, sp.c_out)
                for i, sp in enumerate(specs)]
     # name, kind, geometry, B, L, N, M, out_mode, activation, affine
-    shapes = [(*d, "nlc", "none", False) for d in decoder] + [(*d, "scratch", "none", False) for d in decoder] + [
+    # the decoder's layers at batch 1 too (one caller's decode: kernel 9 on the CUDA cores), under their own prefix
+    decoder_b1 = [(f"audio_b1.deconv{i}", "deconv", sp.dims, 1, AUDIO_FRAMES * 2**i, sp.c_in, sp.c_out)
+                  for i, sp in enumerate(specs)]
+    shapes = [(*d, "nlc", "none", False) for d in decoder + decoder_b1] + [
+        (*d, "scratch", "none", False) for d in decoder] + [
         ("bench.conv1d_k4_causal", "conv", 4, 8, 2048, 256, 256, "nlc", "none", False),
         ("bench.deconv1d_k4s2", "deconv", K4S2, 8, 1024, 128, 64, "nlc", "none", False),
         ("k3s2_op1", "deconv", DeconvDims(3, 2, 1, 1), 4, 512, 64, 48, "nlc", "relu", True),
@@ -1347,7 +1396,7 @@ def kernel_1d_phase(torch, peaks):
 
     # --- rank-1 kernel 4 at the benchmark's conv1d (K4 causal, F(2,4): n2 = 5 positions in one
     # sub-filter, the tensor-core instantiation for more than 4), as winograd_conv1d's gradient runs it
-    name, _, K, B, L, N, M = shapes[2 * len(decoder)][:7]
+    name, _, K, B, L, N, M = next(sh for sh in shapes if sh[0] == "bench.conv1d_k4_causal")[:7]
     g = torch.Generator(device="cuda").manual_seed(850)
     w = 0.05 * torch.randn((K, N, M), generator=g, device="cuda")
     packed = ops.prepack_conv1d(w, K)
@@ -2118,7 +2167,9 @@ def train_phase(torch, card, conv_impl="lax", deconv_impl="cuda_chained"):
     library_convs = _library_convs(by_kernel)
     # the forward kernels by name: on the tensor cores where the plans put them (DCGAN's deconv0-2, conv1-3), the
     # CUDA-core kernel where they keep it (deconv3's and conv0's few channels)
-    named = ([*FWD_KERNELS] if not per_layer_g else []) + ([*CONV_FWD_KERNELS] if chained else [])
+    # (per layer: kernel 1's tensor-core kernel and its weight pack at deconv0-2, its few-channel kernel at deconv3)
+    named = ([*FWD_KERNELS] if not per_layer_g else [*DOMAIN_FWD_MMA, "domain_fwd_few_kernel"]) \
+        + ([*CONV_FWD_KERNELS] if chained else [])
     fwd_ms = {n: sum(v for k, v in by_kernel.items() if kernel_named(k, n)) for n in named}
     if not all(fwd_ms.values()):
         fail(f"the {tag} step's profile lacks forward kernels: {fwd_ms}")
@@ -2274,7 +2325,7 @@ def main(argv=None) -> int:
                      "per_pass": {k: v for k, v in summary(krows).items() if k != "shapes"}})
     for key, replaces in (("", REPLACES_DOM), ("_bwd_x", REPLACES_DOM_X), ("_bwd_w", REPLACES_DOM_W)):
         krows = [r for r in domain_rows if r["kernel"] == f"domain_engine{key}"]
-        kname = {"": "domain_fwd_kernel", "_bwd_x": DOMAIN_BWD_X_KERNELS, "_bwd_w": DOMAIN_BWD_W_KERNELS}[key]
+        kname = {"": DOMAIN_FWD_KERNELS, "_bwd_x": DOMAIN_BWD_X_KERNELS, "_bwd_w": DOMAIN_BWD_W_KERNELS}[key]
         line.append({"name": f"domain_engine{key}", "route": "cuda", "source": SOURCE_DOM, "replaces": replaces,
                      "corner": "deconv", **by_path(f"domain_engine{key}"),
                      # ms ... library_ms: one DCGAN train step at batch 128, the four layer shapes summed
@@ -2297,6 +2348,9 @@ def main(argv=None) -> int:
                      # ms ... library_ms: one audio decoder forward at batch 16, the three layers summed
                      **summary(krows, prefix="audio."),
                      "decode_profile_ms": audio.get("fwd_kernel_ms", {}).get(AUDIO_BATCH) if key == "nlc" else None})
+        if key == "nlc":  # one decode at batch 1, the three layers summed
+            line[-1]["decode_batch1"] = {k: v for k, v in summary(krows, prefix="audio_b1.").items()
+                                         if k != "shapes"}
     for key, replaces, weights in (("x", REPLACES_DOM_X, (0, 1, 1)), ("w", REPLACES_DOM_W, (1, 1, 1))):
         krows = [r for r in rows_1d if r["kernel"] == f"domain_engine_bwd_{key}_rank1"]
         line.append({"name": f"domain_engine_bwd_{key}_rank1", "route": "cuda", "source": SOURCE_DOM,

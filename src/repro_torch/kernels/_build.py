@@ -47,8 +47,9 @@ _SIGNATURES = {
     "conv_engine_bwd_w_plan": [_i] * 8 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2
     + [ctypes.POINTER(_i)],
     "conv_engine_bwd_w_f32": [_p] * 6 + [_i] * 10 + [_p] * 3,
-    "domain_engine_fwd_plan": [_i] * 5 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2,
-    "domain_engine_fwd_f32": [_p] * 6 + [_i] * 5 + [_p] * 3,
+    "domain_engine_fwd_plan": [_i] * 7 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2
+    + [ctypes.POINTER(_i)],
+    "domain_engine_fwd_f32": [_p] * 6 + [_i] * 7 + [_p] * 3,
     "domain_engine_bwd_x_plan": [_i] * 3,
     "domain_engine_bwd_x_f32": [_p] * 6 + [_i] * 7 + [_p],
     "domain_engine_bwd_w_plan": [_i] * 7 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2

@@ -22,30 +22,43 @@
 // Plain: engine_bwd_w_ref.
 //
 // What bounds them on an H100: the products, 2*T*C*N*M flops each, at
-// DCGAN's first three layers (fwd on the fp32 CUDA cores, 67 TFLOP/s; bwd_x
-// and bwd_w on the tensor cores in 3xTF32, 165 TFLOP/s, where the operand
-// work of its positions holds bwd_x at about a sixth, bwd_x_core.cuh, and
-// latency holds bwd_w at about a fifth, bwd_w_core.cuh); at the RGB layer
-// (M = 3) the bytes of xw (fwd, bwd_w) and of dxw (bwd_x), 16*T*N floats
-// each, 303 MB at batch 128.
+// DCGAN's first three layers (all three on the tensor cores in 3xTF32, 165
+// TFLOP/s: fwd where its grid fills the card, below; latency holds bwd_x at
+// about a sixth, bwd_x_core.cuh, and bwd_w at about a fifth, bwd_w_core.cuh);
+// at the RGB layer (M = 3) the bytes of xw (fwd, bwd_w) and of dxw (bwd_x),
+// 16*T*N floats each, 303 MB at batch 128.
 //
 // What the designs do about it (they are fused_engine.cu's and
 // fused_engine_bwd.cu's with the pre-PE taken out; the TPU's 128-lane
 // padding of N and M and its (C, T_t, M_t) scratch of accumulators are not
 // carried over):
-//   * fwd: one block per (T-tile, sub-filter, M-tile).  Its 8 position
-//     groups each keep, in registers for the whole N loop, the products of 2
-//     of the sub-filter's <= 16 positions for a 4-tile x 4-channel micro
-//     tile.  Only the sub-filter's positions of xw are staged, by a two-stage
-//     cp.async pipeline with the weight slice; a thread's 4 tiles are NT_T
-//     rows apart so that 8 threads reading 4 channels of 8 tiles hit 8
-//     distinct bank groups.  After the N loop the products meet in shared
-//     memory and fold through inv (0 or +-1: a signed add per nonzero) into
-//     the tile's 4 outputs.  Where the grid would underfill the card (few
-//     tiles, as DCGAN's first layer at small batch) the N loop splits over
-//     blocks, and the last block to arrive sums the partial products in
-//     split order, as fused_engine.cu does: the result does not depend on
-//     the order blocks run in.  An empty sub-filter (K_D < S) writes zeros;
+//   * fwd, three instantiations, chosen by domain_engine_fwd_plan from the
+//     shape and the card:
+//     - the tensor cores (domain_fwd_mma_kernel, where M % 4 == 0, M >= 16
+//       and its 128-tile x 64-channel blocks fill the SMs: DCGAN's deconv0-2
+//       at batch 128): a position-outer grouped GEMM on wgmma, its operands
+//       by TMA, B packed K-major in TF32 halves by domain_fwd_pack_kernel;
+//       each packed position's whole N loop runs into one accumulator, in
+//       chains of k-steps folded into the 4 outputs (see its section);
+//     - few channels (domain_fwd_few_kernel, M < 16 or M % 4 != 0, where its
+//       grid fills the SMs: the RGB layer at batch 128): bytes-bound, each xw
+//       row read from device memory once for every packed position that uses
+//       it (see its section);
+//     - the fp32 CUDA-core kernel (domain_fwd_kernel) elsewhere, as the
+//       serving batches: one block per (T-tile, sub-filter, M-tile).  Its 8
+//       position groups each keep, in registers for the whole N loop, the
+//       products of 2 of the sub-filter's <= 16 positions for a 4-tile x
+//       4-channel micro tile.  Only the sub-filter's positions of xw are
+//       staged, by a two-stage cp.async pipeline with the weight slice; a
+//       thread's 4 tiles are NT_T rows apart so that 8 threads reading 4
+//       channels of 8 tiles hit 8 distinct bank groups.  After the N loop the
+//       products meet in shared memory and fold through inv (0 or +-1: a
+//       signed add per nonzero) into the tile's 4 outputs.  Where the grid
+//       would underfill the card (few tiles, as DCGAN's first layer at small
+//       batch) the N loop splits over blocks, and the last block to arrive
+//       sums the partial products in split order, as fused_engine.cu does:
+//       the result does not depend on the order blocks run in.
+//     An empty sub-filter (K_D < S) writes zeros in all three;
 //   * bwd_x: one block per (T-tile, N-tile) on the tensor cores
 //     (bwd_x_core.cuh, shared with fused_engine_bwd.cu's bwd_x): a loop
 //     over (sub-filter, 32-channel M chunk) stages g and the sub-filter's
@@ -79,9 +92,9 @@
 // keeps at most n2 positions (3 of 4 at the audio decoder's K4S2), so the
 // CUDA-core bwd_w's rank-1 blocks take 4 position groups, not 8; the
 // tensor-core bwd_w holds one position a block in either rank.
-// wgmma and TMA for fwd, and one gw pass shared by both backward kernels,
-// are later work.
+// One gw pass shared by both backward kernels is later work.
 
+#include <cuda.h>  // CUtensorMap and its enums only: the tensor-map encoder comes through the runtime
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -298,6 +311,448 @@ domain_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ ww, co
     float* o = out + ((size_t)t * S2 * 4 + s * 4) * M + mc;
 #pragma unroll
     for (int a = 0; a < 4; ++a) o[(size_t)a * M] = y[a];
+  }
+}
+
+// ============================================================== fwd, tensor cores
+// The redesigned forward for the layers whose tiles fill the card (DCGAN's
+// deconv0-2 at batch 128): a position-outer grouped GEMM on wgmma with TMA.
+// A block owns 128 tiles x 64 channels m of one sub-filter s and walks its
+// packed positions p one after the other; for each it runs the whole K = N
+// loop of xw[t, pos_p, :] (128 x N) @ ww[p] (N x 64) and then folds the
+// products into the tile's 4 outputs through inv[p, :] (0 or +-1: a signed
+// add per nonzero), so the fold runs once per chain of k-steps, not once per
+// k-step as in fwd_core.cuh.
+//   * warps: two consumer warpgroups (warps 0-7; each owns 64 tiles, a
+//     wgmma m64n64 tile) and a producer warpgroup (warps 8-11) whose first
+//     lane keeps the TMA loads of a ring of ST stages in flight.  The
+//     consumers hold 4 output accumulators, one chain accumulator and a
+//     stage's split A fragments (~200 registers): setmaxnreg moves the
+//     producer's registers to them (40 / 232 of the 168 a thread that 12
+//     warps leave; each SM quarter's register file holds 3 warps of the
+//     block, so a 9-warp block is held to 168 and spilled);
+//   * a stage is 32 channels n (one 128-byte swizzle row): A = the 128
+//     tiles' rows of xw at the position (TMA over (N, 16, T), box
+//     (32, 1, 128)), B = the hi and lo halves of ww[p] as (M, N) rows
+//     (K-major, which a TF32 wgmma needs: PTX allows it no transpose), from
+//     the pack kernel below (TMA over (N, M, 2C), box (32, 64, 1)); both in
+//     the 128-byte swizzle;
+//   * 3xTF32 as the other cores (bwd_x_core.cuh's split_tf32): A is read
+//     from shared memory into the wgmma A fragment registers and split
+//     there, B's halves come split; lo*hi + hi*lo + hi*hi per k-step of 8;
+//   * the tensor cores' adds truncate: a chain of kFwdChain stages
+//     accumulates in the wgmma accumulator (the first k-step of a chain
+//     starts it from zero), then goes into the outputs with rounded fp32
+//     adds.  kFwdChain comes from a chip measurement of the error share
+//     against time (PERF.md);
+//   * the grid is (sub-filter, M tile, T tile) with the sub-filters in
+//     order of their packed positions, heaviest first (K5S2: 16, 12, 12, 9),
+//     so that the card's block scheduler hands the light blocks out last
+//     and the last wave idles least.  No split: every output is one block's,
+//     summed in one order (two launches agree bit for bit).
+// What bounds it: the products in 3xTF32 (165 TFLOP/s), and the operands'
+// traffic from L2: a 128 x 64 block reads 32 KB a stage for 128*64*32
+// products (a 128 x 128 block would not hold its 4 output accumulators).
+// At DCGAN's deconv0-2 on an H100 it reaches about two fifths of that
+// rate, the weight pack included (PERF.md §6 names the runs), where one
+// wgmma wait a stage per warpgroup also stands between the stages.
+namespace tcf {
+constexpr int BT = 128;               // tiles a block: two consumer warpgroups of 64
+constexpr int BM = 64;                // output channels m a block: wgmma n
+constexpr int BK = 32;                // channels n a stage: one 128-byte swizzle row
+constexpr int ST = 6;                 // stages in the ring
+constexpr int kThreads = 3 * 128;     // 2 consumer warpgroups, 1 producer warpgroup
+constexpr int kA = BT * BK * 4;       // bytes of a stage's A tile
+constexpr int kB = BM * BK * 4;       // bytes of each B half
+constexpr int kStage = kA + 2 * kB;   // 32 KB
+constexpr size_t kSmemBytes = 1024 + (size_t)ST * kStage + 2 * ST * sizeof(uint64_t);
+// the chain: stages that add in the wgmma accumulator before their sum goes
+// into the outputs in fp32.  Measured on an H100 at DCGAN's deconv0-2 by
+// tools/fwd_chain_probe.py (PERF.md): chains of 1-4 stages hold the error
+// share at 0.009-0.015 of the tolerance (1 and 2 cost 1.9x and 1.2x the
+// time of 4), 8 at 0.022 (6% faster than 4), a whole position at up to
+// 0.073.  4 keeps the error at the floor of the shorter chains; the
+// per-layer train check's step-2 metrics cannot tell chains 1-8 apart
+// (each misses it on at most one seed of eight, as the CUDA-core kernel does)
+constexpr int kFwdChain = 4;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// spins on the barrier's phase; a wait that outlasts ~2^34 cycles (seconds:
+// an arrival or a copy that never came) traps, so that the launch fails
+// instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  const long long start = clock64();
+  do {
+    if (clock64() - start > (1LL << 34)) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// one box of a 3-D tensor map into shared memory; completes on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// shared-memory matrix descriptor of a K-major operand in the 128-byte
+// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); LBO is
+// not read for this layout.  A k-step of 8 TF32 values is 32 bytes along
+// the row: +2 in the address field.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// keep the compiler from moving reads of the accumulator above the wait
+__device__ __forceinline__ void reg_fence(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A (64 x 8, TF32 fragments in registers) * B (8 x 64, K-major in
+// shared memory); scale_d 0 starts d from zero
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// word offset of A's (row r, column c) in a stage's 128-byte-swizzled tile:
+// 16-byte chunk c/4 of row r sits at chunk (c/4) ^ (r % 8)
+__device__ __forceinline__ int a_off(int r, int c) { return r * BK + ((((c >> 2) ^ (r & 7)) << 2) | (c & 3)); }
+
+// the sub-filter of grid rank `rank`: sub-filters by packed positions,
+// most first, ties in index order
+__device__ __forceinline__ int sub_of_rank(const int* __restrict__ sub_off, int S2, int rank) {
+  int s = 0;
+  for (int u = 0; u < S2; ++u) {
+    const int cu = sub_off[u + 1] - sub_off[u];
+    int r = 0;
+    for (int v = 0; v < S2; ++v) {
+      const int cv = sub_off[v + 1] - sub_off[v];
+      r += cv > cu || (cv == cu && v < u);
+    }
+    if (r == rank) s = u;
+  }
+  return s;
+}
+}  // namespace tcf
+
+// ww (C, N, M) -> wp (2, C, M, N): the hi and lo TF32 halves of the
+// weights, K-major for the tensor-core forward's B operand.  Part of TPU
+// kernel 1's port (its launches count with the forward's).
+__global__ void __launch_bounds__(256) domain_fwd_pack_kernel(const float* __restrict__ ww, float* __restrict__ wp,
+                                                              int C, int N, int M) {
+  __shared__ float tile[32][33];
+  const int p = blockIdx.z, n0 = blockIdx.x * 32, m0 = blockIdx.y * 32;
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int n = n0 + i, m = m0 + threadIdx.x;
+    tile[i][threadIdx.x] = n < N && m < M ? ww[((size_t)p * N + n) * M + m] : 0.0f;
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int m = m0 + i, n = n0 + threadIdx.x;
+    if (m < M && n < N) {
+      uint32_t hi, lo;
+      bwdx::split_tf32(tile[threadIdx.x][i], hi, lo);
+      wp[((size_t)p * M + m) * N + n] = __uint_as_float(hi);
+      wp[(((size_t)C + p) * M + m) * N + n] = __uint_as_float(lo);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(tcf::kThreads, 1)
+domain_fwd_mma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                      const float* __restrict__ inv, const int* __restrict__ pos, const int* __restrict__ sub_off,
+                      float* __restrict__ out, int T, int N, int M, int S2, int C) {
+  using namespace tcf;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzled tiles need 1024-byte alignment
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + ST * kStage);
+  uint64_t* empty = full + ST;
+
+  const int n_tb = (T + BT - 1) / BT, n_mb = (M + BM - 1) / BM;
+  const int rank = blockIdx.x / (n_tb * n_mb), rem = blockIdx.x % (n_tb * n_mb);
+  const int s = sub_of_rank(sub_off, S2, rank);
+  const int t0 = (rem % n_tb) * BT, m0 = (rem / n_tb) * BM;
+  const int lo = sub_off[s], cnt = sub_off[s + 1] - lo;
+  const int nst = (N + BK - 1) / BK;  // stages a position
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(smem_u32(full + i), 1);
+      mbar_init(smem_u32(empty + i), 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the producer warpgroup: its registers go to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8 && lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int k = 0; k < cnt; ++k) {
+        const int p = lo + k, q = pos[p];
+        for (int c = 0; c < nst; ++c) {
+          mbar_wait(smem_u32(empty + stage), phase ^ 1u);
+          const uint32_t fb = smem_u32(full + stage), sa = base + stage * kStage;
+          mbar_expect_tx(fb, kStage);
+          tma_load_3d(sa, &xmap, fb, c * BK, q, t0);
+          tma_load_3d(sa + kA, &wmap, fb, c * BK, m0, p);
+          tma_load_3d(sa + kA + kB, &wmap, fb, c * BK, m0, C + p);
+          if (++stage == ST) stage = 0, phase ^= 1u;
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows wg*64 + (warp%4)*16 + lane/4 (+8) of the
+  // block's 128 tiles, as the wgmma fragments lay them out
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int r0 = (warp >> 2) * 64 + (warp & 3) * 16 + (lane >> 2), cq = lane & 3;
+  float y[4][32], acc[32];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) y[a][i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int k = 0; k < cnt; ++k) {
+    const float iv[4] = {inv[(lo + k) * 4], inv[(lo + k) * 4 + 1], inv[(lo + k) * 4 + 2], inv[(lo + k) * 4 + 3]};
+    for (int c = 0; c < nst; ++c) {
+      mbar_wait(smem_u32(full + stage), phase);
+      const float* a_s = reinterpret_cast<const float*>(smem + stage * kStage);
+      uint32_t ah[4][4], al[4][4];
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const int col = ks * 8 + cq;
+        const float x[4] = {a_s[a_off(r0, col)], a_s[a_off(r0 + 8, col)], a_s[a_off(r0, col + 4)],
+                            a_s[a_off(r0 + 8, col + 4)]};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bwdx::split_tf32(x[j], ah[ks][j], al[ks][j]);
+      }
+      const uint64_t dh = desc_sw128(base + stage * kStage + kA), dl = desc_sw128(base + stage * kStage + kA + kB);
+      const int fresh = c % kFwdChain == 0;  // a chain's first k-step starts the accumulator from zero
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        wgmma_tf32(acc, al[ks], dh + 2 * ks, !(fresh && ks == 0));
+        wgmma_tf32(acc, ah[ks], dl + 2 * ks, 1);
+        wgmma_tf32(acc, ah[ks], dh + 2 * ks, 1);
+      }
+      wg_commit();
+      wg_wait0();
+      reg_fence(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_u32(empty + stage));
+      if (++stage == ST) stage = 0, phase ^= 1u;
+      if ((c + 1) % kFwdChain == 0 || c + 1 == nst) {  // the chain's end: fold into the outputs
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          if (iv[a] != 0.0f) {
+#pragma unroll
+            for (int i = 0; i < 32; ++i) y[a][i] = fmaf(iv[a], acc[i], y[a][i]);
+          }
+      }
+    }
+  }
+
+  // out[t, s*4 + a, m]: element i of the fragment is row r0 + 8*((i/2)%2),
+  // column 8*(i/4) + 2*cq + i%2
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int t = t0 + r0 + 8 * ((i >> 1) & 1), m = m0 + 8 * (i >> 2) + 2 * cq;
+    if (t < T && m < M) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        *reinterpret_cast<float2*>(out + ((size_t)t * S2 * 4 + s * 4 + a) * M + m) = make_float2(y[a][i], y[a][i + 1]);
+    }
+  }
+}
+
+// ============================================================== fwd, few channels
+// The bytes-bound forward for few or ragged channels (DCGAN's RGB layer, M
+// = 3; M < 16 or M % 4 != 0) where its grid fills the card.  Its bound is
+// the bytes of xw (16*T*N floats, 303 MB at deconv3, batch 128): the block
+// stages each xw row from device memory once, for all S^2 sub-filters and
+// every packed position that reads it (the CUDA-core kernel above stages a
+// sub-filter's positions per block: 49 of 16 rows at K5S2).  A block: BT
+// tiles x 4 channels m (blockIdx.y the channel chunk), kThreads threads;
+// thread items (tile, sub-filter), the sub-filter uniform per warp, IT =
+// BT*S^2/kThreads items in turn (one where S^2 <= 4).  xw moves in chunks of
+// BN channels n through a ring of ST cp.async stages, a tile's 16 rows at a
+// tile stride of 4 mod 32 words (a warp's 32 tiles read one float4 each
+// without bank conflicts), with the chunk's weights of every position as
+// [p][n][4 m] (one broadcast float4 a (position, n)).  A thread keeps each
+// of its sub-filter's positions' dot products in registers for the whole N
+// loop (the position loop unrolled, its offsets in registers, so the loads
+// of one position overlap the FMAs of the last) and folds them through inv
+// once at the end.  Sums are fp32, in another order than the plain version's.
+// What holds it above its bound on an H100 (PERF.md): the copies alone take
+// ~1.8x the bytes' time (16-byte cp.async of 64-byte row pieces at one block
+// an SM), the arithmetic alone ~1.6x (shared loads: a warp's float4 of xw is
+// four wavefronts, at 8 warps an SM), and they overlap only in part; xw by
+// TMA with two tiles a thread measured slower.
+namespace fcf {
+constexpr int BT = 64;                  // tiles a block
+constexpr int MC = 4;                   // output channels a block
+constexpr int BN = 16;                  // channels n a chunk
+constexpr int ST = 2;                   // chunks in the cp.async ring
+constexpr int kThreads = 256;
+constexpr int TS = kMaxPos * BN + 4;    // tile stride in words: 4 mod 32
+constexpr int kX = BT * TS;             // one stage of xw
+__host__ __device__ constexpr size_t smem_bytes(int C) {
+  return sizeof(float) * (ST * (size_t)kX + ST * (size_t)C * BN * MC + (size_t)C * 4) +
+         sizeof(int) * ((size_t)C + kMaxSub + 1);
+}
+}  // namespace fcf
+
+__global__ void __launch_bounds__(fcf::kThreads)
+domain_fwd_few_kernel(const float* __restrict__ xw, const float* __restrict__ ww, const float* __restrict__ inv,
+                      const int* __restrict__ pos, const int* __restrict__ sub_off, float* __restrict__ out, int T,
+                      int N, int M, int S2, int C) {
+  using namespace fcf;
+  extern __shared__ float4 smem4[];
+  float* x_s = reinterpret_cast<float*>(smem4);  // ST x [BT][16][BN] at tile stride TS
+  float* w_s = x_s + ST * kX;                    // ST x [C][BN][MC]
+  float* inv_s = w_s + ST * C * BN * MC;         // [C][4]
+  int* pos_s = reinterpret_cast<int*>(inv_s + C * 4);
+  int* off_s = pos_s + C;
+  const int tid = threadIdx.x;
+  const int t0 = blockIdx.x * BT, m0 = blockIdx.y * MC;
+  for (int e = tid; e < C * 4; e += kThreads) inv_s[e] = inv[e];
+  for (int e = tid; e < C; e += kThreads) pos_s[e] = pos[e];
+  for (int e = tid; e <= S2; e += kThreads) off_s[e] = sub_off[e];
+  __syncthreads();
+
+  // one chunk of xw (every tile's 16 rows) and of the weights (every
+  // position) into stage buf; ragged edges zero-filled
+  auto stage = [&](int buf, int n0) {
+    float* xd = x_s + buf * kX;
+    for (int e = tid; e < BT * kMaxPos * (BN / 4); e += kThreads) {
+      const int nl = (e % (BN / 4)) * 4, q = (e / (BN / 4)) % kMaxPos, tl = e / (BN / 4 * kMaxPos);
+      const int t = t0 + tl, n = n0 + nl;
+      const bool ok = t < T && n < N;
+      cp_async(xd + tl * TS + q * BN + nl, ok ? xw + ((size_t)t * kMaxPos + q) * N + n : xw, ok, 16);
+    }
+    float* wd = w_s + buf * C * BN * MC;
+    for (int e = tid; e < C * BN * MC; e += kThreads) {
+      const int mm = e % MC, nl = (e / MC) % BN, p = e / (MC * BN);
+      const int n = n0 + nl, m = m0 + mm;
+      const bool ok = n < N && m < M;
+      cp_async(wd + e, ok ? ww + ((size_t)p * N + n) * M + m : ww, ok, 4);
+    }
+  };
+
+  const int chunks = (N + BN - 1) / BN;
+  const int items = (BT * S2 + kThreads - 1) / kThreads;
+  for (int j = 0; j < items; ++j) {
+    const int item = tid + j * kThreads, tl = item % BT, s = item / BT;  // s uniform per warp
+    const int lo = s < S2 ? off_s[s] : 0, cnt = s < S2 ? off_s[s + 1] - lo : 0;
+    int qoff[kMaxPos];
+    float d[kMaxPos][MC];
+#pragma unroll
+    for (int k = 0; k < kMaxPos; ++k) {
+      qoff[k] = tl * TS + (k < cnt ? pos_s[lo + k] : 0) * BN;
+#pragma unroll
+      for (int mm = 0; mm < MC; ++mm) d[k][mm] = 0.0f;
+    }
+    if (j > 0) __syncthreads();  // the last item's reads of the ring are done
+#pragma unroll
+    for (int c = 0; c < ST - 1; ++c) {
+      if (c < chunks) stage(c, c * BN);
+      cp_async_commit();
+    }
+    for (int c = 0; c < chunks; ++c) {
+      cp_async_wait<ST - 2>();
+      __syncthreads();
+      const int nxt = c + ST - 1;
+      if (nxt < chunks) stage(nxt % ST, nxt * BN);
+      cp_async_commit();
+      const float* xb = x_s + (c % ST) * kX;
+      const float* wb = w_s + (c % ST) * C * BN * MC + lo * BN * MC;
+#pragma unroll
+      for (int k = 0; k < kMaxPos; ++k) {
+        if (k < cnt) {
+#pragma unroll
+          for (int n = 0; n < BN; n += 4) {
+            const float4 xv = *reinterpret_cast<const float4*>(xb + qoff[k] + n);
+            const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const float4 wv = *reinterpret_cast<const float4*>(wb + (k * BN + n + u) * MC);
+              d[k][0] = fmaf(xs[u], wv.x, d[k][0]);
+              d[k][1] = fmaf(xs[u], wv.y, d[k][1]);
+              d[k][2] = fmaf(xs[u], wv.z, d[k][2]);
+              d[k][3] = fmaf(xs[u], wv.w, d[k][3]);
+            }
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+
+    // fold through inv (0 or +-1: skip the zeros) into the tile's 4 outputs
+    const int t = t0 + tl;
+    if (s < S2 && t < T) {
+      float y[4][MC] = {};
+#pragma unroll
+      for (int k = 0; k < kMaxPos; ++k) {
+        if (k < cnt) {
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const float iv = inv_s[(lo + k) * 4 + a];
+            if (iv != 0.0f) {
+#pragma unroll
+              for (int mm = 0; mm < MC; ++mm) y[a][mm] = fmaf(iv, d[k][mm], y[a][mm]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int mm = 0; mm < MC; ++mm)
+          if (m0 + mm < M) out[((size_t)t * S2 * 4 + s * 4 + a) * M + m0 + mm] = y[a][mm];
+    }
   }
 }
 
@@ -780,6 +1235,38 @@ int with_fwd_conf(int M, F&& f) {
   return f(FwdConf<8, 16, 1, 8, 1>{});
 }
 
+constexpr size_t kMaxSmem = 232448;  // the dynamic shared memory a block may have on sm_90
+
+// cuTensorMapEncodeTiled through the runtime's entry-point query (no -lcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// a 3-D fp32 tensor map in the 128-byte swizzle, zeros outside the tensor;
+// 0 or a cudaError
+int encode_map(CUtensorMap* map, const void* base, const cuuint64_t* dim, const cuuint64_t* stride,
+               const cuuint32_t* box) {
+  static EncodeTiledFn encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<EncodeTiledFn>(fn);
+  }
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dim, stride, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 template <int M2_>
 struct BxConf {
   static constexpr int M2 = M2_;
@@ -869,28 +1356,60 @@ auto bw_kernel() {
 // which a launch needs: call each for M on that device before its first
 // launch.  Every launch returns cudaGetLastError().
 
-// fwd split plan: the split count minimises the waves of blocks over the
-// card's resident block slots, times the work per block (1/k), times a 25%
-// cost per extra split; at least 4 N chunks per split (fused_engine_plan's
-// rule).  scratch_floats / counters are 0 when the split count is 1.
-extern "C" int domain_engine_fwd_plan(int T, int N, int M, int S2, int device, int* splits,
-                                      long long* scratch_floats, long long* counters) {
+// fwd plan: the instantiation and its launch for this shape on this card.
+// tile gets (BT, BM, conf): conf 1 the tensor cores (where M % 4 == 0,
+// M >= 16 and their blocks, one an SM, are at least the SMs), 2 the
+// few-channel kernel (M < 16 or M % 4 != 0, where its blocks are at least
+// the SMs), 0 the CUDA-core kernel.  splits and
+// counters: the CUDA-core kernel's N-loop split (1 and 0 elsewhere): the
+// count minimises the waves of blocks over the card's resident block slots,
+// times the work per block (1/k), times a 25% cost per extra split; at least
+// 4 N chunks per split (fused_engine_plan's rule).  scratch_floats: the
+// floats of the launch's scratch (the split's partial products; the tensor
+// cores' packed weights, 2*C*M*N).  want -1 lets the plan choose; 0, 1 or 2
+// asks for that instantiation (a measurement's comparison), which the shape
+// must allow (the tensor cores: M % 4 == 0, M >= 16): cudaErrorInvalidValue
+// otherwise.  The plan also raises the chosen kernel's shared-memory limit
+// on the device.
+extern "C" int domain_engine_fwd_plan(int T, int N, int M, int S2, int C, int want, int device, int* splits,
+                                      long long* scratch_floats, long long* counters, int* tile) {
+  int sms = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  *splits = 1;
+  *scratch_floats = 0;
+  *counters = 0;
+  const long long tc_blocks = (long long)((T + tcf::BT - 1) / tcf::BT) * ((M + tcf::BM - 1) / tcf::BM) * S2;
+  const long long few_blocks = (long long)((T + fcf::BT - 1) / fcf::BT) * ((M + fcf::MC - 1) / fcf::MC);
+  const bool tc_shape = M % 4 == 0 && M >= 16, few_fits = fcf::smem_bytes(C) <= kMaxSmem;
+  if (want < -1 || want > 2 || (want == 1 && !tc_shape) || (want == 2 && !few_fits))
+    return (int)cudaErrorInvalidValue;
+  if (want == 1 || (want == -1 && tc_shape && tc_blocks >= sms)) {
+    tile[0] = tcf::BT, tile[1] = tcf::BM, tile[2] = 1;
+    *scratch_floats = 2LL * C * M * N;
+    return (int)cudaFuncSetAttribute(domain_fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)tcf::kSmemBytes);
+  }
+  if (want == 2 || (want == -1 && !tc_shape && few_blocks >= sms && few_fits)) {
+    tile[0] = fcf::BT, tile[1] = fcf::MC, tile[2] = 2;
+    return (int)cudaFuncSetAttribute(domain_fwd_few_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)fcf::smem_bytes(C));
+  }
   return with_fwd_conf(M, [&](auto conf) {
-    using C = decltype(conf);
-    using K = typename C::K;
-    cudaError_t err = cudaFuncSetAttribute(FWD_KERNEL(C, false), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)K::kSmemBytes);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(FWD_KERNEL(C, true), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)K::kSmemBytes);
-    int occ = 0, sms = 0;
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, FWD_KERNEL(C, false), K::kThreads, K::kSmemBytes);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return (int)err;
+    using Cf = decltype(conf);
+    using K = typename Cf::K;
+    cudaError_t e = cudaFuncSetAttribute(FWD_KERNEL(Cf, false), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)K::kSmemBytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(FWD_KERNEL(Cf, true), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)K::kSmemBytes);
+    int occ = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, FWD_KERNEL(Cf, false), K::kThreads, K::kSmemBytes);
+    if (e != cudaSuccess) return (int)e;
     const long long slots = occ > 0 ? (long long)occ * sms : 1;
     const long long groups = (long long)((T + K::BT - 1) / K::BT) * S2 * ((M + K::BM - 1) / K::BM);
-    const int chunks = (N + C::BN - 1) / C::BN;
+    const int chunks = (N + Cf::BN - 1) / Cf::BN;
     int best = 1;
     double best_cost = (double)((groups + slots - 1) / slots);
     for (int k = 2; k <= 8 && chunks / k >= 4; ++k) {
@@ -900,23 +1419,57 @@ extern "C" int domain_engine_fwd_plan(int T, int N, int M, int S2, int device, i
     *splits = best;
     *scratch_floats = best > 1 ? groups * best * K::kRed : 0;
     *counters = best > 1 ? groups : 0;
+    tile[0] = K::BT, tile[1] = K::BM, tile[2] = 0;
     return 0;
   });
 }
 
-// One fwd launch -> y (T, S2*4, M), every element written.  splits, partial
-// and counters from domain_engine_fwd_plan; the counters are zero on entry
-// and the kernel leaves them zero.
+// One fwd launch -> y (T, S2*4, M), every element written, on the
+// instantiation conf of domain_engine_fwd_plan (with its splits and scratch:
+// conf 0's partial products, conf 1's packed weights; counters zero on
+// entry and left zero).  C: the packed positions.  conf 1 launches the
+// weight pack, then the forward.  xw starts on
+// a 16-byte boundary (N % 4 == 0); conf 0 with M >= 32 also reads ww in
+// 16-byte copies.
 extern "C" int domain_engine_fwd_f32(const float* xw, const float* ww, const float* inv, const int* pos,
-                                     const int* sub_off, float* y, int T, int N, int M, int S2, int splits,
-                                     float* partial, int* counters, void* stream) {
-  return with_fwd_conf(M, [&](auto conf) {
-    using C = decltype(conf);
-    using K = typename C::K;
-    auto kernel = splits > 1 ? FWD_KERNEL(C, true) : FWD_KERNEL(C, false);
+                                     const int* sub_off, float* y, int T, int N, int M, int S2, int C, int conf,
+                                     int splits, float* scratch, int* counters, void* stream) {
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (conf == 1) {
+    if (N % 4 != 0) return (int)cudaErrorInvalidValue;
+    CUtensorMap xmap, wmap;
+    // xw as (N, 16, T), a box of 32 channels of one position for 128 tiles;
+    // the packed halves as (N, M, 2C), a box of 32 channels x 64 m
+    const cuuint64_t xdim[3] = {(cuuint64_t)N, 16, (cuuint64_t)T};
+    const cuuint64_t xstride[2] = {(cuuint64_t)N * 4, (cuuint64_t)N * 64};
+    const cuuint32_t xbox[3] = {tcf::BK, 1, tcf::BT};
+    const cuuint64_t wdim[3] = {(cuuint64_t)N, (cuuint64_t)M, 2 * (cuuint64_t)C};
+    const cuuint64_t wstride[2] = {(cuuint64_t)N * 4, (cuuint64_t)N * M * 4};
+    const cuuint32_t wbox[3] = {tcf::BK, tcf::BM, 1};
+    int e = encode_map(&xmap, xw, xdim, xstride, xbox);
+    if (e == 0) e = encode_map(&wmap, scratch, wdim, wstride, wbox);
+    if (e != 0) return e;
+    domain_fwd_pack_kernel<<<dim3((N + 31) / 32, (M + 31) / 32, C), dim3(32, 8), 0, st>>>(ww, scratch, C, N, M);
+    const cudaError_t pe = cudaGetLastError();
+    if (pe != cudaSuccess) return (int)pe;
+    const int blocks = ((T + tcf::BT - 1) / tcf::BT) * ((M + tcf::BM - 1) / tcf::BM) * S2;
+    domain_fwd_mma_kernel<<<blocks, tcf::kThreads, tcf::kSmemBytes, st>>>(xmap, wmap, inv, pos, sub_off, y, T, N,
+                                                                          M, S2, C);
+    return (int)cudaGetLastError();
+  }
+  if (conf == 2) {
+    const dim3 grid((T + fcf::BT - 1) / fcf::BT, (M + fcf::MC - 1) / fcf::MC);
+    domain_fwd_few_kernel<<<grid, fcf::kThreads, fcf::smem_bytes(C), st>>>(xw, ww, inv, pos, sub_off, y, T, N, M,
+                                                                          S2, C);
+    return (int)cudaGetLastError();
+  }
+  return with_fwd_conf(M, [&](auto conf0) {
+    using Cf = decltype(conf0);
+    using K = typename Cf::K;
+    auto kernel = splits > 1 ? FWD_KERNEL(Cf, true) : FWD_KERNEL(Cf, false);
     dim3 grid((T + K::BT - 1) / K::BT, S2, ((M + K::BM - 1) / K::BM) * splits);
-    kernel<<<grid, K::kThreads, K::kSmemBytes, reinterpret_cast<cudaStream_t>(stream)>>>(
-        xw, ww, inv, pos, sub_off, y, T, N, M, S2, splits, partial, counters);
+    kernel<<<grid, K::kThreads, K::kSmemBytes, st>>>(xw, ww, inv, pos, sub_off, y, T, N, M, S2, splits, scratch,
+                                                     counters);
     return (int)cudaGetLastError();
   });
 }

@@ -1073,20 +1073,31 @@ def domain_engine(
 ) -> torch.Tensor:
     """The unfused engine: the (T, S*S*m*m, M) tile outputs of every
     sub-filter, sub-filter-major.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (F(2,3), fp32, contiguous, N % 4 == 0)."""
+    tensors launch the kernel (F(2,3), fp32, contiguous, N % 4 == 0) on the
+    instantiation ``_domain_plan`` picks: the tensor cores (wgmma, after the
+    weight pack), few channels, or the CUDA cores."""
     kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m2=m2)
     if xw.device.type == "cpu":
         return domain_engine_plain(xw, ww_packed, inv_packed, **kw)
     if xw.device.type != "cuda":
         raise ValueError(f"domain_engine runs on cpu or cuda tensors, got {xw.device}")
+    return _domain_fwd(xw, ww_packed, inv_packed, **kw)
+
+
+def _domain_fwd(xw, ww_packed, inv_packed, *, pos_idx, sub_slices, m2, conf: int = -1):
+    """``domain_engine`` on CUDA tensors: check, plan, launch, count.
+    ``conf`` (0 CUDA cores, 1 tensor cores, 2 few channels) overrides the
+    plan's choice, for a measurement that compares them; -1 keeps the
+    plan's."""
+    kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m2=m2)
     if xw.dim() != 3 or xw.shape[1] != 16 or ww_packed.dim() != 3:
         raise ValueError(f"xw must be (T, 16, N) and ww_packed (C, N, M), got {tuple(xw.shape)}, "
                          f"{tuple(ww_packed.shape)}")
     T, _, N = xw.shape
-    M = ww_packed.shape[2]
+    M, C = ww_packed.shape[2], len(pos_idx)
     dev, s2 = _check_domain((("xw", xw), ("ww_packed", ww_packed), ("inv_packed", inv_packed)), T=T, N=N, M=M,
                             **kw)
-    _check_packed(ww_packed, inv_packed, len(pos_idx), N)
+    _check_packed(ww_packed, inv_packed, C, N)
     if N % 4:
         raise ValueError(f"the CUDA kernel moves xw in 16-byte copies: N={N} must be a multiple of 4")
     _check_aligned("domain_engine", N, M, xw=xw, ww_packed=ww_packed)
@@ -1095,15 +1106,16 @@ def domain_engine(
 
     lib = load_library()
     pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
-    splits, n_scratch, n_counters, _ = _domain_plan("fwd", T, N, M, s2, dev.index)
+    splits, n_scratch, n_counters, (_, _, plan_conf, _) = _domain_plan("fwd", T, N, M, s2, dev.index, C=C,
+                                                                       want=conf)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    partial = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
     counters = _split_counters(n_counters, dev.index, stream) if n_counters else None
     out = torch.empty((T, s2 * 4, M), dtype=torch.float32, device=dev)
     err = lib.domain_engine_fwd_f32(
         xw.data_ptr(), ww_packed.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), offs.data_ptr(),
-        out.data_ptr(), T, N, M, s2, splits, None if partial is None else partial.data_ptr(),
-        None if counters is None else counters.data_ptr(), stream,
+        out.data_ptr(), T, N, M, s2, C, plan_conf, splits,
+        None if scratch is None else scratch.data_ptr(), None if counters is None else counters.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"domain_engine kernel launch failed: cudaError {err}")
@@ -1229,11 +1241,14 @@ domain_engine_bwd_w.rank1_launches = 0
 
 
 @functools.lru_cache(maxsize=256)
-def _domain_plan(which: str, T: int, N: int, M: int, s2: int, device_index: int, m2: int = 4, C: int = 0):
-    """(splits, scratch floats, counters, tile) of the unfused fwd kernel's N
-    split (tile None) or the bwd_w kernel's T split and block tile (BN, BM,
-    BT, tensor cores 1 or 0), with its m2 outputs per tile and C packed
-    positions, for this shape on this card; the library raises the kernel's
+def _domain_plan(which: str, T: int, N: int, M: int, s2: int, device_index: int, m2: int = 4, C: int = 0,
+                 want: int = -1):
+    """(splits, scratch floats, counters, tile) of an unfused kernel for
+    this shape on this card, with C packed positions: the forward's
+    instantiation and launch, tile (BT, BM, conf, 0) with conf 0 the CUDA
+    cores (and their N split), 1 the tensor cores (scratch: the packed
+    weights), 2 few channels (``want`` >= 0 asks for one); or bwd_w's T split and block tile (BN, BM, BT, tensor cores 1 or
+    0), with its m2 outputs per tile.  The library raises the kernel's
     shared-memory limit here, once."""
     import ctypes
 
@@ -1241,13 +1256,13 @@ def _domain_plan(which: str, T: int, N: int, M: int, s2: int, device_index: int,
 
     splits, floats, counters, tile = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong(), (ctypes.c_int * 4)()
     fn = getattr(load_library(), f"domain_engine_{which}_plan")
-    shape, out = ((), ()) if which == "fwd" else ((m2, C), (tile,))
+    shape = (C, want) if which == "fwd" else (m2, C)
     with torch.cuda.device(device_index):
         err = fn(T, N, M, s2, *shape, device_index, ctypes.byref(splits), ctypes.byref(floats),
-                 ctypes.byref(counters), *out)
+                 ctypes.byref(counters), tile)
     if err != 0:
         raise RuntimeError(f"domain_engine {which} plan failed: cudaError {err}")
-    return splits.value, floats.value, counters.value, None if which == "fwd" else tuple(tile)
+    return splits.value, floats.value, counters.value, tuple(tile)
 
 
 @functools.lru_cache(maxsize=64)

@@ -45,3 +45,26 @@ def test_every_c_entry_point_is_bound():
     defined = set(re.findall(r'extern "C" int (\w+)\(', src))
     assert {"conv_engine_fwd_conf", "conv_engine_fwd_plan", "fused_engine_plan"} <= defined
     assert defined == set(_build._SIGNATURES)
+
+
+def test_unfused_forward_entry_points_carry_the_plan_the_wrapper_reads():
+    """Kernel 1's plan takes the packed positions and a requested
+    instantiation and returns the tile (BT, BM, instantiation); its launch
+    takes the instantiation and the split, then the scratch (the split's
+    partials or the tensor cores' packed weights): the order
+    ``engine._domain_plan`` and ``engine._domain_fwd`` pass them in.  The
+    tensor cores' chain is the source's constant, not an argument."""
+    import re
+
+    src = (_build.CSRC / "domain_engine.cu").read_text()
+
+    def params(name):
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
+        return [a.split()[-1].lstrip("*") for a in m.group(1).split(",")]
+
+    assert params("domain_engine_fwd_plan") == ["T", "N", "M", "S2", "C", "want", "device", "splits",
+                                                "scratch_floats", "counters", "tile"]
+    assert params("domain_engine_fwd_f32") == ["xw", "ww", "inv", "pos", "sub_off", "y", "T", "N", "M", "S2", "C",
+                                               "conf", "splits", "scratch", "counters", "stream"]
+    # the tensor maps' encoder comes through the runtime, so the link needs no libcuda
+    assert "cudaGetDriverEntryPoint" in src and "cuTensorMapEncodeTiled" in src

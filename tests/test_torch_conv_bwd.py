@@ -117,6 +117,11 @@ PROFILED = {  # kernel names as the profiler reports them on the card
     "e1_cuda_cores": "void (anonymous namespace)::engine1d_kernel<32, 1, 8, 1, 1>(float const*, int)",
     "e1": "void (anonymous namespace)::engine1d_mma_kernel<fwd::Core<2, 4, 2, 4, 9, 2, 2, 1> >(float const*)",
     "cudnn": "void cudnn::engines_precompiled::scalePackedTensor_kernel<float, float>(float*)",
+    # TPU kernel 1's instantiations, as the card's profiler named them
+    "domain_fwd_cuda_cores": "void (anonymous namespace)::domain_fwd_kernel<8, 8, 8, 16, 4, true>(float const*, int)",
+    "domain_fwd_mma": "(anonymous namespace)::domain_fwd_mma_kernel(CUtensorMap_st, CUtensorMap_st, float const*, int)",
+    "domain_fwd_pack": "(anonymous namespace)::domain_fwd_pack_kernel(float const*, float*, int, int, int)",
+    "domain_fwd_few": "(anonymous namespace)::domain_fwd_few_kernel(float const*, float const*, float const*, int)",
 }
 
 
@@ -128,6 +133,8 @@ PROFILED = {  # kernel names as the profiler reports them on the card
     ("CONV_BWD_W_KERNELS", {"conv_w"}),
     ("ENGINE1D_KERNELS", {"e1_cuda_cores", "e1"}),
     ("STEP_KERNELS", set(PROFILED) - {"cudnn", "e1_cuda_cores", "e1"}),
+    ("DOMAIN_FWD_KERNELS", {"domain_fwd_cuda_cores", "domain_fwd_mma", "domain_fwd_pack", "domain_fwd_few"}),
+    ("DOMAIN_FWD_MMA", {"domain_fwd_mma", "domain_fwd_pack"}),
 ])
 def test_kernel_names_tell_the_two_corners_apart(names, want):
     """Each tuple catches its own kernels, template instantiations or not

@@ -5,8 +5,8 @@ carried across by ``convert.generator_params_from_numpy``.  Tolerance
 atol 1e-5, rtol 1e-4.
 
 tiny_dcgan covers the K5S2 chain; a narrowed ArtGAN covers K4S2, the K3S1
-last layer and the misaligned-hop NHWC fallback; a narrowed DiscoGAN covers
-the image-to-image encoder."""
+last layer and the misaligned-hop NHWC fallback; narrowed DiscoGAN and
+GP-GAN cover the image-to-image encoders (5 convs, the last K4S1; 4)."""
 import dataclasses
 
 import jax
@@ -33,12 +33,14 @@ def _narrow(zoo, arch):
             zoo.ARTGAN, stem_ch=16,
             deconvs=tuple(dataclasses.replace(d, c_in=a, c_out=b) for d, (a, b) in zip(zoo.ARTGAN.deconvs, widths)),
         )
-    enc = [(3, 8), (8, 8), (8, 8), (8, 8), (8, 8)]
+    # the image-to-image nets: DiscoGAN's 5 convs (the last K4S1), GP-GAN's 4, both into 4 K4S2 deconvs
+    full = {"discogan": zoo.DISCOGAN, "gpgan": zoo.GPGAN}[arch]
+    enc = [(3, 8)] + [(8, 8)] * (len(full.encoder) - 1)
     dec = [(8, 8), (8, 8), (8, 8), (8, 3)]
     return dataclasses.replace(
-        zoo.DISCOGAN,
-        encoder=tuple(dataclasses.replace(e, c_in=a, c_out=b) for e, (a, b) in zip(zoo.DISCOGAN.encoder, enc)),
-        deconvs=tuple(dataclasses.replace(d, c_in=a, c_out=b) for d, (a, b) in zip(zoo.DISCOGAN.deconvs, dec)),
+        full,
+        encoder=tuple(dataclasses.replace(e, c_in=a, c_out=b) for e, (a, b) in zip(full.encoder, enc)),
+        deconvs=tuple(dataclasses.replace(d, c_in=a, c_out=b) for d, (a, b) in zip(full.deconvs, dec)),
     )
 
 
@@ -63,7 +65,7 @@ def _inputs(cfg, batch=2, seed=1):
     return rng.standard_normal((batch, cfg.img_hw, cfg.img_hw, 3)).astype(np.float32)
 
 
-@pytest.mark.parametrize("arch", ["dcgan", "artgan", "discogan"])
+@pytest.mark.parametrize("arch", ["dcgan", "artgan", "discogan", "gpgan"])
 def test_generator_matches_jax_chained_ref(arch):
     jcfg = dataclasses.replace(_narrow(jzoo, arch), deconv_impl="chained_ref")
     tcfg = dataclasses.replace(_narrow(tzoo, arch), deconv_impl="chained_ref")

@@ -12,9 +12,15 @@ against the JAX package's impl that computes the same function on the CPU:
 
 Eval mode (non-trivial BN running statistics) and training mode (batch
 statistics; the moved running statistics too), for tiny DCGAN (K5S2), a
-narrowed ArtGAN (K4S2 and its trailing K3S1 layer) and a narrowed DiscoGAN
-(the image-to-image encoder).  Packed and raw counterparts agree with each
-other.  Tolerance atol 1e-5, rtol 1e-4 (images, logits, statistics)."""
+narrowed ArtGAN (K4S2 and its trailing K3S1 layer) and narrowed DiscoGAN
+and GP-GAN (the image-to-image encoders: 5 convs, the last K4S1, and 4).
+For DiscoGAN and GP-GAN also the gradients of sum(img^2) through
+``cuda_prepacked`` (TPU kernel 1's path; its backward kernels 4 and 5) in
+both modes, against ``jax.grad`` of JAX ``prepacked_ref``.  Packed and raw
+counterparts agree with each other.  Tolerance atol 1e-5, rtol 1e-4
+(images, logits, statistics); gradients within 1e-3 of each leaf's largest
+magnitude, and no tighter than 1e-6 of the tree's largest (fp32 sums in
+other orders through a batch-statistics backward, as test_torch_train.py)."""
 import dataclasses
 
 import jax
@@ -46,12 +52,14 @@ def _narrow(zoo, arch):
             zoo.ARTGAN, stem_ch=16,
             deconvs=tuple(dataclasses.replace(d, c_in=a, c_out=b) for d, (a, b) in zip(zoo.ARTGAN.deconvs, widths)),
         )
-    enc = [(3, 8), (8, 8), (8, 8), (8, 8), (8, 8)]
+    # the image-to-image nets: DiscoGAN's 5 convs (the last K4S1), GP-GAN's 4, both into 4 K4S2 deconvs
+    full = {"discogan": zoo.DISCOGAN, "gpgan": zoo.GPGAN}[arch]
+    enc = [(3, 8)] + [(8, 8)] * (len(full.encoder) - 1)
     dec = [(8, 8), (8, 8), (8, 8), (8, 3)]
     return dataclasses.replace(
-        zoo.DISCOGAN,
-        encoder=tuple(dataclasses.replace(e, c_in=a, c_out=b) for e, (a, b) in zip(zoo.DISCOGAN.encoder, enc)),
-        deconvs=tuple(dataclasses.replace(d, c_in=a, c_out=b) for d, (a, b) in zip(zoo.DISCOGAN.deconvs, dec)),
+        full,
+        encoder=tuple(dataclasses.replace(e, c_in=a, c_out=b) for e, (a, b) in zip(full.encoder, enc)),
+        deconvs=tuple(dataclasses.replace(d, c_in=a, c_out=b) for d, (a, b) in zip(full.deconvs, dec)),
     )
 
 
@@ -99,7 +107,7 @@ def _port(arch, impl, training):
 
 @pytest.mark.parametrize("training", [False, True], ids=["eval", "train"])
 @pytest.mark.parametrize("impl", list(JAX_OF))
-@pytest.mark.parametrize("arch", ["dcgan", "artgan", "discogan"])
+@pytest.mark.parametrize("arch", ["dcgan", "artgan", "discogan", "gpgan"])
 def test_per_layer_generator_matches_jax(arch, impl, training):
     want, want_stats = _jax(arch, JAX_OF[impl], training)
     got, stats = _port(arch, impl, training)
@@ -109,6 +117,40 @@ def test_per_layer_generator_matches_jax(arch, impl, training):
     for k in stats:
         for kk in ("mean", "var"):
             np.testing.assert_allclose(stats[k][kk].numpy(), want_stats[k][kk], err_msg=f"{k}.{kk}", **TOL)
+
+
+def _grads_close(got, want):
+    """Per-leaf gradient check over two lists of leaves (the module's
+    tolerances)."""
+    want = [np.asarray(w) for w in want]
+    floor = 1e-6 * max(np.abs(w).max() for w in want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=0, atol=max(1e-3 * np.abs(w).max(), floor))
+
+
+@pytest.mark.parametrize("training", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("arch", ["discogan", "gpgan"])
+def test_image_to_image_gradients_through_kernel_1_match_jax(arch, training):
+    jcfg = dataclasses.replace(_narrow(jzoo, arch), deconv_impl="prepacked_ref")
+    p = _params(arch, True)
+    x = _input(jcfg)
+
+    def jloss(gp, xx):
+        img, _ = JG.generator_apply(gp, jcfg, xx, training=training)
+        return jnp.sum(img * img), img
+
+    (_, jimg), (jgp, jgx) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True))(
+        jax.tree.map(jnp.asarray, p), jnp.asarray(x))
+    tcfg = dataclasses.replace(_narrow(tzoo, arch), deconv_impl="cuda_prepacked")
+    tp = generator_params_from_numpy(p, tcfg, device="cpu")
+    names = [(k, kk) for k, d in tp.items() for kk in d if kk not in ("mean", "var")]
+    leaves = [tp[k][kk].requires_grad_() for k, kk in names]
+    tx = torch.from_numpy(x).requires_grad_()
+    img, _ = TG.generator_apply(tp, tcfg, tx, training=training)
+    np.testing.assert_allclose(img.detach().numpy(), np.asarray(jimg), **TOL)
+    grads = torch.autograd.grad(img.square().sum(), leaves + [tx])
+    _grads_close([g.numpy() for g in grads], [jgp[k][kk] for k, kk in names] + [jgx])
 
 
 @pytest.mark.parametrize("training", [False, True], ids=["eval", "train"])

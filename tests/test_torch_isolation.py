@@ -85,9 +85,15 @@ def test_every_cuda_source_is_built_and_imports_nothing_of_the_reference():
     headers = {f'"{p.name}"' for p in _build.CSRC.glob("*.cuh")}
     for name in sources + sorted(p.name for p in _build.CSRC.glob("*.cuh")):
         # a plain C interface bound with ctypes: the CUDA runtime, the
-        # package's own headers and nothing of PyTorch
-        includes = set(re.findall(r"^#include\s+(\S+)", (_build.CSRC / name).read_text(), re.M))
-        assert includes <= {"<cuda_runtime.h>", "<stdint.h>"} | headers, (name, includes)
+        # package's own headers and nothing of PyTorch; <cuda.h> for its
+        # types only (the tensor-map encoder comes through the runtime's
+        # entry-point query: nothing links libcuda)
+        text = (_build.CSRC / name).read_text()
+        includes = set(re.findall(r"^#include\s+(\S+)", text, re.M))
+        assert includes <= {"<cuda_runtime.h>", "<stdint.h>", "<cuda.h>"} | headers, (name, includes)
+        if "<cuda.h>" in includes:
+            assert "cudaGetDriverEntryPoint" in text and not re.search(r"(?<![\w.])cu[A-Z]\w*\(", text), name
+    assert not any("lcuda" in f for f in _build.NVCC_FLAGS)
     for fn in ("fused_engine_bwd_x_f32", "fused_engine_bwd_w_f32", "fused_engine_bwd_x_plan",
                "fused_engine_bwd_w_plan", "fused_engine_epi_f32", "fused_engine_plan",
                "conv_engine_fwd_plan", "conv_engine_fwd_f32", "conv_engine_bwd_x_plan", "conv_engine_bwd_x_f32",
@@ -230,9 +236,12 @@ def test_rank1_domain_check_refuses_what_the_kernels_do_not_take(bad):
 # off the kernels' configuration choices (csrc/*.cu): the deconv corner's and the 1D engine's weights at M % 4
 # == 0 and M >= 16 (their tensor-core kernels, fwd_core.cuh, where the grid fills the card; held at any
 # grid); the conv corner's forward weights at M >= 16 where N % 4 == 0 (its tensor-core kernel), else at M
-# >= 32 (the CUDA-core kernel), the unfused engine's at M >= 32; bwd_x's g and weights at M >= 8 (the
-# tensor cores); bwd_w's g at M >= 16; the deconv corner's and the 1D engine's cells and the unfused
-# engine's xw always (N % 4 == 0 is required); the conv corner's cells where N % 4 == 0.
+# >= 32 (the CUDA-core kernel), the unfused engine's at M >= 32 (its CUDA-core forward: the tensor-core
+# forward reads ww through its pack kernel, the few-channel one in 4-byte copies); bwd_x's g and weights at
+# M >= 8 (the tensor cores); bwd_w's g at M >= 16; the deconv corner's and the 1D engine's cells and the
+# unfused engine's xw always (N % 4 == 0 is required; the unfused forward's tensor-core kernel reads xw by
+# TMA, whose base must be 16-byte aligned and whose row stride N*4 bytes a multiple of 16); the conv
+# corner's cells where N % 4 == 0.
 def _moves_16_bytes(wrapper, operand, N, M):
     if operand == "cells" and wrapper.startswith("conv_"):
         return N % 4 == 0
@@ -275,3 +284,18 @@ def test_wrappers_refuse_misaligned_operands_of_16_byte_copies(wrapper, operand,
     else:
         E._check_aligned(wrapper, N, M, **operands)
     E._check_aligned(wrapper, N, M, **{o: tensor(False) for o in operands})  # aligned: always taken
+
+
+@pytest.mark.parametrize("bad", ["n", "misaligned"])
+def test_unfused_forward_refuses_what_tma_and_16_byte_copies_cannot_take(bad):
+    """The unfused forward's launch path refuses, before it loads the
+    library, an N that is not a multiple of 4 (the tensor map's row stride
+    of N*4 bytes must be a multiple of 16, as the 16-byte copies need) and
+    an xw that starts off a 16-byte boundary (the tensor map's base)."""
+    pos, subs, inv, _ = ops.packed_layout(DeconvDims(5, 2, 2, 1))
+    N = 6 if bad == "n" else 8
+    xw = torch.zeros(3 * 16 * N + 1)
+    xw = (xw[1:] if bad == "misaligned" else xw[:-1]).view(3, 16, N)
+    ww = torch.zeros((len(pos), N, 36))
+    with pytest.raises(ValueError, match="multiple of 4" if bad == "n" else "16-byte"):
+        E._domain_fwd(xw, ww, torch.as_tensor(inv), pos_idx=pos, sub_slices=subs, m2=4)
