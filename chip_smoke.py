@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases kernel,kernel_bwd,kernel_conv,kernel_domain,serve,train,train_chained,
-                                    serve_per_layer,train_per_layer,kernel_1d,audio]
+                                    serve_per_layer,train_per_layer,kernel_1d,audio,serve_faults]
 
 Phases, each printing one JSON line:
   env     torch / CUDA versions, the card's name and power limit; TF32 off.
@@ -145,6 +145,29 @@ must still run (no sticky CUDA error).
           phases' step 1), with its
           launches of rank-1 kernels 4 and 5; forward ms, device ms, idle
           share, samples/s, gradient ms, peak memory.
+  serve_faults
+          the serve stack's failure semantics at DCGAN's published widths
+          (random weights from a seed), registered with
+          register_prepacked_generator and made resident by name, on the
+          reference chaos harness's engine (batch 8, chained, NaN guard, 2
+          retries, breaker 3 failures / 150 ms): (A) AsyncGanServer
+          (max_queue 64) under open-loop Poisson traffic at 200 requests/s
+          for 1 s, sizes 1-8, deadline 100 ms, with FaultPlan(kind="mix",
+          rate=0.1, delay_ms=10) and then without (NaN guard on, then off):
+          no future hung, submitted = delivered + failed + rejected, every
+          failure a GanServeError of a kind the plan explains, NaN-guard
+          trips = injected NaN batches, 4 launches of kernel 3 per generate,
+          every delivered image against the plain chained generator;
+          p50 / p99 end-to-end ms, mean compute ms, images/s; (B) the
+          quarantine drill: a persistent raise trips the breaker, a submit
+          fast-rejects, a half-open probe through weights holding a NaN is
+          refused with kind "weights" and reopens it, the restored weights'
+          probe serves and closes it (params_finite on clean / inf / NaN
+          weights); (C) the watchdog drill: the generate loop raises once
+          outside the isolation boundary, one restart, its request fails
+          "loop_dead", the next four serve; (D) host ms per batch-8
+          generate pipelined, with the stream synchronized, and with the
+          NaN guard's read: what the sync and the guard cost a dispatch.
   kernels one summary line per kernel (launches on each serving and training
           path, as that phase's run counted them, null for a phase that did
           not run; error, times, the least time the card could take; for the
@@ -184,7 +207,7 @@ SOURCE_1D = "src/repro_torch/kernels/csrc/engine1d.cu"  # kernels 8 and 9
 REPLACES_1D_NLC = "src/repro/kernels/engine.py:1724"  # winograd_conv1d_fused_engine's nlc pallas_call
 REPLACES_1D_SCRATCH = "src/repro/kernels/engine.py:1690"  # its scratch pallas_call
 PHASES = ("kernel", "kernel_bwd", "kernel_conv", "kernel_domain", "serve", "train", "train_chained",
-          "serve_per_layer", "train_per_layer", "kernel_1d", "audio")
+          "serve_per_layer", "train_per_layer", "kernel_1d", "audio", "serve_faults")
 TRAIN_BATCH = 128  # the DCGAN paper's mini-batch
 # K5S2 at batch 7, 11x11 input, 100 -> 36 channels: name, (kernel, stride, padding, output_padding), B, H, N, M
 RAGGED_SHAPE = ("ragged", (5, 2, 2, 1), 7, 11, 100, 36)
@@ -821,6 +844,348 @@ def serve_per_layer_phase(torch, card):
         del eng, res, outs
         torch.cuda.empty_cache()
     return dict(launches=launches, kernel_ms={k: r[8]["kernel_ms"] for k, r in rates.items()})
+
+
+# serve_faults: the reference chaos harness's engine settings (benchmarks/fig8_throughput.py:313-319) and its
+# traffic: open loop, sizes 1-8, a 100 ms deadline, a mix of injected faults at rate 0.1
+FAULT_ENGINE = dict(batch=8, chained=True, nan_guard=True, max_retries=2, breaker_threshold=3,
+                    breaker_cooldown_ms=150.0)
+FAULT_RPS, FAULT_SECONDS, FAULT_DEADLINE_MS, FAULT_SEED = 200.0, 1.0, 100.0, 0
+# the kinds a failure may carry under FaultPlan(kind="mix", persistent=False): a raise or a NaN batch on a
+# first attempt is retried, so a request fails only when its retry would pass its deadline (or the
+# retries run out, which a first-attempt plan does not cause)
+MIX_FAILURE_KINDS = {"deadline", "exception", "nan"}
+
+
+def _reference_images(torch, eng, reqs):
+    """The plain chained generator (chained_ref) on the latents of the
+    delivered requests, batched by 64: {rid: image batch}."""
+    import dataclasses
+
+    from repro_torch.models import gan as G
+
+    ref_cfg = dataclasses.replace(eng.cfg, deconv_impl="chained_ref")
+    done = [r for r in reqs if r.done]
+    out = {}
+    with torch.inference_mode():
+        for i in range(0, len(done), 64):
+            chunk = done[i : i + 64]
+            imgs, _ = G.generator_apply(eng.params, ref_cfg, torch.cat([r.z for r in chunk]))
+            row = 0
+            for r in chunk:
+                out[r.rid] = imgs[row : row + r.size]
+                row += r.size
+    return out
+
+
+def _check_delivered(torch, where, eng, reqs) -> dict:
+    """Every delivered image against the plain chained generator on its
+    latents (``1e-4·max|ref| + 1e-5``), after the server stopped."""
+    want = _reference_images(torch, eng, reqs)
+    worst, worst_share = 0.0, 0.0
+    for r in reqs:
+        if not r.done:
+            continue
+        w = want[r.rid]
+        if tuple(r.out.shape) != (r.size, 64, 64, 3) or not torch.isfinite(r.out).all():
+            fail(f"{where}: request {r.rid} delivered shape {tuple(r.out.shape)} or non-finite images")
+        err = (r.out - w).abs().max().item()
+        tol = 1e-4 * w.abs().max().item() + 1e-5
+        if not err <= tol:
+            fail(f"{where}: request {r.rid} vs plain generator: max|err| {err:.3e} > {tol:.3e}")
+        worst, worst_share = max(worst, err), max(worst_share, err / tol)
+    return dict(max_abs_err_vs_plain=worst, err_share=worst_share)
+
+
+def _fault_traffic(torch, seed):
+    """(arrival seconds, latents on the card) of the load: Poisson arrivals at
+    FAULT_RPS for FAULT_SECONDS, sizes 1-8, from a seeded numpy generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    gaps = rng.exponential(1.0 / FAULT_RPS, size=int(4 * FAULT_RPS * FAULT_SECONDS))
+    times = np.cumsum(gaps)
+    times = times[times < FAULT_SECONDS]
+    sizes = rng.integers(1, 9, size=len(times))
+    zs = [torch.from_numpy(rng.standard_normal((int(b), 100)).astype(np.float32)).to("cuda") for b in sizes]
+    torch.cuda.synchronize()
+    return [float(t) for t in times], zs
+
+
+def _load_run(torch, eng, plan, times, zs, where) -> dict:
+    """One open-loop run through AsyncGanServer(max_queue=64): every request
+    submitted at its arrival time, every future waited for with a timeout,
+    the server stopped (draining); counts zeroed just before, read just
+    after.  Fails unless no future hung, the accounting reconciles, every
+    failure is a GanServeError of a kind the plan explains, the NaN guard
+    tripped once per injected NaN, and kernel 3 launched 4 times per
+    generate; then every delivered image against the plain generator."""
+    from repro_torch.serve import AsyncGanServer, GanServeError, GanServeRejected
+    from repro_torch.serve import metrics as SM
+
+    res = eng.archs["dcgan"]
+    eng.fault_plan = plan
+    trips0, gen0, disp0, h0 = res.nan_trips, res.generates, len(eng.dispatch_log), eng.health()["dcgan"]
+    futs, hung = [], 0
+    zero_counts()
+    try:
+        with AsyncGanServer(eng, max_queue=64) as srv:
+            t0 = time.monotonic()
+            for t_s, z in zip(times, zs):
+                dt = t0 + t_s - time.monotonic()
+                if dt > 0:
+                    time.sleep(dt)
+                futs.append(srv.submit(z, arch="dcgan", deadline_ms=FAULT_DEADLINE_MS))
+            wall_s = time.monotonic() - t0
+            for f in futs:
+                try:
+                    f.result(timeout=60)
+                except (GanServeError, GanServeRejected):
+                    pass
+                except TimeoutError:
+                    hung += 1
+    finally:
+        eng.fault_plan = None
+    torch.cuda.synchronize()
+    launches = read_counts()
+    generates = res.generates - gen0
+    reqs = [f.request for f in futs]
+    acct = dict(submitted=len(reqs), delivered=sum(r.done for r in reqs),
+                failed=sum(r.failed and not r.done for r in reqs),
+                rejected=sum(r.rejected and not (r.done or r.failed) for r in reqs),
+                hung=hung + sum(not r.resolved for r in reqs))
+    if acct["hung"]:
+        fail(f"{where}: {acct['hung']} futures did not resolve")
+    if acct["submitted"] != acct["delivered"] + acct["failed"] + acct["rejected"]:
+        fail(f"{where}: accounting does not reconcile: {acct}")
+    kinds: dict = {}
+    for r in reqs:
+        if r.failed:
+            if not isinstance(r.error, GanServeError):
+                fail(f"{where}: request {r.rid} failed with {type(r.error).__name__}, not GanServeError")
+            kinds[r.error.kind] = kinds.get(r.error.kind, 0) + 1
+    explained = MIX_FAILURE_KINDS if plan is not None else set()
+    if not set(kinds) <= explained:
+        fail(f"{where}: failure kinds {kinds} not explained by the plan (allowed: {sorted(explained)})")
+    reasons = sorted({r.reject_reason.split(" (")[0] for r in reqs if r.rejected})
+    nan_fired = 0 if plan is None else plan.fired_by_kind.get("nan", 0)
+    if res.nan_trips - trips0 != nan_fired:
+        fail(f"{where}: NaN guard tripped {res.nan_trips - trips0} times, the plan injected {nan_fired} NaN batches")
+    if generates == 0:
+        fail(f"{where}: no generate ran")
+    check_counts(where, launches, {"fused_engine_epi": 4 * generates})
+    summ = SM.summarize(reqs)["_all"]
+    h1 = eng.health()["dcgan"]
+    row = dict(accounting=acct, failure_kinds=kinds, reject_reasons=reasons, generates=generates,
+               dispatches=len(eng.dispatch_log) - disp0, launches=launches["fused_engine_epi"], nan_trips=res.nan_trips - trips0,
+               faults_fired=None if plan is None else plan.fired,
+               faults_by_kind=None if plan is None else dict(plan.fired_by_kind), submit_wall_s=wall_s,
+               **{k: summ.get(k) for k in ("p50_ms", "p95_ms", "p99_ms", "mean_queue_wait_ms", "mean_batch_wait_ms",
+                                           "mean_compute_ms", "images_per_s", "throughput_rps", "span_s")},
+               **{k: h1[k] - h0[k] for k in ("retries", "failures", "breaker_trips", "breaker_recoveries")},
+               **_check_delivered(torch, where, eng, reqs))
+    return row, launches
+
+
+def _dispatch_costs(torch, res, rounds: int = 7, reps: int = 40) -> dict:
+    """Host ms per batch-8 generate, in turns: enqueued back to back with one
+    synchronize at the end (the launches alone, pipelined), with the stream
+    synchronized after each (as a dispatch stamps t_done), and with the NaN
+    guard's read after that; medians over ``rounds``.  The synchronize costs
+    the difference of the first two, the guard that of the last two."""
+    z = torch.randn((8, 100), generator=torch.Generator(device="cuda").manual_seed(4), device="cuda")
+    stream = torch.cuda.current_stream()
+
+    def pipelined():
+        for _ in range(reps):
+            res.generate(z)
+        stream.synchronize()
+
+    def synced():
+        for _ in range(reps):
+            res.generate(z)
+            stream.synchronize()
+
+    def guarded():
+        for _ in range(reps):
+            imgs = res.generate(z)
+            stream.synchronize()
+            bool(torch.isfinite(imgs).all())
+
+    fns = {"pipelined_ms": pipelined, "synced_ms": synced, "guarded_ms": guarded}
+    times = {k: [] for k in fns}
+    for fn in fns.values():
+        fn()
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            t = time.perf_counter()
+            fn()
+            times[k].append(1e3 * (time.perf_counter() - t) / reps)
+    out = {k: statistics.median(v) for k, v in times.items()}
+    out.update(stream_sync_cost_ms=out["synced_ms"] - out["pipelined_ms"],
+               nan_guard_cost_ms=out["guarded_ms"] - out["synced_ms"], rounds=rounds, reps=reps)
+    return out
+
+
+def serve_faults_phase(torch, card):
+    """The serve stack's failure semantics on the card (the reference's chaos
+    drill, benchmarks/fig8_throughput.py:300-345), DCGAN at its published
+    widths, registered in the generator registry and made resident by name.
+    A: open-loop load under an injected fault mix, then the same traffic
+    without faults; B: the quarantine drill with a poisoned-weights probe;
+    C: the watchdog drill; D: the NaN guard's and the stream sync's cost.
+    Returns every kernel's launches over the phase's counted runs."""
+    from repro_torch.configs import DCGAN
+    from repro_torch.models import gan as G
+    from repro_torch.serve import AsyncGanServer, FaultPlan, GanServeEngine, GanServeError, GanServeRejected
+
+    t0 = time.perf_counter()
+    G.clear_prepacked_generators()
+    entry = G.register_prepacked_generator("dcgan", _serve_params(torch), DCGAN, device="cuda")
+    eng = GanServeEngine(models={"dcgan": "dcgan"}, device="cuda", **FAULT_ENGINE)
+    if eng.cfg.deconv_impl != "cuda_chained" or entry.cfg.deconv_impl != "cuda_chained":
+        fail(f"the registered DCGAN serves as {eng.cfg.deconv_impl}, want cuda_chained")
+    res = eng.archs["dcgan"]
+    for b in eng.buckets:  # warm every bucket before any timed or counted run
+        eng.generate(torch.zeros((b, 100), device="cuda"))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    launches = dict.fromkeys(COUNTERS, 0)
+
+    def add(got):
+        for row, n in got.items():
+            launches[row] += n
+
+    # --- A: the load, with the fault mix and without
+    times, zs = _fault_traffic(torch, FAULT_SEED)
+    runs = {}
+    for name, plan, guard in (("faults", FaultPlan(kind="mix", rate=0.1, delay_ms=10.0, seed=FAULT_SEED), True),
+                              ("no_faults", None, True), ("no_faults_guard_off", None, False)):
+        eng.nan_guard = guard
+        runs[name], got = _load_run(torch, eng, plan, times, zs, f"serve_faults {name}")
+        add(got)
+        emit({"phase": "serve_faults_load", "run": name, "nan_guard": guard, "rps": FAULT_RPS,
+              "seconds": FAULT_SECONDS, "deadline_ms": FAULT_DEADLINE_MS, **runs[name], "card": card})
+    eng.nan_guard = True
+    if runs["faults"]["faults_fired"] == 0:
+        fail("serve_faults: the fault plan fired no fault")
+    if runs["no_faults"]["accounting"]["failed"] or runs["no_faults_guard_off"]["accounting"]["failed"]:
+        fail("serve_faults: a request failed without any injected fault")
+
+    # --- B: quarantine drill (synchronous: the futures drive the engine)
+    z1 = zs[0][:1]
+    br = res.breaker
+    drill = {}
+    zero_counts()
+    gen0 = res.generates
+    eng.fault_plan = FaultPlan(kind="raise", arch="dcgan", persistent=True)
+    failed = 0
+    for _ in range(br.threshold):
+        try:
+            eng.submit(z1).result(timeout=30)
+        except GanServeError as e:
+            failed += e.kind == "exception" and e.attempts == 1 + eng.max_retries
+    drill["tripped"] = br.state == "open" and failed == br.threshold
+    try:
+        eng.submit(z1)
+        drill["fast_rejected"] = False
+    except GanServeRejected as e:
+        drill["fast_rejected"] = "quarantined" in str(e)
+    eng.fault_plan = None
+    ww = res.params["deconv1"]["ww"]
+    saved = ww[3, 2, 1].clone()
+    clean_finite = G.params_finite(res.params)
+    ww[3, 2, 1] = float("inf")
+    inf_finite = G.params_finite(res.params)
+    ww[3, 2, 1] = float("nan")
+    nan_finite = G.params_finite(res.params)
+    drill["params_finite_clean_inf_nan"] = [clean_finite, inf_finite, nan_finite]
+    time.sleep(br.cooldown_ms / 1e3 + 0.05)
+    try:
+        eng.submit(z1).result(timeout=30)
+        drill["poisoned_probe_kind"] = None
+    except GanServeError as e:
+        drill["poisoned_probe_kind"] = e.kind
+    drill["reopened"] = br.state == "open" and br.trips == 2
+    with torch.inference_mode():
+        drill["poisoned_batch_finite"] = bool(torch.isfinite(res.generate(z1)).all())
+    ww[3, 2, 1] = saved
+    time.sleep(br.cooldown_ms / 1e3 + 0.05)
+    probe = eng.submit(z1)
+    probe.result(timeout=30)
+    drill["recovered"] = br.state == "closed" and br.recoveries == 1
+    torch.cuda.synchronize()
+    got = read_counts()
+    check_counts("serve_faults drill", got, {"fused_engine_epi": 4 * (res.generates - gen0)})
+    add(got)
+    drill.update(_check_delivered(torch, "serve_faults drill", eng, [probe.request]))
+    emit({"phase": "serve_faults_drill", **drill, "breaker": br.counters(), "card": card})
+    if not (drill["tripped"] and drill["fast_rejected"] and drill["reopened"] and drill["recovered"]
+            and drill["poisoned_probe_kind"] == "weights" and drill["params_finite_clean_inf_nan"] == [True, False,
+                                                                                                     False]):
+        fail(f"serve_faults: quarantine drill {drill}")
+
+    # --- C: watchdog drill: the generate loop raises once outside the isolation boundary
+    calls = {"n": 0}
+    orig = eng._dispatch
+
+    def boom(now=None):
+        if calls["n"] == 0:
+            calls["n"] += 1
+            raise RuntimeError("raised outside the isolation boundary (watchdog drill)")
+        return orig(now)
+
+    eng._dispatch = boom
+    zero_counts()
+    gen0 = res.generates
+    srv = AsyncGanServer(eng, watchdog=True, watchdog_interval_ms=5.0, poll_interval_ms=0.5).start()
+    try:
+        first = srv.submit(zs[1])
+        try:
+            first.result(timeout=30)
+            first_kind = None
+        except GanServeError as e:
+            first_kind = e.kind
+        after = [srv.submit(z) for z in zs[2:6]]
+        for f in after:
+            f.result(timeout=30)
+    finally:
+        srv.stop(timeout=60)
+        del eng._dispatch
+    torch.cuda.synchronize()
+    got = read_counts()
+    check_counts("serve_faults watchdog", got, {"fused_engine_epi": 4 * (res.generates - gen0)})
+    add(got)
+    wd = dict(restart_count=srv.restart_count, first_kind=first_kind, served_after=sum(f.request.done for f in after),
+              **_check_delivered(torch, "serve_faults watchdog", eng,
+                                                          [f.request for f in after]))
+    emit({"phase": "serve_faults_watchdog", **wd, "card": card})
+    if not (wd["restart_count"] == 1 and first_kind == "loop_dead" and wd["served_after"] == len(after)):
+        fail(f"serve_faults: watchdog drill {wd}")
+
+    # --- D: what the NaN guard and the stream sync cost a batch-8 dispatch, and a dispatch's compute stamp
+    # (t_done - t_dispatch) at batch 8, one request at a time, driven on this thread and by the server
+    costs = _dispatch_costs(torch, res)
+    z8 = torch.cat(zs)[:8]
+    for how in ("caller", "server"):
+        stamps = []
+        with contextlib.ExitStack() as stack:
+            srv = stack.enter_context(AsyncGanServer(eng, poll_interval_ms=0.5)) if how == "server" else None
+            for _ in range(43):
+                f = (srv or eng).submit(z8)
+                f.result(timeout=30)
+                stamps.append(f.request.timing["compute_ms"])
+        costs[f"compute_ms_one_at_a_time_{how}"] = statistics.median(stamps[3:])
+    emit({"phase": "serve_faults_costs", **costs,
+          "mean_compute_ms_guard_on": runs["no_faults"]["mean_compute_ms"],
+          "mean_compute_ms_guard_off": runs["no_faults_guard_off"]["mean_compute_ms"], "card": card})
+    emit({"phase": "serve_faults", "arch": "dcgan", "engine": FAULT_ENGINE, "setup_s": setup_s,
+          "hung": sum(r["accounting"]["hung"] for r in runs.values()), "accounting_reconciled": True,
+          "drill_passed": True, "watchdog_passed": True, "launches": launches["fused_engine_epi"],
+          "launches_per_generate": 4, "max_err_share_vs_plain": max(
+              [r["err_share"] for r in runs.values()] + [drill["err_share"], wd["err_share"]]), "card": card})
+    G.clear_prepacked_generators()
+    return launches
 
 
 def _dcgan_train_shapes():
@@ -2256,11 +2621,12 @@ def main(argv=None) -> int:
     per_layer = timed("train_per_layer", lambda: train_phase(torch, smi, "cuda_prepacked", "cuda_prepacked"), {})
     rows_1d = timed("kernel_1d", lambda: kernel_1d_phase(torch, peaks), [])
     audio = timed("audio", lambda: audio_phase(torch, smi), {})
+    serve_faults = timed("serve_faults", lambda: serve_faults_phase(torch, smi), None)
     # each path's launches of every kernel, counted in its run (None: not run)
     path_launches = {"serve": serve_launches, "train": train.get("launches"),
                      "train_chained": chained.get("launches"), "serve_per_layer": serve_pl.get("launches"),
                      "train_per_layer": per_layer.get("launches"), "audio": audio.get("launches"),
-                     "audio_grad": audio.get("grad_launches")}
+                     "audio_grad": audio.get("grad_launches"), "serve_faults": serve_faults}
 
     def step_device_ms(kname, run=None):
         """Device ms per step of the instantiations of ``kname`` (or of a

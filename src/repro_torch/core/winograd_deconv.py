@@ -117,11 +117,16 @@ def winograd_domain_matmuls(
     *,
     m: int = 2,
     dense: bool = False,
+    bf16: bool = False,
 ) -> torch.Tensor:
     """Steps 4-5 for every sub-filter, fp32; returns (S, S, T, m, m, M).
     ``dense=False`` skips the structurally zero positions (the paper);
     ``dense=True`` keeps all n^2 (the conventional Winograd accelerator,
-    an ablation baseline)."""
+    an ablation baseline).  ``bf16=True`` rounds the channel contraction's
+    operands to bf16 and keeps fp32 accumulation and the fp32 inverse
+    transform, as the reference's ``preferred_element_type`` does: the
+    rounded operands are multiplied in fp32, where the product of two bf16
+    values is exact."""
     tf = get_transform(m, sp.r)
     n = tf.n
     S = sp.dims.stride
@@ -140,6 +145,8 @@ def winograd_domain_matmuls(
             pos = torch.as_tensor([u * n + v for u, v in keep], device=xw_mat.device)
             xk = xw_mat[:, pos, :].to(dtype)  # (T, |nz|, N)
             wk = ww[ry, rx].reshape(n * n, *ww.shape[4:])[pos].to(dtype)  # (|nz|, N, M)
+            if bf16:
+                xk, wk = xk.to(torch.bfloat16).to(dtype), wk.to(torch.bfloat16).to(dtype)
             yk = torch.einsum("tpn,pnm->tpm", xk, wk)
             inv = np.stack([np.outer(AT[:, u], AT[:, v]) for u, v in keep])  # (|nz|, m, m)
             row.append(torch.einsum("tpm,pab->tabm", yk, torch.as_tensor(inv, dtype=dtype, device=yk.device)))
@@ -148,11 +155,13 @@ def winograd_domain_matmuls(
 
 
 def winograd_deconv2d(
-    x: torch.Tensor, w: torch.Tensor, dims: DeconvDims, *, m: int = 2, r: int = 3, dense: bool = False
+    x: torch.Tensor, w: torch.Tensor, dims: DeconvDims, *, m: int = 2, r: int = 3, dense: bool = False,
+    bf16: bool = False,
 ) -> torch.Tensor:
     """Winograd DeConv (the paper's Sec. III): exact deconvolution by TDC +
     F(m x m, r x r) + structural sparsity skipping, in plain PyTorch.
-    x (B, H, W, N), w (K_D, K_D, N, M) -> (B, H_O, W_O, M)."""
+    x (B, H, W, N), w (K_D, K_D, N, M) -> (B, H_O, W_O, M).  ``dense`` and
+    ``bf16`` as ``winograd_domain_matmuls``."""
     sp = plan(dims, m, r)
     n = get_transform(m, r).n
     B, H, W, N = x.shape
@@ -161,7 +170,7 @@ def winograd_deconv2d(
     ww = transform_weights(w, dims, m, r)
     x_pad, (ty, tx) = pad_input_for_tiles(x, dims, m, r)
     xw_mat = transform_input_tiles(x_pad, (ty, tx), m, r).reshape(B * ty * tx, n * n, N)
-    y = winograd_domain_matmuls(xw_mat, ww, sp, m=m, dense=dense)  # (S, S, T, m, m, M)
+    y = winograd_domain_matmuls(xw_mat, ww, sp, m=m, dense=dense, bf16=bf16)  # (S, S, T, m, m, M)
     S = dims.stride
     y = y.reshape(S, S, B, ty, tx, m, m, M).permute(0, 1, 2, 3, 5, 4, 6, 7).reshape(S, S, B, ty * m, tx * m, M)
     y = y[:, :, :, :hj, :wj, :].to(x.dtype)

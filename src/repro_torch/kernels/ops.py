@@ -75,6 +75,7 @@ __all__ = [
     "PackedConv",
     "conv_packed_inv",
     "prepack_conv",
+    "unpack_weights",
     "conv_cells_from_image",
     "conv_chain_aligned",
     "conv_cells_to_next",
@@ -596,6 +597,34 @@ def _conv_inv_on(cdims: ConvDims, m: int, r: int, device: str) -> torch.Tensor:
 def prepack_conv(w: torch.Tensor, cdims: ConvDims, m: int = 2, r: int = 3) -> PackedConv:
     """One-time G-transform + zero-skipping pack of raw conv weights."""
     return PackedConv(pack_conv_weights(w, cdims, m, r), conv_packed_inv(cdims, w.device, m, r))
+
+
+@functools.lru_cache(maxsize=None)
+def _unpack_matrix(dims, m: int, r: int) -> np.ndarray:
+    """(K^2, C) least-squares inverse of the linear pack map w -> packed ww
+    (spatial taps only: the map acts on each (N, M) pair alike), in
+    float64.  The pack is injective (G has full column rank and every tap
+    reaches a kept position), so the pinv recovers raw weights exactly from
+    consistently packed ones and projects trained ones by least squares."""
+    K = dims.kernel
+    pack = pack_conv_weights if isinstance(dims, ConvDims) else pack_weights
+    cols = []
+    for k in range(K * K):
+        basis = torch.zeros((K, K, 1, 1), dtype=torch.float64)
+        basis[k // K, k % K, 0, 0] = 1.0
+        cols.append(pack(basis, dims, m, r).reshape(-1).numpy())
+    return np.linalg.pinv(np.stack(cols, axis=1))
+
+
+def unpack_weights(ww_packed: torch.Tensor, dims, m: int = 2, r: int = 3) -> torch.Tensor:
+    """Packed Winograd-domain (C, N, M) -> raw (K, K, N, M) weights by least
+    squares through the G-transform and the pack: the checkpoint-export
+    inverse of ``pack_weights`` / ``pack_conv_weights`` (``dims``, a
+    ``DeconvDims`` or a ``ConvDims``, picks the family)."""
+    K = dims.kernel
+    pinv = torch.as_tensor(_unpack_matrix(dims, m, r), dtype=ww_packed.dtype, device=ww_packed.device)
+    w = torch.einsum("kc,cnm->knm", pinv, ww_packed)
+    return w.reshape(K, K, *ww_packed.shape[1:])
 
 
 def _conv_tiles(cdims: ConvDims, hw: tuple[int, int], m: int, r: int):

@@ -15,6 +15,12 @@ layer re-lays them out.
 Per layer (``_deconv_apply``): the deconv, then batchnorm and the
 activation in NHWC, in plain PyTorch.
 
+Serving keeps a registry of serve-ready packed generators
+(``register_prepacked_generator`` / ``get_prepacked_generator``) that
+``serve.GanServeEngine(models=...)`` takes, the health hooks its circuit
+breaker asks (``params_finite``, ``generator_health``), and the export
+path back to raw weights (``unpack_generator``).
+
 Impl names (``cfg.deconv_impl``), the reference's with ``pallas`` read as
 ``cuda``; ``cuda*`` take the CUDA kernels for CUDA tensors and their plain
 versions for CPU tensors, the ``ref`` names the plain versions everywhere:
@@ -23,8 +29,11 @@ versions for CPU tensors, the ``ref`` names the plain versions everywhere:
     (the unfused engine), ``"cuda_fused_pre_prepacked"`` (the fused pre-PE
     engine), ``"prepacked_ref"``;
   * per layer on raw (K, K, N, M) ``{"w"}`` weights, packed per call:
-    ``"cuda"``, ``"cuda_fused_pre"``, ``"ref"`` (plain Winograd DeConv);
-    and the paper's baselines ``"tdc"``, ``"zero_padded"``, ``"lax"``.
+    ``"cuda"``, ``"cuda_fused_pre"``, ``"ref"`` (plain Winograd DeConv),
+    ``"ref_bf16"`` (its channel contraction on bf16 operands, fp32
+    accumulation), ``"ref_dense"`` (the same without the structural-zero
+    skip: the conventional Winograd ablation); and the paper's baselines
+    ``"tdc"``, ``"zero_padded"``, ``"lax"``.
 ``serve_impl`` maps a training impl onto its serving impl.
 
 The discriminator (``cfg.conv_impl``) runs ``"lax"``, PyTorch's own
@@ -41,7 +50,9 @@ activation (``AUDIO_IMPLS``).
 """
 from __future__ import annotations
 
-from typing import Any
+import dataclasses
+import functools
+from typing import Any, Optional
 
 import torch
 
@@ -49,13 +60,16 @@ from ..configs.base import Deconv1dSpec, GANConfig
 from ..core import lax_deconv2d, tdc_deconv2d, winograd_deconv2d, zero_padded_deconv2d
 from ..core.tdc import ConvDims, DeconvDims, conv_same_dims, tdc_deconv1d
 from ..kernels import ops as kops
+from ..tree import tree_leaves, tree_map
 from . import layers as L
 
 Params = dict[str, Any]
 
 __all__ = [
     "IMPLS", "PORT_NAMES", "PREPACKED_EQUIV", "CHAINED_EQUIV", "uses_prepacked", "uses_chained", "serve_impl",
-    "generator_init", "prepack_generator", "fold_eval_bn", "generator_apply", "DISC_CHANNELS", "CONV_IMPLS",
+    "generator_init", "prepack_generator", "fold_eval_bn", "generator_apply", "PrepackedGenerator",
+    "register_prepacked_generator", "get_prepacked_generator", "registered_archs", "clear_prepacked_generators",
+    "params_finite", "generator_health", "unpack_generator", "DISC_CHANNELS", "CONV_IMPLS",
     "CONV_PREPACKED_EQUIV", "CONV_CHAINED_EQUIV", "uses_prepacked_conv", "uses_chained_conv", "disc_channels",
     "disc_conv_dims", "discriminator_init", "prepack_discriminator", "discriminator_apply", "merge_bn_stats",
     "AUDIO_IMPLS", "lax_deconv1d", "audio_decoder_init", "audio_decoder_apply",
@@ -80,8 +94,16 @@ _RAW_KW: dict[str, dict] = {
     "cuda_fused_pre": dict(backend="cuda", fuse_pre=True),
 }
 
-# the paper's baselines and the plain Winograd DeConv, on raw weights
-_RAW_FNS = {"ref": winograd_deconv2d, "tdc": tdc_deconv2d, "zero_padded": zero_padded_deconv2d, "lax": lax_deconv2d}
+# the paper's baselines and the plain Winograd DeConv (fp32, bf16 operands,
+# and bf16 without the structural-zero skip), on raw weights
+_RAW_FNS = {
+    "ref": winograd_deconv2d,
+    "ref_bf16": functools.partial(winograd_deconv2d, bf16=True),
+    "ref_dense": functools.partial(winograd_deconv2d, dense=True, bf16=True),
+    "tdc": tdc_deconv2d,
+    "zero_padded": zero_padded_deconv2d,
+    "lax": lax_deconv2d,
+}
 
 IMPLS = (*_CHAINED_KW, *_PREPACKED_KW, *_RAW_KW, *_RAW_FNS)
 
@@ -141,8 +163,17 @@ def serve_impl(impl: str, *, chained: bool = True) -> str:
     ``chained=False``: ``ref`` serves as ``cuda`` (on ``"cuda_prepacked"``),
     ``chained_ref`` as ``"prepacked_ref"``, ``cuda_chained`` as
     ``"cuda_fused_pre_prepacked"``, and a name with no packed form
-    (``tdc``, ``zero_padded``, ``lax``) on ``"cuda_prepacked"``; there the
-    reference serves ``ref`` on the plain ``prepacked_ref``."""
+    (``tdc``, ``zero_padded``, ``lax``, ``ref_bf16``, ``ref_dense``) on
+    ``"cuda_prepacked"``; there the reference serves ``ref`` on the plain
+    ``prepacked_ref`` and the others on their own raw-weight paths.  So the
+    bf16 names serve on the fp32 kernels, as ``tdc`` and ``lax`` do.
+
+    A registry entry (``register_prepacked_generator``) holds the impl this
+    function gave at registration.  An engine serves it where the
+    reference's would (there this function passes chained and plain packed
+    names through): an entry registered chained stays chained on a
+    ``chained=False`` engine, ``prepacked_ref`` stays plain, and a
+    per-layer kernel entry follows the engine's ``chained``."""
     impl = PORT_NAMES.get(impl, impl)
     if chained:
         impl = PREPACKED_EQUIV.get(impl, impl)
@@ -372,6 +403,98 @@ def generator_apply(
                 new_stats[f"deconv{i}_bn"] = {"mean": bn["mean"], "var": bn["var"]}
         h = L.ACTIVATIONS[d.act](h)
     return h, new_stats
+
+
+# ------------------------------------------------ registry of packed generators
+@dataclasses.dataclass(frozen=True)
+class PrepackedGenerator:
+    """A serve-ready resident generator: arch id, config with the serving
+    impl substituted (``serve_impl``), and packed (C, N, M) weights on
+    their device; the G-transform is paid when the entry is built, never on
+    a request path.  ``serve.GanServeEngine(models=...)`` takes these, or
+    arch-id strings resolved through ``get_prepacked_generator``."""
+
+    arch_id: str
+    cfg: GANConfig
+    params: Params
+
+
+_SERVE_REGISTRY: dict[str, PrepackedGenerator] = {}
+
+
+def register_prepacked_generator(arch_id: str, params: Params, cfg: GANConfig, *, device="cuda", mesh=None,
+                                 chained: bool = True) -> PrepackedGenerator:
+    """Pack ``params`` for serving on ``device`` and register them under
+    ``arch_id``, so launch scripts, benchmarks and engines share one
+    resident copy per arch.  Re-registering an arch replaces its entry.
+    ``mesh`` (the reference's sharded placement) is not in the port."""
+    if mesh is not None:
+        raise NotImplementedError("mesh= (sharded residency) is not in the port yet: an entry lives on one device")
+    cfg_s = dataclasses.replace(cfg, deconv_impl=serve_impl(cfg.deconv_impl, chained=chained))
+    moved = tree_map(lambda v: v.to(device, torch.float32).contiguous(), params)
+    entry = PrepackedGenerator(arch_id=arch_id, cfg=cfg_s, params=prepack_generator(moved, cfg_s))
+    _SERVE_REGISTRY[arch_id] = entry
+    return entry
+
+
+def get_prepacked_generator(arch_id: str) -> PrepackedGenerator:
+    """The registered serve-ready generator for ``arch_id``."""
+    try:
+        return _SERVE_REGISTRY[arch_id]
+    except KeyError:
+        raise KeyError(f"no prepacked generator registered for {arch_id!r} "
+                       f"(registered: {sorted(_SERVE_REGISTRY)})") from None
+
+
+def registered_archs() -> tuple[str, ...]:
+    return tuple(sorted(_SERVE_REGISTRY))
+
+
+def clear_prepacked_generators() -> None:
+    _SERVE_REGISTRY.clear()
+
+
+# ------------------------------------------------------ resident health hooks
+def params_finite(params: Params) -> bool:
+    """True iff every floating-point leaf of ``params`` is fully finite.
+
+    The serve engine's half-open probe asks this before it re-admits a
+    quarantined resident: weights poisoned by NaN or Inf cannot produce a
+    good batch.  One fused max-|x| reduction over all the leaves of a
+    device (``torch._foreach_norm``, which keeps NaN), then one host read
+    per device: no read per leaf on the dispatch path."""
+    by_device: dict[torch.device, list[torch.Tensor]] = {}
+    for leaf in tree_leaves(params):
+        if isinstance(leaf, torch.Tensor) and leaf.is_floating_point():
+            by_device.setdefault(leaf.device, []).append(leaf)
+    return all(bool(torch.isfinite(torch.stack(torch._foreach_norm(leaves, float("inf")))).all())
+               for leaves in by_device.values())
+
+
+def generator_health(params: Params, cfg: Optional[GANConfig] = None) -> dict:
+    """Diagnostic health row for a (possibly packed) generator: leaf count,
+    parameter count, and whether every weight is finite."""
+    leaves = [leaf for leaf in tree_leaves(params) if isinstance(leaf, torch.Tensor)]
+    return {
+        "finite": params_finite(params),
+        "n_leaves": len(leaves),
+        "n_params": int(sum(leaf.numel() for leaf in leaves)),
+        "prepacked": cfg is not None and uses_prepacked(cfg.deconv_impl),
+    }
+
+
+def unpack_generator(params: Params, cfg: GANConfig) -> Params:
+    """Checkpoint export, the inverse of ``prepack_generator``: packed
+    Winograd-domain deconv weights -> raw (K_D, K_D, N, M) ones by least
+    squares through the G-transform and the pack
+    (``kernels.ops.unpack_weights``).  Raw ``{"w"}`` leaves pass through,
+    so prepack -> unpack round-trips."""
+    out = dict(params)
+    for i, d in enumerate(cfg.deconvs):
+        wd = params[f"deconv{i}"]
+        if "ww" in wd:
+            out[f"deconv{i}"] = {"w": kops.unpack_weights(wd["ww"], d.dims)}
+    return out
 
 
 # ------------------------------------------------------------ discriminator

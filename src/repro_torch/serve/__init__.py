@@ -1,4 +1,19 @@
-"""Serving: ``GanServeEngine``."""
-from .engine import GanFuture, GanRequest, GanServeEngine
+"""Serving: ``GanServeEngine`` with its failure semantics, the threaded
+``AsyncGanServer`` and the SLO metrics, under the reference's GAN names."""
+from . import metrics
+from .engine import GanFuture, GanRequest, GanServeEngine, GanServeRejected
+from .faults import CircuitBreaker, FaultPlan, GanServeError, InjectedFault
+from .loop import AsyncGanServer
 
-__all__ = ["GanFuture", "GanRequest", "GanServeEngine"]
+__all__ = [
+    "AsyncGanServer",
+    "CircuitBreaker",
+    "FaultPlan",
+    "GanFuture",
+    "GanRequest",
+    "GanServeEngine",
+    "GanServeError",
+    "GanServeRejected",
+    "InjectedFault",
+    "metrics",
+]
