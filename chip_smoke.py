@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases kernel,kernel_bwd,kernel_conv,kernel_domain,serve,train,train_chained,
-                                    serve_per_layer,train_per_layer,kernel_1d,audio,serve_faults]
+                                    serve_per_layer,train_per_layer,kernel_1d,audio,serve_faults,train_gan]
 
 Phases, each printing one JSON line:
   env     torch / CUDA versions, the card's name and power limit; TF32 off.
@@ -14,7 +14,11 @@ Phases, each printing one JSON line:
 Each kernel phase also calls each of its wrappers once with a misaligned
 contiguous view of one operand that the kernel moves in 16-byte copies: the
 call must raise ValueError before any launch, and an aligned launch after it
-must still run (no sticky CUDA error).
+must still run (no sticky CUDA error).  At one relu shape of each epilogue
+source (NAN_CASES: fused_engine.cu's CUDA-core and tensor-core epilogues,
+conv_engine.cu, engine1d.cu) the kernel also runs on weights holding NaN
+(poison): its output must be NaN exactly where the plain version's is, and
+agree with it elsewhere (nan_case).
   kernel  the fused Winograd-DeConv kernel (TPU kernel 3 at the deconv
           corner) against its plain PyTorch version at the four DCGAN layer
           shapes as a generate serves them (batch 8: the CUDA-core kernel)
@@ -161,13 +165,29 @@ must still run (no sticky CUDA error).
           p50 / p99 end-to-end ms, mean compute ms, images/s; (B) the
           quarantine drill: a persistent raise trips the breaker, a submit
           fast-rejects, a half-open probe through weights holding a NaN is
-          refused with kind "weights" and reopens it, the restored weights'
-          probe serves and closes it (params_finite on clean / inf / NaN
-          weights); (C) the watchdog drill: the generate loop raises once
+          refused with kind "nan" (the NaN guard: the kernels' relu keeps
+          the NaN, so the batch is not finite) and reopens it, the restored
+          weights' probe serves and closes it (params_finite on clean / inf
+          / NaN weights); (C) the watchdog drill: the generate loop raises once
           outside the isolation boundary, one restart, its request fails
           "loop_dead", the next four serve; (D) host ms per batch-8
           generate pipelined, with the stream synchronized, and with the
           NaN guard's read: what the sync and the guard cost a dispatch.
+  train_gan
+          the port's train_gan loop at DCGAN's published widths, batch 128,
+          both nets cuda_chained: A a clean run of 16 steps (and A' again),
+          B a chaos run checkpointing every 4 steps into a fresh directory
+          under TRAIN_GAN_PLAN (raise at 5, NaN batch at 9, a truncated
+          checkpoint at 10, raise at 11, preempt at 14), C a run resuming
+          B's directory; B's and C's counters, fault log, injected faults
+          and final step must be the reference's (TRAIN_GAN_EXPECTED), C's
+          metrics history and final params A's bit for bit, the NaN batch's
+          metrics non-finite, and kernels 3/6/7 4/4/4 and the conv corner's
+          8/11/12 per step call; loop ms per step with the sentinel on and
+          off against a bare make_gan_step loop (medians of three rounds in
+          turns), checkpoint bytes, save ms
+          (device-to-host, sha256, write and fsync), restore and verify ms,
+          peak memory.
   kernels one summary line per kernel (launches on each serving and training
           path, as that phase's run counted them, null for a phase that did
           not run; error, times, the least time the card could take; for the
@@ -207,13 +227,16 @@ SOURCE_1D = "src/repro_torch/kernels/csrc/engine1d.cu"  # kernels 8 and 9
 REPLACES_1D_NLC = "src/repro/kernels/engine.py:1724"  # winograd_conv1d_fused_engine's nlc pallas_call
 REPLACES_1D_SCRATCH = "src/repro/kernels/engine.py:1690"  # its scratch pallas_call
 PHASES = ("kernel", "kernel_bwd", "kernel_conv", "kernel_domain", "serve", "train", "train_chained",
-          "serve_per_layer", "train_per_layer", "kernel_1d", "audio", "serve_faults")
+          "serve_per_layer", "train_per_layer", "kernel_1d", "audio", "serve_faults", "train_gan")
 TRAIN_BATCH = 128  # the DCGAN paper's mini-batch
 # K5S2 at batch 7, 11x11 input, 100 -> 36 channels: name, (kernel, stride, padding, output_padding), B, H, N, M
 RAGGED_SHAPE = ("ragged", (5, 2, 2, 1), 7, 11, 100, 36)
 # the conv corner's: K4S2 at batch 7, 11x11 input, 100 -> 36 channels (T = 63 tiles): name, K, S, B, H, W,
 # N, M, emit_cells, activation, affine
 CONV_RAGGED_SHAPE = ("k4s2_ragged", 4, 2, 7, 11, 11, 100, 36, True, "relu", True)
+# the relu shapes of each epilogue source (fused_engine.cu on the CUDA cores and the tensor cores, conv_engine.cu,
+# engine1d.cu) that also run with NaN weights (poison, nan_case)
+NAN_CASES = ("dcgan.deconv0", "ragged.fwd", "k3s2", "epilogue.relu")
 AUDIO_BATCH, AUDIO_FRAMES, AUDIO_WIDTH = 16, 4096, 64  # the audio decoder's cell: 16 clips of 4096 latent frames
 # each row of the kernels line -> (its wrapper in repro_torch.kernels.engine,
 # the attribute that counts its launches)
@@ -386,6 +409,44 @@ def bitwise_repeat(what: str, run, got) -> None:
     torch.cuda.synchronize()
     if not torch.equal(again, got):
         fail(f"{what}: two launches on the same inputs differ (max |diff| {(again - got).abs().max().item():.3e})")
+
+
+def poison(ww, n: int = 3, m: int = 1):
+    """A copy of the packed weights ``ww`` (C, N, M) with input channel n of
+    output channel m NaN at every packed position, so every output of
+    channel m is NaN before the epilogue's activation in the kernel and in
+    its plain version alike (the serve drill's poisoned weight, at every
+    position).  NaN in the input activations instead would not do: the
+    kernels' input transforms add only the terms their B^T entries keep,
+    where the plain versions' einsum also multiplies the zeros (0 * NaN =
+    NaN), so a NaN there reaches more outputs of the plain version."""
+    ww = ww.clone()
+    ww[:, n, m] = float("nan")
+    return ww
+
+
+def nan_case(what: str, run, plain) -> dict:
+    """Fail unless the kernel's output on an input holding NaN has NaN
+    exactly where the plain version's has (the epilogue's relu keeps NaN,
+    as ``torch.clamp_min`` does) and agrees with it elsewhere within the
+    forward tolerance."""
+    import torch
+
+    got = run()
+    torch.cuda.synchronize()
+    want = plain()
+    nan_k, nan_p = torch.isnan(got), torch.isnan(want)
+    if not bool(nan_p.any()):
+        fail(f"{what}: the NaN input reaches no output of the plain version")
+    if not torch.equal(nan_k, nan_p):
+        fail(f"{what}: NaN at {int(nan_k.sum())} outputs of the kernel, {int(nan_p.sum())} of the plain version "
+             f"({int((nan_k & nan_p).sum())} shared)")
+    fin = ~nan_p
+    err = (got[fin] - want[fin]).abs().max().item()
+    tol = 1e-4 * want[fin].abs().max().item() + 1e-5
+    if not err <= tol:
+        fail(f"{what}: max|err| {err:.3e} > {tol:.3e} off the NaN outputs")
+    return dict(name=what, nan_outputs=int(nan_p.sum()), outputs=want.numel(), max_abs_err=err, tol=tol)
 
 
 def bwd_w_plan(tile, splits: int, C: int, S2: int, M: int) -> dict:
@@ -611,6 +672,12 @@ def kernel_phase(torch, peaks):
         if not err <= tol:
             fail(f"kernel vs plain at {name}: max|err| {err:.3e} > {tol:.3e}")
         bitwise_repeat(f"forward at {name}", lambda: run("cuda"), got)
+        if name in NAN_CASES:  # NaN weights, through the relu epilogue of each instantiation
+            packed_nan = packed._replace(ww=poison(packed.ww))
+            nan_run = lambda backend: ops.winograd_deconv2d_cells(  # noqa: E731
+                cells, packed_nan, dims, (H, H), backend=backend, **kw)
+            emit({"phase": "kernel", "nan_case": nan_case(f"fused_engine at {name}", lambda: nan_run("cuda"),
+                                                          lambda: nan_run("ref"))})
         if i == 0:  # the wrapper refuses a misaligned operand, and launches again after it
             emit({"phase": "kernel", "misaligned_refusals": [refuses_misaligned(
                 "fused_engine", lambda: ops.winograd_deconv2d_cells(misaligned(cells), packed, dims, (H, H), **kw),
@@ -1121,8 +1188,8 @@ def serve_faults_phase(torch, card):
     drill.update(_check_delivered(torch, "serve_faults drill", eng, [probe.request]))
     emit({"phase": "serve_faults_drill", **drill, "breaker": br.counters(), "card": card})
     if not (drill["tripped"] and drill["fast_rejected"] and drill["reopened"] and drill["recovered"]
-            and drill["poisoned_probe_kind"] == "weights" and drill["params_finite_clean_inf_nan"] == [True, False,
-                                                                                                     False]):
+            and drill["poisoned_probe_kind"] == "nan" and not drill["poisoned_batch_finite"]
+            and drill["params_finite_clean_inf_nan"] == [True, False, False]):
         fail(f"serve_faults: quarantine drill {drill}")
 
     # --- C: watchdog drill: the generate loop raises once outside the isolation boundary
@@ -1185,6 +1252,254 @@ def serve_faults_phase(torch, card):
           "launches_per_generate": 4, "max_err_share_vs_plain": max(
               [r["err_share"] for r in runs.values()] + [drill["err_share"], wd["err_share"]]), "card": card})
     G.clear_prepacked_generators()
+    return launches
+
+
+# train_gan's chaos drill (run B): each (kind, step) one non-persistent TrainFaultPlan firing once
+TRAIN_GAN_PLAN = (("raise", 5), ("nan_grad", 9), ("corrupt_ckpt", 10), ("raise", 11), ("preempt", 14))
+TRAIN_GAN_STEPS, TRAIN_GAN_CKPT_EVERY = 16, 4
+# What the reference's train_gan returns for TRAIN_GAN_PLAN over TRAIN_GAN_STEPS steps, a checkpoint every
+# TRAIN_GAN_CKPT_EVERY and the default FaultPolicy (rollback, no backoff): the chaos run, then the run that resumes
+# its directory.  The raise at 5 restores step 4; the NaN batch at 9 trips the sentinel and rolls back to 8; the
+# corruption at 10 truncates step 8, so the raise at 11 falls back past it to 4; the preempt at 14 checkpoints
+# step 15 and returns.  tests/test_torch_train_resilience.py holds both packages to these on the CPU.
+TRAIN_GAN_EXPECTED = {
+    "chaos": {
+        "counters": {"restores": 2, "rollbacks": 1, "skips": 0, "sentinel_trips": 1, "ckpt_fallbacks": 1,
+                     "injected_handled": {"raise": 2, "nan_grad": 1}},
+        "fault_log": [
+            {"step": 5, "attempt": 1, "injected": True, "kind": "exception", "verdict": None, "action": "restore",
+             "error": "InjectedTrainFault: injected raise at step 5"},
+            {"step": 9, "attempt": 1, "injected": True, "kind": "divergence", "verdict": "nonfinite:g_loss",
+             "action": "rollback", "error": None},
+            {"step": 11, "attempt": 1, "injected": True, "kind": "exception", "verdict": None, "action": "restore",
+             "error": "InjectedTrainFault: injected raise at step 11"}],
+        "faults_injected": {"raise": 2, "nan_grad": 1, "corrupt_ckpt": 1, "preempt": 1},
+        "final_step": 15,
+        "preempted": True,
+    },
+    "resume": {
+        "counters": {"restores": 0, "rollbacks": 0, "skips": 0, "sentinel_trips": 0, "ckpt_fallbacks": 0,
+                     "injected_handled": {}},
+        "fault_log": [], "faults_injected": {}, "final_step": 16, "preempted": False,
+    },
+}
+# the port's step calls in each run (an injected raise fires before the step runs): clean, chaos, resume
+TRAIN_GAN_STEP_CALLS = {"clean": 16, "chaos": 25, "resume": 1}
+TRAIN_GAN_LAUNCHES = {"fused_engine_epi": 4, "fused_engine_bwd_x": 4, "fused_engine_bwd_w": 4,
+                      "conv_engine_fwd": 8, "conv_engine_bwd_x": 11, "conv_engine_bwd_w": 12}  # per step call
+
+
+def train_gan_plans(resilience) -> list:
+    """TRAIN_GAN_PLAN as fresh TrainFaultPlans of ``resilience`` (either
+    package's module: the plans are mutable, each fires once)."""
+    return [resilience.TrainFaultPlan(kind=kind, at_step=step, max_faults=1) for kind, step in TRAIN_GAN_PLAN]
+
+
+def accounting(out: dict) -> dict:
+    """The keys of a train_gan result that TRAIN_GAN_EXPECTED holds."""
+    return {k: out[k] for k in ("counters", "fault_log", "faults_injected", "final_step", "preempted")}
+
+
+def train_gan_phase(torch, card):
+    """The port's train_gan loop on the card, DCGAN at its published widths,
+    batch 128, both nets cuda_chained (the reference's main training path),
+    AdamW lr 2e-4, b1 0.5.  A: a clean run of TRAIN_GAN_STEPS steps (and A',
+    the same again: the step's determinism); B: a chaos run in a fresh
+    checkpoint directory under TRAIN_GAN_PLAN; C: a run resuming B's
+    directory.  Fails unless B's and C's accounting is TRAIN_GAN_EXPECTED,
+    C's metrics history and final params are A's bit for bit, the NaN
+    batch's metrics are non-finite, and kernels 3/6/7 launch 4/4/4 and the
+    conv corner's 8/11/12 per step call and no other kernel launches.
+    Readings: loop ms per step with the sentinel on and off against a bare
+    make_gan_step loop (medians of three rounds in turns), checkpoint bytes, save ms (device-to-host, sha256,
+    write and fsync), restore ms (the fallback walk included), verify ms,
+    peak device memory.  Returns every kernel's launches over A, B and C."""
+    import dataclasses
+    import math
+    import os
+    import tempfile
+    import warnings
+
+    from repro_torch import data as D
+    from repro_torch.configs import DCGAN
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import StepSettings, train_gan
+    from repro_torch.train import checkpoint as C
+    from repro_torch.train import resilience as R
+    from repro_torch.train import trainer as T
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(DCGAN, deconv_impl="cuda_chained", conv_impl="cuda_chained")
+    B, steps = TRAIN_BATCH, TRAIN_GAN_STEPS
+    kw = dict(batch=B, seed=0, handle_signals=False, device="cuda", settings=StepSettings(lr=2e-4, b1=0.5))
+    run_kw = dict(kw, steps=steps, log_every=1)
+
+    # counted step calls, timed checkpoint pieces, and what the sentinel saw
+    calls = [0]
+    spent = {"save": [], "d2h": 0.0, "sha": 0.0, "restore": []}
+    seen = []
+    real = dict(make=T.make_gan_step, host=C._host_array, sha=C._leaf_sha, save=C.save_checkpoint,
+                restore=C.restore_latest_valid, observe=R.DivergenceDetector.observe)
+
+    def make_counting(*a, **k):
+        step = real["make"](*a, **k)
+
+        def counted(*sa):
+            calls[0] += 1
+            return step(*sa)
+        return counted
+
+    def timed(key, fn):
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            spent[key] += time.perf_counter() - t
+            return out
+        return wrapper
+
+    def timed_call(key, fn, note):
+        def wrapper(*a, **k):
+            d2h, sha, t = spent["d2h"], spent["sha"], time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[key].append(dict(ms=1e3 * (time.perf_counter() - t), **note(out, spent["d2h"] - d2h,
+                                                                                 spent["sha"] - sha)))
+            return out
+        return wrapper
+
+    def observe(self, step, metrics):
+        verdict = real["observe"](self, step, metrics)
+        if verdict is not None:
+            seen.append(dict(step=step, verdict=verdict, metrics=metrics))
+        return verdict
+
+    T.make_gan_step = make_counting
+    C._host_array, C._leaf_sha = timed("d2h", real["host"]), timed("sha", real["sha"])
+    C.save_checkpoint = timed_call("save", real["save"], lambda out, d2h, sha: dict(
+        path=os.path.basename(out), d2h_ms=1e3 * d2h, sha256_ms=1e3 * sha))
+    C.restore_latest_valid = timed_call("restore", real["restore"], lambda out, d2h, sha: dict(step=out[0]))
+    R.DivergenceDetector.observe = observe
+    runs, step_calls = {}, {}
+    try:
+        # --- the main path: A, B, C with the counts at 0 just before and read just after
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        totals = dict.fromkeys(COUNTERS, 0)
+        with tempfile.TemporaryDirectory(prefix="train_gan_") as ckpt:
+            for name, extra in (("clean", {}), ("chaos", dict(ckpt_dir=ckpt, ckpt_every=TRAIN_GAN_CKPT_EVERY,
+                                                                 fault_plan=train_gan_plans(R))),
+                                ("resume", dict(ckpt_dir=ckpt, ckpt_every=TRAIN_GAN_CKPT_EVERY))):
+                calls[0] = 0
+                before = read_counts()
+                t = time.perf_counter()
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", RuntimeWarning)  # the fallback past the corrupt step 8
+                    runs[name] = train_gan(cfg, **run_kw, **extra)
+                torch.cuda.synchronize()
+                runs[name]["seconds"] = time.perf_counter() - t
+                got = {row: n - before[row] for row, n in read_counts().items()}
+                step_calls[name] = calls[0]
+                check_counts(f"train_gan {name}", got, {row: n * calls[0] for row, n in TRAIN_GAN_LAUNCHES.items()})
+                for row, n in got.items():
+                    totals[row] += n
+            peak = torch.cuda.max_memory_allocated()
+            launches = read_counts()
+            if launches != totals:
+                fail(f"train_gan: launches {launches} over the runs, {totals} by run")
+            last = C.latest_step(ckpt)
+            step_dir = os.path.join(ckpt, f"step_{last:012d}")
+            ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+            t = time.perf_counter()
+            C.verify_checkpoint(ckpt, last)
+            verify_ms = 1e3 * (time.perf_counter() - t)
+            kept = C.available_steps(ckpt)
+        # A': the clean run again (is the step deterministic?)
+        zero_counts()
+        again = train_gan(cfg, **run_kw)
+    finally:
+        T.make_gan_step = real["make"]
+        C._host_array, C._leaf_sha = real["host"], real["sha"]
+        C.save_checkpoint, C.restore_latest_valid = real["save"], real["restore"]
+        R.DivergenceDetector.observe = real["observe"]
+
+    for name in ("chaos", "resume"):
+        if accounting(runs[name]) != TRAIN_GAN_EXPECTED[name]:
+            fail(f"train_gan {name}: {accounting(runs[name])}, the reference gives {TRAIN_GAN_EXPECTED[name]}")
+    if step_calls != TRAIN_GAN_STEP_CALLS:
+        fail(f"train_gan: step calls {step_calls}, want {TRAIN_GAN_STEP_CALLS}")
+    bad = [e for e in seen if e["step"] == 9]
+    if len(seen) != 1 or not bad or any(math.isfinite(bad[0]["metrics"][k]) for k in ("g_loss", "d_loss")) \
+            or bad[0]["metrics"]["nonfinite"] != 1.0:
+        fail(f"train_gan chaos: the sentinel's verdicts {seen}, want one, non-finite metrics at step 9")
+
+    def same(a, b) -> dict:
+        leaves = [(x, y) for x, y in zip(tree_leaves(a["params"]), tree_leaves(b["params"]))]
+        return dict(metrics=a["metrics"] == b["metrics"], params=all(torch.equal(x, y) for x, y in leaves),
+                    max_abs_diff_params=max((x - y).abs().max().item() for x, y in leaves))
+
+    clean, resumed = runs["clean"], runs["resume"]
+    deterministic = same(clean, again)
+    resumed_vs_clean = same(clean, resumed)
+    if not (deterministic["metrics"] and deterministic["params"]):
+        # a library op of the step is not deterministic: hold C to A within the train phases' 3-step tolerances
+        worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for a, b in zip(resumed["metrics"], clean["metrics"])
+                    for k in ("g_loss", "d_loss", "g_grad_norm", "d_grad_norm"))
+        if not (worst <= 1e-3 and resumed_vs_clean["max_abs_diff_params"] <= 6 * 2e-4):
+            fail(f"train_gan: the resumed run against the clean one: metrics {worst:.3e} relative, params "
+                 f"{resumed_vs_clean['max_abs_diff_params']:.3e} (A against A': {deterministic})")
+    elif not (resumed_vs_clean["metrics"] and resumed_vs_clean["params"]):
+        fail(f"train_gan: the resumed run is not the clean run bit for bit: {resumed_vs_clean}")
+    if not all(math.isfinite(v) for e in clean["metrics"] for v in e.values()):
+        fail("train_gan: non-finite metrics in the clean run")
+
+    # --- readings: loop ms per step (two run lengths, so init and the first step cancel), sentinel on and off,
+    # against a bare make_gan_step loop on the same batches; three rounds in turns (host time spreads)
+    def loop_ms(policy) -> float:
+        walls = []
+        for n in (4, 4 + steps):
+            t = time.perf_counter()
+            train_gan(cfg, steps=n, log_every=n, policy=policy, **kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        return 1e3 * (walls[1] - walls[0]) / steps
+
+    step = T.make_gan_step(cfg, settings=kw["settings"])
+    gp, dp = clean["params"]["gp"], clean["params"]["dp"]
+
+    def bare_ms() -> float:
+        state = [gp, dp, adamw_init(gp), adamw_init(dp)]
+        for s in range(steps + 2):
+            if s == 2:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+            z, real_b = D.latent_batch(0, s, B, cfg.z_dim, device="cuda"), D.gan_batch(0, s, B, cfg.img_hw,
+                                                                                      device="cuda")
+            state[:] = step(*state, z, real_b)[:4]
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / steps
+
+    loop = {"sentinel_on": [], "sentinel_off": [], "bare_step": []}
+    for _ in range(3):
+        loop["sentinel_on"].append(loop_ms(R.FaultPolicy()))
+        loop["sentinel_off"].append(loop_ms(R.FaultPolicy(sentinel=False)))
+        loop["bare_step"].append(bare_ms())
+    saves = spent["save"]
+    emit({"phase": "train_gan", "arch": "dcgan", "batch": B, "steps": steps, "impls": "cuda_chained both nets",
+          "plan": TRAIN_GAN_PLAN, "accounting": {k: accounting(runs[k]) for k in ("chaos", "resume")},
+          "matches_reference": True, "step_calls": step_calls, "launches_per_step_call": TRAIN_GAN_LAUNCHES,
+          "launches": launches, "nan_step": {"step": bad[0]["step"], "verdict": bad[0]["verdict"], "metrics": {
+              k: v if math.isfinite(v) else repr(v) for k, v in bad[0]["metrics"].items()}},
+          "deterministic_a_vs_a2": deterministic, "resumed_vs_clean": resumed_vs_clean,
+          "run_seconds": {k: r["seconds"] for k, r in runs.items()}, "card": card})
+    emit({"phase": "train_gan_rate", **{f"loop_ms_per_step_{k}": statistics.median(v) for k, v in loop.items()},
+          "loop_ms_per_step_rounds": loop,
+          "checkpoint_bytes": ckpt_bytes, "kept_steps": kept, "saves": saves,
+          "save_ms_mean": statistics.mean(x["ms"] for x in saves),
+          "save_d2h_ms_mean": statistics.mean(x["d2h_ms"] for x in saves),
+          "save_sha256_ms_mean": statistics.mean(x["sha256_ms"] for x in saves),
+          "save_write_fsync_ms_mean": statistics.mean(x["ms"] - x["d2h_ms"] - x["sha256_ms"] for x in saves),
+          "restores": spent["restore"], "verify_ms": verify_ms, "max_memory_allocated": peak, "card": card})
     return launches
 
 
@@ -1658,6 +1973,12 @@ def kernel_1d_phase(torch, peaks):
         torch.cuda.synchronize()
         err = held(f"engine1d {out_mode} at {name}", got, plain())
         bitwise_repeat(f"engine1d {out_mode} at {name}", run, got)
+        if name in NAN_CASES:  # NaN weights, through the nlc epilogue's relu
+            ww_nan = poison(packed.ww)
+            emit({"phase": "kernel_1d", "nan_case": nan_case(
+                f"winograd_conv1d_fused_engine at {name}",
+                lambda: engine.winograd_conv1d_fused_engine(cells, ww_nan, packed.inv, bt, **kw),
+                lambda: engine.winograd_conv1d_fused_engine_plain(cells, ww_nan, packed.inv, bt, **kw))})
         if i == 0:  # the 1D wrapper refuses a misaligned operand, and launches again after it
             e1 = engine.winograd_conv1d_fused_engine
             refusals += [
@@ -2023,6 +2344,12 @@ def kernel_conv_phase(torch, peaks):
                 fail(f"conv {key} kernel vs plain at {name}: max|err| {err:.3e} > {tol:.3e}")
             errs[key] = (err, tol, got.numel())
             bitwise_repeat(f"conv {key} at {name}", run, got)
+        if name in NAN_CASES:  # NaN weights, through the forward's relu epilogue
+            packed_nan = packed._replace(ww=poison(packed.ww))
+            emit({"phase": "kernel_conv", "nan_case": nan_case(
+                f"conv_fused_engine at {name}",
+                lambda: ops.winograd_conv2d_cells(cells, packed_nan, cd, (H, W), **fkw),
+                lambda: ops.winograd_conv2d_cells(cells, packed_nan, cd, (H, W), backend="ref", **fkw))})
         if i == 1:  # conv1 (64 -> 128): each wrapper refuses a misaligned operand, and launches again after it
             fwd = dict(out_mode="nhwc", out_h=HO, out_w=WO, **geo)
             emit({"phase": "kernel_conv", "misaligned_refusals": [
@@ -2622,11 +2949,13 @@ def main(argv=None) -> int:
     rows_1d = timed("kernel_1d", lambda: kernel_1d_phase(torch, peaks), [])
     audio = timed("audio", lambda: audio_phase(torch, smi), {})
     serve_faults = timed("serve_faults", lambda: serve_faults_phase(torch, smi), None)
+    train_loop = timed("train_gan", lambda: train_gan_phase(torch, smi), None)
     # each path's launches of every kernel, counted in its run (None: not run)
     path_launches = {"serve": serve_launches, "train": train.get("launches"),
                      "train_chained": chained.get("launches"), "serve_per_layer": serve_pl.get("launches"),
                      "train_per_layer": per_layer.get("launches"), "audio": audio.get("launches"),
-                     "audio_grad": audio.get("grad_launches"), "serve_faults": serve_faults}
+                     "audio_grad": audio.get("grad_launches"), "serve_faults": serve_faults,
+                     "train_gan": train_loop}
 
     def step_device_ms(kname, run=None):
         """Device ms per step of the instantiations of ``kname`` (or of a

@@ -88,7 +88,7 @@ constexpr int kMaxPos = 16;  // n*n: the most packed positions one sub-filter ha
 
 __device__ __forceinline__ float activate(float v, int act) {
   switch (act) {
-    case 1: return fmaxf(v, 0.0f);
+    case 1: return v < 0.0f ? 0.0f : v;  // keeps NaN, as torch.clamp_min and jnp.maximum do
     case 2: return v >= 0.0f ? v : 0.2f * v;  // LEAKY_SLOPE
     case 3: return tanhf(v);
     default: return v;

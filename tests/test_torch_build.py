@@ -68,3 +68,56 @@ def test_unfused_forward_entry_points_carry_the_plan_the_wrapper_reads():
                                                "conf", "splits", "scratch", "counters", "stream"]
     # the tensor maps' encoder comes through the runtime, so the link needs no libcuda
     assert "cudaGetDriverEntryPoint" in src and "cuTensorMapEncodeTiled" in src
+
+
+def _activate_cases(src: str) -> dict:
+    """``activate``'s switch in one source: {case label: returned C expression}."""
+    import re
+
+    body = re.search(r"float activate\(float v, int act\) \{(.*?)\n\}", src, re.S)
+    assert body, "no activate() in the source"
+    return {m.group(1): m.group(2).strip()
+            for m in re.finditer(r"(case \d+|default):\s*return ([^;]+);", body.group(1))}
+
+
+def _numpy_model(expr: str):
+    """A numpy function of ``v`` computing the C expression as the card does:
+    ``fmaxf`` returns its other operand for a NaN (IEEE maxNum, as np.fmax),
+    a comparison with NaN is false, ``tanhf`` keeps NaN."""
+    import re
+
+    import numpy as np
+
+    py = re.sub(r"(\d+\.\d*)f\b", r"\1", expr).replace("fmaxf", "np.fmax").replace("tanhf", "np.tanh")
+    m = re.fullmatch(r"(.+?)\?(.+?):(.+)", py)
+    if m:
+        py = f"np.where({m.group(1)}, {m.group(2)}, {m.group(3)})"
+    return lambda v: eval(py, {"np": np, "v": v})  # noqa: S307 - the repo's own source
+
+
+def test_every_epilogue_activation_keeps_nan_as_the_plain_version():
+    """Each kernel epilogue's ``activate`` (the deconv corner, the conv corner,
+    the 1D engine) matches ``epilogue_apply_ref`` value for value, NaN
+    positions included: relu as ``fmaxf(v, 0.0f)`` mapped a NaN to 0, where
+    ``torch.clamp_min`` and the reference's ``jnp.maximum`` keep it."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.engine import _ACT_CODES
+    from repro_torch.kernels.ref import epilogue_apply_ref
+
+    v = np.array([np.nan, -np.inf, -2.5, -1e-30, -0.0, 0.0, 1e-30, 0.75, 3.0, np.inf], np.float32)
+    sources = [p for p in sorted(_build.CSRC.glob("*.cu")) if "float activate(" in p.read_text()]
+    assert {p.name for p in sources} == {"fused_engine.cu", "conv_engine.cu", "engine1d.cu"}
+    for path in sources:
+        cases = _activate_cases(path.read_text())
+        assert not any(re.search(r"fmaxf\(\s*v\s*,\s*0", e) for e in cases.values()), path.name
+        for act, code in _ACT_CODES.items():
+            expr = cases.get(f"case {code}", cases["default"])
+            with np.errstate(invalid="ignore"):
+                got = np.asarray(_numpy_model(expr)(v), np.float32)
+            want = epilogue_apply_ref(torch.from_numpy(v), None, None, act).numpy()
+            np.testing.assert_array_equal(np.isnan(got), np.isnan(want), err_msg=f"{path.name} {act}")
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=0, err_msg=f"{path.name} {act}")

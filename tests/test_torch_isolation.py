@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` (nor
-``chip_smoke.py`` or the port's ``tools/``) imports JAX or the JAX package, every CUDA source
-is in the build, and the kernel wrappers take their plain versions only for CPU tensors."""
+``chip_smoke.py``, the port's ``tools/`` or its ``examples/torch_*.py``)
+imports JAX or the JAX package, every CUDA source is in the build, and the
+kernel wrappers take their plain versions only for CPU tensors."""
 import re
 from pathlib import Path
 
@@ -17,7 +18,7 @@ FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$
 
 def _port_files():
     return (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-            + sorted((ROOT / "tools").glob("*.py")))
+            + sorted((ROOT / "tools").glob("*.py")) + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def test_port_imports_no_jax_and_no_reference_package():
@@ -27,6 +28,9 @@ def test_port_imports_no_jax_and_no_reference_package():
     pkg = ROOT / "src" / "repro_torch"
     for sub in ("optim", "data", "train", "kernels", "models"):
         assert any(f.parent == pkg / sub for f in files), sub
+    for name in ("checkpoint.py", "resilience.py", "trainer.py"):  # the training loop's modules
+        assert pkg / "train" / name in files, name
+    assert ROOT / "examples" / "torch_train_dcgan.py" in files
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
     assert not bad, bad
