@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases kernel,kernel_bwd,kernel_conv,kernel_domain,serve,train,train_chained,
-                                    serve_per_layer,train_per_layer,kernel_1d,audio,serve_faults,train_gan]
+                                    serve_per_layer,train_per_layer,kernel_1d,audio,serve_faults,train_gan,
+                                    autotune]
 
 Phases, each printing one JSON line:
   env     torch / CUDA versions, the card's name and power limit; TF32 off.
@@ -188,6 +189,35 @@ agree with it elsewhere (nan_case).
           turns), checkpoint bytes, save ms
           (device-to-host, sha256, write and fsync), restore and verify ms,
           peak memory.
+  autotune
+          kernels/autotune.py at DCGAN's published widths: autotune_deconv over
+          the generator's four layers at batch 128 with the gradient (in the
+          weights and the input: both backward kernels) and at batch 8
+          forward, each for the unfused (kernels 1, 4, 5) and the fused pre-PE
+          engine (kernels 2, 6, 7); autotune_conv over the discriminator's
+          conv0-3 at batch 128 with the gradient, with the epilogue and
+          emit-cells axes; autotune_conv1d over the audio decoder's three
+          layers at batch 16 and 1.  Each layer's candidates vary one axis
+          each: every instantiation of each kernel it launches
+          (engine.INSTANTIATIONS), the split counts 1, 2, 4; the library
+          baseline (cfg None) beside them.  Before any timing: at every shape
+          the layer's launches take, each instantiation and split is taken by
+          the engine's table exactly where its C plan takes it
+          (table_checks); each candidate the table takes is held against the
+          plain version (forward 1e-4 * max + 5e-5, loss 1e-4 relative,
+          gradient 1e-4 * max + 1e-5), its profile must show every
+          instantiation it names (INSTANTIATION_KERNELS), and one that
+          forces a split runs twice bitwise equal; one the table refuses is
+          an ok=False row.  Then autotune_* times all in two rounds
+          (each the best of 5 calls); a row prints each candidate's ms, the
+          plan's choice and ms, the fastest other launch and its margin, the
+          library's ms and the spreads.  Then install_tuned_blocks for
+          cuda_prepacked at batch 128 (grad), the discriminator's winners by
+          set_deconv_blocks, and train_tuned: the train_per_layer phase's
+          3 steps and checks on the tuned table (no tolerance moved); a
+          batch-8 generate of GanServeEngine(chained=False) with the table
+          against prepacked_ref, timed against the same generate without the
+          table in turns (the key holds no batch); the table cleared after.
   kernels one summary line per kernel (launches on each serving and training
           path, as that phase's run counted them, null for a phase that did
           not run; error, times, the least time the card could take; for the
@@ -203,6 +233,7 @@ this script, it exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import statistics
@@ -227,7 +258,7 @@ SOURCE_1D = "src/repro_torch/kernels/csrc/engine1d.cu"  # kernels 8 and 9
 REPLACES_1D_NLC = "src/repro/kernels/engine.py:1724"  # winograd_conv1d_fused_engine's nlc pallas_call
 REPLACES_1D_SCRATCH = "src/repro/kernels/engine.py:1690"  # its scratch pallas_call
 PHASES = ("kernel", "kernel_bwd", "kernel_conv", "kernel_domain", "serve", "train", "train_chained",
-          "serve_per_layer", "train_per_layer", "kernel_1d", "audio", "serve_faults", "train_gan")
+          "serve_per_layer", "train_per_layer", "kernel_1d", "audio", "serve_faults", "train_gan", "autotune")
 TRAIN_BATCH = 128  # the DCGAN paper's mini-batch
 # K5S2 at batch 7, 11x11 input, 100 -> 36 channels: name, (kernel, stride, padding, output_padding), B, H, N, M
 RAGGED_SHAPE = ("ragged", (5, 2, 2, 1), 7, 11, 100, 36)
@@ -1625,7 +1656,7 @@ def kernel_bwd_phase(torch, peaks):
             row.update(mma_bound(n_bytes, n_ops, products,
                                  sorted(k for k in by_kernel if kernel_named(k, kname)), peaks))
             if key == "x":
-                R, W, TC, BT = engine._bwd_x_plan(B, gy, gy, ty, ty, M, dev)
+                R, W, TC, BT, _ = engine._bwd_x_plan(B, gy, gy, ty, ty, M, dev)
                 row["plan"] = dict(R=R, W=W, TC=TC, BT=BT, **bwd_x_block_use(B, gy, gy, ty, ty, R, W, TC, BT))
             else:
                 splits, _, _, tile = engine._bwd_w_plan(B, ty, ty, N, M, S, C, dev)
@@ -1666,7 +1697,8 @@ def domain_fwd_plan(torch, engine, name, B, xw, packed, kw, dev, held, err):
     allowed = [0, 2] + ([1] if M % 4 == 0 and M >= 16 else [])
     confs = {}
     for c in sorted(allowed):
-        run = lambda: engine._domain_fwd(xw, packed.ww, packed.inv, conf=c, **kw)  # noqa: E731
+        inst = engine.INSTANTIATIONS["domain_engine"][c]
+        run = lambda: engine.domain_engine(xw, packed.ww, packed.inv, conf=inst, **kw)  # noqa: E731
         e, tol = held(f"domain_engine fwd instantiation {c} at {name}", run(),
                       engine.domain_engine_plain(xw, packed.ww, packed.inv, **kw))
         confs[c] = dict(ms=profiled_ms(run, reps=10, name=FWD_CONF_KERNELS[c])[2], err_share=e / tol)
@@ -2438,7 +2470,8 @@ def kernel_conv_phase(torch, peaks):
                 if name == CONV_RAGGED_SHAPE[0] and splits < 2:
                     fail(f"conv kernel 7 at the ragged shape ran unsplit (plan {row['plan']})")
             elif key == "fwd":  # the pass split over blocks
-                sp, _, _, (_, npass, nslot, npos) = engine._conv_fwd_plan(B, ty, tx, N, M, tuple(pos_idx), S * S, dev)
+                sp, _, _, (_, npass, nslot, npos), _ = engine._conv_fwd_plan(B, ty, tx, N, M, tuple(pos_idx), S * S,
+                                                                              dev)
                 BT, BM, _, mma = engine._conv_fwd_conf(N, M, S * S)
                 row["plan"] = dict(BT=BT, BM=BM, tensor_cores=bool(mma), splits=sp, passes=npass, slots=nslot,
                                    positions=npos, blocks=-(-T // BT) * -(-M // BM) * sp, sms=sms)
@@ -2681,14 +2714,16 @@ def compare_kinks(kernel_calls: list, plain_calls: list) -> dict:
                 max_flip_abs_over_std=over_std, max_flip_share_of_bound=share)
 
 
-def train_phase(torch, card, conv_impl="lax", deconv_impl="cuda_chained"):
+def train_phase(torch, card, conv_impl="lax", deconv_impl="cuda_chained", tag=None, fwd_named=None):
     """3 DCGAN train steps at batch 128 with the generator on the kernels
     (``deconv_impl`` "cuda_chained": kernels 3, 6, 7; "cuda_prepacked", per
     layer: kernels 1, 4, 5) and the discriminator on ``conv_impl`` ("lax":
     cuDNN; "cuda_chained" or per-layer "cuda_prepacked": the conv kernels)
     against the same 3 on the plain versions; launch counts per step and
     per gradient pull; then step time, idle share, peak memory and a check
-    on the convolution kernels the step runs."""
+    on the convolution kernels the step runs.  ``tag`` names its lines
+    (by default from the impls); ``fwd_named``, the forward kernels its
+    profile must show (by default the plans' choices at batch 128)."""
     import dataclasses
 
     import torch.nn.functional as F
@@ -2704,7 +2739,7 @@ def train_phase(torch, card, conv_impl="lax", deconv_impl="cuda_chained"):
 
     chained = conv_impl != "lax"  # the discriminator on the conv kernels
     per_layer_g = deconv_impl != "cuda_chained"
-    tag = "train_per_layer" if per_layer_g else "train_chained" if chained else "train"
+    tag = tag or ("train_per_layer" if per_layer_g else "train_chained" if chained else "train")
     names = ["fused_engine_epi", "fused_engine_bwd_x", "fused_engine_bwd_w"]  # rows of the kernels line
     want_step, want_g, want_d = (4, 4, 4), (0, 4, 4), (0, 0, 0)
     if per_layer_g:  # kernels 1, 4, 5 instead, and none of 3, 6, 7 at the deconv corner
@@ -2860,7 +2895,7 @@ def train_phase(torch, card, conv_impl="lax", deconv_impl="cuda_chained"):
     # the forward kernels by name: on the tensor cores where the plans put them (DCGAN's deconv0-2, conv1-3), the
     # CUDA-core kernel where they keep it (deconv3's and conv0's few channels)
     # (per layer: kernel 1's tensor-core kernel and its weight pack at deconv0-2, its few-channel kernel at deconv3)
-    named = ([*FWD_KERNELS] if not per_layer_g else [*DOMAIN_FWD_MMA, "domain_fwd_few_kernel"]) \
+    named = fwd_named or ([*FWD_KERNELS] if not per_layer_g else [*DOMAIN_FWD_MMA, "domain_fwd_few_kernel"]) \
         + ([*CONV_FWD_KERNELS] if chained else [])
     fwd_ms = {n: sum(v for k, v in by_kernel.items() if kernel_named(k, n)) for n in named}
     if not all(fwd_ms.values()):
@@ -2885,6 +2920,436 @@ def train_phase(torch, card, conv_impl="lax", deconv_impl="cuda_chained"):
           "plain_step_ms": plain_step_ms, "max_memory_allocated": peak, "card": card})
     return dict(launches=launches, per_layer={k: [v / steps for v in n] for k, n in per_layer.items()},
                 step_kernels=by_kernel)
+
+
+# ------------------------------------------------------------------- autotune
+# each CUDA wrapper's instantiation (engine.INSTANTIATIONS) -> the profiler's kernel names (kernel_named) and,
+# where one template has several tensor-core instantiations, the template arguments that tell them apart
+# (spaces dropped), as the source's with_*conf dispatch names them
+_FWD_CORES = {"mma_64x128": "Core<2,8,2,2,9,4,1,1>", "mma_64x64": "Core<2,4,2,2,9,4,1,1>"}
+INSTANTIATION_KERNELS = {
+    "fused_engine": {"cuda_cores": (("fused_epi_kernel",), None),
+                     **{n: (("fused_epi_mma_kernel",), c) for n, c in _FWD_CORES.items()}},
+    "fused_engine_bwd_x": {"cuda_cores": (("bwd_x_kernel",), None), "mma_64x32": (("bwd_x_mma_kernel",), None)},
+    "fused_engine_bwd_w": {"cuda_cores": (("bwd_w_kernel",), None), "mma_256x128": (("bwd_w_mma_kernel",), None)},
+    "conv_fused_engine": {"cuda_cores": (("conv_fwd_kernel",), None),
+                          **{n: (("conv_fwd_mma_kernel",), c) for n, c in _FWD_CORES.items()}},
+    "conv_fused_engine_bwd_x": {"cuda_cores": (("conv_bwd_x_kernel",), None),
+                                "mma_128x16": (("conv_bwd_x_mma_kernel",), "Core<16,4,1,4,8,2>"),
+                                "mma_64x32": (("conv_bwd_x_mma_kernel",), "Core<16,4,2,2,8,2>")},
+    "conv_fused_engine_bwd_w": {"cuda_cores": (("conv_bwd_w_kernel",), None),
+                                "mma_128x128_t16": (("conv_bwd_w_mma_kernel",), "Core<2,4,4,4,16,4,4>"),
+                                "mma_128x128_t8": (("conv_bwd_w_mma_kernel",), "Core<2,2,4,8,8,4,4>"),
+                                "mma_64x128": (("conv_bwd_w_mma_kernel",), "Core<1,4,4,4,8,4,4>")},
+    "domain_engine": {"cuda_cores": (("domain_fwd_kernel",), None), "mma_128x64": (DOMAIN_FWD_MMA, None),
+                      "few_channels": (("domain_fwd_few_kernel",), None)},
+    "domain_engine_bwd_x": {"cuda_cores": (("domain_bwd_x_kernel",), None),
+                            "mma_64x32": (("domain_bwd_x_mma_kernel",), "Core<16,4,2,2,8,2>"),
+                            "mma_rank1_128x64": (("domain_bwd_x_mma_kernel",), "Core<4,2,4,2,8"),
+                            "mma_rank1_64x32": (("domain_bwd_x_mma_kernel",), "Core<16,2,2,1,8")},
+    "domain_engine_bwd_w": {"cuda_cores": (("domain_bwd_w_kernel",), None),
+                            "mma_256x128": (("domain_bwd_w_mma_kernel",), "Core<4,2,4,8,16,4,1>"),
+                            "mma_rank1_256x128": (("domain_bwd_w_mma_kernel",), "Core<4,2,4,8,16,2,1>"),
+                            "mma_rank1_128x64": (("domain_bwd_w_mma_kernel",), "Core<2,2,4,4,16,2,1>")},
+    "winograd_conv1d_fused_engine": {"cuda_cores": (("engine1d_kernel",), None),
+                                     "mma_64x128": (("engine1d_mma_kernel",), "Core<2,4,2,4,9,2,2,1>"),
+                                     "mma_64x64": (("engine1d_mma_kernel",), "Core<2,4,2,2,9,2,2,2>")},
+}
+AUTOTUNE_REPEATS, AUTOTUNE_SEED = 5, 0
+
+
+def shows_instantiation(by_kernel, kernel: str, conf: str) -> bool:
+    """Whether a profile's kernel names hold ``kernel``'s instantiation
+    ``conf``: its kernel (kernel_named) with its template arguments."""
+    names, sig = INSTANTIATION_KERNELS[kernel][conf]
+    return any(kernel_named(k, names) and (sig is None or sig in k.replace(" ", "")) for k in by_kernel)
+
+
+@contextlib.contextmanager
+def logged_launches(engine):
+    """The engine's ``Launch`` records of the CUDA launches made inside the
+    block: each wrapper's instantiation, split and plan at its shape."""
+    engine.launch_log = log = []
+    try:
+        yield log
+    finally:
+        engine.launch_log = None
+
+
+def table_agrees_with_plans(engine, launches) -> int:
+    """At every logged (kernel, shape): each instantiation, and each split
+    count (1, 2, 4, 8, 64 and past the grid's 65535), is accepted by the
+    table (``engine.request``) exactly where the C plan at that shape
+    accepts it (``Launch.plan``: ValueError where it refuses); fails
+    otherwise.  Returns the requests compared."""
+    n, seen = 0, set()
+    for rec in launches:
+        key = (rec.kernel, tuple(sorted(rec.shape.items())))
+        if key in seen:
+            continue
+        seen.add(key)
+        for k, conf in enumerate(engine.INSTANTIATIONS[rec.kernel]):
+            for sp in (None, 1, 2, 4, 8, 64, 70000):
+                try:
+                    engine.request(rec.kernel, conf, sp, **rec.shape)
+                    table = True
+                except ValueError:
+                    table = False
+                try:
+                    rec.plan(k, -1 if sp is None else sp)
+                    c_plan = True
+                except ValueError:
+                    c_plan = False
+                if table != c_plan:
+                    fail(f"{rec.kernel} {conf} splits={sp} at {rec.shape}: the table "
+                         f"{'takes' if table else 'refuses'} it, the C plan {'takes' if c_plan else 'refuses'} it")
+                n += 1
+    return n
+
+
+def _plain_outputs(torch, fwd, leaf, set_leaf, x, mode):
+    """The plain version's outputs of a timed function: the forward, or
+    (sum(y^2), its gradients in ``leaf`` and in ``x``), as the timed
+    function's grad mode gives them."""
+    if mode == "fwd":
+        with torch.no_grad():
+            return (fwd(x, set_leaf(leaf)),)
+    lf, xg = leaf.detach().requires_grad_(True), x.detach().requires_grad_(True)
+    with torch.enable_grad():
+        loss = fwd(xg, set_leaf(lf)).float().square().sum()
+        g, dx = torch.autograd.grad(loss, (lf, xg))
+    return loss.detach(), g, dx
+
+
+def _held_outputs(what, got, want, mode) -> float:
+    """Fail unless ``got`` (a candidate's timed outputs) agree with the
+    plain version's: the forward within 1e-4 * max|ref| + 5e-5, the loss
+    within 1e-4 relative, each gradient (the weights', the input's) within
+    1e-4 * max|ref| + 1e-5.
+    Returns the largest share of its tolerance an output used."""
+    got = got if isinstance(got, tuple) else (got,)
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} outputs, the plain version {len(want)}")
+    share = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a is None or a.shape != b.shape:
+            fail(f"{what}: output {i} {None if a is None else tuple(a.shape)} vs plain {tuple(b.shape)}")
+        err = (a.float() - b.float()).abs().max().item()
+        ref = b.float().abs().max().item()
+        tol = (1e-4 * ref + 5e-5) if mode == "fwd" else (1e-4 * ref if i == 0 else 1e-4 * ref + 1e-5)
+        if not err <= tol:
+            fail(f"{what}: output {i} max|err| {err:.3e} > {tol:.3e} against the plain version")
+        share = max(share, err / tol)
+    return share
+
+
+def _one_axis_candidates(engine, base, kernels, split_conf, bwd_w_conf, grad: bool, extra=()):
+    """The sweep of one layer: the plan's own choice (``base``), ``extra``,
+    each instantiation of the forward kernel, the split counts 1, 2, 4 on
+    ``split_conf`` (the forward's instantiation that splits; None: no split
+    axis), then in grad mode each backward instantiation and bwd_w's T
+    splits on ``bwd_w_conf`` (the plan's own); one axis varied a candidate;
+    the library baseline (None) last, so that its plain PyTorch calls come
+    after every kernel's."""
+    rep = dataclasses.replace
+    cands = [base, *extra]
+    cands += [rep(base, conf=c) for c in engine.INSTANTIATIONS[kernels[0]]]
+    if split_conf is not None:
+        cands += [rep(base, conf=split_conf, splits=k) for k in (1, 2, 4)]
+    if grad:
+        cands += [rep(base, bwd_x_conf=c) for c in engine.INSTANTIATIONS[kernels[1]]]
+        cands += [rep(base, bwd_w_conf=c) for c in engine.INSTANTIATIONS[kernels[2]]]
+        cands += [rep(base, bwd_w_conf=bwd_w_conf, bwd_w_splits=k) for k in (1, 2, 4)]
+    return list(dict.fromkeys(cands + [None]))
+
+
+def _same_as_plan(cfg, kernels, plan_confs) -> bool:
+    """Whether ``cfg`` launches what the plans choose: every instantiation it
+    names is its plan's, and it forces no split."""
+    named = zip(kernels, (cfg.conf, cfg.bwd_x_conf, cfg.bwd_w_conf))
+    return cfg.splits is None and cfg.bwd_w_splits is None and cfg.epilogue is None and not cfg.emit_cells and all(
+        c is None or c == plan_confs.get(k) for k, c in named)
+
+
+def _config_dict(cfg) -> dict:
+    """An EngineConfig's fields that are set (None and False dropped)."""
+    return {k: v for k, v in dataclasses.asdict(cfg).items() if v not in (None, False)}
+
+
+def _sweep_row(torch, A, engine, *, family, layer, geom, shape, c_out, mode, base, kernels, plain_fwd, make_packed,
+               extra=(), card):
+    """One layer's sweep at one batch and mode: the plan's own choice run
+    once with its launches logged (the table held against the C plans
+    there, every instantiation and split), then every candidate: the C
+    plan's verdict and, for those it takes, the outputs (in grad mode both
+    gradients) held against the plain version, the wrappers' log held to
+    the forced instantiations and the profile to every logged one and, where
+    it forces a split, a second run bitwise equal to the first, before
+    ``autotune_*`` times them all in two rounds.  Prints the layer's row:
+    each candidate's ms (the faster round), the plan's choice and its ms
+    (the fastest of the candidates that launch what the plans choose: the
+    plan's own and those naming its instantiations), the fastest candidate
+    that launches something else and its margin over the plan's (negative:
+    the plan's is faster), the library baseline's ms, and two spreads: the
+    rounds' (the median relative difference of a candidate's two rounds) and
+    the plan's (max / min - 1 over the candidates that run the plan's
+    launches: the same work timed apart)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    make_timed = {"deconv": A.make_timed_fn, "conv": A.make_timed_conv_fn, "conv1d": A.make_timed_conv1d_fn}[family]
+    autotune = {"deconv": A.autotune_deconv, "conv": A.autotune_conv, "conv1d": A.autotune_conv1d}[family]
+    rng = np.random.default_rng(AUTOTUNE_SEED)  # the autotuner's own draws, in its order
+    wshape = (geom.kernel,) * (1 if family == "conv1d" else 2)
+    x = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device="cuda")
+    w = torch.as_tensor(rng.standard_normal((*wshape, shape[-1], c_out)), dtype=torch.float32, device="cuda")
+    packed = make_packed(w)
+    set_leaf = lambda leaf: type(packed)(leaf, packed.inv)  # noqa: E731
+
+    # the plan's own choice: its launches, the table against the C plans there, the instantiations they ran
+    fn, make_args = make_timed(base, geom, mode)
+    with logged_launches(engine) as launched:
+        fn(*make_args(x, w))
+        torch.cuda.synchronize()
+    compared = table_agrees_with_plans(engine, launched)
+    plan_confs = {}
+    for rec in launched:
+        plan_confs.setdefault(rec.kernel, rec.conf)
+    if any(k not in plan_confs for k in (kernels if mode == "grad" else kernels[:1])):
+        fail(f"autotune {layer} {mode}: the plan's run launched {sorted(plan_confs)}, not each of {kernels}")
+    fwd_conf = plan_confs[kernels[0]]
+    split_conf = {"deconv": "cuda_cores", "conv": fwd_conf if fwd_conf != "cuda_cores" else None}.get(family)
+    cands = _one_axis_candidates(engine, base, kernels, split_conf, plan_confs.get(kernels[-1]), mode == "grad",
+                                 extra)
+
+    # every candidate: the C plan's verdict, then its outputs and instantiations, before any timing
+    plain, verdicts, resessions = {}, {}, 0
+    for cfg in cands[:-1]:
+        forced = [(kernels[0], cfg.conf)]
+        if mode == "grad":
+            forced += [(kernels[1], cfg.bwd_x_conf), (kernels[2], cfg.bwd_w_conf)]
+        fn, make_args = make_timed(cfg, geom, mode)
+        what = f"autotune {layer} b{shape[0]} {mode} {_config_dict(cfg)}"
+        # each launch the wrappers logged must show in the profile (its instantiation's kernel); the tracer has
+        # been seen to drop a session's events (profiled_ms): a session that lacks a logged launch is noted with
+        # the log and run again, up to three sessions
+        for attempt in range(3):
+            try:
+                with logged_launches(engine) as launched, profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    got = fn(*make_args(x, w))
+                    torch.cuda.synchronize()
+            except ValueError as e:  # the C plan refuses it (and the table does too: held above)
+                verdicts[cfg] = dict(ok=False, error=str(e)[:200])
+                break
+            ran_confs = {(rec.kernel, rec.conf) for rec in launched}
+            unlaunched = [(k, c) for k, c in forced if c is not None and (k, c) not in ran_confs]
+            if unlaunched:
+                fail(f"{what}: the wrappers launched {sorted(ran_confs)}, not {unlaunched}")
+            ran = {e.key for e in prof.key_averages() if e.device_time_total > 0}
+            missing = sorted({(k, c) for k, c in ran_confs if not shows_instantiation(ran, k, c)})
+            if not missing:
+                break
+            emit({"note": f"profiler session {attempt + 1} lacks {missing}", "for": what,
+                  "launched": sorted(ran_confs), "device_kernels": len(ran)})
+            resessions += 1
+            time.sleep(0.2 * (attempt + 1))
+        else:
+            fail(f"{what}: the profile lacks {missing} in 3 sessions, which the wrappers launched: {sorted(ran)}")
+        if cfg in verdicts:
+            continue
+        key = (cfg.epilogue, cfg.emit_cells)
+        if key not in plain:
+            plain[key] = _plain_outputs(torch, lambda xx, pp, c=cfg: plain_fwd(xx, pp, c), packed.ww, set_leaf, x,
+                                        mode)
+        share = _held_outputs(what, got, plain[key], mode)
+        repeated = cfg.splits is not None or cfg.bwd_w_splits is not None
+        if repeated:  # a forced split: its own scratch, its counters back at 0, and what it sums (the forward, the
+            again = fn(*make_args(x, w))  # loss, the weights' gradient) bitwise repeatable
+            if not all(torch.equal(a, b) for a, b in zip((got if isinstance(got, tuple) else (got,))[:2],
+                                                          (again if isinstance(again, tuple) else (again,))[:2])):
+                fail(f"{what}: two runs of a forced split differ")
+            del again
+        verdicts[cfg] = dict(ok=True, err_share=share, repeated=repeated)
+        del got
+
+    # the timing: autotune_* in two rounds, each the best of AUTOTUNE_REPEATS calls; a candidate's ms the faster
+    rounds = [autotune(geom, shape, c_out, candidates=cands, mode=mode, repeats=AUTOTUNE_REPEATS,
+                       seed=AUTOTUNE_SEED, device="cuda") for _ in range(2)]
+    ms = {}
+    for r in rounds[0] + rounds[1]:
+        ms.setdefault(r["config"], []).append(r["ms"] if r["ok"] else None)
+    for r in rounds[0]:
+        cfg = r["config"]
+        if cfg is not None and r["ok"] != verdicts[cfg]["ok"]:
+            fail(f"autotune {layer} {mode} {_config_dict(cfg)}: the sweep's row ok={r['ok']} ({r['error']}), "
+                 f"the check's {verdicts[cfg]}")
+    spreads = [abs(a - b) / min(a, b) for a, b in ms.values() if a is not None and b is not None]
+    best = {cfg: None if None in v else min(v) for cfg, v in ms.items()}
+    ran = [c for c in cands[:-1] if best[c] is not None]
+    same = [c for c in ran if _same_as_plan(c, kernels, plan_confs)]
+    other = [c for c in ran if c not in same and c.epilogue is None and not c.emit_cells]
+    plan_ms = min(best[c] for c in same)
+    winner = min(other, key=lambda c: best[c]) if other else None
+    summary = dict(phase="autotune", family=family, layer=layer, batch=shape[0], mode=mode,
+                   variant=("fused_pre" if base.fuse_pre else "unfused") if family == "deconv" else family,
+                   plan_choice=plan_confs, plan_ms=plan_ms,
+                   winner=None if winner is None else _config_dict(winner),
+                   winner_ms=None if winner is None else best[winner],
+                   margin=None if winner is None else plan_ms / best[winner] - 1.0, library_ms=best[None],
+                   spread=statistics.median(spreads) if spreads else None,
+                   plan_spread=max(best[c] for c in same) / plan_ms - 1.0, table_checks=compared,
+                   profiler_resessions=resessions,
+                   candidates=[dict(config=None if c is None else _config_dict(c), ms=best[c], rounds_ms=ms[c],
+                                    same_as_plan=c is not None and c in same, **verdicts.get(c, {})) for c in cands],
+                   card=card)
+    emit(summary)
+    return summary
+
+
+def autotune_phase(torch, card):
+    """kernels/autotune.py at DCGAN's published widths and the audio
+    decoder's: every kernel's instantiations and splits as the sweeps run
+    them (the table against the C plans, outputs against the plain
+    versions, profiles against the named instantiations, then timed in two
+    rounds), the block table installed for the per-layer train step
+    (train_tuned: the per-layer phase's checks, no tolerance moved) and a
+    batch-8 generate with the table tuned at batch 128 against the same
+    generate without it.  Returns the train_tuned run's launches."""
+    from repro_torch.configs import DCGAN
+    from repro_torch.configs.musicgen_medium import audio_decoder
+    from repro_torch.kernels import autotune as A
+    from repro_torch.kernels import engine, ops
+    from repro_torch.models import gan as G
+    from repro_torch.serve import GanServeEngine
+
+    G.clear_deconv_blocks()
+    rows = []
+    # --- the generator's four layers: unfused (kernels 1, 4, 5) and fused pre-PE (kernels 2, 6, 7), at the
+    # training batch with the gradient and at the serving batch forward
+    variants = ((False, ("domain_engine", "domain_engine_bwd_x", "domain_engine_bwd_w")),
+                (True, ("fused_engine", "fused_engine_bwd_x", "fused_engine_bwd_w")))
+    h, g_layers = DCGAN.seed_hw, []
+    for i, d in enumerate(DCGAN.deconvs):
+        g_layers.append((f"dcgan.deconv{i}", d.dims, h, d.c_in, d.c_out))
+        h = d.dims.out_size(h)
+    for batch, mode in ((TRAIN_BATCH, "grad"), (8, "fwd")):
+        for name, dims, H, N, M in g_layers:
+            for fused, kernels in variants:
+                rows.append(_sweep_row(
+                    torch, A, engine, family="deconv", layer=name, geom=dims, shape=(batch, H, H, N), c_out=M,
+                    mode=mode, base=A.EngineConfig(fused, prepack=True), kernels=kernels,
+                    plain_fwd=lambda xx, pp, cfg, dims=dims: ops.winograd_deconv2d_packed(
+                        xx, pp, dims, backend="ref", fuse_pre=cfg.fuse_pre),
+                    make_packed=lambda w, dims=dims: ops.prepack(w, dims), card=card))
+                torch.cuda.empty_cache()
+    # --- the discriminator's four layers at the training batch, with the epilogue and emit-cells axes
+    conv_winners, hw = [], DCGAN.img_hw
+    chans = (DCGAN.img_ch, *G.disc_channels(DCGAN))
+    for i, cd in enumerate(G.disc_conv_dims(DCGAN)):
+        N, M = chans[i], chans[i + 1]
+        extra = (A.EngineConfig(True, prepack=True, epilogue="leaky_relu"),
+                 A.EngineConfig(True, prepack=True, epilogue="leaky_relu", emit_cells=True))
+        summary = _sweep_row(
+            torch, A, engine, family="conv", layer=f"dcgan.conv{i}", geom=cd, shape=(TRAIN_BATCH, hw, hw, N),
+            c_out=M, mode="grad", base=A.EngineConfig(True, prepack=True),
+            kernels=("conv_fused_engine", "conv_fused_engine_bwd_x", "conv_fused_engine_bwd_w"),
+            plain_fwd=lambda xx, pp, cfg, cd=cd: ops.winograd_conv2d_packed(
+                xx, pp, cd, backend="ref", epilogue=cfg.epilogue, emit_cells=cfg.emit_cells),
+            make_packed=lambda w, cd=cd: ops.prepack_conv(w, cd), extra=extra, card=card)
+        rows.append(summary)
+        # the per-layer discriminator's conv runs nhwc with its bias: its winner among the candidates without
+        # an epilogue axis
+        plain_out = [c for c in summary["candidates"] if c["config"] is not None and c["ms"] is not None
+                     and "epilogue" not in c["config"]]
+        best = min(plain_out, key=lambda c: c["ms"])["config"]
+        conv_winners.append((cd, N, M, {k: v for k, v in best.items() if k in G._BLOCK_KEYS}))
+        hw = cd.out_size(hw)
+        torch.cuda.empty_cache()
+    # --- the audio decoder's three layers at batch 16 and 1 (kernel 9)
+    for batch in (AUDIO_BATCH, 1):
+        L = AUDIO_FRAMES
+        for i, spec in enumerate(audio_decoder(width=AUDIO_WIDTH)):
+            rows.append(_sweep_row(
+                torch, A, engine, family="conv1d", layer=f"audio.deconv{i}", geom=spec.dims,
+                shape=(batch, L, spec.c_in), c_out=spec.c_out, mode="fwd", base=A.EngineConfig(True, prepack=True),
+                kernels=("winograd_conv1d_fused_engine",),
+                plain_fwd=lambda xx, pp, cfg, dims=spec.dims: ops.winograd_deconv1d_packed(xx, pp, dims, backend="ref"),
+                make_packed=lambda w, dims=spec.dims: ops.prepack_deconv1d(w, dims), card=card))
+            L = spec.dims.out_size(L)
+        torch.cuda.empty_cache()
+
+    # the tally of the checks above: candidates held (in grad mode with both gradients), refused, forced splits
+    # run twice, the table-vs-plan requests, profiler sessions run again
+    cands = [c for r in rows for c in r["candidates"] if c["config"] is not None]
+    held = [c for c in cands if c.get("ok")]
+    emit({"phase": "autotune_checks", "rows": len(rows), "candidates": len(cands), "held": len(held),
+          "held_with_input_gradient": sum(c.get("ok", False) for r in rows if r["mode"] == "grad"
+                                          for c in r["candidates"] if c["config"] is not None),
+          "refused": sum(c.get("ok") is False for c in cands), "split_repeats": sum(c["repeated"] for c in held),
+          "max_err_share": max(c["err_share"] for c in held), "table_checks": sum(r["table_checks"] for r in rows),
+          "profiler_resessions": sum(r["profiler_resessions"] for r in rows), "card": card})
+    # --- the block table: install_tuned_blocks for cuda_prepacked at batch 128 (grad; its default grid, every
+    # candidate of which the sweep above held), the discriminator's winners by hand
+    cfg = dataclasses.replace(DCGAN, deconv_impl="cuda_prepacked", conv_impl="cuda_prepacked")
+    t0 = time.perf_counter()
+    installed = G.install_tuned_blocks(cfg, mode="grad", batch=TRAIN_BATCH, repeats=AUTOTUNE_REPEATS, device="cuda")
+    if any("config" not in r for r in installed):
+        fail(f"install_tuned_blocks installed no winner at some layer: {installed}")
+    for cd, N, M, blocks in conv_winners:
+        G.set_deconv_blocks("cuda_prepacked", cd, N, M, **blocks)
+    emit({"phase": "autotune_install", "seconds": time.perf_counter() - t0,
+          "installed": [{**r, "config": _config_dict(r["config"])} for r in installed],
+          "table": [dict(impl=k[0], dims=f"{type(k[1]).__name__}{dataclasses.astuple(k[1])}", N=k[2], M=k[3],
+                         blocks=v) for k, v in G.DECONV_BLOCKS.items()], "card": card})
+    tuned = {}
+    try:
+        # the forward kernels the tuned step's profile must show: each layer's installed instantiation or, where
+        # the entry leaves it to the plan, the plan's at batch 128
+        named = set()
+        for r, d in zip(installed, DCGAN.deconvs):
+            conf = r["config"].conf or ("mma_128x64" if d.c_out >= 16 else "few_channels")
+            named.add(INSTANTIATION_KERNELS["domain_engine"][conf][0][0])
+        for cd, N, M, blocks in conv_winners:
+            conf = blocks.get("conf") or ("cuda_cores" if N % 4 else "mma_64x64")
+            named.add(INSTANTIATION_KERNELS["conv_fused_engine"][conf][0][0])
+        tuned = train_phase(torch, card, "cuda_prepacked", "cuda_prepacked", tag="train_tuned",
+                            fwd_named=sorted(named))
+
+        # a batch-8 generate (chained=False, kernel 1) with the table tuned at batch 128, and without it
+        eng = GanServeEngine(_serve_params(torch), dataclasses.replace(DCGAN, deconv_impl="pallas_prepacked"),
+                             batch=8, device="cuda", chained=False)
+        z = torch.randn((8, DCGAN.z_dim), generator=torch.Generator(device="cuda").manual_seed(5), device="cuda")
+        plain_cfg = dataclasses.replace(eng.cfg, deconv_impl="prepacked_ref")
+        table = dict(G.DECONV_BLOCKS)
+        with torch.inference_mode():
+            want_img, _ = G.generator_apply(eng.params, plain_cfg, z)
+            zero_counts()
+            got = eng.generate(z)
+            torch.cuda.synchronize()
+            check_counts("autotune: the tuned batch-8 generate", read_counts(), {"domain_engine": 4})
+            err = (got - want_img).abs().max().item()
+            tol = 1e-4 * want_img.abs().max().item() + 1e-5
+            if not err <= tol:
+                fail(f"the tuned batch-8 generate vs prepacked_ref: max|err| {err:.3e} > {tol:.3e}")
+            times = {"tuned": [], "plan": []}
+            for turn in ("tuned", "plan", "plan", "tuned"):  # in turns, in this call
+                G.DECONV_BLOCKS.clear()
+                if turn == "tuned":
+                    G.DECONV_BLOCKS.update(table)
+                times[turn].append(dict(ms=event_median_ms(lambda: eng.generate(z), reps=30),
+                                        kernel1_ms=profiled_ms(lambda: eng.generate(z), reps=20,
+                                                               name=DOMAIN_FWD_KERNELS)[2]))
+        emit({"phase": "autotune_serve_b8", "max_abs_err_vs_plain": err, "tol": tol, "tuned": times["tuned"],
+              "plan": times["plan"],
+              "tuned_ms": statistics.mean(t["ms"] for t in times["tuned"]),
+              "plan_ms": statistics.mean(t["ms"] for t in times["plan"]),
+              "entries": [G.DECONV_BLOCKS.get(("cuda_prepacked", d.dims, d.c_in, d.c_out)) for d in DCGAN.deconvs],
+              "card": card})
+        del eng
+    finally:
+        G.clear_deconv_blocks()
+    torch.cuda.empty_cache()
+    return dict(launches=tuned.get("launches"))
 
 
 def main(argv=None) -> int:
@@ -2950,12 +3415,13 @@ def main(argv=None) -> int:
     audio = timed("audio", lambda: audio_phase(torch, smi), {})
     serve_faults = timed("serve_faults", lambda: serve_faults_phase(torch, smi), None)
     train_loop = timed("train_gan", lambda: train_gan_phase(torch, smi), None)
+    tuned = timed("autotune", lambda: autotune_phase(torch, smi), {})
     # each path's launches of every kernel, counted in its run (None: not run)
     path_launches = {"serve": serve_launches, "train": train.get("launches"),
                      "train_chained": chained.get("launches"), "serve_per_layer": serve_pl.get("launches"),
                      "train_per_layer": per_layer.get("launches"), "audio": audio.get("launches"),
                      "audio_grad": audio.get("grad_launches"), "serve_faults": serve_faults,
-                     "train_gan": train_loop}
+                     "train_gan": train_loop, "train_tuned": tuned.get("launches")}
 
     def step_device_ms(kname, run=None):
         """Device ms per step of the instantiations of ``kname`` (or of a

@@ -31,31 +31,31 @@ _p = ctypes.c_void_p
 _i = ctypes.c_int
 # name -> argtypes of each C entry point
 _SIGNATURES = {
-    "fused_engine_plan": [_i] * 7 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2
+    "fused_engine_plan": [_i] * 9 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2
     + [ctypes.POINTER(_i)],
     "fused_engine_epi_f32": [_p] * 9 + [_i] * 19 + [_p] * 3,
-    "fused_engine_bwd_x_plan": [_i] * 6 + [ctypes.POINTER(_i)] * 4,
-    "fused_engine_bwd_x_f32": [_p] * 6 + [_i] * 12 + [_p],
-    "fused_engine_bwd_w_plan": [_i] * 8 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2
+    "fused_engine_bwd_x_plan": [_i] * 7 + [ctypes.POINTER(_i)] * 5,
+    "fused_engine_bwd_x_f32": [_p] * 6 + [_i] * 13 + [_p],
+    "fused_engine_bwd_w_plan": [_i] * 10 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2
     + [ctypes.POINTER(_i)],
-    "fused_engine_bwd_w_f32": [_p] * 6 + [_i] * 10 + [_p] * 3,
-    "conv_engine_fwd_conf": [_i] * 3 + [ctypes.POINTER(_i)],
-    "conv_engine_fwd_plan": [_i] * 11 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2,
-    "conv_engine_fwd_f32": [_p] * 9 + [_i] * 17 + [_p] * 3,
-    "conv_engine_bwd_x_plan": [_i] * 7 + [ctypes.POINTER(_i)] * 4,
-    "conv_engine_bwd_x_f32": [_p] * 6 + [_i] * 11 + [_p],
-    "conv_engine_bwd_w_plan": [_i] * 8 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2
+    "fused_engine_bwd_w_f32": [_p] * 6 + [_i] * 11 + [_p] * 3,
+    "conv_engine_fwd_conf": [_i] * 4 + [ctypes.POINTER(_i)],
+    "conv_engine_fwd_plan": [_i] * 13 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2,
+    "conv_engine_fwd_f32": [_p] * 9 + [_i] * 18 + [_p] * 3,
+    "conv_engine_bwd_x_plan": [_i] * 8 + [ctypes.POINTER(_i)] * 4,
+    "conv_engine_bwd_x_f32": [_p] * 6 + [_i] * 12 + [_p],
+    "conv_engine_bwd_w_plan": [_i] * 10 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2
     + [ctypes.POINTER(_i)],
-    "conv_engine_bwd_w_f32": [_p] * 6 + [_i] * 10 + [_p] * 3,
-    "domain_engine_fwd_plan": [_i] * 7 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2
+    "conv_engine_bwd_w_f32": [_p] * 6 + [_i] * 11 + [_p] * 3,
+    "domain_engine_fwd_plan": [_i] * 8 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2
     + [ctypes.POINTER(_i)],
     "domain_engine_fwd_f32": [_p] * 6 + [_i] * 7 + [_p] * 3,
-    "domain_engine_bwd_x_plan": [_i] * 3,
-    "domain_engine_bwd_x_f32": [_p] * 6 + [_i] * 7 + [_p],
-    "domain_engine_bwd_w_plan": [_i] * 7 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2
+    "domain_engine_bwd_x_plan": [_i] * 4 + [ctypes.POINTER(_i)],
+    "domain_engine_bwd_x_f32": [_p] * 6 + [_i] * 8 + [_p],
+    "domain_engine_bwd_w_plan": [_i] * 9 + [ctypes.POINTER(_i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2
     + [ctypes.POINTER(_i)],
-    "domain_engine_bwd_w_f32": [_p] * 6 + [_i] * 8 + [_p] * 3,
-    "engine1d_plan": [_i] * 3 + [ctypes.POINTER(_i)],
+    "domain_engine_bwd_w_f32": [_p] * 6 + [_i] * 9 + [_p] * 3,
+    "engine1d_plan": [_i] * 4 + [ctypes.POINTER(_i)],
     "engine1d_f32": [_p] * 10 + [_i] * 16 + [_p],
 }
 

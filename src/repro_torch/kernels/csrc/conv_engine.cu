@@ -475,25 +475,42 @@ auto fwd_kernel() {
 // 2: 4 phases of 16): its smem limit holds their inv rows and pass plan
 constexpr int kMmaMaxC = 4 * kN2;
 
-// forward block configuration.  The tensor cores where N % 4 == 0, M % 4 ==
-// 0, M >= 16 and S^2 <= 4 (windows and weights in 16-byte copies: the
-// wrapper has checked their alignment): 64 tiles x 128 channels m, 16 warps
-// of 32 x 16, for M >= 128 (the fastest of three configurations timed on an
-// H100 at DCGAN's conv1-3, PERF.md), else 64 x 64, 8 warps of 32 x 16;
-// passes of at most 9 packed positions (one K4S2 phase).  Otherwise the fp32 CUDA-core
+// forward block configurations, by number (engine.py's
+// INSTANTIATIONS["conv_fused_engine"], in this order): 0 the fp32 CUDA-core
 // kernel, which sums in the plain version's order: 32 tiles x 32 channels,
 // 512 threads, for M % 4 == 0 and M >= 32, else 64 tiles x 4 channels, 128
 // threads; cell windows in 16-byte copies and 16 (8) channel chunks when N
 // % 4 == 0, else 4-byte copies and 4-channel chunks (conv0's RGB input).
+// The tensor cores: 1, 64 tiles x 128 channels m, 16 warps of 32 x 16; 2,
+// 64 x 64, 8 warps of 32 x 16; passes of at most 9 packed positions (one
+// K4S2 phase).
 template <class F>
-int with_fwd_conf(int N, int M, int S2, F&& f) {
-  if (N % 4 == 0 && M % 4 == 0 && M >= 16 && S2 <= 4) {
-    if (M >= 128) return f(FwdMma<fwd::Core<2, 8, 2, 2, 9, 4, 1, 1>>{});
-    return f(FwdMma<fwd::Core<2, 4, 2, 2, 9, 4, 1, 1>>{});
-  }
+int with_fwd_conf(int conf, int N, int M, F&& f) {
+  if (conf == 1) return f(FwdMma<fwd::Core<2, 8, 2, 2, 9, 4, 1, 1>>{});
+  if (conf == 2) return f(FwdMma<fwd::Core<2, 4, 2, 2, 9, 4, 1, 1>>{});
   const bool wide = M >= 32 && M % 4 == 0;
   if (N % 4 == 0) return wide ? f(FwdConf<8, 8, 8, 16, 4, 4>{}) : f(FwdConf<8, 16, 1, 8, 4, 1>{});
   return wide ? f(FwdConf<8, 8, 8, 4, 1, 4>{}) : f(FwdConf<8, 16, 1, 4, 1, 1>{});
+}
+
+// Whether forward instantiation conf takes (N, M, S^2): the tensor cores
+// where N % 4 == 0, M % 4 == 0, M >= 16 and S^2 <= 4 (windows and weights in
+// 16-byte copies: the wrapper has checked their alignment)
+bool fwd_takes(int conf, int N, int M, int S2) {
+  switch (conf) {
+    case 0: return true;                                                // cuda_cores
+    case 1: return N % 4 == 0 && M % 4 == 0 && M >= 16 && S2 <= 4;  // mma_64x128
+    case 2: return N % 4 == 0 && M % 4 == 0 && M >= 16 && S2 <= 4;  // mma_64x64
+  }
+  return false;
+}
+
+// The plan's own choice: the tensor cores wherever they take the shape,
+// 64 x 128 for M >= 128 (the fastest of three configurations timed on an
+// H100 at DCGAN's conv1-3, PERF.md), else 64 x 64; the CUDA cores elsewhere
+int fwd_default(int N, int M, int S2) {
+  if (!fwd_takes(1, N, M, S2)) return 0;
+  return M >= 128 ? 1 : 2;
 }
 
 // ============================================================== bwd_x
@@ -725,20 +742,39 @@ struct BxMma {
   static constexpr size_t kSmemBytes = sizeof(float) * (K::kFloats + kMaxC * 4) + sizeof(int) * (kN2 + 2 + K::BT);
 };
 
-// bwd_x block configuration: the tensor cores where M % 4 == 0 and M >= 8 (g
-// and ww in 16-byte copies: the wrapper has checked their alignment), two
-// position sets of 4 warps, each warp 8 positions (its colour of the 4x4
-// checkerboard): 64 tile slots x 32 channels n a block, each warp 32 n x 16
-// tiles; or for N <= 16 (conv0's RGB input, channels past N zero-filled) 128
-// slots x 16 n, each warp 16 n x 32 tiles: at every DCGAN layer the fastest
-// of the block configurations timed on an H100 (PERF.md).  Otherwise (few or
-// ragged M) the fp32 CUDA-core kernel: 64 tile slots x 32 channels, 512 threads, or for N
-// <= 4, 128 tile slots x 4 channels, 128 threads.
+// bwd_x block configurations, by number (engine.py's
+// INSTANTIATIONS["conv_fused_engine_bwd_x"], in this order): 0 the fp32
+// CUDA-core kernel: 64 tile slots x 32 channels, 512 threads, or for N <= 4,
+// 128 tile slots x 4 channels, 128 threads.  The tensor cores, two position
+// sets of 4 warps, each warp 8 positions (its colour of the 4x4
+// checkerboard): 1, 128 slots x 16 n, each warp 16 n x 32 tiles (channels
+// past N zero-filled); 2, 64 tile slots x 32 channels n a block, each warp 32
+// n x 16 tiles.
 template <class F>
-int with_bx_conf(int N, int M, F&& f) {
-  if (M >= 8 && M % 4 == 0)
-    return N <= 16 ? f(BxMma<bwdx::Core<16, 4, 1, 4, 8, 2>>{}) : f(BxMma<bwdx::Core<16, 4, 2, 2, 8, 2>>{});
+int with_bx_conf(int conf, int N, F&& f) {
+  if (conf == 1) return f(BxMma<bwdx::Core<16, 4, 1, 4, 8, 2>>{});
+  if (conf == 2) return f(BxMma<bwdx::Core<16, 4, 2, 2, 8, 2>>{});
   return N > 4 ? f(BxConf<4, 16, 8>{}) : f(BxConf<4, 32, 1>{});
+}
+
+// Whether bwd_x instantiation conf takes M output channels: the tensor
+// cores where M % 4 == 0 and M >= 8 (g and ww in 16-byte copies: the
+// wrapper has checked their alignment)
+bool bx_takes(int conf, int M) {
+  switch (conf) {
+    case 0: return true;                  // cuda_cores
+    case 1: return M >= 8 && M % 4 == 0;  // mma_128x16
+    case 2: return M >= 8 && M % 4 == 0;  // mma_64x32
+  }
+  return false;
+}
+
+// The plan's own choice: the tensor cores wherever they take M, 128 x 16
+// for N <= 16 (conv0's RGB input), else 64 x 32: at every DCGAN layer the
+// fastest of the block configurations timed on an H100 (PERF.md)
+int bx_default(int N, int M) {
+  if (!bx_takes(1, M)) return 0;
+  return N <= 16 ? 1 : 2;
 }
 
 template <class Cf>
@@ -1003,30 +1039,47 @@ struct BwMma {
   using K = K_;
 };
 
-// bwd_w block configuration: the tensor cores where N % 4 == 0, M % 4 == 0
-// and M >= 16 (windows and g rows in 16-byte copies: the wrapper has checked
-// their alignment), the block tile by N, each the fastest of the
-// configurations timed on an H100 at DCGAN's conv1-3 (PERF.md): 128 n x 128
-// m, 8 warps of 64 x 32, 16 tiles a chunk (N > 128: conv3, T = 512 tiles);
-// 128 x 128, 4 warps of 64 x 64, 8 tiles (N > 64: conv2); 64 x 128, 4 warps
-// of 64 x 32, 8 tiles (conv1).
-// Otherwise the fp32 CUDA-core kernel: 64 x 4 (n, m), 128 threads, 4 tiles
-// a chunk (N % 4 == 0, few or ragged M); for N % 4 != 0 (conv0's RGB
-// input), 4-channel n tiles with 4-byte window copies: 4 x 64 (128 threads)
-// or 4 x 16 (32 threads), 8 tiles a chunk.  (The tensor cores at conv0, with
-// 4-byte window copies, ran slower than this kernel on an H100 (PERF.md):
-// the grid of one block per packed position reads g 36 times, the CUDA-core
-// grid of one per phase 4 times.)
+// bwd_w block configurations, by number (engine.py's
+// INSTANTIATIONS["conv_fused_engine_bwd_w"], in this order): 0 the fp32
+// CUDA-core kernel: 64 x 4 (n, m), 128 threads, 4 tiles a chunk (N % 4 == 0);
+// for N % 4 != 0 (conv0's RGB input), 4-channel n tiles with 4-byte window
+// copies: 4 x 64 (128 threads) or, for few or ragged M, 4 x 16 (32 threads),
+// 8 tiles a chunk.  The tensor cores: 1, 128 n x 128 m, 8 warps of 64 x 32,
+// 16 tiles a chunk; 2, 128 x 128, 4 warps of 64 x 64, 8 tiles; 3, 64 x 128, 4
+// warps of 64 x 32, 8 tiles.
 template <class F>
-int with_bw_conf(int N, int M, F&& f) {
+int with_bw_conf(int conf, int N, int M, F&& f) {
+  if (conf == 1) return f(BwMma<bwdw::Core<2, 4, 4, 4, 16, 4, 4>>{});
+  if (conf == 2) return f(BwMma<bwdw::Core<2, 2, 4, 8, 8, 4, 4>>{});
+  if (conf == 3) return f(BwMma<bwdw::Core<1, 4, 4, 4, 8, 4, 4>>{});
   const bool wide = M >= 16 && M % 4 == 0;
-  if (N % 4 == 0) {
-    if (!wide) return f(BwConf<8, 16, 1, 4, 4, 1>{});
-    if (N > 128) return f(BwMma<bwdw::Core<2, 4, 4, 4, 16, 4, 4>>{});
-    if (N > 64) return f(BwMma<bwdw::Core<2, 2, 4, 8, 8, 4, 4>>{});
-    return f(BwMma<bwdw::Core<1, 4, 4, 4, 8, 4, 4>>{});
-  }
+  if (N % 4 == 0) return f(BwConf<8, 16, 1, 4, 4, 1>{});
   return wide ? f(BwConf<8, 1, 16, 8, 1, 4>{}) : f(BwConf<8, 1, 4, 8, 1, 1>{});
+}
+
+// Whether bwd_w instantiation conf takes (N, M): the tensor cores where N %
+// 4 == 0, M % 4 == 0 and M >= 16 (windows and g rows in 16-byte copies: the
+// wrapper has checked their alignment)
+bool bw_takes(int conf, int N, int M) {
+  switch (conf) {
+    case 0: return true;                                 // cuda_cores
+    case 1: return N % 4 == 0 && M % 4 == 0 && M >= 16;  // mma_128x128_t16
+    case 2: return N % 4 == 0 && M % 4 == 0 && M >= 16;  // mma_128x128_t8
+    case 3: return N % 4 == 0 && M % 4 == 0 && M >= 16;  // mma_64x128
+  }
+  return false;
+}
+
+// The plan's own choice: the tensor cores wherever they take the shape, the
+// block tile by N, each the fastest of the configurations timed on an H100
+// at DCGAN's conv1-3 (PERF.md): 1 for N > 128 (conv3, T = 512 tiles), 2 for
+// N > 64 (conv2), 3 else (conv1).  The CUDA cores elsewhere (the tensor
+// cores at conv0, with 4-byte window copies, ran slower than this kernel on
+// an H100 (PERF.md): the grid of one block per packed position reads g 36
+// times, the CUDA-core grid of one per phase 4 times).
+int bw_default(int N, int M) {
+  if (!bw_takes(1, N, M)) return 0;
+  return N > 128 ? 1 : N > 64 ? 2 : 3;
 }
 
 // The bwd_w kernel of configuration Cf, with or without the T split
@@ -1045,35 +1098,47 @@ auto bw_kernel() {
 // phase-major Winograd space, phase_off (S2 + 1,) each phase's first packed
 // position.
 
-// The forward's block configuration for (N, M, S^2): tile gets (BT, BM, the
-// most packed positions a pass, 1 for the tensor cores or 0).  The caller
-// plans the tensor-core kernel's passes with it (engine.py::_fwd_passes,
-// the phases as groups, one a pass) before conv_engine_fwd_plan.
-extern "C" int conv_engine_fwd_conf(int N, int M, int S2, int* tile) {
-  return with_fwd_conf(N, M, S2, [&](auto conf) {
-    using Cf = decltype(conf);
+// The forward's block configuration for (N, M, S^2): want -1 takes the
+// plan's (fwd_default), want >= 0 asks for that instantiation (fwd_takes'
+// numbering): a request the shape cannot take returns
+// cudaErrorInvalidValue.  tile gets (BT, BM, the most packed positions a
+// pass, the instantiation: 0 the CUDA cores, 1 or 2 the tensor cores).  The
+// caller plans the tensor-core kernel's passes with it
+// (engine.py::_fwd_passes, the phases as groups, one a pass) before
+// conv_engine_fwd_plan.
+extern "C" int conv_engine_fwd_conf(int N, int M, int S2, int want, int* tile) {
+  const int conf = want < 0 ? fwd_default(N, M, S2) : want;
+  if (!fwd_takes(conf, N, M, S2)) return (int)cudaErrorInvalidValue;
+  return with_fwd_conf(conf, N, M, [&](auto cf) {
+    using Cf = decltype(cf);
     tile[0] = Cf::BT;
     tile[1] = Cf::BM;
     tile[2] = Cf::PMAX;
-    tile[3] = Cf::kMma;
+    tile[3] = conf;
     return 0;
   });
 }
 
-// The forward's plan for B images of ty x tx tiles: on the tensor cores the
-// split of its npass passes (nslot / npos: the most Winograd / packed
-// positions of a pass; C packed positions) over blocks, from the card's
-// resident blocks at this plan's own shared memory: the count that
-// minimises the waves over the block slots times the work a block (1/k),
-// times 25% an extra split for the partials' round trip; scratch_floats /
-// counters are 0 unsplit.  Also raises the configuration's shared-memory
-// limit on the current device (to the most any launch of it takes): call
-// it before the first launch for this shape.
+// The forward's plan for B images of ty x tx tiles on instantiation want
+// (as conv_engine_fwd_conf takes it): on the tensor cores the split of its
+// npass passes (nslot / npos: the most Winograd / packed positions of a
+// pass; C packed positions) over blocks, from the card's resident blocks at
+// this plan's own shared memory: the count that minimises the waves over
+// the block slots times the work a block (1/k), times 25% an extra split for
+// the partials' round trip; want_splits >= 1 asks for that many (at most
+// npass; the CUDA cores run unsplit): a request the shape cannot take
+// returns cudaErrorInvalidValue.  scratch_floats / counters are 0 unsplit.
+// Also raises the configuration's shared-memory limit on the current device
+// (to the most any launch of it takes): call it before the first launch for
+// this shape.
 extern "C" int conv_engine_fwd_plan(int B, int ty, int tx, int N, int M, int S2, int C, int npass, int nslot,
-                                    int npos, int device, int* splits, long long* scratch_floats,
-                                    long long* counters) {
-  return with_fwd_conf(N, M, S2, [&](auto conf) {
-    using Cf = decltype(conf);
+                                    int npos, int want, int want_splits, int device, int* splits,
+                                    long long* scratch_floats, long long* counters) {
+  const int conf = want < 0 ? fwd_default(N, M, S2) : want;
+  if (!fwd_takes(conf, N, M, S2) || (want_splits > 1 && (conf == 0 || want_splits > npass)))
+    return (int)cudaErrorInvalidValue;
+  return with_fwd_conf(conf, N, M, [&](auto cf) {
+    using Cf = decltype(cf);
     using K = typename Cf::K;
     *splits = 1;
     *scratch_floats = *counters = 0;
@@ -1099,6 +1164,7 @@ extern "C" int conv_engine_fwd_plan(int B, int ty, int tx, int N, int M, int S2,
         const double cost = (double)((groups * k + slots - 1) / slots) / k * (1.0 + 0.25 * (k - 1));
         if (cost < best_cost - 1e-9) best = k, best_cost = cost;
       }
+      if (want_splits >= 1) best = want_splits;
       *splits = best;
       *scratch_floats = best > 1 ? groups * best * K::kY * K::kThreads : 0;
       *counters = best > 1 ? groups : 0;
@@ -1110,17 +1176,20 @@ extern "C" int conv_engine_fwd_plan(int B, int ty, int tx, int N, int M, int S2,
 // One forward launch: cells (B, Gy, Gx, S2*4, N), ww (C, N, M), inv (C, 4)
 // -> out (B, out_h, out_w, M) (out_mode 0) or (B, ty, tx, 4, M) (out_mode 1).
 // scale and bias may be null; act: 0 none, 1 relu, 2 leaky_relu, 3 tanh.
-// The tensor-core kernel reads fplan (the pass plan of the C packed
-// positions, npass / nslot / npos as conv_engine_fwd_plan took them) and, split, partial and counters from
-// that plan (the counters zero on entry; the kernel leaves them zero); the
-// CUDA-core kernel pos and phase_off.  Returns cudaGetLastError().
+// conf: the instantiation conv_engine_fwd_conf handed out.  The tensor-core
+// kernel reads fplan (the pass plan of the C packed positions, npass /
+// nslot / npos as conv_engine_fwd_plan took them) and, split, partial and
+// counters from that plan (the counters zero on entry; the kernel leaves
+// them zero); the CUDA-core kernel pos and phase_off.  Returns
+// cudaGetLastError().
 extern "C" int conv_engine_fwd_f32(const float* cells, const float* ww, const float* inv, const int* pos,
                                    const int* phase_off, const int* fplan, const float* scale, const float* bias,
                                    float* out, int B, int Gy, int Gx, int N, int M, int S2, int ty, int tx,
-                                   int out_h, int out_w, int out_mode, int act, int C, int npass, int nslot,
-                                   int npos, int splits, float* partial, int* counters, void* stream) {
-  return with_fwd_conf(N, M, S2, [&](auto conf) {
-    using Cf = decltype(conf);
+                                   int out_h, int out_w, int out_mode, int act, int C, int conf, int npass,
+                                   int nslot, int npos, int splits, float* partial, int* counters, void* stream) {
+  if (!fwd_takes(conf, N, M, S2)) return (int)cudaErrorInvalidValue;
+  return with_fwd_conf(conf, N, M, [&](auto cf) {
+    using Cf = decltype(cf);
     using K = typename Cf::K;
     const int T = B * ty * tx;
     const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -1142,13 +1211,19 @@ extern "C" int conv_engine_fwd_f32(const float* cells, const float* ww, const fl
 
 // bwd_x geometry (bwdx::cell_geometry): a block covers R cell rows (rows of
 // all B images end to end) by W cell columns; its BT tile slots are TC tile
-// columns by BT/TC tile rows; tile gets (BT, BN channels n a block, 1 for
-// the tensor cores or 0).  Also raises the kernel's shared-memory limit on
-// the current device (call it before the first launch for this (N, M)).
-extern "C" int conv_engine_bwd_x_plan(int B, int gy, int gx, int ty, int tx, int N, int M, int* R, int* W,
+// columns by BT/TC tile rows.  want -1 takes the plan's instantiation
+// (bx_default), want >= 0 asks for that one (bx_takes' numbering): a request
+// M cannot take returns cudaErrorInvalidValue.  tile gets (BT, BN channels n
+// a block, the instantiation: 0 the CUDA cores, 1 or 2 the tensor cores),
+// which conv_engine_bwd_x_f32 takes as conf.  Also raises the kernel's
+// shared-memory limit on the current device (call it before the first
+// launch for this (N, M)).
+extern "C" int conv_engine_bwd_x_plan(int B, int gy, int gx, int ty, int tx, int N, int M, int want, int* R, int* W,
                                       int* TC, int* tile) {
-  return with_bx_conf(N, M, [&](auto conf) {
-    using Cf = decltype(conf);
+  const int conf = want < 0 ? bx_default(N, M) : want;
+  if (!bx_takes(conf, M)) return (int)cudaErrorInvalidValue;
+  return with_bx_conf(conf, N, [&](auto cf) {
+    using Cf = decltype(cf);
     using K = typename Cf::K;
     cudaError_t err =
         cudaFuncSetAttribute(bx_kernel<Cf>(), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Cf::kSmemBytes);
@@ -1156,20 +1231,21 @@ extern "C" int conv_engine_bwd_x_plan(int B, int gy, int gx, int ty, int tx, int
     bwdx::cell_geometry(B, gy, gx, ty, tx, K::BT, R, W, TC);
     tile[0] = K::BT;
     tile[1] = K::BN;
-    tile[2] = Cf::kMma;
+    tile[2] = conf;
     return 0;
   });
 }
 
 // One bwd_x launch: g (B, ty, tx, 4, M), ww (C, N, M), inv (C, 4) -> dcells
-// (B, gy, gx, S2*4, N), every element written.  R, W, TC from
-// conv_engine_bwd_x_plan; where M % 4 == 0 and M >= 8, g and ww start on
+// (B, gy, gx, S2*4, N), every element written.  R, W, TC and conf from
+// conv_engine_bwd_x_plan; where conf runs the tensor cores, g and ww start on
 // 16-byte boundaries.  Returns cudaGetLastError().
 extern "C" int conv_engine_bwd_x_f32(const float* g, const float* ww, const float* inv, const int* pos,
                                      const int* phase_off, float* dcells, int B, int gy, int gx, int N, int M,
-                                     int S2, int ty, int tx, int R, int W, int TC, void* stream) {
-  return with_bx_conf(N, M, [&](auto conf) {
-    using Cf = decltype(conf);
+                                     int S2, int ty, int tx, int R, int W, int TC, int conf, void* stream) {
+  if (!bx_takes(conf, M)) return (int)cudaErrorInvalidValue;
+  return with_bx_conf(conf, N, [&](auto cf) {
+    using Cf = decltype(cf);
     using K = typename Cf::K;
     const int cblocks = ((B * gy + R - 1) / R) * ((gx + W - 1) / W), ncb = (gx + W - 1) / W;
     const int n_nb = (N + K::BN - 1) / K::BN;
@@ -1185,15 +1261,25 @@ extern "C" int conv_engine_bwd_x_f32(const float* g, const float* ww, const floa
 // tensor-core kernel runs a block per (packed position, N tile, M tile)
 // group and splits T by bwdw::plan_splits; the CUDA-core kernel a block per
 // (phase, N tile, M tile), split over as many blocks as fill the card's
-// resident block slots once, at least 4 chunks a split.  scratch_floats /
-// counters are 0 when the split count is 1; tile gets (BN, BM, BT, 1 for the
-// tensor cores or 0).  Also raises both variants' shared-memory limit on the
-// current device (call it before the first launch for this (N, M)).
-extern "C" int conv_engine_bwd_w_plan(int B, int ty, int tx, int N, int M, int S2, int C, int device, int* splits,
-                                      long long* scratch_floats, long long* counters, int* tile) {
-  return with_bw_conf(N, M, [&](auto conf) {
-    using Cf = decltype(conf);
+// resident block slots once, at least 4 chunks a split.  want -1 takes the
+// plan's instantiation (bw_default), want >= 0 asks for that one (bw_takes'
+// numbering), want_splits >= 1 for that T split (at most the T chunks and
+// 65535): a request the shape cannot take returns cudaErrorInvalidValue.
+// scratch_floats / counters are 0 when the split count is 1; tile gets (BN,
+// BM, BT, the instantiation: 0 the CUDA cores, 1-3 the tensor cores), which
+// conv_engine_bwd_w_f32 takes as conf.  Also raises both variants'
+// shared-memory limit on the current device (call it before the first
+// launch for this shape).
+extern "C" int conv_engine_bwd_w_plan(int B, int ty, int tx, int N, int M, int S2, int C, int want, int want_splits,
+                                      int device, int* splits, long long* scratch_floats, long long* counters,
+                                      int* tile) {
+  const int conf = want < 0 ? bw_default(N, M) : want;
+  if (!bw_takes(conf, N, M)) return (int)cudaErrorInvalidValue;
+  return with_bw_conf(conf, N, M, [&](auto cf) {
+    using Cf = decltype(cf);
     using K = typename Cf::K;
+    const long long chunks = ((long long)B * ty * tx + Cf::BT - 1) / Cf::BT;
+    if (want_splits > chunks || want_splits > 65535) return (int)cudaErrorInvalidValue;
     const auto k0 = bw_kernel<Cf, false>(), k1 = bw_kernel<Cf, true>();
     cudaError_t err = cudaFuncSetAttribute(k0, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::kSmemBytes);
     if (err == cudaSuccess)
@@ -1204,7 +1290,6 @@ extern "C" int conv_engine_bwd_w_plan(int B, int ty, int tx, int N, int M, int S
     if (err != cudaSuccess) return (int)err;
     const long long slots = (long long)(occ > 0 ? occ : 1) * sms;
     const long long tiles = (long long)((N + K::BN - 1) / K::BN) * ((M + K::BM - 1) / K::BM);
-    const long long chunks = ((long long)B * ty * tx + Cf::BT - 1) / Cf::BT;
     long long groups, k;
     if constexpr (Cf::kMma) {
       groups = (long long)C * tiles;
@@ -1216,29 +1301,31 @@ extern "C" int conv_engine_bwd_w_plan(int B, int ty, int tx, int N, int M, int S
       if (k > 65535) k = 65535;
       if (k < 1) k = 1;
     }
+    if (want_splits >= 1) k = want_splits;
     *splits = (int)k;
     *scratch_floats = k > 1 ? groups * k * K::kRed : 0;
     *counters = k > 1 ? groups : 0;
     tile[0] = K::BN;
     tile[1] = K::BM;
     tile[2] = Cf::BT;
-    tile[3] = Cf::kMma;
+    tile[3] = conf;
     return 0;
   });
 }
 
 // One bwd_w launch: cells (B, Gy, Gx, S2*4, N), g (B, ty, tx, 4, M),
 // inv (C, 4) -> dww (C, N, M), every element written.  C the packed
-// positions; splits, partial and counters from conv_engine_bwd_w_plan with
-// the same shape; the counters are zero on entry and the kernel leaves them
-// zero; where N % 4 == 0, cells (and g where M % 4 == 0 and M >= 16) start
-// on 16-byte boundaries.  Returns cudaGetLastError().
+// positions; conf, splits, partial and counters from conv_engine_bwd_w_plan
+// with the same shape; the counters are zero on entry and the kernel leaves
+// them zero; where N % 4 == 0, cells (and g where M % 4 == 0 and M >= 16)
+// start on 16-byte boundaries.  Returns cudaGetLastError().
 extern "C" int conv_engine_bwd_w_f32(const float* cells, const float* g, const float* inv, const int* pos,
                                      const int* phase_off, float* dww, int B, int Gy, int Gx, int N, int M,
-                                     int S2, int ty, int tx, int C, int splits, float* partial, int* counters,
-                                     void* stream) {
-  return with_bw_conf(N, M, [&](auto conf) {
-    using Cf = decltype(conf);
+                                     int S2, int ty, int tx, int C, int conf, int splits, float* partial,
+                                     int* counters, void* stream) {
+  if (!bw_takes(conf, N, M)) return (int)cudaErrorInvalidValue;
+  return with_bw_conf(conf, N, M, [&](auto cf) {
+    using Cf = decltype(cf);
     using K = typename Cf::K;
     const int tiles = ((N + K::BN - 1) / K::BN) * ((M + K::BM - 1) / K::BM);
     // a block per (packed position or, on the CUDA cores, phase, N tile, M tile) and split

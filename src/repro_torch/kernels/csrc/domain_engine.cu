@@ -1237,6 +1237,33 @@ int with_fwd_conf(int M, F&& f) {
 
 constexpr size_t kMaxSmem = 232448;  // the dynamic shared memory a block may have on sm_90
 
+// The most packed positions the few-channel kernel's shared memory holds
+constexpr int few_max_c() {
+  int c = 0;
+  while (fcf::smem_bytes(c + 1) <= kMaxSmem) ++c;
+  return c;
+}
+constexpr int kFewMaxC = few_max_c();
+
+// Whether forward instantiation conf (engine.py's
+// INSTANTIATIONS["domain_engine"], in this order: the CUDA-core kernel,
+// the tensor cores, few channels) takes M output channels and C packed
+// positions: the tensor cores where M % 4 == 0 and M >= 16, the few-channel
+// kernel where its shared memory holds the C positions' weights.
+bool fwd_takes(int conf, int M, int C) {
+  switch (conf) {
+    case 0: return true;                  // cuda_cores
+    case 1: return M % 4 == 0 && M >= 16;  // mma_128x64
+    case 2: return C <= kFewMaxC;          // few_channels
+  }
+  return false;
+}
+
+// The CUDA-core forward's N chunks at (N, M): its N split's most ways
+int fwd_chunks(int N, int M) {
+  return with_fwd_conf(M, [&](auto cf) { return (N + decltype(cf)::BN - 1) / decltype(cf)::BN; });
+}
+
 // cuTensorMapEncodeTiled through the runtime's entry-point query (no -lcuda)
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                   const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
@@ -1281,23 +1308,42 @@ struct BxMma {
   using K = K_;
 };
 
-// bwd_x configuration for (M, M2, N2): the tensor cores where M % 4 == 0
-// and M >= 8 (g and ww in 16-byte copies: the wrapper has checked their
-// alignment): in 2D 64 tiles x 32 channels n a block, two position sets of
-// 4 warps, each warp 32 n x 16 tiles x 8 positions (the set's colour of the
-// 4x4 checkerboard); at rank 1 with n2 <= 4 positions 128 tiles x 64 n,
-// each warp 64 n x 16 tiles x all positions; rank 1 with more positions as
-// 2D with one set.  Otherwise (few or ragged channels: RGB, the audio
-// decoder's mono waveform) the fp32 CUDA-core kernel (BxCfg).
+// bwd_x configurations, by number (engine.py's
+// INSTANTIATIONS["domain_engine_bwd_x"], in this order): 0 the fp32
+// CUDA-core kernel (BxCfg) of the rank; the tensor cores: 1 in 2D, 64 tiles
+// x 32 channels n a block, two position sets of 4 warps, each warp 32 n x 16
+// tiles x 8 positions (the set's colour of the 4x4 checkerboard); 2 at rank
+// 1 with n2 <= 4 positions, 128 tiles x 64 n, each warp 64 n x 16 tiles x
+// all positions; 3 at rank 1 with more positions, as 2D with one set.
 template <class F>
-int with_bx_conf(int M, int M2, int N2, F&& f) {
-  if (M >= 8 && M % 4 == 0) {
-    if (M2 == 2 && N2 <= 4) return f(BxMma<bwdx::Core<4, 2, 4, 2, 8>>{});
-    if (M2 == 2) return f(BxMma<bwdx::Core<16, 2, 2, 1, 8>>{});
-    return f(BxMma<bwdx::Core<16, 4, 2, 2, 8, 2>>{});
-  }
+int with_bx_conf(int conf, int M2, F&& f) {
+  if (conf == 1) return f(BxMma<bwdx::Core<16, 4, 2, 2, 8, 2>>{});
+  if (conf == 2) return f(BxMma<bwdx::Core<4, 2, 4, 2, 8>>{});
+  if (conf == 3) return f(BxMma<bwdx::Core<16, 2, 2, 1, 8>>{});
   if (M2 == 2) return f(BxConf<2>{});
   return f(BxConf<4>{});
+}
+
+// Whether bwd_x instantiation conf takes (M, M2, N2): the tensor cores
+// where M % 4 == 0 and M >= 8 (g and ww in 16-byte copies: the wrapper has
+// checked their alignment), each core at its own rank and positions
+bool bx_takes(int conf, int M, int M2, int N2) {
+  switch (conf) {
+    case 0: return true;                                          // cuda_cores
+    case 1: return M >= 8 && M % 4 == 0 && M2 == 4;                // mma_64x32
+    case 2: return M >= 8 && M % 4 == 0 && M2 == 2 && N2 <= 4;     // mma_rank1_128x64
+    case 3: return M >= 8 && M % 4 == 0 && M2 == 2 && N2 > 4;      // mma_rank1_64x32
+  }
+  return false;
+}
+
+// The plan's own choice: the tensor-core core that takes the shape, else
+// (few or ragged channels: RGB, the audio decoder's mono waveform) the CUDA
+// cores
+int bx_default(int M, int M2, int N2) {
+  for (int conf = 1; conf <= 3; ++conf)
+    if (bx_takes(conf, M, M2, N2)) return conf;
+  return 0;
 }
 
 // dynamic shared memory of the tensor-core kernel: the pipeline, the layout
@@ -1319,22 +1365,42 @@ struct BwMma {
   using K = K_;
 };
 
-// bwd_w configuration for (N, M, M2): the tensor cores where M % 4 == 0 and
-// M >= 16 (g rows in 16-byte copies: the wrapper has checked g's
-// alignment): 256 channels n x 128 m a block, 8 warps of 64 x 64, 16 tiles
-// a chunk (193 KB of shared memory in 2D, 161 KB at rank 1), or at rank 1
-// with N < 256 or M < 128 (the audio decoder's 128 -> 64 layer) 128 x 64, 4
-// warps of 64 x 32 (81 KB); otherwise (few or ragged channels: RGB, the
-// audio decoder's mono waveform) the fp32 CUDA-core kernel (BwCfg).
+// bwd_w configurations, by number (engine.py's
+// INSTANTIATIONS["domain_engine_bwd_w"], in this order): 0 the fp32
+// CUDA-core kernel (BwCfg) of the rank; the tensor cores: 1 in 2D, 256
+// channels n x 128 m a block, 8 warps of 64 x 64, 16 tiles a chunk (193 KB
+// of shared memory); at rank 1, 2 the same (161 KB) or 3 128 x 64, 4 warps
+// of 64 x 32 (81 KB).
 template <class F>
-int with_bw_conf(int N, int M, int M2, F&& f) {
-  if (M >= 16 && M % 4 == 0) {
-    if (M2 == 4) return f(BwMma<bwdw::Core<4, 2, 4, 8, 16, 4, 1>>{});
-    if (N >= 256 && M >= 128) return f(BwMma<bwdw::Core<4, 2, 4, 8, 16, 2, 1>>{});
-    return f(BwMma<bwdw::Core<2, 2, 4, 4, 16, 2, 1>>{});
-  }
+int with_bw_conf(int conf, int M2, F&& f) {
+  if (conf == 1) return f(BwMma<bwdw::Core<4, 2, 4, 8, 16, 4, 1>>{});
+  if (conf == 2) return f(BwMma<bwdw::Core<4, 2, 4, 8, 16, 2, 1>>{});
+  if (conf == 3) return f(BwMma<bwdw::Core<2, 2, 4, 4, 16, 2, 1>>{});
   if (M2 == 2) return f(BwConf<2>{});
   return f(BwConf<4>{});
+}
+
+// Whether bwd_w instantiation conf takes (M, M2): the tensor cores where M
+// % 4 == 0 and M >= 16 (g rows in 16-byte copies: the wrapper has checked
+// g's alignment), each core at its own rank
+bool bw_takes(int conf, int M, int M2) {
+  switch (conf) {
+    case 0: return true;                              // cuda_cores
+    case 1: return M >= 16 && M % 4 == 0 && M2 == 4;  // mma_256x128
+    case 2: return M >= 16 && M % 4 == 0 && M2 == 2;  // mma_rank1_256x128
+    case 3: return M >= 16 && M % 4 == 0 && M2 == 2;  // mma_rank1_128x64
+  }
+  return false;
+}
+
+// The plan's own choice: the tensor cores wherever they take the shape, at
+// rank 1 256 x 128 for N >= 256 and M >= 128, else 128 x 64 (the audio
+// decoder's 128 -> 64 layer); otherwise (few or ragged channels: RGB, the
+// audio decoder's mono waveform) the CUDA cores
+int bw_default(int N, int M, int M2) {
+  if (!bw_takes(M2 == 4 ? 1 : 2, M, M2)) return 0;
+  if (M2 == 4) return 1;
+  return N >= 256 && M >= 128 ? 2 : 3;
 }
 
 // The bwd_w kernel of configuration Cf, with or without the T split
@@ -1367,12 +1433,13 @@ auto bw_kernel() {
 // 4 N chunks per split (fused_engine_plan's rule).  scratch_floats: the
 // floats of the launch's scratch (the split's partial products; the tensor
 // cores' packed weights, 2*C*M*N).  want -1 lets the plan choose; 0, 1 or 2
-// asks for that instantiation (a measurement's comparison), which the shape
-// must allow (the tensor cores: M % 4 == 0, M >= 16): cudaErrorInvalidValue
-// otherwise.  The plan also raises the chosen kernel's shared-memory limit
-// on the device.
-extern "C" int domain_engine_fwd_plan(int T, int N, int M, int S2, int C, int want, int device, int* splits,
-                                      long long* scratch_floats, long long* counters, int* tile) {
+// asks for that instantiation (fwd_takes), and want_splits >= 1 for that
+// many N splits on the CUDA cores (at most its N chunks; the other two run
+// unsplit): a request the shape cannot take returns cudaErrorInvalidValue.
+// The plan also raises the chosen kernel's shared-memory limit on the
+// device.
+extern "C" int domain_engine_fwd_plan(int T, int N, int M, int S2, int C, int want, int want_splits, int device,
+                                      int* splits, long long* scratch_floats, long long* counters, int* tile) {
   int sms = 0;
   cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
@@ -1381,16 +1448,17 @@ extern "C" int domain_engine_fwd_plan(int T, int N, int M, int S2, int C, int wa
   *counters = 0;
   const long long tc_blocks = (long long)((T + tcf::BT - 1) / tcf::BT) * ((M + tcf::BM - 1) / tcf::BM) * S2;
   const long long few_blocks = (long long)((T + fcf::BT - 1) / fcf::BT) * ((M + fcf::MC - 1) / fcf::MC);
-  const bool tc_shape = M % 4 == 0 && M >= 16, few_fits = fcf::smem_bytes(C) <= kMaxSmem;
-  if (want < -1 || want > 2 || (want == 1 && !tc_shape) || (want == 2 && !few_fits))
+  const bool tc_shape = fwd_takes(1, M, C), few_fits = fwd_takes(2, M, C);
+  if ((want >= 0 && !fwd_takes(want, M, C)) ||
+      (want_splits > 1 && (want != 0 || want_splits > fwd_chunks(N, M))))
     return (int)cudaErrorInvalidValue;
-  if (want == 1 || (want == -1 && tc_shape && tc_blocks >= sms)) {
+  if (want == 1 || (want < 0 && tc_shape && tc_blocks >= sms)) {
     tile[0] = tcf::BT, tile[1] = tcf::BM, tile[2] = 1;
     *scratch_floats = 2LL * C * M * N;
     return (int)cudaFuncSetAttribute(domain_fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                      (int)tcf::kSmemBytes);
   }
-  if (want == 2 || (want == -1 && !tc_shape && few_blocks >= sms && few_fits)) {
+  if (want == 2 || (want < 0 && !tc_shape && few_blocks >= sms && few_fits)) {
     tile[0] = fcf::BT, tile[1] = fcf::MC, tile[2] = 2;
     return (int)cudaFuncSetAttribute(domain_fwd_few_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                      (int)fcf::smem_bytes(C));
@@ -1416,6 +1484,7 @@ extern "C" int domain_engine_fwd_plan(int T, int N, int M, int S2, int C, int wa
       const double cost = (double)((groups * k + slots - 1) / slots) / k * (1.0 + 0.25 * (k - 1));
       if (cost < best_cost - 1e-9) best = k, best_cost = cost;
     }
+    if (want_splits >= 1) best = want_splits;
     *splits = best;
     *scratch_floats = best > 1 ? groups * best * K::kRed : 0;
     *counters = best > 1 ? groups : 0;
@@ -1435,6 +1504,7 @@ extern "C" int domain_engine_fwd_f32(const float* xw, const float* ww, const flo
                                      const int* sub_off, float* y, int T, int N, int M, int S2, int C, int conf,
                                      int splits, float* scratch, int* counters, void* stream) {
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (!fwd_takes(conf, M, C)) return (int)cudaErrorInvalidValue;
   if (conf == 1) {
     if (N % 4 != 0) return (int)cudaErrorInvalidValue;
     CUtensorMap xmap, wmap;
@@ -1474,11 +1544,17 @@ extern "C" int domain_engine_fwd_f32(const float* xw, const float* ww, const flo
   });
 }
 
-// Raises the bwd_x kernel's shared-memory limit for (M, M2, N2) on the
-// current device (call it before the first launch for this shape).
-extern "C" int domain_engine_bwd_x_plan(int M, int M2, int N2) {
-  return with_bx_conf(M, M2, N2, [&](auto conf) {
-    using Cf = decltype(conf);
+// The bwd_x instantiation for (M, M2, N2): want -1 takes the plan's
+// (bx_default), want >= 0 asks for that one (bx_takes' numbering): a request
+// the shape cannot take returns cudaErrorInvalidValue.  conf gets the one
+// handed out, which domain_engine_bwd_x_f32 takes.  Raises its kernel's
+// shared-memory limit on the current device (call it before the first
+// launch for this shape).
+extern "C" int domain_engine_bwd_x_plan(int M, int M2, int N2, int want, int* conf) {
+  *conf = want < 0 ? bx_default(M, M2, N2) : want;
+  if (!bx_takes(*conf, M, M2, N2)) return (int)cudaErrorInvalidValue;
+  return with_bx_conf(*conf, M2, [&](auto cf) {
+    using Cf = decltype(cf);
     using K = typename Cf::K;
     if constexpr (Cf::kMma)
       return (int)cudaFuncSetAttribute(domain_bwd_x_mma_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1490,13 +1566,14 @@ extern "C" int domain_engine_bwd_x_plan(int M, int M2, int N2) {
 }
 
 // One bwd_x launch: g, ww -> dxw (T, N2, N), every element written.  C:
-// the packed positions.  Where M % 4 == 0, g and ww start on 16-byte
-// boundaries.
+// the packed positions; conf from domain_engine_bwd_x_plan.  Where conf runs
+// the tensor cores, g and ww start on 16-byte boundaries.
 extern "C" int domain_engine_bwd_x_f32(const float* g, const float* ww, const float* inv, const int* pos,
                                        const int* sub_off, float* dxw, int T, int N, int M, int S2, int M2,
-                                       int N2, int C, void* stream) {
-  return with_bx_conf(M, M2, N2, [&](auto conf) {
-    using Cf = decltype(conf);
+                                       int N2, int C, int conf, void* stream) {
+  if (!bx_takes(conf, M, M2, N2)) return (int)cudaErrorInvalidValue;
+  return with_bx_conf(conf, M2, [&](auto cf) {
+    using Cf = decltype(cf);
     using K = typename Cf::K;
     const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     const int n_tb = (T + K::BT - 1) / K::BT, n_nb = (N + K::BN - 1) / K::BN;
@@ -1518,13 +1595,22 @@ extern "C" int domain_engine_bwd_x_f32(const float* g, const float* ww, const fl
 // group and splits T by bwdw::plan_splits; the CUDA-core kernel a block per
 // (sub-filter, N tile, M tile), split over as many blocks as fill the card's
 // resident block slots once, at least 4 chunks a split
-// (fused_engine_bwd_w_plan's rules).  tile gets (BN, BM, BT, 1 for the
-// tensor cores or 0).
-extern "C" int domain_engine_bwd_w_plan(int T, int N, int M, int S2, int M2, int C, int device, int* splits,
-                                        long long* scratch_floats, long long* counters, int* tile) {
-  return with_bw_conf(N, M, M2, [&](auto conf) {
-    using Cf = decltype(conf);
+// (fused_engine_bwd_w_plan's rules).  want -1 takes the plan's
+// instantiation (bw_default), want >= 0 asks for that one (bw_takes'
+// numbering), want_splits >= 1 for that T split (at most the T chunks and
+// 65535): a request the shape cannot take returns cudaErrorInvalidValue.
+// tile gets (BN, BM, BT, the instantiation: 0 the CUDA cores, 1-3 the tensor
+// cores), which domain_engine_bwd_w_f32 takes as conf.
+extern "C" int domain_engine_bwd_w_plan(int T, int N, int M, int S2, int M2, int C, int want, int want_splits,
+                                        int device, int* splits, long long* scratch_floats, long long* counters,
+                                        int* tile) {
+  const int conf = want < 0 ? bw_default(N, M, M2) : want;
+  if (!bw_takes(conf, M, M2)) return (int)cudaErrorInvalidValue;
+  return with_bw_conf(conf, M2, [&](auto cf) {
+    using Cf = decltype(cf);
     using K = typename Cf::K;
+    const long long chunks = ((long long)T + K::BT - 1) / K::BT;
+    if (want_splits > chunks || want_splits > 65535) return (int)cudaErrorInvalidValue;
     const auto k0 = bw_kernel<Cf, false>(), k1 = bw_kernel<Cf, true>();
     cudaError_t err = cudaFuncSetAttribute(k0, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::kSmemBytes);
     if (err == cudaSuccess)
@@ -1535,7 +1621,6 @@ extern "C" int domain_engine_bwd_w_plan(int T, int N, int M, int S2, int M2, int
     if (err != cudaSuccess) return (int)err;
     const long long slots = (long long)(occ > 0 ? occ : 1) * sms;
     const long long tiles = (long long)((N + K::BN - 1) / K::BN) * ((M + K::BM - 1) / K::BM);
-    const long long chunks = ((long long)T + K::BT - 1) / K::BT;
     long long groups, k;
     if constexpr (Cf::kMma) {
       groups = (long long)C * tiles;
@@ -1547,27 +1632,30 @@ extern "C" int domain_engine_bwd_w_plan(int T, int N, int M, int S2, int M2, int
       if (k > 65535) k = 65535;
       if (k < 1) k = 1;
     }
+    if (want_splits >= 1) k = want_splits;
     *splits = (int)k;
     *scratch_floats = k > 1 ? groups * k * K::kRed : 0;
     *counters = k > 1 ? groups : 0;
     tile[0] = K::BN;
     tile[1] = K::BM;
     tile[2] = K::BT;
-    tile[3] = Cf::kMma;
+    tile[3] = conf;
     return 0;
   });
 }
 
 // One bwd_w launch: xw, g -> dww (C, N, M), every element written.  C the
-// packed positions; splits, partial and counters from
+// packed positions; conf, splits, partial and counters from
 // domain_engine_bwd_w_plan with the same shape; the counters are zero on
 // entry and the kernel leaves them zero; xw (and g where M % 4 == 0 and M >=
 // 16) start on 16-byte boundaries.
 extern "C" int domain_engine_bwd_w_f32(const float* xw, const float* g, const float* inv, const int* pos,
                                        const int* sub_off, float* dww, int T, int N, int M, int S2, int M2,
-                                       int N2, int C, int splits, float* partial, int* counters, void* stream) {
-  return with_bw_conf(N, M, M2, [&](auto conf) {
-    using Cf = decltype(conf);
+                                       int N2, int C, int conf, int splits, float* partial, int* counters,
+                                       void* stream) {
+  if (!bw_takes(conf, M, M2)) return (int)cudaErrorInvalidValue;
+  return with_bw_conf(conf, M2, [&](auto cf) {
+    using Cf = decltype(cf);
     using K = typename Cf::K;
     const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     const int tiles = ((N + K::BN - 1) / K::BN) * ((M + K::BM - 1) / K::BM);

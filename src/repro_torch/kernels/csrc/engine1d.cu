@@ -454,40 +454,54 @@ auto e1_kernel() {
     return engine1d_kernel<Cf::NT_T, Cf::NT_M, Cf::BN, Cf::VW, Cf::MC>;
 }
 
-// The block configuration for M, handed to f: with tc (the plan's choice,
-// tensor_cores below) the tensor cores, at most 9 packed positions of 2
-// sub-filters a pass (the decoder's K4S2 layers in one): for M >= 128, 64
-// tiles x 128 channels, 8 warps of 32 x 32; else 64 x 64, 8 warps of 32 x
-// 16, two blocks an SM (each the faster of the configurations timed on an
-// H100 at the decoder's deconv0 and deconv1, PERF.md).  Else the fp32
-// CUDA-core kernel: 32 tiles x 32 channels, 256 threads, 16-byte weight
-// copies where M % 4 == 0 and M >= 32; for few or ragged output channels 128
-// threads and 4-byte weight copies, 128 tiles x 1 channel for the mono
-// waveform (no dead channels), else 128 tiles x 4 channels.
+// The block configurations, by number (engine.py's
+// INSTANTIATIONS["winograd_conv1d_fused_engine"], in this order), handed to
+// f: 0 the fp32 CUDA-core kernel: 32 tiles x 32 channels, 256 threads,
+// 16-byte weight copies where M % 4 == 0 and M >= 32; for few or ragged
+// output channels 128 threads and 4-byte weight copies, 128 tiles x 1
+// channel for the mono waveform (no dead channels), else 128 tiles x 4
+// channels.  The tensor cores, at most 9 packed positions of 2 sub-filters a
+// pass (the decoder's K4S2 layers in one): 1, 64 tiles x 128 channels, 8
+// warps of 32 x 32; 2, 64 x 64, 8 warps of 32 x 16, two blocks an SM.
 template <class F>
-int with_conf(int M, bool tc, F&& f) {
-  if (tc && M >= 128) return f(Mma<fwd::Core<2, 4, 2, 4, 9, 2, 2, 1>>{});
-  if (tc) return f(Mma<fwd::Core<2, 4, 2, 2, 9, 2, 2, 2>>{});
+int with_conf(int conf, int M, F&& f) {
+  if (conf == 1) return f(Mma<fwd::Core<2, 4, 2, 4, 9, 2, 2, 1>>{});
+  if (conf == 2) return f(Mma<fwd::Core<2, 4, 2, 2, 9, 2, 2, 2>>{});
   if (M >= 32 && M % 4 == 0) return f(Conf<8, 8, 16, 4, 4>{});
   return M == 1 ? f(Conf<32, 1, 8, 1, 1>{}) : f(Conf<32, 1, 8, 1, 4>{});
 }
 
-// Whether B sequences of ty tiles and M channels run on the tensor cores:
+// Whether instantiation conf takes M output channels: the tensor cores
 // where M % 4 == 0 and M >= 16 (weights in 16-byte copies: the wrapper has
-// checked their alignment) and the tensor-core blocks, 64 tiles each, fill
-// every SM of the card at least once.  On fewer (the decoder at batch 1: 33
-// and 65 blocks on 132 SMs) the CUDA-core kernel's 32-tile blocks keep more
-// of the card busy and finish first (PERF.md).
-bool tensor_cores(int B, int ty, int M) {
-  if (M < 16 || M % 4 != 0) return false;
+// checked their alignment)
+bool takes(int conf, int M) {
+  switch (conf) {
+    case 0: return true;                  // cuda_cores
+    case 1: return M % 4 == 0 && M >= 16;  // mma_64x128
+    case 2: return M % 4 == 0 && M >= 16;  // mma_64x64
+  }
+  return false;
+}
+
+// The plan's own choice for B sequences of ty tiles and M channels: the
+// tensor cores where they take M and their blocks, 64 tiles each, fill
+// every SM of the card at least once (64 x 128 for M >= 128, else 64 x 64:
+// each the faster of the configurations timed on an H100 at the decoder's
+// deconv0 and deconv1, PERF.md).  On fewer (the decoder at batch 1: 33 and
+// 65 blocks on 132 SMs) the CUDA-core kernel's 32-tile blocks keep more of
+// the card busy and finish first (PERF.md).
+int default_conf(int B, int ty, int M) {
+  if (!takes(1, M)) return 0;
+  const int conf = M >= 128 ? 1 : 2;
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
                                                  cudaSuccess)
-    return false;
-  return with_conf(M, true, [&](auto conf) {
-    using Cf = decltype(conf);
+    return 0;
+  const bool fills = with_conf(conf, M, [&](auto cf) {
+    using Cf = decltype(cf);
     return (int)((long long)B * ((ty + Cf::BT - 1) / Cf::BT) * ((M + Cf::BM - 1) / Cf::BM) >= sms);
   }) != 0;
+  return fills ? conf : 0;
 }
 
 }  // namespace
@@ -501,14 +515,18 @@ bool tensor_cores(int B, int ty, int M) {
 // phases*n <= 16, C <= 16, S2 <= 16; the wrapper checks them.
 
 // The configuration for B sequences of ty tiles and M channels on the
-// current device, and its shared-memory limit raised to the most any launch
-// of it takes: call once per (B, ty, M, device) before the first launch.
-// tile gets (BT, BM, the most positions and sub-filters a pass, 1 for the
-// tensor cores or 0); engine1d_f32 takes the last as mma.
-extern "C" int engine1d_plan(int B, int ty, int M, int* tile) {
-  const bool tc = tensor_cores(B, ty, M);
-  return with_conf(M, tc, [&](auto conf) {
-    using Cf = decltype(conf);
+// current device: want -1 takes the plan's (default_conf), want >= 0 asks
+// for that instantiation (takes' numbering): a request M cannot take
+// returns cudaErrorInvalidValue.  Its shared-memory limit is raised to the
+// most any launch of it takes: call once per (B, ty, M, want, device)
+// before the first launch.  tile gets (BT, BM, the most positions and
+// sub-filters a pass, the instantiation: 0 the CUDA cores, 1 or 2 the tensor
+// cores); engine1d_f32 takes the last as conf.
+extern "C" int engine1d_plan(int B, int ty, int M, int want, int* tile) {
+  const int conf = want < 0 ? default_conf(B, ty, M) : want;
+  if (!takes(conf, M)) return (int)cudaErrorInvalidValue;
+  return with_conf(conf, M, [&](auto cf) {
+    using Cf = decltype(cf);
     using K = typename Cf::K;
     size_t most;
     if constexpr (Cf::kMma)
@@ -519,23 +537,24 @@ extern "C" int engine1d_plan(int B, int ty, int M, int* tile) {
     tile[1] = Cf::BM;
     tile[2] = Cf::PMAX;
     tile[3] = Cf::SMAX;
-    tile[4] = Cf::kMma;
+    tile[4] = conf;
     return (int)cudaFuncSetAttribute(e1_kernel<Cf>(), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
   });
 }
 
 // One launch.  out_mode: 0 = scratch, 1 = nlc.  act: 0 none, 1 relu,
-// 2 leaky_relu, 3 tanh (nlc only).  The tensor-core kernel reads fplan, the
-// pass plan of the C packed positions (npass passes, nslot / npos the most
-// Winograd / packed positions of a pass: fwd_core.cuh).  Returns
-// cudaGetLastError().
+// 2 leaky_relu, 3 tanh (nlc only).  conf: the instantiation engine1d_plan
+// handed out.  The tensor-core kernel reads fplan, the pass plan of the C
+// packed positions (npass passes, nslot / npos the most Winograd / packed
+// positions of a pass: fwd_core.cuh).  Returns cudaGetLastError().
 extern "C" int engine1d_f32(const float* cells, const float* ww, const float* inv, const int* pos,
                             const int* sub_off, const float* bt, const int* fplan, const float* scale,
                             const float* bias, float* out, int B, int Gy, int N, int M, int ty, int n, int phases,
-                            int S2, int S, int C, int out_mode, int act, int mma, int npass, int nslot,
+                            int S2, int S, int C, int out_mode, int act, int conf, int npass, int nslot,
                             int npos, void* stream) {
-  return with_conf(M, mma != 0, [&](auto conf) {
-    using Cf = decltype(conf);
+  if (!takes(conf, M)) return (int)cudaErrorInvalidValue;
+  return with_conf(conf, M, [&](auto cf) {
+    using Cf = decltype(cf);
     using K = typename Cf::K;
     const int q = (n + kM - 1) / kM;
     const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);

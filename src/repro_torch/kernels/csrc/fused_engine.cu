@@ -492,6 +492,20 @@ int with_mma(int conf, F&& f) {
   return f(fwd::Core<2, 4, 2, 2, 9, 4, 1, 1>{});
 }
 
+// Whether instantiation conf (engine.py's INSTANTIATIONS["fused_engine"],
+// in this order) takes M output channels at stride S: the CUDA-core kernel
+// every shape (its block tile follows M: with_conf), the tensor cores where
+// their weights move in 16-byte copies (the wrapper has checked their
+// alignment) and S <= 4.
+bool fwd_takes(int conf, int M, int S) {
+  switch (conf) {
+    case 0: return true;                            // cuda_cores
+    case 1: return M % 4 == 0 && M >= 16 && S <= 4;  // mma_64x128
+    case 2: return M % 4 == 0 && M >= 16 && S <= 4;  // mma_64x64
+  }
+  return false;
+}
+
 // The most packed positions the tensor-core kernel takes (S <= 4: 16
 // sub-filters of at most 16) and passes (two a sub-filter): its smem limit
 constexpr int kMmaMaxC = 16 * kMaxPos, kMmaMaxPasses = 32;
@@ -505,7 +519,7 @@ constexpr int kMmaMaxC = 16 * kMaxPos, kMmaMaxPasses = 32;
 // CUDA-core kernel (0), whose smaller tiles and N split keep more of the
 // card busy.
 int mma_conf(int B, int ty, int tx, int M, int S, int sms) {
-  if (M < 16 || M % 4 != 0 || S > 4) return 0;
+  if (!fwd_takes(1, M, S)) return 0;
   auto fills = [&](int conf) {
     return with_mma(conf, [&](auto core) {
       using K = decltype(core);
@@ -514,6 +528,11 @@ int mma_conf(int B, int ty, int tx, int M, int S, int sms) {
   };
   if (M >= 128 && fills(1)) return 1;
   return fills(2) ? 2 : 0;
+}
+
+// The N chunks of the CUDA-core kernel at (N, M): its N split's most ways
+int cuda_core_chunks(int N, int M) {
+  return with_conf(M, [&](auto cf) { return (N + decltype(cf)::BN - 1) / decltype(cf)::BN; });
 }
 
 }  // namespace
@@ -525,20 +544,26 @@ int mma_conf(int B, int ty, int tx, int M, int S, int sms) {
 // split count minimises the waves of blocks over the card's resident block
 // slots, times the work per block (1/k), times a 25% cost per extra split for
 // the partials' round trip and the shorter pipelines; at least 4 chunks per
-// split.  scratch_floats / counters are 0 when the split count is 1 (always
-// on the tensor cores).  tile gets (BT, BM, the most packed positions a
-// pass, conf: 0 the CUDA cores, 1 or 2 a tensor-core configuration), which
-// fused_engine_epi_f32 takes; the caller plans the tensor-core kernel's
-// passes with it (engine.py::_fwd_passes, the sub-filters as groups).  It
-// also raises the configuration's shared-memory limit on the current device
-// (to the most any launch of it takes), which a launch needs: call it for
-// the shape on that device before the first launch.
-extern "C" int fused_engine_plan(int B, int ty, int tx, int N, int M, int S, int device,
+// split.  want -1 takes that choice; want >= 0 asks for instantiation want
+// (fwd_takes' numbering) and want_splits >= 1 for that many N splits on the
+// CUDA cores (at most its N chunks; the tensor cores run unsplit): a request
+// the shape cannot take returns cudaErrorInvalidValue.  scratch_floats /
+// counters are 0 when the split count is 1 (always on the tensor cores).
+// tile gets (BT, BM, the most packed positions a pass, conf: 0 the CUDA
+// cores, 1 or 2 a tensor-core configuration), which fused_engine_epi_f32
+// takes; the caller plans the tensor-core kernel's passes with it
+// (engine.py::_fwd_passes, the sub-filters as groups).  It also raises the
+// shared-memory limit of the configuration it hands out on the current
+// device (to the most any launch of it takes), which a launch needs: call it
+// for the shape on that device before the first launch.
+extern "C" int fused_engine_plan(int B, int ty, int tx, int N, int M, int S, int want, int want_splits, int device,
                                  int* splits, long long* scratch_floats, long long* counters, int* tile) {
   int sms = 0;
   cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  const int conf = mma_conf(B, ty, tx, M, S, sms);
+  const int conf = want < 0 ? mma_conf(B, ty, tx, M, S, sms) : want;
+  if (!fwd_takes(conf, M, S) || (want_splits > 1 && (conf != 0 || want_splits > cuda_core_chunks(N, M))))
+    return (int)cudaErrorInvalidValue;
   *splits = 1;
   *scratch_floats = *counters = 0;
   tile[3] = conf;
@@ -577,6 +602,7 @@ extern "C" int fused_engine_plan(int B, int ty, int tx, int N, int M, int S, int
       const double cost = (double)((groups * k + slots - 1) / slots) / k * (1.0 + 0.25 * (k - 1));
       if (cost < best_cost - 1e-9) best = k, best_cost = cost;
     }
+    if (want_splits >= 1) best = want_splits;
     *splits = best;
     *scratch_floats = best > 1 ? groups * best * K::kRed : 0;
     *counters = best > 1 ? groups : 0;
@@ -600,6 +626,7 @@ extern "C" int fused_engine_epi_f32(const float* cells, const float* ww, const f
                                     int npos, int splits, float* partial, int* counters, void* stream) {
   const int T = B * ty * tx;
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (!fwd_takes(conf, M, S)) return (int)cudaErrorInvalidValue;
   if (conf) {
     return with_mma(conf, [&](auto core) {
       using K = decltype(core);

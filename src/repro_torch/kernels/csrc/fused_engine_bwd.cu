@@ -555,24 +555,39 @@ struct BxMma {
       sizeof(int) * (2 * kMaxSub * kMaxPos + kMaxSub + 1 + K::BT);
 };
 
-// bwd_x block configuration for M: the tensor cores where M % 4 == 0 and M
-// >= 8 (g and ww in 16-byte copies: the wrapper has checked their
-// alignment): 64 tile slots x 32 channels n a block, two position sets of 4
+// bwd_x block configurations, by number (engine.py's
+// INSTANTIATIONS["fused_engine_bwd_x"], in this order): 0 the fp32
+// CUDA-core kernel (BxCfg): 64 tile slots x 32 n, 512 threads; 1 the tensor
+// cores, 64 tile slots x 32 channels n a block, two position sets of 4
 // warps, each warp 32 n x 16 tiles x 8 positions (the set's colour of the
-// 4x4 checkerboard); otherwise (few or ragged channels: RGB) the fp32
-// CUDA-core kernel (BxCfg): 64 tile slots x 32 n, 512 threads.
+// 4x4 checkerboard).
 template <class F>
-int with_bx_conf(int M, F&& f) {
-  if (M >= 8 && M % 4 == 0) return f(BxMma<bwdx::Core<16, 4, 2, 2, 8, 2>>{});
+int with_bx_conf(int conf, F&& f) {
+  if (conf == 1) return f(BxMma<bwdx::Core<16, 4, 2, 2, 8, 2>>{});
   return f(BxConf{});
 }
 
-// bwd_w configuration for M: the tensor cores where M % 4 == 0 and M >= 16
-// (g rows in 16-byte copies: the wrapper has checked its alignment):
+// Whether bwd_x instantiation conf takes M output channels: the tensor
+// cores where M % 4 == 0 and M >= 8 (g and ww in 16-byte copies: the
+// wrapper has checked their alignment)
+bool bx_takes(int conf, int M) {
+  switch (conf) {
+    case 0: return true;                  // cuda_cores
+    case 1: return M >= 8 && M % 4 == 0;  // mma_64x32
+  }
+  return false;
+}
+
+// The plan's own choice: the tensor cores wherever they take M (few or
+// ragged channels, RGB, on the CUDA cores)
+int bx_default(int M) { return bx_takes(1, M) ? 1 : 0; }
+
+// bwd_w configurations, by number (engine.py's
+// INSTANTIATIONS["fused_engine_bwd_w"], in this order): 0 the fp32
+// CUDA-core kernel (BwCfg): 64 x 4 a block, 128 threads; 1 the tensor cores,
 // 256 channels n x 128 channels m a block, 8 warps of 64 x 64, 8 tiles a
 // chunk (the four window planes and g rows of two chunks and the split
-// operands of two fill 145 KB); otherwise (few or ragged channels: RGB) the
-// fp32 CUDA-core kernel (BwCfg): 64 x 4 a block, 128 threads.
+// operands of two fill 145 KB).
 struct BwConf {
   static constexpr bool kMma = false;
   using K = BwCfg;
@@ -584,10 +599,24 @@ struct BwMma {
 };
 
 template <class F>
-int with_bw_conf(int M, F&& f) {
-  if (M >= 16 && M % 4 == 0) return f(BwMma<bwdw::Core<4, 2, 4, 8, 8, 4, 4>>{});
+int with_bw_conf(int conf, F&& f) {
+  if (conf == 1) return f(BwMma<bwdw::Core<4, 2, 4, 8, 8, 4, 4>>{});
   return f(BwConf{});
 }
+
+// Whether bwd_w instantiation conf takes M output channels: the tensor
+// cores where M % 4 == 0 and M >= 16 (g rows in 16-byte copies: the wrapper
+// has checked its alignment)
+bool bw_takes(int conf, int M) {
+  switch (conf) {
+    case 0: return true;                   // cuda_cores
+    case 1: return M >= 16 && M % 4 == 0;  // mma_256x128
+  }
+  return false;
+}
+
+// The plan's own choice: the tensor cores wherever they take M
+int bw_default(int M) { return bw_takes(1, M) ? 1 : 0; }
 
 // The bwd_w kernel of configuration Cf, with or without the T split
 template <class Cf, bool SPLIT>
@@ -604,12 +633,18 @@ auto bw_kernel() {
 
 // bwd_x geometry (bwdx::cell_geometry): a block covers R cell rows (rows of
 // all B images end to end) by W cell columns; its BT tile slots are TC tile
-// columns by BT/TC tile rows.  Also raises the kernel's shared-memory limit
-// on the current device (call it before the first launch for this M).
-extern "C" int fused_engine_bwd_x_plan(int B, int gy, int gx, int ty, int tx, int M, int* R, int* W, int* TC,
-                                       int* BT) {
-  return with_bx_conf(M, [&](auto conf) {
-    using Cf = decltype(conf);
+// columns by BT/TC tile rows.  want -1 takes the plan's instantiation
+// (bx_default), want >= 0 asks for that one (bx_takes' numbering): a request
+// M cannot take returns cudaErrorInvalidValue; conf gets the one handed
+// out, which fused_engine_bwd_x_f32 takes.  Also raises that kernel's
+// shared-memory limit on the current device (call it before the first
+// launch for this M).
+extern "C" int fused_engine_bwd_x_plan(int B, int gy, int gx, int ty, int tx, int M, int want, int* R, int* W,
+                                       int* TC, int* BT, int* conf) {
+  *conf = want < 0 ? bx_default(M) : want;
+  if (!bx_takes(*conf, M)) return (int)cudaErrorInvalidValue;
+  return with_bx_conf(*conf, [&](auto cf) {
+    using Cf = decltype(cf);
     using K = typename Cf::K;
     cudaError_t err;
     if constexpr (Cf::kMma)
@@ -626,14 +661,16 @@ extern "C" int fused_engine_bwd_x_plan(int B, int gy, int gx, int ty, int tx, in
 
 // One bwd_x launch: g (B, ty, tx, S^2*4, M), ww (C, N, M), inv (C, 4),
 // pos (C,), sub_off (S^2 + 1,) -> dcells (B, gy, gx, 4, N), every element
-// written.  R, W, TC from fused_engine_bwd_x_plan with the same M; C the
-// packed positions; where M % 4 == 0, g and ww start on 16-byte boundaries.
-// Returns cudaGetLastError().
+// written.  R, W, TC and conf from fused_engine_bwd_x_plan with the same M;
+// C the packed positions; where conf runs the tensor cores, g and ww start
+// on 16-byte boundaries.  Returns cudaGetLastError().
 extern "C" int fused_engine_bwd_x_f32(const float* g, const float* ww, const float* inv, const int* pos,
                                       const int* sub_off, float* dcells, int B, int gy, int gx, int N,
-                                      int M, int S, int ty, int tx, int R, int W, int TC, int C, void* stream) {
-  return with_bx_conf(M, [&](auto conf) {
-    using Cf = decltype(conf);
+                                      int M, int S, int ty, int tx, int R, int W, int TC, int C, int conf,
+                                      void* stream) {
+  if (!bx_takes(conf, M)) return (int)cudaErrorInvalidValue;
+  return with_bx_conf(conf, [&](auto cf) {
+    using Cf = decltype(cf);
     using K = typename Cf::K;
     const int nrb = (B * gy + R - 1) / R, ncb = (gx + W - 1) / W;
     const int n_nb = (N + K::BN - 1) / K::BN;
@@ -655,15 +692,25 @@ extern "C" int fused_engine_bwd_x_f32(const float* g, const float* ww, const flo
 // tensor-core kernel runs a block per (packed position, N tile, M tile)
 // group and splits T by bwdw::plan_splits; the CUDA-core kernel a block per
 // (sub-filter, N tile, M tile), split over as many blocks as fill the card's
-// resident block slots once, at least 4 chunks a split.  scratch_floats /
-// counters are 0 when the split count is 1; tile gets (BN, BM, BT, 1 for the
-// tensor cores or 0).  Also raises both variants' shared-memory limit on the
-// current device (call it before the first launch for this M).
-extern "C" int fused_engine_bwd_w_plan(int B, int ty, int tx, int N, int M, int S, int C, int device, int* splits,
-                                       long long* scratch_floats, long long* counters, int* tile) {
-  return with_bw_conf(M, [&](auto conf) {
-    using Cf = decltype(conf);
+// resident block slots once, at least 4 chunks a split.  want -1 takes the
+// plan's instantiation (bw_default), want >= 0 asks for that one (bw_takes'
+// numbering), want_splits >= 1 for that T split (at most the T chunks and
+// 65535): a request the shape cannot take returns cudaErrorInvalidValue.
+// scratch_floats / counters are 0 when the split count is 1; tile gets (BN,
+// BM, BT, the instantiation: 0 the CUDA cores, 1 the tensor cores), which
+// fused_engine_bwd_w_f32 takes as conf.  Also raises both variants'
+// shared-memory limit on the current device (call it before the first
+// launch for this shape).
+extern "C" int fused_engine_bwd_w_plan(int B, int ty, int tx, int N, int M, int S, int C, int want, int want_splits,
+                                       int device, int* splits, long long* scratch_floats, long long* counters,
+                                       int* tile) {
+  const int conf = want < 0 ? bw_default(M) : want;
+  if (!bw_takes(conf, M)) return (int)cudaErrorInvalidValue;
+  return with_bw_conf(conf, [&](auto cf) {
+    using Cf = decltype(cf);
     using K = typename Cf::K;
+    const long long chunks = ((long long)B * ty * tx + K::BT - 1) / K::BT;
+    if (want_splits > chunks || want_splits > 65535) return (int)cudaErrorInvalidValue;
     const auto k0 = bw_kernel<Cf, false>(), k1 = bw_kernel<Cf, true>();
     cudaError_t err = cudaFuncSetAttribute(k0, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::kSmemBytes);
     if (err == cudaSuccess)
@@ -674,7 +721,6 @@ extern "C" int fused_engine_bwd_w_plan(int B, int ty, int tx, int N, int M, int 
     if (err != cudaSuccess) return (int)err;
     const long long slots = (long long)(occ > 0 ? occ : 1) * sms;
     const long long tiles = (long long)((N + K::BN - 1) / K::BN) * ((M + K::BM - 1) / K::BM);
-    const long long chunks = ((long long)B * ty * tx + K::BT - 1) / K::BT;
     long long groups, k;
     if constexpr (Cf::kMma) {
       groups = (long long)C * tiles;
@@ -686,29 +732,31 @@ extern "C" int fused_engine_bwd_w_plan(int B, int ty, int tx, int N, int M, int 
       if (k > 65535) k = 65535;
       if (k < 1) k = 1;
     }
+    if (want_splits >= 1) k = want_splits;
     *splits = (int)k;
     *scratch_floats = k > 1 ? groups * k * K::kRed : 0;
     *counters = k > 1 ? groups : 0;
     tile[0] = K::BN;
     tile[1] = K::BM;
     tile[2] = K::BT;
-    tile[3] = Cf::kMma;
+    tile[3] = conf;
     return 0;
   });
 }
 
 // One bwd_w launch: cells (B, Gy, Gx, 4, N), g (B, ty, tx, S^2*4, M),
 // inv (C, 4), pos (C,), sub_off (S^2 + 1,) -> dww (C, N, M), every element
-// written.  C the packed positions; splits, partial and counters from
+// written.  C the packed positions; conf, splits, partial and counters from
 // fused_engine_bwd_w_plan with the same shape; the counters are zero on
 // entry and the kernel leaves them zero; cells (and g where M % 4 == 0 and
 // M >= 16) start on 16-byte boundaries.
 extern "C" int fused_engine_bwd_w_f32(const float* cells, const float* g, const float* inv, const int* pos,
                                       const int* sub_off, float* dww, int B, int Gy, int Gx, int N, int M,
-                                      int S, int ty, int tx, int C, int splits, float* partial, int* counters,
-                                      void* stream) {
-  return with_bw_conf(M, [&](auto conf) {
-    using Cf = decltype(conf);
+                                      int S, int ty, int tx, int C, int conf, int splits, float* partial,
+                                      int* counters, void* stream) {
+  if (!bw_takes(conf, M)) return (int)cudaErrorInvalidValue;
+  return with_bw_conf(conf, [&](auto cf) {
+    using Cf = decltype(cf);
     using K = typename Cf::K;
     const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     const int tiles = ((N + K::BN - 1) / K::BN) * ((M + K::BM - 1) / K::BM);

@@ -40,10 +40,23 @@ interleave (B, ty*m*S, M) (``"nlc"``, counted in ``.launches``).  Same
 contract.  Its backward, ``winograd_conv1d_fused_bwd_x`` / ``_bwd_w``, is
 host code around the rank-1 ``domain_engine_bwd_x`` / ``_bwd_w``, as in
 the reference.
+
+Every CUDA wrapper takes ``conf`` (a name from ``INSTANTIATIONS[wrapper]``:
+the kernel instantiation to launch, None for its plan's choice) and
+``splits`` (the count of its split, None for the plan's: the CUDA-core
+forward's N split, the conv forward's pass split, every bwd_w's T split; a
+split needs a ``conf`` to name what it splits).  On CPU tensors ``request``
+checks them against ``SHAPE_CONDITIONS`` and ``SPLIT_LIMITS`` before the
+plain version runs; on CUDA tensors the kernel's C plan judges them.  Either
+way a request the shape cannot take raises ValueError.  With neither, every
+launch is the plan's own.  While ``launch_log`` is a list, every CUDA launch
+appends a ``Launch`` to it: the instantiation and split that ran, and the
+plan at that shape.
 """
 from __future__ import annotations
 
 import functools
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -53,6 +66,7 @@ from . import ref as _ref
 from .ref import EPILOGUE_ACTIVATIONS, LEAKY_SLOPE, epilogue_apply_ref, xw_from_cells_1d
 
 __all__ = [
+    "INSTANTIATIONS", "SHAPE_CONDITIONS", "SPLIT_LIMITS", "request", "Launch", "launch_log",
     "LEAKY_SLOPE", "EPILOGUE_ACTIVATIONS", "fused_engine", "fused_engine_plain",
     "fused_engine_bwd_x", "fused_engine_bwd_x_plain", "fused_engine_bwd_w", "fused_engine_bwd_w_plain",
     "conv_fused_engine", "conv_fused_engine_plain", "conv_fused_engine_bwd_x", "conv_fused_engine_bwd_x_plain",
@@ -64,6 +78,178 @@ __all__ = [
 
 _OUT_MODES = {"nhwc": 0, "cells": 1, "scratch": 2}
 _ACT_CODES = {a: i for i, a in enumerate(EPILOGUE_ACTIVATIONS)}
+
+# Each CUDA wrapper's kernel instantiations, numbered as its C plan's
+# ``want`` takes them: 0 the fp32 CUDA-core kernel (whose block tile follows
+# the channel counts, as the plan's own choice does), then the tensor-core
+# tiles (BT x BM a block, or BN x BM for bwd_w) in dispatch order; the unfused
+# forward's 2 is its few-channel kernel.  These are the ``*_takes`` switches
+# beside each source's dispatch (csrc/*.cu), case for case.
+INSTANTIATIONS: dict[str, tuple[str, ...]] = {
+    "fused_engine": ("cuda_cores", "mma_64x128", "mma_64x64"),
+    "fused_engine_bwd_x": ("cuda_cores", "mma_64x32"),
+    "fused_engine_bwd_w": ("cuda_cores", "mma_256x128"),
+    "conv_fused_engine": ("cuda_cores", "mma_64x128", "mma_64x64"),
+    "conv_fused_engine_bwd_x": ("cuda_cores", "mma_128x16", "mma_64x32"),
+    "conv_fused_engine_bwd_w": ("cuda_cores", "mma_128x128_t16", "mma_128x128_t8", "mma_64x128"),
+    "domain_engine": ("cuda_cores", "mma_128x64", "few_channels"),
+    "domain_engine_bwd_x": ("cuda_cores", "mma_64x32", "mma_rank1_128x64", "mma_rank1_64x32"),
+    "domain_engine_bwd_w": ("cuda_cores", "mma_256x128", "mma_rank1_256x128", "mma_rank1_128x64"),
+    "winograd_conv1d_fused_engine": ("cuda_cores", "mma_64x128", "mma_64x64"),
+}
+
+def _mma16(M: int) -> bool:
+    return M % 4 == 0 and M >= 16
+
+
+def _any(**_) -> bool:
+    return True
+
+
+def _conv_mma(N: int, M: int, S2: int, **_) -> bool:
+    return N % 4 == 0 and _mma16(M) and S2 <= 4
+
+
+def _conv_bw_mma(N: int, M: int, **_) -> bool:
+    return N % 4 == 0 and _mma16(M)
+
+
+_FEW_MAX_C = 186  # the few-channel forward's most packed positions (domain_engine.cu's kFewMaxC)
+
+# The shapes each instantiation takes, as its source's ``*_takes`` case reads
+# them: N and M the input and output channels, S the stride at the deconv
+# corner, S2 the conv corner's phases, C the packed positions, M2 / N2 the
+# outputs / positions a tile (4 / 16 in 2D, 2 / <= 16 at rank 1).  The
+# tensor cores move weights and g rows in 16-byte copies, which is where
+# ``_SIXTEEN_BYTE_COPIES`` holds their alignment.
+SHAPE_CONDITIONS: dict[str, tuple[Callable[..., bool], ...]] = {
+    "fused_engine": (_any, *[lambda M, S, **_: _mma16(M) and S <= 4] * 2),
+    "fused_engine_bwd_x": (_any, lambda M, **_: M >= 8 and M % 4 == 0),
+    "fused_engine_bwd_w": (_any, lambda M, **_: _mma16(M)),
+    "conv_fused_engine": (_any, _conv_mma, _conv_mma),
+    "conv_fused_engine_bwd_x": (_any, *[lambda M, **_: M >= 8 and M % 4 == 0] * 2),
+    "conv_fused_engine_bwd_w": (_any, _conv_bw_mma, _conv_bw_mma, _conv_bw_mma),
+    "domain_engine": (_any, lambda M, **_: _mma16(M), lambda C, **_: C <= _FEW_MAX_C),
+    "domain_engine_bwd_x": (_any, lambda M, M2, **_: M >= 8 and M % 4 == 0 and M2 == 4,
+                            lambda M, M2, N2, **_: M >= 8 and M % 4 == 0 and M2 == 2 and N2 <= 4,
+                            lambda M, M2, N2, **_: M >= 8 and M % 4 == 0 and M2 == 2 and N2 > 4),
+    "domain_engine_bwd_w": (_any, lambda M, M2, **_: _mma16(M) and M2 == 4,
+                            *[lambda M, M2, **_: _mma16(M) and M2 == 2] * 2),
+    "winograd_conv1d_fused_engine": (_any, *[lambda M, **_: _mma16(M)] * 2),
+}
+
+
+def _one(**_) -> int:
+    return 1
+
+
+def _n_chunks(N: int, M: int, **_) -> int:
+    """The CUDA-core forwards' N chunks: 16 channels a chunk where their
+    weights move in 16-byte copies, else 8."""
+    return -(-N // (16 if M >= 32 and M % 4 == 0 else 8))
+
+
+def _t_chunks(bt: int) -> Callable[..., int]:
+    """A bwd_w's T chunks of ``bt`` tiles (T = the tiles), at most 65535."""
+    return lambda T, **_: min(-(-T // bt), 65535)
+
+
+# The most splits each instantiation runs at a shape (1: unsplit): the
+# CUDA-core forwards' N chunks, the conv forward's tensor-core passes (at most
+# 9 packed positions of one phase each), every bwd_w's T chunks of its BT
+# tiles.
+SPLIT_LIMITS: dict[str, tuple[Callable[..., int], ...]] = {
+    "fused_engine": (_n_chunks, _one, _one),
+    "fused_engine_bwd_x": (_one, _one),
+    "fused_engine_bwd_w": (_t_chunks(4), _t_chunks(8)),
+    "conv_fused_engine": (_one, *[lambda pos_idx, S2, **_: _conv_passes(tuple(pos_idx), S2)] * 2),
+    "conv_fused_engine_bwd_x": (_one, _one, _one),
+    "conv_fused_engine_bwd_w": (lambda N, T, **_: _t_chunks(4 if N % 4 == 0 else 8)(T=T), _t_chunks(16),
+                                _t_chunks(8), _t_chunks(8)),
+    "domain_engine": (_n_chunks, _one, _one),
+    "domain_engine_bwd_x": (_one, _one, _one, _one),
+    "domain_engine_bwd_w": (_t_chunks(4), _t_chunks(16), _t_chunks(16), _t_chunks(16)),
+    "winograd_conv1d_fused_engine": (_one, _one, _one),
+}
+
+
+def _want(kernel: str, conf: str | None, splits: int | None) -> tuple[int, int]:
+    """(want, want_splits) for ``kernel``'s C plan: the number of the
+    instantiation ``conf`` names and the split count, -1 for the plan's own
+    choice.  Raises ValueError for a name not in ``INSTANTIATIONS[kernel]``,
+    a split without a ``conf`` or a count below 1; the shape is the plan's
+    (or ``request``'s) to judge."""
+    names = INSTANTIATIONS[kernel]
+    if conf is None:
+        if splits is not None:
+            raise ValueError(f"{kernel}: splits={splits} needs conf, the instantiation it splits ({names})")
+        return -1, -1
+    if conf not in names:
+        raise ValueError(f"{kernel} has no instantiation {conf!r}: one of {names}")
+    if splits is None:
+        return names.index(conf), -1
+    if isinstance(splits, bool) or not isinstance(splits, int) or splits < 1:
+        raise ValueError(f"{kernel}: splits must be a count >= 1, not {splits!r}")
+    return names.index(conf), splits
+
+
+def request(kernel: str, conf: str | None = None, splits: int | None = None, **shape) -> tuple[int, int]:
+    """``_want`` checked against the table: also raises ValueError for an
+    instantiation the ``shape`` (keywords as ``SHAPE_CONDITIONS`` and
+    ``SPLIT_LIMITS`` read them) does not take, or a count past
+    ``SPLIT_LIMITS``'s.  The CPU's check of what the C plans refuse."""
+    k, want_splits = _want(kernel, conf, splits)
+    if k < 0:
+        return k, want_splits
+    if not SHAPE_CONDITIONS[kernel][k](**shape):
+        raise ValueError(f"{kernel}'s {conf} does not take {shape}")
+    if want_splits > 0:
+        most = SPLIT_LIMITS[kernel][k](**shape)
+        if want_splits > most:
+            raise ValueError(f"{kernel}'s {conf} runs 1 to {most} splits at {shape}, not {splits!r}")
+    return k, want_splits
+
+
+class Launch(NamedTuple):
+    """One CUDA launch as ``launch_log`` records it: the wrapper, the shape
+    keywords ``request`` reads, the instantiation's name and the split
+    count that ran, and ``plan(want, want_splits)``: the C plan at this
+    shape (raising ValueError where it refuses the request)."""
+
+    kernel: str
+    shape: dict
+    conf: str
+    splits: int
+    plan: Callable
+
+
+launch_log: list[Launch] | None = None
+
+
+def _log(kernel: str, shape: dict, k: int, splits: int, plan, *plan_args) -> None:
+    if launch_log is not None:
+        launch_log.append(Launch(kernel, shape, INSTANTIATIONS[kernel][k], splits,
+                                 functools.partial(plan, *plan_args)))
+
+
+_INVALID_VALUE = 1  # cudaErrorInvalidValue: a plan's refusal of a request
+
+
+def _plan_error(kernel: str, err: int, want: int, want_splits: int) -> Exception:
+    """A C plan's nonzero return as an exception: its refusal of a request
+    (an instantiation or split the shape cannot take) a ValueError, as
+    ``request`` raises on the CPU; any other error a RuntimeError."""
+    if err == _INVALID_VALUE and (want >= 0 or want_splits >= 1):
+        conf = INSTANTIATIONS[kernel][want] if want >= 0 else "its own instantiation"
+        return ValueError(f"{kernel}'s plan does not take {conf} with splits={want_splits} at this shape")
+    return RuntimeError(f"{kernel} plan failed: cudaError {err}")
+
+
+def _unsplit(kernel: str, want_splits: int) -> None:
+    """The plans of the kernels that never split take a split of 1 only."""
+    if want_splits > 1:
+        raise ValueError(f"{kernel} runs 1 to 1 splits, not {want_splits}")
+
 
 
 def fused_engine_plain(
@@ -119,12 +305,15 @@ def _layout_tensors(pos_idx: tuple[int, ...], sub_slices: tuple[tuple[int, int],
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(B: int, ty: int, tx: int, N: int, M: int, S: int, device_index: int):
+def _plan(B: int, ty: int, tx: int, N: int, M: int, S: int, device_index: int, want: int = -1,
+          want_splits: int = -1):
     """(splits, scratch floats, counters, (BT, BM, the most packed positions
     a pass, conf)) of the kernel for this shape on this card, from the
-    library's own choice: conf 0 is the CUDA-core kernel (its N-loop split:
-    splits, scratch and counters), 1 or 2 a tensor-core configuration (where
-    its blocks fill the card; unsplit).  The library also raises the
+    library's own choice, or of instantiation ``want`` with ``want_splits``
+    (``_want``; a ValueError where it refuses them): conf 0 is the CUDA-core
+    kernel (its N-loop split: splits, scratch and counters), 1 or 2 a
+    tensor-core configuration (where its blocks fill the card; unsplit).
+    The library also raises the
     configuration's shared-memory limit here, which every launch needs."""
     import ctypes
 
@@ -132,10 +321,11 @@ def _plan(B: int, ty: int, tx: int, N: int, M: int, S: int, device_index: int):
 
     splits, floats, counters, tile = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong(), (ctypes.c_int * 4)()
     with torch.cuda.device(device_index):
-        err = load_library().fused_engine_plan(B, ty, tx, N, M, S, device_index, ctypes.byref(splits),
-                                               ctypes.byref(floats), ctypes.byref(counters), tile)
+        err = load_library().fused_engine_plan(B, ty, tx, N, M, S, want, want_splits, device_index,
+                                               ctypes.byref(splits), ctypes.byref(floats), ctypes.byref(counters),
+                                               tile)
     if err != 0:
-        raise RuntimeError(f"fused_engine plan failed: cudaError {err}")
+        raise _plan_error("fused_engine", err, want, want_splits)
     return splits.value, floats.value, counters.value, tuple(tile)
 
 
@@ -262,6 +452,8 @@ def fused_engine(
     padding: int,
     out_h: int,
     out_w: int,
+    conf: str | None = None,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """Epilogue-fused engine at the deconv corner (one input phase, stride S).
 
@@ -271,14 +463,17 @@ def fused_engine(
     tensors take the plain version; CUDA tensors launch the kernel, which
     takes F(2,3) only, fp32, contiguous inputs: on the tensor cores where
     the plan finds that their blocks fill the card, else on the CUDA cores
-    (``_plan``)."""
+    (``_plan``), or on the instantiation ``conf`` names with ``splits`` N
+    splits (refused with ValueError where the shape cannot take them)."""
     if out_mode not in _OUT_MODES:
         raise ValueError(f"out_mode {out_mode!r} not in {tuple(_OUT_MODES)}")
     if activation not in _ACT_CODES:
         raise ValueError(f"unsupported epilogue activation {activation!r}")
     if out_mode == "scratch" and (activation != "none" or scale is not None or bias is not None):
         raise ValueError("scratch mode has no epilogue: activation 'none', no scale, no bias")
+    shape = dict(N=cells.shape[-1], M=ww_packed.shape[-1], S=stride)
     if cells.device.type == "cpu":
+        request("fused_engine", conf, splits, **shape)
         return fused_engine_plain(
             cells, ww_packed, inv_packed, pos_idx=pos_idx, sub_slices=sub_slices, m=m, n=n,
             ty=ty, tx=tx, out_mode=out_mode, activation=activation, scale=scale, bias=bias,
@@ -286,6 +481,7 @@ def fused_engine(
         )
     if cells.device.type != "cuda":
         raise ValueError(f"fused_engine runs on cpu or cuda tensors, got {cells.device}")
+    want = _want("fused_engine", conf, splits)
 
     # --- what the kernel takes
     if (m, n) != (2, 4):
@@ -332,9 +528,9 @@ def fused_engine(
 
     lib = load_library()
     pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
-    splits, n_scratch, n_counters, (_, _, pmax, conf) = _plan(B, ty, tx, N, M, S, dev.index)
+    n_splits, n_scratch, n_counters, (_, _, pmax, k) = _plan(B, ty, tx, N, M, S, dev.index, *want)
     fplan, npass, nslot, npos = None, 0, 0, 0
-    if conf:  # the tensor cores: passes of one sub-filter each
+    if k:  # the tensor cores: passes of one sub-filter each
         fplan, npass, nslot, npos = _fwd_plan_tensor(tuple(pos_idx), tuple(sub_slices), pmax, 1, str(dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
     # the N-loop split's partial products and arrival counters
@@ -346,7 +542,7 @@ def fused_engine(
         offs.data_ptr(), None if fplan is None else fplan.data_ptr(), None if scale is None else scale.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         B, Gy, Gx, N, M, S, ty, tx, padding, out_h, out_w,
-        _OUT_MODES[out_mode], _ACT_CODES[activation], conf, C, npass, nslot, npos, splits,
+        _OUT_MODES[out_mode], _ACT_CODES[activation], k, C, npass, nslot, npos, n_splits,
         None if partial is None else partial.data_ptr(),
         None if counters is None else counters.data_ptr(),
         stream,
@@ -357,6 +553,7 @@ def fused_engine(
         fused_engine.scratch_launches += 1
     else:
         fused_engine.launches += 1
+    _log("fused_engine", shape, k, n_splits, _plan, B, ty, tx, N, M, S, dev.index)
     return out
 
 
@@ -450,17 +647,23 @@ def fused_engine_bwd_x(
     gy: int,
     gx: int,
     stride: int,
+    conf: str | None = None,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """dL/dcells (B, gy, gx, m*m, N) of the fused engine at the deconv
     corner: the exact shape of the forward's cells input, zero in rows and
     columns the forward never reads.  CPU tensors take the plain version;
     CUDA tensors launch the kernel (F(2,3), fp32, contiguous inputs; g and
-    ww_packed 16-byte aligned where M % 4 == 0)."""
+    ww_packed 16-byte aligned where M % 4 == 0) on the plan's instantiation
+    or ``conf``'s (unsplit: ``splits`` None or 1)."""
     kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m=m, n=n, ty=ty, tx=tx, stride=stride)
+    shape = dict(M=g.shape[-1])
     if g.device.type == "cpu":
+        request("fused_engine_bwd_x", conf, splits, **shape)
         return fused_engine_bwd_x_plain(g, ww_packed, inv_packed, gy=gy, gx=gx, **kw)
     if g.device.type != "cuda":
         raise ValueError(f"fused_engine_bwd_x runs on cpu or cuda tensors, got {g.device}")
+    want = _want("fused_engine_bwd_x", conf, splits)
     B, M, C = _check_bwd("g", g, (("ww_packed", ww_packed), ("inv_packed", inv_packed)), **kw)
     if ww_packed.dim() != 3 or ww_packed.shape[0] != C or ww_packed.shape[2] != M:
         raise ValueError(f"ww_packed must be ({C}, N, {M}), got {tuple(ww_packed.shape)}")
@@ -479,17 +682,18 @@ def fused_engine_bwd_x(
     dev = g.device
     lib = load_library()
     pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
-    R, W, TC, _ = _bwd_x_plan(B, gy, gx, ty, tx, M, dev.index)
+    R, W, TC, _, k = _bwd_x_plan(B, gy, gx, ty, tx, M, dev.index, *want)
     out = torch.empty(out_shape, dtype=torch.float32, device=dev)
     err = lib.fused_engine_bwd_x_f32(
         g.data_ptr(), ww_packed.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), offs.data_ptr(),
-        out.data_ptr(), B, gy, gx, N, M, stride, ty, tx, R, W, TC, C,
+        out.data_ptr(), B, gy, gx, N, M, stride, ty, tx, R, W, TC, C, k,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_engine_bwd_x kernel launch failed: cudaError {err} (B={B}, cells {gy}x{gx}, "
                            f"tiles {ty}x{tx}, N={N}, M={M}, S={stride}, C={C}, plan {(R, W, TC)})")
     fused_engine_bwd_x.launches += 1
+    _log("fused_engine_bwd_x", shape, k, 1, _bwd_x_plan, B, gy, gx, ty, tx, M, dev.index)
     return out
 
 
@@ -508,16 +712,22 @@ def fused_engine_bwd_w(
     ty: int,
     tx: int,
     stride: int,
+    conf: str | None = None,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """dL/dww (C, N, M) of the fused engine at the deconv corner, xw
     recomputed from the cells.  CPU tensors take the plain version; CUDA
     tensors launch the kernel (F(2,3), fp32, contiguous, N % 4 == 0; cells
-    16-byte aligned, and g where M % 4 == 0 and M >= 16)."""
+    16-byte aligned, and g where M % 4 == 0 and M >= 16) on the plan's
+    instantiation and T split or ``conf``'s and ``splits``."""
     kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m=m, n=n, ty=ty, tx=tx, stride=stride)
+    shape = dict(M=g.shape[-1], T=g.shape[0] * ty * tx)
     if g.device.type == "cpu":
+        request("fused_engine_bwd_w", conf, splits, **shape)
         return fused_engine_bwd_w_plain(cells, g, inv_packed, **kw)
     if g.device.type != "cuda":
         raise ValueError(f"fused_engine_bwd_w runs on cpu or cuda tensors, got {g.device}")
+    want = _want("fused_engine_bwd_w", conf, splits)
     B, M, C = _check_bwd("g", g, (("cells", cells), ("inv_packed", inv_packed)), **kw)
     if cells.dim() != 5 or cells.shape[0] != B or cells.shape[3] != m * m:
         raise ValueError(f"cells must be ({B}, Gy, Gx, {m * m}, N), got {tuple(cells.shape)}")
@@ -537,14 +747,14 @@ def fused_engine_bwd_w(
     dev = g.device
     lib = load_library()
     pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
-    splits, n_scratch, n_counters, _ = _bwd_w_plan(B, ty, tx, N, M, stride, C, dev.index)
+    n_splits, n_scratch, n_counters, tile = _bwd_w_plan(B, ty, tx, N, M, stride, C, dev.index, *want)
     stream = torch.cuda.current_stream(dev).cuda_stream
     partial = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
     counters = _split_counters(n_counters, dev.index, stream) if n_counters else None
     out = torch.empty((C, N, M), dtype=torch.float32, device=dev)
     err = lib.fused_engine_bwd_w_f32(
         cells.data_ptr(), g.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), offs.data_ptr(),
-        out.data_ptr(), B, Gy, Gx, N, M, stride, ty, tx, C, splits,
+        out.data_ptr(), B, Gy, Gx, N, M, stride, ty, tx, C, tile[3], n_splits,
         None if partial is None else partial.data_ptr(),
         None if counters is None else counters.data_ptr(),
         stream,
@@ -552,6 +762,7 @@ def fused_engine_bwd_w(
     if err != 0:
         raise RuntimeError(f"fused_engine_bwd_w kernel launch failed: cudaError {err}")
     fused_engine_bwd_w.launches += 1
+    _log("fused_engine_bwd_w", shape, tile[3], n_splits, _bwd_w_plan, B, ty, tx, N, M, stride, C, dev.index)
     return out
 
 
@@ -559,39 +770,44 @@ fused_engine_bwd_w.launches = 0
 
 
 @functools.lru_cache(maxsize=256)
-def _bwd_x_plan(B: int, gy: int, gx: int, ty: int, tx: int, M: int, device_index: int):
-    """(R, W, TC, BT) of the bwd_x kernel's block geometry for this shape: R
-    cell rows by W cell columns per block, TC tile columns per slot row, BT
-    tile slots.  The library raises the kernel's shared-memory limit here,
-    once."""
+def _bwd_x_plan(B: int, gy: int, gx: int, ty: int, tx: int, M: int, device_index: int, want: int = -1,
+                want_splits: int = -1):
+    """(R, W, TC, BT, conf) of the bwd_x kernel's block geometry for this
+    shape: R cell rows by W cell columns per block, TC tile columns per slot
+    row, BT tile slots, on instantiation conf (the plan's, or ``want``).  The
+    library raises the kernel's shared-memory limit here, once."""
     import ctypes
 
     from ._build import load_library
 
-    out = [ctypes.c_int() for _ in range(4)]
+    _unsplit("fused_engine_bwd_x", want_splits)
+    out = [ctypes.c_int() for _ in range(5)]
     with torch.cuda.device(device_index):
-        err = load_library().fused_engine_bwd_x_plan(B, gy, gx, ty, tx, M, *map(ctypes.byref, out))
+        err = load_library().fused_engine_bwd_x_plan(B, gy, gx, ty, tx, M, want, *map(ctypes.byref, out))
     if err != 0:
-        raise RuntimeError(f"fused_engine_bwd_x plan failed: cudaError {err}")
+        raise _plan_error("fused_engine_bwd_x", err, want, want_splits)
     return tuple(v.value for v in out)
 
 
 @functools.lru_cache(maxsize=256)
-def _bwd_w_plan(B: int, ty: int, tx: int, N: int, M: int, S: int, C: int, device_index: int):
-    """(splits, scratch floats, counters, (BN, BM, BT, tensor cores 1 or 0))
-    of the bwd_w kernel for this shape on this card: its T-loop split and
-    block tile.  The library raises the kernel's shared-memory limit here,
-    once."""
+def _bwd_w_plan(B: int, ty: int, tx: int, N: int, M: int, S: int, C: int, device_index: int, want: int = -1,
+                want_splits: int = -1):
+    """(splits, scratch floats, counters, (BN, BM, BT, instantiation: 0 the
+    CUDA cores, 1 the tensor cores)) of the bwd_w kernel for this shape on
+    this card: its T-loop split and block tile, the plan's or ``want``'s with
+    ``want_splits``.  The library raises the kernel's shared-memory limit
+    here, once."""
     import ctypes
 
     from ._build import load_library
 
     splits, floats, counters, tile = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong(), (ctypes.c_int * 4)()
     with torch.cuda.device(device_index):
-        err = load_library().fused_engine_bwd_w_plan(B, ty, tx, N, M, S, C, device_index, ctypes.byref(splits),
-                                                     ctypes.byref(floats), ctypes.byref(counters), tile)
+        err = load_library().fused_engine_bwd_w_plan(B, ty, tx, N, M, S, C, want, want_splits, device_index,
+                                                     ctypes.byref(splits), ctypes.byref(floats),
+                                                     ctypes.byref(counters), tile)
     if err != 0:
-        raise RuntimeError(f"fused_engine_bwd_w plan failed: cudaError {err}")
+        raise _plan_error("fused_engine_bwd_w", err, want, want_splits)
     return splits.value, floats.value, counters.value, tuple(tile)
 
 
@@ -716,23 +932,29 @@ def conv_fused_engine(
     bias: torch.Tensor | None = None,
     out_h: int,
     out_w: int,
+    conf: str | None = None,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """Epilogue-fused engine at the conv corner: returns (B, out_h, out_w, M)
     in nhwc mode, or (B, ty, tx, m*m, M) in cells mode with pixels outside
     [0, out_h) x [0, out_w) zeroed.  CPU tensors take the plain version;
     CUDA tensors launch the kernel (F(2,3), fp32, contiguous inputs; on the
     tensor cores where N % 4 == 0, M % 4 == 0, M >= 16 and S <= 2, their
-    passes split over blocks where the grid would leave SMs idle)."""
+    passes split over blocks where the grid would leave SMs idle), or the
+    instantiation ``conf`` names with ``splits`` pass splits."""
     if out_mode not in _OUT_MODES:
         raise ValueError(f"out_mode {out_mode!r} not in {tuple(_OUT_MODES)}")
     if activation not in _ACT_CODES:
         raise ValueError(f"unsupported epilogue activation {activation!r}")
     kw = dict(pos_idx=pos_idx, m=m, n=n, ty=ty, tx=tx, s2=s2)
+    shape = dict(N=cells.shape[-1], M=ww_packed.shape[-1], S2=s2, pos_idx=tuple(pos_idx))
     if cells.device.type == "cpu":
+        request("conv_fused_engine", conf, splits, **shape)
         return conv_fused_engine_plain(cells, ww_packed, inv_packed, out_mode=out_mode, activation=activation,
                                        scale=scale, bias=bias, out_h=out_h, out_w=out_w, **kw)
     if cells.device.type != "cuda":
         raise ValueError(f"conv_fused_engine runs on cpu or cuda tensors, got {cells.device}")
+    want = _want("conv_fused_engine", conf, splits)
     dev = _check_conv((("cells", cells), ("ww_packed", ww_packed), ("inv_packed", inv_packed)), m=m, n=n, ty=ty, tx=tx)
     C = len(pos_idx)
     if ww_packed.dim() != 3 or ww_packed.shape[0] != C or inv_packed.shape != (C, m * m):
@@ -754,8 +976,8 @@ def conv_fused_engine(
     from ._build import load_library
 
     lib = load_library()
-    splits, n_scratch, n_counters, (fplan, npass, nslot, npos) = _conv_fwd_plan(B, ty, tx, N, M, tuple(pos_idx), s2,
-                                                                               dev.index)
+    n_splits, n_scratch, n_counters, (fplan, npass, nslot, npos), k = _conv_fwd_plan(B, ty, tx, N, M, tuple(pos_idx),
+                                                                                     s2, dev.index, *want)
     stream = torch.cuda.current_stream(dev).cuda_stream
     # the pass split's partial outputs and arrival counters
     partial = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
@@ -765,12 +987,13 @@ def conv_fused_engine(
         cells.data_ptr(), ww_packed.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), off.data_ptr(),
         None if fplan is None else fplan.data_ptr(), None if scale is None else scale.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(), B, cells.shape[1], cells.shape[2], N, M, s2, ty,
-        tx, out_h, out_w, _OUT_MODES[out_mode], _ACT_CODES[activation], C, npass, nslot, npos, splits,
+        tx, out_h, out_w, _OUT_MODES[out_mode], _ACT_CODES[activation], C, k, npass, nslot, npos, n_splits,
         None if partial is None else partial.data_ptr(), None if counters is None else counters.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"conv_fused_engine kernel launch failed: cudaError {err}")
     conv_fused_engine.launches += 1
+    _log("conv_fused_engine", shape, k, n_splits, _conv_fwd_plan, B, ty, tx, N, M, tuple(pos_idx), s2, dev.index)
     return out
 
 
@@ -790,16 +1013,22 @@ def conv_fused_engine_bwd_x(
     gy: int,
     gx: int,
     s2: int,
+    conf: str | None = None,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """dL/dcells (B, gy, gx, s2*m*m, N) of the conv engine's products, zero
     in rows and columns the forward never reads.  CPU tensors take the
     plain version; CUDA tensors launch the kernel (F(2,3), fp32, contiguous
-    inputs; g and ww_packed 16-byte aligned where M % 4 == 0 and M >= 8)."""
+    inputs; g and ww_packed 16-byte aligned where M % 4 == 0 and M >= 8) on
+    the plan's instantiation or ``conf``'s (unsplit)."""
     kw = dict(pos_idx=pos_idx, m=m, n=n, ty=ty, tx=tx, s2=s2)
+    shape = dict(N=ww_packed.shape[1], M=ww_packed.shape[-1])
     if g.device.type == "cpu":
+        request("conv_fused_engine_bwd_x", conf, splits, **shape)
         return conv_fused_engine_bwd_x_plain(g, ww_packed, inv_packed, gy=gy, gx=gx, **kw)
     if g.device.type != "cuda":
         raise ValueError(f"conv_fused_engine_bwd_x runs on cpu or cuda tensors, got {g.device}")
+    want = _want("conv_fused_engine_bwd_x", conf, splits)
     dev = _check_conv((("g", g), ("ww_packed", ww_packed), ("inv_packed", inv_packed)), m=m, n=n, ty=ty, tx=tx)
     C = len(pos_idx)
     if ww_packed.dim() != 3 or ww_packed.shape[0] != C or inv_packed.shape != (C, m * m):
@@ -819,15 +1048,16 @@ def conv_fused_engine_bwd_x(
     from ._build import load_library
 
     lib = load_library()
-    R, W, TC, _ = _conv_bwd_x_plan(B, gy, gx, ty, tx, N, M, dev.index)
+    R, W, TC, tile = _conv_bwd_x_plan(B, gy, gx, ty, tx, N, M, dev.index, *want)
     out = torch.empty((B, gy, gx, s2 * m * m, N), dtype=torch.float32, device=dev)
     err = lib.conv_engine_bwd_x_f32(
         g.data_ptr(), ww_packed.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), off.data_ptr(),
-        out.data_ptr(), B, gy, gx, N, M, s2, ty, tx, R, W, TC, torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), B, gy, gx, N, M, s2, ty, tx, R, W, TC, tile[2], torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"conv_fused_engine_bwd_x kernel launch failed: cudaError {err}")
     conv_fused_engine_bwd_x.launches += 1
+    _log("conv_fused_engine_bwd_x", shape, tile[2], 1, _conv_bwd_x_plan, B, gy, gx, ty, tx, N, M, dev.index)
     return out
 
 
@@ -845,16 +1075,22 @@ def conv_fused_engine_bwd_w(
     ty: int,
     tx: int,
     s2: int,
+    conf: str | None = None,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """dL/dww (C, N, M) of the conv engine's products, xw recomputed from
     the cells.  CPU tensors take the plain version; CUDA tensors launch the
     kernel (F(2,3), fp32, contiguous inputs; cells 16-byte aligned where N %
-    4 == 0, and g where M % 4 == 0 and M >= 16)."""
+    4 == 0, and g where M % 4 == 0 and M >= 16) on the plan's instantiation
+    and T split or ``conf``'s and ``splits``."""
     kw = dict(pos_idx=pos_idx, m=m, n=n, ty=ty, tx=tx, s2=s2)
+    shape = dict(N=cells.shape[-1], M=g.shape[-1], T=g.shape[0] * ty * tx)
     if g.device.type == "cpu":
+        request("conv_fused_engine_bwd_w", conf, splits, **shape)
         return conv_fused_engine_bwd_w_plain(cells, g, inv_packed, **kw)
     if g.device.type != "cuda":
         raise ValueError(f"conv_fused_engine_bwd_w runs on cpu or cuda tensors, got {g.device}")
+    want = _want("conv_fused_engine_bwd_w", conf, splits)
     dev = _check_conv((("g", g), ("cells", cells), ("inv_packed", inv_packed)), m=m, n=n, ty=ty, tx=tx)
     C = len(pos_idx)
     if inv_packed.shape != (C, m * m):
@@ -874,99 +1110,128 @@ def conv_fused_engine_bwd_w(
     from ._build import load_library
 
     lib = load_library()
-    splits, n_scratch, n_counters, _ = _conv_bwd_w_plan(B, ty, tx, N, M, s2, C, dev.index)
+    n_splits, n_scratch, n_counters, tile = _conv_bwd_w_plan(B, ty, tx, N, M, s2, C, dev.index, *want)
     stream = torch.cuda.current_stream(dev).cuda_stream
     partial = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
     counters = _split_counters(n_counters, dev.index, stream) if n_counters else None
     out = torch.empty((C, N, M), dtype=torch.float32, device=dev)
     err = lib.conv_engine_bwd_w_f32(
         cells.data_ptr(), g.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), off.data_ptr(), out.data_ptr(),
-        B, cells.shape[1], cells.shape[2], N, M, s2, ty, tx, C, splits,
+        B, cells.shape[1], cells.shape[2], N, M, s2, ty, tx, C, tile[3], n_splits,
         None if partial is None else partial.data_ptr(), None if counters is None else counters.data_ptr(),
         stream,
     )
     if err != 0:
         raise RuntimeError(f"conv_fused_engine_bwd_w kernel launch failed: cudaError {err}")
     conv_fused_engine_bwd_w.launches += 1
+    _log("conv_fused_engine_bwd_w", shape, tile[3], n_splits, _conv_bwd_w_plan, B, ty, tx, N, M, s2, C, dev.index)
     return out
 
 
 conv_fused_engine_bwd_w.launches = 0
 
 
-def _conv_fwd_conf(N: int, M: int, s2: int):
-    """(BT, BM, the most packed positions a pass, tensor cores 1 or 0) of the
-    conv forward kernel's block configuration for (N, M, S^2)."""
+def _conv_fwd_conf(N: int, M: int, s2: int, want: int = -1, want_splits: int = -1):
+    """(BT, BM, the most packed positions a pass, instantiation: 0 the CUDA
+    cores, 1 or 2 the tensor cores) of the conv forward kernel's block
+    configuration for (N, M, S^2): the plan's, or ``want``."""
     import ctypes
 
     from ._build import load_library
 
     tile = (ctypes.c_int * 4)()
-    load_library().conv_engine_fwd_conf(N, M, s2, tile)
+    err = load_library().conv_engine_fwd_conf(N, M, s2, want, tile)
+    if err != 0:
+        raise _plan_error("conv_fused_engine", err, want, want_splits)
     return tuple(tile)
 
 
+_CONV_MMA_PMAX = 9  # the conv forward's tensor-core passes: at most 9 packed positions (one K4S2 phase)
+
+
+def _conv_pass_groups(pos_idx: tuple[int, ...], s2: int):
+    """(each packed position's Winograd position, each phase's [lo, hi)
+    packed positions): the conv forward's tensor-core pass groups, a phase
+    each."""
+    off = [sum(p // 16 < s for p in pos_idx) for s in range(s2 + 1)]
+    return tuple(p % 16 for p in pos_idx), tuple(zip(off[:-1], off[1:]))
+
+
 @functools.lru_cache(maxsize=256)
-def _conv_fwd_plan(B: int, ty: int, tx: int, N: int, M: int, pos_idx: tuple[int, ...], s2: int, device_index: int):
+def _conv_passes(pos_idx: tuple[int, ...], s2: int) -> int:
+    """The conv forward's tensor-core passes: the most ways its pass split
+    runs."""
+    return _fwd_passes(*_conv_pass_groups(pos_idx, s2), _CONV_MMA_PMAX, 1)[1]
+
+
+@functools.lru_cache(maxsize=256)
+def _conv_fwd_plan(B: int, ty: int, tx: int, N: int, M: int, pos_idx: tuple[int, ...], s2: int, device_index: int,
+                   want: int = -1, want_splits: int = -1):
     """(splits, scratch floats, counters, (pass plan tensor or None, npass,
-    nslot, npos)) of the conv forward kernel for this shape on this card: on
-    the tensor cores its passes (at most the configuration's positions of
-    one phase each) and their split over blocks, which the library sizes from
+    nslot, npos), instantiation) of the conv forward kernel for this shape
+    on this card, the plan's or ``want``'s with ``want_splits``: on the
+    tensor cores its passes (at most the configuration's positions of one
+    phase each) and their split over blocks, which the library sizes from
     this plan's own shared memory.  The library raises the kernel's
     shared-memory limit here, once."""
     import ctypes
 
     from ._build import load_library
 
-    _, _, pmax, mma = _conv_fwd_conf(N, M, s2)
+    _, _, pmax, k = _conv_fwd_conf(N, M, s2, want, want_splits)
     fplan, npass, nslot, npos = None, 0, 0, 0
-    if mma:  # the phases are the passes' groups: a pass holds positions of one phase
-        off = [sum(p // 16 < s for p in pos_idx) for s in range(s2 + 1)]
-        fplan, npass, nslot, npos = _fwd_plan_tensor(tuple(p % 16 for p in pos_idx),
-                                                      tuple(zip(off[:-1], off[1:])), pmax, 1, f"cuda:{device_index}")
+    if k:  # the phases are the passes' groups: a pass holds positions of one phase
+        fplan, npass, nslot, npos = _fwd_plan_tensor(*_conv_pass_groups(pos_idx, s2), pmax, 1, f"cuda:{device_index}")
     splits, floats, counters = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong()
     with torch.cuda.device(device_index):
-        err = load_library().conv_engine_fwd_plan(B, ty, tx, N, M, s2, len(pos_idx), npass, nslot, npos, device_index,
-                                                  ctypes.byref(splits), ctypes.byref(floats), ctypes.byref(counters))
+        err = load_library().conv_engine_fwd_plan(B, ty, tx, N, M, s2, len(pos_idx), npass, nslot, npos, k,
+                                                  want_splits, device_index, ctypes.byref(splits),
+                                                  ctypes.byref(floats), ctypes.byref(counters))
     if err != 0:
-        raise RuntimeError(f"conv_fused_engine plan failed: cudaError {err}")
-    return splits.value, floats.value, counters.value, (fplan, npass, nslot, npos)
+        raise _plan_error("conv_fused_engine", err, want, want_splits)
+    return splits.value, floats.value, counters.value, (fplan, npass, nslot, npos), k
 
 
 @functools.lru_cache(maxsize=256)
-def _conv_bwd_x_plan(B: int, gy: int, gx: int, ty: int, tx: int, N: int, M: int, device_index: int):
-    """(R, W, TC, (BT, BN, tensor cores 1 or 0)) of the conv bwd_x kernel's
-    block geometry for this shape: R cell rows by W cell columns per block,
-    TC tile columns per slot row, BT tile slots by BN channels.  The library
+def _conv_bwd_x_plan(B: int, gy: int, gx: int, ty: int, tx: int, N: int, M: int, device_index: int,
+                     want: int = -1, want_splits: int = -1):
+    """(R, W, TC, (BT, BN, instantiation: 0 the CUDA cores, 1 or 2 the
+    tensor cores)) of the conv bwd_x kernel's block geometry for this shape,
+    the plan's or ``want``'s: R cell rows by W cell columns per block, TC
+    tile columns per slot row, BT tile slots by BN channels.  The library
     raises the kernel's shared-memory limit here, once."""
     import ctypes
 
     from ._build import load_library
 
+    _unsplit("conv_fused_engine_bwd_x", want_splits)
     out, tile = [ctypes.c_int() for _ in range(3)], (ctypes.c_int * 3)()
     with torch.cuda.device(device_index):
-        err = load_library().conv_engine_bwd_x_plan(B, gy, gx, ty, tx, N, M, *map(ctypes.byref, out), tile)
+        err = load_library().conv_engine_bwd_x_plan(B, gy, gx, ty, tx, N, M, want, *map(ctypes.byref, out), tile)
     if err != 0:
-        raise RuntimeError(f"conv_fused_engine_bwd_x plan failed: cudaError {err}")
+        raise _plan_error("conv_fused_engine_bwd_x", err, want, want_splits)
     return (*(v.value for v in out), tuple(tile))
 
 
 @functools.lru_cache(maxsize=256)
-def _conv_bwd_w_plan(B: int, ty: int, tx: int, N: int, M: int, s2: int, C: int, device_index: int):
-    """(splits, scratch floats, counters, (BN, BM, BT, tensor cores 1 or 0))
-    of the conv bwd_w kernel for this shape on this card: its T-loop split
-    and block tile.  The library raises the kernel's shared-memory limit
-    here, once."""
+def _conv_bwd_w_plan(B: int, ty: int, tx: int, N: int, M: int, s2: int, C: int, device_index: int, want: int = -1,
+                     want_splits: int = -1):
+    """(splits, scratch floats, counters, (BN, BM, BT, instantiation: 0 the
+    CUDA cores, 1-3 the tensor cores)) of the conv bwd_w kernel for this
+    shape on this card: its T-loop split and block tile, the plan's or
+    ``want``'s with ``want_splits``.  The library raises the kernel's
+    shared-memory limit here, once."""
     import ctypes
 
     from ._build import load_library
 
     splits, floats, counters, tile = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong(), (ctypes.c_int * 4)()
     with torch.cuda.device(device_index):
-        err = load_library().conv_engine_bwd_w_plan(B, ty, tx, N, M, s2, C, device_index, ctypes.byref(splits),
-                                                    ctypes.byref(floats), ctypes.byref(counters), tile)
+        err = load_library().conv_engine_bwd_w_plan(B, ty, tx, N, M, s2, C, want, want_splits, device_index,
+                                                    ctypes.byref(splits), ctypes.byref(floats),
+                                                    ctypes.byref(counters), tile)
     if err != 0:
-        raise RuntimeError(f"conv_fused_engine_bwd_w plan failed: cudaError {err}")
+        raise _plan_error("conv_fused_engine_bwd_w", err, want, want_splits)
     return splits.value, floats.value, counters.value, tuple(tile)
 
 
@@ -1070,25 +1335,29 @@ def domain_engine(
     pos_idx: tuple[int, ...],
     sub_slices: tuple[tuple[int, int], ...],
     m2: int,
+    conf: str | None = None,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """The unfused engine: the (T, S*S*m*m, M) tile outputs of every
     sub-filter, sub-filter-major.  CPU tensors take the plain version; CUDA
     tensors launch the kernel (F(2,3), fp32, contiguous, N % 4 == 0) on the
     instantiation ``_domain_plan`` picks: the tensor cores (wgmma, after the
-    weight pack), few channels, or the CUDA cores."""
+    weight pack), few channels, or the CUDA cores; or on the one ``conf``
+    names, with ``splits`` N splits on the CUDA cores."""
     kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m2=m2)
+    shape = dict(N=xw.shape[-1], M=ww_packed.shape[-1], C=len(pos_idx))
     if xw.device.type == "cpu":
+        request("domain_engine", conf, splits, **shape)
         return domain_engine_plain(xw, ww_packed, inv_packed, **kw)
     if xw.device.type != "cuda":
         raise ValueError(f"domain_engine runs on cpu or cuda tensors, got {xw.device}")
-    return _domain_fwd(xw, ww_packed, inv_packed, **kw)
+    want = _want("domain_engine", conf, splits)
+    return _domain_fwd(xw, ww_packed, inv_packed, want=want, **kw)
 
 
-def _domain_fwd(xw, ww_packed, inv_packed, *, pos_idx, sub_slices, m2, conf: int = -1):
-    """``domain_engine`` on CUDA tensors: check, plan, launch, count.
-    ``conf`` (0 CUDA cores, 1 tensor cores, 2 few channels) overrides the
-    plan's choice, for a measurement that compares them; -1 keeps the
-    plan's."""
+def _domain_fwd(xw, ww_packed, inv_packed, *, pos_idx, sub_slices, m2, want=(-1, -1)):
+    """``domain_engine`` on CUDA tensors: check, plan, launch, count, on
+    instantiation and split ``want`` (``_want``'s)."""
     kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m2=m2)
     if xw.dim() != 3 or xw.shape[1] != 16 or ww_packed.dim() != 3:
         raise ValueError(f"xw must be (T, 16, N) and ww_packed (C, N, M), got {tuple(xw.shape)}, "
@@ -1106,20 +1375,20 @@ def _domain_fwd(xw, ww_packed, inv_packed, *, pos_idx, sub_slices, m2, conf: int
 
     lib = load_library()
     pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
-    splits, n_scratch, n_counters, (_, _, plan_conf, _) = _domain_plan("fwd", T, N, M, s2, dev.index, C=C,
-                                                                       want=conf)
+    n_splits, n_scratch, n_counters, (_, _, k, _) = _domain_plan("fwd", T, N, M, s2, dev.index, 4, C, *want)
     stream = torch.cuda.current_stream(dev).cuda_stream
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
     counters = _split_counters(n_counters, dev.index, stream) if n_counters else None
     out = torch.empty((T, s2 * 4, M), dtype=torch.float32, device=dev)
     err = lib.domain_engine_fwd_f32(
         xw.data_ptr(), ww_packed.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), offs.data_ptr(),
-        out.data_ptr(), T, N, M, s2, C, plan_conf, splits,
+        out.data_ptr(), T, N, M, s2, C, k, n_splits,
         None if scratch is None else scratch.data_ptr(), None if counters is None else counters.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"domain_engine kernel launch failed: cudaError {err}")
     domain_engine.launches += 1
+    _log("domain_engine", dict(N=N, M=M, C=C), k, n_splits, _domain_plan, "fwd", T, N, M, s2, dev.index, 4, C)
     return out
 
 
@@ -1135,18 +1404,24 @@ def domain_engine_bwd_x(
     sub_slices: tuple[tuple[int, int], ...],
     m2: int,
     n2: int,
+    conf: str | None = None,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """dL/dxw (T, n2, N) of the unfused engine, zero at the Winograd
     positions no packed position keeps.  CPU tensors take the plain
     version; CUDA tensors launch the kernel (fp32, contiguous, g and
     ww_packed 16-byte aligned where M % 4 == 0; F(2x2,3x3), m2 = 4 and
-    n2 = 16, or the 1D engine's m2 = 2 and n2 <= 16).
+    n2 = 16, or the 1D engine's m2 = 2 and n2 <= 16) on the plan's
+    instantiation or ``conf``'s (unsplit).
     ``.launches`` counts the 2D launches, ``.rank1_launches`` the 1D ones."""
     kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m2=m2)
+    shape = dict(M=g.shape[-1], M2=m2, N2=n2)
     if g.device.type == "cpu":
+        request("domain_engine_bwd_x", conf, splits, **shape)
         return domain_engine_bwd_x_plain(g, ww_packed, inv_packed, n2=n2, **kw)
     if g.device.type != "cuda":
         raise ValueError(f"domain_engine_bwd_x runs on cpu or cuda tensors, got {g.device}")
+    want = _want("domain_engine_bwd_x", conf, splits)
     if g.dim() != 3 or g.shape[1] != len(sub_slices) * m2 or ww_packed.dim() != 3:
         raise ValueError(f"g must be (T, {len(sub_slices) * m2}, M) and ww_packed (C, N, M), got "
                          f"{tuple(g.shape)}, {tuple(ww_packed.shape)}")
@@ -1161,11 +1436,11 @@ def domain_engine_bwd_x(
 
     lib = load_library()
     pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
-    _domain_bwd_x_plan(M, m2, n2, dev.index)
+    k = _domain_bwd_x_plan(M, m2, n2, dev.index, *want)
     out = torch.empty((T, n2, N), dtype=torch.float32, device=dev)
     err = lib.domain_engine_bwd_x_f32(
         g.data_ptr(), ww_packed.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), offs.data_ptr(),
-        out.data_ptr(), T, N, M, s2, m2, n2, len(pos_idx), torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), T, N, M, s2, m2, n2, len(pos_idx), k, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"domain_engine_bwd_x kernel launch failed: cudaError {err}")
@@ -1173,6 +1448,7 @@ def domain_engine_bwd_x(
         domain_engine_bwd_x.rank1_launches += 1
     else:
         domain_engine_bwd_x.launches += 1
+    _log("domain_engine_bwd_x", shape, k, 1, _domain_bwd_x_plan, M, m2, n2, dev.index)
     return out
 
 
@@ -1188,18 +1464,24 @@ def domain_engine_bwd_w(
     pos_idx: tuple[int, ...],
     sub_slices: tuple[tuple[int, int], ...],
     m2: int,
+    conf: str | None = None,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """dL/dww (C, N, M) of the unfused engine.  CPU tensors take the plain
     version; CUDA tensors launch the kernel (fp32, contiguous, N % 4 == 0;
     F(2x2,3x3) with xw (T, 16, N), or the 1D engine's m2 = 2 with xw
     (T, n2 <= 16, N); xw 16-byte aligned, and g where M % 4 == 0 and M >=
-    16).  ``.launches`` counts the 2D launches,
+    16) on the plan's instantiation and T split or ``conf``'s and
+    ``splits``.  ``.launches`` counts the 2D launches,
     ``.rank1_launches`` the 1D ones."""
     kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m2=m2)
+    shape = dict(N=xw.shape[-1], M=g.shape[-1], M2=m2, T=xw.shape[0])
     if g.device.type == "cpu":
+        request("domain_engine_bwd_w", conf, splits, **shape)
         return domain_engine_bwd_w_plain(xw, g, inv_packed, **kw)
     if g.device.type != "cuda":
         raise ValueError(f"domain_engine_bwd_w runs on cpu or cuda tensors, got {g.device}")
+    want = _want("domain_engine_bwd_w", conf, splits)
     if xw.dim() != 3 or g.dim() != 3 or g.shape[0] != xw.shape[0] or g.shape[1] != len(sub_slices) * m2:
         raise ValueError(f"xw must be (T, n2, N) and g (T, {len(sub_slices) * m2}, M), got {tuple(xw.shape)}, "
                          f"{tuple(g.shape)}")
@@ -1217,14 +1499,14 @@ def domain_engine_bwd_w(
     lib = load_library()
     C = len(pos_idx)
     pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
-    splits, n_scratch, n_counters, _ = _domain_plan("bwd_w", T, N, M, s2, dev.index, m2, C)
+    n_splits, n_scratch, n_counters, tile = _domain_plan("bwd_w", T, N, M, s2, dev.index, m2, C, *want)
     stream = torch.cuda.current_stream(dev).cuda_stream
     partial = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
     counters = _split_counters(n_counters, dev.index, stream) if n_counters else None
     out = torch.empty((C, N, M), dtype=torch.float32, device=dev)
     err = lib.domain_engine_bwd_w_f32(
         xw.data_ptr(), g.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), offs.data_ptr(), out.data_ptr(),
-        T, N, M, s2, m2, n2, C, splits, None if partial is None else partial.data_ptr(),
+        T, N, M, s2, m2, n2, C, tile[3], n_splits, None if partial is None else partial.data_ptr(),
         None if counters is None else counters.data_ptr(), stream,
     )
     if err != 0:
@@ -1233,6 +1515,7 @@ def domain_engine_bwd_w(
         domain_engine_bwd_w.rank1_launches += 1
     else:
         domain_engine_bwd_w.launches += 1
+    _log("domain_engine_bwd_w", shape, tile[3], n_splits, _domain_plan, "bwd_w", T, N, M, s2, dev.index, m2, C)
     return out
 
 
@@ -1242,39 +1525,47 @@ domain_engine_bwd_w.rank1_launches = 0
 
 @functools.lru_cache(maxsize=256)
 def _domain_plan(which: str, T: int, N: int, M: int, s2: int, device_index: int, m2: int = 4, C: int = 0,
-                 want: int = -1):
+                 want: int = -1, want_splits: int = -1):
     """(splits, scratch floats, counters, tile) of an unfused kernel for
     this shape on this card, with C packed positions: the forward's
     instantiation and launch, tile (BT, BM, conf, 0) with conf 0 the CUDA
     cores (and their N split), 1 the tensor cores (scratch: the packed
-    weights), 2 few channels (``want`` >= 0 asks for one); or bwd_w's T split and block tile (BN, BM, BT, tensor cores 1 or
-    0), with its m2 outputs per tile.  The library raises the kernel's
-    shared-memory limit here, once."""
+    weights), 2 few channels; or bwd_w's T split and block tile (BN, BM, BT,
+    instantiation: 0 the CUDA cores, 1-3 the tensor cores), with its m2
+    outputs per tile.  ``want`` >= 0 asks for an instantiation and
+    ``want_splits`` >= 1 for a split (``_want``; a ValueError where it
+    refuses them).  The library raises the kernel's shared-memory limit
+    here, once."""
     import ctypes
 
     from ._build import load_library
 
     splits, floats, counters, tile = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong(), (ctypes.c_int * 4)()
     fn = getattr(load_library(), f"domain_engine_{which}_plan")
-    shape = (C, want) if which == "fwd" else (m2, C)
+    shape = (C,) if which == "fwd" else (m2, C)
     with torch.cuda.device(device_index):
-        err = fn(T, N, M, s2, *shape, device_index, ctypes.byref(splits), ctypes.byref(floats),
+        err = fn(T, N, M, s2, *shape, want, want_splits, device_index, ctypes.byref(splits), ctypes.byref(floats),
                  ctypes.byref(counters), tile)
     if err != 0:
-        raise RuntimeError(f"domain_engine {which} plan failed: cudaError {err}")
+        raise _plan_error("domain_engine" if which == "fwd" else "domain_engine_bwd_w", err, want, want_splits)
     return splits.value, floats.value, counters.value, tuple(tile)
 
 
 @functools.lru_cache(maxsize=64)
-def _domain_bwd_x_plan(M: int, m2: int, n2: int, device_index: int) -> None:
-    """Raise the unfused bwd_x kernel's shared-memory limit for (M, m2,
-    n2)'s block configuration, once per device."""
+def _domain_bwd_x_plan(M: int, m2: int, n2: int, device_index: int, want: int = -1, want_splits: int = -1) -> int:
+    """The unfused bwd_x kernel's instantiation for (M, m2, n2), the plan's
+    or ``want``; raises its shared-memory limit, once per device."""
+    import ctypes
+
     from ._build import load_library
 
+    _unsplit("domain_engine_bwd_x", want_splits)
+    conf = ctypes.c_int()
     with torch.cuda.device(device_index):
-        err = load_library().domain_engine_bwd_x_plan(M, m2, n2)
+        err = load_library().domain_engine_bwd_x_plan(M, m2, n2, want, ctypes.byref(conf))
     if err != 0:
-        raise RuntimeError(f"domain_engine_bwd_x plan failed: cudaError {err}")
+        raise _plan_error("domain_engine_bwd_x", err, want, want_splits)
+    return conf.value
 
 
 # ------------------------------------------------------------- 1D engine
@@ -1365,6 +1656,8 @@ def winograd_conv1d_fused_engine(
     scale: torch.Tensor | None = None,  # (M,) per-channel epilogue scale
     bias: torch.Tensor | None = None,  # (M,) per-channel epilogue bias
     stride: int = 1,  # S, the nlc interleave factor
+    conf: str | None = None,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """The 1D engine (the reference's ``winograd_conv1d_fused_engine``).
 
@@ -1376,7 +1669,8 @@ def winograd_conv1d_fused_engine(
     act(scale * y + bias) and returns the padded interleave (B, ty*m*S, M),
     whose rows [P, P + L_O) are the output sequence.  CPU tensors take the
     plain version; CUDA tensors launch the kernel (F(2,3) or F(2,4), fp32,
-    contiguous, N % 4 == 0)."""
+    contiguous, N % 4 == 0) on the plan's instantiation or ``conf``'s
+    (unsplit)."""
     if out_mode not in _OUT_MODES_1D:
         raise ValueError(f"out_mode {out_mode!r} not in {tuple(_OUT_MODES_1D)}")
     if activation not in _ACT_CODES:
@@ -1386,11 +1680,14 @@ def winograd_conv1d_fused_engine(
     if stride <= 0:
         raise ValueError(f"stride {stride} must be >= 1")
     kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m=m, n=n, ty=ty, phases=phases, out_mode=out_mode)
+    shape = dict(M=ww_packed.shape[-1])
     if cells.device.type == "cpu":
+        request("winograd_conv1d_fused_engine", conf, splits, **shape)
         return winograd_conv1d_fused_engine_plain(cells, ww_packed, inv_packed, bt_mat, activation=activation,
                                                   scale=scale, bias=bias, stride=stride, **kw)
     if cells.device.type != "cuda":
         raise ValueError(f"winograd_conv1d_fused_engine runs on cpu or cuda tensors, got {cells.device}")
+    want = _want("winograd_conv1d_fused_engine", conf, splits)
     out_shape, bt = _check_engine1d(cells, ww_packed, inv_packed, bt_mat, stride=stride, scale=scale, bias=bias,
                                     **kw)
     B, Gy, _, N = cells.shape
@@ -1401,17 +1698,17 @@ def winograd_conv1d_fused_engine(
 
     lib = load_library()
     pos, offs = _layout_tensors(tuple(pos_idx), tuple(sub_slices), str(dev))
-    _, _, pmax, smax, mma = _engine1d_plan(B, ty, M, dev.index)
+    _, _, pmax, smax, k = _engine1d_plan(B, ty, M, dev.index, *want)
     C = len(pos_idx)
     fplan, npass, nslot, npos = None, 0, 0, 0
-    if mma:
+    if k:
         fplan, npass, nslot, npos = _fwd_plan_tensor(tuple(pos_idx), tuple(sub_slices), pmax, smax, str(dev))
     out = torch.empty(out_shape, dtype=torch.float32, device=dev)
     err = lib.engine1d_f32(
         cells.data_ptr(), ww_packed.data_ptr(), inv_packed.data_ptr(), pos.data_ptr(), offs.data_ptr(),
         bt.data_ptr(), None if fplan is None else fplan.data_ptr(), None if scale is None else scale.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(), B, Gy, N, M, ty, n, phases, len(sub_slices),
-        stride, C, _OUT_MODES_1D[out_mode], _ACT_CODES[activation], mma, npass, nslot, npos,
+        stride, C, _OUT_MODES_1D[out_mode], _ACT_CODES[activation], k, npass, nslot, npos,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
@@ -1420,6 +1717,7 @@ def winograd_conv1d_fused_engine(
         winograd_conv1d_fused_engine.scratch_launches += 1
     else:
         winograd_conv1d_fused_engine.launches += 1
+    _log("winograd_conv1d_fused_engine", shape, k, 1, _engine1d_plan, B, ty, M, dev.index)
     return out
 
 
@@ -1428,22 +1726,23 @@ winograd_conv1d_fused_engine.scratch_launches = 0
 
 
 @functools.lru_cache(maxsize=256)
-def _engine1d_plan(B: int, ty: int, M: int, device_index: int):
-    """(BT, BM, the most positions and sub-filters a pass, tensor cores 1 or
-    0) of the 1D kernel's block configuration for B sequences of ty tiles
-    and M channels on this card: the tensor cores where M allows them and
-    their blocks fill every SM at least once, else the CUDA cores, whose
-    smaller tiles do.  The library raises the kernel's shared-memory limit
-    here."""
+def _engine1d_plan(B: int, ty: int, M: int, device_index: int, want: int = -1, want_splits: int = -1):
+    """(BT, BM, the most positions and sub-filters a pass, instantiation: 0
+    the CUDA cores, 1 or 2 the tensor cores) of the 1D kernel's block
+    configuration for B sequences of ty tiles and M channels on this card:
+    the tensor cores where M allows them and their blocks fill every SM at
+    least once, else the CUDA cores, whose smaller tiles do; or ``want``.
+    The library raises the kernel's shared-memory limit here."""
     import ctypes
 
     from ._build import load_library
 
+    _unsplit("winograd_conv1d_fused_engine", want_splits)
     tile = (ctypes.c_int * 5)()
     with torch.cuda.device(device_index):
-        err = load_library().engine1d_plan(B, ty, M, tile)
+        err = load_library().engine1d_plan(B, ty, M, want, tile)
     if err != 0:
-        raise RuntimeError(f"winograd_conv1d_fused_engine plan failed: cudaError {err}")
+        raise _plan_error("winograd_conv1d_fused_engine", err, want, want_splits)
     return tuple(tile)
 
 
@@ -1465,18 +1764,18 @@ def _scatter_1d(dxw: torch.Tensor, bt_mat, *, B: int, ty: int, gy: int, m: int, 
     return out[:, :gy].contiguous()
 
 
-def _conv1d_bwd_x(bwd_x, g, ww_packed, inv_packed, bt_mat, *, pos_idx, sub_slices, m, n, ty, gy, phases):
+def _conv1d_bwd_x(bwd_x, g, ww_packed, inv_packed, bt_mat, *, pos_idx, sub_slices, m, n, ty, gy, phases, **conf):
     B, _, s2m, M = g.shape
     dxw = bwd_x(g.reshape(B * ty, s2m, M), ww_packed, inv_packed, pos_idx=pos_idx, sub_slices=sub_slices,
-                m2=m, n2=phases * n)
+                m2=m, n2=phases * n, **conf)
     return _scatter_1d(dxw, bt_mat, B=B, ty=ty, gy=gy, m=m, n=n, phases=phases).to(g.dtype)
 
 
-def _conv1d_bwd_w(bwd_w, cells, g, inv_packed, bt_mat, *, pos_idx, sub_slices, m, n, ty, phases):
+def _conv1d_bwd_w(bwd_w, cells, g, inv_packed, bt_mat, *, pos_idx, sub_slices, m, n, ty, phases, **conf):
     B, _, s2m, M = g.shape
     bt = _bt_1d(bt_mat, m, n, cells.device)
     xw = xw_from_cells_1d(cells, bt, m=m, n=n, ty=ty, phases=phases).to(cells.dtype).contiguous()
-    return bwd_w(xw, g.reshape(B * ty, s2m, M), inv_packed, pos_idx=pos_idx, sub_slices=sub_slices, m2=m)
+    return bwd_w(xw, g.reshape(B * ty, s2m, M), inv_packed, pos_idx=pos_idx, sub_slices=sub_slices, m2=m, **conf)
 
 
 def winograd_conv1d_fused_bwd_x(
@@ -1492,12 +1791,15 @@ def winograd_conv1d_fused_bwd_x(
     ty: int,
     gy: int,
     phases: int = 1,
+    conf: str | None = None,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """dL/dcells (B, gy, phases*m, N) of the 1D engine's products: the
-    rank-1 ``domain_engine_bwd_x`` (the packed contraction) then the
-    B-scatter and overlap sum in PyTorch, as the reference composes it."""
+    rank-1 ``domain_engine_bwd_x`` (the packed contraction; ``conf`` /
+    ``splits`` are its) then the B-scatter and overlap sum in PyTorch, as
+    the reference composes it."""
     return _conv1d_bwd_x(domain_engine_bwd_x, g, ww_packed, inv_packed, bt_mat, pos_idx=pos_idx,
-                         sub_slices=sub_slices, m=m, n=n, ty=ty, gy=gy, phases=phases)
+                         sub_slices=sub_slices, m=m, n=n, ty=ty, gy=gy, phases=phases, conf=conf, splits=splits)
 
 
 def winograd_conv1d_fused_bwd_x_plain(g, ww_packed, inv_packed, bt_mat, *, pos_idx, sub_slices, m, n, ty, gy,
@@ -1520,12 +1822,15 @@ def winograd_conv1d_fused_bwd_w(
     n: int,
     ty: int,
     phases: int = 1,
+    conf: str | None = None,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """dL/dww (C, N, M) of the 1D engine's products: the rank-1 transformed
     tiles recomputed in PyTorch, the tile axis reduced by the rank-1
-    ``domain_engine_bwd_w``, as the reference composes it."""
+    ``domain_engine_bwd_w`` (``conf`` / ``splits`` are its), as the
+    reference composes it."""
     return _conv1d_bwd_w(domain_engine_bwd_w, cells, g, inv_packed, bt_mat, pos_idx=pos_idx,
-                         sub_slices=sub_slices, m=m, n=n, ty=ty, phases=phases)
+                         sub_slices=sub_slices, m=m, n=n, ty=ty, phases=phases, conf=conf, splits=splits)
 
 
 def winograd_conv1d_fused_bwd_w_plain(cells, g, inv_packed, bt_mat, *, pos_idx, sub_slices, m, n, ty, phases=1):

@@ -286,6 +286,14 @@ def _epilogue_cotangent(g_img, y_img, scale, bias, activation: str, M: int):
     return dpre * sc, dscale, dbias
 
 
+def _bwd_choices(bwd_x_conf: str | None = None, bwd_w_conf: str | None = None,
+                 bwd_w_splits: int | None = None) -> dict:
+    """The backward launches' configurations, as a forward call takes them:
+    {"x": bwd_x's conf, "w": bwd_w's conf and T split}; None keeps each
+    plan's choice."""
+    return {"x": dict(conf=bwd_x_conf), "w": dict(conf=bwd_w_conf, splits=bwd_w_splits)}
+
+
 def _epilogue_fn_backward(ctx, grad, S: int, P: int, bwd_x, bwd_w, geo: dict):
     """The backward both epilogue Functions share.  The output's pixels
     form a (ty*m*S, tx*m*S) image whose crop window starts at offset ``P``
@@ -294,8 +302,9 @@ def _epilogue_fn_backward(ctx, grad, S: int, P: int, bwd_x, bwd_w, geo: dict):
     nhwc mode pads the cropped cotangent back at offset P.  Then the
     activation-cotangent prologue, the inverse interleave to the (B, ty,
     tx, S*S*m*m, M) scratch layout, and ``bwd_x`` (dcells) and ``bwd_w``
-    (dww), each only where a gradient is asked for.  Returns the gradients
-    of (cells, ww, inv, scale, bias, kw)."""
+    (dww) on the configurations ``ctx.bwd`` holds (``_bwd_choices``), each
+    only where a gradient is asked for.  Returns the gradients of (cells,
+    ww, inv, scale, bias, kw, bwd)."""
     cells, ww, inv, scale, bias, y = ctx.saved_tensors
     kw = ctx.kw
     m, ty, tx, oh, ow = kw["m"], kw["ty"], kw["tx"], kw["out_h"], kw["out_w"]
@@ -324,12 +333,12 @@ def _epilogue_fn_backward(ctx, grad, S: int, P: int, bwd_x, bwd_w, geo: dict):
         B, ty, tx, S * S * m * m, M).contiguous()
     dcells = dww = None
     if ctx.needs_input_grad[0]:
-        dcells = bwd_x(g_scr, ww, inv, gy=cells.shape[1], gx=cells.shape[2], **geo)
+        dcells = bwd_x(g_scr, ww, inv, gy=cells.shape[1], gx=cells.shape[2], **geo, **ctx.bwd["x"])
     if ctx.needs_input_grad[1]:
-        dww = bwd_w(cells, g_scr, inv, **geo)
+        dww = bwd_w(cells, g_scr, inv, **geo, **ctx.bwd["w"])
     ds = dscale if scale is not None and ctx.needs_input_grad[3] else None
     db = dbias if bias is not None and ctx.needs_input_grad[4] else None
-    return dcells, dww, None, ds, db, None
+    return dcells, dww, None, ds, db, None, None
 
 
 class FusedEpilogueFn(torch.autograd.Function):
@@ -338,12 +347,13 @@ class FusedEpilogueFn(torch.autograd.Function):
     output.  Backward (``_epilogue_fn_backward``): the activation-cotangent
     prologue in plain PyTorch, the inverse interleave to the scratch
     layout, then ``fused_engine_bwd_x`` (dcells) and ``fused_engine_bwd_w``
-    (dww).  Returns the gradients of (cells, ww, inv, scale, bias)."""
+    (dww), on the configurations ``bwd`` names (``_bwd_choices``).  Returns
+    the gradients of (cells, ww, inv, scale, bias)."""
 
     @staticmethod
-    def forward(ctx, cells, ww, inv, scale, bias, kw):
+    def forward(ctx, cells, ww, inv, scale, bias, kw, bwd=None):
         y = _engine.fused_engine(cells, ww, inv, scale=scale, bias=bias, **kw)
-        ctx.kw = kw
+        ctx.kw, ctx.bwd = kw, bwd or _bwd_choices()
         ctx.save_for_backward(cells, ww, inv, scale, bias, y)
         return y
 
@@ -369,10 +379,18 @@ def winograd_deconv2d_cells(
     scale: torch.Tensor | None = None,  # (M,) per-channel epilogue scale
     bias: torch.Tensor | None = None,  # (M,) per-channel epilogue bias
     emit_cells: bool = False,
+    conf: str | None = None,
+    splits: int | None = None,
+    bwd_x_conf: str | None = None,
+    bwd_w_conf: str | None = None,
+    bwd_w_splits: int | None = None,
 ) -> torch.Tensor:
     """Cell-to-cell chained deconv: run the epilogue-fused engine on the cell
     layout and return the NHWC image (B, H_O, W_O, M) or, with
-    ``emit_cells``, the next layer's cells (B, ty*S, tx*S, m*m, M)."""
+    ``emit_cells``, the next layer's cells (B, ty*S, tx*S, m*m, M).
+    ``conf`` / ``splits`` configure the engine's launch and ``bwd_*`` its
+    gradient's (``engine.INSTANTIATIONS``; None: the plans' choices; the
+    ``ref`` backend has no configuration and ignores them)."""
     tf = get_transform(m, r)
     H, W = in_hw
     hj, wj = dims.j_extent(H), dims.j_extent(W)
@@ -385,10 +403,12 @@ def winograd_deconv2d_cells(
         out_h=dims.out_size(H), out_w=dims.out_size(W),
     )
     if backend == "cuda":
+        kw.update(conf=conf, splits=splits)
         if torch.is_grad_enabled() and any(
                 t is not None and t.requires_grad for t in (cells, packed.ww, scale, bias)):
             kw = {k: v for k, v in kw.items() if k not in ("scale", "bias")}
-            return FusedEpilogueFn.apply(cells.contiguous(), packed.ww, packed.inv, scale, bias, kw)
+            return FusedEpilogueFn.apply(cells.contiguous(), packed.ww, packed.inv, scale, bias, kw,
+                                         _bwd_choices(bwd_x_conf, bwd_w_conf, bwd_w_splits))
         return _engine.fused_engine(cells, packed.ww, packed.inv, **kw)
     if backend == "ref":
         return _engine.fused_engine_plain(cells, packed.ww, packed.inv, **kw)
@@ -401,12 +421,13 @@ class FusedPreFn(torch.autograd.Function):
     ``out_mode="scratch"``, the (B, ty, tx, S*S*m*m, M) tile outputs.
     Backward: the cotangent is already in that scratch layout, so it goes
     straight to ``fused_engine_bwd_x`` (dcells) and ``fused_engine_bwd_w``
-    (dww), each only where a gradient is asked for.  Returns the gradients
-    of (cells, ww, inv)."""
+    (dww) on the configurations ``bwd`` names (``_bwd_choices``), each only
+    where a gradient is asked for.  Returns the gradients of (cells, ww,
+    inv)."""
 
     @staticmethod
-    def forward(ctx, cells, ww, inv, kw):
-        ctx.kw = kw
+    def forward(ctx, cells, ww, inv, kw, bwd=None):
+        ctx.kw, ctx.bwd = kw, bwd or _bwd_choices()
         ctx.save_for_backward(cells, ww, inv)
         return _engine.fused_engine(cells, ww, inv, out_mode="scratch", **kw)
 
@@ -417,10 +438,11 @@ class FusedPreFn(torch.autograd.Function):
         g = grad.float().contiguous()
         dcells = dww = None
         if ctx.needs_input_grad[0]:
-            dcells = _engine.fused_engine_bwd_x(g, ww, inv, gy=cells.shape[1], gx=cells.shape[2], **geo)
+            dcells = _engine.fused_engine_bwd_x(g, ww, inv, gy=cells.shape[1], gx=cells.shape[2], **geo,
+                                                **ctx.bwd["x"])
         if ctx.needs_input_grad[1]:
-            dww = _engine.fused_engine_bwd_w(cells, g, inv, **geo)
-        return dcells, dww, None, None
+            dww = _engine.fused_engine_bwd_w(cells, g, inv, **geo, **ctx.bwd["w"])
+        return dcells, dww, None, None, None
 
 
 class EngineFn(torch.autograd.Function):
@@ -428,12 +450,13 @@ class EngineFn(torch.autograd.Function):
     ``_engine_vjp``).  Forward: ``domain_engine`` on the transformed tiles
     xw (T, n*n, N), the (T, S*S*m*m, M) tile outputs; xw is saved for the
     weight gradient.  Backward: ``domain_engine_bwd_x`` (dxw) and
-    ``domain_engine_bwd_w`` (dww), each only where a gradient is asked for.
-    Returns the gradients of (xw, ww, inv)."""
+    ``domain_engine_bwd_w`` (dww) on the configurations ``bwd`` names
+    (``_bwd_choices``), each only where a gradient is asked for.  Returns the
+    gradients of (xw, ww, inv)."""
 
     @staticmethod
-    def forward(ctx, xw, ww, inv, kw):
-        ctx.kw = kw
+    def forward(ctx, xw, ww, inv, kw, bwd=None):
+        ctx.kw, ctx.bwd = kw, bwd or _bwd_choices()
         ctx.save_for_backward(xw, ww, inv)
         return _engine.domain_engine(xw, ww, inv, **kw)
 
@@ -441,12 +464,13 @@ class EngineFn(torch.autograd.Function):
     def backward(ctx, grad):
         xw, ww, inv = ctx.saved_tensors
         g = grad.float().contiguous()
+        geo = {k: ctx.kw[k] for k in ("pos_idx", "sub_slices", "m2")}
         dxw = dww = None
         if ctx.needs_input_grad[0]:
-            dxw = _engine.domain_engine_bwd_x(g, ww, inv, n2=xw.shape[1], **ctx.kw)
+            dxw = _engine.domain_engine_bwd_x(g, ww, inv, n2=xw.shape[1], **geo, **ctx.bwd["x"])
         if ctx.needs_input_grad[1]:
-            dww = _engine.domain_engine_bwd_w(xw, g, inv, **ctx.kw)
-        return dxw, dww, None, None
+            dww = _engine.domain_engine_bwd_w(xw, g, inv, **geo, **ctx.bwd["w"])
+        return dxw, dww, None, None, None
 
 
 def winograd_deconv2d_packed(
@@ -462,6 +486,11 @@ def winograd_deconv2d_packed(
     scale: torch.Tensor | None = None,
     bias: torch.Tensor | None = None,
     emit_cells: bool = False,
+    conf: str | None = None,
+    splits: int | None = None,
+    bwd_x_conf: str | None = None,
+    bwd_w_conf: str | None = None,
+    bwd_w_splits: int | None = None,
 ) -> torch.Tensor:
     """Winograd DeConv from packed weights on an NHWC image:
     act(scale * deconv(x) + bias), or deconv(x) with no epilogue.
@@ -474,7 +503,10 @@ def winograd_deconv2d_packed(
     ``fuse_pre=False`` (the default, as in the reference) transforms the
     input tiles in plain PyTorch and runs the unfused engine on them.  The
     tile outputs then interleave into the image, and an epilogue runs in
-    plain PyTorch."""
+    plain PyTorch.  ``conf`` / ``splits`` configure the engine's launch
+    (``engine.INSTANTIATIONS["fused_engine"]`` with ``fuse_pre``, else
+    ``["domain_engine"]``) and ``bwd_*`` its gradient's; None keeps the
+    plans' choices, and the ``ref`` backend ignores them."""
     tf = get_transform(m, r)
     B, H, W, N = x.shape
     M = packed.ww.shape[-1]
@@ -482,11 +514,14 @@ def winograd_deconv2d_packed(
     HO, WO = dims.out_size(H), dims.out_size(W)
     hj, wj = dims.j_extent(H), dims.j_extent(W)
     wants_epi = emit_cells or epilogue is not None or scale is not None or bias is not None
+    choice = dict(conf=conf, splits=splits)
+    bwd = _bwd_choices(bwd_x_conf, bwd_w_conf, bwd_w_splits)
     if wants_epi and fuse_pre:
         return winograd_deconv2d_cells(
             cells_from_image(x, dims, m, r), packed, dims, (H, W),
             m=m, r=r, backend=backend, epilogue=epilogue or "none",
-            scale=scale, bias=bias, emit_cells=emit_cells,
+            scale=scale, bias=bias, emit_cells=emit_cells, **choice,
+            bwd_x_conf=bwd_x_conf, bwd_w_conf=bwd_w_conf, bwd_w_splits=bwd_w_splits,
         )
     if emit_cells:
         raise ValueError("emit_cells requires fuse_pre")
@@ -502,9 +537,9 @@ def winograd_deconv2d_packed(
         if backend == "ref":
             y = _engine.fused_engine_plain(cells, packed.ww, packed.inv, out_mode="scratch", **kw)
         elif torch.is_grad_enabled() and (cells.requires_grad or packed.ww.requires_grad):
-            y = FusedPreFn.apply(cells, packed.ww, packed.inv, kw)
+            y = FusedPreFn.apply(cells, packed.ww, packed.inv, {**kw, **choice}, bwd)
         else:
-            y = _engine.fused_engine(cells, packed.ww, packed.inv, out_mode="scratch", **kw)
+            y = _engine.fused_engine(cells, packed.ww, packed.inv, out_mode="scratch", **kw, **choice)
     else:
         xw = transform_input_tiles(x_pad, (ty, tx), m, r).to(x.dtype).reshape(B * ty * tx, tf.n**2, N)
         xw = xw.contiguous()
@@ -512,9 +547,9 @@ def winograd_deconv2d_packed(
         if backend == "ref":
             y = _engine.domain_engine_plain(xw, packed.ww, packed.inv, **kw)
         elif torch.is_grad_enabled() and (xw.requires_grad or packed.ww.requires_grad):
-            y = EngineFn.apply(xw, packed.ww, packed.inv, kw)
+            y = EngineFn.apply(xw, packed.ww, packed.inv, {**kw, **choice}, bwd)
         else:
-            y = _engine.domain_engine(xw, packed.ww, packed.inv, **kw)
+            y = _engine.domain_engine(xw, packed.ww, packed.inv, **kw, **choice)
 
     # (T, S*S*m*m, M) -> (S, S, B, ty*m, tx*m, M) -> interleave
     y = y.reshape(B, ty, tx, S, S, m, m, M).permute(3, 4, 0, 1, 5, 2, 6, 7).reshape(S, S, B, ty * m, tx * m, M)
@@ -700,13 +735,14 @@ class ConvEpilogueFn(torch.autograd.Function):
     Backward: ``_epilogue_fn_backward`` with the conv corner's uncell (cells
     mode: re-zero outside [0, out_h) x [0, out_w); nhwc: pad back at offset
     0), then ``conv_fused_engine_bwd_x`` (dcells) and
-    ``conv_fused_engine_bwd_w`` (dww), each only where a gradient is asked
-    for.  Returns the gradients of (cells, ww, inv, scale, bias)."""
+    ``conv_fused_engine_bwd_w`` (dww) on the configurations ``bwd`` names
+    (``_bwd_choices``), each only where a gradient is asked for.  Returns
+    the gradients of (cells, ww, inv, scale, bias)."""
 
     @staticmethod
-    def forward(ctx, cells, ww, inv, scale, bias, kw):
+    def forward(ctx, cells, ww, inv, scale, bias, kw, bwd=None):
         y = _engine.conv_fused_engine(cells, ww, inv, scale=scale, bias=bias, **kw)
-        ctx.kw = kw
+        ctx.kw, ctx.bwd = kw, bwd or _bwd_choices()
         ctx.save_for_backward(cells, ww, inv, scale, bias, y)
         return y
 
@@ -730,19 +766,28 @@ def winograd_conv2d_cells(
     scale: torch.Tensor | None = None,
     bias: torch.Tensor | None = None,
     emit_cells: bool = False,
+    conf: str | None = None,
+    splits: int | None = None,
+    bwd_x_conf: str | None = None,
+    bwd_w_conf: str | None = None,
+    bwd_w_splits: int | None = None,
 ) -> torch.Tensor:
     """Cell-to-cell chained Winograd conv: run the conv engine on the
     phase-major cells and return the NHWC image (B, H_O, W_O, M) or, with
     ``emit_cells``, the output image's cells (B, ty, tx, m*m, M) for
-    ``conv_cells_to_next``."""
+    ``conv_cells_to_next``.  ``conf`` / ``splits`` configure the engine's
+    launch and ``bwd_*`` its gradient's (``engine.INSTANTIATIONS``; None:
+    the plans' choices; the ``ref`` backend ignores them)."""
     ty, tx, _, _, HO, WO = _conv_tiles(cdims, in_hw, m, r)
     pos_idx, _, _ = conv_packed_layout(cdims, m, r)
     kw = dict(pos_idx=pos_idx, m=m, n=get_transform(m, r).n, ty=ty, tx=tx, s2=cdims.stride ** 2,
               out_mode="cells" if emit_cells else "nhwc", activation=epilogue, out_h=HO, out_w=WO)
     if backend == "cuda":
+        kw.update(conf=conf, splits=splits)
         if torch.is_grad_enabled() and any(
                 t is not None and t.requires_grad for t in (cells, packed.ww, scale, bias)):
-            return ConvEpilogueFn.apply(cells.contiguous(), packed.ww, packed.inv, scale, bias, kw)
+            return ConvEpilogueFn.apply(cells.contiguous(), packed.ww, packed.inv, scale, bias, kw,
+                                        _bwd_choices(bwd_x_conf, bwd_w_conf, bwd_w_splits))
         return _engine.conv_fused_engine(cells, packed.ww, packed.inv, scale=scale, bias=bias, **kw)
     if backend == "ref":
         return _engine.conv_fused_engine_plain(cells, packed.ww, packed.inv, scale=scale, bias=bias, **kw)
@@ -761,13 +806,17 @@ def winograd_conv2d_packed(
     scale: torch.Tensor | None = None,
     bias: torch.Tensor | None = None,
     emit_cells: bool = False,
+    **choices,
 ) -> torch.Tensor:
     """Strided Winograd conv from packed weights on an NHWC image:
     act(scale * conv(x) + bias) through the conv engine; ``emit_cells``
-    returns the output's cells for the next chained conv layer."""
+    returns the output's cells for the next chained conv layer.
+    ``choices``: the launches' configurations, as
+    ``winograd_conv2d_cells`` takes them."""
     return winograd_conv2d_cells(
         conv_cells_from_image(x, cdims, m, r), packed, cdims, (x.shape[1], x.shape[2]),
         m=m, r=r, backend=backend, epilogue=epilogue or "none", scale=scale, bias=bias, emit_cells=emit_cells,
+        **choices,
     )
 
 
@@ -921,41 +970,45 @@ class Engine1dFn(torch.autograd.Function):
     interleave to the scratch layout (B, ty, S*m, M), then
     ``winograd_conv1d_fused_bwd_x`` (dcells: rank-1 kernel 4, the B-scatter)
     and ``winograd_conv1d_fused_bwd_w`` (dww: the transformed tiles, rank-1
-    kernel 5), each only where a gradient is asked for.  Returns the
-    gradients of (cells, ww, inv)."""
+    kernel 5) on the configurations ``bwd`` names (``_bwd_choices``), each
+    only where a gradient is asked for.  Returns the gradients of (cells,
+    ww, inv)."""
 
     @staticmethod
-    def forward(ctx, cells, ww, inv, kw):
-        ctx.kw = kw
+    def forward(ctx, cells, ww, inv, kw, bwd=None):
+        ctx.kw, ctx.bwd = kw, bwd or _bwd_choices()
         ctx.save_for_backward(cells, ww, inv)
         return _engine.winograd_conv1d_fused_engine(cells, ww, inv, out_mode="nlc", **kw)
 
     @staticmethod
     def backward(ctx, grad):
         cells, ww, inv = ctx.saved_tensors
-        kw = dict(ctx.kw)
+        kw = {k: v for k, v in ctx.kw.items() if k not in ("conf", "splits")}
         S, m, ty, bt = kw.pop("stride"), kw["m"], kw["ty"], kw.pop("bt_mat")
         B, M = cells.shape[0], grad.shape[-1]
         # row m*S*j + S*p + rho of the interleave -> scratch row rho*m + p of tile j
         g = grad.float().reshape(B, ty, m, S, M).permute(0, 1, 3, 2, 4).reshape(B, ty, S * m, M).contiguous()
         dcells = dww = None
         if ctx.needs_input_grad[0]:
-            dcells = _engine.winograd_conv1d_fused_bwd_x(g, ww, inv, bt, gy=cells.shape[1], **kw)
+            dcells = _engine.winograd_conv1d_fused_bwd_x(g, ww, inv, bt, gy=cells.shape[1], **kw, **ctx.bwd["x"])
         if ctx.needs_input_grad[1]:
-            dww = _engine.winograd_conv1d_fused_bwd_w(cells, g, inv, bt, **kw)
-        return dcells, dww, None, None
+            dww = _engine.winograd_conv1d_fused_bwd_w(cells, g, inv, bt, **kw, **ctx.bwd["w"])
+        return dcells, dww, None, None, None
 
 
-def _engine1d(cells, packed: PackedConv1d, backend: str, **kw) -> torch.Tensor:
+def _engine1d(cells, packed: PackedConv1d, backend: str, conf=None, splits=None, bwd_x_conf=None, bwd_w_conf=None,
+              bwd_w_splits=None, **kw) -> torch.Tensor:
     """The 1D engine in nlc mode on ``backend``: "ref" the plain version
-    (autograd differentiates it), "cuda" the wrapper, through
-    ``Engine1dFn`` where a gradient is wanted."""
+    (autograd differentiates it; no configuration), "cuda" the wrapper on
+    ``conf`` / ``splits``, through ``Engine1dFn`` where a gradient is wanted
+    (its rank-1 backward launches on ``bwd_*``)."""
     if backend == "ref":
         return _engine.winograd_conv1d_fused_engine_plain(cells, packed.ww, packed.inv, out_mode="nlc", **kw)
     if backend != "cuda":
         raise ValueError(f"backend {backend!r} is not 'cuda' or 'ref'")
+    kw.update(conf=conf, splits=splits)
     if torch.is_grad_enabled() and (cells.requires_grad or packed.ww.requires_grad):
-        return Engine1dFn.apply(cells, packed.ww, packed.inv, kw)
+        return Engine1dFn.apply(cells, packed.ww, packed.inv, kw, _bwd_choices(bwd_x_conf, bwd_w_conf, bwd_w_splits))
     return _engine.winograd_conv1d_fused_engine(cells, packed.ww, packed.inv, out_mode="nlc", **kw)
 
 
@@ -977,15 +1030,18 @@ def winograd_conv1d_packed(
     m: int = 2,
     padding: str = "causal",  # "causal" | "same" | "valid"
     backend: str = "cuda",
+    **choices,
 ) -> torch.Tensor:
     """Stride-1 Winograd conv1d from packed weights: x (B, L, N) ->
     (B, L_O, M), L_O = L (causal, same) or L - K + 1 (valid).  ``causal``
     left-pads K-1 (output t sees inputs t-K+1 .. t); ``same`` splits the pad
-    low-first.  No bias or activation: they belong outside the engine."""
+    low-first.  No bias or activation: they belong outside the engine.
+    ``choices``: the launches' configurations (conf, splits, bwd_x_conf,
+    bwd_w_conf, bwd_w_splits; ``engine.INSTANTIATIONS``)."""
     pos_idx, sub_slices, _, bt_mat, n = conv1d_layout(kernel, m)
     cells, ty, LO = conv1d_cells_from_seq(x, kernel, m, padding)
     y = _engine1d(cells, packed, backend, bt_mat=bt_mat, pos_idx=pos_idx, sub_slices=sub_slices, m=m, n=n, ty=ty,
-                  stride=1)
+                  stride=1, **choices)
     return y[:, :LO, :].to(x.dtype)
 
 
@@ -1004,16 +1060,19 @@ def winograd_deconv1d_packed(
     m: int = 2,
     r: int = 3,
     backend: str = "cuda",
+    **choices,
 ) -> torch.Tensor:
     """1D TDC Winograd deconv from packed weights: x (B, L, N) -> (B, L_O, M),
     L_O = S*(L-1) + K_D - 2P + OP: the S sub-correlations in the engine, the
-    stride-S interleave in its finalize, then the crop [P, P + L_O)."""
+    stride-S interleave in its finalize, then the crop [P, P + L_O).
+    ``choices``: the launches' configurations, as
+    ``winograd_conv1d_packed`` takes them."""
     tf = get_transform(m, r)
     pos_idx, sub_slices, _, _ = packed_deconv1d_layout(dims, m, r)
     cells, ty = deconv1d_cells_from_seq(x, dims, m, r)
     LO = dims.out_size(x.shape[1])
     y = _engine1d(cells, packed, backend, bt_mat=_engine._bt(m, tf.n), pos_idx=pos_idx, sub_slices=sub_slices, m=m,
-                  n=tf.n, ty=ty, stride=dims.stride)
+                  n=tf.n, ty=ty, stride=dims.stride, **choices)
     P = dims.padding
     return y[:, P : P + LO, :].to(x.dtype)
 

@@ -15,6 +15,11 @@ layer re-lays them out.
 Per layer (``_deconv_apply``): the deconv, then batchnorm and the
 activation in NHWC, in plain PyTorch.
 
+The per-layer applies read the block table (``DECONV_BLOCKS``): each
+layer's kernel configurations, keyed by (impl, dims, N, M), which
+``install_tuned_blocks`` fills from ``kernels.autotune`` and
+``set_deconv_blocks`` by hand.
+
 Serving keeps a registry of serve-ready packed generators
 (``register_prepacked_generator`` / ``get_prepacked_generator``) that
 ``serve.GanServeEngine(models=...)`` takes, the health hooks its circuit
@@ -67,6 +72,7 @@ Params = dict[str, Any]
 
 __all__ = [
     "IMPLS", "PORT_NAMES", "PREPACKED_EQUIV", "CHAINED_EQUIV", "uses_prepacked", "uses_chained", "serve_impl",
+    "DECONV_BLOCKS", "set_deconv_blocks", "clear_deconv_blocks", "install_tuned_blocks",
     "generator_init", "prepack_generator", "fold_eval_bn", "generator_apply", "PrepackedGenerator",
     "register_prepacked_generator", "get_prepacked_generator", "registered_archs", "clear_prepacked_generators",
     "params_finite", "generator_health", "unpack_generator", "DISC_CHANNELS", "CONV_IMPLS",
@@ -218,6 +224,68 @@ def prepack_generator(params: Params, cfg: GANConfig) -> Params:
     return out
 
 
+# ---------------------------------------------------------- block overrides
+# Per-layer kernel configurations, keyed by (impl, dims, N, M): the
+# autotuner's winning forward AND backward choices (the Hopper counterparts
+# of the reference's block_* / bwd_block_*: the instantiation and split of
+# each launch, ``kernels.engine.INSTANTIATIONS``) land here and are merged
+# into that impl's applies.  Keying by impl keeps a winner of one engine
+# variant away from another, and the ``ref`` impls never read it.  The key
+# holds no batch, as the reference's: a table tuned at the training batch
+# also configures a serving generate of the same layers.  Populated by
+# ``install_tuned_blocks`` (or by hand via ``set_deconv_blocks``).
+DECONV_BLOCKS: dict[tuple, dict] = {}
+
+_BLOCK_KEYS = ("conf", "splits", "bwd_x_conf", "bwd_w_conf", "bwd_w_splits")
+
+
+def set_deconv_blocks(impl: str, dims, n_in: int, m_out: int, **blocks) -> None:
+    """Register kernel configurations for ``impl`` on every layer with this
+    (geometry, N, M) signature (a deconv's ``DeconvDims`` or a
+    discriminator conv's ``ConvDims``); None values are dropped (the plan's
+    choice)."""
+    bad = set(blocks) - set(_BLOCK_KEYS)
+    if bad:
+        raise ValueError(f"unknown block keys {sorted(bad)}")
+    DECONV_BLOCKS[(impl, dims, n_in, m_out)] = {k: v for k, v in blocks.items() if v is not None}
+
+
+def clear_deconv_blocks() -> None:
+    DECONV_BLOCKS.clear()
+
+
+def install_tuned_blocks(cfg: GANConfig, *, mode: str = "grad", batch: int = 1, candidates=None,
+                         **autotune_kw) -> list[dict]:
+    """Run ``kernels.autotune.autotune_deconv`` per generator layer and wire
+    each layer's winning config, its backward choices included, into the
+    impl table.  Returns the per-layer winner rows for logging.
+
+    The default candidate grid is restricted to the engine variant
+    ``cfg.deconv_impl`` actually runs (fused-pre vs unfused, prepacked), and
+    winners from a different variant are skipped: numbers measured on a
+    code path the model never executes must not land in the table."""
+    from ..kernels.autotune import autotune_deconv, candidate_configs
+
+    impl = cfg.deconv_impl
+    fused = _PREPACKED_KW.get(impl, {}).get("fuse_pre", False)
+    if candidates is None:
+        candidates = candidate_configs(include_fused=fused, include_unfused=not fused, prepack=uses_prepacked(impl))
+    installed = []
+    h = cfg.seed_hw
+    for li, d in enumerate(cfg.deconvs):
+        rows = autotune_deconv(d.dims, (batch, h, h, d.c_in), d.c_out, mode=mode, candidates=candidates,
+                               **autotune_kw)
+        won = next((r for r in rows if r["ok"] and r["config"].fuse_pre == fused), None)
+        if won is not None:
+            c = won["config"]
+            set_deconv_blocks(impl, d.dims, d.c_in, d.c_out, **{k: getattr(c, k) for k in _BLOCK_KEYS})
+            installed.append({"layer": li, "ms": won["ms"], "config": c})
+        else:
+            installed.append({"layer": li, "error": rows[0]["error"]})
+        h = d.dims.out_size(h)
+    return installed
+
+
 def _packed_of(wd: Params, dims: DeconvDims) -> kops.PackedDeconv:
     if "ww" not in wd:
         raise ValueError("prepacked impls take packed {'ww'} weights: call prepack_generator first")
@@ -226,9 +294,14 @@ def _packed_of(wd: Params, dims: DeconvDims) -> kops.PackedDeconv:
 
 def _deconv_apply(impl: str, x: torch.Tensor, wd: Params, dims: DeconvDims) -> torch.Tensor:
     """One deconv layer of the per-layer trunk; ``wd`` is the layer's param
-    dict, {"ww": packed} for the prepacked impls, else {"w": raw}."""
+    dict, {"ww": packed} for the prepacked impls, else {"w": raw}.  The
+    prepacked kernel impls take their layer's entry of ``DECONV_BLOCKS``."""
     if impl in _PREPACKED_KW:
-        return kops.winograd_deconv2d_packed(x, _packed_of(wd, dims), dims, **_PREPACKED_KW[impl])
+        kw = dict(_PREPACKED_KW[impl])
+        if kw.get("backend") == "cuda":
+            ww = wd["ww"]
+            kw.update(DECONV_BLOCKS.get((impl, dims, ww.shape[1], ww.shape[2]), {}))
+        return kops.winograd_deconv2d_packed(x, _packed_of(wd, dims), dims, **kw)
     if impl not in _RAW_KW and impl not in _RAW_FNS:
         raise ValueError(f"deconv_impl {impl!r} is not one of {IMPLS}")
     if "w" not in wd:
@@ -307,7 +380,9 @@ def _chained_deconv_trunk(
     folded BN and the activation in the engine's finalize; training-mode BN
     layers emit raw cells and run ``_bn_act_cells`` (misaligned hops: NHWC
     out, ``layers.batchnorm``, then a cells re-layout).  Returns (image,
-    bn_stats)."""
+    bn_stats).  Like the reference's it takes ``_CHAINED_KW`` alone and reads
+    no ``DECONV_BLOCKS`` entry: an entry installed for ``cuda_chained``
+    reaches only the layers that run the per-layer apply."""
     kw = _CHAINED_KW[cfg.deconv_impl]
     new_stats: Params = {}
     hw = (h.shape[1], h.shape[2])
@@ -557,15 +632,19 @@ def _packed_conv_of(wd: Params, cdims: ConvDims) -> kops.PackedConv:
 
 def _disc_conv_apply(impl: str, x: torch.Tensor, wd: Params, cdims: ConvDims) -> torch.Tensor:
     """One per-layer discriminator conv; the winograd impls run the conv
-    engine in nhwc mode with the bias in its epilogue."""
+    engine in nhwc mode with the bias in its epilogue, the prepacked kernel
+    impl on its layer's entry of ``DECONV_BLOCKS``."""
     if impl == "lax":
         return L.conv2d(wd, x, stride=DISC_STRIDE)
     if impl in _CONV_RAW_KW:
         if "w" not in wd:
             raise ValueError(f"conv_impl {impl!r} takes raw {{'w', 'b'}} convs, got packed ones")
         return kops.winograd_conv2d(x, wd["w"], cdims, bias=wd["b"].float(), **_CONV_RAW_KW[impl])
-    return kops.winograd_conv2d_packed(x, _packed_conv_of(wd, cdims), cdims, bias=wd["b"].float(),
-                                       **_CONV_PREPACKED_KW[impl])
+    kw = dict(_CONV_PREPACKED_KW[impl])
+    if kw.get("backend") == "cuda":
+        ww = wd["ww"]
+        kw.update(DECONV_BLOCKS.get((impl, cdims, ww.shape[1], ww.shape[2]), {}))
+    return kops.winograd_conv2d_packed(x, _packed_conv_of(wd, cdims), cdims, bias=wd["b"].float(), **kw)
 
 
 def discriminator_init(cfg: GANConfig, *, seed: int = 0, device="cuda", dtype=torch.float32) -> Params:
@@ -610,14 +689,18 @@ def _chained_conv_trunk(
     conv bias is always in the engine's epilogue; eval mode also folds
     running-stat BN and leaky_relu into it; training-mode BN layers emit raw
     cells and run ``_bn_act_cells``.  The last layer turns into pixels only
-    for the linear head.  Returns (logits, bn_stats)."""
-    kw = _CHAINED_KW[cfg.conv_impl]
+    for the linear head; each layer takes its entry of ``DECONV_BLOCKS``
+    on the kernels.  Returns (logits, bn_stats)."""
+    base_kw = _CHAINED_KW[cfg.conv_impl]
     dims = disc_conv_dims(cfg)
     new_stats: Params = {}
     hw = (img.shape[1], img.shape[2])
     cells = kops.conv_cells_from_image(img, dims[0])
     for i, cd in enumerate(dims):
         wd = p[f"conv{i}"]
+        kw = dict(base_kw)
+        if kw.get("backend") == "cuda" and "ww" in wd:
+            kw.update(DECONV_BLOCKS.get((cfg.conv_impl, cd, wd["ww"].shape[1], wd["ww"].shape[2]), {}))
         packed = _packed_conv_of(wd, cd)
         b = wd["b"].float()
         has_bn = f"conv{i}_bn" in p

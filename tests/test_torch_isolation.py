@@ -303,3 +303,55 @@ def test_unfused_forward_refuses_what_tma_and_16_byte_copies_cannot_take(bad):
     ww = torch.zeros((len(pos), N, 36))
     with pytest.raises(ValueError, match="multiple of 4" if bad == "n" else "16-byte"):
         E._domain_fwd(xw, ww, torch.as_tensor(inv), pos_idx=pos, sub_slices=subs, m2=4)
+
+
+# Which operands each instantiation moves in 16-byte copies (cp.async of 16 bytes, or TMA), read off the
+# kernels (csrc/*.cu): the CUDA-core forwards' weights where their block configuration takes 4 of them a copy
+# (VW = 4: M >= 32, M % 4 == 0), the conv corner's windows where N % 4 == 0 and its CUDA-core bwd_w's g rows
+# for N % 4 != 0 and M >= 16; every tensor-core kernel its weights or g rows (the unfused forward's reads xw by
+# TMA and its weights through the pack kernel); the deconv corner's, the 1D engine's and the unfused engine's
+# cells / xw always.
+def _forced_copies(kernel, conf, N, M):
+    wide, cuda = M >= 32 and M % 4 == 0, conf == "cuda_cores"
+    if kernel in ("fused_engine", "winograd_conv1d_fused_engine"):
+        return {"cells"} | ({"ww_packed"} if wide or not cuda else set())
+    if kernel.endswith("bwd_x"):
+        return set() if cuda else {"g", "ww_packed"}
+    if kernel == "fused_engine_bwd_w":
+        return {"cells"} | (set() if cuda else {"g"})
+    if kernel == "conv_fused_engine":
+        return ({"cells"} if N % 4 == 0 else set()) | ({"ww_packed"} if wide or not cuda else set())
+    if kernel == "conv_fused_engine_bwd_w":
+        if not cuda:
+            return {"cells", "g"}
+        return {"cells"} if N % 4 == 0 else ({"g"} if M >= 16 and M % 4 == 0 else set())
+    if kernel == "domain_engine":
+        return {"xw"} | ({"ww_packed"} if cuda and wide else set())
+    assert kernel == "domain_engine_bwd_w"
+    return {"xw"} | (set() if cuda else {"g"})
+
+
+@pytest.mark.parametrize("kernel", list(E.INSTANTIATIONS))
+def test_misaligned_operands_are_refused_under_every_forced_instantiation(kernel):
+    """``_SIXTEEN_BYTE_COPIES`` holds at any grid, so a forced instantiation
+    (``conf=``) never meets a misaligned operand it copies 16 bytes at a
+    time: at every (N, M) and shape an instantiation takes, the operands it
+    moves so are among those the wrapper refuses off a 16-byte boundary."""
+    for N in (3, 4, 6, 8, 16, 64, 100):
+        for M in (1, 3, 4, 6, 8, 12, 16, 24, 32, 36, 64):
+            refused = {op for op, when in E._SIXTEEN_BYTE_COPIES[kernel].items() if when(N, M)}
+            for conf in E.INSTANTIATIONS[kernel]:
+                for shape in (dict(S=2, S2=4, C=36, M2=4, N2=16), dict(S=1, S2=1, C=5, M2=2, N2=4),
+                              dict(S=1, S2=1, C=6, M2=2, N2=6)):
+                    try:
+                        E.request(kernel, conf, N=N, M=M, **shape)
+                    except ValueError:
+                        continue
+                    assert _forced_copies(kernel, conf, N, M) <= refused, (kernel, conf, N, M)
+
+
+def test_autotune_module_imports_no_jax_and_no_reference_package():
+    files = _port_files()
+    path = ROOT / "src" / "repro_torch" / "kernels" / "autotune.py"
+    assert path in files
+    assert not FORBIDDEN.search(path.read_text())
