@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases kernel,kernel_bwd,kernel_conv,kernel_domain,serve,train,train_chained,
                                     serve_per_layer,train_per_layer,kernel_1d,audio,serve_faults,train_gan,
-                                    autotune]
+                                    autotune,train_mesh]
 
 Phases, each printing one JSON line:
   env     torch / CUDA versions, the card's name and power limit; TF32 off.
@@ -218,6 +218,43 @@ agree with it elsewhere (nan_case).
           batch-8 generate of GanServeEngine(chained=False) with the table
           against prepacked_ref, timed against the same generate without the
           table in turns (the key holds no batch); the table cleared after.
+  train_mesh
+          parallel/ on torch.distributed at DCGAN's published widths, batch
+          128 global, both nets cuda_chained, fp32, TF32 off, random weights
+          from a seed (train_chained's).  Every sharded run is held against
+          train_chained's single-device kernel step: as a trajectory (step
+          1's metrics 1e-3 relative, int8 the reference's 2e-2; the params
+          after 3 steps 6·lr, uncompressed) and step by step from one state
+          (each step from the run's own gathered params and optimizer state
+          against the single-device step from the same: metrics 1e-3
+          relative and params 6·lr, int8 losses 2e-2 and params 5e-3);
+          later steps' trajectory metrics and every leaf's largest
+          difference are printed.  The int8 step's step-1 reduced gradient
+          plus the ranks' mean residual must be the uncompressed one (error
+          feedback's identity, 1e-5 of each bucket's largest).  (1) World 1
+          on NCCL in this process, mesh (1,) ("data",): 3 steps each of the
+          mesh step, the overlap step at the default bucket size (4
+          generator buckets) and at 16 MiB (2), and the int8 step; kernels
+          3/6/7 4/4/4 and the conv corner's 8/11/12 a step; the NCCL kernels
+          and copies the overlap step's profile shows; each step's ms
+          against the single-device step's in this call.  (2) Worlds of 2
+          ((2,) ("data",): 64 images a rank) and 4 ((2, 2) ("data",
+          "model")), spawned with torch.multiprocessing, every rank on
+          cuda:0, gloo with CUDA tensors (no host staging): 3 overlap steps
+          with each rank's launches counted (4/4/4 and 8/11/12 a step), then
+          the overlap and the int8 step held as above; at world 2 step 1's
+          reduced gradients against the plain single-device step on the
+          kernel run's side of each kink (the ranks' kink records merged
+          over the batch), the step ms, the opening gather's ms, each
+          bucket's all-reduce ms, the wire report (bytes a step).  (3)
+          train_gan on the world-2 mesh: 4 steps, a checkpoint every 2: A
+          clean, B with a raise at step 3 (restores step 2 and replays), C
+          resuming B's step-2 checkpoint: B and C end on A's bits, launches
+          4/4/4 and 8/11/12 a step call; B's checkpoint restored onto the
+          mesh with shardings= (each rank's blocks the full leaves'), and
+          resumed on one device without a mesh: held against A as (1).  One
+          card: the worlds share it, so the figures show correctness and the
+          machinery's cost, not scaling.
   kernels one summary line per kernel (launches on each serving and training
           path, as that phase's run counted them, null for a phase that did
           not run; error, times, the least time the card could take; for the
@@ -258,7 +295,8 @@ SOURCE_1D = "src/repro_torch/kernels/csrc/engine1d.cu"  # kernels 8 and 9
 REPLACES_1D_NLC = "src/repro/kernels/engine.py:1724"  # winograd_conv1d_fused_engine's nlc pallas_call
 REPLACES_1D_SCRATCH = "src/repro/kernels/engine.py:1690"  # its scratch pallas_call
 PHASES = ("kernel", "kernel_bwd", "kernel_conv", "kernel_domain", "serve", "train", "train_chained",
-          "serve_per_layer", "train_per_layer", "kernel_1d", "audio", "serve_faults", "train_gan", "autotune")
+          "serve_per_layer", "train_per_layer", "kernel_1d", "audio", "serve_faults", "train_gan", "autotune",
+          "train_mesh")
 TRAIN_BATCH = 128  # the DCGAN paper's mini-batch
 # K5S2 at batch 7, 11x11 input, 100 -> 36 channels: name, (kernel, stride, padding, output_padding), B, H, N, M
 RAGGED_SHAPE = ("ragged", (5, 2, 2, 1), 7, 11, 100, 36)
@@ -3352,6 +3390,578 @@ def autotune_phase(torch, card):
     return dict(launches=tuned.get("launches"))
 
 
+# ----------------------------------------------------------------- train_mesh
+MESH_STEPS = 3
+MESH_BUCKETS = (None, 16 << 20)  # the overlap step's plans: the default (4 MiB: 4 G buckets) and 16 MiB (2)
+MESH_GAN = dict(steps=4, ckpt_every=2, fault_at=3)  # train_gan on the world-2 mesh
+MESH_SEED = 0
+MESH_DEVICE, MESH_W1_BACKEND = "cuda", "nccl"  # every rank on the one card; world 1 on NCCL
+MESH_LR = 2e-4
+
+
+def _mesh_cfg():
+    import dataclasses
+
+    from repro_torch.configs import DCGAN
+
+    return dataclasses.replace(DCGAN, deconv_impl="cuda_chained", conv_impl="cuda_chained")
+
+
+def _mesh_batches(torch, cfg):
+    from repro_torch import data as D
+
+    return [(D.latent_batch(MESH_SEED, s, TRAIN_BATCH, cfg.z_dim, device=MESH_DEVICE),
+             D.gan_batch(MESH_SEED, s, TRAIN_BATCH, cfg.img_hw, device=MESH_DEVICE)) for s in range(MESH_STEPS)]
+
+
+def _host(tree):
+    """A tree (dicts, OptState) with every tensor on the host."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def leaf_diffs(got, want) -> dict:
+    """The largest |difference| of every leaf of two (G, D) param pairs."""
+    out = {}
+    for net, a, b in (("G", got[0], want[0]), ("D", got[1], want[1])):
+        for k, leaf in a.items():
+            for kk, v in leaf.items():
+                out[f"{net}.{k}.{kk}"] = float((v.float() - b[k][kk].float().to(v.device)).abs().max())
+    return out
+
+
+def metric_errs(got: dict, want: dict, compressed: bool) -> dict:
+    """One step's metric differences: relative (train_chained's 1e-3), or
+    with compression the losses' absolute (the reference's 2e-2)."""
+    keys = ("g_loss", "d_loss") if compressed else ("g_loss", "d_loss", "g_grad_norm", "d_grad_norm")
+    return {k: abs(got[k] - want[k]) if compressed else abs(got[k] - want[k]) / max(abs(want[k]), 1e-12)
+            for k in keys}
+
+
+def hold_step(where: str, metrics: dict, want_metrics: dict, params, want_params, problems: list,
+              compressed: bool = False) -> dict:
+    """Hold one step's metrics and the params after it against the
+    single-device step's: metrics 1e-3 relative and params 6·lr (the
+    train_chained checks), or with compression the reference's 2e-2 on the
+    losses and 5e-3 (absolute plus relative) on the params.  Misses go to
+    ``problems`` (the phase fails on them after its readings).  Returns
+    the metric differences and the largest param difference."""
+    errs = metric_errs(metrics, want_metrics, compressed)
+    if metrics["nonfinite"] or want_metrics["nonfinite"]:
+        problems.append(f"{where}: non-finite metrics {metrics} / {want_metrics}")
+    for k, e in errs.items():
+        if not e <= (2e-2 if compressed else 1e-3):
+            problems.append(f"{where} {k}: {metrics[k]!r} vs the single-device step's {want_metrics[k]!r}")
+    diffs = leaf_diffs(params, want_params)
+    for net, a, b in (("G", params[0], want_params[0]), ("D", params[1], want_params[1])):
+        for k, leaf in a.items():
+            for kk, v in leaf.items():
+                w = b[k][kk].to(v.device)
+                bound = (5e-3 + 5e-3 * w.abs()) if compressed else 6 * MESH_LR
+                if not bool(((v - w).abs() <= bound).all()):
+                    problems.append(f"{where}: {net}.{k}.{kk} differs by {diffs[f'{net}.{k}.{kk}']:.3e} from the "
+                                    "single-device step's")
+    return dict(metric_err=errs, max_param_err=max(diffs.values()), leaf_max_abs_err=diffs)
+
+
+def _single_step_fn(cfg, impls=None):
+    from repro_torch.train import StepSettings, make_gan_step
+
+    return make_gan_step(cfg, settings=StepSettings(lr=MESH_LR, b1=0.5, **(impls or {})))
+
+
+def _single_steps(torch, cfg, gp0, dp0, batches, impls=None, kinks=None, follow=None):
+    """``make_gan_step``'s single-device steps from gp0 / dp0 (``impls``: the
+    plain versions' names), step 1 inside ``kink_sides(kinks, follow)``."""
+    from repro_torch.optim import adamw_init
+
+    step = _single_step_fn(cfg, impls)
+    gp, dp = gp0, dp0
+    g_opt, d_opt = adamw_init(gp), adamw_init(dp)
+    metrics, first = [], None
+    for s, (z, real) in enumerate(batches):
+        with kink_sides(kinks, follow) if (s == 0 and kinks is not None) else contextlib.nullcontext():
+            gp, dp, g_opt, d_opt, m = step(gp, dp, g_opt, d_opt, z, real)
+        metrics.append({k: float(v) for k, v in m.items()})
+        first = first or (g_opt.m, d_opt.m)
+    return dict(metrics=metrics, gp=gp, dp=dp, first=first, step=step)
+
+
+def mesh_steps(torch, mesh, cfg, gp0, dp0, batches, variant, bucket_bytes=None, kinks=None, timings=None,
+               teacher=None, problems=None, where="", ref_grads=None):
+    """``len(batches)`` steps of a sharded step on ``mesh`` from the full
+    params ``gp0`` / ``dp0`` and the global batches: variant "mesh"
+    (make_gan_step(mesh=)), "overlap" (build_gan_comm_step at
+    ``bucket_bytes``, None: the default) or "int8" (the same, compressed).
+    Step 1 runs inside ``kink_sides(kinks)`` when ``kinks`` is a list;
+    ``timings`` (a dict) records each bucket's all-reduce ms.
+
+    With ``teacher`` (a single-device step) every step is also held, on
+    rank 0, against the teacher's step from the same full params and
+    optimizer state (gathered before the step) on the global batch
+    (``hold_step``, misses to ``problems``): the function each step
+    computes, apart from the trajectory.  With ``ref_grads`` (the
+    uncompressed step-1 reduced gradients) the int8 step's step-1 reduced
+    gradient is held to error feedback's identity: plus the ranks' mean
+    residual it is the uncompressed mean.
+
+    Returns the metrics, the full params after the last step (gathered), the
+    step-1 first moments (gathered), each step's launches of every kernel
+    (the sharded step's alone), the step's meta, the per-step readings
+    against the teacher, the int8 identity's error and the step itself."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import overlap as OV
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.tree import flat_leaves
+    from repro_torch.train import StepSettings, make_gan_step
+
+    B = batches[0][0].shape[0]
+    kw = {} if bucket_bytes is None else {"bucket_bytes": bucket_bytes}
+    if variant == "mesh":
+        step = make_gan_step(cfg, settings=StepSettings(lr=MESH_LR, b1=0.5, mesh=mesh, batch=B))
+    else:
+        step, _ = OV.build_gan_comm_step(cfg, mesh, batch=B, lr=MESH_LR, b1=0.5, timings=timings,
+                                         grad_compression="int8" if variant == "int8" else None, **kw)
+    meta = step.meta
+    gsp, dsp, gosp, dosp = meta["specs"]
+    zspec, rspec = meta["batch_specs"]
+    blk = lambda tree, sp: SH.map_specs(lambda t, s: SH.block_of(t, s, mesh), tree, sp)  # noqa: E731
+    full = lambda tree, sp: SH.map_specs(lambda t, s: SH.gather(t, s, mesh), tree, sp)  # noqa: E731
+    gp, dp = blk(gp0, gsp), blk(dp0, dsp)
+    g_opt, d_opt = adamw_init(gp), adamw_init(dp)
+    comm = OV.init_comm_state(*meta["param_structs"], mesh, **kw) if variant == "int8" else None
+    metrics, first, per_step, forced, identity = [], None, [], [], None
+    for s, (z_full, real_full) in enumerate(batches):
+        z, real = SH.block_of(z_full, zspec, mesh), SH.block_of(real_full, rspec, mesh)
+        if teacher is not None:
+            state = (full(gp, gsp), full(dp, dsp), full(g_opt, gosp), full(d_opt, dosp))
+            taught = teacher(*state, z_full, real_full) if mesh.rank == 0 else None
+            del state
+        before = read_counts()
+        with kink_sides(kinks) if (s == 0 and kinks is not None) else contextlib.nullcontext():
+            if comm is not None:
+                gp, dp, g_opt, d_opt, comm, m = step(gp, dp, g_opt, d_opt, comm, z, real)
+            else:
+                gp, dp, g_opt, d_opt, m = step(gp, dp, g_opt, d_opt, z, real)
+        torch.cuda.synchronize()
+        after = read_counts()
+        per_step.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+        metrics.append({k: float(v) for k, v in m.items()})
+        if teacher is not None:
+            got = (full(gp, gsp), full(dp, dsp))
+            if mesh.rank == 0:
+                forced.append(hold_step(f"{where} step {s} (from the same state)", metrics[-1],
+                                        {k: float(v) for k, v in taught[4].items()}, got, taught[:2], problems,
+                                        compressed=variant == "int8"))
+                forced[-1].pop("leaf_max_abs_err")
+            del got, taught
+        if first is None:
+            first = (full(g_opt.m, gsp), full(d_opt.m, dsp))
+            if ref_grads is not None:  # error feedback's identity at step 1, bucket by bucket
+                res = [SH.gather(r, sp, mesh) for r, sp in zip((*comm.g_res, *comm.d_res),
+                                                                  (*meta["comm_specs"].g_res, *meta["comm_specs"].d_res))]
+                k, worst = 0, 0.0
+                for plan, mine, ref in ((meta["g_plan"], first[0], ref_grads[0]), (meta["d_plan"], first[1], ref_grads[1])):
+                    ml, rl = flat_leaves(mine), flat_leaves(ref)
+                    for idxs in plan.buckets:
+                        got_v = torch.cat([ml[i].reshape(-1) / 0.5 for i in idxs]) + res[k].mean(0)
+                        want_v = torch.cat([rl[i].reshape(-1).to(got_v.device) / 0.5 for i in idxs])
+                        worst = max(worst, float((got_v - want_v).abs().max() / want_v.abs().max()))
+                        k += 1
+                identity = worst
+                if not worst <= 1e-5:
+                    problems.append(f"{where}: step 1's int8 reduced gradient plus the mean residual is "
+                                    f"{worst:.3e} of the bucket's largest from the uncompressed mean")
+    res_max = None if comm is None else max(float(r.abs().max()) for r in (*comm.g_res, *comm.d_res))
+    return dict(metrics=metrics, gp=full(gp, gsp), dp=full(dp, dsp), first=first, per_step=per_step, meta=meta,
+                residual_max=res_max, forced=forced, identity=identity, step=step,
+                state=(gp, dp, g_opt, d_opt, comm), batch=(z, real))
+
+
+def hold_run(where: str, run: dict, ref: dict, problems: list, compressed: bool = False) -> dict:
+    """Hold a sharded run's trajectory against the single-device one: step
+    1's metrics (both from the same params: train_chained's 1e-3 relative,
+    int8 the reference's 2e-2) and, uncompressed, the params after the last
+    step (6·lr).  Later steps' metrics are readings: from step 2 on the two
+    trajectories part by AdamW's ±lr on near-zero gradients (at DCGAN's
+    widths the step-3 g_loss is 9.1e-5, and the synced BN's rounding alone
+    moves it 2e-3 relative), so ``mesh_steps``'s ``teacher`` holds each
+    step's function from one state instead.  int8's trajectory leaves the
+    uncompressed one at these widths (one scale a bucket rounds a tenth or
+    more of the step-1 gradient to zero, elements that AdamW then leaves
+    where the uncompressed step moves them by lr), so its params are held
+    from one state only."""
+    errs = metric_errs(run["metrics"][0], ref["metrics"][0], compressed)
+    for k, e in errs.items():
+        if not e <= (2e-2 if compressed else 1e-3):
+            problems.append(f"{where} step 0 {k}: {run['metrics'][0][k]!r} vs the single-device step's "
+                            f"{ref['metrics'][0][k]!r}")
+    diffs = leaf_diffs((run["gp"], run["dp"]), (ref["gp"], ref["dp"]))
+    if not compressed and not max(diffs.values()) <= 6 * MESH_LR:
+        worst = max(diffs, key=diffs.get)
+        problems.append(f"{where}: {worst} differs by {diffs[worst]:.3e} > 6·lr from the single-device run after "
+                        f"{len(run['metrics'])} steps")
+    return dict(metric_err_by_step=[metric_errs(a, b, compressed) for a, b in zip(run["metrics"], ref["metrics"])],
+                max_param_err=max(diffs.values()), leaf_max_abs_err=diffs)
+
+
+def _zero_share(first) -> float:
+    """The share of a run's step-1 reduced gradient elements that are 0."""
+    from repro_torch.tree import flat_leaves
+
+    leaves = flat_leaves(first[0]) + flat_leaves(first[1])
+    return sum(int((t == 0).sum()) for t in leaves) / sum(t.numel() for t in leaves)
+
+
+def _mesh_rank(rank, world, backend, shape, axes, store, out, job):
+    """One rank of a spawned world on cuda:0: joins the group through the
+    FileStore ``store``, builds the mesh and runs ``job`` ("w2" or "w4"),
+    writing its results (host tensors) to ``out`` + its rank."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # one host: the ranks talk over the loopback device
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch import make_mesh
+
+    dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank, world_size=world)
+    try:
+        mesh = make_mesh(shape, axes, device=MESH_DEVICE)
+        res = _mesh_job(torch, mesh, job)
+        torch.save(res, f"{out}{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_job(torch, mesh, job) -> dict:
+    """A spawned world's work (``_mesh_rank``): the overlap step, counted
+    (the main path: counts at 0 just before, read just after; at world 2
+    step 1's kink sides recorded), then the overlap and the int8 step each
+    held step by step against the single-device step from the same state
+    (rank 0), the int8 step-1 identity; at world 2 also the step ms, one
+    step with each bucket's all-reduce timed, then train_gan clean, through
+    a fault and resumed, and B's checkpoint restored onto the mesh."""
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import overlap as OV
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train import StepSettings, TrainFaultPlan, train_gan
+    from repro_torch.train import checkpoint as C
+
+    cfg = _mesh_cfg()
+    gp0, dp0 = _train_params(torch, cfg, seed=MESH_SEED)
+    batches = _mesh_batches(torch, cfg)
+    out, problems = {}, []
+    kinks = [] if job == "w2" else None
+    zero_counts()
+    ov = mesh_steps(torch, mesh, cfg, gp0, dp0, batches, "overlap", kinks=kinks)
+    out["launches"] = read_counts()  # the main path: counts at 0 just before, read just after
+    teacher = _single_step_fn(cfg)
+    where = f"train_mesh {job} rank {mesh.rank}"
+    forced = mesh_steps(torch, mesh, cfg, gp0, dp0, batches, "overlap", teacher=teacher, problems=problems,
+                        where=f"{where} overlap")
+    i8 = mesh_steps(torch, mesh, cfg, gp0, dp0, batches, "int8", teacher=teacher, problems=problems,
+                    where=f"{where} int8", ref_grads=ov["first"])
+    for name, r in (("overlap", ov), ("int8", i8)):
+        out[name] = dict(metrics=r["metrics"], gp=_host(r["gp"]), dp=_host(r["dp"]), per_step=r["per_step"],
+                         first=tuple(_host(t) for t in r["first"]) if name == "overlap" else None,
+                         residual_max=r["residual_max"], g_buckets=len(r["meta"]["g_plan"].buckets),
+                         d_buckets=len(r["meta"]["d_plan"].buckets), wire=r["meta"]["wire"],
+                         fallbacks=r["meta"]["fallbacks"], zero_share=_zero_share(r["first"]),
+                         forced=(forced if name == "overlap" else r)["forced"], identity=r["identity"])
+    out["problems"] = problems
+    if kinks is not None:
+        out["kinks"] = [(act, x.cpu(), side.cpu(), None if valid is None else valid.cpu())
+                        for act, x, side, valid in kinks]
+    state, (z, real) = list(ov["state"][:4]), ov["batch"]
+
+    def one():
+        state[:] = ov["step"](*state, z, real)[:4]
+
+    out["step_ms"] = wall_ms(one, reps=3, warmup=1)
+    # the gather a step opens with, on its own: both nets' blocks to full leaves
+    gsp, dsp, _, _ = ov["meta"]["specs"]
+    full = lambda tree, sp: SH.map_specs(lambda t, s: SH.gather(t, s, mesh), tree, sp)  # noqa: E731
+    out["gather_ms"] = wall_ms(lambda: (full(state[0], gsp), full(state[1], dsp)), reps=3, warmup=1)
+    del ov, i8, forced, kinks, state, one
+    if job != "w2":
+        return out
+    # each bucket's all-reduce, one step on its own (a measurement mode)
+    timings = {}
+    tm = mesh_steps(torch, mesh, cfg, gp0, dp0, batches[:2], "overlap", timings=timings)
+    out["bucket_ms"] = {k: v[-1] for k, v in timings.items()}
+    out["bucket_numels"] = {"g": list(tm["meta"]["g_plan"].numels), "d": list(tm["meta"]["d_plan"].numels)}
+    del tm
+    # train_gan on the mesh: A clean, B a raise at fault_at (restore, replay), C resuming B's step-2 checkpoint
+    root = os.environ["MESH_CKPT_ROOT"]
+    kw = dict(steps=MESH_GAN["steps"], batch=TRAIN_BATCH, seed=MESH_SEED, ckpt_every=MESH_GAN["ckpt_every"],
+              log_every=1, handle_signals=False, device=MESH_DEVICE,
+              settings=StepSettings(lr=MESH_LR, b1=0.5, mesh=mesh))
+    runs = {}
+    for name in ("A", "B", "C"):
+        plan = TrainFaultPlan(kind="raise", at_step=MESH_GAN["fault_at"], max_faults=1) if name == "B" else None
+        if name == "C":
+            if mesh.rank == 0:
+                os.makedirs(os.path.join(root, "C"))
+                shutil.copytree(os.path.join(root, "B", "step_000000000002"),
+                                os.path.join(root, "C", "step_000000000002"))
+            dist.barrier()
+        before = read_counts()
+        r = train_gan(cfg, ckpt_dir=os.path.join(root, name), fault_plan=plan, **kw)
+        after = read_counts()
+        runs[name] = dict(metrics=r["metrics"], counters=r["counters"], fault_log=r["fault_log"],
+                          final_step=r["final_step"], gp=_host(r["params"]["gp"]), dp=_host(r["params"]["dp"]),
+                          launches={k: after[k] - before[k] for k in after if after[k] != before[k]})
+    # B's step-2 checkpoint onto the (2,) mesh with shardings=: each rank its blocks
+    gp_s, dp_s = OV.param_structs(cfg, torch.float32)
+    like = {"gp": gp_s, "dp": dp_s, "g_opt": adamw_init(gp_s), "d_opt": adamw_init(dp_s)}
+    gsp, dsp, _ = SH.gan_param_specs(cfg, mesh)
+    placed = SH.named(mesh, {"gp": gsp, "dp": dsp, "g_opt": SH.opt_specs(gsp), "d_opt": SH.opt_specs(dsp)})
+    blocks = C.restore_checkpoint(os.path.join(root, "B"), 2, like, shardings=placed)
+    whole = dict(C._flatten(C.restore_checkpoint(os.path.join(root, "B"), 2, like, device=MESH_DEVICE)))
+    where_of = dict(C._flatten(placed))
+    mismatched, split = [], 0
+    for key, b in C._flatten(blocks):
+        w = whole[key]
+        if isinstance(w, torch.Tensor):
+            split += b.shape != w.shape
+            if not torch.equal(b, SH.block_of(w, where_of[key].spec, mesh)):
+                mismatched.append(key)
+    runs["restore_blocks_mismatched"], runs["restore_split_leaves"] = mismatched, split
+    out["train_gan"] = runs
+    return out
+
+
+def _spawn_world(torch, world, shape, axes, job, root):
+    """Run ``job`` on a spawned gloo world of ``world`` ranks on this card;
+    the ranks' results."""
+    import os
+
+    import torch.multiprocessing as tmp
+
+    store, out = os.path.join(root, f"store_{job}"), os.path.join(root, f"out_{job}_")
+    os.environ["MESH_CKPT_ROOT"] = os.path.join(root, "ckpt")
+    ctx = tmp.get_context("spawn")
+    procs = [ctx.Process(target=_mesh_rank, args=(r, world, "gloo", shape, axes, store, out, job))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 400
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        fail(f"train_mesh: the {job} world's ranks exited with {codes} (a rank failed, or hung past 400 s)")
+    return [torch.load(f"{out}{r}.pt", weights_only=False) for r in range(world)]
+
+
+def _merge_kinks(per_rank: list) -> list:
+    """The ranks' step-1 kink records as one global batch's: each call's
+    inputs and sides concatenated over the ranks' rows (a mask without a
+    batch dimension is the same on every rank)."""
+    import torch
+
+    merged = []
+    for calls in zip(*per_rank):
+        act = calls[0][0]
+        if any(c[0] != act for c in calls):
+            fail(f"train_mesh: the ranks' kink calls differ: {[c[0] for c in calls]}")
+        valid = calls[0][3]
+        if valid is not None and valid.shape[0] != 1:
+            valid = torch.cat([c[3] for c in calls])
+        merged.append((act, torch.cat([c[1] for c in calls]).to(MESH_DEVICE), torch.cat([c[2] for c in calls]).to(
+            MESH_DEVICE), None if valid is None else valid.to(MESH_DEVICE)))
+    return merged
+
+
+def train_mesh_phase(torch, card):
+    """The sharded train steps and train_gan on a mesh, DCGAN at its
+    published widths, batch 128 global, both nets cuda_chained, fp32, TF32
+    off, AdamW lr 2e-4, b1 0.5 (see the module docstring).  Returns the
+    launches of every kernel of the world-2 counted overlap run's rank 0
+    (its main path)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_mesh
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import StepSettings, train_gan
+
+    cfg = _mesh_cfg()
+    t0 = time.perf_counter()
+    problems: list = []  # checks missed: the phase fails on them after its readings
+    gp0, dp0 = _train_params(torch, cfg, seed=MESH_SEED)
+    batches = _mesh_batches(torch, cfg)
+    ref = _single_steps(torch, cfg, gp0, dp0, batches)  # the single-device kernel steps every world is held to
+    ref_host = dict(metrics=ref["metrics"], gp=_host(ref["gp"]), dp=_host(ref["dp"]))
+
+    # --- 1: world 1 on NCCL, in this process
+    root = tempfile.mkdtemp(prefix="train_mesh_")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group(MESH_W1_BACKEND, store=dist.FileStore(os.path.join(root, "store_w1"), 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1,), ("data",), device=MESH_DEVICE)
+        w1, first_ov = {}, None
+        variants = [("mesh", "mesh", None)] + [(f"overlap_{b or 'default'}", "overlap", b) for b in MESH_BUCKETS] \
+            + [("int8", "int8", None)]
+        for name, variant, bb in variants:
+            where = f"train_mesh world 1 {name}"
+            r = mesh_steps(torch, mesh, cfg, gp0, dp0, batches, variant, bucket_bytes=bb, teacher=ref["step"],
+                           problems=problems, where=where, ref_grads=first_ov if variant == "int8" else None)
+            if variant == "overlap" and first_ov is None:
+                first_ov = r["first"]
+            held = hold_run(where, r, ref, problems, compressed=variant == "int8")
+            if any(ps != TRAIN_GAN_LAUNCHES for ps in r["per_step"]):
+                problems.append(f"{where}: launches per step {r['per_step']}, want {TRAIN_GAN_LAUNCHES}")
+            w1[name] = dict(held, forced=r["forced"], g_buckets=len(r["meta"]["g_plan"].buckets),
+                            d_buckets=len(r["meta"]["d_plan"].buckets), residual_max=r["residual_max"],
+                            int8_identity=r["identity"], step1_grad_zero_share=_zero_share(r["first"]))
+            if variant == "overlap" and w1[name]["g_buckets"] < 2:
+                problems.append(f"{where}: {w1[name]['g_buckets']} generator bucket(s), want more than one")
+            if variant == "int8" and not r["residual_max"] > 0:
+                problems.append(f"{where}: the residuals stayed 0")
+            # the machinery's cost: the step ms against the single-device step in this call
+            state, (z, real), step = list(r["state"]), r["batch"], r["step"]
+
+            def one(step=step, state=state, z=z, real=real):
+                if state[4] is not None:
+                    state[:] = step(*state[:5], z, real)[:5]
+                else:
+                    state[:4] = step(*state[:4], z, real)[:4]
+
+            w1[name]["step_ms"] = wall_ms(one, reps=5, warmup=2)
+            if variant == "overlap" and bb is None:
+                _, dev_ms, _, by_kernel = profiled_ms(one, reps=3, warmup=1, what="the world-1 overlap step")
+                w1[name]["profiled_device_ms"] = dev_ms
+                w1[name]["nccl_and_copies_ms"] = {k: v for k, v in by_kernel.items()
+                                                  if "nccl" in k.lower() or "memcpy" in k.lower()}
+            del r, state, step, one
+        sstate = [ref["gp"], ref["dp"], adamw_init(ref["gp"]), adamw_init(ref["dp"])]
+
+        def single(state=sstate, z=batches[0][0], real=batches[0][1]):
+            state[:] = ref["step"](*state, z, real)[:4]
+
+        single_ms = wall_ms(single, reps=5, warmup=2)
+        del sstate, single, first_ov
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "train_mesh_world1", "backend": MESH_W1_BACKEND, "world": 1, "mesh": {"data": 1},
+          "batch": TRAIN_BATCH, "steps": MESH_STEPS, "arch": "dcgan", "impls": "cuda_chained/cuda_chained",
+          "runs": w1, "single_device_step_ms": single_ms, "single_device_metrics": ref["metrics"], "card": card})
+
+    # --- 2: world 2 (and 4) on gloo, every rank on this card, CUDA tensors
+    worlds = {"w2": (2, (2,), ("data",)), "w4": (4, (2, 2), ("data", "model"))}
+    results = {job: _spawn_world(torch, *spec, job, root) for job, spec in worlds.items()}
+    for job, ranks in results.items():
+        world, shape, axes = worlds[job]
+        readings = {}
+        for rank, r in enumerate(ranks):
+            problems += r["problems"]
+            for name in ("overlap", "int8"):
+                got = r[name]
+                if name == "overlap" and any(ps != TRAIN_GAN_LAUNCHES for ps in got["per_step"]):
+                    problems.append(f"train_mesh {job} rank {rank}: launches per step {got['per_step']}, "
+                                    f"want {TRAIN_GAN_LAUNCHES}")
+                held = hold_run(f"train_mesh {job} rank {rank} {name}", got, ref_host, problems,
+                                compressed=name == "int8")
+                if rank == 0:
+                    readings[name] = dict(held, forced=got["forced"], int8_identity=got["identity"],
+                                          g_buckets=got["g_buckets"], d_buckets=got["d_buckets"],
+                                          residual_max=got["residual_max"], fallbacks=got["fallbacks"],
+                                          step1_grad_zero_share=got["zero_share"])
+            if not r["int8"]["residual_max"] > 0:
+                problems.append(f"train_mesh {job} rank {rank}: the int8 residuals stayed 0")
+        emit({"phase": f"train_mesh_{job}", "backend": "gloo (CUDA tensors, no host staging)", "world": world,
+              "mesh": dict(zip(axes, shape)), "ranks_on": "cuda:0, every rank", "batch": TRAIN_BATCH,
+              "rows_per_rank": TRAIN_BATCH // shape[0], "steps": MESH_STEPS,
+              "launches_per_rank_step": ranks[0]["overlap"]["per_step"][0], "runs": readings,
+              "overlap_step_ms_by_rank": [r["step_ms"] for r in ranks],
+              "param_gather_ms_by_rank": [r["gather_ms"] for r in ranks], "wire_report": ranks[0]["int8"]["wire"],
+              "card": card})
+    # step 1 of the world-2 overlap run against the plain step on its kink sides
+    w2 = results["w2"]
+    k_kinks = _merge_kinks([r["kinks"] for r in w2])
+    p_kinks = []
+    plain = _single_steps(torch, cfg, gp0, dp0, batches[:1], impls=dict(deconv_impl="chained_ref",
+                                                                         conv_impl="chained_ref"),
+                          kinks=p_kinks, follow=k_kinks)
+    kinks = compare_kinks(k_kinks, p_kinks)
+    first_mesh = tuple({k: {kk: v.to(MESH_DEVICE) for kk, v in leaf.items()} for k, leaf in t.items()}
+                       for t in w2[0]["overlap"]["first"])
+    moment_share = check_first_moments(first_mesh, plain["first"])
+    del k_kinks, p_kinks, plain, first_mesh
+    tg, bitwise = w2[0]["train_gan"], True
+    for rank, r in enumerate(w2):
+        runs = r["train_gan"]
+        for name in ("B", "C"):
+            diffs = leaf_diffs((runs[name]["gp"], runs[name]["dp"]), (runs["A"]["gp"], runs["A"]["dp"]))
+            if runs[name]["metrics"] != runs["A"]["metrics"] or any(diffs.values()):
+                bitwise = False
+                problems.append(f"train_mesh rank {rank}: train_gan run {name} does not end on the clean run's bits")
+        if runs["B"]["counters"]["restores"] != 1 or [(e["step"], e["action"]) for e in runs["B"]["fault_log"]] != \
+                [(MESH_GAN["fault_at"], "restore")]:
+            problems.append(f"train_mesh rank {rank}: the fault run's accounting {runs['B']['counters']} "
+                            f"{runs['B']['fault_log']}")
+        if runs["restore_blocks_mismatched"] or not runs["restore_split_leaves"]:
+            problems.append(f"train_mesh rank {rank}: B's checkpoint onto the mesh: "
+                            f"{runs['restore_blocks_mismatched']} leaves differ from their blocks, "
+                            f"{runs['restore_split_leaves']} split")
+        calls = {"A": MESH_GAN["steps"], "B": MESH_GAN["steps"] + 1, "C": MESH_GAN["steps"] - 2}  # B replays step 2
+        for name, n in calls.items():
+            want = {k: n * v for k, v in TRAIN_GAN_LAUNCHES.items()}
+            if runs[name]["launches"] != want:
+                problems.append(f"train_mesh rank {rank}: train_gan {name} launched {runs[name]['launches']}, "
+                                f"want {want}")
+    # B's step-2 checkpoint resumed on one device (no mesh): step 3 from step 2's state is held as a step, step 4
+    # and the params as the trajectory (hold_run)
+    os.makedirs(os.path.join(root, "ckpt", "D"))
+    shutil.copytree(os.path.join(root, "ckpt", "B", "step_000000000002"),
+                    os.path.join(root, "ckpt", "D", "step_000000000002"))
+    one = train_gan(cfg, steps=MESH_GAN["steps"], batch=TRAIN_BATCH, seed=MESH_SEED,
+                    ckpt_dir=os.path.join(root, "ckpt", "D"), ckpt_every=MESH_GAN["ckpt_every"], log_every=1,
+                    handle_signals=False, device=MESH_DEVICE, settings=StepSettings(lr=MESH_LR, b1=0.5))
+    if one["metrics"][:2] != tg["A"]["metrics"][:2]:
+        problems.append("train_mesh: the one-device resume's history does not start with the mesh run's")
+    strip = lambda hist: [{k: v for k, v in e.items() if k != "step"} for e in hist]  # noqa: E731
+    one_held = hold_run("train_mesh one-device resume", dict(metrics=strip(one["metrics"][2:]),
+                                                             gp=one["params"]["gp"], dp=one["params"]["dp"]),
+                        dict(metrics=strip(tg["A"]["metrics"][2:]), gp=tg["A"]["gp"], dp=tg["A"]["dp"]), problems)
+    del one
+    shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "train_mesh_checks", "world": 2, "step1_first_moment_err_share_of_tol": moment_share, **kinks,
+          "train_gan": {"steps": MESH_GAN["steps"], "ckpt_every": MESH_GAN["ckpt_every"],
+                        "fault": f"raise at step {MESH_GAN['fault_at']}", "counters_B": tg["B"]["counters"],
+                        "resumed_C_from_step": 2, "B_and_C_equal_A_bitwise": bitwise,
+                        "one_device_resume_vs_A": {k: v for k, v in one_held.items() if k != "leaf_max_abs_err"},
+                        "restored_onto_mesh_split_leaves": tg["restore_split_leaves"],
+                        "launches": {k: tg[k]["launches"] for k in ("A", "B", "C")}},
+          "bucket_allreduce_ms": w2[0]["bucket_ms"], "bucket_numels": w2[0]["bucket_numels"],
+          "bytes_per_step": w2[0]["int8"]["wire"], "phase_s": time.perf_counter() - t0, "card": card})
+    if problems:
+        fail(f"train_mesh: {len(problems)} check(s) missed: " + "; ".join(problems[:8]))
+    return w2[0]["launches"]
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3416,12 +4026,13 @@ def main(argv=None) -> int:
     serve_faults = timed("serve_faults", lambda: serve_faults_phase(torch, smi), None)
     train_loop = timed("train_gan", lambda: train_gan_phase(torch, smi), None)
     tuned = timed("autotune", lambda: autotune_phase(torch, smi), {})
+    mesh_launches = timed("train_mesh", lambda: train_mesh_phase(torch, smi), None)
     # each path's launches of every kernel, counted in its run (None: not run)
     path_launches = {"serve": serve_launches, "train": train.get("launches"),
                      "train_chained": chained.get("launches"), "serve_per_layer": serve_pl.get("launches"),
                      "train_per_layer": per_layer.get("launches"), "audio": audio.get("launches"),
                      "audio_grad": audio.get("grad_launches"), "serve_faults": serve_faults,
-                     "train_gan": train_loop, "train_tuned": tuned.get("launches")}
+                     "train_gan": train_loop, "train_tuned": tuned.get("launches"), "train_mesh": mesh_launches}
 
     def step_device_ms(kname, run=None):
         """Device ms per step of the instantiations of ``kname`` (or of a

@@ -29,9 +29,16 @@ the point names the instantiation and the split each launch runs
 The reference's ``interpret`` becomes the autotuners' ``device``: ``"cuda"``
 times the kernels, ``"cpu"`` their plain versions (which checks the
 machinery only); the timed functions run where their inputs are.
-``mesh=`` and ``grad_compression=`` time the sharded and the compressed
-step in the reference; they wait for ``parallel/`` on
-``torch.distributed`` (queue 1 item 5) and raise ``NotImplementedError``.
+``mesh=`` (a ``launch.mesh.Mesh``; every rank of it runs the sweep
+together) times each candidate under the mesh's layout: this rank's rows of
+a batch split over the batch axes, the weight leaf stored as this rank's
+block (FSDP over N, TP over M where they divide, as ``gan_param_specs``
+places the packed leaves) and gathered on entry, the weight gradient
+all-reduced over the batch axes, AdamW on the block.  With
+``grad_compression="int8"`` (mode "step" only) the weights replicate and the
+gradient's all-reduce is ``parallel.compression.compressed_psum`` with an
+error-feedback residual among the arguments: the collective pattern of the
+compressed whole-model step.
 
 Entry points:
   candidate_configs(...)  -> the default sweep grid (optional bwd axes)
@@ -69,7 +76,6 @@ __all__ = [
 ]
 
 _MODES = ("fwd", "grad", "step")
-_NOT_YET = "is not in the port yet: it waits for parallel/ on torch.distributed (queue 1 item 5)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,6 +252,20 @@ def time_one(fn, args, repeats: int) -> float:
     return best
 
 
+def _loss_and_grad(fwd, get_leaf, set_leaf):
+    """(loss, gradient of the trained leaf, gradient of the input) of
+    sum(y^2)."""
+    def loss_and_grad(x, p):
+        leaf = get_leaf(p).detach().requires_grad_(True)
+        xg = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss = fwd(xg, set_leaf(p, leaf)).float().square().sum()
+            g, dx = torch.autograd.grad(loss, (leaf, xg))
+        return loss.detach(), g, dx
+
+    return loss_and_grad
+
+
 def _timed(fwd, make_params, get_leaf, set_leaf, mode: str):
     """The callable the sweep times, per mode, and its argument builder:
     "fwd" the forward; "grad" (loss, gradient of the trained leaf, gradient
@@ -257,14 +277,7 @@ def _timed(fwd, make_params, get_leaf, set_leaf, mode: str):
     drops the unused input cotangent with its bwd_x engine: its "grad" gives
     (loss, gradient of the leaf).)"""
 
-    def loss_and_grad(x, p):
-        leaf = get_leaf(p).detach().requires_grad_(True)
-        xg = x.detach().requires_grad_(True)
-        with torch.enable_grad():
-            loss = fwd(xg, set_leaf(p, leaf)).float().square().sum()
-            g, dx = torch.autograd.grad(loss, (leaf, xg))
-        return loss.detach(), g, dx
-
+    loss_and_grad = _loss_and_grad(fwd, get_leaf, set_leaf)
     if mode == "fwd":
         def fn(x, p):
             with torch.no_grad():
@@ -288,12 +301,92 @@ def _timed(fwd, make_params, get_leaf, set_leaf, mode: str):
     return fn, make_args
 
 
+def _mesh_layout(mesh, input_shape, c_out: int, prepack: bool, grad_compression: Optional[str]):
+    """(x spec, weight-leaf spec, fallback log) of a layer on ``mesh``, by
+    ``gan_param_specs``' rules; compressed: the weights replicate."""
+    from ..parallel import sharding as SH
+
+    axes = SH.MeshAxes.for_mesh(mesh)
+    b = SH.SpecBuilder(mesh, axes)
+    B, _, _, N = input_shape
+    xspec = SH.P(b.dim("x.B", B, axes.batch), None, None, None)
+    if grad_compression is not None:
+        return xspec, SH.P(*([None] * (3 if prepack else 4))), []
+    n_ax, m_ax = b.dim("w.N", N, axes.fsdp), b.dim("w.M", c_out, SH._tp_or_none(mesh, axes))
+    return xspec, SH.P(None, n_ax, m_ax) if prepack else SH.P(None, None, n_ax, m_ax), b.fallbacks
+
+
+def _mesh_timed(fwd, make_params, get_leaf, set_leaf, mode: str, mesh, input_shape, c_out: int, prepack: bool,
+                grad_compression: Optional[str]):
+    """``_timed``'s callables for every rank of ``mesh`` (see the module
+    docstring): the forward, gradient or step on this rank's rows, the
+    weight leaf gathered from its blocks on entry."""
+    import torch.distributed as dist
+
+    from ..parallel import sharding as SH
+    from ..parallel.compression import compressed_psum
+
+    xspec, wspec, _ = _mesh_layout(mesh, input_shape, c_out, prepack, grad_compression)
+    axes = SH.MeshAxes.for_mesh(mesh).batch
+    group = mesh.group(axes) if axes else None
+    rows = mesh.extent(axes)
+    if grad_compression is not None and input_shape[0] % rows:
+        raise ValueError(f"batch {input_shape[0]} not divisible by {rows} shards")
+    loss_and_grad = _loss_and_grad(fwd, get_leaf, set_leaf)
+    full = lambda p: set_leaf(p, SH.gather(get_leaf(p), wspec, mesh))  # noqa: E731
+
+    def weight_grad(x, p):
+        """The gradient of the global batch's loss, this rank's block of it."""
+        loss, g, dx = loss_and_grad(x, full(p))
+        if xspec[0] is not None:
+            dist.all_reduce(g, group=group)
+        return loss, SH.block_of(g, wspec, mesh), dx
+
+    if mode == "fwd":
+        def fn(x, p):
+            with torch.no_grad():
+                return fwd(x, full(p))
+    elif mode == "grad":
+        fn = weight_grad
+    elif grad_compression is not None:
+        def fn(x, p, opt, res):
+            _, g, _ = loss_and_grad(x, p)
+            red, r2 = compressed_psum(g, res[0], group, axis_size=rows)
+            leaf2, opt2, _ = adamw_update(get_leaf(p), red, opt, lr=1e-3)
+            return set_leaf(p, leaf2), opt2, r2[None]
+    else:
+        def fn(x, p, opt):
+            _, g, _ = weight_grad(x, p)
+            leaf2, opt2, _ = adamw_update(get_leaf(p), g, opt, lr=1e-3)
+            return set_leaf(p, leaf2), opt2
+
+    def make_args(x, w):
+        p = make_params(w)
+        p = set_leaf(p, SH.block_of(get_leaf(p), wspec, mesh))
+        args = (SH.block_of(x, xspec, mesh), p)
+        if mode == "step":
+            args += (adamw_init(get_leaf(p)),)
+        if grad_compression is not None:
+            args += (torch.zeros((1, *get_leaf(p).shape), dtype=torch.float32, device=x.device),)
+        return args
+
+    return fn, make_args
+
+
 def _identity_params():
     return (lambda w: w), (lambda p: p), (lambda p, leaf: leaf)
 
 
+def _check_mesh_args(mode: str, mesh, grad_compression: Optional[str]) -> None:
+    if grad_compression is not None:
+        if grad_compression != "int8":
+            raise ValueError(f"unknown grad_compression: {grad_compression!r}")
+        if mode != "step" or mesh is None:
+            raise ValueError("grad_compression requires mode='step' and a mesh")
+
+
 def make_timed_fn(cfg: Optional[EngineConfig], dims: DeconvDims, mode: str, mesh=None,
-                  grad_compression: Optional[str] = None):
+                  grad_compression: Optional[str] = None, input_shape=None, c_out: Optional[int] = None):
     """Build the callable the sweep times for one deconv layer, per mode x
     variant; returns (fn, make_args), make_args(x, w) giving fn's arguments.
 
@@ -302,11 +395,14 @@ def make_timed_fn(cfg: Optional[EngineConfig], dims: DeconvDims, mode: str, mesh
     ``cfg.prepack`` hoists the G-transform + pack out of the timed region
     and trains the packed leaf.  The kernels run for CUDA tensors (the
     inputs ``make_args`` is given), their plain versions for CPU ones (the
-    reference's ``interpret``).  ``mesh`` / ``grad_compression`` (and the
-    reference's ``input_shape`` / ``c_out``, which only a mesh reads) raise
-    NotImplementedError."""
-    if mesh is not None or grad_compression is not None:
-        raise NotImplementedError(f"autotune's {'mesh=' if mesh is not None else 'grad_compression='} {_NOT_YET}")
+    reference's ``interpret``).  With ``mesh`` (which needs ``input_shape``
+    and ``c_out`` for the divisibility rules) every rank of the mesh calls
+    the callable on its rows and its weight block; ``grad_compression=
+    "int8"`` (mode "step" with a mesh) times the compressed
+    data-parallel step (see the module docstring)."""
+    _check_mesh_args(mode, mesh, grad_compression)
+    if mesh is not None and (input_shape is None or c_out is None):
+        raise ValueError("mesh timing needs input_shape and c_out")
     if cfg is None:
         from ..core.winograd_deconv import winograd_deconv2d
 
@@ -322,6 +418,9 @@ def make_timed_fn(cfg: Optional[EngineConfig], dims: DeconvDims, mode: str, mesh
         kw = cfg.kwargs()
         fwd = lambda x, p: ops.winograd_deconv2d_fused(x, p, dims, **kw)  # noqa: E731
         make_params, get_leaf, set_leaf = _identity_params()
+    if mesh is not None:
+        return _mesh_timed(fwd, make_params, get_leaf, set_leaf, mode, mesh, input_shape, c_out,
+                           cfg is not None and cfg.prepack, grad_compression)
     return _timed(fwd, make_params, get_leaf, set_leaf, mode)
 
 
@@ -416,19 +515,20 @@ def _check_mode(mode: str, device) -> None:
         raise RuntimeError("autotune on device 'cuda' needs a CUDA device (device='cpu' times the plain versions)")
 
 
-def _sweep(make, candidates, args_of, repeats: int) -> list[dict]:
-    """Rows {config, ms, ok, error} for every candidate, fastest first; a
-    configuration that fails (a plan's refusal, an instantiation the shape
-    does not take) stays in the rows with ok False and its error."""
+def _sweep(make, candidates, args_of, repeats: int, extra=None) -> list[dict]:
+    """Rows {config, ms, ok, error} (and ``extra(cfg)``'s keys) for every
+    candidate, fastest first; a configuration that fails (a plan's refusal,
+    an instantiation the shape does not take) stays in the rows with ok
+    False and its error."""
     rows: list[dict] = []
     for cfg in candidates:
+        row = {"config": cfg, **(extra(cfg) if extra else {})}
         try:
             fn, make_args = make(cfg)
             dt = time_one(fn, args_of(make_args), repeats)
-            rows.append({"config": cfg, "ms": dt * 1e3, "ok": True, "error": ""})
+            rows.append({**row, "ms": dt * 1e3, "ok": True, "error": ""})
         except Exception as e:  # an infeasible configuration, out of memory, ...
-            rows.append({"config": cfg, "ms": float("inf"), "ok": False,
-                         "error": f"{type(e).__name__}: {e}"[:200]})
+            rows.append({**row, "ms": float("inf"), "ok": False, "error": f"{type(e).__name__}: {e}"[:200]})
     rows.sort(key=lambda r: r["ms"])
     return rows
 
@@ -508,18 +608,28 @@ def autotune_deconv(
     of rows {config, ms, ok, error} sorted fastest first; configs that fail
     to plan or run are kept (ok=False) so sweeps surface infeasible corners
     instead of hiding them.  ``device="cpu"`` times the plain versions (the
-    machinery, not the card).  ``mesh`` / ``grad_compression`` raise
-    NotImplementedError (queue 1 item 5)."""
+    machinery, not the card).
+
+    ``mesh`` times each candidate under the mesh's layout (every rank of it
+    calls ``autotune_deconv`` with the same arguments; see the module
+    docstring), and each row carries ``sharding_fallbacks``, the dims that
+    replicated (a sweep that claims the sharded layout says when it timed a
+    replicated one); ``grad_compression="int8"`` (mode "step" with a mesh)
+    times the compressed data-parallel step."""
     _check_mode(mode, device)
-    if mesh is not None or grad_compression is not None:
-        raise NotImplementedError(f"autotune's {'mesh=' if mesh is not None else 'grad_compression='} {_NOT_YET}")
+    _check_mesh_args(mode, mesh, grad_compression)
     if candidates is None:
         candidates = candidate_configs()
     B, H, W, N = input_shape
     x, w = _inputs(np.random.default_rng(seed), [(B, H, W, N), (dims.kernel, dims.kernel, N, c_out)], dtype,
                    device)
-    return _sweep(lambda cfg: make_timed_fn(cfg, dims, mode), candidates,
-                  lambda make_args: make_args(x, w), repeats)
+    extra = None
+    if mesh is not None and grad_compression is None:
+        extra = lambda cfg: {"sharding_fallbacks": _mesh_layout(  # noqa: E731
+            mesh, input_shape, c_out, cfg is not None and cfg.prepack, None)[2]}
+    return _sweep(lambda cfg: make_timed_fn(cfg, dims, mode, mesh=mesh, grad_compression=grad_compression,
+                                            input_shape=input_shape, c_out=c_out),
+                  candidates, lambda make_args: make_args(x, w), repeats, extra)
 
 
 def best_config(

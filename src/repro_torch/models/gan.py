@@ -359,6 +359,9 @@ def _bn_act_cells(
     count = B * out_hw[0] * out_hw[1]
     mean = c.sum(dim=(0, 1, 2, 3)) / count
     ex2 = (c * c).sum(dim=(0, 1, 2, 3)) / count
+    # sync-BN: inside ``L.bn_sync_axis`` the moments are averaged over the
+    # data shards, the single-device step's statistics (equal shards)
+    mean, ex2 = L.bn_sync_moments(mean, ex2)
     # one-pass E[x^2] - mean^2 can dip below 0 under fp32 cancellation
     var = torch.clamp_min(ex2 - mean * mean, 0.0)
     y = (c - mean) * torch.rsqrt(var + eps)
@@ -504,7 +507,8 @@ def register_prepacked_generator(arch_id: str, params: Params, cfg: GANConfig, *
     resident copy per arch.  Re-registering an arch replaces its entry.
     ``mesh`` (the reference's sharded placement) is not in the port."""
     if mesh is not None:
-        raise NotImplementedError("mesh= (sharded residency) is not in the port yet: an entry lives on one device")
+        raise NotImplementedError("mesh= (sharded residency) is not in the port yet: it is what remains of ROADMAP "
+                                  "queue 1 item 5; an entry lives on one device")
     cfg_s = dataclasses.replace(cfg, deconv_impl=serve_impl(cfg.deconv_impl, chained=chained))
     moved = tree_map(lambda v: v.to(device, torch.float32).contiguous(), params)
     entry = PrepackedGenerator(arch_id=arch_id, cfg=cfg_s, params=prepack_generator(moved, cfg_s))

@@ -4,17 +4,25 @@ Same layouts and keys as the reference's ``models/layers.py``: NHWC
 activations, linear weights (d_in, d_out), conv weights (K, K, C_in, C_out),
 batchnorm dicts {scale, bias, mean, var}.  Inits draw from a
 ``torch.Generator`` on the target device.
+
+Sync-BN: inside ``bn_sync_axis(group)`` training-mode batch statistics are
+averaged over the ranks of a ``torch.distributed`` process group, so a step
+whose batch is split over those ranks computes the single-device function
+(``bn_sync_moments``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 __all__ = [
-    "normal_init", "lecun_init", "linear_init", "linear", "batchnorm_init", "batchnorm",
+    "normal_init", "lecun_init", "linear_init", "linear", "bn_sync_axis", "bn_sync_moments", "batchnorm_init",
+    "batchnorm",
     "conv2d_init", "conv2d", "leaky_relu", "ACTIVATIONS",
 ]
 
@@ -47,6 +55,57 @@ def linear(p, x):
 
 
 # ------------------------------------------------------------- batchnorm
+# The sync-BN hook: module-global, as the reference's, because the BN call
+# sites sit under apply functions that thread no mesh.
+_BN_SYNC_GROUP = None
+
+
+@contextlib.contextmanager
+def bn_sync_axis(group):
+    """Within the context, training-mode batch statistics are averaged over
+    the process group ``group`` (the batch axes' group of a mesh; None: no
+    sync).  Every rank of the group must run the same BN layers in the same
+    order, forward and backward."""
+    global _BN_SYNC_GROUP
+    prev = _BN_SYNC_GROUP
+    _BN_SYNC_GROUP = group
+    try:
+        yield
+    finally:
+        _BN_SYNC_GROUP = prev
+
+
+class _MeanAllReduce(torch.autograd.Function):
+    """The mean of ``x`` over a process group, differentiable: its backward
+    is the same mean all-reduce of the cotangent (the transpose JAX takes
+    for ``pmean`` with ``check_vma=False``)."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        y = x.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y / n
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g / ctx.n, None, None
+
+
+def bn_sync_moments(mean, ex2):
+    """(mean, E[x^2]) averaged over the active sync group in one fused
+    all-reduce; the identity outside a ``bn_sync_axis`` context.  The mean
+    of the ranks' means is the global mean for equal shards only."""
+    if _BN_SYNC_GROUP is None:
+        return mean, ex2
+    c = mean.numel()
+    both = _MeanAllReduce.apply(torch.cat([mean.reshape(-1), ex2.reshape(-1)]), _BN_SYNC_GROUP,
+                                dist.get_world_size(_BN_SYNC_GROUP))
+    return both[:c].reshape(mean.shape), both[c:].reshape(ex2.shape)
+
+
 def batchnorm_init(c, device, dtype=torch.float32):
     return {
         "scale": torch.ones((c,), dtype=dtype, device=device),
@@ -63,8 +122,12 @@ def batchnorm(p, x, *, training: bool = False, momentum=0.9, eps=1e-5):
     if training:
         xf = x.float()
         axes = tuple(range(x.dim() - 1))
-        mu = xf.mean(dim=axes)
-        var = xf.var(dim=axes, unbiased=False)
+        if _BN_SYNC_GROUP is not None:
+            mu, ex2 = bn_sync_moments(xf.mean(dim=axes), (xf * xf).mean(dim=axes))
+            var = torch.clamp_min(ex2 - mu * mu, 0.0)
+        else:
+            mu = xf.mean(dim=axes)
+            var = xf.var(dim=axes, unbiased=False)
         new = {
             "mean": momentum * p["mean"] + (1 - momentum) * mu,
             "var": momentum * p["var"] + (1 - momentum) * var,

@@ -1,0 +1,269 @@
+"""Sharding rules for the GAN trees (the GAN half of the reference's
+``parallel/sharding.py``), and the placement helpers that turn them into
+per-rank blocks.
+
+A leaf's placement is its reference ``PartitionSpec``: one entry per
+dimension, ``None`` (replicated) or a mesh axis name or tuple of names
+(split over those axes, major to minor).  The port's ``PartitionSpec`` is a
+tuple subclass with the same (canonical) entries, so a spec compares equal
+to ``tuple(jax_spec)``.
+
+The rules are divisibility-aware, as the reference's: a dimension is split
+on an axis only when the axis's extent divides it; otherwise it is
+replicated and the fallback is recorded in the spec fallback log, in the
+reference's words ("deconv3.M: 3 % model(2) != 0 -> replicated").
+
+Storage versus compute: a parameter or an AdamW moment lives as each
+rank's block of it (``block_of``; ZeRO, as the reference's out-specs leave
+them), and a step gathers the full leaf once on entry (``gather``: an
+``all_gather`` over each axis the spec names, minor axis first, so the
+blocks concatenate in the reference's major-to-minor order and round-trip).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..configs.base import GANConfig
+from ..optim import OptState
+
+__all__ = ["PartitionSpec", "P", "MeshAxes", "SpecBuilder", "Placement", "gan_param_specs", "gan_batch_specs",
+           "audio_decoder_param_specs", "opt_specs", "named", "block_of", "gather", "map_specs"]
+
+
+class PartitionSpec(tuple):
+    """A leaf's placement: per dimension ``None`` or mesh axis name(s).  A
+    one-name tuple is stored as the name, as JAX's ``PartitionSpec``
+    canonicalizes it (the block layout is the same)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (e[0] if isinstance(e, tuple) and len(e) == 1 else e for e in entries))
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshAxes:
+    batch: tuple[str, ...]  # activation batch axes, e.g. ("pod", "data")
+    fsdp: tuple[str, ...]  # weight FSDP axes (the batch axes)
+    tp: str = "model"
+
+    @staticmethod
+    def for_mesh(mesh) -> "MeshAxes":
+        batch = tuple(n for n in mesh.axis_names if n in ("pod", "data"))
+        return MeshAxes(batch=batch, fsdp=batch)
+
+
+def _axis_tuple(ax) -> tuple[str, ...]:
+    return ax if isinstance(ax, tuple) else (ax,)
+
+
+def _size(mesh, axes) -> int:
+    if isinstance(axes, str):
+        axes = (axes,)
+    return int(np.prod([mesh.shape[a] for a in axes])) if axes else 1
+
+
+class SpecBuilder:
+    """Divisibility-aware spec construction with a fallback log."""
+
+    def __init__(self, mesh, axes: MeshAxes):
+        self.mesh, self.axes = mesh, axes
+        self.fallbacks: list[str] = []
+
+    def dim(self, name: str, size: int, axis) -> Optional[Any]:
+        """axis: str | tuple | None -> axis if its extent divides ``size``,
+        else None (and a line in the fallback log)."""
+        if axis is None:
+            return None
+        n = _size(self.mesh, axis)
+        if size % n == 0:
+            return axis
+        self.fallbacks.append(f"{name}: {size} % {axis}({n}) != 0 -> replicated")
+        return None
+
+
+def _tp_or_none(mesh, axes: MeshAxes) -> Optional[str]:
+    """The TP axis name, or None when the mesh has no such axis (the
+    pure-data meshes)."""
+    return axes.tp if axes.tp in mesh.axis_names else None
+
+
+def gan_param_specs(cfg: GANConfig, mesh, axes: Optional[MeshAxes] = None):
+    """Spec trees matching ``generator_init`` / ``discriminator_init``:
+    ``(gen_specs, disc_specs, fallback_log)``.
+
+    Packed (C, N, M) ``ww`` leaves split N over the batch (FSDP) axes and M
+    over "model" (TP) where they divide, C replicated (the engine's grid runs
+    over it); raw (K, K, N, M) deconv weights and the discriminator's convs
+    split their trailing channel dims the same way; batchnorm leaves are
+    replicated.  Every generator's last layer has M = img_ch = 3, which no
+    TP degree divides: it replicates, and the log says so."""
+    from ..models import gan as G  # lazily: the specs need no kernel
+
+    axes = axes or MeshAxes.for_mesh(mesh)
+    b = SpecBuilder(mesh, axes)
+    fsdp = axes.fsdp
+    tp = _tp_or_none(mesh, axes)
+    prepacked = G.uses_prepacked(cfg.deconv_impl)
+    prepacked_conv = G.uses_prepacked_conv(getattr(cfg, "conv_impl", "lax"))
+
+    def bn_spec():
+        return {"scale": P(None), "bias": P(None), "mean": P(None), "var": P(None)}
+
+    def conv_spec(prefix, c_in, c_out):
+        return {
+            "w": P(None, None, b.dim(f"{prefix}.in", c_in, fsdp), b.dim(f"{prefix}.out", c_out, tp)),
+            "b": P(b.dim(f"{prefix}.b", c_out, tp)),
+        }
+
+    gen: dict[str, Any] = {}
+    if cfg.z_dim:
+        d_out = cfg.seed_hw**2 * cfg.stem_ch
+        gen["stem"] = {
+            "w": P(b.dim("stem.in", cfg.z_dim, fsdp), b.dim("stem.out", d_out, tp)),
+            "b": P(b.dim("stem.b", d_out, tp)),
+        }
+        gen["stem_bn"] = bn_spec()
+    for i, e in enumerate(cfg.encoder):
+        gen[f"enc{i}"] = conv_spec(f"enc{i}", e.c_in, e.c_out)
+        if e.norm == "batch":
+            gen[f"enc{i}_bn"] = bn_spec()
+    for i, d in enumerate(cfg.deconvs):
+        n_ax = b.dim(f"deconv{i}.N", d.c_in, fsdp)
+        m_ax = b.dim(f"deconv{i}.M", d.c_out, tp)
+        gen[f"deconv{i}"] = {"ww": P(None, n_ax, m_ax)} if prepacked else {"w": P(None, None, n_ax, m_ax)}
+        if d.norm == "batch":
+            gen[f"deconv{i}_bn"] = bn_spec()
+
+    disc: dict[str, Any] = {}
+    chans = (cfg.img_ch,) + G.disc_channels(cfg)
+    for i in range(len(chans) - 1):
+        if prepacked_conv:
+            disc[f"conv{i}"] = {
+                "ww": P(None, b.dim(f"disc.conv{i}.N", chans[i], fsdp), b.dim(f"disc.conv{i}.M", chans[i + 1], tp)),
+                "b": P(b.dim(f"disc.conv{i}.b", chans[i + 1], tp)),
+            }
+        else:
+            disc[f"conv{i}"] = conv_spec(f"disc.conv{i}", chans[i], chans[i + 1])
+        if i > 0:
+            disc[f"conv{i}_bn"] = bn_spec()
+    final_hw = cfg.img_hw // 2 ** (len(chans) - 1)
+    disc["head"] = {
+        "w": P(b.dim("disc.head.in", final_hw**2 * chans[-1], fsdp), None),
+        "b": P(None),  # one logit: never split, not worth a log line
+    }
+    return gen, disc, b.fallbacks
+
+
+def audio_decoder_param_specs(specs, mesh, axes: Optional[MeshAxes] = None, packed: bool = False):
+    """Spec tree matching ``audio_decoder_init`` (raw (K_D, N, M) taps) or,
+    with ``packed``, its Winograd-domain (C, N, M) ``ww`` form: FSDP over N,
+    TP over M where they divide, the leading axis replicated.  Returns
+    (specs_tree, fallback_log)."""
+    axes = axes or MeshAxes.for_mesh(mesh)
+    b = SpecBuilder(mesh, axes)
+    tp = _tp_or_none(mesh, axes)
+    sp: dict[str, Any] = {}
+    for i, s in enumerate(specs):
+        n_ax = b.dim(f"audio.deconv{i}.N", s.c_in, axes.fsdp)
+        m_ax = b.dim(f"audio.deconv{i}.M", s.c_out, tp)
+        sp[f"deconv{i}"] = {"ww" if packed else "w": P(None, n_ax, m_ax),
+                            "b": P(b.dim(f"audio.deconv{i}.b", s.c_out, tp))}
+    return sp, b.fallbacks
+
+
+def gan_batch_specs(cfg: GANConfig, batch: int, mesh, axes: Optional[MeshAxes] = None):
+    """Specs of the GAN train batch: (z_or_image_spec, real_spec, fallbacks).
+    The batch dimension splits over the batch axes when ``batch`` divides
+    their extent; otherwise both inputs replicate (and the log says so)."""
+    axes = axes or MeshAxes.for_mesh(mesh)
+    b = SpecBuilder(mesh, axes)
+    bax = b.dim("gan.batch", batch, axes.batch)
+    z = P(bax, None) if cfg.z_dim else P(bax, None, None, None)
+    return z, P(bax, None, None, None), b.fallbacks
+
+
+def opt_specs(param_specs) -> OptState:
+    """AdamW's moments mirror the parameter specs (ZeRO-sharded moments)."""
+    return OptState(step=P(), m=param_specs, v=param_specs)
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where a leaf lives: its spec on a mesh (``named`` builds trees of
+    them; the checkpoints' ``shardings=`` takes such a tree)."""
+
+    mesh: Any
+    spec: PartitionSpec
+
+
+def map_specs(fn, tree, spec_tree):
+    """``fn(leaf, spec)`` over a tree (nested dicts and ``OptState``) and its
+    spec tree; an ``OptState``'s int ``step`` passes through."""
+    if isinstance(spec_tree, PartitionSpec) or isinstance(spec_tree, Placement):
+        return tree if isinstance(tree, int) else fn(tree, spec_tree)
+    if isinstance(tree, OptState):
+        return OptState(tree.step, map_specs(fn, tree.m, spec_tree.m), map_specs(fn, tree.v, spec_tree.v))
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v, spec_tree[k]) for k, v in tree.items()}
+    raise TypeError(f"no spec rule for a {type(tree).__name__}")
+
+
+def named(mesh, spec_tree):
+    """The spec tree as a tree of ``Placement``s on ``mesh``."""
+    if isinstance(spec_tree, PartitionSpec):
+        return Placement(mesh, spec_tree)
+    if isinstance(spec_tree, dict):
+        return {k: named(mesh, v) for k, v in spec_tree.items()}
+    if isinstance(spec_tree, tuple):  # NamedTuples (OptState, CommState) keep their type
+        out = [named(mesh, v) for v in spec_tree]
+        return type(spec_tree)(*out) if hasattr(spec_tree, "_fields") else tuple(out)
+    raise TypeError(f"no spec rule for a {type(spec_tree).__name__}")
+
+
+def block_of(leaf: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of the full array ``leaf`` under ``spec`` (a copy of
+    its own when it is a slice, so that the full array can be freed).  The
+    block index over a dimension's axes is row-major, major axis first, as
+    the reference's ``axis_index`` arithmetic; no collective runs."""
+    out = leaf
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        names = _axis_tuple(ax)
+        n = _size(mesh, names)
+        if n == 1:
+            continue
+        if out.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(leaf.shape)} does not split over {names} ({n} ranks)")
+        blk = out.shape[dim] // n
+        out = out.narrow(dim, mesh.index(names) * blk, blk)
+    return leaf if out is leaf else out.clone(memory_format=torch.contiguous_format)
+
+
+def gather(block: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The full array from every rank's ``block`` under ``spec``: an
+    ``all_gather`` over each axis the spec names, minor axis first (the
+    inverse of ``block_of``).  Every rank of the mesh calls it, in the same
+    order of leaves."""
+    out = block
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        for a in reversed(_axis_tuple(ax)):
+            n = mesh.shape[a]
+            if n == 1:
+                continue
+            parts = [torch.empty_like(out) for _ in range(n)]
+            dist.all_gather(parts, out.contiguous(), group=mesh.group(a))
+            out = torch.cat(parts, dim=dim)
+    return out

@@ -231,7 +231,8 @@ class GanServeEngine:
                  breaker_threshold: int = 3, breaker_cooldown_ms: float = 250.0, nan_guard: bool = False,
                  fault_plan: Optional[FaultPlan] = None):
         if mesh is not None:
-            raise NotImplementedError("mesh= (sharded residency) is not in the port yet: a resident lives on one device")
+            raise NotImplementedError("mesh= (sharded residency) is not in the port yet: it is what remains of "
+                                      "ROADMAP queue 1 item 5; a resident lives on one device")
         if models is None:
             if gen_params is None or cfg is None:
                 raise ValueError("pass (gen_params, cfg) or models={arch: (params, cfg)}")

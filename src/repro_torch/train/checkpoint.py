@@ -27,9 +27,11 @@ manifest or a damaged sidecar raises ``CheckpointCorruptError``;
 first that verifies.  A shape mismatch on a valid sha is the caller's
 error (``ValueError``), never skipped as corruption.
 
-Placement: leaves are restored onto ``device`` (the card by default).  The
-reference's ``shardings=`` (elastic restore onto a mesh) has no meaning in
-the port until it runs multi-device, and is refused.
+Placement: leaves are restored onto ``device`` (the card by default), or
+with ``shardings=`` (a tree of ``parallel.sharding.Placement``s matching
+``like``) onto a mesh: each rank keeps its block of every leaf, on the
+mesh's device.  The checkpoint always holds full leaves, so one saved on
+one mesh restores on another mesh or on one device (elastic restore).
 """
 from __future__ import annotations
 
@@ -255,22 +257,19 @@ def verify_checkpoint(directory: str, step: int) -> None:
     load_loop_state(directory, step)
 
 
-def _refuse_shardings(shardings) -> None:
-    if shardings is not None:
-        raise NotImplementedError("shardings= (restore onto a mesh) is not in the port yet: it restores onto "
-                                  "one device, device=")
-
-
 def restore_checkpoint(directory: str, step: int, like, *, device="cuda", shardings=None):
     """Restore into the structure of ``like`` (a tree of tensors and Python
-    ints, as ``save_checkpoint`` takes), each tensor leaf with ``like``'s
-    dtype on ``device``, each int leaf as an int.
+    ints, as ``save_checkpoint`` takes; meta tensors do as templates), each
+    tensor leaf with ``like``'s dtype on ``device``, each int leaf as an int.
+    ``shardings``: a matching tree of ``Placement``s; each tensor leaf is
+    then this rank's block under its spec, on its mesh's device (``like``
+    keeps the full shapes).
     Leaves are looked up by key path and verified against the manifest's
     sha256 on the way in; corruption raises ``CheckpointCorruptError``, a
     missing leaf ``KeyError``, a shape other than ``like``'s ``ValueError``."""
-    _refuse_shardings(shardings)
     path = _step_dir(directory, step)
     by_key = {rec["key"]: rec for rec in _load_manifest(path)["leaves"]}
+    placed = dict(_flatten(shardings)) if shardings is not None else {}
 
     def restore(keypath, leaf):
         rec = by_key.get(keypath)
@@ -285,9 +284,16 @@ def restore_checkpoint(directory: str, step: int, like, *, device="cuda", shardi
             # a valid sha with a wrong shape is the caller's error (the wrong
             # ``like``), not disk damage: the fallback walk must not skip it
             raise ValueError(f"{keypath}: ckpt shape {tuple(t.shape)} != wanted {want}")
-        if isinstance(leaf, torch.Tensor):
+        if not isinstance(leaf, torch.Tensor):
+            return type(leaf)(t.item())
+        if shardings is None:
             return t.to(device=device, dtype=leaf.dtype)
-        return type(leaf)(t.item())
+        where = placed.get(keypath)
+        if where is None:
+            raise KeyError(f"shardings= has no placement for leaf {keypath}")
+        from ..parallel.sharding import block_of
+
+        return block_of(t, where.spec, where.mesh).to(device=where.mesh.device, dtype=leaf.dtype)
 
     # leaves in the reference's (flattening) order, so a walk past a damaged
     # checkpoint reads what the reference's would before the damage shows
@@ -301,11 +307,10 @@ def restore_latest_valid(directory: str, like, *, device="cuda", shardings=None,
     walking older steps when the latest is corrupt (the keep-k window is
     the redundancy budget).  Returns ``(step, tree)``, or ``(None, None)``
     when no valid checkpoint exists.  ``on_skip(step, error)`` is called
-    for every corrupt step skipped."""
-    _refuse_shardings(shardings)
+    for every corrupt step skipped.  ``shardings`` as ``restore_checkpoint``."""
     for step in reversed(available_steps(directory)):
         try:
-            tree = restore_checkpoint(directory, step, like, device=device)
+            tree = restore_checkpoint(directory, step, like, device=device, shardings=shardings)
             load_loop_state(directory, step)  # the sidecar must verify too
             return step, tree
         except CheckpointCorruptError as e:

@@ -1,6 +1,5 @@
-"""Training: the adversarial GAN train step on one device and the
-resilient ``train_gan`` loop (the reference's ``train/trainer.py``
-without a mesh).
+"""Training: the adversarial GAN train step, on one device or on a mesh,
+and the resilient ``train_gan`` loop (the reference's ``train/trainer.py``).
 
 The step: one shared forward of ``gan_losses`` gives both objectives; two
 ``torch.autograd.grad`` pulls on that one graph give the generator's
@@ -30,6 +29,18 @@ pieces), as the reference's:
   * with the sentinel on (the default) the loop reads the step's five
     metric scalars each step in one device-to-host copy; with it off only
     at log boundaries, so the host keeps queueing steps ahead of the card.
+
+On a mesh (``StepSettings.mesh``, a ``launch.mesh.Mesh``) every rank runs
+the loop in lockstep: the steps are ``parallel.overlap``'s, the parameters
+and moments live as each rank's blocks, every rank draws the global batch
+from (seed, step) and takes its rows, and only rank 0 writes checkpoints
+(gathered to full leaves, in the reference's format), behind a barrier.
+A ``TrainFaultPlan`` fault, an injected raise and the sentinel see the
+same step and the same all-reduced metrics on every rank, and a preemption
+request on any rank is honoured by all at the next step boundary.  A fault
+raised on one rank only (a rank-local error, a straggler deadline that one
+rank misses) is not covered: the other ranks wait in their next
+collective.  The single-controller reference never sees such a fault.
 """
 from __future__ import annotations
 
@@ -39,6 +50,7 @@ import warnings
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from .. import data as D
 from ..configs.base import GANConfig
@@ -73,15 +85,22 @@ class StepSettings:
       lr, b1            AdamW learning rate / beta1
       batch             the loop's global batch (the reference's divisibility
                         check on a mesh; no effect on one device)
+      mesh              a ``launch.mesh.Mesh``: the sharded step
+                        (``parallel.overlap.build_gan_mesh_step``), params
+                        and moments as ZeRO blocks under
+                        ``parallel.sharding.gan_param_specs``
       donate            accepted for the reference's call signatures, no
                         effect: the port's step never reuses its inputs'
                         storage, so the pre-step params a "skip" reverts to
                         stay alive either way
+      overlap           the explicit-collective step of
+                        ``parallel.overlap.build_gan_comm_step``: bucketed
+                        gradient reduction, sync-BN, ZeRO block updates
+      grad_compression  "int8" threads an error-feedback ``CommState``
+                        through the step (implies the overlap step)
+      bucket_bytes      the overlap step's bucket target
       deconv_impl       generator backend override (None = cfg's)
       conv_impl         discriminator backend override (None = cfg's)
-      mesh, overlap, grad_compression, bucket_bytes
-                        the reference's multi-device step; not in the port
-                        yet, and refused when set
     """
 
     lr: float = 2e-4
@@ -94,13 +113,6 @@ class StepSettings:
     bucket_bytes: Optional[int] = None
     deconv_impl: Optional[str] = None
     conv_impl: Optional[str] = None
-
-    def __post_init__(self):
-        multi = {k: getattr(self, k) for k in ("mesh", "overlap", "grad_compression", "bucket_bytes")}
-        if any(v not in (None, False) for v in multi.values()):
-            raise NotImplementedError(
-                f"multi-device step settings {multi} are not in the port yet: the step runs on one device"
-            )
 
     @property
     def comm(self) -> bool:
@@ -166,12 +178,34 @@ def make_gan_step(cfg: GANConfig, lr=_UNSET, b1=_UNSET, *, settings: Optional[St
     returned trees are new.  ``metrics`` holds 0-d tensors under
     ``METRIC_SPEC_KEYS``.  How the step is built comes from
     ``settings=StepSettings(...)``; ``lr``, ``b1`` and the multi-device
-    kwargs are the reference's deprecated spelling of the same fields."""
+    kwargs are the reference's deprecated spelling of the same fields.
+
+    With ``settings.mesh`` (and ``settings.batch``, the global batch, for
+    the divisibility rules) the step is the sharded one every rank calls
+    together: ``parallel.overlap.build_gan_mesh_step``, the counterpart of
+    the reference's GSPMD step (each gradient leaf reduced on its own; a
+    batch that does not divide the batch axes replicates, with the
+    fallback logged).  ``settings.overlap`` or ``grad_compression`` select
+    ``parallel.overlap.build_gan_comm_step`` instead (bucketed reduction,
+    ``bucket_bytes``; with "int8" a ``CommState`` rides between the
+    optimizer states and the batch).  On a mesh the trees hold this rank's
+    blocks and ``z`` / ``real`` its rows (``step.meta`` has the specs)."""
     st = _merge_legacy(settings, dict(lr=lr, b1=b1, mesh=mesh, batch=batch, donate=donate, overlap=overlap,
                                       grad_compression=grad_compression, bucket_bytes=bucket_bytes),
                        "make_gan_step")
     cfg = st.apply_to_cfg(cfg)
     lr, b1 = st.lr, st.b1
+    if st.comm or st.mesh is not None:
+        if st.mesh is None or st.batch is None:
+            raise ValueError("a mesh step needs mesh and batch (the global batch)"
+                             if not st.comm else "overlap/grad_compression require mesh and batch")
+        from ..parallel import overlap as OV
+
+        if st.comm:
+            kw = {} if st.bucket_bytes is None else {"bucket_bytes": st.bucket_bytes}
+            return OV.build_gan_comm_step(cfg, st.mesh, batch=st.batch, lr=lr, b1=b1,
+                                          grad_compression=st.grad_compression, donate=st.donate, **kw)[0]
+        return OV.build_gan_mesh_step(cfg, st.mesh, batch=st.batch, lr=lr, b1=b1)[0]
 
     def step(gp, dp, g_opt, d_opt, z, real):
         gp_ = tree_map(lambda t: t.detach().requires_grad_(True), gp)
@@ -232,8 +266,7 @@ def train_gan(
     Step construction comes from ``settings=StepSettings(...)`` (the
     ``deconv_impl`` / ``conv_impl`` / ``mesh`` / ``overlap`` /
     ``grad_compression`` / ``bucket_bytes`` kwargs are the reference's
-    deprecated spelling of the same fields; the multi-device ones raise
-    ``NotImplementedError``).  With a ``*_prepacked`` or chained impl the
+    deprecated spelling of the same fields).  With a ``*_prepacked`` or chained impl the
     params hold packed Winograd-domain weights and every step runs on the
     engine kernels (``cuda_chained`` on both nets is the reference's main
     training path, ``pallas_chained``).
@@ -258,6 +291,14 @@ def train_gan(
     context unusable, and no restore recovers from it.
 
     ``device="cuda"`` without a card raises: the port has no fallback.
+
+    ``mesh`` runs the loop on every rank of a ``launch.mesh.Mesh`` in
+    lockstep (see the module docstring): each rank calls ``train_gan`` with
+    the same arguments and ``device`` of the mesh's device type; the result's
+    ``params`` are the full trees, gathered.  With int8 compression the
+    error-feedback residuals are part of the checkpoint tree, so a restore
+    replays bit-exact; a checkpoint without them restores with zeroed
+    residuals.
     """
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train_gan(device='cuda') needs a CUDA device (device='cpu' runs the plain versions)")
@@ -266,6 +307,20 @@ def train_gan(
                                       grad_compression=grad_compression, bucket_bytes=bucket_bytes), "train_gan")
     st = dataclasses.replace(st, batch=batch)  # the loop batch is the global batch
     cfg = st.apply_to_cfg(cfg)
+    mesh = st.mesh
+    if mesh is None and st.comm:
+        raise ValueError("overlap/grad_compression require mesh")
+    if mesh is not None:
+        from ..parallel import overlap as OV
+        from ..parallel import sharding as SH
+
+        if torch.device(device).type != mesh.device.type:
+            raise ValueError(f"train_gan(device={device!r}) on a mesh of {mesh.device} devices")
+        device = mesh.device
+        gsp, dsp, _ = SH.gan_param_specs(cfg, mesh)
+        specs = {"gp": gsp, "dp": dsp, "g_opt": SH.opt_specs(gsp), "d_opt": SH.opt_specs(dsp)}
+        zspec, rspec, _ = SH.gan_batch_specs(cfg, batch, mesh)
+        ckw = {} if st.bucket_bytes is None else {"bucket_bytes": st.bucket_bytes}
     pol = policy if policy is not None else R.FaultPolicy()
     plans = () if fault_plan is None else (
         tuple(fault_plan) if isinstance(fault_plan, (list, tuple)) else (fault_plan,)
@@ -286,26 +341,73 @@ def train_gan(
             "checkpoint", RuntimeWarning, stacklevel=2,
         )
 
+    def _place(tree: dict) -> dict:
+        """On a mesh, each rank's blocks of the full trees."""
+        if mesh is None:
+            return tree
+        return {k: SH.map_specs(lambda t, sp: SH.block_of(t, sp, mesh), v, specs[k]) for k, v in tree.items()}
+
     def _init():
         gp_ = G.generator_init(cfg, seed=seed, device=device, dtype=dtype)
         dp_ = G.discriminator_init(cfg, seed=seed + 1, device=device, dtype=dtype)
-        return gp_, dp_, adamw_init(gp_), adamw_init(dp_)
+        t = _place({"gp": gp_, "dp": dp_})
+        return t["gp"], t["dp"], adamw_init(t["gp"]), adamw_init(t["dp"])
 
     gp, dp, g_opt, d_opt = _init()
-    _like = lambda: {"gp": gp, "dp": dp, "g_opt": g_opt, "d_opt": d_opt}  # noqa: E731
+    comm = None
+    if mesh is None:
+        _like = lambda: {"gp": gp, "dp": dp, "g_opt": g_opt, "d_opt": d_opt}  # noqa: E731
+        where = None
+    else:
+        # the checkpoint holds full leaves: restore against full-shape meta
+        # templates, each rank keeping its blocks
+        gp_s, dp_s = OV.param_structs(cfg, dtype)
+        full = {"gp": gp_s, "dp": dp_s, "g_opt": adamw_init(gp_s), "d_opt": adamw_init(dp_s)}
+        _like = lambda: full  # noqa: E731
+        where = SH.named(mesh, specs)
+        if st.grad_compression is not None:
+            comm = OV.init_comm_state(gp_s, dp_s, mesh, **ckw)
+            rows = mesh.extent(SH.MeshAxes.for_mesh(mesh).batch)  # the residuals' full arrays: a row a data shard
+            comm_full = OV.CommState(*(tuple(torch.empty((rows, r.shape[1]), device="meta") for r in res)
+                                       for res in comm))
+            comm_where = SH.named(mesh, OV.comm_specs(OV.plan_buckets(gp_s, **ckw), OV.plan_buckets(dp_s, **ckw),
+                                                     mesh))
+
+    def _restore_comm(step_):
+        """The residuals saved with ``step_``; zeros for a checkpoint
+        without them (one step of bounded extra quantization error)."""
+        try:
+            return C.restore_checkpoint(ckpt_dir, step_, {"comm": comm_full}, device=device,
+                                        shardings={"comm": comm_where})["comm"]
+        except KeyError as e:
+            if "checkpoint missing leaf" not in str(e):
+                raise
+            return OV.init_comm_state(gp_s, dp_s, mesh, **ckw)
 
     start = 0
     restored_ls = None
     if ckpt_dir:
-        last, tree = C.restore_latest_valid(ckpt_dir, _like(), device=device, on_skip=_warn_corrupt)
+        last, tree = C.restore_latest_valid(ckpt_dir, _like(), device=device, shardings=where, on_skip=_warn_corrupt)
         if last is not None:
             gp, dp, g_opt, d_opt = tree["gp"], tree["dp"], tree["g_opt"], tree["d_opt"]
             start = last
             restored_ls = C.load_loop_state(ckpt_dir, last)
+            if comm is not None:
+                comm = _restore_comm(last)
 
     def _build_step(scale: float):
         s2 = st if scale == 1.0 else dataclasses.replace(st, lr=st.lr * scale)
+        if mesh is not None:
+            return make_gan_step(cfg, settings=s2)
         return make_gan_step(cfg, settings=dataclasses.replace(s2, batch=None))
+
+    def _any_rank(flag: bool) -> bool:
+        """Whether ``flag`` is set on any rank (one all-reduce on a mesh)."""
+        if mesh is None:
+            return flag
+        t = torch.tensor([float(flag)], device=device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t.item())
 
     step_fn = _build_step(1.0)
     metrics_hist: list[dict] = []
@@ -321,10 +423,25 @@ def train_gan(
         metrics_hist[:] = [e for e in metrics_hist if e["step"] != entry["step"]]
         metrics_hist.append(entry)
 
+    def _gathered() -> dict:
+        tree = {"gp": gp, "dp": dp, "g_opt": g_opt, "d_opt": d_opt}
+        if mesh is None:
+            return tree
+        gather = lambda t, sp: SH.gather(t, sp, mesh)  # noqa: E731
+        out = {k: SH.map_specs(gather, v, specs[k]) for k, v in tree.items()}
+        if comm is not None:
+            out["comm"] = OV.CommState(*(tuple(gather(r, w.spec) for r, w in zip(res, ws))
+                                         for res, ws in zip(comm, comm_where)))
+        return out
+
     def _save(step_) -> None:
-        C.save_checkpoint(ckpt_dir, step_, _like(), loop_state={
-            "step": step_, "lr_scale": lr_scale, "metrics_hist": metrics_hist, "counters": counters,
-        })
+        tree = _gathered()  # every rank takes part in the gather
+        if mesh is None or mesh.rank == 0:
+            C.save_checkpoint(ckpt_dir, step_, tree, loop_state={
+                "step": step_, "lr_scale": lr_scale, "metrics_hist": metrics_hist, "counters": counters,
+            })
+        if mesh is not None:
+            dist.barrier()  # no rank reads the directory before rank 0 has written it
 
     faulted = False
     preempted = False
@@ -332,8 +449,9 @@ def train_gan(
     s = start
 
     def _restore_to_latest() -> None:
-        nonlocal gp, dp, g_opt, d_opt, s, metrics_hist
-        last, tree = C.restore_latest_valid(ckpt_dir, _like(), device=device, on_skip=_warn_corrupt)
+        nonlocal gp, dp, g_opt, d_opt, comm, s, metrics_hist
+        last, tree = C.restore_latest_valid(ckpt_dir, _like(), device=device, shardings=where,
+                                            on_skip=_warn_corrupt)
         if last is None:
             # no (valid) checkpoint yet: restart from init, and drop the
             # metrics history, which belongs to the discarded trajectory
@@ -347,6 +465,8 @@ def train_gan(
             src = ls.get("metrics_hist", metrics_hist) if ls else metrics_hist
             # replayed steps must not keep stale post-checkpoint entries
             metrics_hist = [e for e in src if e.get("step", 0) <= last]
+        if comm is not None:
+            comm = OV.init_comm_state(gp_s, dp_s, mesh, **ckw) if last is None else _restore_comm(last)
         if detector is not None:
             detector.reset()
 
@@ -391,7 +511,7 @@ def train_gan(
 
     with R.PreemptionGuard(install=handle_signals) as guard:
         while s < steps:
-            if guard.requested:
+            if _any_rank(guard.requested):
                 # preemption-safe exit: one final atomic checkpoint with the
                 # loop state, then a clean return
                 preempted = True
@@ -409,7 +529,10 @@ def train_gan(
                 if "preempt" in inj:
                     guard.request()  # honored at the next step boundary
                 if "corrupt_ckpt" in inj and ckpt_dir:
-                    R.corrupt_latest_checkpoint(ckpt_dir)
+                    if mesh is None or mesh.rank == 0:
+                        R.corrupt_latest_checkpoint(ckpt_dir)
+                    if mesh is not None:
+                        dist.barrier()
                 if "raise" in inj:
                     raise R.InjectedTrainFault(f"injected raise at step {s}")
                 if cfg.z_dim:
@@ -417,13 +540,18 @@ def train_gan(
                 else:
                     z = D.gan_batch(seed, 1_000_000 + s, batch, cfg.img_hw, device=device)
                 real = D.gan_batch(seed, s, batch, cfg.img_hw, device=device)
+                if mesh is not None:  # this rank's rows of the global batch
+                    z, real = SH.block_of(z, zspec, mesh), SH.block_of(real, rspec, mesh)
                 if "nan_grad" in inj:
                     # NaN in the batch -> NaN losses / grads -> a NaN update:
                     # the poisoning a broken kernel or an fp overflow does
                     z = z * float("nan")
                 if skip_mode:
-                    prev = (gp, dp, g_opt, d_opt)
-                gp, dp, g_opt, d_opt, m = step_fn(gp, dp, g_opt, d_opt, z, real)
+                    prev = (gp, dp, g_opt, d_opt, comm)
+                if comm is not None:
+                    gp, dp, g_opt, d_opt, comm, m = step_fn(gp, dp, g_opt, d_opt, comm, z, real)
+                else:
+                    gp, dp, g_opt, d_opt, m = step_fn(gp, dp, g_opt, d_opt, z, real)
                 if hooks.step_deadline_s and time.monotonic() - t0 > hooks.step_deadline_s:
                     raise TimeoutError(f"step {s} exceeded deadline (straggler)")
             except (RuntimeError, TimeoutError) as e:
@@ -459,7 +587,7 @@ def train_gan(
                                 verdict=verdict, step=s, attempts=counters["skips"],
                             )
                         # discard the update: back to the pre-step trees
-                        gp, dp, g_opt, d_opt = prev
+                        gp, dp, g_opt, d_opt, comm = prev
                         s += 1
                         continue
                     # rollback
@@ -478,8 +606,9 @@ def train_gan(
             if ckpt_dir and (s + 1) % ckpt_every == 0:
                 _save(s + 1)
             s += 1
+    final = _gathered()
     return {
-        "params": {"gp": gp, "dp": dp},
+        "params": {"gp": final["gp"], "dp": final["dp"]},
         "metrics": metrics_hist,
         "final_step": s,
         "preempted": preempted,

@@ -1,0 +1,308 @@
+"""Ranks for the port's distributed tests: ``spawn_ranks`` starts a world
+of gloo processes on the CPU, each joined through a ``FileStore`` in the
+test's own directory (never a fixed port: the test files run in parallel),
+runs one of the workers below in every rank, and ``collect`` returns their
+results.
+Every spawn has a deadline, so a collective-order mismatch fails the test
+instead of hanging it.
+
+The workers import torch and the port only (a spawned rank does not import
+the test module, nor JAX); they take and return numpy arrays.
+"""
+from __future__ import annotations
+
+import multiprocessing as mp
+import os
+import pickle
+import time
+import traceback
+
+import numpy as np
+
+DEADLINE_S = 150.0
+
+
+def _entry(fn, rank, world, store_path, out_path, args, kwargs):
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank, world_size=world)
+        res = (True, fn(rank, world, *args, **kwargs))
+    except BaseException:  # noqa: BLE001 - the parent reports it
+        res = (False, traceback.format_exc())
+    with open(out_path, "wb") as f:
+        pickle.dump(res, f)
+    if res[0]:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, world: int, tmp_path, *args, **kwargs):
+    """Start ``fn(rank, world, *args, **kwargs)`` on ``world`` gloo ranks;
+    ``collect`` waits for them.  Several worlds may run at once."""
+    ctx = mp.get_context("spawn")
+    root = os.path.join(str(tmp_path), f"{fn.__name__}_{world}_{time.monotonic_ns()}")
+    os.makedirs(root)
+    outs = [os.path.join(root, f"rank{r}.pkl") for r in range(world)]
+    procs = [ctx.Process(target=_entry, args=(fn, r, world, os.path.join(root, "store"), outs[r], args, kwargs))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs, outs
+
+
+def collect(handle, deadline: float = DEADLINE_S) -> list:
+    """The results of ``spawn_ranks``'s ranks, by rank.  Fails with every
+    failed rank's traceback, or when the ranks are not done within
+    ``deadline`` seconds of this call."""
+    procs, outs = handle
+    end = time.monotonic() + deadline
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for r in hung:
+        procs[r].kill()
+        procs[r].join()
+    results, errors = [], []
+    for r, path in enumerate(outs):
+        if not os.path.exists(path):
+            errors.append(f"rank {r}: no result (exit code {procs[r].exitcode})")
+            continue
+        with open(path, "rb") as f:
+            ok, res = pickle.load(f)
+        (results if ok else errors).append(res if ok else f"rank {r}:\n{res}")
+    if hung:
+        errors.insert(0, f"ranks {hung} still running after the {deadline:.0f} s deadline (a collective hangs)")
+    assert not errors, "\n".join(errors)
+    return results
+
+
+# ------------------------------------------------------------------ helpers
+def _mesh(shape, axes):
+    from repro_torch.launch import make_mesh
+
+    return make_mesh(shape, axes, device="cpu")
+
+
+def _np(tree):
+    if isinstance(tree, dict):
+        return {k: _np(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
+def _cfg(zoo_args):
+    from repro_torch.configs import gan_zoo
+
+    return gan_zoo.tiny_dcgan(*zoo_args)
+
+
+def _params(cfg, gp_np, dp_np):
+    from repro_torch.convert import discriminator_params_from_numpy, generator_params_from_numpy
+
+    return generator_params_from_numpy(gp_np, cfg, device="cpu"), discriminator_params_from_numpy(dp_np, cfg,
+                                                                                                    device="cpu")
+
+
+# ------------------------------------------------------------------ workers
+def sharded_runs(rank, world, shape, axes, zoo_args, gp_np, dp_np, runs, lr=2e-4):
+    """For each (name, variant, bucket_bytes, batches) of ``runs``: a step
+    a batch of a sharded step from the numpy params, ``variant`` "mesh"
+    (make_gan_step(mesh=)), "overlap" (build_gan_comm_step at
+    ``bucket_bytes``, None: the default) or "int8" (the same, compressed).
+    Returns, by name: the metrics, the full params after the last step, the
+    step-1 reduced gradients (AdamW's first moment over 1 - b1), the bucket
+    plans, the fallback log and the residuals' largest magnitude."""
+    import torch
+
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import overlap as OV
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train import StepSettings, make_gan_step
+
+    mesh = _mesh(shape, axes)
+    cfg = _cfg(zoo_args)
+    blk = lambda tree, sp: SH.map_specs(lambda t, s: SH.block_of(t, s, mesh), tree, sp)  # noqa: E731
+    full = lambda tree, sp: SH.map_specs(lambda t, s: SH.gather(t, s, mesh), tree, sp)  # noqa: E731
+    out = {}
+    for name, variant, bucket_bytes, batches in runs:
+        B = batches[0][0].shape[0]
+        kw = {} if bucket_bytes is None else {"bucket_bytes": bucket_bytes}
+        if variant == "mesh":
+            step = make_gan_step(cfg, settings=StepSettings(lr=lr, b1=0.5, mesh=mesh, batch=B))
+        else:
+            step, _ = OV.build_gan_comm_step(cfg, mesh, batch=B, lr=lr, b1=0.5,
+                                             grad_compression="int8" if variant == "int8" else None, **kw)
+        meta = step.meta
+        gsp, dsp, _, _ = meta["specs"]
+        zspec, rspec = meta["batch_specs"]
+        gp, dp = _params(cfg, gp_np, dp_np)
+        gp, dp = blk(gp, gsp), blk(dp, dsp)
+        g_opt, d_opt = adamw_init(gp), adamw_init(dp)
+        comm = OV.init_comm_state(*meta["param_structs"], mesh, **kw) if variant == "int8" else None
+        metrics, first = [], None
+        for z_np, real_np in batches:
+            z = SH.block_of(torch.from_numpy(z_np), zspec, mesh)
+            real = SH.block_of(torch.from_numpy(real_np), rspec, mesh)
+            if comm is not None:
+                gp, dp, g_opt, d_opt, comm, m = step(gp, dp, g_opt, d_opt, comm, z, real)
+            else:
+                gp, dp, g_opt, d_opt, m = step(gp, dp, g_opt, d_opt, z, real)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if first is None:
+                first = tuple({k: {kk: v / 0.5 for kk, v in leaf.items()} for k, leaf in _np(full(o.m, sp)).items()}
+                              for o, sp in ((g_opt, gsp), (d_opt, dsp)))
+        out[name] = dict(metrics=metrics, gp=_np(full(gp, gsp)), dp=_np(full(dp, dsp)), first=first,
+                         g_plan=meta["g_plan"], d_plan=meta["d_plan"], fallbacks=meta["fallbacks"],
+                         residual_max=None if comm is None else max(float(r.abs().max()) for r in comm.g_res),
+                         blocks={k: tuple(v.shape) for k, v in gp["deconv0"].items()})
+    return out
+
+
+def compression_runs(rank, world, g_one, g_loop, T):
+    """compressed_psum over every rank, each rank holding its row of the
+    global arrays: one call on ``g_one`` (a tree of two leaves) from zero
+    residuals -> (outputs, new residuals); then ``T`` calls on ``g_loop``
+    with the residual threaded through -> the outputs' running sum and the
+    first call's output."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.parallel.compression import compressed_psum, init_residuals
+
+    grads = {k: torch.from_numpy(v[rank]) for k, v in g_one.items()}
+    out, new_r = compressed_psum(grads, init_residuals(grads), dist.group.WORLD, axis_size=world)
+    g = torch.from_numpy(g_loop[rank])
+    res, acc, first = torch.zeros_like(g), torch.zeros_like(g), None
+    for _ in range(T):
+        o, res = compressed_psum(g, res, dist.group.WORLD)
+        acc += o
+        first = o.clone() if first is None else first
+    return dict(out={k: v.numpy() for k, v in out.items()}, res={k: v.numpy() for k, v in new_r.items()},
+                acc=acc.numpy(), first=first.numpy())
+
+
+def elastic_save(rank, world, shape, axes, directory, x_np, spec):
+    """Save ``x_np`` from its blocks under ``spec`` on the mesh (rank 0
+    writes the gathered leaf); returns this rank's block."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train import checkpoint as C
+
+    mesh = _mesh(shape, axes)
+    spec = SH.P(*spec)
+    block = SH.block_of(torch.from_numpy(x_np), spec, mesh)
+    tree = {"w": SH.gather(block, spec, mesh), "opt": {"m": SH.gather(block * 2, spec, mesh)}}
+    if rank == 0:
+        C.save_checkpoint(directory, 3, tree)
+    dist.barrier()
+    return block.numpy()
+
+
+def elastic_restore(rank, world, shape, axes, directory, full_shape, spec):
+    """Restore step 3 onto the mesh under ``spec``: this rank's blocks and
+    their gather."""
+    import torch
+
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train import checkpoint as C
+
+    mesh = _mesh(shape, axes)
+    spec = SH.P(*spec)
+    like = {"w": torch.empty(full_shape, device="meta"), "opt": {"m": torch.empty(full_shape, device="meta")}}
+    sh = SH.named(mesh, {"w": spec, "opt": {"m": spec}})
+    back = C.restore_checkpoint(directory, 3, like, device="cpu", shardings=sh)
+    step, latest = C.restore_latest_valid(directory, like, device="cpu", shardings=sh)
+    assert step == 3 and all(torch.equal(a, b) for a, b in ((back["w"], latest["w"]),
+                                                            (back["opt"]["m"], latest["opt"]["m"])))
+    return back["w"].numpy(), SH.gather(back["w"], spec, mesh).numpy(), SH.gather(back["opt"]["m"], spec, mesh).numpy()
+
+
+def train_gan_runs(rank, world, shape, axes, zoo_args, batches_by_step, runs, **kw):
+    """For each (name, directory, fault_step, grad_compression) of ``runs``:
+    ``train_gan`` on the mesh with ``kw``, checkpointing into ``directory``
+    (resuming what it holds), the batches JAX's for each step, an injected
+    raise at ``fault_step`` (None: a clean run).  Returns by name the
+    result's metrics, counters, fault log, final step and full params."""
+    import torch
+
+    from repro_torch import data as TD
+    from repro_torch.train import StepSettings, TrainFaultPlan
+    from repro_torch.train import trainer as TT
+
+    mesh = _mesh(shape, axes)
+    cfg = _cfg(zoo_args)
+    TD.latent_batch = lambda seed, step, batch, z_dim, *, device="cuda": torch.from_numpy(
+        batches_by_step[step][0]).to(device)
+    TD.gan_batch = lambda seed, step, batch, hw, ch=3, *, device="cuda": torch.from_numpy(
+        batches_by_step[step][1]).to(device)
+    out = {}
+    for name, directory, fault_step, gc in runs:
+        plan = None if fault_step is None else TrainFaultPlan(kind="raise", at_step=fault_step, max_faults=1)
+        res = TT.train_gan(cfg, ckpt_dir=directory, fault_plan=plan, device="cpu",
+                           settings=StepSettings(lr=kw["lr"], b1=0.5, mesh=mesh, grad_compression=gc),
+                           **{k: v for k, v in kw.items() if k != "lr"})
+        out[name] = dict(metrics=res["metrics"], counters=res["counters"], fault_log=res["fault_log"],
+                         final_step=res["final_step"], gp=_np(res["params"]["gp"]), dp=_np(res["params"]["dp"]))
+    return out
+
+
+def mesh_checks(rank, world, shape, axes, x_np, specs):
+    """On one mesh: this rank's coordinates, the ranks in each axis's group
+    (an all_gather of rank ids), its block of ``x_np`` under each spec and
+    the gather of it, a mesh the world does not hold (its error), and NCCL
+    with every rank on one card (its error; the backend and the ranks'
+    device identities stood in for)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_mesh
+    from repro_torch.parallel import sharding as SH
+
+    mesh = _mesh(shape, axes)
+    groups = {}
+    for a in axes:
+        ids = [torch.zeros(1, dtype=torch.int64) for _ in range(mesh.shape[a])]
+        dist.all_gather(ids, torch.tensor([rank]), group=mesh.group(a))
+        groups[a] = [int(t) for t in ids]
+    x = torch.from_numpy(x_np)
+    blocks = {str(sp): SH.block_of(x, SH.P(*sp), mesh).numpy() for sp in specs}
+    back = {str(sp): SH.gather(torch.from_numpy(blocks[str(sp)]), SH.P(*sp), mesh).numpy() for sp in specs}
+    try:
+        make_mesh((world + 1,), ("data",), device="cpu")
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    # NCCL with ranks that share a card: every rank reports the same device
+    from repro_torch.launch import mesh as M
+
+    real = (M.dist.get_backend, M._device_identity)
+    M.dist.get_backend, M._device_identity = (lambda *a: "nccl"), (lambda device: ("host", "card0"))
+    try:
+        make_mesh(shape, axes, device="cpu")
+        shared = None
+    except ValueError as e:
+        shared = str(e)
+    finally:
+        M.dist.get_backend, M._device_identity = real
+    return dict(coords=mesh.coords, groups=groups, blocks=blocks, back=back, refused=refused, shared=shared,
+                extent=mesh.extent(axes), index=mesh.index(axes))
+
+
+def autotune_runs(rank, world, shape, axes):
+    """autotune_deconv(mode="step") on the mesh for a prepacked config and
+    the plain path, then the same with grad_compression="int8"; the rows
+    without their configs."""
+    from repro_torch.core.tdc import DeconvDims
+    from repro_torch.kernels import autotune as A
+
+    mesh = _mesh(shape, axes)
+    out = {}
+    for gc in (None, "int8"):
+        rows = A.autotune_deconv(DeconvDims(4, 2, 1, 0), (8, 4, 4, 16), 16,
+                                 candidates=[A.EngineConfig(False, prepack=True), None], mode="step", repeats=1,
+                                 device="cpu", mesh=mesh, grad_compression=gc)
+        out[gc] = [{k: v for k, v in r.items() if k != "config"} for r in rows]
+    return out

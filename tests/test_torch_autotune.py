@@ -18,7 +18,8 @@ their plain versions, so the sweeps here run the machinery, not the card.
   parameters after one AdamW step 6 * lr;
 * the table read at the reference's three call sites and nowhere else;
 * infeasible requests as ok=False rows, ``best_config`` with no row that
-  ran, a bad mode, ``mesh=`` / ``grad_compression=``."""
+  ran, a bad mode, what ``mesh=`` / ``grad_compression=`` refuse (the
+  sweep on a mesh runs in tests/test_torch_parallel.py)."""
 import dataclasses
 
 import jax
@@ -331,12 +332,16 @@ def test_best_config_mode_mesh_and_compression():
         shape = (1, 8, 4) if fn is A.autotune_conv1d else (1, 4, 4, 4)
         with pytest.raises(ValueError):
             fn(geom, shape, 4, mode="train", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        A.autotune_deconv(K5S2, (1, 4, 4, 8), 3, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    # mesh= and grad_compression= run (tests/test_torch_parallel.py times them on gloo ranks); what they
+    # refuse, as the reference: compression without a mesh or outside mode "step", a mesh without the shapes
+    with pytest.raises(ValueError, match="requires mode='step' and a mesh"):
         A.autotune_deconv(K5S2, (1, 4, 4, 8), 3, mode="step", grad_compression="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(ValueError, match="requires mode='step' and a mesh"):
+        A.autotune_deconv(K5S2, (1, 4, 4, 8), 3, mode="grad", grad_compression="int8", mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="needs input_shape and c_out"):
         A.make_timed_fn(None, K5S2, "step", mesh=object())
+    with pytest.raises(ValueError, match="unknown grad_compression"):
+        A.make_timed_fn(None, K5S2, "step", mesh=object(), grad_compression="fp8")
 
 
 def test_candidate_grids_name_the_hopper_instantiations():

@@ -267,10 +267,37 @@ def test_restore_places_leaves_with_like_dtype_and_refuses_shardings(tmp_path):
     like["gp"]["stem"]["w"] = like["gp"]["stem"]["w"].double()
     back = C.restore_checkpoint(str(tmp_path), 1, like, device="cpu")
     assert back["gp"]["stem"]["w"].dtype == torch.float64 and back["gp"]["stem"]["w"].device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="shardings"):
-        C.restore_checkpoint(str(tmp_path), 1, like, device="cpu", shardings=object())
-    with pytest.raises(NotImplementedError, match="shardings"):
-        C.restore_latest_valid(str(tmp_path), like, device="cpu", shardings=object())
+    # shardings=: each rank keeps its block (here rank 1's view of a (2,) data
+    # mesh, which needs no collective); a tensor leaf without a placement is refused
+    from repro_torch.parallel.sharding import P, named
+
+    class Rank1:
+        shape, axis_names, device = {"data": 2}, ("data",), torch.device("cpu")
+
+        def index(self, axes):
+            return 1
+
+    def replicated(t):
+        if isinstance(t, OptState):
+            return OptState(P(), replicated(t.m), replicated(t.v))
+        if isinstance(t, dict):
+            return {k: replicated(v) for k, v in t.items()}
+        return P(*([None] * t.dim()))
+
+    full = C.restore_checkpoint(str(tmp_path), 1, like, device="cpu")
+    specs = replicated(like)
+    specs["gp"]["stem"]["w"] = specs["g_opt"].m["stem"]["w"] = P(None, "data")
+    mesh = Rank1()
+    half = C.restore_checkpoint(str(tmp_path), 1, like, device="cpu", shardings=named(mesh, specs))
+    for got, want in ((half["gp"]["stem"]["w"], full["gp"]["stem"]["w"]),
+                      (half["g_opt"].m["stem"]["w"], full["g_opt"].m["stem"]["w"])):
+        assert torch.equal(got, want[:, want.shape[1] // 2:])
+    assert torch.equal(half["extra"]["half"], full["extra"]["half"]) and half["g_opt"].step == STEP
+    step, latest = C.restore_latest_valid(str(tmp_path), like, device="cpu", shardings=named(mesh, specs))
+    assert step == 1 and torch.equal(latest["gp"]["stem"]["w"], half["gp"]["stem"]["w"])
+    del specs["extra"]["half"]
+    with pytest.raises(KeyError, match="placement"):
+        C.restore_checkpoint(str(tmp_path), 1, like, device="cpu", shardings=named(mesh, specs))
 
 
 def test_shape_mismatch_is_a_caller_error_and_a_missing_leaf_a_key_error(tmp_path):

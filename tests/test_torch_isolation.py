@@ -26,10 +26,13 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert len(files) > 10
     # the training slice's subpackages are among the files checked
     pkg = ROOT / "src" / "repro_torch"
-    for sub in ("optim", "data", "train", "kernels", "models"):
+    for sub in ("optim", "data", "train", "kernels", "models", "parallel", "launch"):
         assert any(f.parent == pkg / sub for f in files), sub
     for name in ("checkpoint.py", "resilience.py", "trainer.py"):  # the training loop's modules
         assert pkg / "train" / name in files, name
+    for name in ("sharding.py", "compression.py", "overlap.py"):  # the multi-device modules
+        assert pkg / "parallel" / name in files, name
+    assert pkg / "launch" / "mesh.py" in files
     assert ROOT / "examples" / "torch_train_dcgan.py" in files
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]

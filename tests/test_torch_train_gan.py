@@ -196,9 +196,9 @@ def test_legacy_kwargs_warn_and_multi_device_ones_raise():
     with pytest.warns(DeprecationWarning, match="deprecated"):
         step = TT.make_gan_step(cfg, 1e-3, 0.9, donate=False)
     assert callable(step)
-    with pytest.warns(DeprecationWarning), pytest.raises(NotImplementedError):
-        TT.make_gan_step(cfg, mesh=object())
-    with pytest.warns(DeprecationWarning), pytest.raises(NotImplementedError):
+    with pytest.warns(DeprecationWarning), pytest.raises(ValueError, match="needs mesh and batch"):
+        TT.make_gan_step(cfg, mesh=object())  # the mesh step needs the global batch
+    with pytest.warns(DeprecationWarning), pytest.raises(ValueError, match="require mesh"):
         TT.train_gan(cfg, steps=1, batch=2, device="cpu", overlap=True)
     with warnings.catch_warnings():
         warnings.simplefilter("error")  # settings= alone: no warning

@@ -166,10 +166,14 @@ def test_port_step_leaves_its_inputs_and_uses_the_kernel_wrappers(monkeypatch):
 
 
 def test_step_settings_and_sentinel():
-    with pytest.raises(NotImplementedError):
-        StepSettings(overlap=True)
-    with pytest.raises(NotImplementedError):
-        StepSettings(mesh=object())
+    """The multi-device fields are accepted (parallel/ runs them); a mesh
+    step without its mesh or its global batch is refused."""
+    assert StepSettings(overlap=True).comm and StepSettings(grad_compression="int8").comm
+    assert not StepSettings(mesh=object(), batch=8, bucket_bytes=1 << 20).comm
+    with pytest.raises(ValueError, match="require mesh and batch"):
+        make_gan_step(tzoo.tiny_dcgan(), settings=StepSettings(overlap=True))
+    with pytest.raises(ValueError, match="needs mesh and batch"):
+        make_gan_step(tzoo.tiny_dcgan(), settings=StepSettings(mesh=object()))
     cfg = StepSettings(deconv_impl="chained_ref", conv_impl="lax").apply_to_cfg(tzoo.tiny_dcgan("cuda_chained"))
     assert (cfg.deconv_impl, cfg.conv_impl) == ("chained_ref", "lax")
     ok = {k: torch.tensor(1.0) for k in ("g_loss", "d_loss", "g_grad_norm", "d_grad_norm")}
