@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases kernel,kernel_bwd,kernel_conv,kernel_domain,serve,train,train_chained,
                                     serve_per_layer,train_per_layer,kernel_1d,audio,serve_faults,train_gan,
-                                    autotune,train_mesh]
+                                    autotune,train_mesh,lm_serve,lm_archs]
 
 Phases, each printing one JSON line:
   env     torch / CUDA versions, the card's name and power limit; TF32 off.
@@ -252,9 +252,43 @@ agree with it elsewhere (nan_case).
           resuming B's step-2 checkpoint: B and C end on A's bits, launches
           4/4/4 and 8/11/12 a step call; B's checkpoint restored onto the
           mesh with shardings= (each rank's blocks the full leaves'), and
-          resumed on one device without a mesh: held against A as (1).  One
+          resumed on one device without a mesh: held against A as (1).  (4)
+          serve_mesh, sharded residency on the world-2 mesh: DCGAN at its
+          published widths (the serve phase's params), chained, batch 8,
+          GanServeEngine(mesh=): each rank holds its blocks of the packed
+          weights and gathers them a generate; its images against the
+          single-device engine's at atol 1e-5 / rtol 1e-4, 4 launches of
+          kernel 3 a generate on each rank; a rank's bytes at rest against
+          the whole tree's, the generate's and the gather's ms.  One
           card: the worlds share it, so the figures show correctness and the
           machinery's cost, not scaling.
+  lm_serve
+          Mamba2-780m at its published size (48 layers, d_model 1536, d_inner
+          3072 in 48 heads of 64, d_state 128, d_conv 4, chunk 256, vocab
+          50280; fp32, random weights from a seed) through ServeEngine: 4
+          slots, prompt_len 256, max_len 512, 8 requests of 16 new tokens
+          with prompts from lm_batch, once with the prefill conv "direct"
+          and once on "engine" (kernel 9, engine1d.cu in nlc mode): 3 x 48
+          launches of kernel 9 a prefill on "engine", none on "direct", and
+          none of any other kernel.  First the one-layer _causal_conv at the
+          model's shapes (C = 3072 and 128, T = 256, batch 1 and 4) against
+          its plain version (the plain 1D engine) and "direct", atol 5e-5 /
+          rtol 1e-4, and its gradient (kernels 9 / 4 / 5) at 1e-4 * max +
+          1e-5; the wrapper's device ms a launch, plain and library
+          (conv1d) ms and its bound at each shape.  The engine run is
+          teacher-forced on the direct run's tokens: every prefill's and
+          decode step's logits within LM_LOGIT_GAIN * 144 * eps *
+          max|logits| + 1e-5 of the direct run's (eps: the largest relative
+          error of the conv checks), and the greedy tokens equal wherever
+          the direct run's top-2 margin exceeds twice the largest logit
+          error measured.  Prefill ms a request (direct, engine), kernel 9's
+          device ms in a profiled engine prefill, decode ms a step with 4
+          slots at their own positions and tokens/s, peak memory.
+  lm_archs
+          the nine other LM archs at smoke_config on the card (MoE at
+          no-drop capacity): a decode of token T - 1 after a prefill of
+          T - 1 tokens against the full prefill's logits, atol 2e-4 / rtol
+          2e-3 (test_arch_smoke.py's check), no kernel launched.
   kernels one summary line per kernel (launches on each serving and training
           path, as that phase's run counted them, null for a phase that did
           not run; error, times, the least time the card could take; for the
@@ -296,7 +330,7 @@ REPLACES_1D_NLC = "src/repro/kernels/engine.py:1724"  # winograd_conv1d_fused_en
 REPLACES_1D_SCRATCH = "src/repro/kernels/engine.py:1690"  # its scratch pallas_call
 PHASES = ("kernel", "kernel_bwd", "kernel_conv", "kernel_domain", "serve", "train", "train_chained",
           "serve_per_layer", "train_per_layer", "kernel_1d", "audio", "serve_faults", "train_gan", "autotune",
-          "train_mesh")
+          "train_mesh", "lm_serve", "lm_archs")
 TRAIN_BATCH = 128  # the DCGAN paper's mini-batch
 # K5S2 at batch 7, 11x11 input, 100 -> 36 channels: name, (kernel, stride, padding, output_padding), B, H, N, M
 RAGGED_SHAPE = ("ragged", (5, 2, 2, 1), 7, 11, 100, 36)
@@ -3741,7 +3775,41 @@ def _mesh_job(torch, mesh, job) -> dict:
                 mismatched.append(key)
     runs["restore_blocks_mismatched"], runs["restore_split_leaves"] = mismatched, split
     out["train_gan"] = runs
+    out["serve_mesh"] = _serve_mesh_job(torch, mesh)
     return out
+
+
+SERVE_MESH_BATCH = 8
+
+
+def _serve_mesh_z(torch):
+    return torch.randn((SERVE_MESH_BATCH, 100), generator=torch.Generator(device="cuda").manual_seed(5),
+                       device="cuda")
+
+
+def _serve_mesh_job(torch, mesh) -> dict:
+    """Sharded residency on a spawned world's mesh: DCGAN at its published
+    widths (the serve phase's params), chained, GanServeEngine(mesh=) at
+    batch 8; one counted generate (the main path: counts at 0 just
+    before, read just after), this rank's bytes at rest against the whole
+    tree's, the generate's ms (its gather included) and the gather's alone.
+    Every rank makes the same calls (the gathers are collectives)."""
+    from repro_torch.configs import DCGAN
+    from repro_torch.models import gan as G
+    from repro_torch.serve import GanServeEngine
+    from repro_torch.tree import tree_leaves
+
+    eng = GanServeEngine(_serve_params(torch), DCGAN, batch=SERVE_MESH_BATCH, mesh=mesh)
+    res = eng.archs[DCGAN.arch_id]
+    z = _serve_mesh_z(torch)
+    zero_counts()
+    img = eng.generate(z)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    whole = sum(t.numel() * t.element_size() for t in tree_leaves(G.gather_params(res.params, res.specs, mesh)))
+    return dict(img=img.cpu(), launches=launches, resident_bytes=res.resident_bytes(), whole_bytes=whole,
+                generate_ms=wall_ms(lambda: eng.generate(z), reps=5, warmup=1),
+                gather_ms=wall_ms(lambda: G.gather_params(res.params, res.specs, mesh), reps=5, warmup=1))
 
 
 def _spawn_world(torch, world, shape, axes, job, root):
@@ -3957,9 +4025,364 @@ def train_mesh_phase(torch, card):
                         "launches": {k: tg[k]["launches"] for k in ("A", "B", "C")}},
           "bucket_allreduce_ms": w2[0]["bucket_ms"], "bucket_numels": w2[0]["bucket_numels"],
           "bytes_per_step": w2[0]["int8"]["wire"], "phase_s": time.perf_counter() - t0, "card": card})
+    # sharded residency on the world-2 mesh against the single-device engine (serve_mesh)
+    from repro_torch.configs import DCGAN
+    from repro_torch.serve import GanServeEngine
+
+    with torch.inference_mode():
+        want = GanServeEngine(_serve_params(torch), DCGAN, batch=SERVE_MESH_BATCH).generate(_serve_mesh_z(torch)).cpu()
+    serve_errs = []
+    for rank, r in enumerate(w2):
+        sm = r["serve_mesh"]
+        diff = (sm["img"] - want).abs()
+        serve_errs.append(diff.max().item())
+        if not bool((diff <= 1e-5 + 1e-4 * want.abs()).all()):
+            problems.append(f"serve_mesh rank {rank}: images vs the single-device engine max|err| {serve_errs[-1]:.3e}")
+        if sm["launches"] != {row: 4 if row == "fused_engine_epi" else 0 for row in COUNTERS}:
+            problems.append(f"serve_mesh rank {rank}: launches {sm['launches']}, want 4 of kernel 3")
+    emit({"phase": "train_mesh_serve", "world": 2, "mesh": {"data": 2}, "arch": "dcgan", "batch": SERVE_MESH_BATCH,
+          "impl": "cuda_chained", "max_abs_err_vs_single_device_by_rank": serve_errs, "tol": {"atol": 1e-5,
+                                                                                           "rtol": 1e-4},
+          "kernel3_launches_per_generate": w2[0]["serve_mesh"]["launches"]["fused_engine_epi"],
+          "resident_bytes_by_rank": [r["serve_mesh"]["resident_bytes"] for r in w2],
+          "whole_tree_bytes": w2[0]["serve_mesh"]["whole_bytes"],
+          "generate_ms_by_rank": [r["serve_mesh"]["generate_ms"] for r in w2],
+          "gather_ms_by_rank": [r["serve_mesh"]["gather_ms"] for r in w2], "card": card})
     if problems:
         fail(f"train_mesh: {len(problems)} check(s) missed: " + "; ".join(problems[:8]))
-    return w2[0]["launches"]
+    return {"launches": w2[0]["launches"], "serve_launches": w2[0]["serve_mesh"]["launches"]}
+
+
+# --------------------------------------------------------------- the LM stack
+LM_ARCH = "mamba2-780m"  # at its published size: 48 layers, d_model 1536, d_inner 3072, d_state 128, vocab 50280
+LM_SLOTS, LM_PROMPT, LM_MAX_LEN, LM_REQUESTS, LM_MAX_NEW, LM_SEED = 4, 256, 512, 8, 16, 0
+# (channels, batch) of Mamba2's prefill conv at T = LM_PROMPT: conv_x (d_inner) and conv_B / conv_C (d_state)
+LM_CONV_SHAPES = ((3072, 1), (3072, 4), (128, 1), (128, 4))
+# The prefill logits' tolerance, fixed before the first full run: each conv call on "engine" may differ from
+# "direct" by the largest relative error (eps, of the output's largest magnitude) that the conv checks at the
+# model's shapes measure; a prefill runs 3 x 48 of them, and the SSD, the norms and the residual stream may
+# amplify each up to LM_LOGIT_GAIN times: |engine - direct| <= LM_LOGIT_GAIN * 144 * eps * max|logits| + 1e-5.
+LM_LOGIT_GAIN = 10.0
+LM_ENGINE_TOL = dict(atol=5e-5, rtol=1e-4)  # a kernel against its plain version (the engine tolerance)
+
+
+def _held_elementwise(what: str, got, want, atol: float, rtol: float) -> float:
+    """Fail unless |got - want| <= atol + rtol |want| everywhere; the largest
+    |difference|."""
+    if tuple(got.shape) != tuple(want.shape):
+        fail(f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    diff = (got - want).abs()
+    if not bool((diff <= atol + rtol * want.abs()).all()):
+        fail(f"{what}: max|err| {diff.max().item():.3e} beyond atol {atol:g} / rtol {rtol:g}")
+    return diff.max().item()
+
+
+def _lm_conv_checks(torch, peaks, params, card):
+    """Kernel 9 through Mamba2's ``_causal_conv`` at the model's shapes
+    (LM_CONV_SHAPES, the layer-0 taps with a non-zero bias): "engine"
+    against the plain 1D engine ("engine_interpret") and "direct" at the
+    engine tolerance, its gradient in x, the taps and the bias (kernels 9 /
+    4 / 5, one launch each) against autograd of the plain version at 1e-4 *
+    max + 1e-5; then the wrapper alone timed (device ms a launch, plain and
+    library ms, the bound).  Returns (rows, eps: the largest relative
+    engine-versus-direct error)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import engine, ops
+    from repro_torch.models import ssm as S
+
+    blk = params["blocks"]["slot0"]["mamba"]
+    rows, eps = [], 0.0
+    for C, B in LM_CONV_SHAPES:
+        name = f"mamba2.conv_C{C}_B{B}"
+        g = torch.Generator(device="cuda").manual_seed(900 + C + B)
+        x = torch.randn((B, LM_PROMPT, C), generator=g, device="cuda")
+        key = "conv_x" if blk["conv_x"]["w"].shape[-1] == C else "conv_B"  # d_inner, or d_state
+        conv = {"w": blk[key]["w"][0].clone(),
+                "b": 0.1 * torch.randn((C,), generator=g, device="cuda")}
+        if tuple(conv["w"].shape) != (4, C):
+            fail(f"{name}: the model's taps are {tuple(conv['w'].shape)}")
+        outs = {}
+        with torch.no_grad():
+            for impl in ("engine", "engine_interpret", "direct"):
+                S.set_conv_impl(impl)
+                before = read_counts()["engine1d_nlc"]
+                outs[impl] = S._causal_conv(x, conv)[0]
+                ran = read_counts()["engine1d_nlc"] - before
+                if ran != (impl == "engine"):
+                    fail(f"{name}: conv impl {impl!r} launched kernel 9 {ran} times")
+        torch.cuda.synchronize()
+        err_plain = _held_elementwise(f"{name} engine vs its plain version", outs["engine"], outs["engine_interpret"],
+                                      **LM_ENGINE_TOL)
+        err_direct = _held_elementwise(f"{name} engine vs direct", outs["engine"], outs["direct"], **LM_ENGINE_TOL)
+        eps = max(eps, err_direct / outs["direct"].abs().max().item())
+        # the gradient: kernels 9, 4 and 5 (rank 1) against autograd of the plain 1D engine
+        ct = torch.randn(outs["engine"].shape, generator=g, device="cuda")
+        grads = {}
+        for impl in ("engine", "engine_interpret"):
+            S.set_conv_impl(impl)
+            leaves = [x.clone().requires_grad_(True), conv["w"].clone().requires_grad_(True),
+                      conv["b"].clone().requires_grad_(True)]
+            before = read_counts()
+            (S._causal_conv(leaves[0], {"w": leaves[1], "b": leaves[2]})[0] * ct).sum().backward()
+            torch.cuda.synchronize()
+            after = read_counts()
+            ran = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            want = {"engine1d_nlc": 1, "domain_engine_bwd_x_rank1": 1, "domain_engine_bwd_w_rank1": 1} \
+                if impl == "engine" else {}
+            if ran != want:
+                fail(f"{name} gradient on {impl!r}: launches {ran}, want {want}")
+            grads[impl] = [t.grad for t in leaves]
+        S.set_conv_impl("direct")
+        grad_err = {}
+        for leaf, got, want in zip(("x", "w", "b"), grads["engine"], grads["engine_interpret"]):
+            tol = 1e-4 * want.abs().max().item() + 1e-5
+            grad_err[leaf] = (got - want).abs().max().item()
+            if not grad_err[leaf] <= tol:
+                fail(f"{name} gradient in {leaf}: max|err| {grad_err[leaf]:.3e} > {tol:.3e}")
+        del grads, leaves, ct, outs
+        # the wrapper alone, as the prefill launches it
+        wd = conv["w"][:, :, None] * torch.eye(C, device="cuda")
+        packed = ops.prepack_conv1d(wd, 4)
+        xp = torch.cat([x.new_zeros((B, 3, C)), x], dim=1)
+        cells, ty, _ = ops.conv1d_cells_from_seq(xp, 4, padding="valid")
+        pos_idx, sub_slices, _, bt, n = ops.conv1d_layout(4)
+        kw = dict(pos_idx=pos_idx, sub_slices=sub_slices, m=2, n=n, ty=ty, phases=1, out_mode="nlc", stride=1)
+        run = lambda: engine.winograd_conv1d_fused_engine(cells, packed.ww, packed.inv, bt, **kw)  # noqa: E731
+        plain = lambda: engine.winograd_conv1d_fused_engine_plain(cells, packed.ww, packed.inv, bt, **kw)  # noqa: E731
+        xc, wt = xp.permute(0, 2, 1).contiguous(), wd.permute(2, 1, 0).contiguous()
+        lib = lambda: F.conv1d(xc, wt)  # noqa: E731
+        got = run()
+        torch.cuda.synchronize()
+        err = _held_elementwise(f"{name} wrapper vs plain", got, plain(), **LM_ENGINE_TOL)
+        lib_err = (got[:, :LM_PROMPT] - lib().permute(0, 2, 1)).abs().max().item()
+        _, _, ms, by_kernel = profiled_ms(run, reps=20, name=ENGINE1D_KERNELS, what=f"kernel 9 at {name}")
+        T, Cp = B * ty, len(pos_idx)
+        products = 2 * T * Cp * C * C
+        n_bytes = 4 * (cells.numel() + packed.ww.numel() + packed.inv.numel() + got.numel())
+        n_ops = products + T * C * transform_ops_1d(bt) + T * C * fold_ops_1d(packed.inv.cpu().numpy(), sub_slices)
+        bound = mma_bound(n_bytes, n_ops, products, sorted(k for k in by_kernel if kernel_named(k, ENGINE1D_KERNELS)),
+                          peaks)
+        row = dict(kernel="engine1d_nlc", name=name, B=B, T=LM_PROMPT, C=C, tiles=T, max_abs_err=err,
+                   tol=LM_ENGINE_TOL, max_abs_err_vs_direct=err_direct, max_abs_err_vs_plain_conv=err_plain,
+                   grad_max_abs_err=grad_err, ms=ms, ms_wall=event_median_ms(run, reps=20),
+                   plain_ms=profiled_ms(plain, reps=5, warmup=1, what=f"plain kernel 9 at {name}")[1],
+                   library_ms=profiled_ms(lib, reps=20, what=f"conv1d at {name}")[1],
+                   library_note="conv1d (cuDNN) on the diagonal dense (C, C, 4) taps", library_max_abs_err=lib_err,
+                   bytes=n_bytes, ops=n_ops, achieved_tflops=n_ops / (ms * 1e-3) / 1e12,
+                   # the taps are diagonal: a depthwise conv needs C products a position, not C^2, and its
+                   # bytes; the kernel is given dense weights and does the dense work (bound_ms)
+                   bound_depthwise_ms=1e3 * 4 * (xp.numel() + 4 * C + got.numel()) / peaks[1],
+                   # the bound had the products run in 3xTF32 on the tensor cores (bound_ms is the fp32 one
+                   # where the plan put the launch on the CUDA cores)
+                   bound_3xtf32_ms=max(1e3 * n_bytes / peaks[1], 1e3 * products / peaks[2],
+                                       1e3 * (n_ops - products) / peaks[0]), **bound)
+        emit({"phase": "lm_conv", **row, "card": card})
+        rows.append(row)
+        del wd, packed, cells, got, x, xp, xc, wt
+        torch.cuda.empty_cache()
+    return rows, eps
+
+
+class _ServeLog:
+    """Records every prefill's and decode step's logits of a ServeEngine
+    (the active rows of each call), and with ``force`` (another run's log)
+    returns logits whose argmax is that run's token on every active row:
+    teacher forcing, the true logits kept."""
+
+    def __init__(self, torch, eng, force=None):
+        self.calls, self.torch, self.force = [], torch, force
+        pre, dec = eng._prefill_one, eng._decode
+
+        def prefill_one(tokens):
+            logits, cache = pre(tokens)
+            return self._record("prefill", logits, [0]), cache
+
+        def decode(toks, lens):
+            logits, cache = dec(toks, lens)
+            return self._record("decode", logits, [s for s, r in enumerate(eng.active) if r is not None]), cache
+
+        eng._prefill_one, eng._decode = prefill_one, decode
+
+    def _record(self, kind, logits, rows):
+        i = len(self.calls)
+        self.calls.append((kind, rows, logits[rows].clone()))
+        if self.force is None:
+            return logits
+        f_kind, f_rows, f_logits = self.force.calls[i]
+        if (f_kind, f_rows) != (kind, rows):
+            fail(f"lm_serve: call {i} is a {kind} of rows {rows}; the run it follows made a {f_kind} of {f_rows}")
+        forced = logits.clone()
+        forced[rows, self.torch.argmax(f_logits, dim=-1)] = float("inf")
+        return forced
+
+
+def lm_serve_phase(torch, peaks, card):
+    """Mamba2-780m at its published size through ServeEngine (see the
+    module docstring); returns the engine run's launches and the conv rows."""
+    from repro_torch import data as D
+    from repro_torch.configs import LMS
+    from repro_torch.models import lm as LM
+    from repro_torch.models import ssm as S
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = LMS[LM_ARCH]
+    params = LM.lm_init(cfg, seed=LM_SEED, device="cuda")
+    leaves = tree_leaves(params)
+    n_params, n_bytes = sum(t.numel() for t in leaves), sum(t.numel() * t.element_size() for t in leaves)
+    rows, eps = _lm_conv_checks(torch, peaks, params, card)
+    tol_rel = LM_LOGIT_GAIN * 3 * cfg.n_layers * eps
+    emit({"phase": "lm_serve_setup", "arch": LM_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "ssm": dataclasses.asdict(cfg.ssm), "params": n_params, "param_bytes": n_bytes,
+          "conv_eps": eps, "logit_tol": f"{LM_LOGIT_GAIN} * {3 * cfg.n_layers} * eps * max|logits| + 1e-5",
+          "logit_tol_rel": tol_rel, "init_and_conv_checks_s": time.perf_counter() - t0, "card": card})
+
+    prompts = D.lm_batch(LM_SEED, 0, LM_REQUESTS, LM_PROMPT, cfg.vocab, device="cuda")["tokens"].tolist()
+    runs = {}
+    for impl in ("direct", "engine"):
+        S.set_conv_impl(impl)
+        eng = ServeEngine(params, cfg, slots=LM_SLOTS, max_len=LM_MAX_LEN, prompt_len=LM_PROMPT)
+        log = _ServeLog(torch, eng, force=runs["direct"]["log"] if impl == "engine" else None)
+        reqs = [Request(rid=i, tokens=p, max_new=LM_MAX_NEW) for i, p in enumerate(prompts)]
+        # --- the main path: counts at 0 just before, read just after
+        zero_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = read_counts()
+        prefills = sum(kind == "prefill" for kind, _, _ in log.calls)
+        check_counts(f"lm_serve {impl}", launches,
+                     {"engine1d_nlc": 3 * cfg.n_layers * prefills} if impl == "engine" else {})
+        if sorted(r.rid for r in done) != list(range(LM_REQUESTS)) or any(len(r.out) != LM_MAX_NEW for r in done):
+            fail(f"lm_serve {impl}: finished {[(r.rid, len(r.out)) for r in done]}")
+        if any(not (0 <= t_ < cfg.vocab) for r in done for t_ in r.out):
+            fail(f"lm_serve {impl}: a token outside the vocabulary")
+        if any(not bool(torch.isfinite(lg).all()) for _, _, lg in log.calls):
+            fail(f"lm_serve {impl}: non-finite logits")
+        runs[impl] = dict(log=log, wall_s=wall, launches=launches, prefills=prefills,
+                          decodes=len(log.calls) - prefills, eng=eng, out={r.rid: r.out for r in done})
+    S.set_conv_impl("direct")
+    # engine against direct, call by call (the engine run teacher-forced on the direct run's tokens)
+    worst_pre, worst_dec, worst_rel, flips, decided = 0.0, 0.0, 0.0, 0, 0
+    for (kind, _, lg_e), (_, _, lg_d) in zip(runs["engine"]["log"].calls, runs["direct"]["log"].calls):
+        top = lg_d.abs().max().item()
+        err = (lg_e - lg_d).abs().max().item()
+        if kind == "prefill":
+            worst_pre = max(worst_pre, err)
+        else:
+            worst_dec = max(worst_dec, err)
+        worst_rel = max(worst_rel, err / top)
+        if not err <= tol_rel * top + 1e-5:
+            fail(f"lm_serve: {kind} logits engine vs direct max|err| {err:.3e} > {tol_rel * top + 1e-5:.3e}")
+    measured = max(worst_pre, worst_dec)
+    for (kind, _, lg_e), (_, _, lg_d) in zip(runs["engine"]["log"].calls, runs["direct"]["log"].calls):
+        top2 = torch.topk(lg_d, 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * measured
+        same = torch.argmax(lg_e, -1) == torch.argmax(lg_d, -1)
+        decided += int(sure.sum())
+        flips += int((~same).sum())
+        if bool((sure & ~same).any()):
+            fail(f"lm_serve: a {kind} token differs where the direct run's top-2 margin exceeds {2 * measured:.3e}")
+    # --- readings, after the counted runs (the model's own calls, not the engines' logged ones)
+    tok1 = torch.tensor([prompts[0]], device="cuda")
+
+    def prefill():
+        with torch.no_grad():
+            return LM.prefill(params, cfg, {"tokens": tok1}, q_chunk=64, max_len=LM_MAX_LEN)
+
+    prefill_ms = {}
+    for impl in ("direct", "engine"):
+        S.set_conv_impl(impl)
+        prefill_ms[impl] = wall_ms(prefill, reps=5, warmup=1)
+    S.set_conv_impl("engine")
+    prof_ms, dev_ms, k9_ms, _ = profiled_ms(prefill, reps=2, warmup=1, name=ENGINE1D_KERNELS,
+                                            what="an engine prefill")
+    S.set_conv_impl("direct")
+    # one decode step with every slot active, each at its own position
+    eng_d = runs["direct"]["eng"]
+    for s in range(LM_SLOTS):
+        eng_d.try_admit(Request(rid=100 + s, tokens=prompts[s][: LM_PROMPT - 8 * s], max_new=LM_MAX_NEW))
+    lens = torch.tensor(eng_d.pos, dtype=torch.int64, device="cuda")
+
+    def decode():
+        with torch.no_grad():
+            return LM.decode_step(params, cfg, eng_d.cache, eng_d.last_tok, lens)
+
+    decode_ms = wall_ms(decode, reps=10, warmup=2)
+    top = lambda by_kernel: dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])  # noqa: E731
+    S.set_conv_impl("direct")
+    d_prof = profiled_ms(prefill, reps=2, warmup=1, what="a direct prefill")
+    dec_prof = profiled_ms(decode, reps=5, warmup=1, what="a decode step")
+    where = {"direct_prefill": dict(wall_ms=d_prof[0], device_ms=d_prof[1], top_kernels_ms=top(d_prof[3]),
+                                    host_ops_ms=host_ops_ms(prefill, reps=2, top=6)),
+             "decode_step": dict(wall_ms=dec_prof[0], device_ms=dec_prof[1], device_idle_share=1 - dec_prof[1] / dec_prof[0],
+                                 top_kernels_ms=top(dec_prof[3]), host_ops_ms=host_ops_ms(decode, reps=5, top=6))}
+    emit({"phase": "lm_serve", "arch": LM_ARCH, "slots": LM_SLOTS, "prompt_len": LM_PROMPT, "max_len": LM_MAX_LEN,
+          "requests": LM_REQUESTS, "max_new": LM_MAX_NEW,
+          "runs": {impl: {k: r[k] for k in ("wall_s", "prefills", "decodes")} for impl, r in runs.items()},
+          "kernel9_launches_engine": runs["engine"]["launches"]["engine1d_nlc"],
+          "kernel9_launches_per_prefill": runs["engine"]["launches"]["engine1d_nlc"] / runs["engine"]["prefills"],
+          "kernel9_launches_direct": runs["direct"]["launches"]["engine1d_nlc"],
+          "prefill_logits_max_abs_err": worst_pre, "decode_logits_max_abs_err": worst_dec,
+          "logits_max_rel_err": worst_rel, "logit_tol_rel": tol_rel, "tokens_decided": decided,
+          "tokens_differing_in_near_ties": flips, "direct_tokens_rid0": runs["direct"]["out"][0],
+          "prefill_ms_per_request": prefill_ms, "engine_prefill_profile": {
+              "wall_ms": prof_ms, "device_ms": dev_ms, "kernel9_ms": k9_ms,
+              "kernel9_ms_per_launch": k9_ms / (3 * cfg.n_layers), "device_idle_share": 1.0 - dev_ms / prof_ms},
+          "decode_ms_per_step": decode_ms, "decode_tokens_per_s": 1e3 * LM_SLOTS / decode_ms, "where_the_time_goes": where,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "phase_s": time.perf_counter() - t0,
+          "card": card})
+    launches = runs["engine"]["launches"]
+    del runs, eng_d, params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "rows": rows}
+
+
+def lm_archs_phase(torch, card):
+    """The nine other LM archs at smoke_config on the card (random weights
+    from a seed, MoE at no-drop capacity): the decode of token T - 1 after
+    a prefill of T - 1 tokens against the full prefill's last logits,
+    atol 2e-4 / rtol 2e-3 (test_arch_smoke.py's check)."""
+    from repro_torch import data as D
+    from repro_torch.configs import LMS, smoke_config
+    from repro_torch.models import lm as LM
+
+    B, T = 2, 17
+    out = {}
+    for arch in sorted(a for a in LMS if a != LM_ARCH):
+        cfg = smoke_config(arch)
+        if cfg.moe:  # no-drop capacity: a decode's drops would differ from the prefill's
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+        params = LM.lm_init(cfg, seed=1, device="cuda")
+        if cfg.frontend == "stub_embeds":
+            full = {"embeds": D.embed_batch(0, 0, B, T, cfg.d_model, device="cuda")}
+            pos = torch.arange(T, device="cuda")
+            full["positions"] = pos[None, :, None].expand(B, T, 3) if cfg.mrope_sections else pos[None].expand(B, T)
+            tok = full["embeds"][:, T - 1 : T]
+        else:
+            full = {"tokens": D.lm_batch(0, 0, B, T, cfg.vocab, device="cuda")["tokens"]}
+            tok = full["tokens"][:, T - 1 : T]
+        zero_counts()
+        with torch.no_grad():
+            lg_full, _ = LM.prefill(params, cfg, full, q_chunk=8)
+            _, cache = LM.prefill(params, cfg, {k: v[:, : T - 1] for k, v in full.items()}, q_chunk=8, max_len=T + 1)
+            lg_dec, new_cache = LM.decode_step(params, cfg, cache, tok, T - 1)
+        torch.cuda.synchronize()
+        check_counts(f"lm_archs {arch}", read_counts(), {})
+        if tuple(lg_full.shape) != (B, cfg.vocab) or not bool(torch.isfinite(lg_dec).all()):
+            fail(f"lm_archs {arch}: logits {tuple(lg_full.shape)}, finite {bool(torch.isfinite(lg_dec).all())}")
+        err = _held_elementwise(f"lm_archs {arch} decode vs prefill", lg_dec, lg_full, atol=2e-4, rtol=2e-3)
+        for key in cache:
+            if [tuple(t.shape) for t in cache[key]] != [tuple(t.shape) for t in new_cache[key]]:
+                fail(f"lm_archs {arch}: the decode changed the cache's shapes at {key}")
+        out[arch] = dict(max_abs_err=err, max_logit=lg_full.abs().max().item(), layers=cfg.n_layers)
+    emit({"phase": "lm_archs", "B": B, "T": T, "tol": {"atol": 2e-4, "rtol": 2e-3}, "archs": out, "card": card})
+    return out
 
 
 def main(argv=None) -> int:
@@ -4026,13 +4449,16 @@ def main(argv=None) -> int:
     serve_faults = timed("serve_faults", lambda: serve_faults_phase(torch, smi), None)
     train_loop = timed("train_gan", lambda: train_gan_phase(torch, smi), None)
     tuned = timed("autotune", lambda: autotune_phase(torch, smi), {})
-    mesh_launches = timed("train_mesh", lambda: train_mesh_phase(torch, smi), None)
+    mesh = timed("train_mesh", lambda: train_mesh_phase(torch, smi), {})
+    lm = timed("lm_serve", lambda: lm_serve_phase(torch, peaks, smi), {})
+    timed("lm_archs", lambda: lm_archs_phase(torch, smi), None)
     # each path's launches of every kernel, counted in its run (None: not run)
     path_launches = {"serve": serve_launches, "train": train.get("launches"),
                      "train_chained": chained.get("launches"), "serve_per_layer": serve_pl.get("launches"),
                      "train_per_layer": per_layer.get("launches"), "audio": audio.get("launches"),
                      "audio_grad": audio.get("grad_launches"), "serve_faults": serve_faults,
-                     "train_gan": train_loop, "train_tuned": tuned.get("launches"), "train_mesh": mesh_launches}
+                     "train_gan": train_loop, "train_tuned": tuned.get("launches"), "train_mesh": mesh.get("launches"),
+                     "serve_mesh": mesh.get("serve_launches"), "lm_serve": lm.get("launches")}
 
     def step_device_ms(kname, run=None):
         """Device ms per step of the instantiations of ``kname`` (or of a
@@ -4123,6 +4549,8 @@ def main(argv=None) -> int:
         if key == "nlc":  # one decode at batch 1, the three layers summed
             line[-1]["decode_batch1"] = {k: v for k, v in summary(krows, prefix="audio_b1.").items()
                                          if k != "shapes"}
+            # one Mamba2-780m prefill at batch 1: per layer conv_x (C = 3072) once, conv_B and conv_C (C = 128)
+            line[-1]["mamba2_prefill"] = summary(lm.get("rows", []), weights=(48, 96), batch=1, prefix="mamba2.")
     for key, replaces, weights in (("x", REPLACES_DOM_X, (0, 1, 1)), ("w", REPLACES_DOM_W, (1, 1, 1))):
         krows = [r for r in rows_1d if r["kernel"] == f"domain_engine_bwd_{key}_rank1"]
         line.append({"name": f"domain_engine_bwd_{key}_rank1", "route": "cuda", "source": SOURCE_DOM,

@@ -1,15 +1,20 @@
-"""The MusicGen-style audio decoder stack (the reference's
-``configs/musicgen_medium.py::audio_decoder``).
-
-The reference's module also holds ``CONFIG``, musicgen-medium's decoder-only
-LM over EnCodec tokens (an ``LMConfig``).  The port has no LM stack yet, so
-only the waveform head is here; ``CONFIG`` comes with the LM slice."""
+"""musicgen-medium [arXiv:2306.05284]: decoder-only over EnCodec tokens
+(vocab 2048); the EnCodec codec frontend is a stub, token ids in.  Also the
+MusicGen-style audio decoder stack (``audio_decoder``), as in the
+reference's ``configs/musicgen_medium.py``."""
 from __future__ import annotations
 
 from ..core.tdc import DeconvDims
-from .base import Deconv1dSpec
+from .base import Deconv1dSpec, LMConfig
 
-__all__ = ["audio_decoder"]
+__all__ = ["CONFIG", "audio_decoder"]
+
+CONFIG = LMConfig(
+    arch_id="musicgen-medium",
+    n_layers=48, d_model=1536, n_heads=24, n_kv_heads=24,
+    d_ff=6144, vocab=2048,
+    mlp="gelu", norm="layernorm", family="audio", subquadratic=False,
+)
 
 
 def audio_decoder(width: int = 64) -> tuple[Deconv1dSpec, ...]:

@@ -6,9 +6,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .configs.base import GANConfig
+from .configs.base import GANConfig, LMConfig
 
-__all__ = ["generator_params_from_numpy", "discriminator_params_from_numpy", "audio_decoder_params_from_numpy"]
+__all__ = ["generator_params_from_numpy", "discriminator_params_from_numpy", "audio_decoder_params_from_numpy",
+           "lm_params_from_numpy"]
 
 
 def _to_torch(tree, device):
@@ -91,3 +92,25 @@ def audio_decoder_params_from_numpy(tree, specs, device="cuda"):
         if tuple(wd["w"].shape) != (s.dims.kernel, s.c_in, s.c_out) or tuple(wd["b"].shape) != (s.c_out,):
             raise ValueError(f"deconv{i} shapes {tuple(wd['w'].shape)} / {tuple(wd['b'].shape)} do not match {s}")
     return out
+
+
+def lm_params_from_numpy(tree, cfg: LMConfig, device="cuda"):
+    """An LM param tree of numpy arrays in the reference's layout
+    (``embed/table``, ``final_norm``, ``head/w`` unless tied,
+    ``blocks/slot{i}/...`` with a leading n_super axis) -> the same tree of
+    fp32 tensors on ``device``.  Keys and shapes are checked against
+    ``cfg`` (``models.lm.lm_param_shapes``)."""
+    from .models.lm import lm_param_shapes
+
+    def convert(t, want, path):
+        if isinstance(want, dict):
+            if not isinstance(t, dict) or set(t) != set(want):
+                got = sorted(t) if isinstance(t, dict) else type(t).__name__
+                raise ValueError(f"{path or 'params'}: keys {got} != {sorted(want)} for {cfg.arch_id}")
+            return {k: convert(t[k], want[k], f"{path}/{k}" if path else k) for k in want}
+        arr = np.asarray(t)
+        if tuple(arr.shape) != want:
+            raise ValueError(f"{path}: shape {tuple(arr.shape)} != {want} for {cfg.arch_id}")
+        return torch.from_numpy(np.array(arr, dtype=np.float32)).to(device)
+
+    return convert(tree, lm_param_shapes(cfg), "")

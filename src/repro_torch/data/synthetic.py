@@ -1,4 +1,5 @@
-"""Deterministic synthetic GAN data: every batch is a function of
+"""Deterministic synthetic data (GAN images and latents, LM token streams
+and stub embeddings): every batch is a function of
 (seed, step), drawn from an explicit ``torch.Generator`` on the target
 device, so a restarted run replays the same stream.
 
@@ -12,7 +13,7 @@ import math
 
 import torch
 
-__all__ = ["latent_batch", "gan_batch"]
+__all__ = ["latent_batch", "gan_batch", "lm_batch", "embed_batch"]
 
 
 def _gen(seed: int, step: int, tag: int, device) -> torch.Generator:
@@ -43,3 +44,18 @@ def gan_batch(seed: int, step: int, batch: int, hw: int, ch: int = 3, *, device=
         wave_x = torch.sin(freq[:, m, 1, None, :] * yy[None, :, None] + phase[:, m, 1, None, :])
         img = img + amp[:, m, None, None, :] * wave_y[:, :, None, :] * wave_x[:, None, :, :]
     return torch.tanh(img)
+
+
+def lm_batch(seed: int, step: int, batch: int, seq: int, vocab: int, *, device="cuda",
+             dtype=torch.int64) -> dict[str, torch.Tensor]:
+    """Synthetic token stream with a Zipf-like marginal (inverse CDF of a
+    power law) and labels shifted by one: {"tokens", "labels"}, each
+    (batch, seq)."""
+    u = 1e-6 + (1.0 - 1e-6) * torch.rand((batch, seq + 1), generator=_gen(seed, step, 2, device), device=device)
+    ranks = torch.clamp((u ** (-1 / 1.1) - 1).to(dtype), 0, vocab - 1)
+    return {"tokens": ranks[:, :-1], "labels": ranks[:, 1:]}
+
+
+def embed_batch(seed: int, step: int, batch: int, seq: int, d: int, *, device="cuda") -> torch.Tensor:
+    """Stub modality frontend: precomputed frame / patch embeddings."""
+    return 0.02 * torch.randn((batch, seq, d), generator=_gen(seed, step, 3, device), device=device)

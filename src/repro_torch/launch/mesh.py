@@ -77,9 +77,24 @@ def _device_identity(device: torch.device) -> tuple:
     return socket.gethostname(), device.type, os.getpid()
 
 
+def _world_timeout(backend: str):
+    """The default process group's timeout (what the caller gave
+    ``init_process_group``), or None where torch does not expose it."""
+    try:
+        pg = dist.distributed_c10d._get_default_group()
+        return pg._get_backend(torch.device("cuda" if backend == "nccl" else "cpu")).options._timeout
+    except (AttributeError, RuntimeError):
+        return None
+
+
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, device="cuda") -> Mesh:
     """Build the mesh ``shape`` with axis names ``axes`` over the default
     process group; every rank calls it, with the same arguments.
+
+    Every group of the mesh takes the default group's timeout (what the
+    caller gave ``init_process_group``), so a collective that a rank never
+    joins fails every waiting rank at that timeout; ``new_group`` alone
+    would give torch's 30-minute default.
 
     The world size must equal the product of ``shape``.  ``device`` is where
     this rank's tensors live (``"cuda"``: the current card).  NCCL with two
@@ -101,6 +116,7 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, device="cuda") -
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     backend = str(dist.get_backend())
+    timeout = _world_timeout(backend)
     if backend == "nccl" and world > 1:
         probe = dist.new_group(backend="gloo")
         ids = [None] * world
@@ -127,7 +143,7 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, device="cuda") -
             moved = np.moveaxis(ranks, rest, list(range(len(rest))))
             for fixed in itertools.product(*(range(shape[d]) for d in rest)):
                 members = sorted(int(r) for r in moved[fixed].reshape(-1))
-                g = dist.new_group(members)
+                g = dist.new_group(members, timeout=timeout)
                 if all(me[d] == f for d, f in zip(rest, fixed)):
                     groups[frozenset(axes[d] for d in sub)] = g
     return Mesh(shape, axes, device, device_mesh, groups, backend)

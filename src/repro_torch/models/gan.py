@@ -73,7 +73,8 @@ Params = dict[str, Any]
 __all__ = [
     "IMPLS", "PORT_NAMES", "PREPACKED_EQUIV", "CHAINED_EQUIV", "uses_prepacked", "uses_chained", "serve_impl",
     "DECONV_BLOCKS", "set_deconv_blocks", "clear_deconv_blocks", "install_tuned_blocks",
-    "generator_init", "prepack_generator", "fold_eval_bn", "generator_apply", "PrepackedGenerator",
+    "generator_init", "prepack_generator", "packed_generator_specs", "place_params", "gather_params",
+    "fold_eval_bn", "generator_apply", "PrepackedGenerator",
     "register_prepacked_generator", "get_prepacked_generator", "registered_archs", "clear_prepacked_generators",
     "params_finite", "generator_health", "unpack_generator", "DISC_CHANNELS", "CONV_IMPLS",
     "CONV_PREPACKED_EQUIV", "CONV_CHAINED_EQUIV", "uses_prepacked_conv", "uses_chained_conv", "disc_channels",
@@ -213,15 +214,46 @@ def generator_init(
     return p
 
 
-def prepack_generator(params: Params, cfg: GANConfig) -> Params:
+def prepack_generator(params: Params, cfg: GANConfig, mesh=None) -> Params:
     """Raw deconv weights -> packed (C, N, M) ``{"ww"}``, once.  Packed
-    leaves pass through untouched."""
+    leaves pass through untouched.  With ``mesh`` the packed tree is placed
+    per ``parallel.sharding.gan_param_specs``: this rank's block of every
+    leaf (``block_of``; batchnorm leaves are replicated), as the reference
+    places it on the mesh; ``gather`` over the same specs gives it back."""
     out = dict(params)
     for i, d in enumerate(cfg.deconvs):
         wd = params[f"deconv{i}"]
         if "w" in wd:
             out[f"deconv{i}"] = {"ww": kops.prepack(wd["w"], d.dims).ww}
+    if mesh is not None:
+        out = place_params(out, packed_generator_specs(cfg, mesh), mesh)
     return out
+
+
+def packed_generator_specs(cfg: GANConfig, mesh):
+    """The spec tree of ``prepack_generator``'s output on ``mesh``
+    (``gan_param_specs``' generator half; the specs depend only on packed
+    versus raw leaves, so any prepacked impl names this tree)."""
+    from ..parallel import sharding as SH
+
+    if not uses_prepacked(cfg.deconv_impl):
+        cfg = dataclasses.replace(cfg, deconv_impl=PREPACKED_EQUIV.get(cfg.deconv_impl, "prepacked_ref"))
+    return SH.gan_param_specs(cfg, mesh)[0]
+
+
+def place_params(params: Params, specs, mesh) -> Params:
+    """This rank's blocks of a full tree under ``specs`` (no collective)."""
+    from ..parallel import sharding as SH
+
+    return SH.map_specs(lambda leaf, sp: SH.block_of(leaf, sp, mesh), params, specs)
+
+
+def gather_params(blocks: Params, specs, mesh) -> Params:
+    """The full tree from every rank's blocks (an ``all_gather`` a split
+    leaf, in the tree's order: every rank of the mesh calls it)."""
+    from ..parallel import sharding as SH
+
+    return SH.map_specs(lambda leaf, sp: SH.gather(leaf, sp, mesh), blocks, specs)
 
 
 # ---------------------------------------------------------- block overrides
@@ -490,11 +522,14 @@ class PrepackedGenerator:
     impl substituted (``serve_impl``), and packed (C, N, M) weights on
     their device; the G-transform is paid when the entry is built, never on
     a request path.  ``serve.GanServeEngine(models=...)`` takes these, or
-    arch-id strings resolved through ``get_prepacked_generator``."""
+    arch-id strings resolved through ``get_prepacked_generator``.  An entry
+    registered with a ``mesh`` holds this rank's blocks of the weights
+    (``mesh`` is that mesh; None: the full tree)."""
 
     arch_id: str
     cfg: GANConfig
     params: Params
+    mesh: Any = None
 
 
 _SERVE_REGISTRY: dict[str, PrepackedGenerator] = {}
@@ -505,13 +540,15 @@ def register_prepacked_generator(arch_id: str, params: Params, cfg: GANConfig, *
     """Pack ``params`` for serving on ``device`` and register them under
     ``arch_id``, so launch scripts, benchmarks and engines share one
     resident copy per arch.  Re-registering an arch replaces its entry.
-    ``mesh`` (the reference's sharded placement) is not in the port."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= (sharded residency) is not in the port yet: it is what remains of ROADMAP "
-                                  "queue 1 item 5; an entry lives on one device")
+    With ``mesh`` (every rank registers, with the same full ``params``) the
+    entry holds this rank's blocks, placed per ``gan_param_specs`` on the
+    mesh's device; an engine on the same mesh gathers them per generate."""
     cfg_s = dataclasses.replace(cfg, deconv_impl=serve_impl(cfg.deconv_impl, chained=chained))
+    if mesh is not None:
+        device = mesh.device
     moved = tree_map(lambda v: v.to(device, torch.float32).contiguous(), params)
-    entry = PrepackedGenerator(arch_id=arch_id, cfg=cfg_s, params=prepack_generator(moved, cfg_s))
+    entry = PrepackedGenerator(arch_id=arch_id, cfg=cfg_s, params=prepack_generator(moved, cfg_s, mesh=mesh),
+                               mesh=mesh)
     _SERVE_REGISTRY[arch_id] = entry
     return entry
 
@@ -673,14 +710,21 @@ def discriminator_init(cfg: GANConfig, *, seed: int = 0, device="cuda", dtype=to
     return p
 
 
-def prepack_discriminator(params: Params, cfg: GANConfig) -> Params:
+def prepack_discriminator(params: Params, cfg: GANConfig, mesh=None) -> Params:
     """Raw conv weights -> packed (C, N, M) ``{"ww", "b"}``, once.  Packed
-    leaves pass through untouched."""
+    leaves pass through untouched.  With ``mesh`` the packed tree is placed
+    per ``gan_param_specs``' discriminator half: this rank's blocks."""
     out = dict(params)
     for i, cd in enumerate(disc_conv_dims(cfg)):
         wd = params.get(f"conv{i}")
         if wd is not None and "w" in wd:
             out[f"conv{i}"] = {"ww": kops.prepack_conv(wd["w"], cd).ww, "b": wd["b"]}
+    if mesh is not None:
+        from ..parallel import sharding as SH
+
+        cfg_p = cfg if uses_prepacked_conv(cfg.conv_impl) else dataclasses.replace(
+            cfg, conv_impl=CONV_PREPACKED_EQUIV.get(cfg.conv_impl, "prepacked_ref"))
+        out = place_params(out, SH.gan_param_specs(cfg_p, mesh)[1], mesh)
     return out
 
 

@@ -2,7 +2,8 @@
 
 Same layouts and keys as the reference's ``models/layers.py``: NHWC
 activations, linear weights (d_in, d_out), conv weights (K, K, C_in, C_out),
-batchnorm dicts {scale, bias, mean, var}.  Inits draw from a
+batchnorm dicts {scale, bias, mean, var}, layernorm {scale, bias}, rmsnorm
+{scale}, embedding {table (vocab, d)}.  Inits draw from a
 ``torch.Generator`` on the target device.
 
 Sync-BN: inside ``bn_sync_axis(group)`` training-mode batch statistics are
@@ -21,27 +22,40 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 __all__ = [
-    "normal_init", "lecun_init", "linear_init", "linear", "bn_sync_axis", "bn_sync_moments", "batchnorm_init",
+    "normal_init", "lecun_init", "linear_init", "linear", "layernorm_init", "layernorm", "rmsnorm_init", "rmsnorm",
+    "embedding_init", "embedding", "bn_sync_axis", "bn_sync_moments", "batchnorm_init",
     "batchnorm",
     "conv2d_init", "conv2d", "leaky_relu", "ACTIVATIONS",
 ]
 
 
 # ----------------------------------------------------------------- inits
+# ``gen`` None draws nothing: the leaves come out on the meta device, with
+# their shapes only (``models.lm.lm_param_shapes``).
+def _device(gen):
+    return torch.device("meta") if gen is None else gen.device
+
+
+def _randn(gen, shape, dtype):
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return torch.randn(shape, generator=gen, device=gen.device, dtype=dtype)
+
+
 def normal_init(gen: torch.Generator, shape, scale=0.02, dtype=torch.float32):
-    return scale * torch.randn(shape, generator=gen, device=gen.device, dtype=dtype)
+    return scale * _randn(gen, shape, dtype)
 
 
 def lecun_init(gen: torch.Generator, shape, fan_in=None, dtype=torch.float32):
     fan_in = fan_in if fan_in is not None else shape[0]
-    return torch.randn(shape, generator=gen, device=gen.device, dtype=dtype) / math.sqrt(max(1, fan_in))
+    return _randn(gen, shape, dtype) / math.sqrt(max(1, fan_in))
 
 
 # ---------------------------------------------------------------- linear
 def linear_init(gen: torch.Generator, d_in, d_out, dtype=torch.float32, bias=True):
     p = {"w": lecun_init(gen, (d_in, d_out), d_in, dtype)}
     if bias:
-        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=_device(gen))
     return p
 
 
@@ -52,6 +66,38 @@ def linear(p, x):
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+# ----------------------------------------------------------------- norms
+def layernorm_init(d, dtype=torch.float32, device="cpu"):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device), "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p, x, eps=1e-5):
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, unbiased=False, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
+def rmsnorm_init(d, dtype=torch.float32, device="cpu"):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p, x, eps=1e-6):
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+# ------------------------------------------------------------ embeddings
+def embedding_init(gen: torch.Generator, vocab, d, dtype=torch.float32, scale=0.02):
+    return {"table": normal_init(gen, (vocab, d), scale, dtype)}
+
+
+def embedding(p, ids):
+    return p["table"][ids]
 
 
 # ------------------------------------------------------------- batchnorm

@@ -1,7 +1,8 @@
-"""Serving: ``GanServeEngine`` with its failure semantics, the threaded
-``AsyncGanServer`` and the SLO metrics, under the reference's GAN names."""
+"""Serving: the LM ``ServeEngine``, ``GanServeEngine`` with its failure
+semantics, the threaded ``AsyncGanServer`` and the SLO metrics, under the
+reference's names."""
 from . import metrics
-from .engine import GanFuture, GanRequest, GanServeEngine, GanServeRejected
+from .engine import GanFuture, GanRequest, GanServeEngine, GanServeRejected, Request, ServeEngine
 from .faults import CircuitBreaker, FaultPlan, GanServeError, InjectedFault
 from .loop import AsyncGanServer
 
@@ -16,4 +17,6 @@ __all__ = [
     "GanServeRejected",
     "InjectedFault",
     "metrics",
+    "Request",
+    "ServeEngine",
 ]

@@ -1,4 +1,15 @@
-"""``GanServeEngine``: batched image generation over packed generators.
+"""Serving engines: ``ServeEngine``, the continuous-batching LM engine
+(slots over one shared cache), and ``GanServeEngine``, batched image
+generation over packed generators.
+
+``ServeEngine`` (the reference's): B slots share one cache allocated once
+at (B, max_len); an arrival fills a free slot by a prefill whose rows are
+written into that slot, each decode step runs every slot at its own
+position in one batched ``decode_step`` (the reference runs a ``vmap`` of
+one-row decodes: the same function), and a finished sequence frees its
+slot.  Greedy decoding.
+
+``GanServeEngine``:
 
 Each resident arch pays the G-transform and zero-skipping pack once, at
 construction, and keeps its packed (C, N, M) weights on the device; a
@@ -43,14 +54,103 @@ from collections import deque
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
-from ..configs.base import GANConfig
+from ..configs.base import GANConfig, LMConfig
 from ..models import gan as G
-from ..tree import tree_map
+from ..models import lm as LM
+from ..tree import tree_leaves, tree_map
 from . import metrics as M
 from .faults import CircuitBreaker, FaultPlan, GanServeError, InjectedFault, _now_ms
 
-__all__ = ["GanServeRejected", "GanRequest", "GanFuture", "GanServeEngine"]
+__all__ = ["Request", "ServeEngine", "GanServeRejected", "GanRequest", "GanFuture", "GanServeEngine"]
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    tokens: list[int]  # prompt
+    max_new: int = 16
+    out: list[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ServeEngine:
+    """Greedy-decoding LM engine with ``slots`` slots over one cache.
+
+    The cache is allocated once at (slots, max_len) on the params' device;
+    a prompt is cut or zero-padded to ``prompt_len`` and prefilled alone,
+    and its rows are written into its slot, so admitting a request never
+    reallocates the cache.  ``step`` decodes every slot at its own
+    position (``models.lm.decode_step`` with a (slots,) ``cache_len``)."""
+
+    def __init__(self, params, cfg: LMConfig, *, slots: int = 4, max_len: int = 256, prompt_len: int = 32):
+        self.params, self.cfg = params, cfg
+        self.B, self.max_len, self.prompt_len = slots, max_len, prompt_len
+        self.device = params["embed"]["table"].device
+        self.cache = LM.init_cache(cfg, slots, max_len, torch.float32, self.device)
+        self.pos = [0] * slots  # tokens in each slot's cache
+        self.active: list[Optional[Request]] = [None] * slots
+        self.last_tok = torch.zeros((slots, 1), dtype=torch.int64, device=self.device)
+
+    def _prefill_one(self, tokens: torch.Tensor):
+        with torch.no_grad():
+            return LM.prefill(self.params, self.cfg, {"tokens": tokens}, q_chunk=64, max_len=self.max_len)
+
+    def _decode(self, toks: torch.Tensor, lens: torch.Tensor):
+        with torch.no_grad():
+            return LM.decode_step(self.params, self.cfg, self.cache, toks, lens)
+
+    # ------------------------------------------------------------- admission
+    def try_admit(self, req: Request) -> bool:
+        for s in range(self.B):
+            if self.active[s] is None:
+                toks = (list(req.tokens) + [0] * self.prompt_len)[: self.prompt_len]
+                logits, cache1 = self._prefill_one(torch.tensor([toks], dtype=torch.int64, device=self.device))
+                for key, c in cache1.items():  # slot s's rows from the one-row cache
+                    for big, small in zip(self.cache[key], c):
+                        big[:, s] = small[:, 0]
+                self.pos[s] = min(len(req.tokens), self.prompt_len)
+                self.active[s] = req
+                first = int(torch.argmax(logits[0]))
+                req.out.append(first)  # the prefill step's prediction
+                self.last_tok[s, 0] = first
+                return True
+        return False
+
+    # ----------------------------------------------------------------- step
+    def step(self) -> list[Request]:
+        """One decode step for every active slot; returns the finished
+        requests."""
+        if not any(a is not None for a in self.active):
+            return []
+        lens = torch.tensor(self.pos, dtype=torch.int64, device=self.device)
+        logits, self.cache = self._decode(self.last_tok, lens)
+        nxt = torch.argmax(logits, dim=-1).tolist()
+        finished = []
+        for s, req in enumerate(self.active):
+            if req is None:
+                continue
+            tok = nxt[s]
+            req.out.append(tok)
+            self.pos[s] += 1
+            self.last_tok[s, 0] = tok
+            if len(req.out) >= req.max_new or self.pos[s] >= self.max_len - 1:
+                req.done = True
+                finished.append(req)
+                self.active[s] = None
+                self.pos[s] = 0
+        return finished
+
+    def run(self, requests: list[Request]) -> list[Request]:
+        """Drive a workload to completion (a simple arrival loop)."""
+        pending = list(requests)
+        done: list[Request] = []
+        while pending or any(a is not None for a in self.active):
+            while pending and self.try_admit(pending[0]):
+                pending.pop(0)
+            done.extend(self.step())
+        return done
 
 
 class GanServeRejected(RuntimeError):
@@ -174,15 +274,21 @@ class _Resident:
     per-layer kernel entry follows the engine's ``chained``."""
 
     def __init__(self, arch: str, gen_params, cfg: GANConfig, device: torch.device, *, chained: bool,
-                 registered: bool = False):
+                 registered: bool = False, mesh=None, placed: bool = False):
         self.arch = arch
         impl = cfg.deconv_impl
         if not (registered and (G.uses_chained(impl) or impl == "prepacked_ref")):
             impl = G.serve_impl(impl, chained=chained)
         self.cfg = dataclasses.replace(cfg, deconv_impl=impl)
+        self.mesh = mesh
         params = tree_map(lambda v: v.to(device, torch.float32).contiguous(), gen_params)
-        self.params = G.prepack_generator(params, self.cfg)
+        if placed:  # a registry entry's blocks on this mesh
+            self.params = params
+        else:
+            self.params = G.prepack_generator(params, self.cfg, mesh=mesh)
+        # batchnorm leaves are never split, so the blocks fold as the full tree
         self.folded = G.fold_eval_bn(self.params, self.cfg)  # once, not per request
+        self.specs = None if mesh is None else G.packed_generator_specs(self.cfg, mesh)
         self.bucket_counts: dict[int, int] = {}
         self.served = 0
         self.generates = 0
@@ -193,15 +299,27 @@ class _Resident:
 
     def generate(self, z: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            img, _ = G.generator_apply(self.params, self.cfg, z, folded=self.folded)
+            params = self.params if self.mesh is None else G.gather_params(self.params, self.specs, self.mesh)
+            img, _ = G.generator_apply(params, self.cfg, z, folded=self.folded)
         self.generates += 1
         return img
+
+    def resident_bytes(self) -> int:
+        """Bytes of the weights this process holds at rest (on a mesh, its
+        blocks)."""
+        return sum(leaf.numel() * leaf.element_size() for leaf in tree_leaves(self.params))
 
     def health_ok(self) -> bool:
         """False while the resident's weights hold a non-finite value: such
         a resident cannot produce a good batch, so the half-open probe is
-        refused (``models.gan.params_finite``)."""
-        return G.params_finite(self.params)
+        refused (``models.gan.params_finite``).  On a mesh the ranks agree:
+        one all-reduce of the ranks' answers (every rank asks)."""
+        ok = G.params_finite(self.params)
+        if self.mesh is None:
+            return ok
+        flag = torch.tensor([1.0 if ok else 0.0], device=self.mesh.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.mesh.group(self.mesh.axis_names))
+        return bool(flag.item() == 1.0)
 
 
 class GanServeEngine:
@@ -222,24 +340,32 @@ class GanServeEngine:
     ``backoff_cap_ms``), never past a request's deadline; each resident
     has a ``CircuitBreaker(threshold=breaker_threshold,
     cooldown_ms=breaker_cooldown_ms)``; ``nan_guard`` refuses a batch with a
-    non-finite value; ``fault_plan`` injects faults.  ``mesh`` (the
-    reference's sharded residency) is not in the port: it raises."""
+    non-finite value; ``fault_plan`` injects faults.
+
+    Sharded residency: with ``mesh`` (``launch.make_mesh``; one process a
+    rank, each building this engine with the same full params and
+    submitting the same requests in the same order) a resident holds this
+    rank's blocks of its packed weights on the mesh's device, placed per
+    ``parallel.sharding.gan_param_specs``, and each generate gathers them
+    (an ``all_gather`` a split leaf) before it runs the same kernels as the
+    single-device engine, so every rank returns the same images.  A
+    registry entry built on the same mesh is taken as it is placed.  A
+    rank that raises inside a generate leaves the others in the gather,
+    which fails them at the process group's timeout."""
 
     def __init__(self, gen_params=None, cfg: Optional[GANConfig] = None, *, models=None, batch: int = 8,
                  buckets: Optional[tuple[int, ...]] = None, mesh=None, device="cuda", chained: bool = True,
                  max_retries: int = 2, backoff_ms: float = 2.0, backoff_cap_ms: float = 50.0,
                  breaker_threshold: int = 3, breaker_cooldown_ms: float = 250.0, nan_guard: bool = False,
                  fault_plan: Optional[FaultPlan] = None):
-        if mesh is not None:
-            raise NotImplementedError("mesh= (sharded residency) is not in the port yet: it is what remains of "
-                                      "ROADMAP queue 1 item 5; a resident lives on one device")
         if models is None:
             if gen_params is None or cfg is None:
                 raise ValueError("pass (gen_params, cfg) or models={arch: (params, cfg)}")
             models = {cfg.arch_id or "default": (gen_params, cfg)}
         elif gen_params is not None or cfg is not None:
             raise ValueError("pass (gen_params, cfg) OR models=, not both")
-        self.device = torch.device(device)
+        self.device = torch.device(device) if mesh is None else mesh.device
+        self.mesh = mesh
         if buckets is None:
             buckets, b = [], 1
             while b < batch:
@@ -254,10 +380,13 @@ class GanServeEngine:
             if isinstance(spec, str):
                 spec = G.get_prepacked_generator(spec)
             if isinstance(spec, G.PrepackedGenerator):
-                res = _Resident(arch, spec.params, spec.cfg, self.device, chained=chained, registered=True)
+                if spec.mesh is not None and spec.mesh is not mesh:
+                    raise ValueError(f"{arch!r} was registered as blocks of another mesh; serve it on that mesh")
+                res = _Resident(arch, spec.params, spec.cfg, self.device, chained=chained, registered=True,
+                                mesh=mesh, placed=spec.mesh is not None)
             else:
                 p, c = spec
-                res = _Resident(arch, p, c, self.device, chained=chained)
+                res = _Resident(arch, p, c, self.device, chained=chained, mesh=mesh)
             res.breaker = CircuitBreaker(threshold=breaker_threshold, cooldown_ms=breaker_cooldown_ms)
             self.archs[arch] = res
         self.default_arch = next(iter(self.archs))

@@ -11,6 +11,7 @@ the test module, nor JAX); they take and return numpy arrays.
 """
 from __future__ import annotations
 
+import datetime
 import multiprocessing as mp
 import os
 import pickle
@@ -22,13 +23,15 @@ import numpy as np
 DEADLINE_S = 150.0
 
 
-def _entry(fn, rank, world, store_path, out_path, args, kwargs):
+def _entry(fn, rank, world, store_path, out_path, args, kwargs, pg_timeout=None):
     import torch
     import torch.distributed as dist
 
     torch.set_num_threads(1)
     try:
-        dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank, world_size=world)
+        timeout = {} if pg_timeout is None else {"timeout": datetime.timedelta(seconds=pg_timeout)}
+        dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank, world_size=world,
+                                **timeout)
         res = (True, fn(rank, world, *args, **kwargs))
     except BaseException:  # noqa: BLE001 - the parent reports it
         res = (False, traceback.format_exc())
@@ -38,14 +41,17 @@ def _entry(fn, rank, world, store_path, out_path, args, kwargs):
         dist.destroy_process_group()
 
 
-def spawn_ranks(fn, world: int, tmp_path, *args, **kwargs):
+def spawn_ranks(fn, world: int, tmp_path, *args, pg_timeout=None, **kwargs):
     """Start ``fn(rank, world, *args, **kwargs)`` on ``world`` gloo ranks;
-    ``collect`` waits for them.  Several worlds may run at once."""
+    ``collect`` waits for them.  Several worlds may run at once.
+    ``pg_timeout``: the process group's timeout in seconds (None: gloo's
+    default)."""
     ctx = mp.get_context("spawn")
     root = os.path.join(str(tmp_path), f"{fn.__name__}_{world}_{time.monotonic_ns()}")
     os.makedirs(root)
     outs = [os.path.join(root, f"rank{r}.pkl") for r in range(world)]
-    procs = [ctx.Process(target=_entry, args=(fn, r, world, os.path.join(root, "store"), outs[r], args, kwargs))
+    procs = [ctx.Process(target=_entry, args=(fn, r, world, os.path.join(root, "store"), outs[r], args, kwargs,
+                                              pg_timeout))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -79,6 +85,24 @@ def collect(handle, deadline: float = DEADLINE_S) -> list:
 
 
 # ------------------------------------------------------------------ helpers
+class OneRankMesh:
+    """A ("data",) mesh of one rank on the CPU, standing in for
+    ``launch.make_mesh`` in a process without a process group: every
+    block is the whole leaf, and nothing is gathered."""
+
+    shape = {"data": 1}
+    axis_names = ("data",)
+    device = None
+
+    def __init__(self):
+        import torch
+
+        self.device = torch.device("cpu")
+
+    def index(self, axes) -> int:
+        return 0
+
+
 def _mesh(shape, axes):
     from repro_torch.launch import make_mesh
 
@@ -306,3 +330,72 @@ def autotune_runs(rank, world, shape, axes):
                                  device="cpu", mesh=mesh, grad_compression=gc)
         out[gc] = [{k: v for k, v in r.items() if k != "config"} for r in rows]
     return out
+
+
+def serve_mesh_runs(rank, world, shape, axes, zoo_args, gp_np, dp_np, z_np):
+    """Sharded residency on the mesh: this rank's blocks of the packed
+    generator and discriminator (``prepack_generator`` /
+    ``prepack_discriminator(mesh=)``) and whether they are ``block_of`` of
+    the unsharded packed trees and gather back to them; the images of a
+    ``GanServeEngine(mesh=)`` generate and of an engine serving a registry
+    entry registered on the mesh; the resident's bytes at rest against the
+    whole tree's."""
+    import torch
+
+    from repro_torch.models import gan as G
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.serve import GanServeEngine
+    from repro_torch.tree import tree_leaves
+
+    mesh = _mesh(shape, axes)
+    cfg = _cfg(zoo_args)
+    gp, dp = _params(cfg, gp_np, dp_np)
+    gblk, dblk = G.prepack_generator(gp, cfg, mesh=mesh), G.prepack_discriminator(dp, cfg, mesh=mesh)
+    gfull, dfull = G.prepack_generator(gp, cfg), G.prepack_discriminator(dp, cfg)
+    gsp, dsp = G.packed_generator_specs(cfg, mesh), SH.gan_param_specs(cfg, mesh)[1]
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))  # noqa: E731
+    blocks_ok = same(gblk, G.place_params(gfull, gsp, mesh)) and same(dblk, G.place_params(dfull, dsp, mesh))
+    gathered_ok = same(G.gather_params(gblk, gsp, mesh), gfull) and same(G.gather_params(dblk, dsp, mesh), dfull)
+    z = torch.from_numpy(z_np)
+    eng = GanServeEngine(gp, cfg, mesh=mesh, batch=4)
+    img = eng.generate(z)
+    G.register_prepacked_generator("dcgan", gp, cfg, mesh=mesh)
+    eng2 = GanServeEngine(models={"dcgan": "dcgan"}, mesh=mesh, batch=4)
+    img2 = eng2.submit(z, arch="dcgan").result()
+    res = eng.archs[next(iter(eng.archs))]
+    return dict(gblk=_np(gblk), dblk=_np(dblk), blocks_ok=blocks_ok, gathered_ok=gathered_ok, img=img.numpy(),
+                img_registry=img2.numpy(), resident_bytes=res.resident_bytes(),
+                full_bytes=sum(t.numel() * t.element_size() for t in tree_leaves(gfull)),
+                healthy=res.health_ok(), fallbacks=SH.gan_param_specs(cfg, mesh)[2])
+
+
+def serve_mesh_fault(rank, world, shape, axes, zoo_args, gp_np, dp_np, z_np, bad_rank, linger_s=0.0):
+    """A sharded generate in which rank ``bad_rank`` raises before its
+    gather: every rank's request through the engine (no retries), how it
+    ended and after how many seconds.  The bad rank then stays alive
+    ``linger_s`` seconds before it returns (a process that keeps running:
+    its peers see no closed connection)."""
+    import torch
+
+    from repro_torch.models import gan as G
+    from repro_torch.serve import GanServeEngine
+
+    mesh = _mesh(shape, axes)
+    cfg = _cfg(zoo_args)
+    gp, _ = _params(cfg, gp_np, dp_np)
+    eng = GanServeEngine(gp, cfg, mesh=mesh, batch=4, max_retries=0)
+    if rank == bad_rank:
+        def broken(*a, **k):
+            raise RuntimeError(f"injected fault on rank {rank}")
+
+        G.gather_params = broken
+    t0 = time.monotonic()
+    try:
+        eng.submit(torch.from_numpy(z_np)).result(timeout=60)
+        outcome = "served"
+    except Exception as e:  # noqa: BLE001 - the outcome is the result
+        outcome = f"{type(e).__name__}: {e}"
+    seconds = time.monotonic() - t0
+    if rank == bad_rank:
+        time.sleep(linger_s)
+    return dict(outcome=outcome, seconds=seconds)

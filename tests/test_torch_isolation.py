@@ -34,6 +34,12 @@ def test_port_imports_no_jax_and_no_reference_package():
         assert pkg / "parallel" / name in files, name
     assert pkg / "launch" / "mesh.py" in files
     assert ROOT / "examples" / "torch_train_dcgan.py" in files
+    for name in ("lm.py", "attention.py", "mlp.py", "moe.py", "ssm.py"):  # the LM stack's modules
+        assert pkg / "models" / name in files, name
+    for name in ("phi3_mini_3_8b", "starcoder2_15b", "gemma3_12b", "llama3_8b", "musicgen_medium", "jamba_v0_1_52b",
+                 "llama4_scout_17b_a16e", "mixtral_8x22b", "mamba2_780m", "qwen2_vl_2b"):  # the ten LM configs
+        assert pkg / "configs" / f"{name}.py" in files, name
+    assert ROOT / "examples" / "torch_serve_lm.py" in files
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
     assert not bad, bad

@@ -190,8 +190,8 @@ def test_registry_entry_serves_where_the_reference_would(chained_engine):
     serves its counterpart with (its serve_impl passes chained and plain
     packed names through): an entry registered chained stays chained on a
     chained=False engine, prepacked_ref stays plain, and a per-layer kernel
-    entry follows the engine's flag.  The mesh placement is not in the
-    port."""
+    entry follows the engine's flag.  An entry registered on a mesh (its
+    blocks) serves only on that mesh."""
     cfg_t = tzoo.tiny_dcgan("ref")
     p = generator_params_from_numpy(params("dcgan", 0), cfg_t, device="cpu")
     jp = jax.tree.map(jnp.asarray, params("dcgan", 0))
@@ -206,8 +206,18 @@ def test_registry_entry_serves_where_the_reference_would(chained_engine):
             assert TG.PORT_NAMES.get(jeng.cfg.deconv_impl, jeng.cfg.deconv_impl) == teng.cfg.deconv_impl
             if chained_entry and t_impl == "pallas":
                 assert teng.cfg.deconv_impl == "cuda_chained"
-        with pytest.raises(NotImplementedError, match="mesh"):
-            TG.register_prepacked_generator("a", p, cfg_t, device="cpu", mesh=object())
+        # an entry registered on a mesh holds that mesh's blocks, and serves only on that mesh
+        from _torch_dist import OneRankMesh
+
+        one = OneRankMesh()
+        entry = TG.register_prepacked_generator("a", p, cfg_t, device="cpu", mesh=one)
+        full = TG.register_prepacked_generator("b", p, cfg_t, device="cpu")
+        assert entry.mesh is one and full.mesh is None
+        for k, leaves in full.params.items():
+            assert all(torch.equal(entry.params[k][kk], v) for kk, v in leaves.items()), k
+        with pytest.raises(ValueError, match="another mesh"):
+            tserve.GanServeEngine(models={"a": "a"}, batch=2, device="cpu")
+        assert tserve.GanServeEngine(models={"a": "a"}, batch=2, mesh=one).archs["a"].mesh is one
     finally:
         TG.clear_prepacked_generators()
         JG.clear_prepacked_generators()

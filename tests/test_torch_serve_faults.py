@@ -15,6 +15,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from _serve_pair import assert_same, images, latents, outcome, pair, record
 
@@ -454,9 +455,10 @@ def test_stop_under_wedge_fails_futures_and_raises():
 
 # ------------------------------------------------------------ the port's own
 def test_engine_kwargs_and_mesh():
-    """The port's engine takes every constructor kwarg of the reference's
-    (``mesh`` raises NotImplementedError: residency on one device), and
-    holds them as the reference's does."""
+    """The port's engine takes every constructor kwarg of the reference's,
+    and holds them as the reference's does; on a mesh of one rank (blocks
+    that are the whole leaves) it serves the single-device engine's
+    images."""
     kw = dict(batch=4, buckets=(2,), chained=True, max_retries=5, backoff_ms=1.5, backoff_cap_ms=7.0,
               breaker_threshold=4, breaker_cooldown_ms=33.0, nan_guard=True)
     jside, tside = pair({"dcgan": 0}, **kw)
@@ -470,5 +472,10 @@ def test_engine_kwargs_and_mesh():
     from _serve_pair import models_for
     from repro_torch.serve import GanServeEngine
 
-    with pytest.raises(NotImplementedError, match="mesh"):
-        GanServeEngine(models=models_for("torch", {"dcgan": 0}), device="cpu", mesh=object())
+    from _torch_dist import OneRankMesh
+
+    z = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 100)).astype(np.float32))
+    plain = GanServeEngine(models=models_for("torch", {"dcgan": 0}), device="cpu")
+    meshed = GanServeEngine(models=models_for("torch", {"dcgan": 0}), device="cpu", mesh=OneRankMesh())
+    assert meshed.archs["dcgan"].mesh is not None and meshed.device == torch.device("cpu")
+    torch.testing.assert_close(meshed.generate(z), plain.generate(z), rtol=0, atol=0)
