@@ -79,12 +79,15 @@ def _device_identity(device: torch.device) -> tuple:
 
 def _world_timeout(backend: str):
     """The default process group's timeout (what the caller gave
-    ``init_process_group``), or None where torch does not expose it."""
+    ``init_process_group``).  Raises where torch does not expose it: the
+    mesh's groups would otherwise take torch's 30-minute default, and a
+    fault on one rank would hang the others that long."""
     try:
         pg = dist.distributed_c10d._get_default_group()
         return pg._get_backend(torch.device("cuda" if backend == "nccl" else "cpu")).options._timeout
-    except (AttributeError, RuntimeError):
-        return None
+    except (AttributeError, RuntimeError) as e:
+        raise RuntimeError(f"make_mesh cannot read the default process group's timeout from this torch "
+                           f"({torch.__version__}): {e!r}") from e
 
 
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, device="cuda") -> Mesh:

@@ -383,7 +383,11 @@ def decode_step(params: Params, cfg: LMConfig, cache, tokens: torch.Tensor, cach
     cache: an int or 0-d tensor for every row, or a (B,) tensor, each row at
     its own position (the serving slots; the MoE then routes each row on
     its own, as the reference's ``vmap`` does).  Returns (logits (B, V),
-    the new cache)."""
+    the cache): the new rows and states are written into ``cache`` in
+    place, so no leaf is copied a token (the reference returns a new tree;
+    a caller that keeps the old cache passes a copy).  A conv-state leaf
+    whose dtype differs from the new state's (a bf16 ``init_cache``) is
+    replaced in ``cache`` once by its cast, as the reference's tree turns."""
     _no_mesh(mesh, seq_shard_axis)
     specs = slot_specs(cfg)
     B = tokens.shape[0]
@@ -398,10 +402,8 @@ def decode_step(params: Params, cfg: LMConfig, cache, tokens: torch.Tensor, cach
     rows = torch.arange(B, device=dev)
     hd = cfg.hd
     n_super = cfg.n_layers // superblock_period(cfg)
-    per_block = []
     for s in range(n_super):
         bp = _block_params(params, s)
-        new_cache = {}
         for i, spec in enumerate(specs):
             p = bp[f"slot{i}"]
             c = type(cache[f"slot{i}"])(*(leaf[s] for leaf in cache[f"slot{i}"]))
@@ -414,19 +416,24 @@ def decode_step(params: Params, cfg: LMConfig, cache, tokens: torch.Tensor, cach
                 k1 = apply_rope(k1, pos, cfg.rope_theta, cfg.mrope_sections)
                 S_ = c.k.shape[1]
                 slot = cl_b % S_ if (spec.attn_kind == "local" and cfg.window) else torch.clamp(cl_b, max=S_ - 1)
-                k_c, v_c, pos_c = c.k.clone(), c.v.clone(), c.pos.clone()
-                k_c[rows, slot] = k1[:, 0].to(k_c.dtype)
-                v_c[rows, slot] = v1[:, 0].to(v_c.dtype)
-                pos_c[rows, slot] = cl_b.to(torch.int32)
-                o = decode_attention(q, k_c, v_c, cl_b + 1, kv_positions=pos_c)
-                x = x + L.linear(p["attn"]["wo"], o.reshape(B, 1, cfg.n_heads * hd))
-                new_cache[f"slot{i}"] = AttnCache(k_c, v_c, pos_c)
+                c.k[rows, slot] = k1[:, 0].to(c.k.dtype)
+                c.v[rows, slot] = v1[:, 0].to(c.v.dtype)
+                c.pos[rows, slot] = cl_b.to(torch.int32)
+                o = decode_attention(q, c.k, c.v, cl_b + 1, kv_positions=c.pos)
+                wo = p["attn"]["wo"]
+                # in the cache's dtype (v's): promoted to the weights' as JAX's bf16 @ f32 is
+                o = o.reshape(B, 1, cfg.n_heads * hd).to(torch.promote_types(o.dtype, wo["w"].dtype))
+                x = x + L.linear(wo, o)
             else:
                 y, sc = S.ssm_decode_step(p["mamba"], h, c, cfg.ssm)
                 x = x + y
-                new_cache[f"slot{i}"] = sc
+                for field, new in zip(sc._fields, sc):
+                    leaf = getattr(cache[f"slot{i}"], field)
+                    if leaf.dtype != new.dtype:  # a bf16 conv state turns fp32, as the reference's new tree does
+                        leaf = leaf.to(new.dtype)
+                        cache[f"slot{i}"] = cache[f"slot{i}"]._replace(**{field: leaf})
+                    leaf[s].copy_(new)
             x, _ = _apply_ffn(cfg, spec, p, x, per_row=per_row)
-        per_block.append(new_cache)
     x = _norm(cfg, params["final_norm"], x)
     logits = (x[:, 0, :] @ _head_w(params, cfg)).float()
-    return logits, _stack_caches(per_block)
+    return logits, cache

@@ -125,7 +125,7 @@ class ServeEngine:
         if not any(a is not None for a in self.active):
             return []
         lens = torch.tensor(self.pos, dtype=torch.int64, device=self.device)
-        logits, self.cache = self._decode(self.last_tok, lens)
+        logits, _ = self._decode(self.last_tok, lens)  # writes the slots' new rows into self.cache
         nxt = torch.argmax(logits, dim=-1).tolist()
         finished = []
         for s, req in enumerate(self.active):

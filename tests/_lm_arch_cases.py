@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from _lm_pair import FWD, close_grads, close_tree, grads, leaf_params, lm_params
+from _lm_pair import FWD, close_grads, close_tree, grads, jit, leaf_params, lm_params
 from repro.models import lm as JLM
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.models import lm as TLM
@@ -46,6 +46,11 @@ def _jax_once(cfg, what, run):
     return _JAX[key]
 
 
+def _copy(cache):
+    """A cache's copy: decode_step writes into the cache it is given."""
+    return {k: type(c)(*(leaf.clone() for leaf in c)) for k, c in cache.items()}
+
+
 def make_case(jcfgs, tcfgs, arch, conv):
     """The case of ``arch`` with the port's prefill conv on ``conv``; sets
     the conv (the caller's fixture resets it)."""
@@ -56,7 +61,7 @@ def make_case(jcfgs, tcfgs, arch, conv):
 
 def check_train(case):
     cfg_j, cfg_t, params, batch = case
-    loss, jg = _jax_once(cfg_j, "train", lambda: jax.jit(jax.value_and_grad(
+    loss, jg = _jax_once(cfg_j, "train", lambda: jit(jax.value_and_grad(
         lambda p: JLM.train_loss(p, cfg_j, jax.tree.map(jnp.asarray, batch), q_chunk=8, loss_chunk=8)))(params))
     tp = leaf_params(lm_params_from_numpy(params, cfg_t, device="cpu"))
     tl = TLM.train_loss(tp, cfg_t, _torch_batch(batch), q_chunk=8, loss_chunk=8)
@@ -69,8 +74,8 @@ def check_prefill_decode(case):
     """Prefill T - 1 tokens (logits and cache), then decode token T - 1
     (logits and cache)."""
     cfg_j, cfg_t, params, batch = case
-    jpre = jax.jit(lambda p, b: JLM.prefill(p, cfg_j, b, q_chunk=8, max_len=T + 1))
-    jdec = jax.jit(lambda p, c, tok, n: JLM.decode_step(p, cfg_j, c, tok, n))
+    jpre = jit(lambda p, b: JLM.prefill(p, cfg_j, b, q_chunk=8, max_len=T + 1))
+    jdec = jit(lambda p, c, tok, n: JLM.decode_step(p, cfg_j, c, tok, n))
     jl, jc = _jax_once(cfg_j, "prefill", lambda: jpre(params, _cut(batch, T - 1)))
     tp = lm_params_from_numpy(params, cfg_t, device="cpu")
     with torch.no_grad():
@@ -81,7 +86,7 @@ def check_prefill_decode(case):
     tok = batch[key][:, T - 1 : T]
     jl2, jc2 = _jax_once(cfg_j, "decode", lambda: jdec(params, jc, tok, jnp.int32(T - 1)))
     with torch.no_grad():
-        tl2, tc2 = TLM.decode_step(tp, cfg_t, tc, _torch_batch({key: tok})[key], T - 1)
+        tl2, tc2 = TLM.decode_step(tp, cfg_t, _copy(tc), _torch_batch({key: tok})[key], T - 1)
     np.testing.assert_allclose(tl2.numpy(), np.asarray(jl2), **FWD)
     close_tree(tc2, jc2, "decode cache")
     # per-row lengths: row b decodes at T - 1 - b, as JAX decodes that row alone

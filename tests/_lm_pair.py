@@ -71,6 +71,28 @@ def grads(tree):
     return torch.zeros_like(tree) if tree.grad is None else tree.grad
 
 
+# XLA's CPU backend at optimisation level 0 and without its expensive LLVM
+# passes: the same program, compiled in about 60% of the time (a jamba
+# train step's gradients move by ~4e-6 of their largest, 1/25 of the
+# gradient tolerance).
+FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+def jit(f):
+    """``jax.jit(f)`` compiled with ``FAST_COMPILE``, once per argument
+    structure and shapes."""
+    jf, compiled = jax.jit(f), {}
+
+    def run(*args):
+        leaves, tree = jax.tree.flatten(args)
+        key = (tree, tuple((np.shape(x), np.result_type(x)) for x in leaves))
+        if key not in compiled:
+            compiled[key] = jf.lower(*args).compile(compiler_options=FAST_COMPILE)
+        return compiled[key](*args)
+
+    return run
+
+
 def jax_vjp(f, args, seed=0):
     """(f's outputs, a numpy cotangent per output from ``seed``, the vjp of
     those cotangents) of JAX's ``f`` at ``args``: one jitted call."""
@@ -78,7 +100,7 @@ def jax_vjp(f, args, seed=0):
     rng = np.random.default_rng(seed)
     cts = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
 
-    @jax.jit
+    @jit
     def run(args, cts):
         out, vjp = jax.vjp(f, *args)
         return out, vjp(cts)

@@ -22,7 +22,7 @@ from repro.models import layers as JL
 from repro.models import lm as JLM
 from repro.models import mlp as JM
 from repro.models import moe as JMoE
-from _lm_pair import FWD, close_grads, dot, grads, jax_vjp, leaf_params, shapes, to_np, to_t
+from _lm_pair import FWD, close_grads, dot, grads, jax_vjp, jit, leaf_params, shapes, to_np, to_t
 import repro_torch.configs as TC
 from repro_torch.configs import base as tbase
 from repro_torch.models import attention as TA
@@ -84,7 +84,7 @@ def test_norms_and_embedding(kind):
         p["bias"] = (0.1 * rng.standard_normal(16)).astype(np.float32)
     jfn, tfn = getattr(JL, kind), getattr(TL, kind)
     np.testing.assert_allclose(tfn(to_t(p), torch.from_numpy(x)).numpy(), np.asarray(jfn(p, jnp.asarray(x))), **FWD)
-    _, jg = jax.value_and_grad(lambda pp, xx: jnp.sum(jfn(pp, xx) ** 3), argnums=(0, 1))(p, jnp.asarray(x))
+    _, jg = jit(jax.value_and_grad(lambda pp, xx: jnp.sum(jfn(pp, xx) ** 3), argnums=(0, 1)))(p, jnp.asarray(x))
     tp, tx = leaf_params(to_t(p)), torch.from_numpy(x).requires_grad_(True)
     torch.sum(tfn(tp, tx) ** 3).backward()
     close_grads({"p": grads(tp), "x": tx.grad}, {"p": jg[0], "x": jg[1]})
@@ -103,7 +103,7 @@ def test_mlps(kind):
         p["up"]["b"] = (0.1 * rng.standard_normal(32)).astype(np.float32)
     np.testing.assert_allclose(TM.mlp_apply(to_t(p), torch.from_numpy(x), kind).numpy(),
                                np.asarray(JM.mlp_apply(p, jnp.asarray(x), kind)), **FWD)
-    jg = jax.grad(lambda pp: jnp.sum(JM.mlp_apply(pp, jnp.asarray(x), kind) ** 2))(p)
+    jg = jit(jax.grad(lambda pp: jnp.sum(JM.mlp_apply(pp, jnp.asarray(x), kind) ** 2)))(p)
     tp = leaf_params(to_t(p))
     torch.sum(TM.mlp_apply(tp, torch.from_numpy(x), kind) ** 2).backward()
     close_grads(grads(tp), jg)

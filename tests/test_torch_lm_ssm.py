@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from _lm_pair import FWD, close_grads, dot, grads, jax_vjp, leaf_params, to_t
+from _lm_pair import FWD, close_grads, dot, grads, jax_vjp, jit, leaf_params, to_t
 from repro.configs import base as jbase
 from repro.models import ssm as JS
 from repro_torch.configs import base as tbase
@@ -75,8 +75,8 @@ def test_ssm_prefill_and_decode(mamba, impl):
         dot((ty, tuple(tc)), (ct[0], tuple(ct[1]))).backward()
         close_grads({"p": grads(tp), "x": tx.grad}, {"p": jg[0], "x": jg[1]})
         # decode from the cache of the first 8 tokens
-        _, jcache = jax.jit(lambda pp, xx: JS.ssm_prefill(pp, xx, spec_j))(p, x[:, :8])
-        jstep = jax.jit(lambda pp, xx, c: JS.ssm_decode_step(pp, xx, c, spec_j))
+        _, jcache = jit(lambda pp, xx: JS.ssm_prefill(pp, xx, spec_j))(p, x[:, :8])
+        jstep = jit(lambda pp, xx, c: JS.ssm_decode_step(pp, xx, c, spec_j))
         with torch.no_grad():
             _, tcache = TS.ssm_prefill(to_t(p), torch.from_numpy(x[:, :8]), spec_t)
             for t in range(8, 12):
@@ -126,7 +126,7 @@ def test_ssd_chunked_bf16_operands():
     """``bf16_matmul``: the einsums on bf16-rounded operands with fp32
     accumulation, as the reference's ``preferred_element_type`` gives."""
     args = _ssd_case(11)
-    jy, jh = jax.jit(lambda *a: JS.ssd_chunked(*a, 8, bf16_matmul=True))(*args)
+    jy, jh = jit(lambda *a: JS.ssd_chunked(*a, 8, bf16_matmul=True))(*args)
     ty, th = TS.ssd_chunked(*map(torch.from_numpy, args), 8, bf16_matmul=True)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **FWD)
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), **FWD)

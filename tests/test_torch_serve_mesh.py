@@ -67,80 +67,103 @@ np.savez(dst, **out)
 
 
 def _numpy_case():
-    """JAX's tiny DCGAN init (raw weights) with non-trivial eval-mode
-    batchnorm statistics, and a batch of 3 latents."""
+    """A tiny DCGAN tree (raw weights) in the layout of JAX's init (its
+    shapes from ``jax.eval_shape``; JAX's own init compiles op by op, ~15 s
+    here), drawn from numpy: weights N(0, 0.02²), non-zero biases and
+    non-trivial eval-mode batchnorm statistics; and a batch of 3 latents."""
     cfg = jzoo.tiny_dcgan()
-    kg, kd = jax.random.split(jax.random.PRNGKey(0))
-    gp = jax.tree.map(np.asarray, JG.generator_init(kg, cfg))
-    dp = jax.tree.map(np.asarray, JG.discriminator_init(kd, cfg))
     rng = np.random.default_rng(0)
-    for tree in (gp, dp):
-        for k, leaf in tree.items():
-            if k.endswith("_bn"):
-                leaf["mean"] = (0.1 * rng.standard_normal(leaf["mean"].shape)).astype(np.float32)
-                leaf["var"] = (1 + 0.2 * rng.random(leaf["var"].shape)).astype(np.float32)
+
+    def draw(kp, s):
+        name, n = jax.tree_util.keystr(kp), rng.standard_normal(s.shape).astype(np.float32)
+        if name.endswith("['scale']") or name.endswith("['var']"):
+            return (1 + 0.1 * np.abs(n)).astype(np.float32)
+        return ((0.02 if name.endswith("['w']") else 0.1) * n).astype(np.float32)
+
+    gp, dp = (jax.tree_util.tree_map_with_path(draw, jax.eval_shape(lambda k: init(k, cfg), jax.random.PRNGKey(0)))
+              for init in (JG.generator_init, JG.discriminator_init))
     z = rng.standard_normal((3, cfg.z_dim)).astype(np.float32)
     return gp, dp, z
 
 
+LINGERS = (0.0, PG_TIMEOUT_S + 3)
+
+
 @pytest.fixture(scope="module")
-def sharded(tmp_path_factory):
+def worlds(tmp_path_factory):
+    """Every world of this file at once (they share nothing), the longest
+    started first: the JAX subprocess, a fault world per linger, the
+    sharded runs.  A rank's seconds are measured in the rank."""
     tmp = tmp_path_factory.mktemp("serve_mesh")
     gp, dp, z = _numpy_case()
-    handle = TDist.spawn_ranks(TDist.serve_mesh_runs, 4, tmp, SHAPE, AXES, ZOO, gp, dp, z)
     flat = {f"{n}/{layer}/{leaf}": v for n, t in (("gp", gp), ("dp", dp)) for layer, leaves in t.items()
             for leaf, v in leaves.items()}
     np.savez(tmp / "in.npz", z=z, **flat)
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4", JAX_PLATFORMS="cpu",
                PYTHONPATH=os.path.join(REPO, "src"))
-    proc = subprocess.run([sys.executable, "-c", textwrap.dedent(JAX_SHARDED), str(tmp / "in.npz"),
-                           str(tmp / "out.npz")], capture_output=True, text=True, env=env, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    return dict(port=TDist.collect(handle), jax=dict(np.load(tmp / "out.npz")))
+    proc = subprocess.Popen([sys.executable, "-c", textwrap.dedent(JAX_SHARDED), str(tmp / "in.npz"),
+                             str(tmp / "out.npz")], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=env)
+    faults = {linger: TDist.spawn_ranks(TDist.serve_mesh_fault, 4, tmp, SHAPE, AXES, ZOO, gp, dp, z, 1, linger,
+                                        pg_timeout=PG_TIMEOUT_S) for linger in sorted(LINGERS, reverse=True)}
+    handle = TDist.spawn_ranks(TDist.serve_mesh_runs, 4, tmp, SHAPE, AXES, ZOO, gp, dp, z)
+    out = {"faults": {linger: TDist.collect(h, deadline=60) for linger, h in faults.items()},
+           "port": TDist.collect(handle)}
+    _, err = proc.communicate(timeout=300)
+    assert proc.returncode == 0, err[-3000:]
+    out["jax"] = dict(np.load(tmp / "out.npz"))
+    return out
 
 
-def test_each_rank_holds_block_of_the_unsharded_tree(sharded):
-    for rank, r in enumerate(sharded["port"]):
+def test_each_rank_holds_block_of_the_unsharded_tree(worlds):
+    for rank, r in enumerate(worlds["port"]):
         assert r["blocks_ok"] and r["gathered_ok"], rank
         for name in ("gp", "dp"):
             for layer, leaves in r[name[0] + "blk"].items():
                 for leaf, block in leaves.items():
-                    want = sharded["jax"][f"{name}/{layer}/{leaf}/{rank}"]
+                    want = worlds["jax"][f"{name}/{layer}/{leaf}/{rank}"]
                     assert block.shape == want.shape, (rank, name, layer, leaf)
                     np.testing.assert_allclose(block, want, atol=1e-6, rtol=0, err_msg=f"{rank} {name}.{layer}")
 
 
-def test_sharded_generate_matches_the_reference(sharded):
-    for r in sharded["port"]:
-        np.testing.assert_allclose(r["img"], sharded["jax"]["img"], atol=1e-5, rtol=1e-4)
+def test_sharded_generate_matches_the_reference(worlds):
+    for r in worlds["port"]:
+        np.testing.assert_allclose(r["img"], worlds["jax"]["img"], atol=1e-5, rtol=1e-4)
         np.testing.assert_array_equal(r["img_registry"], r["img"])
         assert r["healthy"]
 
 
-def test_a_rank_holds_its_blocks_at_rest(sharded):
+def test_a_rank_holds_its_blocks_at_rest(worlds):
     """The split leaves (N over "data", M over "model" where they divide)
     are a quarter of their size on each rank; the last layer's M = 3 and
     the batchnorm leaves replicate, and the fallback log says so."""
-    for r in sharded["port"]:
+    for r in worlds["port"]:
         assert r["resident_bytes"] < 0.5 * r["full_bytes"]
         assert any(line.startswith("deconv3.M: 3 % model(2)") for line in r["fallbacks"])
-    assert len({r["resident_bytes"] for r in sharded["port"]}) == 1
+    assert len({r["resident_bytes"] for r in worlds["port"]}) == 1
 
 
-@pytest.mark.parametrize("linger_s", [0.0, PG_TIMEOUT_S + 3])
-def test_a_fault_on_one_rank_fails_every_rank_within_the_timeout(tmp_path, linger_s):
+@pytest.mark.parametrize("linger_s", LINGERS)
+def test_a_fault_on_one_rank_fails_every_rank_within_the_timeout(worlds, linger_s):
     """Rank 1 raises before its gather.  Its request fails at once; the
     other ranks wait in the gather and fail too: at once when rank 1's
     process ends (its connections close), and at the process group's
     timeout while it lingers.  No rank hangs, and every failure is the
     engine's carried ``GanServeError``."""
-    gp, dp, z = _numpy_case()
-    handle = TDist.spawn_ranks(TDist.serve_mesh_fault, 4, tmp_path, SHAPE, AXES, ZOO, gp, dp, z, 1, linger_s,
-                               pg_timeout=PG_TIMEOUT_S)
-    out = TDist.collect(handle, deadline=60)
+    out = worlds["faults"][linger_s]
     assert "injected fault on rank 1" in out[1]["outcome"] and out[1]["seconds"] < 1
     for rank, r in enumerate(out):
         assert r["outcome"].startswith("GanServeError"), (rank, r["outcome"])
         assert r["seconds"] < PG_TIMEOUT_S + 3, (rank, r["seconds"])
         if linger_s and rank != 1:  # the peers waited for the timeout
             assert r["seconds"] >= PG_TIMEOUT_S - 0.5, (rank, r["seconds"])
+
+
+def test_make_mesh_refuses_a_torch_that_hides_the_timeout(monkeypatch):
+    """Where the default group's timeout cannot be read, make_mesh raises
+    rather than give its groups torch's 30-minute default."""
+    from repro_torch.launch import mesh as M
+
+    monkeypatch.setattr(M.dist.distributed_c10d, "_get_default_group", lambda: object())
+    with pytest.raises(RuntimeError, match="timeout"):
+        M._world_timeout("gloo")
