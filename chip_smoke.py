@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases kernel,kernel_bwd,kernel_conv,kernel_domain,serve,train,train_chained,
                                     serve_per_layer,train_per_layer,kernel_1d,audio,serve_faults,train_gan,
-                                    autotune,train_mesh,lm_serve,lm_archs]
+                                    autotune,train_mesh,lm_serve,lm_archs,lm_mesh]
 
 Phases, each printing one JSON line:
   env     torch / CUDA versions, the card's name and power limit; TF32 off.
@@ -291,6 +291,42 @@ agree with it elsewhere (nan_case).
           no-drop capacity): a decode of token T - 1 after a prefill of
           T - 1 tokens against the full prefill's logits, atol 2e-4 / rtol
           2e-3 (test_arch_smoke.py's check), no kernel launched.
+  lm_mesh the LM stack on a mesh (launch/steps.py::build_lm_step), random
+          weights from a seed, TF32 off; every spawned world's ranks share
+          the card over gloo (CUDA tensors; the expert-parallel all-to-all
+          staged through the host), world 1 runs on NCCL in this process.
+          The single-device runs each is held to come first, the card freed
+          after them.  (1) prefill: Mamba2-780m at its published size (fp32)
+          on world 2 (2, 1), 2 prompts of 256 tokens (prefill_32k's 32 x
+          32768 cut), its conv on "engine": each rank's logits and every
+          leaf of its cache block against the single-device prefill of both
+          prompts within lm_serve's logit tolerance (relative to the largest
+          magnitude), 144 launches of kernel 9 a rank (the main path: counts
+          at 0 just before, read just after); prefill and gather ms.  (2)
+          train: phi3-mini-3.8b at its published widths, 4 of 32 layers
+          (0.650 G parameters, fp32), batch 4 x 512 (train_4k's 256 x 4096
+          cut), 3 steps of AdamW (lr 3e-4, clip 1.0) on world 1 (NCCL) and
+          world 2, each step held from one shared state against the
+          single-device step (this rank's block of it): loss 1e-3 and the
+          global gradient norm 1e-4 relative, parameters 6·lr; each step's
+          gather, forward and backward, all-reduce and update ms, the
+          single-device step's ms, the bytes a rank holds.  On (2, 2):
+          jamba-v0.1-52b at smoke_config with its conv on "engine", one step
+          counted (kernel 9, rank-1 kernels 4 and 5 a rank and step; the
+          main path), finite; mixtral-8x22b at smoke_config and capacity
+          factor 1.0: the step drops assignments and equals the
+          single-device step as above.  (3) ep: mixtral's MoE with one
+          expert a rank on (4, 1): moe_apply_ep's forward against moe_apply
+          on each source shard's rows (atol 1e-5 / rtol 1e-4), one EP train
+          step finite.  (4) decode: gemma3-12b at its published widths, one
+          super-block (5 local + 1 global layers, 2.334 G parameters), over
+          long_500k's 524288-position cache filled from a seed to cache_len
+          524283, batch 1, sequence-sharded over world 2 (build_lm_step's
+          long_500k cell): 4 steps against the single-device decode_step
+          from the same cache, in bf16 (the reference's PARAM_DTYPE;
+          max|err| <= 2^-5 max|logits|: the two attentions round the
+          probabilities differently by design) and in fp32 (1e-3); step and
+          gather ms, the bytes a rank holds.  The phase's seconds.
   kernels one summary line per kernel (launches on each serving and training
           path, as that phase's run counted them, null for a phase that did
           not run; error, times, the least time the card could take; for the
@@ -309,6 +345,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -332,7 +369,7 @@ REPLACES_1D_NLC = "src/repro/kernels/engine.py:1724"  # winograd_conv1d_fused_en
 REPLACES_1D_SCRATCH = "src/repro/kernels/engine.py:1690"  # its scratch pallas_call
 PHASES = ("kernel", "kernel_bwd", "kernel_conv", "kernel_domain", "serve", "train", "train_chained",
           "serve_per_layer", "train_per_layer", "kernel_1d", "audio", "serve_faults", "train_gan", "autotune",
-          "train_mesh", "lm_serve", "lm_archs")
+          "train_mesh", "lm_serve", "lm_archs", "lm_mesh")
 TRAIN_BATCH = 128  # the DCGAN paper's mini-batch
 # K5S2 at batch 7, 11x11 input, 100 -> 36 channels: name, (kernel, stride, padding, output_padding), B, H, N, M
 RAGGED_SHAPE = ("ragged", (5, 2, 2, 1), 7, 11, 100, 36)
@@ -3454,11 +3491,14 @@ def _mesh_batches(torch, cfg):
 
 
 def _host(tree):
-    """A tree (dicts, OptState) with every tensor on the host."""
+    """A tree (dicts, NamedTuples: OptState, the LM caches) with every
+    tensor on the host."""
     import torch
 
     if isinstance(tree, dict):
         return {k: _host(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_host(v) for v in tree))
     return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
 
 
@@ -4401,6 +4441,596 @@ def lm_archs_phase(torch, card):
     return out
 
 
+# ------------------------------------------------------------ the LM on a mesh
+# The lm_mesh phase's runs (see the module docstring).  A spec, not module constants: the spawned ranks take it as
+# an argument (so a rehearsal on the CPU can hand them small configs).
+LM_MESH = dict(
+    device="cuda",
+    # Mamba2-780m at its published size; prefill_32k's 32 x 32768 cut to 2 prompts of 256 tokens
+    prefill=dict(arch="mamba2-780m", layers=None, smoke=False, batch=2, prompt=256, seed=0),
+    # phi3-mini-3.8b at its published widths, depth cut from 32 to 4 layers; train_4k's 256 x 4096 cut to 4 x 512
+    train=dict(arch="phi3-mini-3.8b", layers=4, smoke=False, batch=4, seq=512, steps=3, seed=0),
+    # at smoke_config on (2, 2): jamba's conv on kernel 9 (4 / 5 in its backward); mixtral at capacity factor 1.0
+    jamba=dict(arch="jamba-v0.1-52b", layers=None, smoke=True, batch=4, seq=64, seed=1),
+    mixtral=dict(arch="mixtral-8x22b", layers=None, smoke=True, batch=8, seq=64, seed=2, capacity_factor=1.0),
+    # the expert-parallel MoE on (4, 1): E = 4 experts, one a data shard
+    ep=dict(arch="mixtral-8x22b", layers=None, smoke=True, batch=8, seq=64, seed=3),
+    # gemma3-12b at its published widths, one super-block (5 local + 1 global layers), over long_500k's cache, in
+    # the reference's PARAM_DTYPE bf16 and in fp32; the cache filled in chunks of `chunk` positions, each from its
+    # own seed, so that a rank draws its half of the sequence alone
+    decode=dict(arch="gemma3-12b", layers=6, smoke=False, positions=524288, steps=4, seed=0,
+                dtypes=("bfloat16", "float32"), chunk=8192),
+)
+LM_MESH_FWD = dict(atol=1e-5, rtol=1e-4)  # the models' forward tolerance (ROADMAP §3)
+# gemma3's decode logits, sequence-sharded against one device, max|err| / max|logits|: 1e-3 in fp32; in bf16 8 ulps
+# of the largest logit (2^-5), since the two attentions round differently by design (the reference's sharded
+# decode weighs V in fp32, its one-device decode rounds the probabilities to the cache's bf16 first)
+LM_MESH_DECODE_TOL = {"float32": 1e-3, "bfloat16": 2.0**-5}
+
+
+def _lm_mesh_cfg(sub: dict):
+    from repro_torch.configs import LMS, smoke_config
+
+    cfg = smoke_config(sub["arch"]) if sub["smoke"] else LMS[sub["arch"]]
+    if sub.get("layers"):
+        cfg = dataclasses.replace(cfg, n_layers=sub["layers"])
+    if sub.get("capacity_factor") is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=sub["capacity_factor"]))
+    return cfg
+
+
+def _now(device) -> float:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def _lm_train_batch(torch, cfg, sub, step: int, device):
+    from repro_torch import data as D
+
+    return D.lm_batch(sub["seed"], step, sub["batch"], sub["seq"], cfg.vocab, device=device)
+
+
+def _lm_grads(torch, cfg, params, batch):
+    """The single-device loss and gradient (the port without a mesh)."""
+    from repro_torch.models import lm as LM
+    from repro_torch.tree import tree_leaves, tree_map
+
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss = LM.train_loss(leaves, cfg, batch, q_chunk=cfg.q_chunk, loss_chunk=cfg.loss_chunk)
+        got = torch.autograd.grad(loss, tree_leaves(leaves), allow_unused=True)
+    it = iter(torch.zeros_like(p) if g is None else g for p, g in zip(tree_leaves(leaves), got))
+    return loss.detach(), tree_map(lambda _: next(it), leaves)
+
+
+def _lm_block_step(torch, cfg, full, opt_block, batch, pspecs, mesh):
+    """The single-device step restricted to this rank's block: the loss and
+    gradient of the whole batch from the full params, the clip's scale from
+    the full gradient, AdamW (elementwise) on the block's params and
+    moments.  Returns (new param blocks, loss, global grad norm)."""
+    from repro_torch.launch.steps import LM_LR, LM_MAX_GRAD_NORM
+    from repro_torch.optim import adamw_update, clip_by_global_norm
+    from repro_torch.parallel import sharding as SH
+
+    loss, grads = _lm_grads(torch, cfg, full, batch)
+    grads, gn = clip_by_global_norm(grads, LM_MAX_GRAD_NORM)
+    blk = lambda tree: SH.map_specs(lambda t, sp: SH.block_of(t, sp, mesh), tree, pspecs)  # noqa: E731
+    new_p, _, _ = adamw_update(blk(full), blk(grads), opt_block, lr=LM_LR)
+    return new_p, float(loss), float(gn)
+
+
+def _max_leaf_diff(a, b) -> float:
+    from repro_torch.tree import tree_leaves
+
+    return max(float((x.float() - y.float()).abs().max()) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _lm_mesh_train(torch, mesh, sub, device) -> dict:
+    """``sub``'s train cell on ``mesh`` (every rank calls it): its steps of
+    ``build_lm_step``, each held from one shared state against the
+    single-device step (this rank's block of it: loss and global gradient
+    norm 1e-3 / 1e-4 relative, params 6·lr); the readings of every step (ms
+    of its gather, forward and backward, reduction, update) and the
+    single-device step's ms; the bytes this rank holds."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.steps import LM_LR, build_lm_step
+    from repro_torch.models import lm as LM
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.tree import tree_leaves
+
+    cfg = _lm_mesh_cfg(sub)
+    cell = ShapeConfig("train_4k", sub["seq"], sub["batch"], "train")
+    readings = []
+    step, _, meta = build_lm_step(cfg, cell, mesh, readings=readings)
+    pspecs, bspecs = SH.lm_param_specs(cfg, mesh)[0], SH.lm_batch_specs(cfg, cell, mesh)
+    blk = lambda tree, sp: SH.map_specs(lambda t, s: SH.block_of(t, s, mesh), tree, sp)  # noqa: E731
+    params = blk(LM.lm_init(cfg, seed=sub["seed"], device=device), pspecs)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    opt = adamw_init(params)
+    held = sum(t.numel() * t.element_size() for t in tree_leaves(params) + tree_leaves(opt.m) + tree_leaves(opt.v))
+    out = dict(steps=[], rank_bytes=held, fallbacks=meta["fallbacks"])
+    problems = []
+    for s in range(sub["steps"]):
+        batch = _lm_train_batch(torch, cfg, sub, s, device)
+        rows = {k: SH.block_of(v, bspecs[k], mesh) for k, v in batch.items()}
+        # the pre-step state: the full params (a gather every rank joins) and this rank's moments
+        with torch.no_grad():
+            full = SH.map_specs(lambda t, sp: SH.gather(t, sp, mesh), params, pspecs)
+        opt_before = opt
+        t0 = _now(device)
+        params, opt, loss = step(params, opt, rows)
+        step_ms = 1e3 * (_now(device) - t0)
+        r = dict(readings[-1], step_ms=step_ms, loss=float(loss))
+        t0 = _now(device)
+        want_p, want_loss, want_gn = _lm_block_step(torch, cfg, full, opt_before, batch, pspecs, mesh)
+        r.update(single_device_step_ms=1e3 * (_now(device) - t0), single_loss=want_loss, single_grad_norm=want_gn,
+                 param_max_abs_err=_max_leaf_diff(params, want_p))
+        r["loss_rel_err"] = abs(r["loss"] - want_loss) / abs(want_loss)
+        r["grad_norm_rel_err"] = abs(r["grad_norm"] - want_gn) / abs(want_gn)
+        if not (r["loss_rel_err"] <= 1e-3 and r["grad_norm_rel_err"] <= 1e-4 and r["param_max_abs_err"] <= 6 * LM_LR):
+            problems.append(f"step {s}: loss rel {r['loss_rel_err']:.3e}, grad norm rel {r['grad_norm_rel_err']:.3e}, "
+                            f"params {r['param_max_abs_err']:.3e} (6·lr {6 * LM_LR:g})")
+        del full, want_p, opt_before
+        out["steps"].append(r)
+    out["problems"] = problems
+    return out
+
+
+def _gemma_cache(torch, cfg, sub, device, dtype, part=(0, 1)):
+    """The long_500k cache of ``cfg`` filled from ``sub``'s seed up to
+    ``cache_len = positions - 1 - steps``: each global layer's K/V random at
+    the positions below cache_len (the rest empty), each local layer's
+    window-sized ring holding the last positions below cache_len.
+    ``part`` = (i, n): share i of n of every global layer's sequence (a
+    rank's block under ``cache_specs(seq_shard=True)``), the rings whole;
+    K/V are drawn in chunks of ``sub["chunk"]`` positions, each from its own
+    seed, so that every share draws what the whole cache holds there."""
+    from repro_torch.models import lm as LM
+
+    S, L, C = sub["positions"], sub["positions"] - 1 - sub["steps"], sub["chunk"]
+    i_part, n_part = part
+    S_l = S // n_part
+    lo = i_part * S_l
+    cache = LM.init_cache(cfg, 1, S_l, dtype, device=device)  # global caches S_l long, the rings window-sized
+
+    def draw(slot_i: int, tag: int, shape):
+        g = torch.Generator(device=device).manual_seed(sub["seed"] * 1_000_003 + slot_i * 100_003 + tag)
+        return torch.randn(shape, generator=g, device=device, dtype=torch.float32).to(dtype)
+
+    for i, (slot, spec) in enumerate(zip(cache, LM.slot_specs(cfg))):
+        c = cache[slot]
+        shape = c.k.shape[3:]
+        if spec.attn_kind == "local" and cfg.window:
+            W = c.k.shape[2]
+            p = torch.arange(L - W, L, device=device)
+            c.pos[:, :, p % W] = p.to(torch.int32)
+            for j, leaf in enumerate((c.k, c.v)):
+                leaf.copy_(draw(i, -1 - j, leaf.shape))
+            continue
+        p = torch.arange(lo, lo + S_l, device=device)
+        c.pos.copy_(torch.where(p < L, p, -1).to(torch.int32).expand_as(c.pos))
+        for start in range(lo, lo + S_l, C):
+            for j, leaf in enumerate((c.k, c.v)):
+                leaf[:, :, start - lo : start - lo + C] = draw(i, 2 * (start // C) + j, (1, 1, C, *shape))
+        for leaf in (c.k, c.v):
+            leaf.masked_fill_((c.pos < 0)[..., None, None], 0)
+    return cache, L
+
+
+def _gemma_tokens(torch, cfg, sub, device):
+    g = torch.Generator(device=device).manual_seed(sub["seed"] + 11)
+    return torch.randint(0, cfg.vocab, (sub["steps"], 1, 1), generator=g, device=device)
+
+
+def _lm_single_refs(torch, spec) -> dict:
+    """The single-device runs the ranks are held to, on the host: Mamba2's
+    prefill of both prompts (conv on "engine"), gemma3's decode steps from
+    the filled cache, mixtral's train step; the card freed after."""
+    from repro_torch import data as D
+    from repro_torch.launch.steps import LM_LR
+    from repro_torch.models import lm as LM
+    from repro_torch.models import moe as MoE
+    from repro_torch.models import ssm as S
+    from repro_torch.optim import adamw_init, adamw_update
+
+    dev, out = spec["device"], {}
+    sub = spec["prefill"]
+    cfg = _lm_mesh_cfg(sub)
+    params = LM.lm_init(cfg, seed=sub["seed"], device=dev)
+    tokens = D.lm_batch(sub["seed"], 0, sub["batch"], sub["prompt"], cfg.vocab, device=dev)["tokens"]
+    S.set_conv_impl("engine")
+    try:
+        zero_counts()
+        with torch.no_grad():
+            logits, cache = LM.prefill(params, cfg, {"tokens": tokens}, q_chunk=cfg.q_chunk, max_len=sub["prompt"] + 1)
+        out["prefill_launches"] = read_counts()
+    finally:
+        S.set_conv_impl("direct")
+    out["prefill"] = dict(logits=logits.cpu(), cache=_host(cache))
+    del params, cache, logits
+    sub = spec["decode"]
+    cfg = _lm_mesh_cfg(sub)
+    out["decode"] = {}
+    for name in sub["dtypes"]:
+        dtype = getattr(torch, name)
+        params = LM.lm_init(cfg, seed=sub["seed"], device=dev, dtype=dtype)
+        cache, L = _gemma_cache(torch, cfg, sub, dev, dtype)
+        toks, lg, ms = _gemma_tokens(torch, cfg, sub, dev), [], []
+        with torch.no_grad():
+            for s in range(sub["steps"]):
+                t0 = _now(dev)
+                lg.append(LM.decode_step(params, cfg, cache, toks[s], L + s)[0].float().cpu())
+                ms.append(1e3 * (_now(dev) - t0))
+        out["decode"][name] = dict(logits=lg, step_ms=ms, cache_len=L)
+        del params, cache
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    sub = spec["mixtral"]
+    cfg = _lm_mesh_cfg(sub)
+    params = LM.lm_init(cfg, seed=sub["seed"], device=dev)
+    batch = _lm_train_batch(torch, cfg, sub, 0, dev)
+    with MoE.record_drops() as drops:
+        loss, grads = _lm_grads(torch, cfg, params, batch)
+    new_p, _, m = adamw_update(params, grads, adamw_init(params), lr=LM_LR, max_grad_norm=1.0)
+    out["mixtral"] = dict(loss=float(loss), grad_norm=float(m["grad_norm"]), params=_host(new_p),
+                          drops=int(sum(int(d) for d in drops)))
+    del params, grads, new_p
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _lm_w2_job(torch, mesh, spec) -> dict:
+    """World 2 ((2, 1)): Mamba2's prefill on "engine" (the main path: counts
+    at 0 just before, read just after), the phi3 train cell, gemma3's
+    sequence-sharded decode (the long_500k cell of build_lm_step)."""
+    from repro_torch import data as D
+    from repro_torch.configs import SHAPES, ShapeConfig
+    from repro_torch.launch.steps import build_lm_step
+    from repro_torch.models import lm as LM
+    from repro_torch.models import ssm as S
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.tree import tree_leaves
+
+    dev, out = spec["device"], {}
+    blk = lambda tree, sp: SH.map_specs(lambda t, s: SH.block_of(t, s, mesh), tree, sp)  # noqa: E731
+    # --- Mamba2-780m prefill, world 2
+    sub = spec["prefill"]
+    cfg = _lm_mesh_cfg(sub)
+    cell = ShapeConfig("prefill_32k", sub["prompt"], sub["batch"], "prefill")
+    fn, _, _ = build_lm_step(cfg, cell, mesh)
+    pspecs = SH.lm_param_specs(cfg, mesh)[0]
+    params = blk(LM.lm_init(cfg, seed=sub["seed"], device=dev), pspecs)
+    tokens = D.lm_batch(sub["seed"], 0, sub["batch"], sub["prompt"], cfg.vocab, device=dev)["tokens"]
+    rows = {"tokens": SH.block_of(tokens, SH.lm_batch_specs(cfg, cell, mesh)["tokens"], mesh)}
+    S.set_conv_impl("engine")
+    try:
+        zero_counts()
+        t0 = _now(dev)
+        logits, cache = fn(params, rows)
+        prefill_ms = 1e3 * (_now(dev) - t0)
+        out["prefill_launches"] = read_counts()
+        t0 = _now(dev)
+        fn(params, rows)
+        prefill_ms2 = 1e3 * (_now(dev) - t0)
+    finally:
+        S.set_conv_impl("direct")
+    t0 = _now(dev)
+    SH.map_specs(lambda t, sp: SH.gather(t, sp, mesh), params, pspecs)
+    gather_ms = 1e3 * (_now(dev) - t0)
+    out["prefill"] = dict(logits=logits.cpu(), cache=_host(cache), ms=[prefill_ms, prefill_ms2], gather_ms=gather_ms,
+                          rank_param_bytes=sum(t.numel() * t.element_size() for t in tree_leaves(params)))
+    del params, logits, cache, fn
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    # --- phi3-mini train
+    out["train"] = _lm_mesh_train(torch, mesh, spec["train"], dev)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    # --- gemma3-12b sequence-sharded decode over long_500k's cache
+    sub = spec["decode"]
+    cfg = _lm_mesh_cfg(sub)
+    shape = dataclasses.replace(SHAPES["long_500k"], seq_len=sub["positions"])
+    fn, _, meta = build_lm_step(cfg, shape, mesh)
+    pspecs = SH.lm_param_specs(cfg, mesh)[0]
+    seq = SH.cache_specs(cfg, shape, mesh, seq_shard=True)
+    out["decode"] = {}
+    for name in sub["dtypes"]:
+        dtype = getattr(torch, name)
+        params = blk(LM.lm_init(cfg, seed=sub["seed"], device=dev, dtype=dtype), pspecs)
+        # this rank's block of the cache: its share of the global layers' sequence (the spec's "data" entry)
+        cache, L = _gemma_cache(torch, cfg, sub, dev, dtype, part=(mesh.index("data"), mesh.shape["data"]))
+        if not any(isinstance(c, LM.AttnCache) and "data" in c.k for c in seq.values()):
+            fail("lm_mesh decode: cache_specs(seq_shard=True) splits no attention cache's sequence")
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        toks, lg, ms = _gemma_tokens(torch, cfg, sub, dev), [], []
+        for s in range(sub["steps"]):
+            t0 = _now(dev)
+            lg.append(fn(params, cache, {"tokens": toks[s]}, L + s)[0].float().cpu())
+            ms.append(1e3 * (_now(dev) - t0))
+        t0 = _now(dev)
+        SH.map_specs(lambda t, sp: SH.gather(t, sp, mesh), params, pspecs)
+        out["decode"][name] = dict(
+            logits=lg, step_ms=ms, gather_ms=1e3 * (_now(dev) - t0), seq_shard=meta["seq_shard"],
+            rank_cache_bytes=sum(t.numel() * t.element_size() for c in cache.values() for t in c),
+            rank_param_bytes=sum(t.numel() * t.element_size() for t in tree_leaves(params)))
+        del params, cache
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _lm_w4_job(torch, mesh22, mesh41, spec) -> dict:
+    """World 4: on (2, 2) jamba's train step with its conv on "engine" (the
+    main path: counts at 0 just before, read just after) and mixtral's at
+    capacity factor 1.0; on (4, 1) the expert-parallel MoE."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.steps import build_lm_step
+    from repro_torch.models import lm as LM
+    from repro_torch.models import moe as MoE
+    from repro_torch.models import ssm as S
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.tree import tree_leaves
+
+    dev, out = spec["device"], {}
+
+    def one_step(name, mesh, cfg, counted=False):
+        sub = spec[name]
+        cell = ShapeConfig("train_4k", sub["seq"], sub["batch"], "train")
+        readings = []
+        step, _, _ = build_lm_step(cfg, cell, mesh, readings=readings)
+        pspecs, bspecs = SH.lm_param_specs(cfg, mesh)[0], SH.lm_batch_specs(cfg, cell, mesh)
+        params = SH.map_specs(lambda t, s: SH.block_of(t, s, mesh), LM.lm_init(cfg, seed=sub["seed"], device=dev),
+                              pspecs)
+        batch = _lm_train_batch(torch, cfg, sub, 0, dev)
+        rows = {k: SH.block_of(v, bspecs[k], mesh) for k, v in batch.items()}
+        opt = adamw_init(params)
+        with MoE.record_drops() as drops:
+            if counted:
+                zero_counts()
+            params, opt, loss = step(params, opt, rows)
+            if counted:
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                launches = read_counts()
+        full = SH.map_specs(lambda t, s: SH.gather(t, s, mesh), params, pspecs)
+        r = dict(loss=float(loss), grad_norm=readings[-1]["grad_norm"], drops=int(sum(int(d) for d in drops)),
+                 finite=all(bool(torch.isfinite(t).all()) for t in tree_leaves(full)), params=_host(full))
+        if counted:
+            r["launches"] = launches
+        return r
+
+    S.set_conv_impl("engine")
+    try:
+        out["jamba"] = one_step("jamba", mesh22, _lm_mesh_cfg(spec["jamba"]), counted=True)
+    finally:
+        S.set_conv_impl("direct")
+    del out["jamba"]["params"]
+    out["mixtral"] = one_step("mixtral", mesh22, _lm_mesh_cfg(spec["mixtral"]))
+    # --- the expert-parallel MoE on (4, 1): its forward against moe_apply on each source shard's rows
+    sub = spec["ep"]
+    cfg = dataclasses.replace(_lm_mesh_cfg(sub), moe_ep=True)
+    moe = LM.lm_init(cfg, seed=sub["seed"], device=dev)["blocks"]["slot0"]["moe"]
+    moe = {k: {kk: vv[0] for kk, vv in v.items()} for k, v in moe.items()}
+    g = torch.Generator(device=dev).manual_seed(sub["seed"] + 5)
+    x = torch.randn((sub["batch"], sub["seq"], cfg.d_model), generator=g, device=dev)
+    x_rows = SH.block_of(x, SH.P(("data",), None, None), mesh41)
+    with torch.no_grad(), MoE.record_drops() as drops:
+        got, aux = MoE.moe_apply_ep(moe, x_rows, cfg.moe, cfg.mlp, mesh=mesh41)
+        want, want_aux = MoE.moe_apply(moe, x_rows, cfg.moe, cfg.mlp)
+    diff = (got - want).abs()
+    out["ep"] = dict(max_abs_err=float(diff.max()), held=bool((diff <= LM_MESH_FWD["atol"] + LM_MESH_FWD["rtol"]
+                                                               * want.abs()).all()),
+                     aux_share=float(aux), aux_shard=float(want_aux), drops=int(drops[0]))
+    r = one_step("ep", mesh41, cfg)
+    out["ep"]["train"] = {k: v for k, v in r.items() if k != "params"}
+    return out
+
+
+def _lm_mesh_rank(rank, world, backend, store, out, spec):
+    """One rank of a spawned LM world on the card (or the CPU, for a
+    rehearsal): joins the group through the FileStore ``store``, runs the
+    world's job, writes its results (host tensors) to ``out`` + its rank."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    if spec["device"] == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch import make_mesh
+
+    dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank, world_size=world)
+    try:
+        if world == 2:
+            res = _lm_w2_job(torch, make_mesh((2, 1), ("data", "model"), device=spec["device"]), spec)
+        else:
+            mesh22 = make_mesh((2, 2), ("data", "model"), device=spec["device"])
+            mesh41 = make_mesh((4, 1), ("data", "model"), device=spec["device"])
+            res = _lm_w4_job(torch, mesh22, mesh41, spec)
+        torch.save(res, f"{out}{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_lm(torch, world: int, root: str, spec: dict, deadline_s: float = 500.0) -> list:
+    """``_lm_mesh_rank`` on a spawned gloo world of ``world`` ranks; the
+    ranks' results."""
+    import os
+
+    import torch.multiprocessing as tmp
+
+    store, out = os.path.join(root, f"store_lm{world}"), os.path.join(root, f"out_lm{world}_")
+    ctx = tmp.get_context("spawn")
+    procs = [ctx.Process(target=_lm_mesh_rank, args=(r, world, "gloo", store, out, spec)) for r in range(world)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + deadline_s
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        fail(f"lm_mesh: the world-{world} ranks exited with {codes} (a rank failed, or hung past {deadline_s:.0f} s)")
+    return [torch.load(f"{out}{r}.pt", weights_only=False) for r in range(world)]
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) / max(float(want.float().abs().max()), 1e-30)
+
+
+def lm_mesh_phase(torch, card, spec=None):
+    """The LM stack on a mesh (see the module docstring): the single-device
+    runs first (the card freed after each), world 1 on NCCL in this process,
+    then spawned gloo worlds of 2 and 4 sharing the card.  Returns the
+    launches of the main path's runs (rank 0's Mamba2 prefill and jamba
+    train step)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_mesh
+
+    spec = spec or LM_MESH
+    dev = spec["device"]
+    t0 = time.perf_counter()
+    problems: list = []
+    refs = _lm_single_refs(torch, spec)
+    root = tempfile.mkdtemp(prefix="lm_mesh_")
+    # --- world 1 on NCCL (the CPU: gloo), in this process: the phi3 train cell
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group(MESH_W1_BACKEND if dev == "cuda" else "gloo",
+                            store=dist.FileStore(os.path.join(root, "store_w1"), 1), rank=0, world_size=1)
+    try:
+        w1 = _lm_mesh_train(torch, make_mesh((1, 1), ("data", "model"), device=dev), spec["train"], dev)
+    finally:
+        dist.destroy_process_group()
+    problems += [f"lm_mesh train world 1 {p}" for p in w1["problems"]]
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    w2 = _spawn_lm(torch, 2, root, spec)
+    w4 = _spawn_lm(torch, 4, root, spec)
+    shutil.rmtree(root, ignore_errors=True)
+    # --- prefill: each rank's rows and cache block against the single-device prefill of both prompts
+    sub = spec["prefill"]
+    n_layers = _lm_mesh_cfg(sub).n_layers
+    tol_rel = LM_LOGIT_GAIN * 3 * n_layers * LM_CONV_EPS
+    pre_err, pre_cache_err = [], []
+    want_k9 = 3 * n_layers if dev == "cuda" else 0
+    for rank, r in enumerate(w2):
+        p = r["prefill"]
+        pre_err.append(_rel_err(p["logits"], refs["prefill"]["logits"][rank : rank + 1]))
+        worst = 0.0
+        for slot, c in refs["prefill"]["cache"].items():
+            for field, leaf in zip(c._fields, c):
+                worst = max(worst, _rel_err(getattr(p["cache"][slot], field), leaf[:, rank : rank + 1]))
+        pre_cache_err.append(worst)
+        if not (pre_err[-1] <= tol_rel and worst <= tol_rel):
+            problems.append(f"lm_mesh prefill rank {rank}: logits {pre_err[-1]:.3e}, cache {worst:.3e} relative "
+                            f"(tol {tol_rel:.3e})")
+        if r["prefill_launches"] != {row: want_k9 if row == "engine1d_nlc" else 0 for row in COUNTERS}:
+            problems.append(f"lm_mesh prefill rank {rank}: launches {r['prefill_launches']}, want {want_k9} of "
+                            f"kernel 9")
+    emit({"phase": "lm_mesh_prefill", "arch": sub["arch"], "world": 2, "mesh": {"data": 2, "model": 1},
+          "backend": "gloo (CUDA tensors)", "batch": sub["batch"], "prompt": sub["prompt"],
+          "conv": "engine", "cut": "prefill_32k's 32 x 32768 to 2 x 256",
+          "logits_max_rel_err_by_rank": pre_err, "cache_max_rel_err_by_rank": pre_cache_err, "tol_rel": tol_rel,
+          "kernel9_launches_per_rank": [r["prefill_launches"]["engine1d_nlc"] for r in w2],
+          "single_device_kernel9_launches": refs["prefill_launches"]["engine1d_nlc"],
+          "prefill_ms_by_rank": [r["prefill"]["ms"] for r in w2],
+          "param_gather_ms_by_rank": [r["prefill"]["gather_ms"] for r in w2],
+          "rank_param_bytes": [r["prefill"]["rank_param_bytes"] for r in w2], "card": card})
+    # --- train: phi3 on world 1 and 2, each step from one shared state
+    sub = spec["train"]
+    runs = {"world1_nccl": w1, "world2_gloo": w2[0]["train"]}
+    for rank, r in enumerate(w2):
+        problems += [f"lm_mesh train world 2 rank {rank} {p}" for p in r["train"]["problems"]]
+    emit({"phase": "lm_mesh_train", "arch": sub["arch"], "layers": sub["layers"], "batch": sub["batch"],
+          "seq": sub["seq"], "steps": sub["steps"], "cut": "32 to 4 layers; train_4k's 256 x 4096 to 4 x 512",
+          "tol": {"loss_rel": 1e-3, "grad_norm_rel": 1e-4, "params_abs": "6·lr"},
+          "runs": {k: dict(steps=v["steps"], rank_bytes=v["rank_bytes"]) for k, v in runs.items()},
+          "world2_rank_bytes": [r["train"]["rank_bytes"] for r in w2], "card": card})
+    # --- jamba (2, 2): kernels 9 / 4 / 5 a rank and step; mixtral (2, 2): drops, and the single-device step
+    mix_ref = refs["mixtral"]
+    jam = [r["jamba"] for r in w4]
+    # a step runs each mamba layer's three convs forward twice (the remat recompute) and backward once
+    from repro_torch.models import lm as LM
+
+    jcfg = _lm_mesh_cfg(spec["jamba"])
+    n_mamba = sum(sp.kind == "mamba" for sp in LM.slot_specs(jcfg)) * (jcfg.n_layers // LM.superblock_period(jcfg))
+    want_jam = {"engine1d_nlc": 6 * n_mamba, "domain_engine_bwd_x_rank1": 3 * n_mamba,
+                "domain_engine_bwd_w_rank1": 3 * n_mamba} if dev == "cuda" else {}
+    for rank, r in enumerate(jam):
+        if not (r["finite"] and math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
+            problems.append(f"lm_mesh jamba rank {rank}: not finite (loss {r['loss']}, grad norm {r['grad_norm']})")
+        if r["launches"] != {row: want_jam.get(row, 0) for row in COUNTERS}:
+            problems.append(f"lm_mesh jamba rank {rank}: launches {r['launches']}, want {want_jam}")
+    mix = [r["mixtral"] for r in w4]
+    mix_err = dict(loss_rel=abs(mix[0]["loss"] - mix_ref["loss"]) / abs(mix_ref["loss"]),
+                   grad_norm_rel=abs(mix[0]["grad_norm"] - mix_ref["grad_norm"]) / abs(mix_ref["grad_norm"]),
+                   params_max_abs=_max_leaf_diff(mix[0]["params"], mix_ref["params"]))
+    if sum(r["drops"] for r in mix) == 0 or not (mix_err["loss_rel"] <= 1e-3 and mix_err["grad_norm_rel"] <= 1e-4
+                                                 and mix_err["params_max_abs"] <= 6 * 3e-4):
+        problems.append(f"lm_mesh mixtral: drops {[r['drops'] for r in mix]}, against the single device {mix_err}")
+    emit({"phase": "lm_mesh_moe", "mesh": {"data": 2, "model": 2}, "jamba": {
+        "arch": spec["jamba"]["arch"], "conv": "engine", "loss": jam[0]["loss"], "grad_norm": jam[0]["grad_norm"],
+        "mamba_layers": n_mamba, "launches_want": want_jam,
+        "launches_per_rank_step": [{k: v for k, v in r["launches"].items() if v} for r in jam]},
+        "mixtral": {"capacity_factor": spec["mixtral"]["capacity_factor"], "drops_by_rank": [r["drops"] for r in mix],
+                    "single_device_drops": mix_ref["drops"], "vs_single_device": mix_err},
+        "card": card})
+    # --- EP (4, 1)
+    ep = [r["ep"] for r in w4]
+    for rank, r in enumerate(ep):
+        t = r["train"]
+        if not (r["held"] and t["finite"] and math.isfinite(t["loss"]) and math.isfinite(t["grad_norm"])):
+            problems.append(f"lm_mesh ep rank {rank}: forward held {r['held']} ({r['max_abs_err']:.3e}), train "
+                            f"finite {t['finite']} loss {t['loss']}")
+    emit({"phase": "lm_mesh_ep", "arch": spec["ep"]["arch"], "mesh": {"data": 4, "model": 1}, "experts": 4,
+          "transport": "gloo all_to_all through the host (CUDA tensors staged)" if dev == "cuda" else "gloo",
+          "forward_max_abs_err_by_rank": [r["max_abs_err"] for r in ep], "tol": LM_MESH_FWD,
+          "drops_by_rank": [r["drops"] for r in ep], "train_loss": ep[0]["train"]["loss"],
+          "train_grad_norm": ep[0]["train"]["grad_norm"], "card": card})
+    # --- decode: gemma3 sequence-sharded over long_500k's cache against the single-device decode
+    sub = spec["decode"]
+    for name in sub["dtypes"]:
+        ref = refs["decode"][name]
+        errs = [[_rel_err(a, b) for a, b in zip(r["decode"][name]["logits"], ref["logits"])] for r in w2]
+        worst = max(max(e) for e in errs)
+        if not worst <= LM_MESH_DECODE_TOL[name]:
+            problems.append(f"lm_mesh decode {name}: logits {worst:.3e} relative (tol {LM_MESH_DECODE_TOL[name]:g})")
+        if not all(r["decode"][name]["seq_shard"] for r in w2):
+            problems.append("lm_mesh decode: build_lm_step did not shard the long_500k cache's sequence")
+        emit({"phase": "lm_mesh_decode", "arch": sub["arch"], "layers": sub["layers"], "dtype": name,
+              "positions": sub["positions"], "cache_len_first": ref["cache_len"], "steps": sub["steps"], "world": 2,
+              "cut": "48 to 6 layers (one super-block)", "logits_max_rel_err": worst,
+              "logits_rel_err_by_rank_step": errs, "tol_rel": LM_MESH_DECODE_TOL[name],
+              "step_ms_by_rank": [r["decode"][name]["step_ms"] for r in w2], "single_device_step_ms": ref["step_ms"],
+              "param_gather_ms_by_rank": [r["decode"][name]["gather_ms"] for r in w2],
+              "rank_cache_bytes": [r["decode"][name]["rank_cache_bytes"] for r in w2],
+              "rank_param_bytes": [r["decode"][name]["rank_param_bytes"] for r in w2], "card": card})
+    emit({"phase": "lm_mesh_seconds", "seconds": time.perf_counter() - t0})
+    if problems:
+        fail(f"lm_mesh: {len(problems)} check(s) missed: " + "; ".join(problems[:8]))
+    return {"prefill_launches": w2[0]["prefill_launches"], "train_launches": jam[0]["launches"]}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4468,13 +5098,15 @@ def main(argv=None) -> int:
     mesh = timed("train_mesh", lambda: train_mesh_phase(torch, smi), {})
     lm = timed("lm_serve", lambda: lm_serve_phase(torch, peaks, smi), {})
     timed("lm_archs", lambda: lm_archs_phase(torch, smi), None)
+    lm_mesh = timed("lm_mesh", lambda: lm_mesh_phase(torch, smi), {})
     # each path's launches of every kernel, counted in its run (None: not run)
     path_launches = {"serve": serve_launches, "train": train.get("launches"),
                      "train_chained": chained.get("launches"), "serve_per_layer": serve_pl.get("launches"),
                      "train_per_layer": per_layer.get("launches"), "audio": audio.get("launches"),
                      "audio_grad": audio.get("grad_launches"), "serve_faults": serve_faults,
                      "train_gan": train_loop, "train_tuned": tuned.get("launches"), "train_mesh": mesh.get("launches"),
-                     "serve_mesh": mesh.get("serve_launches"), "lm_serve": lm.get("launches")}
+                     "serve_mesh": mesh.get("serve_launches"), "lm_serve": lm.get("launches"),
+                     "lm_mesh_prefill": lm_mesh.get("prefill_launches"), "lm_mesh_train": lm_mesh.get("train_launches")}
 
     def step_device_ms(kname, run=None):
         """Device ms per step of the instantiations of ``kname`` (or of a

@@ -6,8 +6,8 @@ Plain PyTorch, as the reference's is plain ``jnp``: no TPU kernel sits
 here, so no library attention replaces these functions.  Training and
 prefill loop over query chunks, so the (q_chunk, T) score slab is the peak,
 never (T, T); a local layer reads a (window + q_chunk) KV span per chunk.
-The sequence-sharded decode (``seq_sharded_decode_attention``) is ROADMAP
-item 6d.
+``seq_sharded_decode_attention`` is the long-context decode with the KV
+cache's sequence split over a mesh axis (one process a rank).
 """
 from __future__ import annotations
 
@@ -15,8 +15,9 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
-__all__ = ["NEG_INF", "rope_freqs", "apply_rope", "attention", "decode_attention"]
+__all__ = ["NEG_INF", "rope_freqs", "apply_rope", "attention", "decode_attention", "seq_sharded_decode_attention"]
 
 NEG_INF = -1e30
 
@@ -156,3 +157,44 @@ def decode_attention(
         valid = (kv_positions >= 0) & (kv_positions < cl)
     mask = torch.where(valid, 0.0, NEG_INF)[:, None, None, :]  # (B, 1, 1, S)
     return _sdpa(q, k_cache, v_cache, mask, scale)
+
+
+def seq_sharded_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, cache_len, *, mesh,
+                                 seq_axis: str = "data", kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Single-token decode with the KV cache sequence-split over ``seq_axis``
+    (the distributed flash-decode): ``k_cache`` / ``v_cache`` (B, S/n, Hkv,
+    hd) are this rank's slice of the sequence, ``q`` (B, 1, H, hd) the same
+    on every rank.  Each rank scores its slice; an ``all_reduce(MAX)`` of
+    the row maxima and an ``all_reduce(SUM)`` of the rescaled denominators
+    and weighted V give the exact softmax on every rank; no KV moves.
+    Valid keys: ``kv_positions`` (this rank's (B, S/n) slice of the stored
+    positions) in [0, cache_len), or without it the slice's own positions
+    (offset by the rank's index over ``seq_axis``) below ``cache_len``.
+    ``cache_len``: an int, a 0-d tensor or (B,) one a row."""
+    B, S_l, Hkv, hd = k_cache.shape
+    H = q.shape[2]
+    rep = H // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    cl = torch.as_tensor(cache_len, device=q.device)
+    cl = cl[:, None] if cl.dim() == 1 else cl
+    if kv_positions is None:
+        idx = mesh.index(seq_axis) * S_l + torch.arange(S_l, device=q.device)
+        valid = (idx[None, :] < cl).expand(B, S_l)
+    else:
+        valid = (kv_positions >= 0) & (kv_positions < cl)
+    qg = (q.float() * scale).reshape(B, 1, Hkv, rep, hd)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k_cache.float())
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    m_loc = s.amax(-1)  # (B, g, r, 1)
+    p = torch.exp(s - m_loc[..., None])
+    l_loc = p.sum(-1)
+    o_loc = torch.einsum("bgrqk,bkgd->bgrqd", p, v_cache.float())
+    group = mesh.group(seq_axis)
+    m_glob = m_loc.clone()
+    dist.all_reduce(m_glob, op=dist.ReduceOp.MAX, group=group)
+    corr = torch.exp(m_loc - m_glob)
+    # one collective for the denominators and the weighted V
+    both = torch.cat([(l_loc * corr)[..., None], o_loc * corr[..., None]], dim=-1)
+    dist.all_reduce(both, group=group)
+    out = both[..., 1:] / both[..., :1]
+    return out.reshape(B, 1, H, hd).to(q.dtype)

@@ -1,5 +1,5 @@
 """Block-program transformer: one code path for the ten LM archs (the
-reference's ``models/lm.py``, without the mesh).
+reference's ``models/lm.py``).
 
 ``n_layers`` splits into ``n_super`` repetitions of a super-block (the
 period of the layer / attention / MoE cycles: 1 for homogeneous stacks, 6
@@ -16,8 +16,23 @@ Entry points:
                      decodes each row at its own position (the serving
                      slots).
 
-``mesh=`` and ``seq_shard_axis=`` (the sharded step and the
-sequence-sharded decode) are ROADMAP item 6d: they raise.
+On a mesh (``mesh=``, a ``launch.mesh.Mesh``; one process a rank) a rank
+passes its block of the batch (its rows under ``parallel.sharding.
+lm_batch_specs``, and of the cache under ``cache_specs``) and the gathered
+parameters, and gets back what the reference's function gives on the
+global arrays: ``train_loss`` this rank's differentiable share of the loss
+(its sum over the batch axes is the reference's loss) with the global loss
+as a reading, ``prefill`` / ``decode_step`` its rows' logits and its cache
+block.  The MoE then routes with the global batch's capacity, or by
+all-to-all where ``cfg.moe_ep`` (``models/moe.py``); ``decode_step``'s
+``seq_shard_axis`` splits the global attention caches' sequence over that
+axis (``attention.seq_sharded_decode_attention``).  A batch that does not
+divide the batch axes' extent is replicated (``lm_batch_specs``): every
+rank takes all of it and nothing is summed over ranks; ``global_batch``
+says which, and defaults to a split batch.  The model axis is storage only:
+its ranks run the same rows.  The reference's activation placement hints
+(``cfg.act_hints``) place values for its partitioner and change none; here
+they have no effect.
 """
 from __future__ import annotations
 
@@ -26,6 +41,7 @@ import math
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LMConfig
@@ -34,7 +50,7 @@ from . import layers as L
 from . import mlp as M
 from . import moe as MoE
 from . import ssm as S
-from .attention import apply_rope, attention, decode_attention
+from .attention import apply_rope, attention, decode_attention, seq_sharded_decode_attention
 
 __all__ = ["SlotSpec", "superblock_period", "slot_specs", "attn_init", "slot_init", "lm_init", "lm_param_shapes",
            "backbone", "embed_or_pass", "train_loss", "AttnCache", "init_cache", "prefill", "decode_step"]
@@ -42,10 +58,34 @@ __all__ = ["SlotSpec", "superblock_period", "slot_specs", "attn_init", "slot_ini
 Params = dict[str, Any]
 
 
-def _no_mesh(mesh, seq_shard_axis=None) -> None:
-    if mesh is not None or seq_shard_axis is not None:
-        raise NotImplementedError("mesh= / seq_shard_axis= (the LM on a mesh) are not in the port yet: they are "
-                                  "ROADMAP queue 1 item 6d")
+@dataclasses.dataclass(frozen=True)
+class _Rows:
+    """Where this rank's rows sit in the global batch on a mesh: ``split``
+    over the batch ``axes`` (extent ``n`` > 1), or the whole batch on every
+    rank (replicated, or a batch extent of 1)."""
+
+    mesh: Any
+    axes: tuple
+    n: int
+    split: bool
+
+
+def _rows_on(mesh, rows: int, global_batch: Optional[int]) -> Optional[_Rows]:
+    """The ``_Rows`` of a rank holding ``rows`` rows (None without a mesh);
+    ``global_batch`` defaults to a split batch."""
+    if mesh is None:
+        return None
+    if "model" not in mesh.axis_names:
+        raise ValueError(f"an LM mesh needs a 'model' axis (extent 1 will do); this one has {mesh.axis_names}")
+    axes = MoE.batch_axes(mesh)
+    n = mesh.extent(axes)
+    gb = rows * n if global_batch is None else int(global_batch)
+    split = gb % n == 0
+    want = gb // n if split else gb
+    if rows != want:
+        raise ValueError(f"this rank holds {rows} rows; a global batch of {gb} over the batch axes {axes} ({n} ranks) "
+                         f"gives each rank {want} ({'split' if split else 'replicated'})")
+    return _Rows(mesh, axes, n, split and n > 1)
 
 
 # ----------------------------------------------------------- slot structure
@@ -170,10 +210,13 @@ def _attn_forward(cfg: LMConfig, p, x, positions, attn_kind, q_chunk):
     return L.linear(p["wo"], o.reshape(B, T, cfg.n_heads * hd)), (k, v)
 
 
-def _apply_ffn(cfg, spec: SlotSpec, p, x, per_row: bool = False):
+def _apply_ffn(cfg, spec: SlotSpec, p, x, per_row: bool = False, rows: Optional[_Rows] = None):
     """The post-mixer FFN (dense or MoE); returns (x, aux).  ``per_row``:
     the MoE routes each batch row on its own (its capacity a row's), as the
-    reference's decode does under its ``vmap`` over serving slots."""
+    reference's decode does under its ``vmap`` over serving slots.  On a
+    mesh (``rows``) the MoE is ``moe_apply_ep`` where ``cfg.moe_ep`` (as the
+    reference picks it), else the global batch's ``moe_apply``; aux is then
+    this rank's share."""
     aux = x.new_zeros((), dtype=torch.float32)
     if spec.ffn == "none":
         return x, aux
@@ -181,15 +224,20 @@ def _apply_ffn(cfg, spec: SlotSpec, p, x, per_row: bool = False):
     if spec.ffn == "moe":
         if per_row:
             y = torch.cat([MoE.moe_apply(p["moe"], h2[b : b + 1], cfg.moe, cfg.mlp)[0] for b in range(x.shape[0])])
+        elif cfg.moe_ep and rows is not None:
+            if rows.n > 1 and not rows.split:
+                raise ValueError("the expert-parallel MoE needs the batch split over the batch axes; this one is "
+                                 "replicated")
+            y, aux = MoE.moe_apply_ep(p["moe"], h2, cfg.moe, cfg.mlp, mesh=rows.mesh)
         else:
-            y, aux = MoE.moe_apply(p["moe"], h2, cfg.moe, cfg.mlp)
+            y, aux = MoE.moe_apply(p["moe"], h2, cfg.moe, cfg.mlp, mesh=rows.mesh if rows and rows.split else None)
         x = x + y
     else:
         x = x + M.mlp_apply(p["mlp"], h2, cfg.mlp)
     return x, aux
 
 
-def _slot_forward(cfg, spec: SlotSpec, p, x, positions, q_chunk):
+def _slot_forward(cfg, spec: SlotSpec, p, x, positions, q_chunk, rows=None):
     """Returns (x, kv-or-None, aux_loss)."""
     h = _norm(cfg, p["norm1"], x)
     kv = None
@@ -198,7 +246,7 @@ def _slot_forward(cfg, spec: SlotSpec, p, x, positions, q_chunk):
         x = x + a
     else:
         x = x + S.ssm_apply(p["mamba"], h, cfg.ssm, bf16_matmul=cfg.ssm_bf16)
-    x, aux = _apply_ffn(cfg, spec, p, x)
+    x, aux = _apply_ffn(cfg, spec, p, x, rows=rows)
     return x, kv, aux
 
 
@@ -220,17 +268,20 @@ def _run_blocks(params: Params, cfg: LMConfig, x, block):
 
 
 def backbone(params: Params, cfg: LMConfig, x: torch.Tensor, positions: torch.Tensor, *, q_chunk: int = 1024,
-             collect_cache: bool = False, mesh=None):
+             collect_cache: bool = False, mesh=None, global_batch: Optional[int] = None):
     """The super-blocks over an embedded input x (B, T, D).  Returns
     (hidden, the kv of every attention slot stacked over super-blocks or
-    None, aux)."""
-    _no_mesh(mesh)
+    None, aux; on a mesh aux is this rank's share)."""
+    return _backbone(params, cfg, x, positions, q_chunk, collect_cache, _rows_on(mesh, x.shape[0], global_batch))
+
+
+def _backbone(params, cfg, x, positions, q_chunk, collect_cache, rows):
     specs = slot_specs(cfg)
 
     def block(x, bp):
         kvs, auxs = {}, x.new_zeros((), dtype=torch.float32)
         for i, spec in enumerate(specs):
-            x, kv, aux = _slot_forward(cfg, spec, bp[f"slot{i}"], x, positions, q_chunk)
+            x, kv, aux = _slot_forward(cfg, spec, bp[f"slot{i}"], x, positions, q_chunk, rows)
             auxs = auxs + aux
             if collect_cache and kv is not None:
                 kvs[f"slot{i}"] = kv
@@ -263,14 +314,17 @@ def _positions(batch, B: int, T: int, device) -> torch.Tensor:
 
 
 def train_loss(params: Params, cfg: LMConfig, batch: dict, *, q_chunk: int = 1024, loss_chunk: int = 512,
-               aux_weight: float = 0.01, mesh=None) -> torch.Tensor:
+               aux_weight: float = 0.01, mesh=None, global_batch: Optional[int] = None):
     """Causal LM loss; the head and CE run per T-chunk so (B, T, V) logits
-    never exist."""
-    _no_mesh(mesh)
+    never exist.  On a mesh: ``(share, loss)``, this rank's differentiable
+    share of the global loss (its sum over the batch axes is the loss, and
+    the sum of its gradients the loss's) and the global loss, detached (one
+    all-reduce of the shares)."""
     inp = batch["tokens"] if "tokens" in batch else batch["embeds"]
     B, T = inp.shape[0], inp.shape[1]
+    rows = _rows_on(mesh, B, global_batch)
     x = embed_or_pass(params, cfg, inp)
-    x, _, aux = backbone(params, cfg, x, _positions(batch, B, T, x.device), q_chunk=q_chunk)
+    x, _, aux = _backbone(params, cfg, x, _positions(batch, B, T, x.device), q_chunk, False, rows)
     x = _norm(cfg, params["final_norm"], x)
     hw = _head_w(params, cfg)
     labels = batch["labels"]
@@ -284,7 +338,14 @@ def train_loss(params: Params, cfg: LMConfig, batch: dict, *, q_chunk: int = 102
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels[:, j * c : (j + 1) * c, None].long())[..., 0]
         total = total + torch.sum(lse - gold)
-    return total / (B * T) + aux_weight * aux
+    n = rows.n if rows is not None and rows.split else 1
+    loss = total / (n * B * T) + aux_weight * aux
+    if rows is None:
+        return loss
+    glob = loss.detach().clone()
+    if rows.split:
+        dist.all_reduce(glob, group=rows.mesh.group(rows.axes))
+    return loss, glob
 
 
 # ------------------------------------------------------------------ caches
@@ -322,13 +383,30 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=torch.bfloat16, de
             for i, c in ((i, one(s)) for i, s in enumerate(slot_specs(cfg)))}
 
 
+def _model_specs(cfg: LMConfig, mesh):
+    """The cache's ``cache_specs`` entries on the "model" axis alone (a
+    rank's rows and sequence slice are its own already); None where the
+    model axis has one rank."""
+    if mesh is None or mesh.shape["model"] == 1:
+        return None
+    from ..configs.base import ShapeConfig
+    from ..parallel import sharding as SH  # lazily: parallel imports the models
+
+    specs = SH.cache_specs(cfg, ShapeConfig("cache", 1, 1, "decode"), mesh)
+    keep = lambda sp: SH.P(*(e if e == "model" else None for e in sp))  # noqa: E731
+    return {k: type(c)(*(keep(sp) for sp in c)) for k, c in specs.items()}
+
+
 def prefill(params: Params, cfg: LMConfig, batch: dict, *, q_chunk: int = 1024, max_len: Optional[int] = None,
-            mesh=None):
+            mesh=None, global_batch: Optional[int] = None):
     """Full-sequence prefill.  Returns (last-token logits (B, V), cache);
-    ``max_len`` is the cache's capacity for the decode (default T + 1)."""
-    _no_mesh(mesh)
+    ``max_len`` is the cache's capacity for the decode (default T + 1).  On
+    a mesh: this rank's rows' logits and its block of the cache under
+    ``cache_specs`` (its rows; kv heads and SSM channels split over "model"
+    where they divide)."""
     inp = batch["tokens"] if "tokens" in batch else batch["embeds"]
     B, T = inp.shape[0], inp.shape[1]
+    rows = _rows_on(mesh, B, global_batch)
     max_len = max_len or T + 1
     if max_len <= T:
         raise ValueError(f"max_len {max_len} leaves the cache no headroom over the prompt's {T} tokens")
@@ -342,7 +420,7 @@ def prefill(params: Params, cfg: LMConfig, batch: dict, *, q_chunk: int = 1024, 
         for i, spec in enumerate(specs):
             p = bp[f"slot{i}"]
             if spec.kind == "attn":
-                x, (k, v), _ = _slot_forward(cfg, spec, p, x, positions, q_chunk)
+                x, (k, v), _ = _slot_forward(cfg, spec, p, x, positions, q_chunk, rows)
                 if spec.attn_kind == "local" and cfg.window:
                     S_ = min(cfg.window, max_len)
                     keep = min(S_, T)
@@ -367,17 +445,23 @@ def prefill(params: Params, cfg: LMConfig, batch: dict, *, q_chunk: int = 1024, 
                 y, sc = S.ssm_prefill(p["mamba"], h, cfg.ssm, bf16_matmul=cfg.ssm_bf16)
                 x = x + y
                 caches[f"slot{i}"] = sc
-                x, _ = _apply_ffn(cfg, spec, p, x)
+                x, _ = _apply_ffn(cfg, spec, p, x, rows=rows)
         return x, caches
 
     x, per_block = _run_blocks(params, cfg, x, block)
     x = _norm(cfg, params["final_norm"], x[:, -1:, :])
     logits = (x[:, 0, :] @ _head_w(params, cfg)).float()
-    return logits, _stack_caches(per_block)
+    cache = _stack_caches(per_block)
+    mspecs = _model_specs(cfg, mesh)
+    if mspecs is not None:
+        from ..parallel import sharding as SH
+
+        cache = SH.map_specs(lambda t, sp: SH.block_of(t, sp, mesh), cache, mspecs)
+    return logits, cache
 
 
 def decode_step(params: Params, cfg: LMConfig, cache, tokens: torch.Tensor, cache_len, *, mesh=None,
-                seq_shard_axis: Optional[str] = None):
+                seq_shard_axis: Optional[str] = None, global_batch: Optional[int] = None):
     """One new token for every sequence.  ``tokens`` (B, 1) ids, or (B, 1, D)
     embeds for stub frontends; ``cache_len`` the tokens already in the
     cache: an int or 0-d tensor for every row, or a (B,) tensor, each row at
@@ -387,10 +471,30 @@ def decode_step(params: Params, cfg: LMConfig, cache, tokens: torch.Tensor, cach
     place, so no leaf is copied a token (the reference returns a new tree;
     a caller that keeps the old cache passes a copy).  A conv-state leaf
     whose dtype differs from the new state's (a bf16 ``init_cache``) is
-    replaced in ``cache`` once by its cast, as the reference's tree turns."""
-    _no_mesh(mesh, seq_shard_axis)
+    replaced in ``cache`` once by its cast, as the reference's tree turns.
+
+    On a mesh ``cache`` is this rank's block under ``cache_specs`` (leaves
+    split over "model" are gathered for the step and their blocks written
+    back).  ``seq_shard_axis``: the global attention caches hold this
+    rank's slice of the sequence (the local layers' rings are whole); the
+    new token's K/V row is written by the rank whose slice holds its slot
+    ``min(cache_len, S - 1)`` only, and the attention combines the slices
+    (``seq_sharded_decode_attention``)."""
     specs = slot_specs(cfg)
     B = tokens.shape[0]
+    rows_on = _rows_on(mesh, B, global_batch)
+    if seq_shard_axis is not None:
+        if mesh is None:
+            raise ValueError("seq_shard_axis needs the mesh it names an axis of")
+        if rows_on.split and seq_shard_axis in rows_on.axes:
+            raise ValueError(f"the batch is split over {rows_on.axes}: its sequence cannot split over "
+                             f"{seq_shard_axis!r} too")
+    mspecs = _model_specs(cfg, mesh)
+    held = cache
+    if mspecs is not None:  # the model axis is storage only: gather the split leaves for the step
+        from ..parallel import sharding as SH
+
+        cache = SH.map_specs(lambda t, sp: SH.gather(t, sp, mesh), cache, mspecs)
     x = embed_or_pass(params, cfg, tokens)
     dev = x.device
     cl = torch.as_tensor(cache_len, device=dev).long()
@@ -415,11 +519,24 @@ def decode_step(params: Params, cfg: LMConfig, cache, tokens: torch.Tensor, cach
                 q = apply_rope(q, pos, cfg.rope_theta, cfg.mrope_sections)
                 k1 = apply_rope(k1, pos, cfg.rope_theta, cfg.mrope_sections)
                 S_ = c.k.shape[1]
-                slot = cl_b % S_ if (spec.attn_kind == "local" and cfg.window) else torch.clamp(cl_b, max=S_ - 1)
-                c.k[rows, slot] = k1[:, 0].to(c.k.dtype)
-                c.v[rows, slot] = v1[:, 0].to(c.v.dtype)
-                c.pos[rows, slot] = cl_b.to(torch.int32)
-                o = decode_attention(q, c.k, c.v, cl_b + 1, kv_positions=c.pos)
+                local = spec.attn_kind == "local" and cfg.window
+                if seq_shard_axis is not None and not local:
+                    # this rank holds positions [off, off + S_) of the sequence, S_ x its extent in all
+                    off = mesh.index(seq_shard_axis) * S_
+                    slot = torch.clamp(cl_b, max=S_ * mesh.shape[seq_shard_axis] - 1) - off
+                    mine = (slot >= 0) & (slot < S_)  # the rows whose new entry lands in this slice
+                    r, sl, k_new, v_new, p_new = rows[mine], slot[mine], k1[mine, 0], v1[mine, 0], cl_b[mine]
+                else:
+                    slot = cl_b % S_ if local else torch.clamp(cl_b, max=S_ - 1)
+                    r, sl, k_new, v_new, p_new = rows, slot, k1[:, 0], v1[:, 0], cl_b
+                c.k[r, sl] = k_new.to(c.k.dtype)
+                c.v[r, sl] = v_new.to(c.v.dtype)
+                c.pos[r, sl] = p_new.to(torch.int32)
+                if seq_shard_axis is not None and not local:
+                    o = seq_sharded_decode_attention(q, c.k, c.v, cl_b + 1, mesh=mesh, seq_axis=seq_shard_axis,
+                                                     kv_positions=c.pos)
+                else:
+                    o = decode_attention(q, c.k, c.v, cl_b + 1, kv_positions=c.pos)
                 wo = p["attn"]["wo"]
                 # in the cache's dtype (v's): promoted to the weights' as JAX's bf16 @ f32 is
                 o = o.reshape(B, 1, cfg.n_heads * hd).to(torch.promote_types(o.dtype, wo["w"].dtype))
@@ -433,7 +550,17 @@ def decode_step(params: Params, cfg: LMConfig, cache, tokens: torch.Tensor, cach
                         leaf = leaf.to(new.dtype)
                         cache[f"slot{i}"] = cache[f"slot{i}"]._replace(**{field: leaf})
                     leaf[s].copy_(new)
-            x, _ = _apply_ffn(cfg, spec, p, x, per_row=per_row)
+            x, _ = _apply_ffn(cfg, spec, p, x, per_row=per_row, rows=rows_on)
     x = _norm(cfg, params["final_norm"], x)
     logits = (x[:, 0, :] @ _head_w(params, cfg)).float()
+    if mspecs is not None:  # this rank's blocks back into the cache it holds
+        for key, c in cache.items():
+            blocks = type(c)(*(SH.block_of(t, sp, mesh) for t, sp in zip(c, mspecs[key])))
+            for field, blk in zip(c._fields, blocks):
+                leaf = getattr(held[key], field)
+                if leaf.dtype == blk.dtype:
+                    leaf.copy_(blk)
+                else:  # a bf16 conv state turned fp32
+                    held[key] = held[key]._replace(**{field: blk})
+        cache = held
     return logits, cache

@@ -1,4 +1,4 @@
-"""Sharding rules for the GAN trees (the GAN half of the reference's
+"""Sharding rules for the GAN and the LM trees (the reference's
 ``parallel/sharding.py``), and the placement helpers that turn them into
 per-rank blocks.
 
@@ -28,11 +28,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..configs.base import GANConfig
+from ..configs.base import GANConfig, LMConfig, ShapeConfig
 from ..optim import OptState
 
 __all__ = ["PartitionSpec", "P", "MeshAxes", "SpecBuilder", "Placement", "gan_param_specs", "gan_batch_specs",
-           "audio_decoder_param_specs", "opt_specs", "named", "block_of", "gather", "map_specs"]
+           "audio_decoder_param_specs", "lm_param_specs", "lm_batch_specs", "cache_specs", "opt_specs", "named",
+           "block_of", "gather", "map_specs"]
 
 
 class PartitionSpec(tuple):
@@ -192,6 +193,166 @@ def gan_batch_specs(cfg: GANConfig, batch: int, mesh, axes: Optional[MeshAxes] =
     return z, P(bax, None, None, None), b.fallbacks
 
 
+def _need_model_axis(mesh, axes: MeshAxes) -> None:
+    """An LM mesh always has a TP axis (``launch.train --smoke`` builds
+    (1, 1) ("data", "model")); the LM rules read its extent unguarded."""
+    if axes.tp not in mesh.axis_names:
+        raise ValueError(f"an LM mesh needs a {axes.tp!r} axis (extent 1 will do); this one has {mesh.axis_names}")
+
+
+def lm_param_specs(cfg: LMConfig, mesh, axes: Optional[MeshAxes] = None):
+    """Spec tree matching ``lm_init(cfg)`` exactly: ``(specs, fallback_log)``.
+
+    Megatron TP on "model" over each weight's feature dimension and FSDP on
+    the batch axes over the other, the leading n_super axis replicated;
+    attention and ``in_dt`` fall back to replicated heads where the head
+    count does not divide the TP extent (one log line), the MoE's experts
+    replicate (FSDP carries them) unless ``cfg.moe_ep`` puts one expert a
+    "data" shard (and D unsplit)."""
+    from ..models import lm as LM  # lazily: the models import no parallel code
+
+    axes = axes or MeshAxes.for_mesh(mesh)
+    _need_model_axis(mesh, axes)
+    b = SpecBuilder(mesh, axes)
+    tp, fsdp = axes.tp, axes.fsdp
+    D, V = cfg.d_model, cfg.vocab
+    hd = cfg.hd
+
+    def lin(prefix, d_in, d_out, in_ax, out_ax, bias_key=False):
+        spec = {"w": P(None, b.dim(f"{prefix}.in", d_in, in_ax), b.dim(f"{prefix}.out", d_out, out_ax))}
+        if bias_key:
+            spec["b"] = P(None, b.dim(f"{prefix}.b", d_out, out_ax))
+        return spec
+
+    def norm_spec(stacked=True):
+        lead = (None,) if stacked else ()
+        base = {"scale": P(*lead, None)}
+        if cfg.norm == "layernorm":
+            base["bias"] = P(*lead, None)
+        return base
+
+    specs: dict[str, Any] = {"embed": {"table": P(b.dim("embed.V", V, tp), None)},
+                             "final_norm": norm_spec(stacked=False)}
+    if not cfg.tie_embeddings:
+        specs["head"] = {"w": P(b.dim("head.D", D, fsdp), b.dim("head.V", V, tp))}
+    blocks: dict[str, Any] = {}
+    for i, sp in enumerate(LM.slot_specs(cfg)):
+        s: dict[str, Any] = {"norm1": norm_spec()}
+        if sp.kind == "attn":
+            h_ax = tp if cfg.n_heads % _size(mesh, tp) == 0 else None
+            kv_ax = tp if cfg.n_kv_heads % _size(mesh, tp) == 0 else None
+            if h_ax is None:
+                b.fallbacks.append(f"slot{i}.attn: {cfg.n_heads} heads !% tp -> replicated attn")
+            s["attn"] = {
+                "wq": lin("wq", D, cfg.n_heads * hd, fsdp, h_ax),
+                "wk": lin("wk", D, cfg.n_kv_heads * hd, fsdp, kv_ax),
+                "wv": lin("wv", D, cfg.n_kv_heads * hd, fsdp, kv_ax),
+                "wo": lin("wo", cfg.n_heads * hd, D, h_ax, fsdp),
+            }
+        else:
+            ssm = cfg.ssm
+            d_inner = ssm.expand * D
+            H = d_inner // ssm.head_dim
+            s["mamba"] = {
+                "in_z": lin("in_z", D, d_inner, fsdp, tp),
+                "in_x": lin("in_x", D, d_inner, fsdp, tp),
+                "in_B": lin("in_B", D, ssm.d_state, fsdp, None),
+                "in_C": lin("in_C", D, ssm.d_state, fsdp, None),
+                "in_dt": lin("in_dt", D, H, fsdp, tp if H % _size(mesh, tp) == 0 else None),
+                "conv_x": {"w": P(None, None, b.dim("conv_x", d_inner, tp)),
+                           "b": P(None, b.dim("conv_xb", d_inner, tp))},
+                "conv_B": {"w": P(None, None, None), "b": P(None, None)},
+                "conv_C": {"w": P(None, None, None), "b": P(None, None)},
+                "A_log": P(None, b.dim("A_log", H, tp)),
+                "D": P(None, b.dim("ssm.D", H, tp)),
+                "dt_bias": P(None, b.dim("dt_bias", H, tp)),
+                "norm": {"scale": P(None, b.dim("ssm.norm", d_inner, tp))},
+                "out_proj": lin("out_proj", d_inner, D, tp, fsdp),
+            }
+        if sp.ffn == "mlp":
+            s["norm2"] = norm_spec()
+            glu = cfg.mlp in ("swiglu", "geglu")
+            mspec = {"up": lin("mlp.up", D, cfg.d_ff, fsdp, tp, bias_key=not glu),
+                     "down": lin("mlp.down", cfg.d_ff, D, tp, fsdp, bias_key=not glu)}
+            if glu:
+                mspec["gate"] = lin("mlp.gate", D, cfg.d_ff, fsdp, tp)
+            s["mlp"] = mspec
+        elif sp.ffn == "moe":
+            s["norm2"] = norm_spec()
+            E = cfg.moe.num_experts
+            e_ax = None  # experts replicated (FSDP carries them)
+            if cfg.moe_ep:  # one expert (group) a data shard; FSDP moves to the expert dim
+                e_ax = "data" if E % mesh.shape["data"] == 0 else None
+                if e_ax is None:
+                    b.fallbacks.append(f"moe_ep: E={E} !% data -> replicated experts")
+            d_ax = None if cfg.moe_ep else fsdp
+            ms: dict[str, Any] = {
+                "router": {"w": P(None, b.dim("router.D", D, d_ax), None)},
+                "up": {"w": P(None, e_ax, b.dim("moe.up.D", D, d_ax), b.dim("moe.up.ff", cfg.d_ff, tp))},
+                "down": {"w": P(None, e_ax, b.dim("moe.dn.ff", cfg.d_ff, tp), b.dim("moe.dn.D", D, d_ax))},
+            }
+            if cfg.mlp in ("swiglu", "geglu"):
+                ms["gate"] = {"w": P(None, e_ax, b.dim("moe.gt.D", D, d_ax), b.dim("moe.gt.ff", cfg.d_ff, tp))}
+            s["moe"] = ms
+        blocks[f"slot{i}"] = s
+    specs["blocks"] = blocks
+    return specs, b.fallbacks
+
+
+def _lm_batch_axis(shape: ShapeConfig, mesh, axes: MeshAxes):
+    """The batch axes when the global batch divides their extent, else None
+    (replicated inputs)."""
+    return axes.batch if shape.global_batch % _size(mesh, axes.batch) == 0 else None
+
+
+def lm_batch_specs(cfg: LMConfig, shape: ShapeConfig, mesh, axes: Optional[MeshAxes] = None) -> dict:
+    """Specs of the input batch dict: rows over the batch axes when the
+    global batch divides their extent, else replicated."""
+    axes = axes or MeshAxes.for_mesh(mesh)
+    _need_model_axis(mesh, axes)
+    batch_ax = _lm_batch_axis(shape, mesh, axes)
+    sp: dict[str, Any] = {}
+    if cfg.frontend == "stub_embeds":
+        sp["embeds"] = P(batch_ax, None, None)
+    else:
+        sp["tokens"] = P(batch_ax, None)
+    if shape.mode == "train":
+        sp["labels"] = P(batch_ax, None)
+    if cfg.mrope_sections is not None:
+        sp["positions"] = P(batch_ax, None, None)
+    return sp
+
+
+def cache_specs(cfg: LMConfig, shape: ShapeConfig, mesh, axes: Optional[MeshAxes] = None, seq_shard: bool = False):
+    """Specs of the decode cache (``lm.init_cache``'s layout): rows over the
+    batch axes where the global batch divides, kv heads / SSM heads and
+    channels over "model" where they divide; ``seq_shard`` splits the
+    global (non-local) attention caches' sequence over "data"."""
+    from ..models import lm as LM
+    from ..models.ssm import SSMCache
+
+    axes = axes or MeshAxes.for_mesh(mesh)
+    _need_model_axis(mesh, axes)
+    batch_ax = _lm_batch_axis(shape, mesh, axes)
+    tp = axes.tp
+    kv_ax = tp if cfg.n_kv_heads and cfg.n_kv_heads % _size(mesh, tp) == 0 else None
+    specs = {}
+    for i, sp in enumerate(LM.slot_specs(cfg)):
+        if sp.kind == "attn":
+            local = sp.attn_kind == "local" and cfg.window
+            seq_ax = "data" if (seq_shard and not local) else None
+            specs[f"slot{i}"] = LM.AttnCache(k=P(None, batch_ax, seq_ax, kv_ax, None),
+                                             v=P(None, batch_ax, seq_ax, kv_ax, None), pos=P(None, batch_ax, seq_ax))
+        else:
+            d_inner = cfg.ssm.expand * cfg.d_model
+            H = d_inner // cfg.ssm.head_dim
+            h_ax = tp if H % _size(mesh, tp) == 0 else None
+            di_ax = tp if d_inner % _size(mesh, tp) == 0 else None
+            specs[f"slot{i}"] = SSMCache(conv_x=P(None, batch_ax, None, di_ax), conv_B=P(None, batch_ax, None, None),
+                                         conv_C=P(None, batch_ax, None, None), state=P(None, batch_ax, h_ax, None, None))
+    return specs
+
+
 def opt_specs(param_specs) -> OptState:
     """AdamW's moments mirror the parameter specs (ZeRO-sharded moments)."""
     return OptState(step=P(), m=param_specs, v=param_specs)
@@ -207,12 +368,13 @@ class Placement:
 
 
 def map_specs(fn, tree, spec_tree):
-    """``fn(leaf, spec)`` over a tree (nested dicts and ``OptState``) and its
-    spec tree; an ``OptState``'s int ``step`` passes through."""
+    """``fn(leaf, spec)`` over a tree (nested dicts and NamedTuples: an
+    ``OptState``, the caches) and its spec tree; an ``OptState``'s int
+    ``step`` passes through."""
     if isinstance(spec_tree, PartitionSpec) or isinstance(spec_tree, Placement):
         return tree if isinstance(tree, int) else fn(tree, spec_tree)
-    if isinstance(tree, OptState):
-        return OptState(tree.step, map_specs(fn, tree.m, spec_tree.m), map_specs(fn, tree.v, spec_tree.v))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_specs(fn, t, s) for t, s in zip(tree, spec_tree)))
     if isinstance(tree, dict):
         return {k: map_specs(fn, v, spec_tree[k]) for k, v in tree.items()}
     raise TypeError(f"no spec rule for a {type(tree).__name__}")

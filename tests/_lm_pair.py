@@ -1,6 +1,7 @@
 """Helpers of the LM parity tests: numpy / JAX trees to torch and back,
 the gradient tolerance (1e-4 of the tree's largest gradient plus 1e-5),
-and JAX's forward and vector-Jacobian product in one jitted call."""
+JAX's forward and vector-Jacobian product in one jitted call, and for the
+mesh tests a stand-in mesh and a numpy array's block under a spec."""
 import jax
 import numpy as np
 import torch
@@ -144,3 +145,26 @@ def lm_params(cfg, seed=0):
         return (noise / np.sqrt(shape[-2] if len(shape) >= 2 else 1)).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(draw, structs)
+
+
+class StandIn:
+    """What the spec rules read of a mesh: ``shape`` and ``axis_names``."""
+
+    def __init__(self, shape, axes):
+        self.shape = dict(zip(axes, shape))
+        self.axis_names = tuple(axes)
+
+
+def np_block(x, spec, coords, mesh_shape):
+    """The block of numpy ``x`` at mesh ``coords`` under ``spec`` (row-major
+    over each dimension's axes, the reference's layout)."""
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        names = ax if isinstance(ax, tuple) else (ax,)
+        n, idx = 1, 0
+        for a in names:
+            n, idx = n * mesh_shape[a], idx * mesh_shape[a] + coords[a]
+        blk = x.shape[dim] // n
+        x = np.take(x, np.arange(idx * blk, (idx + 1) * blk), axis=dim)
+    return x

@@ -399,3 +399,293 @@ def serve_mesh_fault(rank, world, shape, axes, zoo_args, gp_np, dp_np, z_np, bad
     if rank == bad_rank:
         time.sleep(linger_s)
     return dict(outcome=outcome, seconds=seconds)
+
+
+# ------------------------------------------------------------ the LM on a mesh
+def _lm_cfg(arch, capacity_factor=None, moe_ep=False):
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+
+    cfg = smoke_config(arch)
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=capacity_factor))
+    return dataclasses.replace(cfg, moe_ep=moe_ep)
+
+
+def _t(x):
+    import torch
+
+    return torch.from_numpy(x.astype(np.int64) if x.dtype == np.int32 else x)
+
+
+def _np_state(x):
+    if isinstance(x, dict):
+        return {k: _np_state(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x).__name__, {f: _np_state(v) for f, v in zip(x._fields, x)}
+    return x.detach().cpu().numpy() if hasattr(x, "detach") else x
+
+
+def lm_train_runs(rank, world, shape, axes, runs):
+    """For each (name, arch, capacity_factor, global_batch, params_np,
+    batches_np) of ``runs``: ``build_lm_step`` train at ``smoke_config``
+    (``capacity_factor`` None: the config's), the numpy params as this
+    rank's blocks, a step a batch (this rank's rows).  Returns by name each
+    step's loss, gradient norm, this rank's dropped MoE assignments, and
+    the gathered params and AdamW moments after it, plus the fallback log."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.launch.steps import build_lm_step
+    from repro_torch.models import moe as MoE
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import sharding as SH
+
+    mesh = _mesh(shape, axes)
+    out = {}
+    for name, arch, cf, gb, params_np, batches in runs:
+        cfg = _lm_cfg(arch, cf)
+        T = next(iter(batches[0].values())).shape[1]
+        readings = []
+        step, _, meta = build_lm_step(cfg, ShapeConfig("train_test", T, gb, "train"), mesh, readings=readings)
+        pspecs = SH.lm_param_specs(cfg, mesh)[0]
+        bspecs = SH.lm_batch_specs(cfg, ShapeConfig("train_test", T, gb, "train"), mesh)
+        params = SH.map_specs(lambda t, sp: SH.block_of(t, sp, mesh), lm_params_from_numpy(params_np, cfg, "cpu"),
+                              pspecs)
+        opt = adamw_init(params)
+        steps = []
+        for b in batches:
+            rows = {k: SH.block_of(_t(v), bspecs[k], mesh) for k, v in b.items()}
+            with MoE.record_drops() as drops:
+                params, opt, loss = step(params, opt, rows)
+            full = lambda tree: SH.map_specs(lambda t, sp: SH.gather(t, sp, mesh), tree, pspecs)  # noqa: E731
+            steps.append(dict(loss=float(loss), grad_norm=readings[-1]["grad_norm"], rows=rows[next(iter(rows))].shape[0],
+                              drops=int(sum(int(d) for d in drops)), params=_np(full(params)), m=_np(full(opt.m)),
+                              v=_np(full(opt.v)), opt_step=opt.step))
+        out[name] = dict(steps=steps, fallbacks=meta["fallbacks"])
+    return out
+
+
+def lm_prefill_runs(rank, world, shape, axes, runs):
+    """For each (name, arch, capacity_factor, params_np, batch_np) of
+    ``runs``: ``build_lm_step`` prefill at ``smoke_config`` on this rank's rows (the
+    cell's seq_len the batch's T, its global batch the batch's rows).
+    Returns by name this rank's logits and cache block (numpy), and its mesh
+    coordinates."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.launch.steps import build_lm_step
+    from repro_torch.parallel import sharding as SH
+
+    mesh = _mesh(shape, axes)
+    out = {}
+    for name, arch, cf, params_np, batch in runs:
+        cfg = _lm_cfg(arch, cf)
+        B, T = next(iter(batch.values())).shape[:2]
+        cell = ShapeConfig("prefill_test", T, B, "prefill")
+        fn, _, _ = build_lm_step(cfg, cell, mesh)
+        pspecs = SH.lm_param_specs(cfg, mesh)[0]
+        params = SH.map_specs(lambda t, sp: SH.block_of(t, sp, mesh), lm_params_from_numpy(params_np, cfg, "cpu"),
+                              pspecs)
+        bspecs = SH.lm_batch_specs(cfg, cell, mesh)
+        logits, cache = fn(params, {k: SH.block_of(_t(v), bspecs[k], mesh) for k, v in batch.items()})
+        out[name] = dict(logits=logits.numpy(), cache=_np_state(cache))
+    return dict(out, coords=mesh.coords)
+
+
+def moe_drop_runs(rank, world, shape, axes, arch, capacity_factor, moe_np, x_np):
+    """The MoE of ``arch``'s smoke config at ``capacity_factor`` on this
+    rank's rows of ``x_np``: the global-capacity ``moe_apply(mesh=)`` (out,
+    aux share, dropped assignments) and the per-rank-capacity plain call
+    (out), which is what the expert-parallel form computes."""
+    import torch
+
+    from repro_torch.models import moe as MoE
+    from repro_torch.parallel import sharding as SH
+
+    mesh = _mesh(shape, axes)
+    cfg = _lm_cfg(arch, capacity_factor)
+    p = {k: {kk: torch.from_numpy(vv) for kk, vv in v.items()} for k, v in moe_np.items()}
+    x = SH.block_of(torch.from_numpy(x_np), SH.P(SH.MeshAxes.for_mesh(mesh).batch, None, None), mesh)
+    with MoE.record_drops() as drops:
+        out, aux = MoE.moe_apply(p, x, cfg.moe, cfg.mlp, mesh=mesh)
+    plain, _ = MoE.moe_apply(p, x, cfg.moe, cfg.mlp)
+    return dict(out=out.numpy(), aux=float(aux), drops=int(drops[0]), plain=plain.numpy())
+
+
+def lm_mesh_runs(rank, world, shape, axes, train, prefill, drop=None):
+    """One world's LM mesh work: ``lm_train_runs`` on ``train``,
+    ``lm_prefill_runs`` on ``prefill`` and, given ``drop`` (the arguments
+    after ``axes`` of ``moe_drop_runs``), the MoE drop case."""
+    out = dict(train=lm_train_runs(rank, world, shape, axes, train),
+               prefill=lm_prefill_runs(rank, world, shape, axes, prefill))
+    if drop is not None:
+        out["drop"] = moe_drop_runs(rank, world, shape, axes, *drop)
+    return out
+
+
+def seq_attention_runs(rank, world, q, k, v, cache_len, kv_positions):
+    """``seq_sharded_decode_attention`` on a (world, 1) ("data", "model")
+    mesh, this rank holding its slice of the sequence of ``k`` / ``v`` (and
+    of ``kv_positions``): the output without and with the positions."""
+    import torch
+
+    from repro_torch.models.attention import seq_sharded_decode_attention
+    from repro_torch.parallel import sharding as SH
+
+    mesh = _mesh((world, 1), ("data", "model"))
+    sl = lambda x: SH.block_of(torch.from_numpy(x), SH.P(None, "data", *(None,) * (x.ndim - 2)), mesh)  # noqa: E731
+    q, k_l, v_l = torch.from_numpy(q), sl(k), sl(v)
+    plain = seq_sharded_decode_attention(q, k_l, v_l, cache_len, mesh=mesh)
+    placed = seq_sharded_decode_attention(q, k_l, v_l, cache_len, mesh=mesh, kv_positions=sl(kv_positions))
+    return dict(plain=plain.numpy(), placed=placed.numpy())
+
+
+def _cache_from_np(cache_np):
+    import torch
+
+    from repro_torch.models.lm import AttnCache
+    from repro_torch.models.ssm import SSMCache
+
+    kinds = {"AttnCache": AttnCache, "SSMCache": SSMCache}
+    return {k: kinds[kind](**{f: torch.from_numpy(np.array(v)) for f, v in fields.items()})
+            for k, (kind, fields) in cache_np.items()}
+
+
+def lm_decode_runs(rank, world, shape, axes, runs):
+    """For each (name, arch, params_np, cache_np, tokens, cache_len,
+    seq_shard) of ``runs``, at ``smoke_config``: with ``seq_shard``
+    ``decode_step(seq_shard_axis="data")`` on this rank's block of the
+    cache under ``cache_specs(seq_shard=True)`` (the batch replicated),
+    else ``build_lm_step``'s decode cell (the batch split) on this rank's
+    rows and cache block.  Returns by name the logits and the new cache
+    block (numpy)."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.launch.steps import build_lm_step
+    from repro_torch.models import lm as LM
+    from repro_torch.parallel import sharding as SH
+
+    mesh = _mesh(shape, axes)
+    out = {}
+    for name, arch, params_np, cache_np, tokens, cache_len, seq_shard in runs:
+        cfg = _lm_cfg(arch)
+        B = tokens.shape[0]
+        cache = _cache_from_np(cache_np)
+        S = next(c.k.shape[2] for c in cache.values() if hasattr(c, "k"))
+        cell = ShapeConfig("decode_test", S, B, "decode")
+        cache = SH.map_specs(lambda t, sp: SH.block_of(t, sp, mesh), cache,
+                             SH.cache_specs(cfg, cell, mesh, seq_shard=seq_shard))
+        params = lm_params_from_numpy(params_np, cfg, "cpu")
+        if seq_shard:
+            with torch.no_grad():
+                logits, new = LM.decode_step(params, cfg, cache, _t(tokens), cache_len, mesh=mesh,
+                                             seq_shard_axis="data", global_batch=B)
+        else:
+            fn, _, _ = build_lm_step(cfg, cell, mesh)
+            pspecs = SH.lm_param_specs(cfg, mesh)[0]
+            rows = SH.block_of(_t(tokens), SH.P(SH.MeshAxes.for_mesh(mesh).batch, None), mesh)
+            logits, new = fn(SH.map_specs(lambda t, sp: SH.block_of(t, sp, mesh), params, pspecs), cache,
+                             {"tokens": rows}, cache_len)
+        out[name] = dict(logits=logits.numpy(), cache=_np_state(new))
+    return dict(out, coords=mesh.coords)
+
+
+def moe_ep_runs(rank, world, arch, capacity_factor, moe_np, x_np, ct_np):
+    """``moe_apply_ep`` on a (world, 1) ("data", "model") mesh with this
+    rank's rows of ``x_np``: the output, this rank's aux share, its dropped
+    assignments, and the gradients of sum(out * ct) + aux share in its rows
+    of x and in the full weights."""
+    import torch
+
+    from repro_torch.models import moe as MoE
+    from repro_torch.parallel import sharding as SH
+
+    mesh = _mesh((world, 1), ("data", "model"))
+    cfg = _lm_cfg(arch, capacity_factor, moe_ep=True)
+    p = {k: {kk: torch.from_numpy(vv).requires_grad_(True) for kk, vv in v.items()} for k, v in moe_np.items()}
+    rows = SH.P(("data",), None, None)
+    x = SH.block_of(torch.from_numpy(x_np), rows, mesh).requires_grad_(True)
+    ct = SH.block_of(torch.from_numpy(ct_np), rows, mesh)
+    with MoE.record_drops() as drops:
+        out, aux = MoE.moe_apply_ep(p, x, cfg.moe, cfg.mlp, mesh=mesh)
+    ((out * ct).sum() + aux).backward()
+    return dict(out=out.detach().numpy(), aux=float(aux), drops=int(drops[0]), dx=x.grad.numpy(),
+                dp={k: {kk: vv.grad.numpy() for kk, vv in v.items()} for k, v in p.items()})
+
+
+def _structs(x):
+    """A struct tree as (shape, dtype name) leaves; ints pass through."""
+    if isinstance(x, dict):
+        return {k: _structs(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_structs(v) for v in x)
+    if hasattr(x, "shape"):
+        assert x.device.type == "meta", x.device
+        return tuple(x.shape), str(x.dtype).replace("torch.", "")
+    return x
+
+
+def launch_structs(rank, world, cells):
+    """``launch.steps.build_step`` on a (1, 1) ("data", "model") mesh for
+    each (arch, shape name) of ``cells``: the step's name, its arg structs
+    as (shape, dtype) leaves, and whether the decode cache is
+    sequence-sharded."""
+    from repro_torch.launch.steps import build_step
+
+    mesh = _mesh((1, 1), ("data", "model"))
+    out = {}
+    for arch, shape in cells:
+        fn, args, meta = build_step(arch, shape, mesh)
+        out[(arch, shape)] = dict(name=fn.__name__, args=_structs(args), seq_shard=meta.get("seq_shard"))
+    return out
+
+
+def gan_step_dispatch(rank, world, zoo_args, gp_np, dp_np, z_np, real_np):
+    """``build_gan_step`` on a (world,) ("data",) mesh against the step it
+    maps to (``build_gan_mesh_step`` by default, ``build_gan_comm_step``
+    with ``overlap`` and with int8 compression): one step each from the same
+    blocks; whether every output is bitwise the same, and the struct
+    trees' lengths."""
+    import torch
+
+    from repro_torch.launch.steps import build_gan_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import overlap as OV
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train import StepSettings
+    from repro_torch.tree import tree_leaves
+
+    mesh = _mesh((world,), ("data",))
+    cfg = _cfg(zoo_args)
+    B = z_np.shape[0]
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))  # noqa: E731
+    out = {}
+    for name, st, other in (("mesh", StepSettings(batch=B), lambda: OV.build_gan_mesh_step(cfg, mesh, batch=B)),
+                            ("overlap", StepSettings(batch=B, overlap=True),
+                             lambda: OV.build_gan_comm_step(cfg, mesh, batch=B)),
+                            ("int8", StepSettings(batch=B, grad_compression="int8"),
+                             lambda: OV.build_gan_comm_step(cfg, mesh, batch=B, grad_compression="int8"))):
+        fn, args, meta = build_gan_step(cfg, mesh, settings=st)
+        ref, _ = other()
+        gsp, dsp, _, _ = meta["specs"]
+        zspec, rspec = meta["batch_specs"]
+        results = []
+        for step in (fn, ref):
+            gp, dp = _params(cfg, gp_np, dp_np)
+            gp, dp = SH.map_specs(lambda t, s: SH.block_of(t, s, mesh), gp, gsp), \
+                SH.map_specs(lambda t, s: SH.block_of(t, s, mesh), dp, dsp)
+            state = [gp, dp, adamw_init(gp), adamw_init(dp)]
+            if name == "int8":
+                state.append(OV.init_comm_state(*meta["param_structs"], mesh))
+            z, real = SH.block_of(torch.from_numpy(z_np), zspec, mesh), SH.block_of(torch.from_numpy(real_np), rspec,
+                                                                                     mesh)
+            o = step(*state, z, real)
+            results.append([o[0], o[1], o[-1]])
+        out[name] = dict(same=all(same(a, b) for a, b in zip(*results)), n_args=len(args),
+                         comm=type(args[4]).__name__ if name == "int8" else None)
+    return out

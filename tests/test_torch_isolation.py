@@ -32,8 +32,10 @@ def test_port_imports_no_jax_and_no_reference_package():
         assert pkg / "train" / name in files, name
     for name in ("sharding.py", "compression.py", "overlap.py"):  # the multi-device modules
         assert pkg / "parallel" / name in files, name
-    assert pkg / "launch" / "mesh.py" in files
+    for name in ("mesh.py", "steps.py", "train.py"):  # the launch package: the mesh, the steps, the launcher
+        assert pkg / "launch" / name in files, name
     assert ROOT / "examples" / "torch_train_dcgan.py" in files
+    assert ROOT / "examples" / "torch_train_lm.py" in files
     for name in ("lm.py", "attention.py", "mlp.py", "moe.py", "ssm.py"):  # the LM stack's modules
         assert pkg / "models" / name in files, name
     for name in ("phi3_mini_3_8b", "starcoder2_15b", "gemma3_12b", "llama3_8b", "musicgen_medium", "jamba_v0_1_52b",

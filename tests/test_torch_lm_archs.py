@@ -45,14 +45,23 @@ def test_prefill_then_decode(case):
     check_prefill_decode(case)
 
 
-def test_mesh_and_sequence_sharding_are_item_6d():
+class _DataOnlyMesh:
+    """A mesh without a "model" axis: the LM refuses it (its rules read the
+    TP extent; an LM mesh always has one, of extent 1 at least)."""
+
+    shape = {"data": 2}
+    axis_names = ("data",)
+
+
+def test_lm_entry_points_refuse_a_mesh_without_a_model_axis():
     cfg = TC.smoke_config("llama3-8b")
     tp = TLM.lm_init(cfg, device="cpu")
     b = {"tokens": torch.zeros((1, 4), dtype=torch.int64), "labels": torch.zeros((1, 4), dtype=torch.int64)}
-    for call in (lambda: TLM.train_loss(tp, cfg, b, mesh=object()), lambda: TLM.prefill(tp, cfg, b, mesh=object()),
+    mesh = _DataOnlyMesh()
+    for call in (lambda: TLM.train_loss(tp, cfg, b, mesh=mesh), lambda: TLM.prefill(tp, cfg, b, mesh=mesh),
                  lambda: TLM.decode_step(tp, cfg, TLM.init_cache(cfg, 1, 8, device="cpu"), b["tokens"][:, :1], 0,
-                                         seq_shard_axis="data")):
-        with pytest.raises(NotImplementedError, match="6d"):
+                                         mesh=mesh, seq_shard_axis="data")):
+        with pytest.raises(ValueError, match="'model' axis"):
             call()
 
 
