@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases kernel,kernel_bwd,kernel_conv,kernel_domain,serve,train,train_chained,
                                     serve_per_layer,train_per_layer,kernel_1d,audio,serve_faults,train_gan,
-                                    autotune,train_mesh,lm_serve,lm_archs,lm_mesh]
+                                    autotune,train_mesh,lm_serve,lm_archs,lm_mesh,costs]
 
 Phases, each printing one JSON line:
   env     torch / CUDA versions, the card's name and power limit; TF32 off.
@@ -327,6 +327,29 @@ agree with it elsewhere (nan_case).
           max|err| <= 2^-5 max|logits|: the two attentions round the
           probabilities differently by design) and in fp32 (1e-3); step and
           gather ms, the bytes a rank holds.  The phase's seconds.
+  costs   the cost tooling (launch/op_costs.py, launch/dryrun.py,
+          kernels/costs.py) on the card, in a fresh process of its own
+          (late in a process the profiler keeps only some of a session's
+          kernel records).  Under op_costs.OpRecorder, each
+          path's launches held to their counts (counts at 0 just before,
+          read just after): the chained DCGAN train step at batch 128
+          (kernels 3 / 6 / 7 4 / 4 / 4, the conv corner's 8 / 11 / 12), the
+          per-layer step (kernels 1 / 4 / 5 4 / 4 / 4 and the conv corner's
+          8 / 11 / 12), a batch-8 per-layer generate on the fused pre-PE
+          (kernel 2, 4), Mamba2-780m's 256-token prefill at its published
+          size on conv impl "engine" (kernel 9, 144), kernel 8 once through
+          its wrapper at the audio decoder's deconv0 (no entry point calls
+          it).  Per kernel: counted products, ops and bytes, its device ms
+          in the profile of the same call and the TFLOP/s that makes; the
+          aten side's totals;
+          the call's wall ms with the recorder on and off.  Then the launcher's GAN path (launch/train.py --arch dcgan
+          --smoke: DCGAN's widths, batch 256, world 1 on NCCL, 3 steps) with
+          its first step recorded, against the dry run of the same cell on a
+          fake world-1 mesh on "cuda" in fp32: FLOPs, bytes, matmul FLOPs
+          and collectives must be equal; the dry run's peak live bytes
+          beside max_memory_allocated of the real step.  Then the dry runs
+          of dcgan and llama3-8b x train_4k on pod16x16 (fake 256-rank
+          world) with their t_trace_s on this host.
   kernels one summary line per kernel (launches on each serving and training
           path, as that phase's run counted them, null for a phase that did
           not run; error, times, the least time the card could take; for the
@@ -369,7 +392,7 @@ REPLACES_1D_NLC = "src/repro/kernels/engine.py:1724"  # winograd_conv1d_fused_en
 REPLACES_1D_SCRATCH = "src/repro/kernels/engine.py:1690"  # its scratch pallas_call
 PHASES = ("kernel", "kernel_bwd", "kernel_conv", "kernel_domain", "serve", "train", "train_chained",
           "serve_per_layer", "train_per_layer", "kernel_1d", "audio", "serve_faults", "train_gan", "autotune",
-          "train_mesh", "lm_serve", "lm_archs", "lm_mesh")
+          "train_mesh", "lm_serve", "lm_archs", "lm_mesh", "costs")
 TRAIN_BATCH = 128  # the DCGAN paper's mini-batch
 # K5S2 at batch 7, 11x11 input, 100 -> 36 channels: name, (kernel, stride, padding, output_padding), B, H, N, M
 RAGGED_SHAPE = ("ragged", (5, 2, 2, 1), 7, 11, 100, 36)
@@ -475,55 +498,6 @@ def peaks_for(name: str):
         if key in name:
             return key, val
     return "SXM", PEAKS["SXM"]
-
-
-def fold_adds(inv, groups, backward: bool = False) -> int:
-    """Least adds per tile and output channel that the inverse transform
-    needs, F(2,3): ``inv`` (C, 4) holds 0 or +-1, so each term is one add.
-    Forward, per group of packed positions that share an output tile (a
-    sub-filter; at the conv corner all C): the smaller of the direct sum
-    through ``inv`` and A^T Y A on the 4x4 sum (24 adds; positions that
-    share a Winograd position sum in the contraction's own chain).
-    Backward, gw from g: the smaller of the direct rows and A g A^T (12
-    adds, then fanned out)."""
-    import numpy as np
-
-    nz = np.asarray(inv) != 0
-    total = 0
-    for lo, hi in groups:
-        terms = nz[lo:hi].sum(axis=1 if backward else 0)
-        total += min(int(np.maximum(terms - 1, 0).sum()), 12 if backward else 24)
-    return total
-
-
-def overlap_adds(B: int, phases: int, N: int, ty: int, tx: int) -> int:
-    """Adds of bwd_x's overlap sum: a cell's m x m values of each phase and
-    channel gather one piece from each of the (up to 2 x 2) tiles whose
-    4 x 4 windows cover it; ty*tx tiles give 4*ty*tx pieces to
-    (ty+1)*(tx+1) cells."""
-    return B * phases * 4 * N * max(0, 4 * ty * tx - (ty + 1) * (tx + 1))
-
-
-def transform_ops_1d(mat) -> int:
-    """Least operations of applying ``mat`` (rows of a 1D transform) to one
-    vector: per row, an add for each nonzero after the first and a multiply
-    for each nonzero that is not +-1."""
-    import numpy as np
-
-    mat = np.asarray(mat, dtype=np.float64)
-    nz = mat != 0
-    return int(np.maximum(nz.sum(axis=1) - 1, 0).sum() + (nz & (np.abs(mat) != 1)).sum())
-
-
-def fold_ops_1d(inv, groups, backward: bool = False) -> int:
-    """Least operations of the rank-1 inverse transform per tile and output
-    channel: forward, each sub-filter's m outputs from its packed products
-    (``transform_ops_1d`` of inv[lo:hi]^T); backward, gw of every packed
-    position from its sub-filter's m cotangents (of inv's rows)."""
-    import numpy as np
-
-    inv = np.asarray(inv, dtype=np.float64)
-    return sum(transform_ops_1d(inv[lo:hi] if backward else inv[lo:hi].T) for lo, hi in groups if hi > lo)
 
 
 def mma_bound(n_bytes: int, n_ops: int, products: int, instantiation, peaks, tensor_cores=None) -> dict:
@@ -710,7 +684,10 @@ def profiled_ms(fn, reps: int = 10, warmup: int = 3, name="", what: str = ""):
     time it is compared with.  A session that records no device time (or
     none for ``name``) is run again after a pause, up to five sessions in
     all, and then fails: the tracer has been seen to drop a whole session's
-    events, once those of three sessions of one call in a row."""
+    events, once those of three sessions of one call in a row, and late in
+    a process it keeps only some of a session's kernel records, or none
+    (``tools/profiler_drift.py``; the ``costs`` phase runs in a process of
+    its own for that reason)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -733,8 +710,9 @@ def profiled_ms(fn, reps: int = 10, warmup: int = 3, name="", what: str = ""):
         named = sum(e.device_time_total for e in evs if name and kernel_named(e.key, name))
         if total > 0 and (named > 0 or not name):
             break
-        emit({"note": f"profiler session {attempt + 1} recorded no device time",
-              "for": what or name or "(all kernels)"})
+        emit({"note": f"profiler session {attempt + 1} recorded no device time" + (" for the named kernels" if total else ""),
+              "for": what or name or "(all kernels)", "device_ms": total / 1e3,
+              "kernels": sorted(e.key[:80] for e in evs if e.device_time_total > 0)[:6]})
     else:
         fail(f"the profiler recorded no device time for {what or name or 'any kernel'} in 5 sessions")
     by_kernel = {e.key: e.device_time_total / reps / 1e3 for e in evs if e.device_time_total > 0}
@@ -776,7 +754,7 @@ def kernel_phase(torch, peaks):
     import torch.nn.functional as F
 
     from repro_torch.core.tdc import DeconvDims
-    from repro_torch.kernels import engine, ops
+    from repro_torch.kernels import costs, engine, ops
     from repro_torch.kernels.ref import epilogue_apply_ref
     from repro_torch.models.gan import _cells_to_image
 
@@ -856,13 +834,11 @@ def kernel_phase(torch, peaks):
         ty = -(-dims.j_extent(H) // 2)
         splits, _, _, (BT, BM, _, conf) = engine._plan(B, ty, ty, N, M, dims.stride, dev)
         T = B * ty * ty
-        n_bytes = 4 * (cells.numel() + packed.ww.numel() + packed.inv.numel() + got.numel()
-                       + (2 * M if affine else 0))
-        # com-PE products, the pre-PE adder network (32 adds per tile and
-        # channel), the post-PE inverse transform (fold_adds) and the
-        # epilogue (affine + activation per output value)
-        products = 2 * T * C * N * M
-        n_ops = products + 32 * T * N + T * M * fold_adds(packed.inv.cpu(), sub_slices) + 3 * got.numel()
+        # com-PE products, the pre-PE adder network, the post-PE inverse
+        # transform and the epilogue (kernels/costs.py)
+        products, n_ops, n_bytes = costs.fused_engine(B=B, ty=ty, tx=ty, N=N, M=M, inv=packed.inv,
+                                                      sub_slices=sub_slices, cells=cells.numel(), out=got.numel(),
+                                                      vectors=2 if affine else 0)
         instantiation = sorted(k for k in by_kernel if kernel_named(k, FWD_KERNELS))
         ran_on(f"the forward at {name}", instantiation, tc)
         row = dict(kernel="fused_engine_epi", name=name, B=B, H_in=H, N=N, M=M, C=C, T=T,
@@ -1668,7 +1644,7 @@ def _dcgan_train_shapes():
 
 def kernel_bwd_phase(torch, peaks):
     from repro_torch.core.tdc import DeconvDims
-    from repro_torch.kernels import engine, ops
+    from repro_torch.kernels import costs, engine, ops
 
     K4, K3, K2S3 = DeconvDims(4, 2, 1, 0), DeconvDims(3, 1, 1, 0), DeconvDims(2, 3, 0, 0)
     shapes = _dcgan_train_shapes() + [
@@ -1737,16 +1713,14 @@ def kernel_bwd_phase(torch, peaks):
             go, xc, wt, None, [S, S], [P, P], [1, 1], True, [dims.output_padding] * 2, 1, mask)
 
         T = B * ty * ty
-        # products, gw from g (fold_adds), the B-transform or its transpose
-        # (32 adds per tile and channel), and for bwd_x the overlap sum
-        products = 2 * T * C * N * M
-        common_ops = products + T * M * fold_adds(packed.inv.cpu(), sub_slices, True) + 32 * T * N
-        dcells_n = B * gy * gy * 4 * N
-        work = {
-            "x": (4 * (gs.numel() + packed.ww.numel() + packed.inv.numel() + dcells_n),
-                  common_ops + overlap_adds(B, 1, N, ty, ty)),
-            "w": (4 * (cells.numel() + gs.numel() + packed.inv.numel() + C * N * M), common_ops),
-        }
+        # products, gw from g, the B-transform or its transpose, and for
+        # bwd_x the overlap sum (kernels/costs.py)
+        counted = {"x": costs.fused_engine_bwd_x(B=B, ty=ty, tx=ty, gy=gy, gx=gy, N=N, M=M, inv=packed.inv,
+                                                 sub_slices=sub_slices),
+                   "w": costs.fused_engine_bwd_w(B=B, ty=ty, tx=ty, N=N, M=M, inv=packed.inv, sub_slices=sub_slices,
+                                                 cells=cells.numel())}
+        products = counted["x"].products
+        work = {key: (c.bytes, c.ops) for key, c in counted.items()}
         for key, run, plain, kname, mask in (
                 ("x", run_x, plain_x, BWD_X_KERNELS, [True, False, False]),
                 ("w", run_w, plain_w, BWD_W_KERNELS, [False, True, False])):
@@ -1836,7 +1810,7 @@ def kernel_domain_phase(torch, peaks):
 
     from repro_torch.core.tdc import DeconvDims
     from repro_torch.core.winograd_deconv import pad_input_for_tiles, transform_input_tiles
-    from repro_torch.kernels import engine, ops
+    from repro_torch.kernels import costs, engine, ops
 
     K5, K4, K3, K2S3 = DeconvDims(5, 2, 2, 1), DeconvDims(4, 2, 1, 0), DeconvDims(3, 1, 1, 0), DeconvDims(2, 3, 0, 0)
     layers = [(f"dcgan.deconv{i}", K5, H, N, M)
@@ -1938,12 +1912,10 @@ def kernel_domain_phase(torch, peaks):
                 refuses_misaligned("domain_engine_bwd_w", lambda: engine.domain_engine_bwd_w(
                     xw, misaligned(gs), packed.inv, **kw), runs["bwd_w"][0])]
         lib_fwd, lib_bwd = library_calls(g, x, w, dims, B, H, M)
-        inv_np = packed.inv.cpu()
-        prod = 2 * T * C * N * M
-        fold, gw = T * M * fold_adds(inv_np, sub_slices), T * M * fold_adds(inv_np, sub_slices, True)
-        io = {"fwd": xw.numel() + packed.ww.numel() + T * S2 * 4 * M,
-              "bwd_x": gs.numel() + packed.ww.numel() + xw.numel(),
-              "bwd_w": xw.numel() + gs.numel() + packed.ww.numel()}
+        counts = dict(T=T, n2=16, N=N, M=M, m2=4, inv=packed.inv, sub_slices=sub_slices)
+        counted = {"fwd": costs.domain_engine(**counts), "bwd_x": costs.domain_engine_bwd_x(**counts),
+                   "bwd_w": costs.domain_engine_bwd_w(**counts)}
+        prod = counted["fwd"].products
         libs = {"fwd": (lib_fwd, "conv_transpose2d (cuDNN), the whole layer"),
                 "bwd_x": (lambda: lib_bwd([True, False, False]), "aten convolution_backward, input grad"),
                 "bwd_w": (lambda: lib_bwd([False, True, False]),
@@ -1959,8 +1931,7 @@ def kernel_domain_phase(torch, peaks):
                 if name == RAGGED_SHAPE[0] and splits < 2:
                     fail(f"kernel 5 at the ragged shape ran unsplit (plan {extra['plan']})")
             measure(f"domain_engine{'' if key == 'fwd' else '_' + key}", name, B, H, N, M, C, T, run, plain,
-                    knames[key], *libs[key], 4 * (io[key] + packed.inv.numel()),
-                    prod + (fold if key == "fwd" else gw), errs[key], **extra)
+                    knames[key], *libs[key], counted[key].bytes, counted[key].ops, errs[key], **extra)
         del x, w, packed, xw, gs, x_pad
         torch.cuda.empty_cache()
 
@@ -1985,12 +1956,13 @@ def kernel_domain_phase(torch, peaks):
                 misaligned(cells), packed.ww, packed.inv, **kw), run))
             emit({"phase": "kernel_domain", "misaligned_refusals": refusals})
         lib_fwd, _ = library_calls(g, x, w, dims, B, H, M)
-        n_bytes = 4 * (cells.numel() + packed.ww.numel() + packed.inv.numel() + got.numel())
-        n_ops = 2 * T * C * N * M + 32 * T * N + T * M * fold_adds(packed.inv.cpu(), sub_slices)
+        products, n_ops, n_bytes = costs.fused_engine(B=B, ty=ty, tx=tx, N=N, M=M, inv=packed.inv,
+                                                      sub_slices=sub_slices, cells=cells.numel(), out=got.numel(),
+                                                      epilogue=False)
         # the tensor cores where the grid fills the card: DCGAN's deconv0-2 at batch 128
         splits, _, _, (BT, BM, _, conf) = engine._plan(B, ty, tx, N, M, dims.stride, dev)
         measure("fused_engine_scratch", f"{name}.b{B}", B, H, N, M, C, T, run, plain, FWD_KERNELS, lib_fwd,
-                "conv_transpose2d (cuDNN), the whole layer", n_bytes, n_ops, err, products=2 * T * C * N * M,
+                "conv_transpose2d (cuDNN), the whole layer", n_bytes, n_ops, err, products=products,
                 tensor_cores=B == TRAIN_BATCH and M >= 16,
                 plan=dict(BT=BT, BM=BM, tensor_cores=conf > 0, n_splits=splits))
         del x, w, packed, cells, got
@@ -2034,7 +2006,7 @@ def kernel_1d_phase(torch, peaks):
     from repro_torch.configs import audio_decoder
     from repro_torch.core.tdc import DeconvDims
     from repro_torch.core.winograd import get_transform
-    from repro_torch.kernels import engine, ops
+    from repro_torch.kernels import costs, engine, ops
     from repro_torch.kernels.ref import epilogue_apply_ref, xw_from_cells_1d
 
     K4S2 = DeconvDims(4, 2, 1, 0)
@@ -2160,14 +2132,12 @@ def kernel_1d_phase(torch, peaks):
             if not lib_err <= 1e-4 * want_lib.abs().max().item() + 1e-5:
                 fail(f"engine1d at {name} vs {lib_note}: max|err| {lib_err:.3e}")
         T, C = cells.shape[0] * ty, len(pos_idx)
-        inv_np = packed.inv.cpu().numpy()
-        n_bytes = 4 * (cells.numel() + packed.ww.numel() + packed.inv.numel() + got.numel()
-                       + (2 * M if affine else 0))
-        epi = got.numel() * ((2 if affine else 0) + (act != "none")) if out_mode == "nlc" else 0
-        n_ops = (2 * T * C * N * M + T * phases * N * transform_ops_1d(bt) + T * M * fold_ops_1d(inv_np, sub_slices)
-                 + epi)
+        products, n_ops, n_bytes = costs.winograd_conv1d_fused_engine(
+            B=cells.shape[0], ty=ty, N=N, M=M, phases=phases, inv=packed.inv, sub_slices=sub_slices, bt=bt,
+            cells=cells.numel(), out=got.numel(), vectors=2 if affine else 0, activation=act,
+            epilogue=out_mode == "nlc")
         measure(f"engine1d_{out_mode}", name, run, plain, ENGINE1D_KERNELS, lib, lib_note, n_bytes, n_ops, err,
-                products=2 * T * C * N * M, B=B, L=L, N=N, M=M, C=C, T=T, phases=phases, activation=act,
+                products=products, B=B, L=L, N=N, M=M, C=C, T=T, phases=phases, activation=act,
                 affine=affine, library_max_abs_err=lib_err)
         # the tensor cores run the decoder's layers of M >= 64 (deconv0-1; the mono deconv2 stays on the CUDA cores)
         if name.startswith("audio.") and M >= 16 and not any("_mma_kernel" in k for k in rows[-1]["instantiation"]):
@@ -2208,10 +2178,9 @@ def kernel_1d_phase(torch, peaks):
         go = torch.randn((B, M, dims.out_size(L)), generator=g, device="cuda")
         conv_bwd = lambda mask: torch.ops.aten.convolution_backward(  # noqa: E731
             go, xc, wt, None, [dims.stride], [dims.padding], [1], True, [dims.output_padding], 1, mask)
-        inv_np = packed.inv.cpu().numpy()
-        products = 2 * T * C * N * M
-        prod = products + T * M * fold_ops_1d(inv_np, sub_slices, backward=True)
-        io = {"bwd_x": gs.numel() + packed.ww.numel() + xw.numel(), "bwd_w": xw.numel() + gs.numel() + packed.ww.numel()}
+        counts = dict(T=T, n2=xw.shape[1], N=N, M=M, m2=2, inv=packed.inv, sub_slices=sub_slices)
+        counted = {"bwd_x": costs.domain_engine_bwd_x(**counts), "bwd_w": costs.domain_engine_bwd_w(**counts)}
+        products = counted["bwd_x"].products
         libs = {"bwd_x": (lambda: conv_bwd([True, False, False]), "aten convolution_backward, input grad"),
                 "bwd_w": (lambda: conv_bwd([False, True, False]),
                           "aten convolution_backward, raw-weight grad (not the packed one)")}
@@ -2222,7 +2191,7 @@ def kernel_1d_phase(torch, peaks):
                 extra["plan"] = bwd_w_plan(tile, splits, C, S2, M)
             measure(f"domain_engine_{key}_rank1", name, run, plain,
                     DOMAIN_BWD_X_KERNELS if key == "bwd_x" else DOMAIN_BWD_W_KERNELS, *libs[key],
-                    4 * (io[key] + packed.inv.numel()), prod, errs[key], B=B, L=L, N=N, M=M, C=C, T=T, **extra)
+                    counted[key].bytes, counted[key].ops, errs[key], B=B, L=L, N=N, M=M, C=C, T=T, **extra)
         del x, w, packed, cells, xw, gs, go, xc
         torch.cuda.empty_cache()
 
@@ -2247,11 +2216,10 @@ def kernel_1d_phase(torch, peaks):
     wt, go = w.permute(2, 1, 0).contiguous(), torch.randn((B, M, L), generator=g, device="cuda")
     lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
         go, xp, wt, None, [1], [0], [1], False, [0], 1, [True, False, False])
-    products = 2 * T * C * N * M
+    products, n_ops, n_bytes = costs.domain_engine_bwd_x(T=T, n2=n, N=N, M=M, m2=2, inv=packed.inv,
+                                                         sub_slices=sub_slices)
     measure("domain_engine_bwd_x_rank1", name, run, plain, DOMAIN_BWD_X_KERNELS, lib,
-            "aten convolution_backward, input grad (of the causally padded input)",
-            4 * (gs.numel() + packed.ww.numel() + got.numel() + packed.inv.numel()),
-            products + T * M * fold_ops_1d(packed.inv.cpu().numpy(), sub_slices, backward=True), err,
+            "aten convolution_backward, input grad (of the causally padded input)", n_bytes, n_ops, err,
             products=products, B=B, L=L, N=N, M=M, C=C, T=T)
     del w, packed, gs, got, xp, go
     torch.cuda.empty_cache()
@@ -2435,7 +2403,7 @@ def kernel_conv_phase(torch, peaks):
     import torch.nn.functional as F
 
     from repro_torch.core import conv_same_dims
-    from repro_torch.kernels import engine, ops
+    from repro_torch.kernels import costs, engine, ops
     from repro_torch.kernels.ref import epilogue_apply_ref
 
     shapes = _dcgan_disc_shapes() + [
@@ -2537,22 +2505,16 @@ def kernel_conv_phase(torch, peaks):
                           "aten convolution_backward, raw-weight grad (not the packed one)")}
 
         T = B * ty * tx
-        # products, the B-transforms or their transposes (32 adds per tile,
-        # phase and channel), the inverse transform or gw (fold_adds over
-        # one group of all C positions), the epilogue (3 per output) or the
-        # overlap sum
-        products = 2 * T * C * N * M
-        prod = products + 32 * T * S * S * N
-        inv_np = packed.inv.cpu()
-        fold, gw = T * M * fold_adds(inv_np, [(0, C)]), T * M * fold_adds(inv_np, [(0, C)], True)
-        dcells_n = B * gy * gx * S * S * 4 * N
-        work = {
-            "fwd": (4 * (cells.numel() + packed.ww.numel() + packed.inv.numel() + errs["fwd"][2]
-                         + M * (2 if affine else 1)), prod + fold + 3 * errs["fwd"][2]),
-            "bwd_x": (4 * (gs.numel() + packed.ww.numel() + packed.inv.numel() + dcells_n),
-                      prod + gw + overlap_adds(B, S * S, N, ty, tx)),
-            "bwd_w": (4 * (cells.numel() + gs.numel() + packed.inv.numel() + C * N * M), prod + gw),
-        }
+        # products, the B-transforms or their transposes, the inverse
+        # transform or gw over one group of all C positions, the epilogue
+        # or the overlap sum (kernels/costs.py)
+        counts = dict(B=B, ty=ty, tx=tx, N=N, M=M, inv=packed.inv, s2=S * S)
+        counted = {"fwd": costs.conv_fused_engine(**counts, cells=cells.numel(), out=errs["fwd"][2],
+                                                  vectors=2 if affine else 1),
+                   "bwd_x": costs.conv_fused_engine_bwd_x(**counts, gy=gy, gx=gx),
+                   "bwd_w": costs.conv_fused_engine_bwd_w(**counts, cells=cells.numel())}
+        products = counted["fwd"].products
+        work = {key: (c.bytes, c.ops) for key, c in counted.items()}
         for key, (run, plain) in runs.items():
             n_bytes, n_ops = work[key]
             t_bytes, t_ops = 1e3 * n_bytes / bytes_peak, 1e3 * n_ops / flops_peak
@@ -4137,7 +4099,7 @@ def _lm_conv_checks(torch, peaks, params, card):
     engine-versus-direct error)."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import engine, ops
+    from repro_torch.kernels import costs, engine, ops
     from repro_torch.models import ssm as S
 
     blk = params["blocks"]["slot0"]["mamba"]
@@ -4210,9 +4172,9 @@ def _lm_conv_checks(torch, peaks, params, card):
         lib_dw_err = (got[:, :LM_PROMPT] - lib_dw().permute(0, 2, 1)).abs().max().item()
         _, _, ms, by_kernel = profiled_ms(run, reps=20, name=ENGINE1D_KERNELS, what=f"kernel 9 at {name}")
         T, Cp = B * ty, len(pos_idx)
-        products = 2 * T * Cp * C * C
-        n_bytes = 4 * (cells.numel() + packed.ww.numel() + packed.inv.numel() + got.numel())
-        n_ops = products + T * C * transform_ops_1d(bt) + T * C * fold_ops_1d(packed.inv.cpu().numpy(), sub_slices)
+        products, n_ops, n_bytes = costs.winograd_conv1d_fused_engine(
+            B=B, ty=ty, N=C, M=C, phases=1, inv=packed.inv, sub_slices=sub_slices, bt=bt, cells=cells.numel(),
+            out=got.numel())
         # the bound at the 3xTF32 rate: engine1d_mma_kernel takes these shapes (M = C, a multiple of 4 and
         # >= 16), even where the plan runs the CUDA-core kernel at batch 1
         bound = mma_bound(n_bytes, n_ops, products, sorted(k for k in by_kernel if kernel_named(k, ENGINE1D_KERNELS)),
@@ -5031,6 +4993,298 @@ def lm_mesh_phase(torch, card, spec=None):
     return {"prefill_launches": w2[0]["prefill_launches"], "train_launches": jam[0]["launches"]}
 
 
+# the costs phase's paths and the launches each must count (kernels line rows)
+COSTS_CONV = {"conv_engine_fwd": 8, "conv_engine_bwd_x": 11, "conv_engine_bwd_w": 12}
+COSTS_PATHS = {
+    "costs_chained": {"fused_engine_epi": 4, "fused_engine_bwd_x": 4, "fused_engine_bwd_w": 4, **COSTS_CONV},
+    "costs_per_layer": {"domain_engine": 4, "domain_engine_bwd_x": 4, "domain_engine_bwd_w": 4, **COSTS_CONV},
+    "costs_generate": {"fused_engine_scratch": 4},
+    "costs_prefill": {"engine1d_nlc": 144},
+    "costs_kernel8": {"engine1d_scratch": 1},
+}
+# each kernels-line row's kernels, as the profiler names them
+ROW_KERNELS = {
+    "fused_engine_epi": FWD_KERNELS, "fused_engine_scratch": FWD_KERNELS, "fused_engine_bwd_x": BWD_X_KERNELS,
+    "fused_engine_bwd_w": BWD_W_KERNELS, "conv_engine_fwd": CONV_FWD_KERNELS, "conv_engine_bwd_x": CONV_BWD_X_KERNELS,
+    "conv_engine_bwd_w": CONV_BWD_W_KERNELS, "domain_engine": DOMAIN_FWD_KERNELS,
+    "domain_engine_bwd_x": DOMAIN_BWD_X_KERNELS, "domain_engine_bwd_w": DOMAIN_BWD_W_KERNELS,
+    "domain_engine_bwd_x_rank1": DOMAIN_BWD_X_KERNELS, "domain_engine_bwd_w_rank1": DOMAIN_BWD_W_KERNELS,
+    "engine1d_nlc": ENGINE1D_KERNELS, "engine1d_scratch": ENGINE1D_KERNELS,
+}
+COSTS_PARITY_KEYS = ("flops_per_device", "f32_matmul_flops_per_device", "bf16_matmul_flops_per_device",
+                     "hbm_bytes_per_device", "collective_wire_bytes_per_device", "collectives_by_op",
+                     "host_copy_bytes_per_device")
+
+
+def kernel_row(rec: dict) -> str:
+    """The kernels-line row of an ``OpRecorder`` kernel record."""
+    k, w = rec["kernel"], rec["work"]
+    if k == "fused_engine":
+        return "fused_engine_epi" if w["epilogue"] else "fused_engine_scratch"
+    if k == "winograd_conv1d_fused_engine":
+        return "engine1d_nlc" if w["epilogue"] else "engine1d_scratch"
+    if k.startswith("conv_fused_engine"):
+        return "conv_engine" + k[len("conv_fused_engine"):] if k != "conv_fused_engine" else "conv_engine_fwd"
+    return k + ("_rank1" if w.get("m2") == 2 else "")
+
+
+def _recorded(fn):
+    """``fn()`` under the op recorder: (its output, the records)."""
+    from repro_torch.launch.op_costs import OpRecorder
+
+    with OpRecorder() as rec:
+        out = fn()
+    return out, rec.records
+
+
+def costs_run(torch, path: str, fn, card, *, reps: int = 3) -> dict:
+    """One call of ``fn`` (a warm-up first) under the recorder, its launches
+    held to ``COSTS_PATHS[path]``; per kernel row the counted work, the
+    device ms of the same call in a profile of ``reps`` calls and the
+    TFLOP/s that makes; the aten side's totals; wall ms with the recorder
+    on and off."""
+    from repro_torch.launch.op_costs import analyze_records
+
+    fn()
+    torch.cuda.synchronize()
+    zero_counts()
+    _, records = _recorded(fn)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check_counts(path, launches, COSTS_PATHS[path])
+    rows: dict = {}
+    for rec in records:
+        if rec["op"] == "kernel":
+            r = rows.setdefault(kernel_row(rec), dict(launches=0, products=0, ops=0, bytes=0))
+            r["launches"] += 1
+            for key in ("products", "ops", "bytes"):
+                r[key] += rec[key]
+    if {row: r["launches"] for row, r in rows.items()} != COSTS_PATHS[path]:
+        fail(f"{path}: the recorder logged {rows}, the counters {COSTS_PATHS[path]}")
+    names = tuple(n for row in rows for n in ROW_KERNELS[row])
+    _, device_ms, _, by_kernel = profiled_ms(fn, reps=reps, warmup=0, name=names, what=path)
+    for row, r in rows.items():
+        r["ms"] = sum(v for k, v in by_kernel.items() if kernel_named(k, ROW_KERNELS[row]))
+    for r in rows.values():
+        r["achieved_tflops"] = r["ops"] / (r["ms"] * 1e-3) / 1e12 if r["ms"] else None
+    aten = analyze_records([rec for rec in records if rec["op"] != "kernel"])
+    wall_off = event_median_ms(fn, reps=5, warmup=1)
+    wall_on = event_median_ms(lambda: _recorded(fn), reps=5, warmup=1)
+    out = dict(phase="costs", path=path, launches={k: v for k, v in launches.items() if v}, kernels=rows,
+               n_records=len(records), aten=aten, device_ms=device_ms, wall_ms_recorder_off=wall_off,
+               wall_ms_recorder_on=wall_on, recorder_overhead=wall_on / wall_off - 1, card=card)
+    emit(out)
+    return dict(out, counts=launches)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launcher_parity(torch, card, out_dir: str, device: str = "cuda") -> dict:
+    """The launcher's GAN path (``launch/train.py --arch dcgan --smoke``:
+    DCGAN's widths, batch 256, world 1 on NCCL, 3 steps) with its first
+    step under the recorder (the device constants built anew, as the dry
+    run builds them once), against the dry run of the same cell on a fake
+    world-1 mesh on "cuda" in fp32 (the launcher's dtype)."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.core.winograd_deconv import clear_device_constants
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import train as TT
+    from repro_torch.launch.op_costs import analyze_records
+
+    if dist.is_initialized():
+        fail("costs: a process group is up before the launcher's run")
+    got: dict = {}
+    real_build = TT.build_gan_step
+
+    def build(cfg, mesh, **kw):
+        fn, args, meta = real_build(cfg, mesh, **kw)
+
+        def step(*a):
+            if "records" in got:
+                return fn(*a)
+            clear_device_constants()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            got["allocated_before"] = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out, got["records"] = _recorded(lambda: fn(*a))
+            torch.cuda.synchronize()
+            got["step_s"] = time.perf_counter() - t0
+            got["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+            return out
+
+        got["batch"] = args[-1].shape[0]
+        return step, args, meta
+
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    TT.build_gan_step = build
+    t0 = time.perf_counter()
+    try:
+        TT.main(["--arch", "dcgan", "--smoke", "--steps", "3", "--device", device])
+    finally:
+        TT.build_gan_step = real_build
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    launcher_s = time.perf_counter() - t0
+    real = analyze_records(got["records"])
+    dry = DR.run_cell("dcgan", "gan_train", False, out_dir, ((1, 1), ("data", "model")), device=device,
+                      dtype=torch.float32)
+    if dry["status"] != "ok":
+        fail(f"costs: the world-1 dry run of dcgan failed: {dry['error']}")
+    differ = {k: (real[k], dry["hlo_costs"][k]) for k in COSTS_PARITY_KEYS if real[k] != dry["hlo_costs"][k]}
+    peak, alloc = dry["memory"]["peak_live_bytes"], got["max_memory_allocated"]
+    out = dict(phase="costs", path="launcher_parity", batch=got["batch"], launcher_s=launcher_s,
+               step_s=got["step_s"], real=real, dry_run=dry["hlo_costs"], equal=not differ, differ=differ,
+               n_records_real=len(got["records"]), n_records_dry=dry["n_ops"], t_trace_s=dry["t_trace_s"],
+               dry_peak_live_bytes=peak, dry_argument_bytes=dry["memory"]["argument_bytes"],
+               max_memory_allocated=alloc, allocated_before=got["allocated_before"],
+               peak_over_allocated=peak / alloc, card=card)
+    emit(out)
+    if differ:
+        fail(f"costs: the dry run counts {differ} (real, dry) differently from the launcher's step")
+    return out
+
+
+def _costs_process(out: str, card: str, rows_1d: list) -> None:
+    """``costs_phase`` in a spawned process (``costs_in_own_process``),
+    its result saved to ``out``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import _build
+
+    _build.load_library()
+    torch.save(costs_phase(torch, card, rows_1d), out)
+
+
+def costs_in_own_process(torch, card, rows_1d=()) -> dict:
+    """``costs_phase`` in a fresh process on this card: late in a process
+    the profiler keeps only some of a session's kernel records, or none
+    (``tools/profiler_drift.py``), and after this script's earlier phases
+    a session of kernel 8's lone launches kept none in five.  Its paths'
+    counts come back as a spawned mesh rank's do."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as tmp
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="costs_") as root:
+        out = os.path.join(root, "costs.pt")
+        proc = tmp.get_context("spawn").Process(target=_costs_process, args=(out, card, list(rows_1d)))
+        proc.start()
+        proc.join(600)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+        if proc.exitcode:
+            fail(f"costs: the phase's process exited with {proc.exitcode} (a check failed, or it hung past 600 s)")
+        return torch.load(out, weights_only=False)
+
+
+def costs_phase(torch, card, rows_1d=()):
+    """The cost tooling on the card (see the module docstring's ``costs``)."""
+    import tempfile
+
+    from repro_torch import data as D
+    from repro_torch.configs import DCGAN, LMS, audio_decoder
+    from repro_torch.core.winograd import get_transform
+    from repro_torch.kernels import engine, ops
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.models import gan as G
+    from repro_torch.models import lm as LM
+    from repro_torch.models import ssm as S
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import StepSettings, make_gan_step
+
+    out: dict = {}
+    # --- the two train steps at batch 128
+    for path, impl in (("costs_chained", "cuda_chained"), ("costs_per_layer", "cuda_prepacked")):
+        cfg = dataclasses.replace(DCGAN, deconv_impl=impl, conv_impl=impl)
+        gp, dp = _train_params(torch, cfg, seed=0)
+        z = D.latent_batch(0, 0, TRAIN_BATCH, cfg.z_dim, device="cuda")
+        real = D.gan_batch(0, 0, TRAIN_BATCH, cfg.img_hw, device="cuda")
+        step = make_gan_step(cfg, settings=StepSettings())
+        go, do = adamw_init(gp), adamw_init(dp)
+        out[path] = costs_run(torch, path, lambda: step(gp, dp, go, do, z, real), card)["counts"]
+        del gp, dp, go, do, step
+        torch.cuda.empty_cache()
+    # --- a batch-8 per-layer generate on the fused pre-PE (kernel 2)
+    cfg = dataclasses.replace(DCGAN, deconv_impl="cuda_fused_pre_prepacked")
+    params = G.prepack_generator(_serve_params(torch), cfg)
+    folded = G.fold_eval_bn(params, cfg)
+    z = D.latent_batch(0, 0, 8, cfg.z_dim, device="cuda")
+    with torch.inference_mode():
+        out["costs_generate"] = costs_run(torch, "costs_generate",
+                                          lambda: G.generator_apply(params, cfg, z, folded=folded), card,
+                                          reps=10)["counts"]
+    del params, folded
+    # --- kernel 8 through its wrapper at the audio decoder's deconv0 (no entry point calls it)
+    sp = audio_decoder(AUDIO_WIDTH)[0]
+    g = torch.Generator(device="cuda").manual_seed(700)
+    x = torch.randn((AUDIO_BATCH, AUDIO_FRAMES, sp.c_in), generator=g, device="cuda")
+    packed = ops.prepack_deconv1d(0.05 * torch.randn((sp.dims.kernel, sp.c_in, sp.c_out), generator=g,
+                                                     device="cuda"), sp.dims)
+    cells, ty = ops.deconv1d_cells_from_seq(x, sp.dims)
+    pos_idx, sub_slices, _, _ = ops.packed_deconv1d_layout(sp.dims)
+    bt = tuple(tuple(float(v) for v in row) for row in get_transform(2, 3).BT)
+    res = costs_run(torch, "costs_kernel8", lambda: engine.winograd_conv1d_fused_engine(
+        cells, packed.ww, packed.inv, bt, pos_idx=pos_idx, sub_slices=sub_slices, m=2, n=4, ty=ty,
+        out_mode="scratch"), card)
+    out["costs_kernel8"] = res["counts"]
+    row = next((r for r in rows_1d if r["kernel"] == "engine1d_scratch" and r["name"] == "audio.deconv0"), None)
+    if row is not None and (row["ops"], row["bytes"]) != (res["kernels"]["engine1d_scratch"]["ops"],
+                                                          res["kernels"]["engine1d_scratch"]["bytes"]):
+        fail(f"costs: kernel 8's counted work {res['kernels']} differs from kernel_1d's row ({row['ops']}, "
+             f"{row['bytes']})")
+    del x, packed, cells
+    torch.cuda.empty_cache()
+    # --- Mamba2-780m's prefill at its published size on "engine" (kernel 9)
+    lcfg = LMS[LM_ARCH]
+    lparams = LM.lm_init(lcfg, seed=LM_SEED, device="cuda")
+    tokens = torch.randint(0, lcfg.vocab, (1, LM_PROMPT), generator=torch.Generator(device="cuda").manual_seed(5),
+                           device="cuda")
+    S.set_conv_impl("engine")
+    try:
+        with torch.no_grad():
+            out["costs_prefill"] = costs_run(torch, "costs_prefill", lambda: LM.prefill(
+                lparams, lcfg, {"tokens": tokens}, q_chunk=64, max_len=LM_MAX_LEN), card)["counts"]
+    finally:
+        S.set_conv_impl("direct")
+    del lparams
+    torch.cuda.empty_cache()
+    # --- the launcher's GAN path against its dry run; the production cells
+    with tempfile.TemporaryDirectory() as tmp:
+        out["parity"] = launcher_parity(torch, card, tmp)
+        for arch, shape in (("dcgan", "gan_train"), ("llama3-8b", "train_4k")):
+            rec = DR.run_cell(arch, shape, False, tmp)
+            if rec["status"] != "ok":
+                fail(f"costs: the dry run of {arch} x {shape} on pod16x16: {rec['error']}")
+            emit(dict(phase="costs", path="dryrun", cell=DR.cell_name(arch, shape, False), device=rec["device"],
+                      t_trace_s=rec["t_trace_s"], n_ops=rec["n_ops"], hlo_costs=rec["hlo_costs"],
+                      memory=rec["memory"], card_bytes=DR.CARD_BYTES,
+                      total_memory=torch.cuda.get_device_properties(0).total_memory,
+                      sharding_fallbacks=rec["sharding_fallbacks"], card=card))
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5099,6 +5353,7 @@ def main(argv=None) -> int:
     lm = timed("lm_serve", lambda: lm_serve_phase(torch, peaks, smi), {})
     timed("lm_archs", lambda: lm_archs_phase(torch, smi), None)
     lm_mesh = timed("lm_mesh", lambda: lm_mesh_phase(torch, smi), {})
+    costs = timed("costs", lambda: costs_in_own_process(torch, smi, rows_1d), {})
     # each path's launches of every kernel, counted in its run (None: not run)
     path_launches = {"serve": serve_launches, "train": train.get("launches"),
                      "train_chained": chained.get("launches"), "serve_per_layer": serve_pl.get("launches"),
@@ -5106,7 +5361,8 @@ def main(argv=None) -> int:
                      "audio_grad": audio.get("grad_launches"), "serve_faults": serve_faults,
                      "train_gan": train_loop, "train_tuned": tuned.get("launches"), "train_mesh": mesh.get("launches"),
                      "serve_mesh": mesh.get("serve_launches"), "lm_serve": lm.get("launches"),
-                     "lm_mesh_prefill": lm_mesh.get("prefill_launches"), "lm_mesh_train": lm_mesh.get("train_launches")}
+                     "lm_mesh_prefill": lm_mesh.get("prefill_launches"), "lm_mesh_train": lm_mesh.get("train_launches"),
+                     **{path: costs.get(path) for path in COSTS_PATHS}}
 
     def step_device_ms(kname, run=None):
         """Device ms per step of the instantiations of ``kname`` (or of a

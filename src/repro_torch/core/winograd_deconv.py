@@ -81,6 +81,9 @@ def transform_input_tiles(x_pad: torch.Tensor, n_tiles: tuple[int, int], m: int 
     return torch.einsum("zyxubc,vb->zyxuvc", rows, bt)
 
 
+_DEVICE_CONSTANTS: list = []
+
+
 def device_constant(maxsize: int):
     """``functools.lru_cache`` for a function that builds a constant tensor
     on a device, which builds it outside any inference mode: a serving
@@ -92,8 +95,15 @@ def device_constant(maxsize: int):
         def cached(*args):
             with torch.inference_mode(False):
                 return fn(*args)
+        _DEVICE_CONSTANTS.append(cached)
         return cached
     return wrap
+
+
+def clear_device_constants() -> None:
+    """Empty every ``device_constant`` cache (the next call builds anew)."""
+    for cached in _DEVICE_CONSTANTS:
+        cached.cache_clear()
 
 
 @device_constant(maxsize=16)

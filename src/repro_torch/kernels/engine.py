@@ -214,22 +214,27 @@ class Launch(NamedTuple):
     """One CUDA launch as ``launch_log`` records it: the wrapper, the shape
     keywords ``request`` reads, the instantiation's name and the split
     count that ran, and ``plan(want, want_splits)``: the C plan at this
-    shape (raising ValueError where it refuses the request)."""
+    shape (raising ValueError where it refuses the request).  ``work``
+    holds the keywords of the kernel's count in ``kernels/costs.py``
+    (``costs.of_launch``)."""
 
     kernel: str
     shape: dict
     conf: str
     splits: int
     plan: Callable
+    work: dict | None = None
 
 
 launch_log: list[Launch] | None = None
 
 
-def _log(kernel: str, shape: dict, k: int, splits: int, plan, *plan_args) -> None:
-    if launch_log is not None:
-        launch_log.append(Launch(kernel, shape, INSTANTIATIONS[kernel][k], splits,
-                                 functools.partial(plan, *plan_args)))
+def _log(kernel: str, shape: dict, k: int, splits: int, plan, *plan_args, work: dict | None = None) -> None:
+    """Append the launch to ``launch_log``; a wrapper calls it only while
+    the log is on (``if launch_log is not None``), so the main path builds
+    no record."""
+    launch_log.append(Launch(kernel, shape, INSTANTIATIONS[kernel][k], splits,
+                             functools.partial(plan, *plan_args), work))
 
 
 _INVALID_VALUE = 1  # cudaErrorInvalidValue: a plan's refusal of a request
@@ -553,7 +558,11 @@ def fused_engine(
         fused_engine.scratch_launches += 1
     else:
         fused_engine.launches += 1
-    _log("fused_engine", shape, k, n_splits, _plan, B, ty, tx, N, M, S, dev.index)
+    if launch_log is not None:
+        _log("fused_engine", shape, k, n_splits, _plan, B, ty, tx, N, M, S, dev.index,
+             work=dict(B=B, ty=ty, tx=tx, N=N, M=M, inv=inv_packed, sub_slices=tuple(sub_slices),
+                       cells=cells.numel(), out=n_out, vectors=(scale is not None) + (bias is not None),
+                       epilogue=out_mode != "scratch"))
     return out
 
 
@@ -693,7 +702,9 @@ def fused_engine_bwd_x(
         raise RuntimeError(f"fused_engine_bwd_x kernel launch failed: cudaError {err} (B={B}, cells {gy}x{gx}, "
                            f"tiles {ty}x{tx}, N={N}, M={M}, S={stride}, C={C}, plan {(R, W, TC)})")
     fused_engine_bwd_x.launches += 1
-    _log("fused_engine_bwd_x", shape, k, 1, _bwd_x_plan, B, gy, gx, ty, tx, M, dev.index)
+    if launch_log is not None:
+        _log("fused_engine_bwd_x", shape, k, 1, _bwd_x_plan, B, gy, gx, ty, tx, M, dev.index,
+             work=dict(B=B, ty=ty, tx=tx, gy=gy, gx=gx, N=N, M=M, inv=inv_packed, sub_slices=tuple(sub_slices)))
     return out
 
 
@@ -762,7 +773,10 @@ def fused_engine_bwd_w(
     if err != 0:
         raise RuntimeError(f"fused_engine_bwd_w kernel launch failed: cudaError {err}")
     fused_engine_bwd_w.launches += 1
-    _log("fused_engine_bwd_w", shape, tile[3], n_splits, _bwd_w_plan, B, ty, tx, N, M, stride, C, dev.index)
+    if launch_log is not None:
+        _log("fused_engine_bwd_w", shape, tile[3], n_splits, _bwd_w_plan, B, ty, tx, N, M, stride, C, dev.index,
+             work=dict(B=B, ty=ty, tx=tx, N=N, M=M, inv=inv_packed, sub_slices=tuple(sub_slices),
+                       cells=cells.numel()))
     return out
 
 
@@ -993,7 +1007,10 @@ def conv_fused_engine(
     if err != 0:
         raise RuntimeError(f"conv_fused_engine kernel launch failed: cudaError {err}")
     conv_fused_engine.launches += 1
-    _log("conv_fused_engine", shape, k, n_splits, _conv_fwd_plan, B, ty, tx, N, M, tuple(pos_idx), s2, dev.index)
+    if launch_log is not None:
+        _log("conv_fused_engine", shape, k, n_splits, _conv_fwd_plan, B, ty, tx, N, M, tuple(pos_idx), s2,
+             dev.index, work=dict(B=B, ty=ty, tx=tx, N=N, M=M, inv=inv_packed, s2=s2, cells=cells.numel(),
+                                  out=out.numel(), vectors=(scale is not None) + (bias is not None)))
     return out
 
 
@@ -1057,7 +1074,9 @@ def conv_fused_engine_bwd_x(
     if err != 0:
         raise RuntimeError(f"conv_fused_engine_bwd_x kernel launch failed: cudaError {err}")
     conv_fused_engine_bwd_x.launches += 1
-    _log("conv_fused_engine_bwd_x", shape, tile[2], 1, _conv_bwd_x_plan, B, gy, gx, ty, tx, N, M, dev.index)
+    if launch_log is not None:
+        _log("conv_fused_engine_bwd_x", shape, tile[2], 1, _conv_bwd_x_plan, B, gy, gx, ty, tx, N, M, dev.index,
+             work=dict(B=B, ty=ty, tx=tx, gy=gy, gx=gx, N=N, M=M, inv=inv_packed, s2=s2))
     return out
 
 
@@ -1124,7 +1143,9 @@ def conv_fused_engine_bwd_w(
     if err != 0:
         raise RuntimeError(f"conv_fused_engine_bwd_w kernel launch failed: cudaError {err}")
     conv_fused_engine_bwd_w.launches += 1
-    _log("conv_fused_engine_bwd_w", shape, tile[3], n_splits, _conv_bwd_w_plan, B, ty, tx, N, M, s2, C, dev.index)
+    if launch_log is not None:
+        _log("conv_fused_engine_bwd_w", shape, tile[3], n_splits, _conv_bwd_w_plan, B, ty, tx, N, M, s2, C,
+             dev.index, work=dict(B=B, ty=ty, tx=tx, N=N, M=M, inv=inv_packed, s2=s2, cells=cells.numel()))
     return out
 
 
@@ -1388,7 +1409,9 @@ def _domain_fwd(xw, ww_packed, inv_packed, *, pos_idx, sub_slices, m2, want=(-1,
     if err != 0:
         raise RuntimeError(f"domain_engine kernel launch failed: cudaError {err}")
     domain_engine.launches += 1
-    _log("domain_engine", dict(N=N, M=M, C=C), k, n_splits, _domain_plan, "fwd", T, N, M, s2, dev.index, 4, C)
+    if launch_log is not None:
+        _log("domain_engine", dict(N=N, M=M, C=C), k, n_splits, _domain_plan, "fwd", T, N, M, s2, dev.index, 4, C,
+             work=dict(T=T, n2=16, N=N, M=M, m2=m2, inv=inv_packed, sub_slices=tuple(sub_slices)))
     return out
 
 
@@ -1448,7 +1471,9 @@ def domain_engine_bwd_x(
         domain_engine_bwd_x.rank1_launches += 1
     else:
         domain_engine_bwd_x.launches += 1
-    _log("domain_engine_bwd_x", shape, k, 1, _domain_bwd_x_plan, M, m2, n2, dev.index)
+    if launch_log is not None:
+        _log("domain_engine_bwd_x", shape, k, 1, _domain_bwd_x_plan, M, m2, n2, dev.index,
+             work=dict(T=T, n2=n2, N=N, M=M, m2=m2, inv=inv_packed, sub_slices=tuple(sub_slices)))
     return out
 
 
@@ -1515,7 +1540,9 @@ def domain_engine_bwd_w(
         domain_engine_bwd_w.rank1_launches += 1
     else:
         domain_engine_bwd_w.launches += 1
-    _log("domain_engine_bwd_w", shape, tile[3], n_splits, _domain_plan, "bwd_w", T, N, M, s2, dev.index, m2, C)
+    if launch_log is not None:
+        _log("domain_engine_bwd_w", shape, tile[3], n_splits, _domain_plan, "bwd_w", T, N, M, s2, dev.index, m2, C,
+             work=dict(T=T, n2=n2, N=N, M=M, m2=m2, inv=inv_packed, sub_slices=tuple(sub_slices)))
     return out
 
 
@@ -1717,7 +1744,12 @@ def winograd_conv1d_fused_engine(
         winograd_conv1d_fused_engine.scratch_launches += 1
     else:
         winograd_conv1d_fused_engine.launches += 1
-    _log("winograd_conv1d_fused_engine", shape, k, 1, _engine1d_plan, B, ty, M, dev.index)
+    if launch_log is not None:
+        _log("winograd_conv1d_fused_engine", shape, k, 1, _engine1d_plan, B, ty, M, dev.index,
+             work=dict(B=B, ty=ty, N=N, M=M, phases=phases, inv=inv_packed, sub_slices=tuple(sub_slices),
+                       bt=bt_mat, cells=cells.numel(), out=out.numel(),
+                       vectors=(scale is not None) + (bias is not None), activation=activation,
+                       epilogue=out_mode != "scratch"))
     return out
 
 

@@ -81,7 +81,10 @@ def _world_timeout(backend: str):
     """The default process group's timeout (what the caller gave
     ``init_process_group``).  Raises where torch does not expose it: the
     mesh's groups would otherwise take torch's 30-minute default, and a
-    fault on one rank would hang the others that long."""
+    fault on one rank would hang the others that long.  The ``"fake"``
+    backend (the dry run's) waits for nothing: None, the default."""
+    if backend == "fake":
+        return None
     try:
         pg = dist.distributed_c10d._get_default_group()
         return pg._get_backend(torch.device("cuda" if backend == "nccl" else "cpu")).options._timeout

@@ -157,6 +157,7 @@ def build_lm_step(cfg: LMConfig, shape: ShapeConfig, mesh, *, readings: Optional
     gather, forward and backward, reduction and update (a measurement
     mode)."""
     args, in_sh, _, meta = lm_input_specs(cfg, shape, mesh)
+    meta["in_specs"] = in_sh
     pspecs = in_sh[0]
     axes = SH.MeshAxes.for_mesh(mesh).batch
     split = _split(shape, mesh) and mesh.extent(axes) > 1
@@ -248,7 +249,8 @@ def build_gan_step(cfg: GANConfig, mesh, *, settings=None, overlap=None, grad_co
     ``CommState`` of residual rows between the optimizer states and the
     batch.  ``settings=StepSettings(...)`` carries the knobs (``batch``
     defaults to ``GAN_TRAIN_BATCH``); the keyword arguments are the
-    reference's deprecated spelling."""
+    reference's deprecated spelling.  ``meta["in_specs"]`` holds the
+    structs' specs, in their order."""
     from ..train.trainer import _UNSET, _merge_legacy
 
     st = _merge_legacy(settings, dict(overlap=_UNSET if overlap is None else overlap,
@@ -266,8 +268,10 @@ def build_gan_step(cfg: GANConfig, mesh, *, settings=None, overlap=None, grad_co
         comm = meta["comm_struct"]
         comm = () if comm is None else (OV.CommState(*(tuple(_struct(s, torch.float32) for s in shapes)
                                                        for shapes in comm)),)
+        meta["in_specs"] = (*meta["specs"], *(() if comm == () else (meta["comm_specs"],)), *meta["batch_specs"])
         return fn, (gp, dp, *opts, *comm, z, real), meta
     fn, meta = OV.build_gan_mesh_step(cfg, mesh, batch=batch, lr=st.lr, b1=st.b1, dtype=PARAM_DTYPE)
+    meta["in_specs"] = (*meta["specs"], *meta["batch_specs"])
     return fn, (gp, dp, *opts, z, real), meta
 
 

@@ -525,7 +525,13 @@ def decode_step(params: Params, cfg: LMConfig, cache, tokens: torch.Tensor, cach
                     off = mesh.index(seq_shard_axis) * S_
                     slot = torch.clamp(cl_b, max=S_ * mesh.shape[seq_shard_axis] - 1) - off
                     mine = (slot >= 0) & (slot < S_)  # the rows whose new entry lands in this slice
-                    r, sl, k_new, v_new, p_new = rows[mine], slot[mine], k1[mine, 0], v1[mine, 0], cl_b[mine]
+                    # every row writes: a row not in this slice writes its own entry at slot 0 back (no
+                    # shape that depends on the data, so the dry run can trace it)
+                    sl = torch.where(mine, slot, 0)
+                    keep = lambda new, old: torch.where(mine.view(-1, *(1,) * (new.dim() - 1)), new, old)  # noqa: E731
+                    r, k_new, v_new = rows, keep(k1[:, 0].to(c.k.dtype), c.k[rows, sl]), keep(
+                        v1[:, 0].to(c.v.dtype), c.v[rows, sl])
+                    p_new = keep(cl_b.to(torch.int32), c.pos[rows, sl])
                 else:
                     slot = cl_b % S_ if local else torch.clamp(cl_b, max=S_ - 1)
                     r, sl, k_new, v_new, p_new = rows, slot, k1[:, 0], v1[:, 0], cl_b

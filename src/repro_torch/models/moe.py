@@ -149,7 +149,7 @@ def moe_apply(p, x: torch.Tensor, spec: MoESpec, mlp_kind: str, *, mesh=None):
         kept = pos < C
         aux = _aux_loss(probs, flat_expert, E, k)
     else:
-        counts = torch.bincount(flat_expert, minlength=E)  # (E,) this rank's assignments an expert
+        counts = _expert_counts(flat_expert, E)  # (E,) this rank's assignments an expert
         every = [torch.empty_like(counts) for _ in range(n)]
         dist.all_gather(every, counts, group=mesh.group(axes))
         every = torch.stack(every)  # (n, E), in the batch's row-major order
@@ -167,10 +167,18 @@ def moe_apply(p, x: torch.Tensor, spec: MoESpec, mlp_kind: str, *, mesh=None):
     return out.reshape(B, T, D).to(x.dtype), aux
 
 
+def _expert_counts(flat_expert: torch.Tensor, E: int) -> torch.Tensor:
+    """``bincount(flat_expert, minlength=E)`` (the ids lie in [0, E)) as a
+    scatter-add: the same int64 counts in a shape that does not depend on
+    the data, so the dry run can trace it."""
+    return torch.zeros(E, dtype=torch.int64, device=flat_expert.device).scatter_add_(
+        0, flat_expert.long(), torch.ones_like(flat_expert, dtype=torch.int64))
+
+
 def _aux_loss(probs: torch.Tensor, flat_expert: torch.Tensor, E: int, k: int):
     """Switch-style load-balancing auxiliary loss."""
     S = probs.shape[0]
-    frac_tokens = torch.bincount(flat_expert, minlength=E).float() / (S * k)
+    frac_tokens = _expert_counts(flat_expert, E).float() / (S * k)
     frac_probs = probs.mean(0)
     return E * torch.sum(frac_tokens * frac_probs)
 
