@@ -318,15 +318,33 @@ agree with it elsewhere (nan_case).
           single-device step as above.  (3) ep: mixtral's MoE with one
           expert a rank on (4, 1): moe_apply_ep's forward against moe_apply
           on each source shard's rows (atol 1e-5 / rtol 1e-4), one EP train
-          step finite.  (4) decode: gemma3-12b at its published widths, one
-          super-block (5 local + 1 global layers, 2.334 G parameters), over
-          long_500k's 524288-position cache filled from a seed to cache_len
-          524283, batch 1, sequence-sharded over world 2 (build_lm_step's
+          step against the single-device step of its function (the mean
+          over the data shards of the loss on each shard's rows: each
+          shard's capacity and aux loss its own) at (2)'s tolerances.
+          (4) decode: gemma3-12b at its published widths, one super-block
+          (5 local + 1 global layers, 2.334 G parameters), over long_500k's
+          524288-position cache filled from a seed to cache_len 524283,
+          batch 1, sequence-sharded over world 2 (build_lm_step's
           long_500k cell): 4 steps against the single-device decode_step
           from the same cache, in bf16 (the reference's PARAM_DTYPE;
           max|err| <= 2^-5 max|logits|: the two attentions round the
           probabilities differently by design) and in fp32 (1e-3); step and
-          gather ms, the bytes a rank holds.  The phase's seconds.
+          gather ms, the bytes a rank holds; the same on (2, 2), the heads
+          split over "model" (each rank's logits block against one
+          device's).  (5) world (1, 2): the model
+          axis splits the work (tensor parallelism): Mamba2-780m's prefill
+          as in (1), kernel 9 on a rank's d_inner / 2 = 1536 channels, 144
+          launches a rank (counts at 0 just before, read just after), each
+          rank's P(batch, "model") logits block within 1.5e-5 of one
+          device's (max|err| / max|logits|) and its cache block as in (1);
+          phi3-mini's train cell as in (2), the bytes a rank computes on
+          (model-local parameters and gradient) beside world 1's, and one
+          more step with every all-reduce over "model" timed (the
+          tensor-parallel sums, the partial gradients' sums, the clip's
+          norm).  Kernel 9 at that rank's shapes (LM_TP_CONV_SHAPES: C =
+          1536 and 128, batch 2) is checked and timed as lm_serve's conv
+          rows are, in a fresh process first (the profiler late in a
+          process, PERF.md §7).  The phase's seconds.
   costs   the cost tooling (launch/op_costs.py, launch/dryrun.py,
           kernels/costs.py) on the card, in a fresh process of its own
           (late in a process the profiler keeps only some of a session's
@@ -4065,6 +4083,8 @@ LM_ARCH = "mamba2-780m"  # at its published size: 48 layers, d_model 1536, d_inn
 LM_SLOTS, LM_PROMPT, LM_MAX_LEN, LM_REQUESTS, LM_MAX_NEW, LM_SEED = 4, 256, 512, 8, 16, 0
 # (channels, batch) of Mamba2's prefill conv at T = LM_PROMPT: conv_x (d_inner) and conv_B / conv_C (d_state)
 LM_CONV_SHAPES = ((3072, 1), (3072, 4), (128, 1), (128, 4))
+# a world-(1, 2) rank's (lm_mesh): conv_x on its d_inner / 2 channels and conv_B / conv_C whole, both prompts
+LM_TP_CONV_SHAPES = ((1536, 2), (128, 2))
 # The prefill logits' tolerance, its formula fixed before the first full run: each conv call on "engine" may
 # differ from "direct" by eps, the largest relative error (of the output's largest magnitude) that the conv
 # checks at the model's shapes allow; a prefill runs 3 x 48 of them, and the SSD, the norms and the residual
@@ -4088,9 +4108,11 @@ def _held_elementwise(what: str, got, want, atol: float, rtol: float) -> float:
     return diff.max().item()
 
 
-def _lm_conv_checks(torch, peaks, params, card):
+def _lm_conv_checks(torch, peaks, blk, card, shapes=LM_CONV_SHAPES):
     """Kernel 9 through Mamba2's ``_causal_conv`` at the model's shapes
-    (LM_CONV_SHAPES, the layer-0 taps with a non-zero bias): "engine"
+    (``shapes``; ``blk`` the layer-0 mamba params, whose taps each shape
+    takes: conv_B's at d_state channels, else the first C of conv_x's, a
+    model rank's block where C = d_inner / 2; a non-zero bias): "engine"
     against the plain 1D engine ("engine_interpret") and "direct" at the
     engine tolerance, its gradient in x, the taps and the bias (kernels 9 /
     4 / 5, one launch each) against autograd of the plain version at 1e-4 *
@@ -4102,14 +4124,13 @@ def _lm_conv_checks(torch, peaks, params, card):
     from repro_torch.kernels import costs, engine, ops
     from repro_torch.models import ssm as S
 
-    blk = params["blocks"]["slot0"]["mamba"]
     rows, eps = [], 0.0
-    for C, B in LM_CONV_SHAPES:
+    for C, B in shapes:
         name = f"mamba2.conv_C{C}_B{B}"
         g = torch.Generator(device="cuda").manual_seed(900 + C + B)
         x = torch.randn((B, LM_PROMPT, C), generator=g, device="cuda")
-        key = "conv_x" if blk["conv_x"]["w"].shape[-1] == C else "conv_B"  # d_inner, or d_state
-        conv = {"w": blk[key]["w"][0].clone(),
+        key = "conv_B" if blk["conv_B"]["w"].shape[-1] == C else "conv_x"  # d_state, or d_inner (a rank's block)
+        conv = {"w": blk[key]["w"][0][:, :C].clone(),
                 "b": 0.1 * torch.randn((C,), generator=g, device="cuda")}
         if tuple(conv["w"].shape) != (4, C):
             fail(f"{name}: the model's taps are {tuple(conv['w'].shape)}")
@@ -4199,6 +4220,51 @@ def _lm_conv_checks(torch, peaks, params, card):
     return rows, eps
 
 
+def _lm_conv_process(out: str, card: str, shapes) -> None:
+    """``_lm_conv_checks`` at ``shapes`` on Mamba2-780m's layer-0 taps (the
+    model drawn as lm_serve draws it) in a spawned process
+    (``lm_conv_in_own_process``), its rows saved to ``out``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import LMS
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm as LM
+
+    _build.load_library()
+    params = LM.lm_init(LMS[LM_ARCH], seed=LM_SEED, device="cuda")
+    blk = {k: v for k, v in params["blocks"]["slot0"]["mamba"].items() if k.startswith("conv_")}
+    del params
+    torch.cuda.empty_cache()
+    torch.save(_lm_conv_checks(torch, peaks_for(torch.cuda.get_device_name(0))[1], blk, card, shapes)[0], out)
+
+
+def lm_conv_in_own_process(torch, card, shapes) -> list:
+    """Kernel 9's rows at ``shapes`` from a fresh process on this card: late
+    in a process the profiler keeps only some of a session's kernel records,
+    or none (``costs_in_own_process``)."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as tmp
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="lm_conv_") as root:
+        out = os.path.join(root, "rows.pt")
+        proc = tmp.get_context("spawn").Process(target=_lm_conv_process, args=(out, card, list(shapes)))
+        proc.start()
+        proc.join(600)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+        if proc.exitcode:
+            fail(f"lm_conv: the process exited with {proc.exitcode} (a check failed, or it hung past 600 s)")
+        return torch.load(out, weights_only=False)
+
+
 class _ServeLog:
     """Records every prefill's and decode step's logits of a ServeEngine
     (the active rows of each call), and with ``force`` (another run's log)
@@ -4248,7 +4314,7 @@ def lm_serve_phase(torch, peaks, card):
     params = LM.lm_init(cfg, seed=LM_SEED, device="cuda")
     leaves = tree_leaves(params)
     n_params, n_bytes = sum(t.numel() for t in leaves), sum(t.numel() * t.element_size() for t in leaves)
-    rows, eps = _lm_conv_checks(torch, peaks, params, card)
+    rows, eps = _lm_conv_checks(torch, peaks, params["blocks"]["slot0"]["mamba"], card)
     tol_rel = LM_LOGIT_GAIN * 3 * cfg.n_layers * LM_CONV_EPS
     emit({"phase": "lm_serve_setup", "arch": LM_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
           "vocab": cfg.vocab, "ssm": dataclasses.asdict(cfg.ssm), "params": n_params, "param_bytes": n_bytes,
@@ -4423,6 +4489,17 @@ LM_MESH = dict(
     decode=dict(arch="gemma3-12b", layers=6, smoke=False, positions=524288, steps=4, seed=0,
                 dtypes=("bfloat16", "float32"), chunk=8192),
 )
+# the same runs at smoke_config on the CPU, for a rehearsal: lm_mesh_phase(torch, "cpu", LM_MESH_CPU)
+LM_MESH_CPU = dict(
+    device="cpu",
+    prefill=dict(arch="mamba2-780m", layers=None, smoke=True, batch=2, prompt=16, seed=0),
+    train=dict(arch="phi3-mini-3.8b", layers=None, smoke=True, batch=4, seq=32, steps=3, seed=0),
+    jamba=dict(arch="jamba-v0.1-52b", layers=None, smoke=True, batch=4, seq=16, seed=1),
+    mixtral=dict(arch="mixtral-8x22b", layers=None, smoke=True, batch=8, seq=16, seed=2, capacity_factor=1.0),
+    ep=dict(arch="mixtral-8x22b", layers=None, smoke=True, batch=8, seq=16, seed=3),
+    decode=dict(arch="gemma3-12b", layers=None, smoke=True, positions=64, steps=4, seed=0,
+                dtypes=("bfloat16", "float32"), chunk=8),
+)
 LM_MESH_FWD = dict(atol=1e-5, rtol=1e-4)  # the models' forward tolerance (ROADMAP §3)
 # gemma3's decode logits, sequence-sharded against one device, max|err| / max|logits|: 1e-3 in fp32; in bf16 8 ulps
 # of the largest logit (2^-5), since the two attentions round differently by design (the reference's sharded
@@ -4484,10 +4561,55 @@ def _lm_block_step(torch, cfg, full, opt_block, batch, pspecs, mesh):
     return new_p, float(loss), float(gn)
 
 
+def _lm_shards_step(torch, cfg, params, batch, shards: int):
+    """The single-device step of the expert-parallel MoE's function: its
+    loss is the mean, over ``shards`` equal slices of the batch's rows, of
+    the single-device loss on each slice (each source shard's capacity and
+    aux loss its own); its gradient, the clip, AdamW from fresh moments.
+    Returns (new params, loss, global grad norm)."""
+    from repro_torch.launch.steps import LM_LR, LM_MAX_GRAD_NORM
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(cfg, moe_ep=False)
+    rows = next(iter(batch.values())).shape[0] // shards
+    runs = [_lm_grads(torch, cfg, params, {k: v[i * rows : (i + 1) * rows] for k, v in batch.items()})
+            for i in range(shards)]
+    loss = sum(r[0] for r in runs) / shards
+    grads = tree_map(lambda *g: sum(g) / shards, *(r[1] for r in runs))
+    new_p, _, m = adamw_update(params, grads, adamw_init(params), lr=LM_LR, max_grad_norm=LM_MAX_GRAD_NORM)
+    return new_p, float(loss), float(m["grad_norm"])
+
+
 def _max_leaf_diff(a, b) -> float:
     from repro_torch.tree import tree_leaves
 
     return max(float((x.float() - y.float()).abs().max()) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _timed_model_sums(device, group, log: list):
+    """Wrap ``torch.distributed.all_reduce`` so that each call over
+    ``group`` (the model group) is timed, the device synchronized around
+    it and an asynchronous call waited on at once, its ms appended to
+    ``log`` (a measurement mode): the tensor-parallel sums forward and
+    backward, the sums of the gradients a rank holds partial, the clip's
+    norm.  Returns the unwrapping function."""
+    import torch.distributed as dist
+
+    orig = dist.all_reduce
+
+    def timed(tensor, *args, **kwargs):
+        if kwargs.get("group") is not group:
+            return orig(tensor, *args, **kwargs)
+        t0 = _now(device)
+        work = orig(tensor, *args, **kwargs)
+        if work is not None:
+            work.wait()
+        log.append(1e3 * (_now(device) - t0))
+        return work
+
+    dist.all_reduce = timed
+    return lambda: setattr(dist, "all_reduce", orig)
 
 
 def _lm_mesh_train(torch, mesh, sub, device) -> dict:
@@ -4496,7 +4618,11 @@ def _lm_mesh_train(torch, mesh, sub, device) -> dict:
     single-device step (this rank's block of it: loss and global gradient
     norm 1e-3 / 1e-4 relative, params 6·lr); the readings of every step (ms
     of its gather, forward and backward, reduction, update) and the
-    single-device step's ms; the bytes this rank holds."""
+    single-device step's ms; the bytes this rank holds at rest (its
+    blocks and moments) and computes on (its model-local parameters and
+    their gradient, fp32).  Where "model" has more than one rank, one more
+    step from the last state, its all-reduces over the model group timed
+    one by one (``_timed_model_sums``; not held)."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch.steps import LM_LR, build_lm_step
     from repro_torch.models import lm as LM
@@ -4515,7 +4641,10 @@ def _lm_mesh_train(torch, mesh, sub, device) -> dict:
         torch.cuda.empty_cache()
     opt = adamw_init(params)
     held = sum(t.numel() * t.element_size() for t in tree_leaves(params) + tree_leaves(opt.m) + tree_leaves(opt.v))
-    out = dict(steps=[], rank_bytes=held, fallbacks=meta["fallbacks"])
+    local = SH.lm_local_specs(cfg, mesh, pspecs)
+    blocks = SH.map_specs(lambda t, kp: SH.block_of(t, kp, mesh), LM.lm_init(cfg, device="meta"), local)
+    compute = 2 * 4 * sum(t.numel() for t in tree_leaves(blocks))  # fp32 parameters and their gradient
+    out = dict(steps=[], rank_bytes=held, rank_param_and_grad_bytes=compute, fallbacks=meta["fallbacks"])
     problems = []
     for s in range(sub["steps"]):
         batch = _lm_train_batch(torch, cfg, sub, s, device)
@@ -4539,6 +4668,17 @@ def _lm_mesh_train(torch, mesh, sub, device) -> dict:
                             f"params {r['param_max_abs_err']:.3e} (6·lr {6 * LM_LR:g})")
         del full, want_p, opt_before
         out["steps"].append(r)
+    if mesh.shape["model"] > 1:
+        sums: list = []
+        undo = _timed_model_sums(device, mesh.group("model"), sums)
+        try:
+            batch = _lm_train_batch(torch, cfg, sub, sub["steps"], device)
+            t0 = _now(device)
+            step(params, opt, {k: SH.block_of(v, bspecs[k], mesh) for k, v in batch.items()})
+            out["tp_timed_step"] = dict(step_ms=1e3 * (_now(device) - t0), model_all_reduces=len(sums),
+                                        model_all_reduce_ms=sum(sums), reading=readings[-1])
+        finally:
+            undo()
     out["problems"] = problems
     return out
 
@@ -4647,10 +4787,13 @@ def _lm_single_refs(torch, spec) -> dict:
     return out
 
 
-def _lm_w2_job(torch, mesh, spec) -> dict:
-    """World 2 ((2, 1)): Mamba2's prefill on "engine" (the main path: counts
-    at 0 just before, read just after), the phi3 train cell, gemma3's
-    sequence-sharded decode (the long_500k cell of build_lm_step)."""
+def _lm_w2_job(torch, mesh, spec, mesh12=None) -> dict:
+    """World 2: on (2, 1) Mamba2's prefill on "engine" (the main path:
+    counts at 0 just before, read just after), the phi3 train cell, gemma3's
+    sequence-sharded decode (the long_500k cell of build_lm_step); then on
+    ``mesh12`` ((1, 2): the model axis splits the work) Mamba2's prefill
+    (counted, kernel 9 on the rank's d_inner / 2 channels) and the phi3
+    train cell."""
     from repro_torch import data as D
     from repro_torch.configs import SHAPES, ShapeConfig
     from repro_torch.launch.steps import build_lm_step
@@ -4695,20 +4838,42 @@ def _lm_w2_job(torch, mesh, spec) -> dict:
     if dev == "cuda":
         torch.cuda.empty_cache()
     # --- gemma3-12b sequence-sharded decode over long_500k's cache
+    out["decode"] = _gemma_decode(torch, mesh, spec)
+    if mesh12 is not None:
+        out["tp"] = _lm_tp_job(torch, mesh12, spec)
+    return out
+
+
+def _gemma_decode(torch, mesh, spec) -> dict:
+    """gemma3-12b's sequence-sharded decode over long_500k's cache (the
+    long_500k cell of build_lm_step) on ``mesh``, in each of the spec's
+    dtypes: this rank's logits block (and its spec) of every step, step ms,
+    the bytes it holds; where "model" has one rank, the ms of a gather of
+    every parameter (PR 27's reading)."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.steps import build_lm_step
+    from repro_torch.models import lm as LM
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.tree import tree_leaves
+
+    dev, out = spec["device"], {}
     sub = spec["decode"]
     cfg = _lm_mesh_cfg(sub)
     shape = dataclasses.replace(SHAPES["long_500k"], seq_len=sub["positions"])
     fn, _, meta = build_lm_step(cfg, shape, mesh)
     pspecs = SH.lm_param_specs(cfg, mesh)[0]
     seq = SH.cache_specs(cfg, shape, mesh, seq_shard=True)
-    out["decode"] = {}
+    if not any(isinstance(c, LM.AttnCache) and "data" in c.k for c in seq.values()):
+        fail("lm_mesh decode: cache_specs(seq_shard=True) splits no attention cache's sequence")
+    model_only = lambda sp: SH.P(*(e if e == "model" else None for e in sp))  # noqa: E731
     for name in sub["dtypes"]:
         dtype = getattr(torch, name)
-        params = blk(LM.lm_init(cfg, seed=sub["seed"], device=dev, dtype=dtype), pspecs)
-        # this rank's block of the cache: its share of the global layers' sequence (the spec's "data" entry)
+        params = SH.map_specs(lambda t, s: SH.block_of(t, s, mesh),
+                              LM.lm_init(cfg, seed=sub["seed"], device=dev, dtype=dtype), pspecs)
+        # this rank's block of the cache: its share of the global layers' sequence (the spec's "data" entry), and
+        # its kv heads where they split over "model"
         cache, L = _gemma_cache(torch, cfg, sub, dev, dtype, part=(mesh.index("data"), mesh.shape["data"]))
-        if not any(isinstance(c, LM.AttnCache) and "data" in c.k for c in seq.values()):
-            fail("lm_mesh decode: cache_specs(seq_shard=True) splits no attention cache's sequence")
+        cache = SH.map_specs(lambda t, sp: SH.block_of(t, model_only(sp), mesh), cache, seq)
         if dev == "cuda":
             torch.cuda.empty_cache()
         toks, lg, ms = _gemma_tokens(torch, cfg, sub, dev), [], []
@@ -4716,10 +4881,14 @@ def _lm_w2_job(torch, mesh, spec) -> dict:
             t0 = _now(dev)
             lg.append(fn(params, cache, {"tokens": toks[s]}, L + s)[0].float().cpu())
             ms.append(1e3 * (_now(dev) - t0))
-        t0 = _now(dev)
-        SH.map_specs(lambda t, sp: SH.gather(t, sp, mesh), params, pspecs)
-        out["decode"][name] = dict(
-            logits=lg, step_ms=ms, gather_ms=1e3 * (_now(dev) - t0), seq_shard=meta["seq_shard"],
+        gather_ms = None
+        if mesh.shape["model"] == 1:
+            t0 = _now(dev)
+            SH.map_specs(lambda t, sp: SH.gather(t, sp, mesh), params, pspecs)
+            gather_ms = 1e3 * (_now(dev) - t0)
+        out[name] = dict(
+            logits=lg, step_ms=ms, gather_ms=gather_ms, seq_shard=meta["seq_shard"],
+            logits_spec=tuple(meta["out_specs"][0]), coords=dict(mesh.coords),
             rank_cache_bytes=sum(t.numel() * t.element_size() for c in cache.values() for t in c),
             rank_param_bytes=sum(t.numel() * t.element_size() for t in tree_leaves(params)))
         del params, cache
@@ -4728,10 +4897,55 @@ def _lm_w2_job(torch, mesh, spec) -> dict:
     return out
 
 
+def _lm_tp_job(torch, mesh, spec) -> dict:
+    """World (1, 2): Mamba2's prefill on "engine" (counts at 0 just before,
+    read just after; this rank's logits block, cache block, ms) and the phi3
+    train cell (``_lm_mesh_train``)."""
+    from repro_torch import data as D
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.steps import build_lm_step
+    from repro_torch.models import lm as LM
+    from repro_torch.models import ssm as S
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.tree import tree_leaves
+
+    dev, out = spec["device"], {"coords": dict(mesh.coords)}
+    sub = spec["prefill"]
+    cfg = _lm_mesh_cfg(sub)
+    cell = ShapeConfig("prefill_32k", sub["prompt"], sub["batch"], "prefill")
+    fn, _, meta = build_lm_step(cfg, cell, mesh)
+    pspecs = SH.lm_param_specs(cfg, mesh)[0]
+    params = SH.map_specs(lambda t, s: SH.block_of(t, s, mesh), LM.lm_init(cfg, seed=sub["seed"], device=dev), pspecs)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    tokens = D.lm_batch(sub["seed"], 0, sub["batch"], sub["prompt"], cfg.vocab, device=dev)["tokens"]
+    rows = {"tokens": SH.block_of(tokens, SH.lm_batch_specs(cfg, cell, mesh)["tokens"], mesh)}
+    S.set_conv_impl("engine")
+    try:
+        zero_counts()
+        t0 = _now(dev)
+        logits, cache = fn(params, rows)
+        ms = [1e3 * (_now(dev) - t0)]
+        out["prefill_launches"] = read_counts()
+        t0 = _now(dev)
+        fn(params, rows)
+        ms.append(1e3 * (_now(dev) - t0))
+    finally:
+        S.set_conv_impl("direct")
+    out["prefill"] = dict(logits=logits.cpu(), cache=_host(cache), ms=ms, logits_spec=tuple(meta["out_specs"][0]),
+                          rank_param_bytes=sum(t.numel() * t.element_size() for t in tree_leaves(params)))
+    del params, logits, cache, fn
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    out["train"] = _lm_mesh_train(torch, mesh, spec["train"], dev)
+    return out
+
+
 def _lm_w4_job(torch, mesh22, mesh41, spec) -> dict:
     """World 4: on (2, 2) jamba's train step with its conv on "engine" (the
     main path: counts at 0 just before, read just after) and mixtral's at
-    capacity factor 1.0; on (4, 1) the expert-parallel MoE."""
+    capacity factor 1.0; on (4, 1) the expert-parallel MoE; on (2, 2)
+    gemma3's sequence-sharded decode, its heads split over "model"."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch.steps import build_lm_step
     from repro_torch.models import lm as LM
@@ -4784,15 +4998,28 @@ def _lm_w4_job(torch, mesh22, mesh41, spec) -> dict:
     g = torch.Generator(device=dev).manual_seed(sub["seed"] + 5)
     x = torch.randn((sub["batch"], sub["seq"], cfg.d_model), generator=g, device=dev)
     x_rows = SH.block_of(x, SH.P(("data",), None, None), mesh41)
+    # this rank's expert (its block under lm_param_specs' expert-parallel rule)
+    mine = {k: {"w": v["w"] if k == "router" else SH.block_of(v["w"], SH.P("data", None, None), mesh41)}
+            for k, v in moe.items()}
     with torch.no_grad(), MoE.record_drops() as drops:
-        got, aux = MoE.moe_apply_ep(moe, x_rows, cfg.moe, cfg.mlp, mesh=mesh41)
+        got, aux = MoE.moe_apply_ep(mine, x_rows, cfg.moe, cfg.mlp, mesh=mesh41)
         want, want_aux = MoE.moe_apply(moe, x_rows, cfg.moe, cfg.mlp)
     diff = (got - want).abs()
     out["ep"] = dict(max_abs_err=float(diff.max()), held=bool((diff <= LM_MESH_FWD["atol"] + LM_MESH_FWD["rtol"]
                                                                * want.abs()).all()),
                      aux_share=float(aux), aux_shard=float(want_aux), drops=int(drops[0]))
     r = one_step("ep", mesh41, cfg)
-    out["ep"]["train"] = {k: v for k, v in r.items() if k != "params"}
+    want_p, want_loss, want_gn = _lm_shards_step(torch, cfg, LM.lm_init(cfg, seed=sub["seed"], device=dev),
+                                                 _lm_train_batch(torch, cfg, sub, 0, dev), mesh41.shape["data"])
+    out["ep"]["train"] = dict({k: v for k, v in r.items() if k != "params"}, single_loss=want_loss,
+                              single_grad_norm=want_gn, loss_rel_err=abs(r["loss"] - want_loss) / abs(want_loss),
+                              grad_norm_rel_err=abs(r["grad_norm"] - want_gn) / abs(want_gn),
+                              param_max_abs_err=_max_leaf_diff(r["params"], _host(want_p)))
+    del want_p
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    # --- gemma3-12b's sequence-sharded decode on (2, 2): the sequence over "data", the heads over "model"
+    out["decode"] = _gemma_decode(torch, mesh22, spec)
     return out
 
 
@@ -4816,7 +5043,8 @@ def _lm_mesh_rank(rank, world, backend, store, out, spec):
     dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank, world_size=world)
     try:
         if world == 2:
-            res = _lm_w2_job(torch, make_mesh((2, 1), ("data", "model"), device=spec["device"]), spec)
+            res = _lm_w2_job(torch, make_mesh((2, 1), ("data", "model"), device=spec["device"]), spec,
+                             make_mesh((1, 2), ("data", "model"), device=spec["device"]))
         else:
             mesh22 = make_mesh((2, 2), ("data", "model"), device=spec["device"])
             mesh41 = make_mesh((4, 1), ("data", "model"), device=spec["device"])
@@ -4855,6 +5083,25 @@ def _rel_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max()) / max(float(want.float().abs().max()), 1e-30)
 
 
+class _MeshAt:
+    """What the spec rules and ``block_of`` read of a mesh, at a rank's
+    coordinates (the parent cuts a spawned rank's block of a reference)."""
+
+    def __init__(self, shape: dict, coords: dict):
+        self.shape, self.coords, self.axis_names = dict(shape), dict(coords), tuple(shape)
+
+    def index(self, axes) -> int:
+        idx = 0
+        for a in (axes,) if isinstance(axes, str) else axes:
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+
+# a world-(1, 2) rank's Mamba2 prefill logits against one device's, max|err| / max|logits| (the issue's bound: the
+# rank's column- and row-parallel products, the sums over "model" and the norm's split sum of squares round apart)
+LM_TP_PREFILL_TOL = 1.5e-5
+
+
 def lm_mesh_phase(torch, card, spec=None):
     """The LM stack on a mesh (see the module docstring): the single-device
     runs first (the card freed after each), world 1 on NCCL in this process,
@@ -4873,6 +5120,8 @@ def lm_mesh_phase(torch, card, spec=None):
     dev = spec["device"]
     t0 = time.perf_counter()
     problems: list = []
+    # kernel 9 at a world-(1, 2) rank's Mamba2 shapes, from a fresh process (the profiler late in one, PERF.md §7)
+    conv_rows = lm_conv_in_own_process(torch, card, LM_TP_CONV_SHAPES) if dev == "cuda" else []
     refs = _lm_single_refs(torch, spec)
     root = tempfile.mkdtemp(prefix="lm_mesh_")
     # --- world 1 on NCCL (the CPU: gloo), in this process: the phi3 train cell
@@ -4961,36 +5210,97 @@ def lm_mesh_phase(torch, card, spec=None):
     ep = [r["ep"] for r in w4]
     for rank, r in enumerate(ep):
         t = r["train"]
-        if not (r["held"] and t["finite"] and math.isfinite(t["loss"]) and math.isfinite(t["grad_norm"])):
+        if not (r["held"] and t["finite"] and t["loss_rel_err"] <= 1e-3 and t["grad_norm_rel_err"] <= 1e-4
+                and t["param_max_abs_err"] <= 6 * 3e-4):
             problems.append(f"lm_mesh ep rank {rank}: forward held {r['held']} ({r['max_abs_err']:.3e}), train "
-                            f"finite {t['finite']} loss {t['loss']}")
+                            f"finite {t['finite']}, against the single device: loss rel {t['loss_rel_err']:.3e}, "
+                            f"grad norm rel {t['grad_norm_rel_err']:.3e}, params {t['param_max_abs_err']:.3e}")
     emit({"phase": "lm_mesh_ep", "arch": spec["ep"]["arch"], "mesh": {"data": 4, "model": 1}, "experts": 4,
           "transport": "gloo all_to_all through the host (CUDA tensors staged)" if dev == "cuda" else "gloo",
           "forward_max_abs_err_by_rank": [r["max_abs_err"] for r in ep], "tol": LM_MESH_FWD,
           "drops_by_rank": [r["drops"] for r in ep], "train_loss": ep[0]["train"]["loss"],
-          "train_grad_norm": ep[0]["train"]["grad_norm"], "card": card})
-    # --- decode: gemma3 sequence-sharded over long_500k's cache against the single-device decode
+          "train_grad_norm": ep[0]["train"]["grad_norm"],
+          # the step against the mean over the data shards of the single-device loss on each shard's rows
+          "train_vs_single_device": {k: ep[0]["train"][k] for k in ("single_loss", "single_grad_norm", "loss_rel_err",
+                                                                      "grad_norm_rel_err", "param_max_abs_err")},
+          "train_tol": {"loss_rel": 1e-3, "grad_norm_rel": 1e-4, "params_abs": "6·lr"}, "card": card})
+    # --- decode: gemma3 sequence-sharded over long_500k's cache against the single-device decode, on (2, 1) and, the
+    # heads split over "model", on (2, 2): each rank's block of the logits
+    from repro_torch.parallel import sharding as SH
+
     sub = spec["decode"]
-    for name in sub["dtypes"]:
-        ref = refs["decode"][name]
-        errs = [[_rel_err(a, b) for a, b in zip(r["decode"][name]["logits"], ref["logits"])] for r in w2]
-        worst = max(max(e) for e in errs)
-        if not worst <= LM_MESH_DECODE_TOL[name]:
-            problems.append(f"lm_mesh decode {name}: logits {worst:.3e} relative (tol {LM_MESH_DECODE_TOL[name]:g})")
-        if not all(r["decode"][name]["seq_shard"] for r in w2):
-            problems.append("lm_mesh decode: build_lm_step did not shard the long_500k cache's sequence")
-        emit({"phase": "lm_mesh_decode", "arch": sub["arch"], "layers": sub["layers"], "dtype": name,
-              "positions": sub["positions"], "cache_len_first": ref["cache_len"], "steps": sub["steps"], "world": 2,
-              "cut": "48 to 6 layers (one super-block)", "logits_max_rel_err": worst,
-              "logits_rel_err_by_rank_step": errs, "tol_rel": LM_MESH_DECODE_TOL[name],
-              "step_ms_by_rank": [r["decode"][name]["step_ms"] for r in w2], "single_device_step_ms": ref["step_ms"],
-              "param_gather_ms_by_rank": [r["decode"][name]["gather_ms"] for r in w2],
-              "rank_cache_bytes": [r["decode"][name]["rank_cache_bytes"] for r in w2],
-              "rank_param_bytes": [r["decode"][name]["rank_param_bytes"] for r in w2], "card": card})
+    for phase, ranks, shape in (("lm_mesh_decode", w2, {"data": 2, "model": 1}),
+                                ("lm_mesh_tp_decode", w4, {"data": 2, "model": 2})):
+        for name in sub["dtypes"]:
+            ref = refs["decode"][name]
+            errs = [[_rel_err(a, SH.block_of(b, SH.P(*r["decode"][name]["logits_spec"]),
+                                             _MeshAt(shape, r["decode"][name]["coords"])))
+                     for a, b in zip(r["decode"][name]["logits"], ref["logits"])] for r in ranks]
+            worst = max(max(e) for e in errs)
+            if not worst <= LM_MESH_DECODE_TOL[name]:
+                problems.append(f"{phase} {name}: logits {worst:.3e} relative (tol {LM_MESH_DECODE_TOL[name]:g})")
+            if not all(r["decode"][name]["seq_shard"] for r in ranks):
+                problems.append(f"{phase}: build_lm_step did not shard the long_500k cache's sequence")
+            emit({"phase": phase, "arch": sub["arch"], "layers": sub["layers"], "dtype": name, "mesh": shape,
+                  "positions": sub["positions"], "cache_len_first": ref["cache_len"], "steps": sub["steps"],
+                  "world": len(ranks), "cut": "48 to 6 layers (one super-block)", "logits_max_rel_err": worst,
+                  "logits_rel_err_by_rank_step": errs, "tol_rel": LM_MESH_DECODE_TOL[name],
+                  "step_ms_by_rank": [r["decode"][name]["step_ms"] for r in ranks],
+                  "single_device_step_ms": ref["step_ms"],
+                  "param_gather_ms_by_rank": [r["decode"][name]["gather_ms"] for r in ranks],
+                  "rank_cache_bytes": [r["decode"][name]["rank_cache_bytes"] for r in ranks],
+                  "rank_param_bytes": [r["decode"][name]["rank_param_bytes"] for r in ranks], "card": card})
+    # --- world (1, 2): the model axis splits the work (tensor parallelism)
+    from repro_torch.configs import ShapeConfig
+
+    sub = spec["prefill"]
+    cfg = _lm_mesh_cfg(sub)
+    tp = [r["tp"] for r in w2]
+    shape12 = {"data": 1, "model": 2}
+    cspecs = SH.cache_specs(cfg, ShapeConfig("prefill_32k", sub["prompt"], sub["batch"], "prefill"),
+                            _MeshAt(shape12, tp[0]["coords"]))
+    tp_err, tp_cache_err = [], []
+    for rank, r in enumerate(tp):
+        at = _MeshAt(shape12, r["coords"])
+        p = r["prefill"]
+        tp_err.append(_rel_err(p["logits"], SH.block_of(refs["prefill"]["logits"], SH.P(*p["logits_spec"]), at)))
+        worst = 0.0
+        for slot, c in refs["prefill"]["cache"].items():
+            for field, leaf in zip(c._fields, c):
+                worst = max(worst, _rel_err(getattr(p["cache"][slot], field),
+                                            SH.block_of(leaf, getattr(cspecs[slot], field), at)))
+        tp_cache_err.append(worst)
+        if not (tp_err[-1] <= LM_TP_PREFILL_TOL and worst <= tol_rel):
+            problems.append(f"lm_mesh tp prefill rank {rank}: logits {tp_err[-1]:.3e} (tol {LM_TP_PREFILL_TOL:g}), "
+                            f"cache {worst:.3e} (tol {tol_rel:.3e}) relative")
+        if r["prefill_launches"] != {row: want_k9 if row == "engine1d_nlc" else 0 for row in COUNTERS}:
+            problems.append(f"lm_mesh tp prefill rank {rank}: launches {r['prefill_launches']}, want {want_k9} of "
+                            f"kernel 9")
+        problems += [f"lm_mesh tp train rank {rank} {q}" for q in r["train"]["problems"]]
+    emit({"phase": "lm_mesh_tp_prefill", "arch": sub["arch"], "world": 2, "mesh": shape12,
+          "backend": "gloo (CUDA tensors)", "batch": sub["batch"], "prompt": sub["prompt"], "conv": "engine",
+          "conv_channels_per_rank": cfg.ssm.expand * cfg.d_model // 2,
+          "logits_spec": list(tp[0]["prefill"]["logits_spec"]),
+          "logits_max_rel_err_by_rank": tp_err, "tol_rel": LM_TP_PREFILL_TOL,
+          "cache_max_rel_err_by_rank": tp_cache_err, "cache_tol_rel": tol_rel,
+          "kernel9_launches_per_rank": [r["prefill_launches"]["engine1d_nlc"] for r in tp],
+          "prefill_ms_by_rank": [r["prefill"]["ms"] for r in tp],
+          "rank_param_bytes": [r["prefill"]["rank_param_bytes"] for r in tp], "card": card})
+    sub = spec["train"]
+    emit({"phase": "lm_mesh_tp_train", "arch": sub["arch"], "layers": sub["layers"], "batch": sub["batch"],
+          "seq": sub["seq"], "steps": sub["steps"], "mesh": shape12, "backend": "gloo (CUDA tensors)",
+          "tol": {"loss_rel": 1e-3, "grad_norm_rel": 1e-4, "params_abs": "6·lr"},
+          "steps_by_rank": [r["train"]["steps"] for r in tp],
+          "rank_param_and_grad_bytes": {"world1": w1["rank_param_and_grad_bytes"],
+                                        "world_1x2": [r["train"]["rank_param_and_grad_bytes"] for r in tp]},
+          "rank_bytes_at_rest": {"world1": w1["rank_bytes"], "world_1x2": [r["train"]["rank_bytes"] for r in tp]},
+          # one more step with every all-reduce over "model" timed, the device synchronized around each
+          "tp_timed_step_by_rank": [r["train"]["tp_timed_step"] for r in tp], "card": card})
     emit({"phase": "lm_mesh_seconds", "seconds": time.perf_counter() - t0})
     if problems:
         fail(f"lm_mesh: {len(problems)} check(s) missed: " + "; ".join(problems[:8]))
-    return {"prefill_launches": w2[0]["prefill_launches"], "train_launches": jam[0]["launches"]}
+    return {"prefill_launches": w2[0]["prefill_launches"], "train_launches": jam[0]["launches"],
+            "tp_prefill_launches": tp[0]["prefill_launches"], "conv_rows": conv_rows}
 
 
 # the costs phase's paths and the launches each must count (kernels line rows)
@@ -5362,6 +5672,7 @@ def main(argv=None) -> int:
                      "train_gan": train_loop, "train_tuned": tuned.get("launches"), "train_mesh": mesh.get("launches"),
                      "serve_mesh": mesh.get("serve_launches"), "lm_serve": lm.get("launches"),
                      "lm_mesh_prefill": lm_mesh.get("prefill_launches"), "lm_mesh_train": lm_mesh.get("train_launches"),
+                     "lm_mesh_tp_prefill": lm_mesh.get("tp_prefill_launches"),
                      **{path: costs.get(path) for path in COSTS_PATHS}}
 
     def step_device_ms(kname, run=None):
@@ -5459,6 +5770,12 @@ def main(argv=None) -> int:
             b1 = [r for r in lm_rows if r["B"] == 1]
             line[-1]["mamba2_prefill"].update({k: sum(w * r[k] for w, r in zip((48, 96), b1)) if b1 else None
                                                for k in ("library_depthwise_ms", "bound_depthwise_ms")})
+            # one world-(1, 2) rank's Mamba2 prefill of both prompts: conv_x on its 1536 channels, conv_B / conv_C
+            tp_rows = lm_mesh.get("conv_rows", [])
+            line[-1]["mamba2_prefill_tp_rank"] = summary(tp_rows, weights=(48, 96), batch=2, prefix="mamba2.")
+            line[-1]["mamba2_prefill_tp_rank"].update(
+                {k: sum(w * r[k] for w, r in zip((48, 96), tp_rows)) if tp_rows else None
+                 for k in ("library_depthwise_ms", "bound_depthwise_ms")})
     for key, replaces, weights in (("x", REPLACES_DOM_X, (0, 1, 1)), ("w", REPLACES_DOM_W, (1, 1, 1))):
         krows = [r for r in rows_1d if r["kernel"] == f"domain_engine_bwd_{key}_rank1"]
         line.append({"name": f"domain_engine_bwd_{key}_rank1", "route": "cuda", "source": SOURCE_DOM,

@@ -9,7 +9,7 @@ collective that rank runs, and every hand-written kernel launch, which
 dispatch cannot see, read from ``kernels.engine.launch_log``.  An op
 record is a plain dict (``op``, its tensors' dtypes, shapes and device
 types, the arguments of the ops that have a FLOP formula, a collective's
-group size, a kernel's counted work), so a saved record can be analysed
+group size and global ranks, a kernel's counted work), so a saved record can be analysed
 again without tracing (``launch/reanalyze.py``).
 
 The reference's functions and their counterparts:
@@ -147,13 +147,30 @@ def _shape_args(x):
     return x
 
 
-def _group_size(args) -> Optional[int]:
+def _group(args):
     import torch.distributed as dist
 
     for a in args:
         if isinstance(a, torch.ScriptObject) and "ProcessGroup" in str(a._type()):
-            return dist.ProcessGroup.unbox(a).size()
+            return dist.ProcessGroup.unbox(a)
     return None
+
+
+def _group_size(args) -> Optional[int]:
+    pg = _group(args)
+    return None if pg is None else pg.size()
+
+
+def _group_ranks(args) -> Optional[list]:
+    """The global ranks of a collective's group (which mesh axes it runs
+    over), where torch knows them."""
+    import torch.distributed as dist
+
+    pg = _group(args)
+    try:
+        return None if pg is None else dist.get_process_group_ranks(pg)
+    except (RuntimeError, ValueError, KeyError):
+        return None
 
 
 def _bytes_of(x) -> int:
@@ -270,6 +287,7 @@ class OpRecorder(TorchDispatchMode):
         rec = {"op": op, "in": [_desc(t) for t in ins], "out": [_desc(t) for t in outs]}
         if func.namespace == "c10d":
             rec["group"], rec["size"] = _group_size(args), _collective_size(func, args, kwargs)
+            rec["ranks"] = _group_ranks(args)
         elif func.is_view:
             rec["view"] = True
         elif _flop_formula(op) is not None:

@@ -11,11 +11,19 @@ global one under its spec (``parallel.sharding.block_of``), and each
 result the rank's block of the reference's.  The caller's parameters set
 the dtype the step runs in.
 
-The LM train step: gather the parameter blocks once on entry, this rank's
-share of ``train_loss(mesh=)`` and its gradient, the gradients summed over
-the batch axes (``overlap.reduce_bucketed``), the global norm clipped once
-from the full reduced gradient (every rank the same scale), then AdamW on
-the blocks (ZeRO).  The model axis is storage only.
+The LM steps split their work over the "model" axis (tensor parallelism,
+as GSPMD splits the reference's step under ``lm_param_specs``): each rank
+gathers its parameter blocks over the batch axes only, into its "model"
+block of each leaf (``sharding.lm_local_specs``; the expert-parallel MoE's
+experts stay on their data shard), and computes on it (``parallel/tp.py``).
+The train step: this rank's share of ``train_loss(mesh=)`` and its
+gradient on those blocks; the gradients summed over the batch axes
+(``overlap.reduce_bucketed``; an expert-parallel expert's over "pod"
+only), and over "model" for the leaves whose gradient a rank holds partial
+(``sharding.lm_grad_partial``); the global norm once, each leaf's square
+counted over the ranks whose blocks differ (every rank the same scale);
+then AdamW on the blocks (ZeRO).  Prefill and decode return the rank's
+``P(batch, "model")`` block of the logits and its cache block.
 """
 from __future__ import annotations
 
@@ -102,13 +110,21 @@ def lm_input_specs(cfg: LMConfig, shape: ShapeConfig, mesh):
     return args, (pspecs, cspecs, bspecs, SH.P()), (logits_spec, cspecs), meta
 
 
-def _gather_tree(tree, specs, mesh):
+def _gather_tree(tree, specs, local, mesh):
+    """Each leaf gathered over the axes its spec names and its ``local``
+    spec does not: the rank's model-local block."""
     with torch.no_grad():
-        return SH.map_specs(lambda t, sp: SH.gather(t, sp, mesh), tree, specs)
+        return tree_map(lambda t, sp, kp: SH.gather(t, sp, mesh, keep=kp), tree, specs, local)
 
 
-def _blocks(tree, specs, mesh):
-    return SH.map_specs(lambda t, sp: SH.block_of(t, sp, mesh), tree, specs)
+def _blocks(tree, specs, local, mesh):
+    """The rank's storage blocks of model-local leaves."""
+    return tree_map(lambda t, sp, kp: SH.block_of(t, sp, mesh, keep=kp), tree, specs, local)
+
+
+def _local_axes(spec) -> tuple:
+    """The mesh axes a (local) spec names, in the spec's order."""
+    return tuple(a for e in spec if e is not None for a in ((e,) if isinstance(e, str) else e))
 
 
 class _Laps(dict):
@@ -130,19 +146,35 @@ class _Laps(dict):
         self[name], self.t = 1e3 * (now - self.t), now
 
 
-def _ep_partial_leaves(cfg: LMConfig, mesh) -> list:
-    """Key paths of the leaves whose gradient a rank leaves partial over
-    "model": the expert-parallel MoE's expert weights, each rank computing
-    its ``ff`` slice only."""
-    if not cfg.moe_ep or mesh.shape["model"] == 1:
-        return []
-    return [("blocks", f"slot{i}", "moe", name) for i, sp in enumerate(LM.slot_specs(cfg)) if sp.ffn == "moe"
-            for name in ("up", "down", "gate") if name != "gate" or cfg.mlp in ("swiglu", "geglu")]
+def _sum_over(grads: list, group, plan=None) -> list:
+    """The leaves summed over ``group`` in buckets (one all-reduce each;
+    ``plan`` buckets them by list position)."""
+    tree = dict(enumerate(grads))
+    out, _ = OV.reduce_bucketed(tree, plan or OV.plan_buckets(tree), group, axis_size=1)
+    return [out[i] for i in range(len(grads))]
+
+
+def _global_norm(grads: list, axes: list, mesh) -> torch.Tensor:
+    """The global gradient norm from model-local leaves: each leaf's sum of
+    squares summed over the axes its blocks differ on (``axes``, one
+    tuple a leaf), so a replicated leaf counts once and a split one once
+    a block.  One all-reduce a set of axes, in a fixed order."""
+    sums: dict = {}
+    for g, ax in zip(grads, axes):
+        sq = torch.sum(torch.square(g.float()))
+        sums[ax] = sq if ax not in sums else sums[ax] + sq
+    total = None
+    for ax in sorted(sums):
+        sq = sums[ax]
+        if mesh.extent(ax) > 1:
+            dist.all_reduce(sq, group=mesh.group(ax))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
 
 
 def build_lm_step(cfg: LMConfig, shape: ShapeConfig, mesh, *, readings: Optional[list] = None):
     """The cell's step: ``(fn, arg_structs, meta)`` (see ``lm_input_specs``
-    for the signatures and the module docstring for the train step).
+    for the signatures and the module docstring for the steps).
 
     train    AdamW at lr 3e-4 and ``max_grad_norm`` 1.0 on the blocks of
              ``value_and_grad(train_loss(mesh=))``; returns the global loss.
@@ -156,9 +188,10 @@ def build_lm_step(cfg: LMConfig, shape: ShapeConfig, mesh, *, readings: Optional
     norm and, with the device synchronized between them, the ms of its
     gather, forward and backward, reduction and update (a measurement
     mode)."""
-    args, in_sh, _, meta = lm_input_specs(cfg, shape, mesh)
-    meta["in_specs"] = in_sh
+    args, in_sh, out_sh, meta = lm_input_specs(cfg, shape, mesh)
+    meta["in_specs"], meta["out_specs"] = in_sh, out_sh
     pspecs = in_sh[0]
+    local = SH.lm_local_specs(cfg, mesh, pspecs)
     axes = SH.MeshAxes.for_mesh(mesh).batch
     split = _split(shape, mesh) and mesh.extent(axes) > 1
     gb = shape.global_batch
@@ -168,35 +201,46 @@ def build_lm_step(cfg: LMConfig, shape: ShapeConfig, mesh, *, readings: Optional
         log.warning("sharding fallback: %s", line)
 
     if shape.mode == "train":
-        plan = OV.plan_buckets(args[0])
-        partial = _ep_partial_leaves(cfg, mesh)
-        meta["bucket_plan"] = plan
+        # per leaf, in the structs' key order (the step puts its leaves in it)
+        in_order = lambda tree: tree_leaves(tree_map(lambda _, x: x, args[0], tree))  # noqa: E731
+        lspecs = in_order(local)
+        partial = in_order(SH.lm_grad_partial(cfg, mesh, pspecs))
+        # the batch axes each leaf's gradient sums over: all of them, or an expert-parallel expert's other ones
+        sums = [tuple(a for a in axes if a not in _local_axes(kp)) if split else () for kp in lspecs]
+        structs = tree_leaves(tree_map(lambda t, kp: SH.block_of(t, kp, mesh), args[0], local))  # model-local
+        batch_plan = OV.plan_buckets(dict(enumerate(t for t, a in zip(structs, sums) if a == axes)))
+        meta["bucket_plan"] = batch_plan
+        norm_axes = [_local_axes(kp) for kp in lspecs]
 
         def train_step(params, opt, batch):
             lap = _Laps(tree_leaves(params)[0].device) if readings is not None else (lambda name: None)
-            full = tree_map(lambda x: x.detach().requires_grad_(True), _gather_tree(params, pspecs, mesh))
+            full = tree_map(lambda _, x: x.detach().requires_grad_(True), args[0],
+                            _gather_tree(params, pspecs, local, mesh))
             lap("gather_ms")
             with torch.enable_grad():
                 share, loss = LM.train_loss(full, cfg, batch, q_chunk=cfg.q_chunk, loss_chunk=cfg.loss_chunk,
                                             mesh=mesh, global_batch=gb)
                 leaves = tree_leaves(full)
                 got = torch.autograd.grad(share, leaves, allow_unused=True)
-            it = iter(torch.zeros_like(p) if g is None else g for p, g in zip(leaves, got))
-            grads = tree_map(lambda _: next(it), full)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, got)]
             lap("grad_ms")
-            if split:  # the shares' gradients sum over the batch axes (axis_size 1: a sum, not a mean)
-                grads, _ = OV.reduce_bucketed(grads, plan, mesh.group(axes), axis_size=1)
-            for path in partial:  # each model rank holds its ff slice's gradient, zeros elsewhere
-                leaf = grads
-                for k in path:
-                    leaf = leaf[k]
-                dist.all_reduce(leaf["w"], group=mesh.group("model"))
+            # the shares' gradients sum over the batch axes (axis_size 1: a sum, not a mean)
+            for ax in sorted(a for a in set(sums) if a and mesh.extent(a) > 1):
+                idx = [i for i, a in enumerate(sums) if a == ax]
+                for i, g in zip(idx, _sum_over([grads[i] for i in idx], mesh.group(ax),
+                                               batch_plan if ax == axes else None)):
+                    grads[i] = g
+            idx = [i for i, p in enumerate(partial) if p]  # each model rank holds a partial sum of these
+            if idx:
+                for i, g in zip(idx, _sum_over([grads[i] for i in idx], mesh.group("model"))):
+                    grads[i] = g
             lap("reduce_ms")
-            # the clip from the full reduced gradient: every rank the same norm and scale
-            grads, gn = clip_by_global_norm(grads, LM_MAX_GRAD_NORM)
+            gn = _global_norm(grads, norm_axes, mesh)  # every rank the same norm and scale
+            it = iter(grads)
+            grads, _ = clip_by_global_norm(tree_map(lambda _: next(it), full), LM_MAX_GRAD_NORM, gn)
             detach = lambda tree: tree_map(torch.Tensor.detach, tree)  # noqa: E731
-            new_p, new_o, _ = adamw_update(_blocks(detach(full), pspecs, mesh), _blocks(grads, pspecs, mesh), opt,
-                                           lr=LM_LR)
+            new_p, new_o, _ = adamw_update(_blocks(detach(full), pspecs, local, mesh),
+                                           _blocks(grads, pspecs, local, mesh), opt, lr=LM_LR)
             lap("update_ms")
             if readings is not None:
                 readings.append(dict(lap, grad_norm=float(gn), loss=float(loss)))
@@ -208,20 +252,21 @@ def build_lm_step(cfg: LMConfig, shape: ShapeConfig, mesh, *, readings: Optional
 
         def prefill_step(params, batch):
             with torch.no_grad():
-                return LM.prefill(_gather_tree(params, pspecs, mesh), cfg, batch, q_chunk=cfg.q_chunk,
+                return LM.prefill(_gather_tree(params, pspecs, local, mesh), cfg, batch, q_chunk=cfg.q_chunk,
                                   max_len=shape.seq_len + 1, mesh=mesh, global_batch=gb)
 
         return prefill_step, args, meta
 
     seq_shard = meta["seq_shard"]
     # the reference's serve step runs decode_step without a mesh unless sequence-sharded: its MoE is then
-    # moe_apply on the global batch, never the expert-parallel one
+    # moe_apply on the global batch, never the expert-parallel one (every expert gathered over the batch axes)
     dcfg = cfg if seq_shard else dataclasses.replace(cfg, moe_ep=False)
+    local = SH.lm_local_specs(dcfg, mesh, pspecs)
 
     def serve_step(params, cache, batch, cache_len):
         tok = batch["tokens"] if "tokens" in batch else batch["embeds"]
         with torch.no_grad():
-            return LM.decode_step(_gather_tree(params, pspecs, mesh), dcfg, cache, tok, cache_len, mesh=mesh,
+            return LM.decode_step(_gather_tree(params, pspecs, local, mesh), dcfg, cache, tok, cache_len, mesh=mesh,
                                   seq_shard_axis="data" if seq_shard else None, global_batch=gb)
 
     return serve_step, args, meta

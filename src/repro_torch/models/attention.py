@@ -7,7 +7,10 @@ here, so no library attention replaces these functions.  Training and
 prefill loop over query chunks, so the (q_chunk, T) score slab is the peak,
 never (T, T); a local layer reads a (window + q_chunk) KV span per chunk.
 ``seq_sharded_decode_attention`` is the long-context decode with the KV
-cache's sequence split over a mesh axis (one process a rank).
+cache's sequence split over a mesh axis (one process a rank).  On a mesh
+whose "model" axis splits the heads, ``models/lm.py`` calls these on a
+rank's query heads and the kv heads they read (``parallel.tp.local_kv``):
+the heads are independent, so each rank's slice is the whole function's.
 """
 from __future__ import annotations
 

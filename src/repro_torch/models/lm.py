@@ -18,19 +18,29 @@ Entry points:
 
 On a mesh (``mesh=``, a ``launch.mesh.Mesh``; one process a rank) a rank
 passes its block of the batch (its rows under ``parallel.sharding.
-lm_batch_specs``, and of the cache under ``cache_specs``) and the gathered
-parameters, and gets back what the reference's function gives on the
-global arrays: ``train_loss`` this rank's differentiable share of the loss
-(its sum over the batch axes is the reference's loss) with the global loss
-as a reading, ``prefill`` / ``decode_step`` its rows' logits and its cache
-block.  The MoE then routes with the global batch's capacity, or by
-all-to-all where ``cfg.moe_ep`` (``models/moe.py``); ``decode_step``'s
+lm_batch_specs``, and of the cache under ``cache_specs``) and its
+model-local parameters (each leaf's block under ``parallel.sharding.
+lm_local_specs``: gathered over the batch axes, split over "model"), and
+gets back its block of what the reference's function gives on the global
+arrays: ``train_loss`` this rank's differentiable share of the loss (its
+sum over the batch axes is the reference's loss) with the global loss as a
+reading, ``prefill`` / ``decode_step`` its rows' logits (its vocabulary
+slice where the vocabulary splits over "model": the reference's
+``P(batch, "model")``) and its cache block.  The model axis splits the
+work (tensor parallelism, ``parallel/tp.py``): attention by query heads
+(kv heads where they divide, else each rank reads the kv heads its query
+heads map to), the MLP and the experts by ``ff``, the Mamba mixer by
+heads, the embedding, head and loss by vocabulary; each row-parallel
+output is summed over the model group (``parallel.tp.lm_parts`` reads
+which parts split off ``lm_param_specs``).  The MoE then routes with the
+global batch's capacity, or by all-to-all where ``cfg.moe_ep``
+(``models/moe.py``); ``decode_step``'s
 ``seq_shard_axis`` splits the global attention caches' sequence over that
 axis (``attention.seq_sharded_decode_attention``).  A batch that does not
 divide the batch axes' extent is replicated (``lm_batch_specs``): every
 rank takes all of it and nothing is summed over ranks; ``global_batch``
-says which, and defaults to a split batch.  The model axis is storage only:
-its ranks run the same rows.  The reference's activation placement hints
+says which, and defaults to a split batch.  The model axis's ranks run the
+same rows, each on its slice.  The reference's activation placement hints
 (``cfg.act_hints``) place values for its partitioner and change none; here
 they have no effect.
 """
@@ -45,6 +55,8 @@ import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LMConfig
+from ..parallel import sharding as SH
+from ..parallel import tp as TPx
 from ..tree import tree_map
 from . import layers as L
 from . import mlp as M
@@ -62,15 +74,24 @@ Params = dict[str, Any]
 class _Rows:
     """Where this rank's rows sit in the global batch on a mesh: ``split``
     over the batch ``axes`` (extent ``n`` > 1), or the whole batch on every
-    rank (replicated, or a batch extent of 1)."""
+    rank (replicated, or a batch extent of 1); ``parts``: the model group
+    each part of the LM splits its work over."""
 
     mesh: Any
     axes: tuple
     n: int
     split: bool
+    parts: TPx.LMParts
 
 
-def _rows_on(mesh, rows: int, global_batch: Optional[int]) -> Optional[_Rows]:
+_WHOLE = TPx.LMParts()
+
+
+def _parts(rows: Optional[_Rows]) -> TPx.LMParts:
+    return _WHOLE if rows is None else rows.parts
+
+
+def _rows_on(cfg: LMConfig, mesh, rows: int, global_batch: Optional[int]) -> Optional[_Rows]:
     """The ``_Rows`` of a rank holding ``rows`` rows (None without a mesh);
     ``global_batch`` defaults to a split batch."""
     if mesh is None:
@@ -85,7 +106,9 @@ def _rows_on(mesh, rows: int, global_batch: Optional[int]) -> Optional[_Rows]:
     if rows != want:
         raise ValueError(f"this rank holds {rows} rows; a global batch of {gb} over the batch axes {axes} ({n} ranks) "
                          f"gives each rank {want} ({'split' if split else 'replicated'})")
-    return _Rows(mesh, axes, n, split and n > 1)
+    tp = TPx.TP.of(mesh)
+    parts = _WHOLE if tp is None else TPx.lm_parts(SH.lm_param_specs(cfg, mesh)[0], tp)
+    return _Rows(mesh, axes, n, split and n > 1, parts)
 
 
 # ----------------------------------------------------------- slot structure
@@ -197,17 +220,43 @@ def _block_params(params: Params, s: int) -> Params:
     return tree_map(lambda leaf: leaf[s], params["blocks"])
 
 
-def _attn_forward(cfg: LMConfig, p, x, positions, attn_kind, q_chunk):
-    B, T, D = x.shape
+def _qkv(cfg: LMConfig, p, x, positions, parts: TPx.LMParts):
+    """The roped q, k, v of x (B, T, D): with ``parts.attn`` this rank's
+    query heads and its kv heads, or all of them where the kv heads do not
+    split (the spec's fallback)."""
+    B, T, _ = x.shape
     hd = cfg.hd
-    q = L.linear(p["wq"], x).reshape(B, T, cfg.n_heads, hd)
-    k = L.linear(p["wk"], x).reshape(B, T, cfg.n_kv_heads, hd)
-    v = L.linear(p["wv"], x).reshape(B, T, cfg.n_kv_heads, hd)
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    x = TPx.enter(x, parts.attn)
+    q = L.linear(p["wq"], x).reshape(B, T, -1, hd)
+    k = L.linear(p["wk"], x).reshape(B, T, -1, hd)
+    v = L.linear(p["wv"], x).reshape(B, T, -1, hd)
+    return (apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections),
+            apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections), v)
+
+
+def _kv_read(cfg: LMConfig, k, parts: TPx.LMParts, n_q: int):
+    """The kv heads (dim 2) this rank's ``n_q`` query heads read: all it
+    holds, or where the query heads split and the kv heads do not, those
+    its query heads map to (``tp.local_kv``)."""
+    if parts.attn is None or parts.kv is not None:
+        return k
+    return TPx.local_kv(k, parts.attn.index * n_q, n_q, cfg.n_heads // cfg.n_kv_heads)
+
+
+def _attn_out(p, o, tp):
+    """The row-parallel output projection of o (B, T, H_l, hd), summed over
+    the model group."""
+    B, T = o.shape[:2]
+    return TPx.row_parallel(o.reshape(B, T, -1), p["wo"]["w"], tp)
+
+
+def _attn_forward(cfg: LMConfig, p, x, positions, attn_kind, q_chunk, parts: TPx.LMParts = _WHOLE):
+    q, k, v = _qkv(cfg, p, x, positions, parts)
     window = cfg.window if attn_kind == "local" else 0
-    o = attention(q, k, v, causal=True, window=window, q_chunk=q_chunk, bf16_qk=cfg.attn_bf16_qk)
-    return L.linear(p["wo"], o.reshape(B, T, cfg.n_heads * hd)), (k, v)
+    n_q = q.shape[2]
+    o = attention(q, _kv_read(cfg, k, parts, n_q), _kv_read(cfg, v, parts, n_q), causal=True, window=window,
+                  q_chunk=q_chunk, bf16_qk=cfg.attn_bf16_qk)
+    return _attn_out(p, o, parts.attn), (k, v)
 
 
 def _apply_ffn(cfg, spec: SlotSpec, p, x, per_row: bool = False, rows: Optional[_Rows] = None):
@@ -216,24 +265,28 @@ def _apply_ffn(cfg, spec: SlotSpec, p, x, per_row: bool = False, rows: Optional[
     reference's decode does under its ``vmap`` over serving slots.  On a
     mesh (``rows``) the MoE is ``moe_apply_ep`` where ``cfg.moe_ep`` (as the
     reference picks it), else the global batch's ``moe_apply``; aux is then
-    this rank's share."""
+    this rank's share; the experts' and the MLP's ``ff`` split over "model"
+    where ``rows.parts.ffn`` says so."""
     aux = x.new_zeros((), dtype=torch.float32)
     if spec.ffn == "none":
         return x, aux
     h2 = _norm(cfg, p["norm2"], x)
+    tp = _parts(rows).ffn
     if spec.ffn == "moe":
         if per_row:
-            y = torch.cat([MoE.moe_apply(p["moe"], h2[b : b + 1], cfg.moe, cfg.mlp)[0] for b in range(x.shape[0])])
+            y = torch.cat([MoE.moe_apply(p["moe"], h2[b : b + 1], cfg.moe, cfg.mlp, tp=tp)[0]
+                           for b in range(x.shape[0])])
         elif cfg.moe_ep and rows is not None:
             if rows.n > 1 and not rows.split:
                 raise ValueError("the expert-parallel MoE needs the batch split over the batch axes; this one is "
                                  "replicated")
-            y, aux = MoE.moe_apply_ep(p["moe"], h2, cfg.moe, cfg.mlp, mesh=rows.mesh)
+            y, aux = MoE.moe_apply_ep(p["moe"], h2, cfg.moe, cfg.mlp, mesh=rows.mesh, tp=tp)
         else:
-            y, aux = MoE.moe_apply(p["moe"], h2, cfg.moe, cfg.mlp, mesh=rows.mesh if rows and rows.split else None)
+            y, aux = MoE.moe_apply(p["moe"], h2, cfg.moe, cfg.mlp, mesh=rows.mesh if rows and rows.split else None,
+                                   tp=tp)
         x = x + y
     else:
-        x = x + M.mlp_apply(p["mlp"], h2, cfg.mlp)
+        x = x + M.mlp_apply(p["mlp"], h2, cfg.mlp, tp=tp)
     return x, aux
 
 
@@ -242,10 +295,10 @@ def _slot_forward(cfg, spec: SlotSpec, p, x, positions, q_chunk, rows=None):
     h = _norm(cfg, p["norm1"], x)
     kv = None
     if spec.kind == "attn":
-        a, kv = _attn_forward(cfg, p["attn"], h, positions, spec.attn_kind, q_chunk)
+        a, kv = _attn_forward(cfg, p["attn"], h, positions, spec.attn_kind, q_chunk, _parts(rows))
         x = x + a
     else:
-        x = x + S.ssm_apply(p["mamba"], h, cfg.ssm, bf16_matmul=cfg.ssm_bf16)
+        x = x + S.ssm_apply(p["mamba"], h, cfg.ssm, bf16_matmul=cfg.ssm_bf16, tp=_parts(rows).ssm)
     x, aux = _apply_ffn(cfg, spec, p, x, rows=rows)
     return x, kv, aux
 
@@ -272,7 +325,7 @@ def backbone(params: Params, cfg: LMConfig, x: torch.Tensor, positions: torch.Te
     """The super-blocks over an embedded input x (B, T, D).  Returns
     (hidden, the kv of every attention slot stacked over super-blocks or
     None, aux; on a mesh aux is this rank's share)."""
-    return _backbone(params, cfg, x, positions, q_chunk, collect_cache, _rows_on(mesh, x.shape[0], global_batch))
+    return _backbone(params, cfg, x, positions, q_chunk, collect_cache, _rows_on(cfg, mesh, x.shape[0], global_batch))
 
 
 def _backbone(params, cfg, x, positions, q_chunk, collect_cache, rows):
@@ -295,16 +348,26 @@ def _backbone(params, cfg, x, positions, q_chunk, collect_cache, rows):
     return x, kvs, aux
 
 
-def embed_or_pass(params, cfg: LMConfig, inp) -> torch.Tensor:
+def embed_or_pass(params, cfg: LMConfig, inp, tp=None) -> torch.Tensor:
+    """The embedded input; with ``tp`` the table is this rank's vocabulary
+    slice (``parallel.tp.embed``)."""
     if cfg.frontend == "stub_embeds":
         return inp  # (B, T, D) precomputed frame / patch embeddings
-    return L.embedding(params["embed"], inp)
+    return TPx.embed(params["embed"]["table"], inp, tp)
 
 
 def _head_w(params, cfg):
+    """The head's (D, V) weight, or on a mesh this rank's (D, V / n) slice
+    (the tied table's slice where the embeddings are tied)."""
     if cfg.tie_embeddings:
         return params["embed"]["table"].T  # (D, V)
     return params["head"]["w"]
+
+
+def _logits(params, cfg, x, tp):
+    """fp32 logits of the normed x (..., D): this rank's vocabulary slice
+    with ``tp``."""
+    return (TPx.enter(x, tp) @ _head_w(params, cfg)).float()
 
 
 def _positions(batch, B: int, T: int, device) -> torch.Tensor:
@@ -322,10 +385,11 @@ def train_loss(params: Params, cfg: LMConfig, batch: dict, *, q_chunk: int = 102
     all-reduce of the shares)."""
     inp = batch["tokens"] if "tokens" in batch else batch["embeds"]
     B, T = inp.shape[0], inp.shape[1]
-    rows = _rows_on(mesh, B, global_batch)
-    x = embed_or_pass(params, cfg, inp)
+    rows = _rows_on(cfg, mesh, B, global_batch)
+    vtp = _parts(rows).vocab
+    x = embed_or_pass(params, cfg, inp, vtp)
     x, _, aux = _backbone(params, cfg, x, _positions(batch, B, T, x.device), q_chunk, False, rows)
-    x = _norm(cfg, params["final_norm"], x)
+    x = TPx.enter(_norm(cfg, params["final_norm"], x), vtp)
     hw = _head_w(params, cfg)
     labels = batch["labels"]
     nchunk = max(1, T // loss_chunk)
@@ -334,10 +398,8 @@ def train_loss(params: Params, cfg: LMConfig, batch: dict, *, q_chunk: int = 102
     c = T // nchunk
     total = x.new_zeros((), dtype=torch.float32)
     for j in range(nchunk):
-        logits = (x[:, j * c : (j + 1) * c] @ hw).float()  # (B, c, V)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, j * c : (j + 1) * c, None].long())[..., 0]
-        total = total + torch.sum(lse - gold)
+        logits = (x[:, j * c : (j + 1) * c] @ hw).float()  # (B, c, V), or this rank's (B, c, V / n)
+        total = total + torch.sum(TPx.cross_entropy(logits, labels[:, j * c : (j + 1) * c], vtp))
     n = rows.n if rows is not None and rows.split else 1
     loss = total / (n * B * T) + aux_weight * aux
     if rows is None:
@@ -383,35 +445,23 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=torch.bfloat16, de
             for i, c in ((i, one(s)) for i, s in enumerate(slot_specs(cfg)))}
 
 
-def _model_specs(cfg: LMConfig, mesh):
-    """The cache's ``cache_specs`` entries on the "model" axis alone (a
-    rank's rows and sequence slice are its own already); None where the
-    model axis has one rank."""
-    if mesh is None or mesh.shape["model"] == 1:
-        return None
-    from ..configs.base import ShapeConfig
-    from ..parallel import sharding as SH  # lazily: parallel imports the models
-
-    specs = SH.cache_specs(cfg, ShapeConfig("cache", 1, 1, "decode"), mesh)
-    keep = lambda sp: SH.P(*(e if e == "model" else None for e in sp))  # noqa: E731
-    return {k: type(c)(*(keep(sp) for sp in c)) for k, c in specs.items()}
-
-
 def prefill(params: Params, cfg: LMConfig, batch: dict, *, q_chunk: int = 1024, max_len: Optional[int] = None,
             mesh=None, global_batch: Optional[int] = None):
     """Full-sequence prefill.  Returns (last-token logits (B, V), cache);
     ``max_len`` is the cache's capacity for the decode (default T + 1).  On
-    a mesh: this rank's rows' logits and its block of the cache under
-    ``cache_specs`` (its rows; kv heads and SSM channels split over "model"
-    where they divide)."""
+    a mesh: this rank's rows' logits (its vocabulary slice where the
+    vocabulary splits) and its block of the cache under ``cache_specs``
+    (its rows; kv heads and SSM channels split over "model" where they
+    divide), each computed on this rank's slice."""
     inp = batch["tokens"] if "tokens" in batch else batch["embeds"]
     B, T = inp.shape[0], inp.shape[1]
-    rows = _rows_on(mesh, B, global_batch)
+    rows = _rows_on(cfg, mesh, B, global_batch)
+    parts = _parts(rows)
     max_len = max_len or T + 1
     if max_len <= T:
         raise ValueError(f"max_len {max_len} leaves the cache no headroom over the prompt's {T} tokens")
     specs = slot_specs(cfg)
-    x = embed_or_pass(params, cfg, inp)
+    x = embed_or_pass(params, cfg, inp, parts.vocab)
     dev = x.device
     positions = _positions(batch, B, T, dev)
 
@@ -442,7 +492,7 @@ def prefill(params: Params, cfg: LMConfig, batch: dict, *, q_chunk: int = 1024, 
                 caches[f"slot{i}"] = AttnCache(kc, vc, pc)
             else:
                 h = _norm(cfg, p["norm1"], x)
-                y, sc = S.ssm_prefill(p["mamba"], h, cfg.ssm, bf16_matmul=cfg.ssm_bf16)
+                y, sc = S.ssm_prefill(p["mamba"], h, cfg.ssm, bf16_matmul=cfg.ssm_bf16, tp=parts.ssm)
                 x = x + y
                 caches[f"slot{i}"] = sc
                 x, _ = _apply_ffn(cfg, spec, p, x, rows=rows)
@@ -450,14 +500,7 @@ def prefill(params: Params, cfg: LMConfig, batch: dict, *, q_chunk: int = 1024, 
 
     x, per_block = _run_blocks(params, cfg, x, block)
     x = _norm(cfg, params["final_norm"], x[:, -1:, :])
-    logits = (x[:, 0, :] @ _head_w(params, cfg)).float()
-    cache = _stack_caches(per_block)
-    mspecs = _model_specs(cfg, mesh)
-    if mspecs is not None:
-        from ..parallel import sharding as SH
-
-        cache = SH.map_specs(lambda t, sp: SH.block_of(t, sp, mesh), cache, mspecs)
-    return logits, cache
+    return _logits(params, cfg, x[:, 0, :], parts.vocab), _stack_caches(per_block)
 
 
 def decode_step(params: Params, cfg: LMConfig, cache, tokens: torch.Tensor, cache_len, *, mesh=None,
@@ -473,29 +516,26 @@ def decode_step(params: Params, cfg: LMConfig, cache, tokens: torch.Tensor, cach
     whose dtype differs from the new state's (a bf16 ``init_cache``) is
     replaced in ``cache`` once by its cast, as the reference's tree turns.
 
-    On a mesh ``cache`` is this rank's block under ``cache_specs`` (leaves
-    split over "model" are gathered for the step and their blocks written
-    back).  ``seq_shard_axis``: the global attention caches hold this
+    On a mesh ``cache`` is this rank's block under ``cache_specs`` (its
+    kv heads and SSM heads where they split over "model"), which the step
+    reads and writes as it stands; the logits are this rank's vocabulary
+    slice where the vocabulary splits.  ``seq_shard_axis``: the global
+    attention caches hold this
     rank's slice of the sequence (the local layers' rings are whole); the
     new token's K/V row is written by the rank whose slice holds its slot
     ``min(cache_len, S - 1)`` only, and the attention combines the slices
     (``seq_sharded_decode_attention``)."""
     specs = slot_specs(cfg)
     B = tokens.shape[0]
-    rows_on = _rows_on(mesh, B, global_batch)
+    rows_on = _rows_on(cfg, mesh, B, global_batch)
+    parts = _parts(rows_on)
     if seq_shard_axis is not None:
         if mesh is None:
             raise ValueError("seq_shard_axis needs the mesh it names an axis of")
         if rows_on.split and seq_shard_axis in rows_on.axes:
             raise ValueError(f"the batch is split over {rows_on.axes}: its sequence cannot split over "
                              f"{seq_shard_axis!r} too")
-    mspecs = _model_specs(cfg, mesh)
-    held = cache
-    if mspecs is not None:  # the model axis is storage only: gather the split leaves for the step
-        from ..parallel import sharding as SH
-
-        cache = SH.map_specs(lambda t, sp: SH.gather(t, sp, mesh), cache, mspecs)
-    x = embed_or_pass(params, cfg, tokens)
+    x = embed_or_pass(params, cfg, tokens, parts.vocab)
     dev = x.device
     cl = torch.as_tensor(cache_len, device=dev).long()
     per_row = cl.dim() == 1
@@ -504,7 +544,6 @@ def decode_step(params: Params, cfg: LMConfig, cache, tokens: torch.Tensor, cach
     if cfg.mrope_sections is not None:
         pos = pos[:, :, None].expand(B, 1, 3)
     rows = torch.arange(B, device=dev)
-    hd = cfg.hd
     n_super = cfg.n_layers // superblock_period(cfg)
     for s in range(n_super):
         bp = _block_params(params, s)
@@ -513,11 +552,7 @@ def decode_step(params: Params, cfg: LMConfig, cache, tokens: torch.Tensor, cach
             c = type(cache[f"slot{i}"])(*(leaf[s] for leaf in cache[f"slot{i}"]))
             h = _norm(cfg, p["norm1"], x)
             if spec.kind == "attn":
-                q = L.linear(p["attn"]["wq"], h).reshape(B, 1, cfg.n_heads, hd)
-                k1 = L.linear(p["attn"]["wk"], h).reshape(B, 1, cfg.n_kv_heads, hd)
-                v1 = L.linear(p["attn"]["wv"], h).reshape(B, 1, cfg.n_kv_heads, hd)
-                q = apply_rope(q, pos, cfg.rope_theta, cfg.mrope_sections)
-                k1 = apply_rope(k1, pos, cfg.rope_theta, cfg.mrope_sections)
+                q, k1, v1 = _qkv(cfg, p["attn"], h, pos, parts)
                 S_ = c.k.shape[1]
                 local = spec.attn_kind == "local" and cfg.window
                 if seq_shard_axis is not None and not local:
@@ -538,17 +573,18 @@ def decode_step(params: Params, cfg: LMConfig, cache, tokens: torch.Tensor, cach
                 c.k[r, sl] = k_new.to(c.k.dtype)
                 c.v[r, sl] = v_new.to(c.v.dtype)
                 c.pos[r, sl] = p_new.to(torch.int32)
+                n_q = q.shape[2]
+                kr, vr = (_kv_read(cfg, t, parts, n_q) for t in (c.k, c.v))
                 if seq_shard_axis is not None and not local:
-                    o = seq_sharded_decode_attention(q, c.k, c.v, cl_b + 1, mesh=mesh, seq_axis=seq_shard_axis,
+                    o = seq_sharded_decode_attention(q, kr, vr, cl_b + 1, mesh=mesh, seq_axis=seq_shard_axis,
                                                      kv_positions=c.pos)
                 else:
-                    o = decode_attention(q, c.k, c.v, cl_b + 1, kv_positions=c.pos)
-                wo = p["attn"]["wo"]
+                    o = decode_attention(q, kr, vr, cl_b + 1, kv_positions=c.pos)
                 # in the cache's dtype (v's): promoted to the weights' as JAX's bf16 @ f32 is
-                o = o.reshape(B, 1, cfg.n_heads * hd).to(torch.promote_types(o.dtype, wo["w"].dtype))
-                x = x + L.linear(wo, o)
+                o = o.to(torch.promote_types(o.dtype, p["attn"]["wo"]["w"].dtype))
+                x = x + _attn_out(p["attn"], o, parts.attn)
             else:
-                y, sc = S.ssm_decode_step(p["mamba"], h, c, cfg.ssm)
+                y, sc = S.ssm_decode_step(p["mamba"], h, c, cfg.ssm, tp=parts.ssm)
                 x = x + y
                 for field, new in zip(sc._fields, sc):
                     leaf = getattr(cache[f"slot{i}"], field)
@@ -558,15 +594,4 @@ def decode_step(params: Params, cfg: LMConfig, cache, tokens: torch.Tensor, cach
                     leaf[s].copy_(new)
             x, _ = _apply_ffn(cfg, spec, p, x, per_row=per_row, rows=rows_on)
     x = _norm(cfg, params["final_norm"], x)
-    logits = (x[:, 0, :] @ _head_w(params, cfg)).float()
-    if mspecs is not None:  # this rank's blocks back into the cache it holds
-        for key, c in cache.items():
-            blocks = type(c)(*(SH.block_of(t, sp, mesh) for t, sp in zip(c, mspecs[key])))
-            for field, blk in zip(c._fields, blocks):
-                leaf = getattr(held[key], field)
-                if leaf.dtype == blk.dtype:
-                    leaf.copy_(blk)
-                else:  # a bf16 conv state turned fp32
-                    held[key] = held[key]._replace(**{field: blk})
-        cache = held
-    return logits, cache
+    return _logits(params, cfg, x[:, 0, :], parts.vocab), cache

@@ -25,6 +25,10 @@ forms:
 
 Both return the rank's *share* of the aux loss: its sum over the batch
 axes is the reference's aux loss, and so is the sum of its gradients.
+With ``tp`` (``parallel/tp.py``) each rank holds its ``ff`` slice of the
+experts and computes on it: the dispatched tokens enter the slice, the
+partial outputs are summed over the model group; the router and the
+dispatch run whole on every rank of the group.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..configs.base import MoESpec
+from ..parallel import tp as TPx
 from . import layers as L
 from .mlp import gelu
 
@@ -118,11 +123,14 @@ def _combine(y, slot, kept, gate_vals, token_idx, S: int):
     return per_assign.new_zeros((S, D)).index_add(0, token_idx, per_assign * w_assign[:, None])
 
 
-def _expert_ffn(h_in, up_w, gate_w, down_w, mlp_kind: str, eq_in: str, eq_out: str):
+def _expert_ffn(h_in, up_w, gate_w, down_w, mlp_kind: str, eq_in: str, eq_out: str, tp=None):
+    """The experts' FFN of their dispatched tokens; with ``tp`` on this
+    rank's ``ff`` slice, the outputs summed over the group."""
+    h_in = TPx.enter(h_in, tp)
     act = F.silu if mlp_kind == "swiglu" else gelu
     up = torch.einsum(eq_in, h_in, up_w)
     h = act(torch.einsum(eq_in, h_in, gate_w)) * up if mlp_kind in ("swiglu", "geglu") else act(up)
-    return torch.einsum(eq_out, h, down_w)
+    return TPx.row_parallel(h, down_w, tp, eq_out)
 
 
 def batch_axes(mesh) -> tuple:
@@ -131,12 +139,13 @@ def batch_axes(mesh) -> tuple:
     return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
 
 
-def moe_apply(p, x: torch.Tensor, spec: MoESpec, mlp_kind: str, *, mesh=None):
+def moe_apply(p, x: torch.Tensor, spec: MoESpec, mlp_kind: str, *, mesh=None, tp=None):
     """x (B, T, D) -> ((B, T, D), aux loss).  Capacity-dropped assignments
     add nothing.  With ``mesh``, x is this rank's rows of a batch split over
     the mesh's batch axes ("pod", "data"), in their row-major order: the
     capacity, the drops and the aux loss are the global batch's, and the aux
-    loss returned is this rank's share of it (see the module docstring)."""
+    loss returned is this rank's share of it (see the module docstring).
+    With ``tp`` the experts' weights are this rank's ``ff`` slice."""
     B, T, D = x.shape
     E, k = spec.num_experts, spec.top_k
     S = B * T
@@ -162,7 +171,7 @@ def moe_apply(p, x: torch.Tensor, spec: MoESpec, mlp_kind: str, *, mesh=None):
     _note_drops(kept)
     dispatched, slot, token_idx = _dispatch(xf, flat_expert, pos, kept, E, C, k)
     y = _expert_ffn(dispatched.reshape(E, C, D), p["up"]["w"], p.get("gate", {}).get("w"), p["down"]["w"],
-                    mlp_kind, "ecd,edf->ecf", "ecf,efd->ecd")  # (E, C, D)
+                    mlp_kind, "ecd,edf->ecf", "ecf,efd->ecd", tp)  # (E, C, D)
     out = _combine(y.reshape(E * C, D), slot, kept, gate_vals, token_idx, S)
     return out.reshape(B, T, D).to(x.dtype), aux
 
@@ -208,39 +217,26 @@ class _AllToAll(torch.autograd.Function):
         return _exchange(g, ctx.group, ctx.stage), None, None
 
 
-class _GroupSum(torch.autograd.Function):
-    """The sum of the group's partial values; its gradient passes through
-    unchanged, since every rank of the group computes the same loss from
-    the sum (the model axis runs the same rows)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        out = x.detach().clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-def moe_apply_ep(p, x: torch.Tensor, spec: MoESpec, mlp_kind: str, *, mesh):
+def moe_apply_ep(p, x: torch.Tensor, spec: MoESpec, mlp_kind: str, *, mesh, tp=None):
     """Expert-parallel MoE (the reference's ``moe_apply_ep``): x (B_l, T, D)
     is this rank's rows of a batch split over ("pod", "data"); expert e
     lives on the "data" shard e, and tokens reach it by all-to-all and
     return the same way.  Capacity is per (source shard, expert): C =
-    S_loc·k·cf/E; overflow drops, the residual carries the token.  The
-    expert's ``ff`` splits over "model": each rank computes its slice and
-    the partial outputs sum over the model group.
+    S_loc·k·cf/E; overflow drops, the residual carries the token.
 
-    ``p`` holds the full (gathered) expert weights (E, D, ff) / (E, ff, D);
-    the rank reads its expert's ``ff`` slice, so the gradient it leaves in
-    them is nonzero on that block only.  Requires E == the "data"
-    extent.  Returns (out, this rank's share of the aux loss: the mean over
-    the source shards of each shard's own aux loss)."""
+    ``p`` holds this rank's blocks under ``lm_param_specs``: the router
+    whole, and of the expert weights its expert alone (E / |data| = 1 on
+    the leading dimension: (1, D, ff) / (1, ff, D)), with ``tp`` its
+    ``ff`` slice (the experts' ``ff`` split over "model": the tokens enter
+    the slice and the partial outputs are summed over the model group).
+    Requires E == the "data" extent.  Returns (out, this rank's share of
+    the aux loss: the mean over the source shards of each shard's own aux
+    loss)."""
     E, k = spec.num_experts, spec.top_k
     if E != mesh.shape["data"]:
         raise ValueError(f"EP requires num_experts ({E}) == |data| ({mesh.shape['data']})")
+    if p["up"]["w"].shape[0] != 1:
+        raise ValueError(f"EP takes this rank's expert alone; the weights hold {p['up']['w'].shape[0]}")
     B_l, T, D = x.shape
     S = B_l * T
     C = max(1, int(S * k * spec.capacity_factor / E))
@@ -253,16 +249,8 @@ def moe_apply_ep(p, x: torch.Tensor, spec: MoESpec, mlp_kind: str, *, mesh):
     stage = mesh.backend == "gloo" and x.is_cuda
     group = mesh.group("data")
     recv = _AllToAll.apply(send, group, stage)  # (E_src*C, D): my expert's tokens, by source shard
-    e, n_tp = mesh.coords["data"], mesh.shape["model"]
-    d_ff = p["up"]["w"].shape[-1]
-    if d_ff % n_tp:
-        raise ValueError(f"EP splits the experts' ff ({d_ff}) over |model| ({n_tp}), which does not divide it")
-    f = d_ff // n_tp
-    ff = slice(mesh.coords["model"] * f, (mesh.coords["model"] + 1) * f)
-    gate_w = p["gate"]["w"][e, :, ff] if "gate" in p else None
-    y = _expert_ffn(recv, p["up"]["w"][e, :, ff], gate_w, p["down"]["w"][e, ff, :], mlp_kind, "cd,df->cf", "cf,fd->cd")
-    if n_tp > 1:
-        y = _GroupSum.apply(y, mesh.group("model"))
+    gate_w = p["gate"]["w"][0] if "gate" in p else None
+    y = _expert_ffn(recv, p["up"]["w"][0], gate_w, p["down"]["w"][0], mlp_kind, "cd,df->cf", "cf,fd->cd", tp)
     back = _AllToAll.apply(y, group, stage)  # (E*C, D): expert j's outputs for my tokens
     out = _combine(back, slot, kept, gate_vals, token_idx, S)
     n_src = mesh.extent(batch_axes(mesh))  # the source shards

@@ -9,6 +9,14 @@ The projections stay split (z, x, B, C, dt and three depthwise convs), as
 in the reference.  Decode carries (conv_state, ssm_state) and costs O(1) a
 token.
 
+On a mesh (``tp``, ``parallel/tp.py``) a rank computes on its heads: its
+``d_inner / n`` channels of ``in_z`` / ``in_x`` / ``conv_x`` and the norm's
+scale, its heads of ``in_dt`` / ``A_log`` / ``D`` / ``dt_bias``, its rows
+of the row-parallel ``out_proj`` (the outputs summed over the model
+group); ``in_B`` / ``in_C`` / ``conv_B`` / ``conv_C`` run whole on every
+rank.  The gated RMSNorm is over the whole ``d_inner``, so its sum of
+squares is summed over the group (fp32) before the rsqrt.
+
 ``ssd_chunked`` keeps the reference's formula: ``exp(cum_i - cum_j)`` for
 every (i, j) of a chunk, then the j > i entries masked.  Above the
 diagonal that exp overflows fp32 for long chunks with strong decay
@@ -25,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import SSMSpec
+from ..parallel import tp as TPx
 from . import layers as L
 
 __all__ = ["ssm_init", "set_conv_impl", "ssd_chunked", "ssd_ref", "ssm_apply", "ssm_prefill",
@@ -171,27 +180,40 @@ def ssd_ref(x, dt, A, Bmat, Cmat):
     return torch.stack(ys, dim=1)  # (B, T, H, P)
 
 
-def _project(p, x, spec: SSMSpec, d_model: int):
-    d_inner = spec.expand * d_model
-    H = d_inner // spec.head_dim
+def _project(p, x, tp):
+    """(z, x, B, C, dt, this rank's d_inner channels, its heads): the
+    sizes of the weights it holds."""
+    x = TPx.enter(x, tp)
     z = L.linear(p["in_z"], x)
     xs = L.linear(p["in_x"], x)
     Bm = L.linear(p["in_B"], x)
     Cm = L.linear(p["in_C"], x)
     dt = F.softplus(L.linear(p["in_dt"], x).float() + p["dt_bias"])
-    return z, xs, Bm, Cm, dt, d_inner, H
+    return z, xs, Bm, Cm, dt, xs.shape[-1], dt.shape[-1]
 
 
-def ssm_apply(p, x, spec: SSMSpec, *, chunk=None, bf16_matmul=False):
-    """Full Mamba2 block (training).  x (B, T, D) -> (B, T, D)."""
-    y, _ = ssm_prefill(p, x, spec, chunk=chunk, bf16_matmul=bf16_matmul)
+def _gated_norm(p, y, z, spec: SSMSpec, d_model: int, tp, eps=1e-6):
+    """``rmsnorm(y * silu(z))`` over the whole d_inner: with ``tp`` this
+    rank's channels, the sum of squares summed over the group."""
+    gf = (y * F.silu(z)).float()
+    ss = TPx.sum_shared(torch.sum(gf * gf, -1, keepdim=True), tp)
+    out = gf * torch.rsqrt(ss / (spec.expand * d_model) + eps)
+    return (out * p["norm"]["scale"].float()).to(y.dtype)
+
+
+def ssm_apply(p, x, spec: SSMSpec, *, chunk=None, bf16_matmul=False, tp=None):
+    """Full Mamba2 block (training).  x (B, T, D) -> (B, T, D); ``tp``:
+    this rank's heads (the module docstring)."""
+    y, _ = ssm_prefill(p, x, spec, chunk=chunk, bf16_matmul=bf16_matmul, tp=tp)
     return y
 
 
-def ssm_prefill(p, x, spec: SSMSpec, *, chunk=None, bf16_matmul=False):
-    """Returns (y (B, T, D), SSMCache): the cache continues in decode."""
+def ssm_prefill(p, x, spec: SSMSpec, *, chunk=None, bf16_matmul=False, tp=None):
+    """Returns (y (B, T, D), SSMCache): the cache continues in decode; with
+    ``tp`` the cache holds this rank's channels and heads of ``conv_x`` and
+    the state (its block under ``cache_specs``)."""
     Bb, T, D = x.shape
-    z, xs, Bm, Cm, dt, d_inner, H = _project(p, x, spec, D)
+    z, xs, Bm, Cm, dt, d_inner, H = _project(p, x, tp)
     xs, tail_x = _causal_conv(xs, p["conv_x"])
     Bm, tail_B = _causal_conv(Bm, p["conv_B"])
     Cm, tail_C = _causal_conv(Cm, p["conv_C"])
@@ -212,8 +234,7 @@ def ssm_prefill(p, x, spec: SSMSpec, *, chunk=None, bf16_matmul=False):
     y = y[:, :T]
     y = y + p["D"][None, None, :, None] * xh.float()
     y = y.reshape(Bb, T, d_inner).to(x.dtype)
-    y = L.rmsnorm(p["norm"], y * F.silu(z))
-    out = L.linear(p["out_proj"], y)
+    out = TPx.row_parallel(_gated_norm(p, y, z, spec, D, tp), p["out_proj"]["w"], tp)
     return out, SSMCache(conv_x=tail_x, conv_B=tail_B, conv_C=tail_C, state=h_fin)
 
 
@@ -245,10 +266,11 @@ def _conv_step(x1, conv, state):
     return y, seq[:, 1:]
 
 
-def ssm_decode_step(p, x1, cache: SSMCache, spec: SSMSpec):
-    """One-token decode.  x1 (B, 1, D) -> (y (B, 1, D), new cache).  O(1)."""
+def ssm_decode_step(p, x1, cache: SSMCache, spec: SSMSpec, tp=None):
+    """One-token decode.  x1 (B, 1, D) -> (y (B, 1, D), new cache).  O(1).
+    With ``tp`` the cache is this rank's block (its channels and heads)."""
     Bb, _, D = x1.shape
-    z, xs, Bm, Cm, dt, d_inner, H = _project(p, x1, spec, D)
+    z, xs, Bm, Cm, dt, d_inner, H = _project(p, x1, tp)
     dt = dt[:, 0]  # (B, H)
     xs, new_cx = _conv_step(xs, p["conv_x"], cache.conv_x)
     Bm, new_cB = _conv_step(Bm, p["conv_B"], cache.conv_B)
@@ -261,5 +283,5 @@ def ssm_decode_step(p, x1, cache: SSMCache, spec: SSMSpec):
     y = torch.einsum("bn,bhpn->bhp", Cm.float(), state)
     y = y + p["D"][None, :, None] * xh
     y = y.reshape(Bb, 1, d_inner).to(x1.dtype)
-    y = L.rmsnorm(p["norm"], y * F.silu(z))
-    return L.linear(p["out_proj"], y), SSMCache(new_cx, new_cB, new_cC, state)
+    out = TPx.row_parallel(_gated_norm(p, y, z, spec, D, tp), p["out_proj"]["w"], tp)
+    return out, SSMCache(new_cx, new_cB, new_cC, state)

@@ -31,8 +31,11 @@ def _global_norm(grads) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    gn = _global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, gn=None):
+    """(grads scaled to a global norm of at most ``max_norm``, the norm);
+    ``gn``: the norm where the caller has it (a sharded step's, summed
+    over its ranks)."""
+    gn = _global_norm(grads) if gn is None else gn
     scale = torch.clamp_max(max_norm / (gn + 1e-9), 1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
 

@@ -15,9 +15,13 @@ reference's words ("deconv3.M: 3 % model(2) != 0 -> replicated").
 
 Storage versus compute: a parameter or an AdamW moment lives as each
 rank's block of it (``block_of``; ZeRO, as the reference's out-specs leave
-them), and a step gathers the full leaf once on entry (``gather``: an
-``all_gather`` over each axis the spec names, minor axis first, so the
-blocks concatenate in the reference's major-to-minor order and round-trip).
+them), and a step gathers it once on entry (``gather``: an ``all_gather``
+over each axis the spec names, minor axis first, so the blocks concatenate
+in the reference's major-to-minor order and round-trip).  The GAN steps
+gather the full leaf; the LM steps gather over the batch axes only and
+compute on the rank's "model" block (``lm_local_specs``, ``gather(keep=)``:
+tensor parallelism, ``parallel/tp.py``), as GSPMD splits the reference's
+matmuls under ``lm_param_specs``.
 """
 from __future__ import annotations
 
@@ -32,8 +36,8 @@ from ..configs.base import GANConfig, LMConfig, ShapeConfig
 from ..optim import OptState
 
 __all__ = ["PartitionSpec", "P", "MeshAxes", "SpecBuilder", "Placement", "gan_param_specs", "gan_batch_specs",
-           "audio_decoder_param_specs", "lm_param_specs", "lm_batch_specs", "cache_specs", "opt_specs", "named",
-           "block_of", "gather", "map_specs"]
+           "audio_decoder_param_specs", "lm_param_specs", "lm_local_specs", "lm_grad_partial", "lm_batch_specs",
+           "cache_specs", "opt_specs", "named", "block_of", "gather", "map_specs"]
 
 
 class PartitionSpec(tuple):
@@ -299,6 +303,46 @@ def lm_param_specs(cfg: LMConfig, mesh, axes: Optional[MeshAxes] = None):
     return specs, b.fallbacks
 
 
+def lm_local_specs(cfg: LMConfig, mesh, specs=None):
+    """The part of each leaf's spec (``lm_param_specs``) that a step keeps
+    local: the dimensions split over "model", and the expert-parallel MoE's
+    expert dimension (on "data"); ``None`` on the batch (FSDP) axes, which
+    the step gathers.  A rank computes on these blocks."""
+    specs = specs if specs is not None else lm_param_specs(cfg, mesh)[0]
+    keep = lambda sp: P(*(e if e == "model" else None for e in sp))  # noqa: E731
+    out = map_specs(lambda _, sp: keep(sp), specs, specs)
+    if cfg.moe_ep:  # the experts stay on their data shard
+        for key, slot in out["blocks"].items():
+            for name, leaf in slot.get("moe", {}).items():
+                if name != "router":
+                    w = leaf["w"]
+                    leaf["w"] = P(w[0], specs["blocks"][key]["moe"][name]["w"][1], *w[2:])
+    return out
+
+
+def lm_grad_partial(cfg: LMConfig, mesh, specs=None) -> dict:
+    """For each leaf, whether a rank's gradient of it is partial over
+    "model" (the group's sum is the gradient): a leaf replicated over
+    "model" but read on a rank's slice.  The kv projections of attention
+    whose query heads split and kv heads do not, and the Mamba mixer's
+    ``in_B`` / ``in_C`` / ``conv_B`` / ``conv_C`` where its channels split;
+    none at a model extent of 1."""
+    specs = specs if specs is not None else lm_param_specs(cfg, mesh)[0]
+    out = map_specs(lambda _, sp: False, specs, specs)
+    if mesh.shape["model"] == 1:
+        return out
+    for key, slot in specs["blocks"].items():
+        s = out["blocks"][key]
+        if "attn" in slot and "model" in slot["attn"]["wq"]["w"] and "model" not in slot["attn"]["wk"]["w"]:
+            s["attn"]["wk"]["w"] = s["attn"]["wv"]["w"] = True
+        if "mamba" in slot and "model" in slot["mamba"]["in_x"]["w"]:
+            m = s["mamba"]
+            m["in_B"]["w"] = m["in_C"]["w"] = True
+            m["conv_B"] = {"w": True, "b": True}
+            m["conv_C"] = {"w": True, "b": True}
+    return out
+
+
 def _lm_batch_axis(shape: ShapeConfig, mesh, axes: MeshAxes):
     """The batch axes when the global batch divides their extent, else None
     (replicated inputs)."""
@@ -392,14 +436,21 @@ def named(mesh, spec_tree):
     raise TypeError(f"no spec rule for a {type(spec_tree).__name__}")
 
 
-def block_of(leaf: torch.Tensor, spec, mesh) -> torch.Tensor:
+def _kept(spec, keep, dim: int) -> bool:
+    return keep is not None and keep[dim] is not None and keep[dim] == spec[dim]
+
+
+def block_of(leaf: torch.Tensor, spec, mesh, keep=None) -> torch.Tensor:
     """This rank's block of the full array ``leaf`` under ``spec`` (a copy of
     its own when it is a slice, so that the full array can be freed).  The
     block index over a dimension's axes is row-major, major axis first, as
-    the reference's ``axis_index`` arithmetic; no collective runs."""
+    the reference's ``axis_index`` arithmetic; no collective runs.  With
+    ``keep`` (a spec naming some of ``spec``'s entries, as
+    ``lm_local_specs``), ``leaf`` is already split on the dimensions
+    ``keep`` names and only the others are cut."""
     out = leaf
     for dim, ax in enumerate(spec):
-        if ax is None:
+        if ax is None or _kept(spec, keep, dim):
             continue
         names = _axis_tuple(ax)
         n = _size(mesh, names)
@@ -412,14 +463,15 @@ def block_of(leaf: torch.Tensor, spec, mesh) -> torch.Tensor:
     return leaf if out is leaf else out.clone(memory_format=torch.contiguous_format)
 
 
-def gather(block: torch.Tensor, spec, mesh) -> torch.Tensor:
+def gather(block: torch.Tensor, spec, mesh, keep=None) -> torch.Tensor:
     """The full array from every rank's ``block`` under ``spec``: an
     ``all_gather`` over each axis the spec names, minor axis first (the
-    inverse of ``block_of``).  Every rank of the mesh calls it, in the same
-    order of leaves."""
+    inverse of ``block_of``).  With ``keep`` the dimensions it names stay
+    this rank's block (the LM steps' gather over the batch axes only).
+    Every rank of the mesh calls it, in the same order of leaves."""
     out = block
     for dim, ax in enumerate(spec):
-        if ax is None:
+        if ax is None or _kept(spec, keep, dim):
             continue
         for a in reversed(_axis_tuple(ax)):
             n = mesh.shape[a]

@@ -403,14 +403,17 @@ def serve_mesh_fault(rank, world, shape, axes, zoo_args, gp_np, dp_np, z_np, bad
 
 # ------------------------------------------------------------ the LM on a mesh
 def _lm_cfg(arch, capacity_factor=None, moe_ep=False):
+    """``smoke_config(arch)``; ``arch`` may be (arch, {field: value}), the
+    config's fields replaced."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
 
+    arch, over = (arch, {}) if isinstance(arch, str) else arch
     cfg = smoke_config(arch)
     if capacity_factor is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=capacity_factor))
-    return dataclasses.replace(cfg, moe_ep=moe_ep)
+    return dataclasses.replace(cfg, **dict({"moe_ep": moe_ep}, **over))
 
 
 def _t(x):
@@ -468,11 +471,21 @@ def lm_train_runs(rank, world, shape, axes, runs):
     return out
 
 
+def _vocab_whole(logits, spec, mesh):
+    """A rank's rows of the logits from its ``P(batch, "model")`` block:
+    gathered over the vocabulary's axes only."""
+    from repro_torch.parallel import sharding as SH
+
+    return SH.gather(logits, SH.P(None, spec[1]), mesh)
+
+
 def lm_prefill_runs(rank, world, shape, axes, runs):
     """For each (name, arch, capacity_factor, params_np, batch_np) of
     ``runs``: ``build_lm_step`` prefill at ``smoke_config`` on this rank's rows (the
     cell's seq_len the batch's T, its global batch the batch's rows).
-    Returns by name this rank's logits and cache block (numpy), and its mesh
+    Returns by name this rank's logits (its rows, every vocabulary entry),
+    its block of the logits as the step returns it (``logits_block``,
+    under ``out_spec``) and its cache block (numpy), and its mesh
     coordinates."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.convert import lm_params_from_numpy
@@ -485,13 +498,15 @@ def lm_prefill_runs(rank, world, shape, axes, runs):
         cfg = _lm_cfg(arch, cf)
         B, T = next(iter(batch.values())).shape[:2]
         cell = ShapeConfig("prefill_test", T, B, "prefill")
-        fn, _, _ = build_lm_step(cfg, cell, mesh)
+        fn, _, meta = build_lm_step(cfg, cell, mesh)
         pspecs = SH.lm_param_specs(cfg, mesh)[0]
         params = SH.map_specs(lambda t, sp: SH.block_of(t, sp, mesh), lm_params_from_numpy(params_np, cfg, "cpu"),
                               pspecs)
         bspecs = SH.lm_batch_specs(cfg, cell, mesh)
         logits, cache = fn(params, {k: SH.block_of(_t(v), bspecs[k], mesh) for k, v in batch.items()})
-        out[name] = dict(logits=logits.numpy(), cache=_np_state(cache))
+        spec = meta["out_specs"][0]
+        out[name] = dict(logits=_vocab_whole(logits, spec, mesh).numpy(), logits_block=logits.numpy(),
+                         out_spec=tuple(spec), cache=_np_state(cache))
     return dict(out, coords=mesh.coords)
 
 
@@ -526,6 +541,90 @@ def lm_mesh_runs(rank, world, shape, axes, train, prefill, drop=None):
     return out
 
 
+def lm_tp_costs(rank, world, shape, axes, runs):
+    """For each (name, arch, capacity_factor, params_np, batch_np) of
+    ``runs``: one ``build_lm_step`` train step under ``op_costs.OpRecorder``
+    (this rank's blocks and rows), and on rank 0 of a mesh with one data
+    rank the single-device ``train_loss`` and its gradient on the whole
+    batch under it too.  Returns by name the step's matmul FLOPs and
+    collectives as (op, group ranks), and the single-device run's matmul
+    FLOPs (None where it did not run); and this rank's model and data
+    groups' ranks."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.launch.op_costs import OpRecorder, analyze_records
+    from repro_torch.launch.steps import build_lm_step
+    from repro_torch.models import lm as LM
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.tree import tree_leaves, tree_map
+
+    mesh = _mesh(shape, axes)
+    matmul = lambda rec: (lambda c: c["f32_matmul_flops_per_device"] + c["bf16_matmul_flops_per_device"])(  # noqa: E731
+        analyze_records(rec.records))
+    out = {}
+    for name, arch, cf, params_np, batch in runs:
+        cfg = _lm_cfg(arch, cf)
+        B, T = batch["tokens"].shape
+        cell = ShapeConfig("train_test", T, B, "train")
+        step, _, _ = build_lm_step(cfg, cell, mesh)
+        full = lm_params_from_numpy(params_np, cfg, "cpu")
+        params = SH.map_specs(lambda t, sp: SH.block_of(t, sp, mesh), full, SH.lm_param_specs(cfg, mesh)[0])
+        bspecs = SH.lm_batch_specs(cfg, cell, mesh)
+        rows = {k: SH.block_of(_t(v), bspecs[k], mesh) for k, v in batch.items()}
+        rec = OpRecorder()
+        with rec:
+            step(params, adamw_init(params), rows)
+        one = None
+        if rank == 0 and mesh.shape["data"] == 1:
+            one = OpRecorder()
+            leaves = tree_map(lambda t: t.requires_grad_(True), full)
+            with one, torch.enable_grad():
+                loss = LM.train_loss(leaves, cfg, {k: _t(v) for k, v in batch.items()}, q_chunk=cfg.q_chunk,
+                                     loss_chunk=cfg.loss_chunk)
+                torch.autograd.grad(loss, tree_leaves(leaves))
+        out[name] = dict(step_matmul=matmul(rec), single_matmul=None if one is None else matmul(one),
+                         collectives=[(r["op"], r.get("ranks")) for r in rec.records if r["op"].startswith("c10d.")])
+    ranks = lambda ax: dist.get_process_group_ranks(mesh.group(ax))  # noqa: E731
+    return dict(out, model_ranks=ranks("model"), data_ranks=ranks("data"))
+
+
+def lm_tp_runs(rank, world, shape, axes, train, prefill, decode, costs, ep=None):
+    """One world's tensor-parallel LM work: ``lm_train_runs`` on ``train``,
+    ``lm_prefill_runs`` on ``prefill``, ``lm_decode_runs`` on ``decode``,
+    ``lm_tp_costs`` on ``costs`` and, given ``ep`` (the arguments after
+    ``world`` of ``moe_ep_runs``), the expert-parallel MoE on this mesh."""
+    out = dict(train=lm_train_runs(rank, world, shape, axes, train),
+               prefill=lm_prefill_runs(rank, world, shape, axes, prefill),
+               decode=lm_decode_runs(rank, world, shape, axes, decode),
+               costs=lm_tp_costs(rank, world, shape, axes, costs),
+               row_parallel=row_parallel_runs(rank, world, shape, axes))
+    if ep is not None:
+        out["ep"] = moe_ep_runs(rank, world, *ep, shape=shape)
+    return out
+
+
+def row_parallel_runs(rank, world, shape, axes, seed=5):
+    """``tp.row_parallel`` of a bf16 (8, 96) x (96, 40) product, x's
+    columns and w's rows split over "model": this rank's sum and the whole
+    product's inputs (numpy, fp32)."""
+    import torch
+
+    from repro_torch.parallel import tp as TPx
+
+    mesh = _mesh(shape, axes)
+    tp = TPx.TP.of(mesh)
+    g = torch.Generator().manual_seed(seed)
+    x, w = torch.randn((8, 96), generator=g).bfloat16(), torch.randn((96, 40), generator=g).bfloat16()
+    k = 96 // tp.n
+    rows = slice(tp.index * k, (tp.index + 1) * k)
+    got = TPx.row_parallel(x[:, rows], w[rows], tp)
+    return dict(out=got.float().numpy(), dtype=str(got.dtype), x=x.float().numpy(), w=w.float().numpy())
+
+
 def seq_attention_runs(rank, world, q, k, v, cache_len, kv_positions):
     """``seq_sharded_decode_attention`` on a (world, 1) ("data", "model")
     mesh, this rank holding its slice of the sequence of ``k`` / ``v`` (and
@@ -558,15 +657,18 @@ def lm_decode_runs(rank, world, shape, axes, runs):
     """For each (name, arch, params_np, cache_np, tokens, cache_len,
     seq_shard) of ``runs``, at ``smoke_config``: with ``seq_shard``
     ``decode_step(seq_shard_axis="data")`` on this rank's block of the
-    cache under ``cache_specs(seq_shard=True)`` (the batch replicated),
-    else ``build_lm_step``'s decode cell (the batch split) on this rank's
-    rows and cache block.  Returns by name the logits and the new cache
-    block (numpy)."""
+    cache under ``cache_specs(seq_shard=True)`` (the batch replicated) and
+    its model-local parameters (``lm_local_specs``), else
+    ``build_lm_step``'s decode cell (the batch split) on this rank's rows
+    and cache block.  Returns by name the logits (this rank's rows, every
+    vocabulary entry), their block as the step returns it
+    (``logits_block``, under ``out_spec``) and the new cache block
+    (numpy)."""
     import torch
 
     from repro_torch.configs import ShapeConfig
     from repro_torch.convert import lm_params_from_numpy
-    from repro_torch.launch.steps import build_lm_step
+    from repro_torch.launch.steps import build_lm_step, lm_input_specs
     from repro_torch.models import lm as LM
     from repro_torch.parallel import sharding as SH
 
@@ -581,41 +683,68 @@ def lm_decode_runs(rank, world, shape, axes, runs):
         cache = SH.map_specs(lambda t, sp: SH.block_of(t, sp, mesh), cache,
                              SH.cache_specs(cfg, cell, mesh, seq_shard=seq_shard))
         params = lm_params_from_numpy(params_np, cfg, "cpu")
+        spec = lm_input_specs(cfg, cell, mesh)[2][0]
         if seq_shard:
+            local = SH.lm_local_specs(cfg, mesh)
             with torch.no_grad():
-                logits, new = LM.decode_step(params, cfg, cache, _t(tokens), cache_len, mesh=mesh,
-                                             seq_shard_axis="data", global_batch=B)
+                logits, new = LM.decode_step(SH.map_specs(lambda t, sp: SH.block_of(t, sp, mesh), params, local), cfg,
+                                             cache, _t(tokens), cache_len, mesh=mesh, seq_shard_axis="data",
+                                             global_batch=B)
+            spec = SH.P(None, spec[1])  # every rank the whole batch
         else:
             fn, _, _ = build_lm_step(cfg, cell, mesh)
             pspecs = SH.lm_param_specs(cfg, mesh)[0]
             rows = SH.block_of(_t(tokens), SH.P(SH.MeshAxes.for_mesh(mesh).batch, None), mesh)
             logits, new = fn(SH.map_specs(lambda t, sp: SH.block_of(t, sp, mesh), params, pspecs), cache,
                              {"tokens": rows}, cache_len)
-        out[name] = dict(logits=logits.numpy(), cache=_np_state(new))
+        out[name] = dict(logits=_vocab_whole(logits, spec, mesh).numpy(), logits_block=logits.numpy(),
+                         out_spec=tuple(spec), cache=_np_state(new))
     return dict(out, coords=mesh.coords)
 
 
-def moe_ep_runs(rank, world, arch, capacity_factor, moe_np, x_np, ct_np):
-    """``moe_apply_ep`` on a (world, 1) ("data", "model") mesh with this
-    rank's rows of ``x_np``: the output, this rank's aux share, its dropped
-    assignments, and the gradients of sum(out * ct) + aux share in its rows
-    of x and in the full weights."""
+def _in_full(block, spec, mesh, full_shape):
+    """Zeros of ``full_shape`` holding ``block`` where this rank's block of
+    the full array under ``spec`` sits (the sum over the ranks whose blocks
+    differ is the full array)."""
+    import torch
+
+    from repro_torch.parallel import sharding as SH
+
+    idx = torch.arange(int(np.prod(full_shape))).reshape(full_shape)
+    where = SH.block_of(idx, spec, mesh).reshape(-1)
+    out = torch.zeros(int(np.prod(full_shape)), dtype=block.dtype)
+    out[where] = block.reshape(-1)
+    return out.reshape(full_shape)
+
+
+def moe_ep_runs(rank, world, arch, capacity_factor, moe_np, x_np, ct_np, shape=None):
+    """``moe_apply_ep`` on a ``shape`` (default (world, 1)) ("data",
+    "model") mesh with this rank's rows of ``x_np`` and its blocks of the
+    weights (its expert, and its ``ff`` slice over "model"): the output,
+    this rank's aux share, its dropped assignments, and the gradients of
+    sum(out * ct) + aux share in its rows of x and in its weight blocks,
+    each placed in zeros of the full weight's shape; and its coordinates."""
     import torch
 
     from repro_torch.models import moe as MoE
     from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.tp import TP
 
-    mesh = _mesh((world, 1), ("data", "model"))
+    mesh = _mesh(shape or (world, 1), ("data", "model"))
     cfg = _lm_cfg(arch, capacity_factor, moe_ep=True)
-    p = {k: {kk: torch.from_numpy(vv).requires_grad_(True) for kk, vv in v.items()} for k, v in moe_np.items()}
+    specs = {"router": SH.P(None, None), "up": SH.P("data", None, "model"), "gate": SH.P("data", None, "model"),
+             "down": SH.P("data", "model", None)}
+    p = {k: {kk: SH.block_of(torch.from_numpy(vv), specs[k], mesh).requires_grad_(True) for kk, vv in v.items()}
+         for k, v in moe_np.items()}
     rows = SH.P(("data",), None, None)
     x = SH.block_of(torch.from_numpy(x_np), rows, mesh).requires_grad_(True)
     ct = SH.block_of(torch.from_numpy(ct_np), rows, mesh)
     with MoE.record_drops() as drops:
-        out, aux = MoE.moe_apply_ep(p, x, cfg.moe, cfg.mlp, mesh=mesh)
+        out, aux = MoE.moe_apply_ep(p, x, cfg.moe, cfg.mlp, mesh=mesh, tp=TP.of(mesh))
     ((out * ct).sum() + aux).backward()
-    return dict(out=out.detach().numpy(), aux=float(aux), drops=int(drops[0]), dx=x.grad.numpy(),
-                dp={k: {kk: vv.grad.numpy() for kk, vv in v.items()} for k, v in p.items()})
+    return dict(out=out.detach().numpy(), aux=float(aux.detach()), drops=int(drops[0]), dx=x.grad.numpy(),
+                dp={k: {kk: _in_full(vv.grad, specs[k], mesh, moe_np[k][kk].shape).numpy() for kk, vv in v.items()}
+                    for k, v in p.items()}, coords=mesh.coords)
 
 
 def _structs(x):

@@ -11,8 +11,14 @@ batch 8, the production mesh swapped for a fake (4, 2) or (2, 2, 2) one.
   list: the two counts are equal (184549376 each on torch 2.13 / jax
   0.9.0), op by op the same matmuls forward, recomputed (remat) and
   backward.
-* On (4, 2) a rank runs the world-1 matmul FLOPs x model extent / world:
-  the model axis is storage only (``launch/steps.py``).
+* On (4, 2) a rank runs the world-1 matmul FLOPs / 8 plus its rows' share
+  of the products that run whole on every model rank: the model axis
+  splits the matmuls (tensor parallelism, ``launch/steps.py``), and at
+  model extent 2 the smoke config splits every weight a product reads, so
+  the share is 0.
+* The same (4, 2) rank's f32 matmul FLOPs are within 5% of what the
+  reference's ``hlo_costs`` reads off its own step compiled for 8 host
+  devices (GSPMD's partition of the same specs), in a subprocess.
 * ``reanalyze`` gives ``run_cell``'s totals back from the saved record.
 * A host read on the step's path gives ``status: "error"``, not ``ok``.
 """
@@ -82,16 +88,78 @@ def _reference_f32_matmul_flops() -> float:
     return analyze_text(text, 1)["f32_matmul_flops_per_device"]
 
 
+def _whole_on_every_model_rank(cfg, n: int) -> list:
+    """The matmul weights (key paths) whose spec does not split over
+    "model" at model extent ``n``: their products run whole on every
+    model rank."""
+    from _lm_pair import StandIn
+    from repro_torch.parallel import sharding as TSH
+
+    out = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, path + (k,))
+        elif path[-1] in ("w", "table") and not any(p.startswith("conv_") for p in path) and "model" not in t:
+            out.append("/".join(path))
+
+    walk(TSH.lm_param_specs(cfg, StandIn((1, n), ("data", "model")))[0], ())
+    return out
+
+
 def test_world_one_fp32_matmul_flops_match_the_reference_and_the_model_axis_is_storage(mini_cell, tmp_path):
     one = DR.run_cell(ARCH, "train_4k", False, str(tmp_path), MESHES["1x1"], device="cpu", dtype=torch.float32)
     assert one["status"] == "ok", one.get("error")
     got, want = one["hlo_costs"]["f32_matmul_flops_per_device"], _reference_f32_matmul_flops()
     assert got > 0 and abs(got - want) <= 0.02 * want, (got, want)
-    # per rank on (4, 2): the world-1 figure x model extent / world
+    # per rank on (4, 2): the model axis splits the matmuls (no longer storage only): the world-1 figure / 8,
+    # plus the rank's rows' share of the products on weights that stay whole, none here
+    assert _whole_on_every_model_rank(TCFG.smoke_config(ARCH), 2) == []
     one_bf16 = DR.run_cell(ARCH, "train_4k", False, str(tmp_path), MESHES["1x1"], device="cpu")
     ranks = DR.run_cell(ARCH, "train_4k", False, str(tmp_path), MESHES["4x2"], device="cpu")
     assert _matmul_flops(one_bf16) == _matmul_flops(one) > 0
-    assert _matmul_flops(ranks) == _matmul_flops(one_bf16) * 2 / 8
+    assert _matmul_flops(ranks) == _matmul_flops(one_bf16) / 8
+
+
+REFERENCE_4X2 = """
+import dataclasses, json
+import jax, jax.numpy as jnp
+import repro.configs as RCFG
+from repro.configs.base import SHAPES as RSHAPES
+from repro.compat import make_mesh
+from repro.launch.hlo_costs import analyze_text
+from repro.launch.steps import build_step
+
+RCFG.REGISTRY["llama3-8b"] = RCFG.smoke_config("llama3-8b")
+RSHAPES["train_4k"] = dataclasses.replace(RSHAPES["train_4k"], seq_len=32, global_batch=8)
+mesh = make_mesh((4, 2), ("data", "model"))
+fn, args, _ = build_step("llama3-8b", "train_4k", mesh)
+f32 = jax.tree.map(lambda s: jax.ShapeDtypeStruct(s.shape, jnp.float32 if jnp.issubdtype(s.dtype, jnp.floating)
+                                                  else s.dtype), args)
+with mesh:
+    text = fn.lower(*f32).compile().as_text()
+print(json.dumps(analyze_text(text, 8)["f32_matmul_flops_per_device"]))
+"""
+
+
+def test_4x2_rank_fp32_matmul_flops_match_the_references_gspmd_step(mini_cell, tmp_path):
+    """One (4, 2) rank's f32 matmul FLOPs against the reference's step
+    compiled for 8 forced host devices (its partitioned HLO read by
+    ``hlo_costs.analyze_text``): within 5%."""
+    import subprocess
+    import sys
+
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8", JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
+    proc = subprocess.Popen([sys.executable, "-c", REFERENCE_4X2], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+    rank = DR.run_cell(ARCH, "train_4k", False, str(tmp_path), MESHES["4x2"], device="cpu", dtype=torch.float32)
+    out, err = proc.communicate(timeout=300)
+    assert proc.returncode == 0, err[-3000:]
+    assert rank["status"] == "ok", rank.get("error")
+    got, want = rank["hlo_costs"]["f32_matmul_flops_per_device"], float(out.strip().splitlines()[-1])
+    assert got > 0 and abs(got - want) <= 0.05 * want, (got, want)
 
 
 def test_reanalyze_reproduces_run_cell(mini_cell, tmp_path):
