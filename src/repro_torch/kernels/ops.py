@@ -46,6 +46,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..core.tdc import ConvDims, DeconvDims, conv_plan, decompose_weights_1d, interleave_crop, plan, plan_1d
 from ..core.winograd import get_transform
 from ..core.winograd_deconv import (
@@ -687,7 +688,8 @@ def conv_cells_from_image(x: torch.Tensor, cdims: ConvDims, m: int = 2, r: int =
     wp = max(-(-W // S), gx * m - L)
     xp = F.pad(x, (0, 0, 0, S * wp - W, 0, S * hp - H))
     phases = xp.reshape(B, hp, S, wp, S, N).permute(0, 2, 4, 1, 3, 5)  # (B, phi_y, phi_x, hp, wp, N)
-    perm = torch.as_tensor(_phase_perm(cdims), device=x.device)
+    with tracing.sync("ops.phase_perm", "kernels/ops.py::conv_cells_from_image", when=x.is_cuda):
+        perm = torch.as_tensor(_phase_perm(cdims), device=x.device)
     pairs = phases.index_select(1, perm).index_select(2, perm)
     pairs = F.pad(pairs, (0, 0, L, 0, L, 0))[:, :, :, : gy * m, : gx * m, :]
     cells = pairs.reshape(B, S, S, gy, m, gx, m, N).permute(0, 3, 5, 1, 2, 4, 6, 7)
@@ -724,7 +726,8 @@ def conv_cells_to_next(
     B, R, Cc, _, nch = emitted.shape
     arr = F.pad(emitted, (0, 0, 0, 0, L2, max(0, gx2 * m - L2 - Cc), L2, max(0, gy2 * m - L2 - R)))
     arr = arr[:, : gy2 * m, : gx2 * m].reshape(B, gy2, m, gx2, m, m, m, nch)  # (b, g, p, g', q, phi_y, phi_x, c)
-    perm = torch.as_tensor(_phase_perm(next_cdims), device=emitted.device)
+    with tracing.sync("ops.phase_perm", "kernels/ops.py::conv_cells_to_next", when=emitted.is_cuda):
+        perm = torch.as_tensor(_phase_perm(next_cdims), device=emitted.device)
     arr = arr.index_select(5, perm).index_select(6, perm)  # phases -> residue pairs
     return arr.permute(0, 1, 3, 5, 6, 2, 4, 7).reshape(B, gy2, gx2, m**4, nch).contiguous()
 

@@ -56,6 +56,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..configs.base import GANConfig, LMConfig
 from ..models import gan as G
 from ..models import lm as LM
@@ -512,16 +513,17 @@ class GanServeEngine:
             self.dispatch_log.append(tuple(r.rid for r in batch_reqs))
             dispatch_idx = len(self.dispatch_log) - 1
             self._inflight = batch_reqs
-        t_disp = _now_ms(now)
-        for r in batch_reqs:
-            r.t_dispatch = t_disp
-        by_arch: dict[str, list[GanRequest]] = {}
-        for r in batch_reqs:
-            by_arch.setdefault(r.arch, []).append(r)
-        for arch, reqs in by_arch.items():
-            self._serve_arch(arch, reqs, dispatch_idx, now)
-        with self._lock:
-            self._inflight = []
+        with tracing.scope("serve.dispatch", ("dispatch", dispatch_idx)):
+            t_disp = _now_ms(now)
+            for r in batch_reqs:
+                r.t_dispatch = t_disp
+            by_arch: dict[str, list[GanRequest]] = {}
+            for r in batch_reqs:
+                by_arch.setdefault(r.arch, []).append(r)
+            for arch, reqs in by_arch.items():
+                self._serve_arch(arch, reqs, dispatch_idx, now)
+            with self._lock:
+                self._inflight = []
         return batch_reqs
 
     def _fail_requests(self, reqs: list[GanRequest], err: BaseException, now: Optional[float] = None) -> None:
@@ -539,15 +541,21 @@ class GanServeEngine:
         """One generate attempt under ``fault``: the batch, waited for on
         the device, NaN-poisoned if the plan says so, and refused by the NaN
         guard (one read of ``isfinite().all()``) when it is on."""
-        imgs = res.generate(z)
+        with tracing.span("serve.generate"):
+            imgs = res.generate(z)
         if imgs.is_cuda:  # honest compute stamp: the generate has run, not only launched
-            torch.cuda.current_stream(imgs.device).synchronize()
+            with tracing.sync("serve.sync", "serve/engine.py::GanServeEngine._generate_checked"):
+                torch.cuda.current_stream(imgs.device).synchronize()
         if fault == "nan":
             imgs = torch.full_like(imgs, float("nan"))
-        if self.nan_guard and not bool(torch.isfinite(imgs).all()):
-            res.nan_trips += 1
-            raise GanServeError(f"arch {arch}: non-finite values in generated batch", arch=arch, kind="nan",
-                                attempts=attempt + 1)
+        if self.nan_guard:
+            with tracing.sync("serve.nan_guard", "serve/engine.py::GanServeEngine._generate_checked",
+                              when=imgs.is_cuda):
+                finite = bool(torch.isfinite(imgs).all())
+            if not finite:
+                res.nan_trips += 1
+                raise GanServeError(f"arch {arch}: non-finite values in generated batch", arch=arch, kind="nan",
+                                    attempts=attempt + 1)
         return imgs
 
     def _serve_arch(self, arch: str, reqs: list[GanRequest], dispatch_idx: int,
@@ -644,11 +652,15 @@ class GanServeEngine:
         ok, reason = self.archs[arch_r].breaker.allow_submit(now)
         if not ok:
             raise GanServeRejected(f"arch {arch_r!r}: {reason}")
-        req = GanRequest(rid=next(self._rid), z=z.to(self.device, torch.float32), arch=arch_r,
-                         deadline_ms=deadline_ms, t_submit=_now_ms(now))
-        with self._lock:
-            self._pending.append(req)
-            self._admit_pending(now)
+        rid = next(self._rid)
+        with tracing.span("serve.submit", owner=("request", rid)):
+            with tracing.sync("serve.latents", "serve/engine.py::GanServeEngine.submit",
+                              when=self.device.type == "cuda" and not z.is_cuda):
+                z = z.to(self.device, torch.float32)
+            req = GanRequest(rid=rid, z=z, arch=arch_r, deadline_ms=deadline_ms, t_submit=_now_ms(now))
+            with self._lock:
+                self._pending.append(req)
+                self._admit_pending(now)
         return GanFuture(req, self)
 
     def _drive_until(self, req: GanRequest, timeout: Optional[float] = None) -> None:

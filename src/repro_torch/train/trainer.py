@@ -45,6 +45,7 @@ collective.  The single-controller reference never sees such a fault.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 import warnings
 from typing import Any, Callable, Optional
@@ -53,6 +54,7 @@ import torch
 import torch.distributed as dist
 
 from .. import data as D
+from .. import tracing
 from ..configs.base import GANConfig
 from ..models import gan as G
 from ..optim import adamw_init, adamw_update
@@ -153,9 +155,12 @@ def gan_losses(gp, dp, cfg: GANConfig, z, real, *, training=True):
     """(g_loss, d_loss, (g_stats, d_stats, fake)): the non-saturating
     generator loss and the discriminator loss from one generator forward;
     the discriminator's moved statistics are those of the real pass."""
-    fake, g_stats = G.generator_apply(gp, cfg, z, training=training)
-    d_fake, _ = G.discriminator_apply(dp, cfg, fake, training=training)
-    d_real, d_stats = G.discriminator_apply(dp, cfg, real, training=training)
+    with tracing.span("model.generator"):
+        fake, g_stats = G.generator_apply(gp, cfg, z, training=training)
+    with tracing.span("model.discriminator"):
+        d_fake, _ = G.discriminator_apply(dp, cfg, fake, training=training)
+    with tracing.span("model.discriminator"):
+        d_real, d_stats = G.discriminator_apply(dp, cfg, real, training=training)
     g_loss = _bce(d_fake, 1.0)
     d_loss = 0.5 * (_bce(d_real, 1.0) + _bce(d_fake, 0.0))
     return g_loss, d_loss, (g_stats, d_stats, fake)
@@ -207,25 +212,32 @@ def make_gan_step(cfg: GANConfig, lr=_UNSET, b1=_UNSET, *, settings: Optional[St
                                           grad_compression=st.grad_compression, donate=st.donate, **kw)[0]
         return OV.build_gan_mesh_step(cfg, st.mesh, batch=st.batch, lr=lr, b1=b1)[0]
 
+    calls = itertools.count()
+
     def step(gp, dp, g_opt, d_opt, z, real):
-        gp_ = tree_map(lambda t: t.detach().requires_grad_(True), gp)
-        dp_ = tree_map(lambda t: t.detach().requires_grad_(True), dp)
-        with torch.enable_grad():
-            g_loss, d_loss, (g_stats, d_stats, _) = gan_losses(gp_, dp_, cfg, z, real)
-            g_grads = _grads(g_loss, gp_, retain_graph=True)
-            d_grads = _grads(d_loss, dp_, retain_graph=False)
-        detach = lambda tree: tree_map(torch.Tensor.detach, tree)  # noqa: E731
-        gp2, g_opt2, gm = adamw_update(detach(gp_), g_grads, g_opt, lr=lr, b1=b1)
-        gp2 = G.merge_bn_stats(gp2, detach(g_stats))
-        dp2, d_opt2, dm = adamw_update(detach(dp_), d_grads, d_opt, lr=lr, b1=b1)
-        dp2 = G.merge_bn_stats(dp2, detach(d_stats))
-        metrics = {
-            "g_loss": g_loss.detach(),
-            "d_loss": d_loss.detach(),
-            "g_grad_norm": gm["grad_norm"],
-            "d_grad_norm": dm["grad_norm"],
-        }
-        metrics["nonfinite"] = nonfinite_flag(metrics)
+        with tracing.scope("train.step", ("step", next(calls))):
+            gp_ = tree_map(lambda t: t.detach().requires_grad_(True), gp)
+            dp_ = tree_map(lambda t: t.detach().requires_grad_(True), dp)
+            with torch.enable_grad():
+                with tracing.span("train.forward"):
+                    g_loss, d_loss, (g_stats, d_stats, _) = gan_losses(gp_, dp_, cfg, z, real)
+                with tracing.span("train.g_pull"):
+                    g_grads = _grads(g_loss, gp_, retain_graph=True)
+                with tracing.span("train.d_pull"):
+                    d_grads = _grads(d_loss, dp_, retain_graph=False)
+            detach = lambda tree: tree_map(torch.Tensor.detach, tree)  # noqa: E731
+            with tracing.span("train.adamw"):
+                gp2, g_opt2, gm = adamw_update(detach(gp_), g_grads, g_opt, lr=lr, b1=b1)
+                gp2 = G.merge_bn_stats(gp2, detach(g_stats))
+                dp2, d_opt2, dm = adamw_update(detach(dp_), d_grads, d_opt, lr=lr, b1=b1)
+                dp2 = G.merge_bn_stats(dp2, detach(d_stats))
+            metrics = {
+                "g_loss": g_loss.detach(),
+                "d_loss": d_loss.detach(),
+                "g_grad_norm": gm["grad_norm"],
+                "d_grad_norm": dm["grad_norm"],
+            }
+            metrics["nonfinite"] = nonfinite_flag(metrics)
         return gp2, dp2, g_opt2, d_opt2, metrics
 
     return step
